@@ -1,0 +1,177 @@
+"""A threefry2x32 twin of ``jax.random`` as the Megopolis path uses it.
+
+The resampler contract consumes JAX keys: the offsets and the hash seed of
+one Megopolis call are derived from the key with ``split``, ``randint`` and
+``key_to_seed``, and the particle filter threads a key chain through
+``split``.  So that the port consumes a key exactly as the reference does,
+this module re-implements the threefry2x32 PRNG in the partitionable mode
+(``jax_threefry_partitionable=True``, jax 0.9.0's default):
+
+* ``split``, ``fold_in``, ``randint`` and ``uniform`` match ``jax.random``
+  bit for bit;
+* ``normal`` follows JAX's transform (a uniform on (-1, 1), then
+  ``sqrt(2)·erfinv``) with XLA's single-precision ``erf_inv`` polynomial
+  (Giles), written out here; it matches ``jax.random.normal`` to within
+  3 ULP on the CPU against jax 0.9.0 (``tests/test_torch_random.py``
+  holds the bound over 5·10^5 draws); the differences come from
+  ``log1p``'s rounding.
+
+A key is an ``int64`` tensor ``[..., 2]`` holding the two uint32 words of
+JAX's raw key data.  All integer arithmetic runs in ``int64`` masked with
+``& 0xFFFFFFFF``: torch's ``uint32`` lacks ``+``, ``>>``, ``%`` and ``<=``
+on the CPU.  The same code runs on Python ints, CPU tensors and CUDA
+tensors; key chains live on the CPU, and bulk draws (``normal`` over N
+particles) run on the device of the ``device`` argument.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def _rotl(x, r: int):
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block cipher (20 rounds), as ``jax._src.prng``'s
+    ``_threefry2x32_lowering``.  Arguments are uint32 values held in Python
+    ints or ``int64`` tensors (broadcast together); returns the two output
+    words."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x1 = (x1 + k1) & MASK32
+    x2 = (x2 + k2) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x1, x2
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for ``0 <= seed < 2**63``: the key words
+    are the seed's high and low 32 bits."""
+    seed = int(seed)
+    if seed < 0:
+        raise ValueError(f"PRNGKey: seed must be non-negative; got {seed}")
+    return torch.tensor([seed >> 32, seed & MASK32], dtype=torch.int64)
+
+
+def key_data(key: torch.Tensor) -> torch.Tensor:
+    """The raw uint32 words of a key, ``int64[..., 2]`` (keys are raw data
+    here, so this is the key itself)."""
+    return key
+
+
+def _words(key: torch.Tensor, ndim: int):
+    """Key words ``[..., 1 x ndim]`` ready to broadcast against counters of
+    ``ndim`` dimensions."""
+    k1 = key[..., 0].reshape(key.shape[:-1] + (1,) * ndim)
+    k2 = key[..., 1].reshape(key.shape[:-1] + (1,) * ndim)
+    return k1, k2
+
+
+def _iota(shape, device) -> torch.Tensor:
+    """The low words of JAX's ``iota_2x32_shape``; the high words are zero
+    for every array smaller than 2**32 elements."""
+    size = math.prod(shape)
+    if size >= 1 << 32:
+        raise NotImplementedError("random bits over 2**32 or more elements")
+    return torch.arange(size, dtype=torch.int64, device=device).reshape(shape)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (partitionable): ``[..., 2] -> [..., num, 2]``;
+    a key bank splits row by row as ``jax.vmap(jax.random.split)``."""
+    k1, k2 = _words(key, 1)
+    b1, b2 = threefry2x32(k1, k2, 0, _iota((num,), key.device))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
+    k1, k2 = key[..., 0], key[..., 1]
+    b1, b2 = threefry2x32(k1, k2, 0, int(data) & MASK32)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """32 random bits per element (``_threefry_random_bits_partitionable``):
+    ``int64[..., *shape]`` in ``[0, 2**32)``.  The counters are made on
+    ``device`` (default: the key's)."""
+    shape = tuple(shape)
+    device = key.device if device is None else torch.device(device)
+    k1, k2 = _words(key.to(device), len(shape))
+    b1, b2 = threefry2x32(k1, k2, 0, _iota(shape, device))
+    return b1 ^ b2
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``:
+    two 32-bit draws per value folded modulo the span, in JAX's wrapped
+    uint32 arithmetic.  Returns ``int32[..., *shape]``."""
+    if not -(1 << 31) <= minval < maxval <= (1 << 31) - 1:
+        raise ValueError(f"randint: need int32 bounds minval < maxval; got {minval}, {maxval}")
+    keys = split(key)
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
+    span = maxval - minval
+    mult = (((1 << 16) % span) ** 2 & MASK32) % span  # JAX squares in uint32
+    off = ((((hi % span) * mult) & MASK32) + lo % span) & MASK32
+    return (minval + off % span).to(torch.int32)
+
+
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's float trick: 23 random mantissa bits under exponent 0, minus 1:
+    a float32 in [0, 1)."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    floats = _bits_to_unit(random_bits(key, shape, device))
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# XLA's single-precision erf_inv (Giles, "Approximating the erfinv function"):
+# degree-9 polynomials in w = -log1p(-x^2), split at w = 5.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+               1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+               2.83297682)
+
+
+def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erfinv`` by XLA's polynomial, so that ``normal`` lands
+    within a few ULP of ``jax.random.normal`` (``torch.erfinv`` is the
+    exact function, which XLA's approximation departs from in the tails)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, c_lt, c_ge).to(torch.float32) + p * w
+    big = torch.finfo(torch.float32).max
+    return torch.where(x.abs() == 1.0, x * big, p * x)
+
+
+def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` to within 3 ULP.  A key
+    bank ``[S, 2]`` draws ``[S, *shape]``, row ``s`` from ``key[s]``."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, lo, 1.0, device=device)
+    return erfinv_xla(u) * math.sqrt(2.0)
