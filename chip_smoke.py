@@ -19,9 +19,9 @@ over, and there is no CPU fallback):
 4. for each kernel wrapper, on inputs captured from the full-width filter,
    compare the kernel with its plain version on the card and time both with
    CUDA events;
-5. print one JSON line of kernels, then the contract's last line.
+5. print one JSON line of kernels, then a last JSON line naming the device.
 
-Run it through the chip tool from the root of a checkout; it needs one card.
+Run it from the root of a checkout; it needs one card.
 """
 
 from __future__ import annotations

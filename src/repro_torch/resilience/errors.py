@@ -3,7 +3,7 @@
 The port keeps its own copy (it imports nothing of ``repro``) and carries
 only the classes it raises.  The TPU's ``KernelLoweringError`` becomes
 ``KernelLaunchError``: a hand-written CUDA kernel that fails to build, or
-whose launch the driver refuses.  The VMEM residency class has no
+whose launch the CUDA driver refuses.  The VMEM residency class has no
 counterpart: the port keeps no whole array resident in on-chip memory.
 """
 
