@@ -16,9 +16,10 @@ over, and there is no CPU fallback):
    print RMSE against ``simulate``'s truth, steps/s, the resample ratio and a
    ``StepStats`` summary; check that every estimate is finite and that a
    small filter run on the card agrees with the same run on the CPU;
-4. for each kernel wrapper, on inputs captured from the full-width filter,
-   compare the kernel with its plain version on the card and time both with
-   CUDA events;
+4. for each kernel wrapper, on its inputs captured from one step of a short
+   full-width run of the entry point that calls it (the last captured step
+   that resampled), compare the kernel with its plain version on the card
+   and time both;
 5. print one JSON line of kernels, then a last JSON line naming the device.
 
 Run it from the root of a checkout; it needs one card.
@@ -37,9 +38,18 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 #: The card's memory rate and its rate of 32-bit arithmetic outside the
-#: tensor cores (H100 SXM data sheet, at the 700 W limit).
+#: tensor cores (H100 SXM data sheet, at the 700 W limit).  The data sheet's
+#: 67e12 counts a fused multiply-add as two operations (128 FP32 lanes per SM
+#: per clock); the sweep is mostly 32-bit integer work (IMAD, shifts, XOR,
+#: LOP3), which issues at 64 lanes per SM per clock, a quarter to a half of
+#: that count.  So the operations bound below is 2-4x below what the integer
+#: work can reach: a floor, not an estimate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: Megopolis iterations on the path, the middle of the paper's B sweep (§7).
+ITERS = 32
+#: Time steps of the short runs whose resampler inputs phase 4 captures.
+CAPTURE_STEPS = 5
 #: 32-bit operations per (particle, iteration) of the Megopolis sweep: index
 #: map 6, murmur3 finalizer 8, lane-hash xor 1, shift, convert and scale 3,
 #: the product and the compare 2.
@@ -106,6 +116,31 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     return sum(times) / reps / 1e3
 
 
+def capture(module, name: str, run) -> tuple:
+    """The arguments of one call of ``module.<name>`` made by ``run()``: of
+    the calls after which some row resampled (every call of an apply
+    wrapper), the last; if there is none, the last call.  These launches are
+    not the main path's: its counts are set to 0 before each of its runs."""
+    real = getattr(module, name)
+    calls = []
+
+    def record(*args):
+        out = real(*args)
+        fired = len(out) == 2 or bool(out[2].reshape(-1, 4)[:, 2].any())
+        calls.append((fired, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
+        return out
+
+    setattr(module, name, record)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    if not calls:
+        fail(f"{name} was not called while capturing its inputs")
+    fired = [args for f, args in calls if f]
+    return (fired or [args for _, args in calls])[-1]
+
+
 def summary(stats) -> dict:
     return {
         "ess_norm_mean": float(stats.ess_norm.float().mean()),
@@ -119,7 +154,6 @@ def summary(stats) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--particles", type=int, default=1 << 20)
-    ap.add_argument("--iters", type=int, default=32)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--bank", type=int, default=16)
     ap.add_argument("--bank-steps", type=int, default=100)
@@ -136,7 +170,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.megopolis import megopolis as mk
     from repro_torch.kernels.megopolis import ref
-    from repro_torch.kernels.megopolis.ops import key_tables
+    from repro_torch.kernels.megopolis import ops
     from repro_torch.pf.filter import (
         ParticleFilter, run_filter, run_filter_bank, run_filter_timed, simulate,
     )
@@ -156,10 +190,10 @@ def main(argv=None) -> int:
                 print(f"  {src}: {line.strip()}")
 
     dev = torch.device("cuda")
-    n, b, steps, s_bank = args.particles, args.iters, args.steps, args.bank
+    n, b, steps, s_bank = args.particles, ITERS, args.steps, args.bank
     spec = MegopolisSpec(num_iters=b)
     key = trandom.PRNGKey(args.seed)
-    k_sim, k_run, k_bank, k_kern = trandom.split(key, 4)
+    k_sim, k_run, k_bank = trandom.split(key, 3)
     model = ungm()
     truth, obs = simulate(k_sim, model, steps, device=dev)
 
@@ -241,21 +275,21 @@ def main(argv=None) -> int:
         print(f"path {name}: {json.dumps(r, default=float)}", flush=True)
 
     # -- 4. kernels against their plain versions --------------------------------
-    # Inputs of the full-width filter: three predict+update steps from the prior.
-    ks = trandom.split(k_kern, 4)
-    x = model.init(ks[0], n, dev)
-    lw = torch.zeros(n, device=dev)
-    for t in range(1, 4):
-        x = model.transition(trandom.fold_in(ks[1], t), x, torch.tensor(float(t), device=dev))
-        w = model.likelihood(obs[t - 1], x, torch.tensor(float(t), device=dev))
-        lw = lw + torch.log(torch.clamp(w, min=1e-30))
-    xb = x.unsqueeze(0).repeat(s_bank, 1) + torch.arange(s_bank, device=dev).unsqueeze(1)
-    wb = model.likelihood(obs[3], xb, torch.tensor(4.0, device=dev))
-    lwb = lw.unsqueeze(0) + torch.log(torch.clamp(wb, min=1e-30))
-    offs, seed = key_tables(ks[2], n, b)
-    offs_b, seeds_b = key_tables(trandom.split(ks[3], s_bank), n, b)
-    state, state_b = x.reshape(1, n), xb.reshape(s_bank, 1, n)
+    # Inputs of the full-width path: each wrapper's arguments in one step of a
+    # short run of the entry point that calls it.
+    def single(thr):
+        pf = ParticleFilter(model, n, resampler=spec, ess_threshold=thr)
+        return lambda: run_filter(k_run, pf, obs[:CAPTURE_STEPS], device=dev)
 
+    def bank(thr):
+        pf = ParticleFilter(fam, n, resampler=spec, ess_threshold=thr)
+        return lambda: run_filter_bank(k_run, pf, bank_obs[:, :CAPTURE_STEPS], thetas,
+                                       device=dev)
+
+    w, state, offs, seed = capture(ops, "megopolis_fused", single(None))
+    wb, state_b, offs_b, seeds_b = capture(ops, "megopolis_fused_rows", bank(None))
+    lw, state_s, offs_s, seed_s, thr = capture(ops, "megopolis_step", single(0.5))
+    lwb, state_sb, offs_sb, seeds_sb, _ = capture(ops, "megopolis_step_rows", bank(0.5))
     cases = [
         ("megopolis_fused", mk.megopolis_fused, (w, state, offs, seed),
          lambda: ref.megopolis_fused_rows_ref(w[None], state[None], offs[None], seed[None]),
@@ -263,11 +297,12 @@ def main(argv=None) -> int:
         ("megopolis_fused_rows", mk.megopolis_fused_rows, (wb, state_b, offs_b, seeds_b),
          lambda: ref.megopolis_fused_rows_ref(wb, state_b, offs_b, seeds_b),
          "megopolis_pallas_fused_rows", s_bank),
-        ("megopolis_step", mk.megopolis_step, (lw, state, offs, seed, 0.5),
-         lambda: ref.megopolis_step_rows_ref(lw[None], state[None], offs[None], seed[None], 0.5),
+        ("megopolis_step", mk.megopolis_step, (lw, state_s, offs_s, seed_s, thr),
+         lambda: ref.megopolis_step_rows_ref(lw[None], state_s[None], offs_s[None],
+                                             seed_s[None], thr),
          "megopolis_pallas_step", 1),
-        ("megopolis_step_rows", mk.megopolis_step_rows, (lwb, state_b, offs_b, seeds_b, 0.5),
-         lambda: ref.megopolis_step_rows_ref(lwb, state_b, offs_b, seeds_b, 0.5),
+        ("megopolis_step_rows", mk.megopolis_step_rows, (lwb, state_sb, offs_sb, seeds_sb, thr),
+         lambda: ref.megopolis_step_rows_ref(lwb, state_sb, offs_sb, seeds_sb, thr),
          "megopolis_pallas_step_rows", s_bank),
     ]
     tpu_lines = _tpu_kernel_lines()
@@ -301,6 +336,7 @@ def main(argv=None) -> int:
             if anc_mismatch or state_err:
                 fail(f"{name}: {anc_mismatch} ancestors differ with the same trigger")
             max_abs_err = max(float(incr_err), float((gs - ws).abs().max()))
+            entry["rows_resampled"] = int(ws[:, 2].sum())
             # Fixed-order block sums: the stats repeat bit for bit.
             if not torch.equal(wrapper(*kargs)[2].reshape(gs.shape), gs):
                 fail(f"{name}: stats differ from one launch to the next")

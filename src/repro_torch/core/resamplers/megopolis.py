@@ -2,18 +2,13 @@
 ``repro.core.resamplers.megopolis``.
 
 The reference algorithm ``megopolis()`` (segment 32 over ``jax.random``
-streams) is not ported yet (ROADMAP Queue A, item 4); the kernels' plain
-versions and the CUDA kernels share the index map below.
+streams) is not ported yet (ROADMAP Queue A, item 4).  The index map lives
+with the kernel primitives, which the kernels' plain versions share with the
+CUDA sources; it is re-exported here under the JAX package's path.
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels.common import megopolis_indices
 
-def megopolis_indices(i, offset, segment: int, n: int):
-    """``j = (aligned(i) + aligned(o) + (i + o) mod S) mod N`` (Alg. 5
-    lines 7-11), vectorised over ``i``; for a fixed ``o`` it is a
-    segment-aligned rotation, a bijection of ``[0, N)``."""
-    i_aligned = i - (i % segment)
-    o_aligned = offset - (offset % segment)
-    o_unaligned = (i + offset) % segment
-    return (i_aligned + o_aligned + o_unaligned) % n
+__all__ = ["megopolis_indices"]

@@ -26,8 +26,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.resamplers.megopolis import megopolis_indices
-
 MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 LANES = 128
@@ -87,11 +85,16 @@ def tile_lane_ids(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def comparison_ids(i: torch.Tensor, offset, n: int) -> torch.Tensor:
-    """The comparison particle of lane ``i`` at offset ``o``: the TPU's
-    aligned tile fetch plus its ``flat_roll`` by ``o mod 1024``, in flat
-    form (``megopolis_indices`` at segment 1024)."""
-    return megopolis_indices(i, offset, SEG, n)
+def megopolis_indices(i, offset, segment: int, n: int):
+    """The comparison particle of lane ``i`` at offset ``o`` (paper Alg. 5
+    lines 7-11): ``j = (aligned(i) + aligned(o) + (i + o) mod S) mod N``,
+    vectorised over ``i``.  At ``segment=SEG`` it is the TPU's aligned tile
+    fetch plus its ``flat_roll`` by ``o mod 1024``, in flat form; for a fixed
+    ``o`` it is a segment-aligned rotation, a bijection of ``[0, N)``."""
+    i_aligned = i - (i % segment)
+    o_aligned = offset - (offset % segment)
+    o_unaligned = (i + offset) % segment
+    return (i_aligned + o_aligned + o_unaligned) % n
 
 
 def flush_to_zero(x: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import (
-    comparison_ids,
+    SEG,
     flush_to_zero,
     hash_uniform,
+    megopolis_indices,
     step_select,
     step_stats,
     tile_lane_ids,
@@ -35,7 +36,7 @@ def _sweep(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor) -> torch
     k = i.expand_as(w)
     wk = w
     for b in range(offsets.shape[-1]):
-        j = comparison_ids(i, offsets[:, b : b + 1], n)
+        j = megopolis_indices(i, offsets[:, b : b + 1], SEG, n)
         w_j = torch.gather(w, 1, j)
         u = hash_uniform(seeds, i, b)
         accept = flush_to_zero(u * wk) <= w_j  # u <= w[j] / w[k]  (Alg. 5 line 13)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional, Union
+from typing import Callable, Optional
 
 import torch
 
@@ -58,15 +58,13 @@ class StateSpaceModel:
 
 @dataclasses.dataclass(frozen=True)
 class ParticleFilter:
-    """SIR filter config.  ``resampler`` is ``"megopolis"`` (with
-    ``num_iters``, default 30, the fixed prior of paper §7) or a
-    ``MegopolisSpec`` that carries its own count; the baseline families are
+    """SIR filter config.  ``resampler`` is a ``MegopolisSpec`` (default:
+    30 iterations, the fixed prior of paper §7); the baseline families are
     not ported yet (ROADMAP Queue A, item 5)."""
 
     model: StateSpaceModel
     num_particles: int
-    resampler: Union[str, MegopolisSpec] = "megopolis"
-    num_iters: Union[int, str, None] = None
+    resampler: MegopolisSpec = MegopolisSpec(num_iters=30)
     # None keeps Alg. 6's unconditional resample; a float in [0, 1] runs
     # conditional SIR with one fused step launch per time step.
     ess_threshold: Optional[float] = None
@@ -77,21 +75,12 @@ class ParticleFilter:
                 "ParticleFilter.ess_threshold must be in [0, 1] (a normalised "
                 f"ESS fraction) or None for Alg. 6; got {self.ess_threshold}"
             )
-        if isinstance(self.resampler, MegopolisSpec):
-            if self.num_iters is not None:
-                raise ValueError(
-                    "ParticleFilter: set num_iters inside the MegopolisSpec, not "
-                    "alongside it"
-                )
-            spec = self.resampler
-        elif self.resampler == "megopolis":
-            spec = MegopolisSpec(num_iters=30 if self.num_iters is None else self.num_iters)
-        else:
+        if not isinstance(self.resampler, MegopolisSpec):
             raise NotImplementedError(
                 f"ParticleFilter: resampler {self.resampler!r} is not ported yet "
                 "(ROADMAP Queue A, item 5: baseline families)"
             )
-        object.__setattr__(self, "_built", spec.build())
+        object.__setattr__(self, "_built", self.resampler.build())
 
     @property
     def spec(self) -> MegopolisSpec:

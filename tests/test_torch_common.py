@@ -66,7 +66,7 @@ def test_comparison_ids_match_megopolis_indices(n):
     i = np.arange(n, dtype=np.int32)
     for o in (0, 1, 1023, 1024, 1500, n - 1):
         want = np.asarray(jax_megopolis_indices(jnp.asarray(i), jnp.int32(o), 1024, n))
-        got = tc.comparison_ids(torch.from_numpy(i), o, n).numpy()
+        got = tc.megopolis_indices(torch.from_numpy(i), o, tc.SEG, n).numpy()
         np.testing.assert_array_equal(got, want)
         assert sorted(got.tolist()) == list(range(n))  # a bijection
     np.testing.assert_array_equal(megopolis_indices(torch.arange(64), 5, 32, 64).numpy(),

@@ -212,8 +212,6 @@ def test_particle_filter_validates():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.ParticleFilter(tm.ungm(), N, resampler="metropolis")
     with pytest.raises(ValueError):
-        tf.ParticleFilter(tm.ungm(), N, resampler=MegopolisSpec(), num_iters=8)
-    with pytest.raises(ValueError):
         tf.ParticleFilter(tm.ungm(), N, ess_threshold=1.5)
     assert tf.ParticleFilter(tm.ungm(), N).spec == MegopolisSpec(num_iters=30)
 
