@@ -8,15 +8,18 @@ module needs neither package's import of the other:
   keys (``int64[..., 2]``, the same words);
 * particle, weight and log-weight arrays <-> tensors, bit for bit;
 * UNGM ``theta`` dicts <-> dicts of float32 tensors;
-* the fields of a JAX ``MegopolisSpec`` -> a port ``MegopolisSpec``.
+* the fields of a JAX ``MegopolisSpec`` or ``MetropolisSpec`` -> the port's
+  spec of the same family, and back.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from repro_torch.core.spec import MegopolisSpec
+from repro_torch.core.spec import MegopolisSpec, MetropolisSpec, ResamplerSpec
 
 #: JAX backends whose kernels the port's ``cuda`` backend replaces.
 _KERNEL_BACKENDS = ("pallas", "pallas_interpret")
@@ -60,21 +63,29 @@ def theta_to_jax(theta: dict) -> dict:
     return {name: array_to_jax(v) for name, v in theta.items()}
 
 
-def spec_from_jax(spec) -> MegopolisSpec:
-    """The fields of a JAX ``MegopolisSpec`` (the spec itself or a dict of
-    its fields) -> a port spec; the pallas backends map to ``cuda``, the
-    others raise in ``MegopolisSpec`` as not yet ported."""
-    fields = spec if isinstance(spec, dict) else {
-        f: getattr(spec, f) for f in ("num_iters", "segment", "backend", "plane_dtype", "guard")
-    }
-    backend = "cuda" if fields["backend"] in _KERNEL_BACKENDS else fields["backend"]
-    return MegopolisSpec(num_iters=fields["num_iters"], segment=fields["segment"],
-                         backend=backend, plane_dtype=fields["plane_dtype"],
-                         guard=fields["guard"])
+#: The port's spec class of each ported JAX family, by the family's name.
+_FAMILIES = {cls.name: cls for cls in (MegopolisSpec, MetropolisSpec)}
 
 
-def spec_to_jax(spec: MegopolisSpec) -> dict:
-    """A port spec -> the fields of the JAX ``MegopolisSpec`` whose kernel it
-    runs (``backend="pallas"``); ``MegopolisSpec(**fields)`` rebuilds it."""
-    return {"num_iters": spec.num_iters, "segment": spec.segment, "backend": "pallas",
-            "plane_dtype": spec.plane_dtype, "guard": spec.guard}
+def spec_from_jax(spec) -> ResamplerSpec:
+    """A JAX ``MegopolisSpec`` or ``MetropolisSpec`` -> the port's spec of the
+    same family, field by field; the pallas backends map to ``cuda``, the
+    others raise in the port's spec as not yet ported.  Another family
+    raises ``NotImplementedError``."""
+    cls = _FAMILIES.get(spec.name)
+    if cls is None:
+        raise NotImplementedError(
+            f"spec_from_jax: the {spec.name!r} family is not ported yet "
+            "(ROADMAP Queue A, item 5: baseline families)"
+        )
+    fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(cls)}
+    if fields["backend"] in _KERNEL_BACKENDS:
+        fields["backend"] = "cuda"
+    return cls(**fields)
+
+
+def spec_to_jax(spec: ResamplerSpec) -> dict:
+    """A port spec -> the fields of the JAX spec of the same family whose
+    kernels it runs (``backend="pallas"``); ``MegopolisSpec(**fields)`` or
+    ``MetropolisSpec(**fields)`` rebuilds it."""
+    return dict(dataclasses.asdict(spec), backend="pallas")

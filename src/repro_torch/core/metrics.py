@@ -1,6 +1,5 @@
-"""Weight and ancestor diagnostics the slice calls, after
-``repro.core.metrics`` (the offspring and MSE metrics of paper §5 are not
-ported yet).
+"""Weight and ancestor diagnostics and the resampling-quality metrics of
+paper §5 (offspring counts, eqs. 14-21), after ``repro.core.metrics``.
 
 Every helper reduces over ``axis`` (default the last) and accepts banks
 ``[..., N]``.  Sums run in torch's order, which is not XLA's.
@@ -79,3 +78,49 @@ def unique_ancestor_count(ancestors: torch.Tensor, axis: int = -1) -> torch.Tens
     s = torch.sort(ancestors.movedim(axis, -1), dim=-1).values
     breaks = (s[..., 1:] != s[..., :-1]).to(torch.int32)
     return (1 + breaks.sum(dim=-1)).to(torch.int32)
+
+
+def offspring_counts(ancestors: torch.Tensor, n: int) -> torch.Tensor:
+    """``o[..., i] = #{j : ancestors[..., j] == i}`` over the last axis, for
+    one ancestor vector ``[N]`` or a matrix ``[K, N]`` (one ``bincount`` of
+    length ``n`` exactly per row)."""
+    flat = ancestors.reshape(-1, ancestors.shape[-1]).to(torch.int64)
+    rows = torch.arange(flat.shape[0], device=flat.device).unsqueeze(-1) * n
+    counts = torch.bincount((flat + rows).reshape(-1), minlength=flat.shape[0] * n)
+    return counts.reshape(ancestors.shape[:-1] + (n,)).to(torch.int32)
+
+
+def expected_offspring(weights: torch.Tensor) -> torch.Tensor:
+    """``N·w_i / Σw`` (the target of eq. 14)."""
+    n = weights.shape[0]
+    return n * weights / weights.sum()
+
+
+def squared_error(offspring: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """SE(o_k), eq. (14)."""
+    return ((offspring - expected_offspring(weights)) ** 2).sum()
+
+
+def mse(offsprings: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """MSE over K runs, eq. (15); ``offsprings`` is ``int[K, N]``."""
+    target = expected_offspring(weights)
+    return ((offsprings - target) ** 2).sum(dim=-1).mean()
+
+
+def bias_variance(offsprings: torch.Tensor, weights: torch.Tensor):
+    """The decomposition of eqs. (16)-(20): ``(var, bias_sq, mse)`` over K
+    Monte Carlo runs ``int[K, N]`` of one weight vector.  K = 1 carries no
+    variance information: the deviations are identically zero, and the
+    k - 1 denominator is taken as 1, so var = 0 (as in JAX)."""
+    k = offsprings.shape[0]
+    target = expected_offspring(weights)
+    o_hat = offsprings.to(torch.float32).mean(dim=0)  # eq. 19
+    var = (((offsprings - o_hat) ** 2).sum(dim=0) / max(k - 1, 1)).sum()
+    bias_sq = ((o_hat - target) ** 2).sum()  # eq. 18
+    return var, bias_sq, var + bias_sq  # eq. 16
+
+
+def bias_contribution(offsprings: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``||Bias||^2 / MSE``, eq. (21)."""
+    _, bias_sq, total = bias_variance(offsprings, weights)
+    return bias_sq / torch.clamp(total, min=1e-30)

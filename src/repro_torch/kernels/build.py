@@ -7,9 +7,10 @@ library with a plain C interface:
          -shared -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>-<hash>.so <source>
 
 The library lands in ``repro_torch/kernels/_build/`` (listed in
-``.gitignore``), named by a hash of its source and flags, so an edited source
-is rebuilt and a built one is reused.  ``build_all`` starts one ``nvcc`` per
-source, all at once.  Nothing here runs at import time, and there is no
+``.gitignore``), named by a hash of its source, of every header it includes
+with ``#include "..."`` (``common.cuh``) and of the flags, so an edited
+source or header is rebuilt and a built one is reused.  ``build_all``
+starts one ``nvcc`` per source, all at once.  Nothing here runs at import time, and there is no
 fallback: a failed build raises ``KernelLaunchError``.
 """
 
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,6 +33,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 _LIBS: dict = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def sources() -> list:
@@ -48,9 +51,22 @@ def _nvcc() -> str:
     return found
 
 
+def _with_headers(path: Path, seen: list) -> list:
+    """``path`` and every file it includes with quotes, recursively, in
+    include order."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for name in _INCLUDE.findall(path.read_bytes()):
+        _with_headers((path.parent / name.decode()).resolve(), seen)
+    return seen
+
+
 def _target(source: str) -> Path:
-    text = (KERNELS_DIR / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _with_headers((KERNELS_DIR / source).resolve(), []):
+        h.update(path.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 

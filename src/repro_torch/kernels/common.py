@@ -4,7 +4,10 @@ The counter-based hash RNG (murmur3 finalizer over ``(seed, particle,
 iteration)``), ``key_to_seed``, the fused step's statistics prelude
 ``step_stats`` and its commit ``step_select`` — written once here in plain
 PyTorch.  The plain versions of the CUDA kernels call them, and the CUDA
-sources (``megopolis/csrc/megopolis.cu``) spell out the same arithmetic.
+sources spell out the same arithmetic in ``common.cuh``, which both
+``megopolis/csrc/megopolis.cu`` and ``metropolis/csrc/metropolis.cu``
+include.  The checks every bank wrapper makes before a launch
+(``check_bank``, ``check_launch``) live here too.
 
 uint32 arithmetic runs in ``int64`` masked to 32 bits (torch's ``uint32``
 has no ``+``, ``>>`` or ``%`` on the CPU); products are split into 16-bit
@@ -24,7 +27,11 @@ not carry over: the port keeps state flat, ``[N, D]`` at the public API and
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from repro_torch.resilience.errors import KernelLaunchError
 
 MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -32,9 +39,13 @@ LANES = 128
 SUBLANES = 8
 TILE = SUBLANES * LANES  # 1024 particles: the Megopolis coalescing segment
 SEG = TILE
-#: Largest particle count: int32 index arithmetic ``i + o + SEG`` stays
-#: below 2**31.
+#: Largest particle count: int32 index arithmetic ``i + o + SEG`` and the
+#: Metropolis accept lane ``i + N`` stay below 2**31.
 MAX_PARTICLES = 1 << 30
+#: Most rows of one bank launch: the kernels put the rows on grid.y.
+MAX_ROWS = 65535
+#: Rows of one step launch: the per-row shift and flags sit in shared memory.
+MAX_STEP_ROWS = 4096
 PLANE_DTYPES = ("float32",)
 _FLT_MIN = torch.finfo(torch.float32).tiny
 
@@ -143,3 +154,105 @@ def step_select(do: torch.Tensor, k_new: torch.Tensor) -> torch.Tensor:
     trigger fired, else the identity (the state copy is then a no-op)."""
     ids = tile_lane_ids(k_new.shape[-1], k_new.device)
     return torch.where(do.unsqueeze(-1), k_new, ids)
+
+
+def step_weights(lw: torch.Tensor, thr: float):
+    """The plain step kernels' prelude over log-weights ``[S, N]``:
+    ``(w, do, stats)`` with the sweep's weights ``exp(lw - m)`` (uniform
+    ``1/N`` on a degenerate row), the trigger ``ess_norm < thr`` and
+    ``stats f32[S, 4] = (ess_norm, incr if do else 0, do, max_weight)``."""
+    n = lw.shape[-1]
+    m, ess_norm, incr, maxw, deg = step_stats(lw)
+    do = ess_norm < torch.tensor(thr, dtype=torch.float32)
+    w = flush_to_zero(torch.exp(flush_to_zero(flush_to_zero(lw) - m.unsqueeze(-1))))
+    w = torch.where(deg.unsqueeze(-1), torch.full_like(w, 1.0 / n), w)
+    stats = torch.stack(
+        [ess_norm, torch.where(do, incr, torch.zeros_like(incr)), do.to(torch.float32), maxw],
+        dim=-1,
+    )
+    return w, do, stats
+
+
+def to_planes(particles: torch.Tensor, lead: int) -> torch.Tensor:
+    """Particles ``[..., N, *state]`` with ``lead`` leading axes (1 for one
+    population, 2 for a bank) -> the kernels' state ``[..., D, N]`` (a view
+    when D == 1)."""
+    n = particles.shape[lead - 1]
+    flat = particles.reshape(particles.shape[:lead] + (-1,))
+    if flat.shape[-1] == 1:
+        return flat.reshape(particles.shape[: lead - 1] + (1, n))
+    return flat.transpose(-1, -2).contiguous()
+
+
+def from_planes(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The kernels' state ``[..., D, N]`` -> particles shaped as ``like``."""
+    return out.transpose(-1, -2).reshape(like.shape)
+
+
+def gather_state(state: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``out[s, :, i] = state[s, :, k[s, i]]`` (a bit copy)."""
+    return torch.gather(state, 2, k.unsqueeze(1).expand(-1, state.shape[1], -1))
+
+
+def check_bank(who: str, w: torch.Tensor, state, seeds: torch.Tensor):
+    """Validate the arguments every bank kernel takes: weights ``f32[S, N]``,
+    state ``[S, D, N]`` (or None for an index-only kernel) and ``seeds
+    [S]``.  Returns ``(S, N, D)`` (D = 0 without state)."""
+    if w.dtype != torch.float32 or w.ndim != 2:
+        raise ValueError(f"{who}: weights must be float32[S, N]; got {w.dtype}{list(w.shape)}")
+    s, n = w.shape
+    if n % TILE != 0 or not 0 < n <= MAX_PARTICLES:
+        raise ValueError(f"{who} requires 0 < N <= 2**30 and N % {TILE} == 0; got N={n}")
+    if not 0 < s <= MAX_ROWS:
+        raise ValueError(f"{who}: between 1 and {MAX_ROWS} rows per launch; got {s}")
+    if s * n >= 1 << 31:
+        raise ValueError(f"{who}: S·N must stay below 2**31 (int32 indices); got {s}·{n}")
+    if seeds.shape != (s,):
+        raise ValueError(f"{who}: seeds must be [S]; got {list(seeds.shape)}")
+    if state is not None and (state.ndim != 3 or state.shape[0] != s or state.shape[2] != n):
+        raise ValueError(f"{who}: state must be [S, D, N] = [{s}, D, {n}]; got {list(state.shape)}")
+    if w.is_cuda:
+        if not w.is_contiguous():
+            raise ValueError(f"{who}: weights must be contiguous")
+        if state is not None:
+            if state.device != w.device:
+                raise ValueError(f"{who}: state on {state.device}, weights on {w.device}")
+            if state.dtype != torch.float32:
+                raise ValueError(f"{who}: the CUDA kernel copies float32 state; got {state.dtype}")
+            if not state.is_contiguous():
+                raise ValueError(f"{who}: state must be contiguous")
+    elif state is not None and state.is_cuda:
+        raise ValueError(f"{who}: state on {state.device}, weights on the CPU")
+    return s, n, 0 if state is None else state.shape[1]
+
+
+def device_seeds(seeds: torch.Tensor, device) -> torch.Tensor:
+    """uint32 seeds (``int64``, possibly on the host) as the int32 bit
+    patterns a kernel reads as ``uint32_t``, on ``device``."""
+    return seed_bits(seeds.to(torch.int64)).to(device)
+
+
+def check_launch(err: int, who: str):
+    """Raise when a kernel's C entry returned a CUDA error."""
+    if err != 0:
+        raise KernelLaunchError(f"{who}: CUDA error {err} at launch")
+
+
+def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_iters: int):
+    """The grid and buffers of one cooperative step launch over ``lw [S,
+    N]``: the co-resident block count from the library's ``grid_fn(S, N,
+    &blocks)`` on the weights' device, then the outputs and the scratch of
+    ``common.cuh``'s ``StepScratch`` layout.  Returns ``(blocks, ancestors,
+    state', stats, scratch)``."""
+    s, n = lw.shape
+    if s > MAX_STEP_ROWS:
+        raise ValueError(f"{who}: at most {MAX_STEP_ROWS} rows per step launch; got {s}")
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(lw.device):
+        check_launch(grid_fn(s, n, ctypes.byref(blocks)), who)
+    g = blocks.value
+    anc = torch.empty((s, n), dtype=torch.int32, device=lw.device)
+    stats = torch.empty((s, 4), dtype=torch.float32, device=lw.device)
+    scratch = torch.empty(s * g * 5 + s * num_iters + s * n, dtype=torch.float32,
+                          device=lw.device)
+    return g, anc, torch.empty_like(state), stats, scratch

@@ -1,5 +1,5 @@
-"""Public wrappers of the Megopolis kernels: key in, resampled state out
-(after ``repro.kernels.megopolis.ops``).
+"""Public wrappers of the Megopolis kernels: key in, ancestors or resampled
+state out (after ``repro.kernels.megopolis.ops``).
 
 They derive the offsets and the hash seed from the key exactly as the JAX
 wrappers do (``split``, then ``randint(key_off, (B,), 0, N)``, then
@@ -14,65 +14,83 @@ inside, the state is ``[D, N]`` (``[S, D, N]``).  Alignment: ``N % 1024 ==
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch import random as trandom
-from repro_torch.kernels.common import key_to_seed
+from repro_torch.kernels.common import from_planes, key_to_seed, to_planes
 from repro_torch.kernels.megopolis.megopolis import (
+    megopolis,
+    megopolis_batch,
     megopolis_fused,
     megopolis_fused_rows,
+    megopolis_rows,
     megopolis_step,
     megopolis_step_rows,
 )
 
 
-def _to_planes(particles: torch.Tensor, lead: int) -> torch.Tensor:
-    """``[..., N, *state]`` -> ``[..., D, N]`` (a view when D == 1)."""
-    n = particles.shape[lead - 1]
-    flat = particles.reshape(particles.shape[:lead] + (-1,))
-    if flat.shape[-1] == 1:
-        return flat.reshape(particles.shape[: lead - 1] + (1, n))
-    return flat.transpose(-1, -2).contiguous()
-
-
-def _from_planes(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return out.transpose(-1, -2).reshape(like.shape)
-
-
-def key_tables(key: torch.Tensor, n: int, num_iters: int):
+def key_tables(key, n: int, num_iters: int):
     """``(offsets int32[..., B], seed int64[...])`` of one key or a key bank,
-    as ``megopolis_tpu_apply``/``_rows`` derive them."""
+    as ``megopolis_tpu``/``megopolis_tpu_apply``/``_rows`` derive them."""
     halves = trandom.split(key)
     offsets = trandom.randint(halves[..., 0, :], (num_iters,), 0, n)
     return offsets, key_to_seed(halves[..., 1, :])
+
+
+def batch_tables(key, rows: int, n: int, num_iters: int):
+    """``(offsets int32[B], seeds int64[S])`` of a bank under one key: ONE
+    offset table shared by every row and a seed per row from
+    ``split(key_rows, S)``, as ``megopolis_tpu_batch`` derives them."""
+    halves = trandom.split(key)
+    offsets = trandom.randint(halves[0], (num_iters,), 0, n)
+    return offsets, key_to_seed(trandom.split(halves[1], rows))
+
+
+def megopolis_cuda(key, weights, num_iters: int):
+    """Index-only resample of one population: ancestors ``int32[N]``."""
+    offsets, seed = key_tables(key, weights.shape[0], num_iters)
+    return megopolis(weights, offsets, seed)
+
+
+def megopolis_cuda_batch(key, weights, num_iters: int):
+    """Index-only resample of a bank under one key, in one launch: one
+    offset table shared by every row, so row ``s`` is NOT the single call
+    with ``split(key, S)[s]`` (the JAX kernel path's own contract)."""
+    offsets, seeds = batch_tables(key, weights.shape[0], weights.shape[1], num_iters)
+    return megopolis_batch(weights, offsets, seeds)
+
+
+def megopolis_cuda_batch_rows(keys, weights, num_iters: int):
+    """Index-only resample of a bank over explicit per-row keys ``[S, 2]``:
+    row ``s`` equals ``megopolis_cuda(keys[s], weights[s])``, in one
+    launch."""
+    offsets, seeds = key_tables(keys, weights.shape[1], num_iters)
+    return megopolis_rows(weights, offsets, seeds)
 
 
 def megopolis_cuda_apply(key, weights, particles, num_iters: int):
     """Fused resample + gather of one population; returns
     ``(particles', ancestors int32[N])``."""
     offsets, seed = key_tables(key, weights.shape[0], num_iters)
-    anc, out = megopolis_fused(weights, _to_planes(particles, 1), offsets, seed)
-    return _from_planes(out, particles), anc
+    anc, out = megopolis_fused(weights, to_planes(particles, 1), offsets, seed)
+    return from_planes(out, particles), anc
 
 
 def megopolis_cuda_apply_rows(keys, weights, particles, num_iters: int):
     """Bank form over explicit per-row keys ``[S, 2]``: row ``s`` equals
     ``megopolis_cuda_apply(keys[s], ...)``, in one launch."""
     offsets, seeds = key_tables(keys, weights.shape[1], num_iters)
-    anc, out = megopolis_fused_rows(weights, _to_planes(particles, 2), offsets, seeds)
-    return _from_planes(out, particles), anc
+    anc, out = megopolis_fused_rows(weights, to_planes(particles, 2), offsets, seeds)
+    return from_planes(out, particles), anc
 
 
 def megopolis_cuda_apply_batch(key, weights, particles, num_iters: int):
-    """Bank form under one key: one offset table shared by every row (as
-    ``ops.py:133`` of the JAX package), a seed per row from
-    ``split(key_rows, S)``."""
+    """Bank form under one key: the tables of ``megopolis_cuda_batch`` (as
+    ``ops.py:133`` of the JAX package), so its ancestors equal
+    ``megopolis_cuda_batch``'s."""
     bsz, n = weights.shape
-    halves = trandom.split(key)
-    offsets = trandom.randint(halves[0], (num_iters,), 0, n).expand(bsz, num_iters)
-    seeds = key_to_seed(trandom.split(halves[1], bsz))
-    anc, out = megopolis_fused_rows(weights, _to_planes(particles, 2), offsets, seeds)
-    return _from_planes(out, particles), anc
+    offsets, seeds = batch_tables(key, bsz, n, num_iters)
+    anc, out = megopolis_fused_rows(weights, to_planes(particles, 2),
+                                    offsets.expand(bsz, num_iters), seeds)
+    return from_planes(out, particles), anc
 
 
 def megopolis_cuda_step(key, log_weights, particles, num_iters: int, ess_threshold: float):
@@ -81,9 +99,9 @@ def megopolis_cuda_step(key, log_weights, particles, num_iters: int, ess_thresho
     bit-identical to ``megopolis_cuda_apply(key, exp(lw - max lw), ...)``."""
     offsets, seed = key_tables(key, log_weights.shape[0], num_iters)
     anc, out, stats = megopolis_step(
-        log_weights, _to_planes(particles, 1), offsets, seed, ess_threshold
+        log_weights, to_planes(particles, 1), offsets, seed, ess_threshold
     )
-    return _from_planes(out, particles), anc, stats
+    return from_planes(out, particles), anc, stats
 
 
 def megopolis_cuda_step_rows(keys, log_weights, particles, num_iters: int,
@@ -92,6 +110,6 @@ def megopolis_cuda_step_rows(keys, log_weights, particles, num_iters: int,
     decision; returns ``(particles', ancestors int32[S, N], stats f32[S, 4])``."""
     offsets, seeds = key_tables(keys, log_weights.shape[1], num_iters)
     anc, out, stats = megopolis_step_rows(
-        log_weights, _to_planes(particles, 2), offsets, seeds, ess_threshold
+        log_weights, to_planes(particles, 2), offsets, seeds, ess_threshold
     )
-    return _from_planes(out, particles), anc, stats
+    return from_planes(out, particles), anc, stats

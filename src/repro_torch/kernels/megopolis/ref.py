@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two Megopolis CUDA kernels, on the same
+"""Plain PyTorch versions of the Megopolis CUDA kernels, on the same
 signatures (after ``repro.kernels.megopolis.ref``).
 
 They repeat the kernels' arithmetic (the same hash RNG, the same segment-1024
@@ -18,10 +18,11 @@ import torch
 from repro_torch.kernels.common import (
     SEG,
     flush_to_zero,
+    gather_state,
     hash_uniform,
     megopolis_indices,
     step_select,
-    step_stats,
+    step_weights,
     tile_lane_ids,
 )
 
@@ -45,9 +46,11 @@ def _sweep(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor) -> torch
     return k
 
 
-def _gather_state(state: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """``out[s, :, i] = state[s, :, k[s, i]]`` (a bit copy)."""
-    return torch.gather(state, 2, k.unsqueeze(1).expand(-1, state.shape[1], -1))
+def megopolis_rows_ref(w: torch.Tensor, offsets: torch.Tensor,
+                       seeds: torch.Tensor) -> torch.Tensor:
+    """Plain version of the index-only ``megopolis_rows``: ancestors
+    ``int32[S, N]``."""
+    return _sweep(w, offsets, seeds).to(torch.int32)
 
 
 def megopolis_fused_rows_ref(w: torch.Tensor, state: torch.Tensor,
@@ -55,7 +58,7 @@ def megopolis_fused_rows_ref(w: torch.Tensor, state: torch.Tensor,
     """Plain version of ``megopolis_fused_rows``: returns
     ``(ancestors int32[S, N], state' [S, D, N])``."""
     k = _sweep(w, offsets, seeds)
-    return k.to(torch.int32), _gather_state(state, k)
+    return k.to(torch.int32), gather_state(state, k)
 
 
 def megopolis_step_rows_ref(lw: torch.Tensor, state: torch.Tensor,
@@ -65,14 +68,6 @@ def megopolis_step_rows_ref(lw: torch.Tensor, state: torch.Tensor,
     on a degenerate row), then the selection or the identity.  Returns
     ``(ancestors int32[S, N], state' [S, D, N], stats f32[S, 4])`` with
     ``stats = (ess_norm, incr if resampled else 0, resampled, max_weight)``."""
-    n = lw.shape[-1]
-    m, ess_norm, incr, maxw, deg = step_stats(lw)
-    do = ess_norm < torch.tensor(thr, dtype=torch.float32)
-    w = flush_to_zero(torch.exp(flush_to_zero(flush_to_zero(lw) - m.unsqueeze(-1))))
-    w = torch.where(deg.unsqueeze(-1), torch.full_like(w, 1.0 / n), w)
+    w, do, stats = step_weights(lw, thr)
     k = step_select(do, _sweep(w, offsets, seeds))
-    stats = torch.stack(
-        [ess_norm, torch.where(do, incr, torch.zeros_like(incr)), do.to(torch.float32), maxw],
-        dim=-1,
-    )
-    return k.to(torch.int32), _gather_state(state, k), stats
+    return k.to(torch.int32), gather_state(state, k), stats

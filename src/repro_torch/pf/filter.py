@@ -42,7 +42,7 @@ from repro_torch.core.metrics import (
     unique_ancestor_count,
 )
 from repro_torch.core.resamplers.batched import split_batch_keys
-from repro_torch.core.spec import MegopolisSpec
+from repro_torch.core.spec import MegopolisSpec, MetropolisSpec, ResamplerSpec
 from repro_torch.obs.stats import StepStats, stack_stats
 from repro_torch.obs.telemetry import Telemetry
 
@@ -59,12 +59,13 @@ class StateSpaceModel:
 @dataclasses.dataclass(frozen=True)
 class ParticleFilter:
     """SIR filter config.  ``resampler`` is a ``MegopolisSpec`` (default:
-    30 iterations, the fixed prior of paper §7); the baseline families are
+    30 iterations, the fixed prior of paper §7) or a ``MetropolisSpec``
+    (the paper's Alg. 2 baseline, Table 2); the other baseline families are
     not ported yet (ROADMAP Queue A, item 5)."""
 
     model: StateSpaceModel
     num_particles: int
-    resampler: MegopolisSpec = MegopolisSpec(num_iters=30)
+    resampler: ResamplerSpec = MegopolisSpec(num_iters=30)
     # None keeps Alg. 6's unconditional resample; a float in [0, 1] runs
     # conditional SIR with one fused step launch per time step.
     ess_threshold: Optional[float] = None
@@ -75,7 +76,7 @@ class ParticleFilter:
                 "ParticleFilter.ess_threshold must be in [0, 1] (a normalised "
                 f"ESS fraction) or None for Alg. 6; got {self.ess_threshold}"
             )
-        if not isinstance(self.resampler, MegopolisSpec):
+        if not isinstance(self.resampler, (MegopolisSpec, MetropolisSpec)):
             raise NotImplementedError(
                 f"ParticleFilter: resampler {self.resampler!r} is not ported yet "
                 "(ROADMAP Queue A, item 5: baseline families)"
@@ -83,7 +84,7 @@ class ParticleFilter:
         object.__setattr__(self, "_built", self.resampler.build())
 
     @property
-    def spec(self) -> MegopolisSpec:
+    def spec(self) -> ResamplerSpec:
         return self._built.spec
 
     def step(self, key, particles, z, t, theta=None):

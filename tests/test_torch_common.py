@@ -120,3 +120,47 @@ def test_step_select():
     k = torch.tensor([[3, 3, 0, 1], [2, 2, 2, 2]])
     got = tc.step_select(torch.tensor([True, False]), k)
     np.testing.assert_array_equal(got.numpy(), [[3, 3, 0, 1], [0, 1, 2, 3]])
+
+
+def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
+    """An edit to a header a CUDA source includes renames the source's
+    library, so it is rebuilt; an edit elsewhere does not."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    kernels = tmp_path / "kernels"
+    shutil.copytree(build.KERNELS_DIR, kernels, ignore=shutil.ignore_patterns("_build"))
+    monkeypatch.setattr(build, "KERNELS_DIR", kernels)
+    monkeypatch.setattr(build, "BUILD_DIR", kernels / "_build")
+    assert build.sources() == ["megopolis/csrc/megopolis.cu", "metropolis/csrc/metropolis.cu"]
+    before = {src: build._target(src) for src in build.sources()}
+    (kernels / "common.py").write_text("# not included by any source\n")
+    assert {src: build._target(src) for src in build.sources()} == before
+    header = kernels / "common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {src: build._target(src) for src in build.sources()}
+    assert all(after[src] != before[src] for src in before)
+
+
+@pytest.mark.parametrize("bad", ("rows", "s_times_n", "n", "seeds", "state"))
+def test_check_bank_rejects(bad):
+    n = {"s_times_n": 1 << 30, "n": 3000}.get(bad, 4096)
+    s = {"rows": tc.MAX_ROWS + 1, "s_times_n": 2}.get(bad, 2)
+    w = torch.zeros(1, 1).expand(s, n)  # shapes only: nothing the size of the bank
+    state = torch.empty(s, 1, n + 1024) if bad == "state" else None
+    seeds = torch.zeros(s + (bad == "seeds"), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tc.check_bank("who", w, state, seeds)
+    assert tc.check_bank("who", torch.empty(2, 4096), torch.empty(2, 3, 4096),
+                         torch.zeros(2, dtype=torch.int64)) == (2, 4096, 3)
+
+
+def test_planes_round_trip():
+    p = torch.randn(2, 4096, 3)
+    planes = tc.to_planes(p, 2)
+    assert planes.shape == (2, 3, 4096) and torch.equal(planes[1, 2], p[1, :, 2])
+    assert torch.equal(tc.from_planes(planes, p), p)
+    q = torch.randn(4096)
+    assert tc.to_planes(q, 1).shape == (1, 4096)
+    assert torch.equal(tc.from_planes(tc.to_planes(q, 1), q), q)

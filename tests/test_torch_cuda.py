@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from repro_torch import random as trandom
-from repro_torch.core.spec import MegopolisSpec
+from repro_torch.core.spec import MegopolisSpec, MetropolisSpec
 from repro_torch.kernels.megopolis import megopolis as mk
 from repro_torch.kernels.megopolis import ref
+from repro_torch.kernels.metropolis import metropolis as tk
+from repro_torch.kernels.metropolis import ref as tref
 from repro_torch.pf.filter import ParticleFilter, run_filter, simulate
 from repro_torch.pf.models import ungm
 
@@ -69,3 +71,60 @@ def test_run_filter_defaults_to_the_card(card):
     est = run_filter(key, pf, obs)
     assert est.is_cuda and est.shape == (5,) and torch.isfinite(est).all()
     assert mk.megopolis_step.launches == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (8192, 3072))
+def test_megopolis_index_only_kernel_matches_plain_version(card, n):
+    w, _, _, offsets, seeds = _inputs(card, n=n)
+    mk.reset_launch_counts()
+    want = ref.megopolis_rows_ref(w, offsets, seeds)
+    assert torch.equal(mk.megopolis_rows(w, offsets, seeds), want)
+    assert torch.equal(mk.megopolis_batch(w, offsets[0], seeds),
+                       ref.megopolis_rows_ref(w, offsets[:1].expand_as(offsets), seeds))
+    assert torch.equal(mk.megopolis(w[1], offsets[1], seeds[1]), want[1])
+    # The index-only instance selects what the fused one does.
+    assert torch.equal(mk.megopolis_fused_rows(w, w[:, None], offsets, seeds)[0], want)
+    assert (mk.megopolis_rows.launches, mk.megopolis_batch.launches, mk.megopolis.launches) == (
+        1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (8192, 3072))
+def test_metropolis_rows_kernel_matches_plain_version(card, n):
+    w, _, state, _, seeds = _inputs(card, n=n)
+    tk.reset_launch_counts()
+    want_anc, want_out = tref.metropolis_rows_ref(w, state, seeds, 16)
+    anc, out = tk.metropolis_fused_batch(w, state, seeds, 16)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert torch.equal(tk.metropolis_batch(w, seeds, 16), want_anc)
+    assert torch.equal(tk.metropolis(w[2], seeds[2], 16), want_anc[2])
+    assert torch.equal(tk.metropolis_fused(w[2], state[2], seeds[2], 16)[1], want_out[2])
+    assert [fn.launches for fn in tk.WRAPPERS[:4]] == [1, 1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_metropolis_step_kernel_matches_plain_version(card):
+    _, lw, state, _, seeds = _inputs(card)
+    tk.reset_launch_counts()
+    anc, out, stats = tk.metropolis_step_rows(lw, state, seeds, 16, 0.5)
+    want_anc, want_out, want_stats = tref.metropolis_step_rows_ref(lw, state, seeds, 16, 0.5)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])  # the same triggers
+    # Sums in another order than torch.sum: as the Megopolis step kernel.
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert torch.equal(tk.metropolis_step_rows(lw, state, seeds, 16, 0.5)[2], stats)
+    one = tk.metropolis_step(lw[0], state[0], seeds[0], 16, 0.5)
+    assert torch.equal(one[0], want_anc[0])
+    assert (tk.metropolis_step_rows.launches, tk.metropolis_step.launches) == (2, 1)
+
+
+@pytest.mark.cuda
+def test_run_filter_with_metropolis_on_the_card(card):
+    key = trandom.PRNGKey(0)
+    _, obs = simulate(key, ungm(), 5)
+    pf = ParticleFilter(ungm(), 8192, resampler=MetropolisSpec(num_iters=8), ess_threshold=0.5)
+    tk.reset_launch_counts()
+    est = run_filter(key, pf, obs)
+    assert est.is_cuda and est.shape == (5,) and torch.isfinite(est).all()
+    assert tk.metropolis_step.launches == 5

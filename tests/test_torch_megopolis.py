@@ -100,6 +100,38 @@ def test_fused_rows_kernel_bits(kind):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(np.asarray(out).reshape(s, 1, n)))
 
 
+@pytest.mark.parametrize("kind", ("gamma", "subnormal", "tiny_normal"))
+@pytest.mark.parametrize("n,b", ((4096, 16), (3072, 8)))
+def test_index_only_kernel_bits(kind, n, b):
+    """Row 1: ``megopolis_pallas``, ancestors only."""
+    w = _weights(kind, n, seed=3)
+    offsets, seeds = _tables(n, b, 1, seed=3)
+    k2 = jk.megopolis_pallas(jnp.asarray(w.reshape(-1, 128)), jnp.asarray(offsets[0]),
+                             jnp.asarray(seeds), num_iters=b, interpret=True)
+    anc = tk.megopolis(torch.from_numpy(w), torch.from_numpy(offsets[0]),
+                       torch.tensor(int(seeds[0])))
+    np.testing.assert_array_equal(anc.numpy(), np.asarray(k2).reshape(n))
+
+
+@pytest.mark.parametrize("n", (4096, 3072))
+def test_batch_kernel_bits(n):
+    """Row 2: ``megopolis_pallas_batch``, one offset table for the bank; and
+    its vmapped row-1 form over per-row tables."""
+    s, b = 3, 8
+    w = _weights("subnormal", (s, n), seed=4)
+    offsets, seeds = _tables(n, b, s, seed=4)
+    k3 = jk.megopolis_pallas_batch(jnp.asarray(w.reshape(s, -1, 128)), jnp.asarray(offsets[0]),
+                                   jnp.asarray(seeds), num_iters=b, interpret=True)
+    tseeds = torch.from_numpy(seeds.astype(np.int64))
+    anc = tk.megopolis_batch(torch.from_numpy(w), torch.from_numpy(offsets[0]), tseeds)
+    np.testing.assert_array_equal(anc.numpy(), np.asarray(k3).reshape(s, n))
+    rows = jax.vmap(lambda w2, o, sd: jk.megopolis_pallas(w2, o, sd, num_iters=b,
+                                                          interpret=True))(
+        jnp.asarray(w.reshape(s, -1, 128)), jnp.asarray(offsets), jnp.asarray(seeds)[:, None])
+    got = tk.megopolis_rows(torch.from_numpy(w), torch.from_numpy(offsets), tseeds)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(rows).reshape(s, n))
+
+
 def _log_weights(kind, shape, seed=0):
     rng = np.random.default_rng(seed)
     if kind == "normal":
@@ -187,7 +219,10 @@ def test_wrappers_on_cpu_count_no_launch():
     tk.megopolis_step_rows(w.log(), w[:, None], offsets, torch.tensor([1, 2]), 0.5)
     tk.megopolis_fused(w[0], w[:1], offsets[0], torch.tensor(3))
     tk.megopolis_step(w[0].log(), w[:1], offsets[0], torch.tensor(3), 0.5)
-    assert [fn.launches for fn in tk.WRAPPERS] == [0, 0, 0, 0]
+    tk.megopolis_rows(w, offsets, torch.tensor([1, 2]))
+    tk.megopolis_batch(w, offsets[0], torch.tensor([1, 2]))
+    tk.megopolis(w[0], offsets[0], torch.tensor(3))
+    assert [fn.launches for fn in tk.WRAPPERS] == [0] * 7
 
 
 @pytest.mark.parametrize("bad", ("n", "offsets", "state", "dtype"))
@@ -240,6 +275,19 @@ def test_apply_bank_bits(entry):
     tp, ta = getattr(tr, entry)(tkey, torch.from_numpy(w), torch.from_numpy(p))
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_array_equal(_bits(tp.numpy()), _bits(np.asarray(jp)))
+
+
+@pytest.mark.parametrize("entry", ("__call__", "batch", "batch_rows"))
+@pytest.mark.parametrize("n", (4096, 3072))
+def test_index_only_entries_bits(entry, n):
+    s, b = 3, 8
+    jr, tr = _resamplers(b)
+    w = _weights("subnormal", (s, n) if entry != "__call__" else n, seed=30)
+    jkey, tkey = _keys(31, rows=s if entry == "batch_rows" else None)
+    jfn = jr if entry == "__call__" else getattr(jr, entry)
+    tfn = tr if entry == "__call__" else getattr(tr, entry)
+    np.testing.assert_array_equal(tfn(tkey, torch.from_numpy(w)).numpy(),
+                                  np.asarray(jfn(jkey, jnp.asarray(w))))
 
 
 @pytest.mark.parametrize("thr", (0.3, 1.0))
@@ -336,9 +384,19 @@ def test_auto_iterations_match_jax():
 
 @pytest.mark.parametrize("entry", ("__call__", "batch", "batch_rows"))
 def test_index_only_entries_are_next_slice(entry):
-    r = MegopolisSpec(num_iters=4).build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(r, entry)(torch.zeros(2), torch.ones(4096))
+    """The index-only entries (the next slice when the apply entries were
+    ported) give the ancestors of the matching apply entry."""
+    s, n = 3, 4096
+    r = MegopolisSpec(num_iters=8).build()
+    key, keys = _keys(28)[1], _keys(28, rows=s)[1]
+    w = torch.from_numpy(_weights("gamma", (s, n), seed=29))
+    p = torch.zeros(s, n)
+    if entry == "__call__":
+        assert torch.equal(r(key, w[0]), r.apply(key, w[0], p[0])[1])
+    elif entry == "batch":
+        assert torch.equal(r.batch(key, w), r.apply_batch(key, w, p)[1])
+    else:
+        assert torch.equal(r.batch_rows(keys, w), r.apply_rows(keys, w, p)[1])
 
 
 @pytest.mark.parametrize("field,value,err", (

@@ -20,10 +20,11 @@ import pytest
 import torch
 
 from repro.core.spec import MegopolisSpec as JaxSpec
+from repro.core.spec import MetropolisSpec as JaxMetropolisSpec
 from repro.pf import filter as jf
 from repro.pf import models as jm
 from repro_torch import convert
-from repro_torch.core.spec import MegopolisSpec
+from repro_torch.core.spec import MegopolisSpec, MetropolisSpec
 from repro_torch.pf import filter as tf
 from repro_torch.pf import models as tm
 from repro_torch.pf.metrics import resample_ratio, rmse
@@ -66,12 +67,13 @@ def test_simulate_matches(sim):
     np.testing.assert_allclose(tzs.numpy(), zs, atol=SIM_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("seed", (2, 3))
-def test_replay_alg6_resample_stage_bits(sim, seed):
-    _, _, zs = sim
+def _replay_alg6(zs, jspec, tspec, seed):
+    """Run the JAX Alg. 6 filter step by step; its pre-resample particles,
+    weights and resample key go through the port's fused resample stage,
+    which must return the same particles and ancestors bit for bit."""
     model = jm.ungm()
-    jpf = jf.ParticleFilter(model, N, resampler=_jax_spec())
-    tpf = tf.ParticleFilter(tm.ungm(), N, resampler=MegopolisSpec(num_iters=B))
+    jpf = jf.ParticleFilter(model, N, resampler=jspec)
+    tpf = tf.ParticleFilter(tm.ungm(), N, resampler=tspec)
     stage1 = jax.jit(lambda k, x, z, t: (lambda y: (y, model.likelihood(z, y, t)))(
         model.transition(k, x, t)))
     k0, k = jax.random.split(jax.random.PRNGKey(seed))
@@ -89,6 +91,17 @@ def test_replay_alg6_resample_stage_bits(sim, seed):
         flushed += int((np.asarray(w) == 0).sum())
         particles = jx
     assert flushed > 0  # the run reaches likelihoods XLA flushes to zero
+
+
+@pytest.mark.parametrize("seed", (2, 3))
+def test_replay_alg6_resample_stage_bits(sim, seed):
+    _replay_alg6(sim[2], _jax_spec(), MegopolisSpec(num_iters=B), seed)
+
+
+def test_replay_alg6_metropolis_bits(sim):
+    """Table 2's baseline column: the same replay with Alg. 2."""
+    _replay_alg6(sim[2], JaxMetropolisSpec(num_iters=B, backend="pallas_interpret"),
+                 MetropolisSpec(num_iters=B), 6)
 
 
 def test_replay_conditional_resample_stage(sim):
@@ -162,6 +175,28 @@ def test_run_filter_bank_matches(thr):
     np.testing.assert_array_equal(ttel.steps.resampled.numpy(), np.asarray(jtel.steps.resampled))
 
 
+@pytest.mark.parametrize("thr", (None, 0.5))
+def test_run_filter_metropolis_matches(sim, thr, capsys):
+    """Whole runs with Alg. 2, one filter and a bank of 2, against JAX,
+    within ``WHOLE_RUN_ATOL`` as the Megopolis runs."""
+    key, xs, zs = sim
+    jspec = JaxMetropolisSpec(num_iters=B, backend="pallas_interpret")
+    jpf = jf.ParticleFilter(jm.ungm(), N, resampler=jspec, ess_threshold=thr)
+    tpf = tf.ParticleFilter(tm.ungm(), N, resampler=MetropolisSpec(num_iters=B),
+                            ess_threshold=thr)
+    jest = jf.run_filter(key, jpf, jnp.asarray(zs[:15]))
+    test = tf.run_filter(_tkey(key), tpf, torch.from_numpy(zs[:15]), device="cpu")
+    obs = np.stack([zs[:8], zs[:8] * 0.5])
+    jbank = jf.run_filter_bank(key, jpf, jnp.asarray(obs))
+    tbank = tf.run_filter_bank(_tkey(key), tpf, torch.from_numpy(obs), device="cpu")
+    with capsys.disabled():
+        gap = max(float(np.abs(test.numpy() - np.asarray(jest)).max()),
+                  float(np.abs(tbank.numpy() - np.asarray(jbank)).max()))
+        print(f"\nmetropolis filter (threshold {thr}) vs JAX: max |estimate gap| {gap:.3g}")
+    np.testing.assert_allclose(test.numpy(), np.asarray(jest), atol=WHOLE_RUN_ATOL, rtol=0)
+    np.testing.assert_allclose(tbank.numpy(), np.asarray(jbank), atol=WHOLE_RUN_ATOL, rtol=0)
+
+
 def test_bank_row_follows_single_filter(sim):
     """Row s of the bank runs the single filter's key chain."""
     key, _, zs = sim
@@ -211,6 +246,8 @@ def test_unported_run_filter_options_raise(sim, kwargs):
 def test_particle_filter_validates():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.ParticleFilter(tm.ungm(), N, resampler="metropolis")
+    assert tf.ParticleFilter(tm.ungm(), N, resampler=MetropolisSpec(num_iters=4)).spec == \
+        MetropolisSpec(num_iters=4)
     with pytest.raises(ValueError):
         tf.ParticleFilter(tm.ungm(), N, ess_threshold=1.5)
     assert tf.ParticleFilter(tm.ungm(), N).spec == MegopolisSpec(num_iters=30)
