@@ -27,7 +27,8 @@ over, and there is no CPU fallback):
 4. for each kernel wrapper, on its inputs captured from a short full-width
    run of the entry point that calls it (for a step, the last captured call
    that resampled), compare the kernel with its plain version on the card,
-   time both, and compute the kernel's bound;
+   time both, and compute the kernel's bound; time each bank step kernel
+   at capped cooperative grids (blocks per SM);
 5. print the card line, one JSON line of kernels, then a last JSON line
    naming the device.
 
@@ -37,6 +38,7 @@ Run it from the root of a checkout; it needs one card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -293,6 +295,8 @@ def main(argv=None) -> int:
     for case in kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
                              k_quality):
         kernels.append(check_kernel(case, path_launches))
+        if case[0].endswith("_step_rows"):
+            print(f"grid {case[0]}: {json.dumps(grid_study(case))}", flush=True)
     # Launches made above to compare and time do not count: the counts
     # reported are those of the main path's runs.
     print(card)
@@ -400,7 +404,7 @@ def small_runs(families, obs, k_run, k_quality, dev) -> dict:
         if not err <= SMALL_RUN_ATOL:
             fail(f"small {family} filter: card and CPU differ by {err} > {SMALL_RUN_ATOL}")
         r = f["cls"](num_iters=16).build()
-        w = gaussian_weights(k_quality, 8192, 2.0)
+        w = gaussian_weights(k_quality, 8192, 2.0, device="cpu")
         keys = trandom.split(k_quality, 4)
         bank = w[None].expand(4, -1).contiguous()
         got = offspring_counts(r.batch_rows(keys, bank.to(dev)), 8192).cpu()
@@ -603,6 +607,40 @@ def check_kernel(case, path_launches) -> dict:
                      bank_weights_fit_l2=4 * n * rows <= L2_BYTES)
     print(f"kernel {name}: {json.dumps(entry)}", flush=True)
     return entry
+
+
+def grid_study(case) -> dict:
+    """Kernel ms of a cooperative step wrapper on its captured inputs with
+    the grid capped at k blocks per SM, for k up to the co-resident count
+    the build allows: the step's time against its grid, with its code held
+    fixed.  The cap wraps the library's ``<family>_step_grid`` for the
+    duration of each timing; launches here do not count."""
+    from repro_torch.kernels.megopolis import megopolis as mk
+    from repro_torch.kernels.metropolis import metropolis as tk
+
+    name, wrapper, kargs, _, family, kind, rows, _ = case
+    lib = (mk if family == "megopolis" else tk)._lib()
+    attr = f"{family}_step_grid"
+    real = getattr(lib, attr)
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(kargs[0].device):
+        if real(rows, kargs[0].shape[-1], ctypes.byref(blocks)) != 0:
+            fail(f"{name}: {attr} failed")
+    sms = torch.cuda.get_device_properties(kargs[0].device).multi_processor_count
+    out = {"blocks": blocks.value, "sms": sms, "ms_by_blocks_per_sm": {}}
+    top = blocks.value // sms
+    for per_sm in sorted({k for k in (2, 4, 6, 8) if k < top} | {top}):
+        def capped(s, n, ref, cap=per_sm * sms):
+            err = real(s, n, ref)
+            ref._obj.value = min(ref._obj.value, cap)
+            return err
+        setattr(lib, attr, capped)
+        try:
+            ms = kernel_ms(lambda: wrapper(*kargs), KERNEL_NAMES[(family, kind)], 10)
+        finally:
+            setattr(lib, attr, real)
+        out["ms_by_blocks_per_sm"][per_sm] = ms
+    return out
 
 
 def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:

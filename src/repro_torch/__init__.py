@@ -5,9 +5,9 @@ Each module sits at the same relative path as its JAX counterpart under
 ``repro``.  The package imports ``torch`` and never ``jax`` or ``repro``.
 
 Device rule: entry points that create tensors (``run_filter``,
-``run_filter_bank``, ``simulate``, ``model.init``) default to
-``device="cuda"`` and raise when no card is present unless the caller
-passes ``device="cpu"``.  The resampler entries follow their inputs'
+``run_filter_bank``, ``simulate``, ``model.init``, ``gaussian_weights``)
+default to ``device="cuda"`` and raise when no card is present unless the
+caller passes ``device="cpu"``.  The resampler entries follow their inputs'
 device: on a CUDA tensor they launch the hand-written kernel (or raise),
 on a CPU tensor they run the kernel's plain PyTorch version.
 """

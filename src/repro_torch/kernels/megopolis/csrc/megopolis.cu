@@ -54,7 +54,10 @@
 //   stats are the same from run to run (no float atomics).  The weights
 //   exp(lw - m) are written once to scratch in the sums pass and read by the
 //   sweep.  expf (not __expf) keeps the weights bit-identical to torch.exp
-//   on the card.
+//   on the card.  __launch_bounds__(NT, 8) holds it to 32 registers, so 8
+//   blocks fit an SM and the grid is 8 blocks per SM: with the prelude
+//   inlined from common.cuh, ptxas would otherwise take 40 registers and
+//   fit 6.
 //
 // Subnormals: built with -ftz=true, and flushed explicitly (ftz()) on the
 // values selection depends on, as XLA does on the CPU.  State copies are bit
@@ -124,7 +127,7 @@ __global__ void __launch_bounds__(NT) megopolis_fused_rows_kernel(
   }
 }
 
-__global__ void __launch_bounds__(NT) megopolis_step_rows_kernel(
+__global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
     const float* __restrict__ lw, const float* __restrict__ state,
     const int* __restrict__ offsets, const uint32_t* __restrict__ seeds, float thr,
     int* __restrict__ anc, float* __restrict__ out, float* __restrict__ stats,

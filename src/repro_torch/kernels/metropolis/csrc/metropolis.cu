@@ -25,12 +25,14 @@
 //   What bounds it: per row it must move w (4N bytes), the ancestors (4N)
 //   and, with GATHER, the state in and out (8DN): 8 MiB at N = 2^20 without
 //   state, about 2.5 us at 3.35 TB/s.  The sweep does B·N proposals, each
-//   about 40 32-bit operations (two murmur3 finalizers, the unsigned modulo
-//   by N, the float conversion, the product and the compare): at B = 32 some
-//   1.3·10^9 operations, 20 us at 67 T/s, so the operations bound it.  But
-//   every w[j] is a random 4-byte read over the row: each touches its own
-//   32-byte L2 sector, B·N·32 bytes of sector traffic (1 GiB at N = 2^20,
-//   B = 32).  That is the paper's point, and the design keeps it: the reads
+//   at least 24 32-bit operations (two murmur3 finalizers 16, two lane
+//   xors 2, the unsigned modulo by N counted as one though it compiles to a
+//   dozen or more instructions, the shift, conversion and scale 3, the
+//   product and the compare 2), the count chip_smoke.py's bound uses: at
+//   B = 32 some 8·10^8 operations, 12 us at 67 T/s, so the operations bound
+//   it.  But every w[j] is a random 4-byte read over the row: each touches
+//   its own 32-byte L2 sector, B·N·32 bytes of sector traffic (1 GiB at
+//   N = 2^20, B = 32).  That is the paper's point, and the design keeps it: the reads
 //   are left uncoalesced, as Alg. 2 makes them.
 //   What the design does about it: one thread per particle, the B-loop in
 //   registers, w[k] carried by value, and fmix(seed + b·GOLDEN), the

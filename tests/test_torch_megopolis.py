@@ -384,8 +384,8 @@ def test_auto_iterations_match_jax():
 
 @pytest.mark.parametrize("entry", ("__call__", "batch", "batch_rows"))
 def test_index_only_entries_are_next_slice(entry):
-    """The index-only entries (the next slice when the apply entries were
-    ported) give the ancestors of the matching apply entry."""
+    """``__call__``, ``batch`` and ``batch_rows`` give the ancestors of the
+    matching apply entry (the name is kept so the test stays traceable)."""
     s, n = 3, 4096
     r = MegopolisSpec(num_iters=8).build()
     key, keys = _keys(28)[1], _keys(28, rows=s)[1]

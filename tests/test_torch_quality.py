@@ -104,7 +104,7 @@ def test_gaussian_weights_within_ulp_bound(y):
     n = 8192
     key = jax.random.PRNGKey(7)
     want = np.asarray(jax_gaussian_weights(key, n, y))
-    got = gaussian_weights(_tkey(key), n, y).numpy()
+    got = gaussian_weights(_tkey(key), n, y, device="cpu").numpy()
     x = np.asarray(jax.random.normal(key, (n,)))
     bound = 3 * np.abs(x).max() * np.abs(x - y).max() + 2
     ulp = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
@@ -121,6 +121,15 @@ def test_grids_and_iterations():
 
 def test_gamma_weights_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gamma_weights(trandom.PRNGKey(0), 4096, 0.5, device="cpu")
+
+
+def test_weight_generators_need_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gaussian_weights(trandom.PRNGKey(0), 4096, 2.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         gamma_weights(trandom.PRNGKey(0), 4096, 0.5)
 
 
