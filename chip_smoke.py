@@ -12,9 +12,10 @@ over, and there is no CPU fallback):
    registers per kernel;
 3. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
-   * Path A, the particle filter (paper §7, Table 2), once with
-     ``MegopolisSpec`` and once with ``MetropolisSpec`` (the baseline
-     column): ``run_filter`` in Alg. 6 and in conditional mode (ESS
+   * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
+     each family: ``MegopolisSpec``, ``MetropolisSpec`` (Table 2's baseline
+     column), ``MetropolisC1Spec`` and ``MetropolisC2Spec`` (Fig. 9's
+     segment-local baselines): ``run_filter`` in Alg. 6 and in conditional mode (ESS
      threshold 0.5), ``run_filter_bank`` (S scenarios) in both modes, and
      ``run_filter_timed``; RMSE against ``simulate``'s truth, steps/s, the
      resample ratio and a ``StepStats`` summary, the families side by side;
@@ -22,7 +23,7 @@ over, and there is no CPU fallback):
      of 0, 2 and 4, Gaussian weights at N particles, B from eq. (3) in
      closed form, K Monte Carlo resamples in one ``batch_rows`` launch,
      then MSE/N and the bias share (eq. 21), and the time of one
-     ``r(key, w)`` and one ``r.batch(key, w_bank)``, for both families;
+     ``r(key, w)`` and one ``r.batch(key, w_bank)``, for every family;
    * small runs of both paths on the card against the same runs on the CPU;
 4. for each kernel wrapper, on its inputs captured from a short full-width
    run of the entry point that calls it (for a step, the last captured call
@@ -73,8 +74,9 @@ CAPTURE_STEPS = 5
 #: 2.  Metropolis: two murmur3 finalizers 16, two lane-hash xors 2, the
 #: unsigned modulo by N 1 (counted as one operation; it compiles to a dozen
 #: or more instructions, so this too is a floor), shift, convert and scale
-#: 3, the product and the compare 2.
-SWEEP_OPS = {"megopolis": 20, "metropolis": 24}
+#: 3, the product and the compare 2.  C1/C2: as Metropolis, with the mask
+#: (mod 1024) and the add of the partition's base in place of the modulo.
+SWEEP_OPS = {"megopolis": 20, "metropolis": 24, "metropolis_c1": 25, "metropolis_c2": 25}
 #: Per particle of the step prelude: max, subtract, exp (about 10), the
 #: flushes, three sums, a square and a max.
 PRELUDE_OPS = 20
@@ -196,9 +198,15 @@ def main(argv=None) -> int:
         fail(f"{ROOT / 'src' / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import random as trandom
-    from repro_torch.core.spec import MegopolisSpec, MetropolisSpec
+    from repro_torch.core.spec import (
+        MegopolisSpec,
+        MetropolisC1Spec,
+        MetropolisC2Spec,
+        MetropolisSpec,
+    )
     from repro_torch.kernels import build
     from repro_torch.kernels.megopolis import megopolis as mk
+    from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import metropolis as tk
     from repro_torch.pf.filter import simulate
     from repro_torch.pf.models import ungm, ungm_family
@@ -231,7 +239,15 @@ def main(argv=None) -> int:
                        "batch_rows": tk.metropolis_batch, "single": tk.metropolis,
                        "batch": tk.metropolis_batch},
     }
-    wrappers = mk.WRAPPERS + tk.WRAPPERS
+    for cls in (MetropolisC1Spec, MetropolisC2Spec):
+        c = cls.name
+        families[c] = {"spec": cls(num_iters=ITERS), "cls": cls,
+                       "alg6": getattr(ck, f"{c}_fused"), "conditional": getattr(ck, f"{c}_step"),
+                       "bank_alg6": getattr(ck, f"{c}_fused_batch"),
+                       "bank_conditional": getattr(ck, f"{c}_step_rows"),
+                       "batch_rows": getattr(ck, f"{c}_batch"), "single": getattr(ck, c),
+                       "batch": getattr(ck, f"{c}_batch")}
+    wrappers = mk.WRAPPERS + tk.WRAPPERS + ck.WRAPPERS
     key = trandom.PRNGKey(args.seed)
     k_sim, k_run, k_bank, k_quality = trandom.split(key, 4)
     model, fam = ungm(), ungm_family()
@@ -249,7 +265,7 @@ def main(argv=None) -> int:
     results = {}
 
     def drive(name, fn, expected, n_steps=None):
-        for module in (mk, tk):
+        for module in (mk, tk, ck):
             module.reset_launch_counts()
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -517,6 +533,49 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     cases.append(("metropolis_step_rows", tk.metropolis_step_rows, (lv4, t4, sd4, it4, thr),
                   lambda: tref.metropolis_step_rows_ref(lv4, t4, sd4, it4, thr),
                   "metropolis", "step", lv4.shape[0], it4))
+    # Metropolis-C1/C2, rows 13-18 (and their bank forms on the same kernels).
+    for variant in (1, 2):
+        c = f"metropolis_c{variant}"
+        cases += c1c2_cases(c, variant, tops, fig6(c, "single"), fig6(c, "batch_rows"),
+                            single(c, None), bank(c, None), single(c, 0.5), bank(c, 0.5), thr)
+    return cases
+
+
+def c1c2_cases(c, variant, tops, fig6_single, fig6_rows, alg6, bank_alg6, cond, bank_cond,
+               thr) -> list:
+    """The six wrappers of one C1/C2 variant on captured inputs, as
+    ``kernel_cases``: the plain version of each is the variant's bank form on
+    the same arguments."""
+    from repro_torch.kernels.metropolis import c1c2 as ck
+    from repro_torch.kernels.metropolis import ref as tref
+
+    def rows(w, st, parts, seeds, it):
+        return lambda: tref.metropolis_c1c2_rows_ref(w, st, parts, seeds, it, variant)
+
+    def steps(lw, st, parts, seeds, it):
+        return lambda: tref.metropolis_c1c2_step_rows_ref(lw, st, parts, seeds, it, thr,
+                                                          variant)
+
+    cases = []
+    w, p, sd, it = capture(tops, c, fig6_single)
+    cases.append((c, getattr(ck, c), (w, p, sd, it), rows(w[None], None, p[None],
+                                                          sd.reshape(1), it),
+                  c, "index", 1, it))
+    wb, pb, sdb, itb = capture(tops, f"{c}_batch", fig6_rows)
+    cases.append((f"{c}_batch", getattr(ck, f"{c}_batch"), (wb, pb, sdb, itb),
+                  rows(wb, None, pb, sdb, itb), c, "index", wb.shape[0], itb))
+    w1, t1, p1, sd1, it1 = capture(tops, f"{c}_fused", alg6)
+    cases.append((f"{c}_fused", getattr(ck, f"{c}_fused"), (w1, t1, p1, sd1, it1),
+                  rows(w1[None], t1[None], p1[None], sd1.reshape(1), it1), c, "fused", 1, it1))
+    w2, t2, p2, sd2, it2 = capture(tops, f"{c}_fused_batch", bank_alg6)
+    cases.append((f"{c}_fused_batch", getattr(ck, f"{c}_fused_batch"), (w2, t2, p2, sd2, it2),
+                  rows(w2, t2, p2, sd2, it2), c, "fused", w2.shape[0], it2))
+    l3, t3, p3, sd3, it3, _ = capture(tops, f"{c}_step", cond)
+    cases.append((f"{c}_step", getattr(ck, f"{c}_step"), (l3, t3, p3, sd3, it3, thr),
+                  steps(l3[None], t3[None], p3[None], sd3.reshape(1), it3), c, "step", 1, it3))
+    l4, t4, p4, sd4, it4, _ = capture(tops, f"{c}_step_rows", bank_cond)
+    cases.append((f"{c}_step_rows", getattr(ck, f"{c}_step_rows"), (l4, t4, p4, sd4, it4, thr),
+                  steps(l4, t4, p4, sd4, it4), c, "step", l4.shape[0], it4))
     return cases
 
 
@@ -528,7 +587,17 @@ KERNEL_NAMES = {
     ("metropolis", "index"): "metropolis_rows_kernel",
     ("metropolis", "fused"): "metropolis_rows_kernel",
     ("metropolis", "step"): "metropolis_step_rows_kernel",
+    ("metropolis_c1", "index"): "metropolis_c1c2_rows_kernel<1",
+    ("metropolis_c1", "fused"): "metropolis_c1c2_rows_kernel<1",
+    ("metropolis_c1", "step"): "metropolis_c1c2_step_rows_kernel<1",
+    ("metropolis_c2", "index"): "metropolis_c1c2_rows_kernel<2",
+    ("metropolis_c2", "fused"): "metropolis_c1c2_rows_kernel<2",
+    ("metropolis_c2", "step"): "metropolis_c1c2_step_rows_kernel<2",
 }
+#: The CUDA source of each family's kernels.
+SOURCES = {"megopolis": "megopolis/csrc/megopolis.cu",
+           "metropolis": "metropolis/csrc/metropolis.cu",
+           "metropolis_c1": "metropolis/csrc/c1c2.cu", "metropolis_c2": "metropolis/csrc/c1c2.cu"}
 #: The TPU kernel each wrapper replaces (``megopolis_rows`` is row 1 vmapped).
 TPU_KERNELS = {
     "megopolis": "megopolis_pallas", "megopolis_batch": "megopolis_pallas_batch",
@@ -541,6 +610,13 @@ TPU_KERNELS = {
     "metropolis_step": "metropolis_pallas_step",
     "metropolis_step_rows": "metropolis_pallas_step_rows",
 }
+for _c in ("metropolis_c1", "metropolis_c2"):
+    # The JAX package has no C1/C2 bank kernel: the bank forms replace the
+    # single kernel mapped over the rows.
+    TPU_KERNELS.update({_c: f"{_c}_pallas", f"{_c}_batch": f"{_c}_pallas",
+                        f"{_c}_fused": f"{_c}_pallas_fused",
+                        f"{_c}_fused_batch": f"{_c}_pallas_fused",
+                        f"{_c}_step": f"{_c}_pallas_step", f"{_c}_step_rows": f"{_c}_pallas_step"})
 
 
 def check_kernel(case, path_launches) -> dict:
@@ -558,7 +634,7 @@ def check_kernel(case, path_launches) -> dict:
     state_err = float((got[1] - want[1]).abs().max()) if len(got) > 1 else 0.0
     tpu_file, tpu_line = _tpu_kernel_lines()[TPU_KERNELS[name]]
     entry = {"name": name, "route": "cuda",
-             "source": f"src/repro_torch/kernels/{family}/csrc/{family}.cu",
+             "source": f"src/repro_torch/kernels/{SOURCES[family]}",
              "replaces": f"{tpu_file}:{tpu_line}"}
     if kind != "step":
         same_state = len(got) == 1 or torch.equal(got[1].view(torch.int32),
@@ -590,8 +666,11 @@ def check_kernel(case, path_launches) -> dict:
     call_ms = time_ms(lambda: wrapper(*kargs), reps)
     plain_ms = time_ms(plain, max(1, min(5, int(2e9 // work))), warmup=0)
     # Weights (or log-weights) in and ancestors out; the state in and out
-    # (D = 1 on the path) for the fused and step kernels.
+    # (D = 1 on the path) for the fused and step kernels; C1/C2's partition
+    # table, read once.
+    table = kargs[-4 if kind == "step" else -3] if family.startswith("metropolis_c") else None
     n_bytes = rows * n * (8 if kind == "index" else 16)
+    n_bytes += 0 if table is None else 4 * table.numel()
     n_ops = rows * n * (iters * SWEEP_OPS[family] + (PRELUDE_OPS if kind == "step" else 0))
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     entry.update(launches=path_launches.get(name, 0), max_abs_err=max_abs_err,
@@ -605,6 +684,11 @@ def check_kernel(case, path_launches) -> dict:
         entry.update(l2_sector_bytes=rows * n * iters * L2_SECTOR,
                      row_weights_fit_l2=4 * n <= L2_BYTES,
                      bank_weights_fit_l2=4 * n * rows <= L2_BYTES)
+    elif table is not None:
+        # Every partition tile a block loads is 4 KiB of weights re-read from
+        # L2: once per own tile for C1, once per iteration for C2.
+        loads = rows * (n // 1024) * (1 if family == "metropolis_c1" else iters)
+        entry.update(partition_l2_bytes=loads * 4096, table_entries=table.numel())
     print(f"kernel {name}: {json.dumps(entry)}", flush=True)
     return entry
 
@@ -616,23 +700,26 @@ def grid_study(case) -> dict:
     fixed.  The cap wraps the library's ``<family>_step_grid`` for the
     duration of each timing; launches here do not count."""
     from repro_torch.kernels.megopolis import megopolis as mk
+    from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import metropolis as tk
 
     name, wrapper, kargs, _, family, kind, rows, _ = case
-    lib = (mk if family == "megopolis" else tk)._lib()
-    attr = f"{family}_step_grid"
+    if family.startswith("metropolis_c"):
+        lib, attr, lead = ck._lib(), "metropolis_c1c2_step_grid", (int(family[-1]),)
+    else:
+        lib, attr, lead = (mk if family == "megopolis" else tk)._lib(), f"{family}_step_grid", ()
     real = getattr(lib, attr)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(kargs[0].device):
-        if real(rows, kargs[0].shape[-1], ctypes.byref(blocks)) != 0:
+        if real(*lead, rows, kargs[0].shape[-1], ctypes.byref(blocks)) != 0:
             fail(f"{name}: {attr} failed")
     sms = torch.cuda.get_device_properties(kargs[0].device).multi_processor_count
     out = {"blocks": blocks.value, "sms": sms, "ms_by_blocks_per_sm": {}}
     top = blocks.value // sms
     for per_sm in sorted({k for k in (2, 4, 6, 8) if k < top} | {top}):
-        def capped(s, n, ref, cap=per_sm * sms):
-            err = real(s, n, ref)
-            ref._obj.value = min(ref._obj.value, cap)
+        def capped(*args, cap=per_sm * sms):
+            err = real(*args)
+            args[-1]._obj.value = min(args[-1]._obj.value, cap)
             return err
         setattr(lib, attr, capped)
         try:
@@ -644,24 +731,30 @@ def grid_study(case) -> dict:
 
 
 def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
-    """What one filter step costs besides the kernel: the host's key
-    derivation (split, split, then the family's tables: offsets and seed for
-    Megopolis, the seed alone for Metropolis), the UNGM noise draw on the
-    card, and a profile of a few conditional steps (device time by kernel
-    name and the device's busy share of the wall time)."""
+    """What one filter step costs besides the kernel: the key derivation
+    (split, split, then the family's tables: offsets and seed for Megopolis,
+    the seed alone for Metropolis, the partition table, drawn on the card,
+    and the seed for C1/C2), the UNGM noise draw on the card, and a profile
+    of a few conditional steps (device time by kernel name and the device's
+    busy share of the wall time)."""
     from repro_torch import random as trandom
     from repro_torch.kernels.common import key_to_seed
     from repro_torch.kernels.megopolis.ops import key_tables
+    from repro_torch.kernels.metropolis.ops import c1c2_tables
     from repro_torch.pf.filter import ParticleFilter, run_filter
 
-    tables = (lambda k: key_tables(k, n, b)) if family == "megopolis" else key_to_seed
+    tables = {"megopolis": lambda k: key_tables(k, n, b), "metropolis": key_to_seed,
+              "metropolis_c1": lambda k: c1c2_tables(1, k, n, b, dev),
+              "metropolis_c2": lambda k: c1c2_tables(2, k, n, b, dev)}[family]
     reps = 200
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     k = key
     for _ in range(reps):
         k, ks = trandom.split(k)
         _, k_res = trandom.split(ks)
         tables(k_res)
+    torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / reps * 1e3
     normal_ms = time_ms(lambda: trandom.normal(key, (n,), device=dev), 20)
     pf = ParticleFilter(model, n, resampler=spec, ess_threshold=0.5)
@@ -680,7 +773,7 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
     device_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
-        "host_key_derivation_ms": host_ms,
+        "key_derivation_ms": host_ms,
         "normal_draw_ms": normal_ms,
         "profiled_steps": steps,
         "wall_ms_per_step": wall / steps * 1e3,
@@ -692,14 +785,15 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
 
 
 def _tpu_kernel_lines() -> dict:
-    """File and line of each ``def megopolis_pallas*`` and ``def
-    metropolis_pallas*`` in the JAX package's kernel files, read as text
-    (nothing of the JAX package is imported)."""
+    """File and line of each ``def megopolis_pallas*``, ``def
+    metropolis_pallas*`` and ``def metropolis_c{1,2}_pallas*`` in the JAX
+    package's kernel files, read as text (nothing of the JAX package is
+    imported)."""
     lines = {}
-    for family in ("megopolis", "metropolis"):
-        rel = f"src/repro/kernels/{family}/{family}.py"
+    for rel in ("megopolis/megopolis.py", "metropolis/metropolis.py", "metropolis/c1c2.py"):
+        rel = f"src/repro/kernels/{rel}"
         for i, line in enumerate((ROOT / rel).read_text().splitlines(), 1):
-            if line.startswith(f"def {family}_pallas"):
+            if line.startswith(("def megopolis_pallas", "def metropolis_")) and "_pallas" in line:
                 lines[line[4:line.index("(")]] = (rel, i)
     return lines
 

@@ -8,8 +8,9 @@ module needs neither package's import of the other:
   keys (``int64[..., 2]``, the same words);
 * particle, weight and log-weight arrays <-> tensors, bit for bit;
 * UNGM ``theta`` dicts <-> dicts of float32 tensors;
-* the fields of a JAX ``MegopolisSpec`` or ``MetropolisSpec`` -> the port's
-  spec of the same family, and back.
+* the fields of a JAX ``MegopolisSpec``, ``MetropolisSpec``,
+  ``MetropolisC1Spec`` or ``MetropolisC2Spec`` -> the port's spec of the
+  same family, and back.
 """
 
 from __future__ import annotations
@@ -19,7 +20,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.spec import MegopolisSpec, MetropolisSpec, ResamplerSpec
+from repro_torch import resolve_device
+from repro_torch.core.spec import (
+    MegopolisSpec,
+    MetropolisC1Spec,
+    MetropolisC2Spec,
+    MetropolisSpec,
+    ResamplerSpec,
+)
 
 #: JAX backends whose kernels the port's ``cuda`` backend replaces.
 _KERNEL_BACKENDS = ("pallas", "pallas_interpret")
@@ -42,10 +50,11 @@ def key_to_jax(key: torch.Tensor) -> np.ndarray:
     return data.astype(np.uint32)
 
 
-def array_from_jax(x, device="cpu") -> torch.Tensor:
+def array_from_jax(x, device="cuda") -> torch.Tensor:
     """A particle, weight or log-weight array (numpy or anything
-    ``np.asarray`` takes) -> tensor on ``device``, bits unchanged."""
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    ``np.asarray`` takes) -> tensor on ``device``, bits unchanged.  The
+    device rule of the package: ``cuda`` unless ``device="cpu"``."""
+    return torch.from_numpy(np.array(x, copy=True)).to(resolve_device(device))
 
 
 def array_to_jax(x: torch.Tensor) -> np.ndarray:
@@ -53,7 +62,7 @@ def array_to_jax(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
-def theta_from_jax(theta: dict, device="cpu") -> dict:
+def theta_from_jax(theta: dict, device="cuda") -> dict:
     """UNGM scenario parameters (``{"amp", "obs_var"}``, scalars or ``[S]``)
     -> float32 tensors."""
     return {name: array_from_jax(np.asarray(v, np.float32), device) for name, v in theta.items()}
@@ -64,14 +73,15 @@ def theta_to_jax(theta: dict) -> dict:
 
 
 #: The port's spec class of each ported JAX family, by the family's name.
-_FAMILIES = {cls.name: cls for cls in (MegopolisSpec, MetropolisSpec)}
+_FAMILIES = {cls.name: cls for cls in (MegopolisSpec, MetropolisSpec, MetropolisC1Spec,
+                                        MetropolisC2Spec)}
 
 
 def spec_from_jax(spec) -> ResamplerSpec:
-    """A JAX ``MegopolisSpec`` or ``MetropolisSpec`` -> the port's spec of the
-    same family, field by field; the pallas backends map to ``cuda``, the
-    others raise in the port's spec as not yet ported.  Another family
-    raises ``NotImplementedError``."""
+    """A JAX spec of a ported family -> the port's spec of the same family,
+    field by field (C1/C2 with ``partition_size_bytes`` and ``warp``); the
+    pallas backends map to ``cuda``, the others raise in the port's spec as
+    not yet ported.  Another family raises ``NotImplementedError``."""
     cls = _FAMILIES.get(spec.name)
     if cls is None:
         raise NotImplementedError(
@@ -86,6 +96,6 @@ def spec_from_jax(spec) -> ResamplerSpec:
 
 def spec_to_jax(spec: ResamplerSpec) -> dict:
     """A port spec -> the fields of the JAX spec of the same family whose
-    kernels it runs (``backend="pallas"``); ``MegopolisSpec(**fields)`` or
-    ``MetropolisSpec(**fields)`` rebuilds it."""
+    kernels it runs (``backend="pallas"``); the JAX class of the same name
+    rebuilds it from them (``MetropolisC1Spec(**fields)``)."""
     return dict(dataclasses.asdict(spec), backend="pallas")

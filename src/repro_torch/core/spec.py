@@ -1,5 +1,5 @@
 """Typed resampler specs and the built resampler, after ``repro.core.spec``
-(the Megopolis and Metropolis families).
+(the Megopolis and Metropolis families, Metropolis-C1 and -C2).
 
     spec = MegopolisSpec(num_iters=32)          # backend="cuda"
     r = spec.build()
@@ -39,11 +39,23 @@ BACKENDS = ("cuda",)
 _UNPORTED_BACKENDS = ("reference", "xla", "pallas_interpret", "pallas")
 #: Kernel coalescing segment (the TPU's (8, 128) f32 tile, kept for parity).
 KERNEL_SEGMENT = 1024
+#: The C1/C2 kernels' partition: one segment of f32 weights.
+KERNEL_PARTITION_BYTES = KERNEL_SEGMENT * 4
+#: Threads per warp in the paper's cost model of C1/C2 (``warp`` field).
+WARP = 32
 
 
 def _resolve_iters(num_iters, weights: torch.Tensor) -> int:
     """The iteration count: eq. (3) over concrete weights when 'auto'."""
     return select_iterations(weights) if num_iters == AUTO else num_iters
+
+
+def _step_iters(num_iters, log_weights: torch.Tensor) -> int:
+    """The step's iteration count: eq. (3) over the normalised weights the
+    composed path hands to ``apply``, computed only under 'auto'."""
+    if num_iters != AUTO:
+        return num_iters
+    return select_iterations(normalise_log_weights(log_weights))
 
 
 def _row_by_row(fn: Callable, split_key: bool) -> Callable:
@@ -94,8 +106,9 @@ class Resampler:
 
     Row ``s`` of ``batch_rows``/``apply_rows``/``step_rows`` equals the
     single entry with ``keys[s]``.  ``batch``/``apply_batch`` follow the
-    family's contract: Metropolis's row ``s`` is the single call with
-    ``split(key, S)[s]``; Megopolis's shares one offset table over the bank.
+    family's contract: for Metropolis, C1 and C2 row ``s`` is the single
+    call with ``split(key, S)[s]``; Megopolis's shares one offset table over
+    the bank.
     ``apply`` selects ancestors and copies their state in one launch, with
     the ancestors of ``__call__``.  ``step`` normalises, computes the ESS,
     resamples iff ``ess_norm < threshold`` (strict) and copies state in one
@@ -275,8 +288,7 @@ class MegopolisSpec(ResamplerSpec):
             return mops.megopolis_cuda_apply_batch(key, w, p, _resolve_iters(it, w))
 
         def step(key, lw, p, thr):
-            b = _resolve_iters(it, normalise_log_weights(lw))
-            return mops.megopolis_cuda_step(key, lw, p, b, thr)
+            return mops.megopolis_cuda_step(key, lw, p, _step_iters(it, lw), thr)
 
         if it == AUTO:
             return Resampler(self, single=single, batch=batch,
@@ -292,6 +304,44 @@ class MegopolisSpec(ResamplerSpec):
             step_rows=lambda keys, lw, p, thr: mops.megopolis_cuda_step_rows(
                 keys, lw, p, it, thr),
         )
+
+
+def _split_key_build(spec: "ResamplerSpec", prefix: str) -> Resampler:
+    """The build of the Metropolis family (Algs. 2-4), whose bank rows are
+    the single calls with ``split(key, S)[s]`` or ``keys[s]``: the entries
+    are ``kernels/metropolis/ops.py``'s ``<prefix>``, ``<prefix>_batch``,
+    ... ``<prefix>_step_rows``.  'auto' resolves eq. (3) per call, and every
+    bank form launches row by row so that each row gets its own B."""
+    it = spec.num_iters
+    entry = {suffix: getattr(tops, prefix + suffix) for suffix in (
+        "", "_batch", "_batch_rows", "_apply", "_apply_batch", "_apply_rows", "_step",
+        "_step_rows")}
+
+    def single(key, w):
+        return entry[""](key, w, _resolve_iters(it, w))
+
+    def apply(key, w, p):
+        return entry["_apply"](key, w, p, _resolve_iters(it, w))
+
+    def step(key, lw, p, thr):
+        return entry["_step"](key, lw, p, _step_iters(it, lw), thr)
+
+    if it == AUTO:
+        return Resampler(spec, single=single, batch=_row_by_row(single, True),
+                         batch_rows=_auto_batch_rows(spec.name), apply=apply,
+                         apply_batch=_row_by_row(apply, True),
+                         apply_rows=_row_by_row(apply, False),
+                         step=step, step_rows=_row_by_row(step, False))
+    return Resampler(
+        spec, single=single,
+        batch=lambda key, w: entry["_batch"](key, w, it),
+        batch_rows=lambda keys, w: entry["_batch_rows"](keys, w, it),
+        apply=apply,
+        apply_batch=lambda key, w, p: entry["_apply_batch"](key, w, p, it),
+        apply_rows=lambda keys, w, p: entry["_apply_rows"](keys, w, p, it),
+        step=step,
+        step_rows=lambda keys, lw, p, thr: entry["_step_rows"](keys, lw, p, it, thr),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,32 +364,59 @@ class MetropolisSpec(ResamplerSpec):
         self._validate()
 
     def build(self) -> Resampler:
-        it = self.num_iters
+        return _split_key_build(self, "metropolis_cuda")
 
-        def single(key, w):
-            return tops.metropolis_cuda(key, w, _resolve_iters(it, w))
 
-        def apply(key, w, p):
-            return tops.metropolis_cuda_apply(key, w, p, _resolve_iters(it, w))
+@dataclasses.dataclass(frozen=True)
+class _PartitionedSpec(ResamplerSpec):
+    """Base of the segment-local variants (Algs. 3-4): each proposal is a
+    random lane of one partition tile shared by a tile of 1024 particles.
+    On ``cuda`` the partition is that tile, 1024 f32 = 4096 bytes, as on
+    the TPU; ``warp`` (the threads that share a partition in the paper's
+    cost model) is kept for parity and, as in the JAX package's kernels,
+    not read by them."""
 
-        def step(key, lw, p, thr):
-            b = _resolve_iters(it, normalise_log_weights(lw))
-            return tops.metropolis_cuda_step(key, lw, p, b, thr)
+    num_iters: Union[int, str] = AUTO
+    partition_size_bytes: int = KERNEL_PARTITION_BYTES
+    warp: int = WARP
+    backend: str = "cuda"
+    plane_dtype: str = "float32"
+    guard: str = "off"
 
-        if it == AUTO:
-            return Resampler(self, single=single, batch=_row_by_row(single, True),
-                             batch_rows=_auto_batch_rows(self.name), apply=apply,
-                             apply_batch=_row_by_row(apply, True),
-                             apply_rows=_row_by_row(apply, False),
-                             step=step, step_rows=_row_by_row(step, False))
-        return Resampler(
-            self, single=single,
-            batch=lambda key, w: tops.metropolis_cuda_batch(key, w, it),
-            batch_rows=lambda keys, w: tops.metropolis_cuda_batch_rows(keys, w, it),
-            apply=apply,
-            apply_batch=lambda key, w, p: tops.metropolis_cuda_apply_batch(key, w, p, it),
-            apply_rows=lambda keys, w, p: tops.metropolis_cuda_apply_rows(keys, w, p, it),
-            step=step,
-            step_rows=lambda keys, lw, p, thr: tops.metropolis_cuda_step_rows(
-                keys, lw, p, it, thr),
-        )
+    def __post_init__(self):
+        cls = type(self).__name__
+        self._validate()
+        for field in ("partition_size_bytes", "warp"):
+            value = getattr(self, field)
+            if isinstance(value, bool) or not isinstance(value, int) or value < 1:
+                raise ValueError(f"{cls}.{field} must be a positive int; got {value!r}")
+        if self.partition_size_bytes != KERNEL_PARTITION_BYTES:
+            raise ValueError(
+                f"{cls}: the cuda kernels' partition is one tile of {KERNEL_SEGMENT} f32 = "
+                f"{KERNEL_PARTITION_BYTES} bytes; got partition_size_bytes="
+                f"{self.partition_size_bytes}. Set partition_size_bytes="
+                f"{KERNEL_PARTITION_BYTES}; the paper's warp-granular partitions belong to "
+                "backend='reference' (ROADMAP Queue A, item 4)."
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class MetropolisC1Spec(_PartitionedSpec):
+    """Paper Alg. 3 (Dülger's C1): one partition tile per tile of particles,
+    kept for all B iterations, on the hand-written CUDA kernels."""
+
+    name: ClassVar[str] = "metropolis_c1"
+
+    def build(self) -> Resampler:
+        return _split_key_build(self, "metropolis_c1_cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class MetropolisC2Spec(_PartitionedSpec):
+    """Paper Alg. 4 (Dülger's C2): a fresh partition tile per tile of
+    particles at every iteration, on the hand-written CUDA kernels."""
+
+    name: ClassVar[str] = "metropolis_c2"
+
+    def build(self) -> Resampler:
+        return _split_key_build(self, "metropolis_c2_cuda")

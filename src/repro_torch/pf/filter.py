@@ -42,9 +42,18 @@ from repro_torch.core.metrics import (
     unique_ancestor_count,
 )
 from repro_torch.core.resamplers.batched import split_batch_keys
-from repro_torch.core.spec import MegopolisSpec, MetropolisSpec, ResamplerSpec
+from repro_torch.core.spec import (
+    MegopolisSpec,
+    MetropolisC1Spec,
+    MetropolisC2Spec,
+    MetropolisSpec,
+    ResamplerSpec,
+)
 from repro_torch.obs.stats import StepStats, stack_stats
 from repro_torch.obs.telemetry import Telemetry
+
+#: The resampler families the filter takes.
+_PORTED_SPECS = (MegopolisSpec, MetropolisSpec, MetropolisC1Spec, MetropolisC2Spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +68,10 @@ class StateSpaceModel:
 @dataclasses.dataclass(frozen=True)
 class ParticleFilter:
     """SIR filter config.  ``resampler`` is a ``MegopolisSpec`` (default:
-    30 iterations, the fixed prior of paper §7) or a ``MetropolisSpec``
-    (the paper's Alg. 2 baseline, Table 2); the other baseline families are
-    not ported yet (ROADMAP Queue A, item 5)."""
+    30 iterations, the fixed prior of paper §7), a ``MetropolisSpec`` (the
+    paper's Alg. 2 baseline, Table 2) or a ``MetropolisC1Spec`` /
+    ``MetropolisC2Spec`` (Algs. 3-4, Fig. 9); the other baseline families
+    are not ported yet (ROADMAP Queue A, item 5)."""
 
     model: StateSpaceModel
     num_particles: int
@@ -76,7 +86,7 @@ class ParticleFilter:
                 "ParticleFilter.ess_threshold must be in [0, 1] (a normalised "
                 f"ESS fraction) or None for Alg. 6; got {self.ess_threshold}"
             )
-        if not isinstance(self.resampler, (MegopolisSpec, MetropolisSpec)):
+        if not isinstance(self.resampler, _PORTED_SPECS):
             raise NotImplementedError(
                 f"ParticleFilter: resampler {self.resampler!r} is not ported yet "
                 "(ROADMAP Queue A, item 5: baseline families)"

@@ -114,15 +114,17 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     return b1 ^ b2
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+def randint(key: torch.Tensor, shape, minval: int, maxval: int, device=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``:
     two 32-bit draws per value folded modulo the span, in JAX's wrapped
-    uint32 arithmetic.  Returns ``int32[..., *shape]``."""
+    uint32 arithmetic.  Returns ``int32[..., *shape]``; the key is split
+    where it lies and the draws are made on ``device`` (default: the
+    key's)."""
     if not -(1 << 31) <= minval < maxval <= (1 << 31) - 1:
         raise ValueError(f"randint: need int32 bounds minval < maxval; got {minval}, {maxval}")
     keys = split(key)
-    hi = random_bits(keys[..., 0, :], shape)
-    lo = random_bits(keys[..., 1, :], shape)
+    hi = random_bits(keys[..., 0, :], shape, device)
+    lo = random_bits(keys[..., 1, :], shape, device)
     span = maxval - minval
     mult = (((1 << 16) % span) ** 2 & MASK32) % span  # JAX squares in uint32
     off = ((((hi % span) * mult) & MASK32) + lo % span) & MASK32

@@ -8,6 +8,12 @@ within a few float32 ULP of the exact value in either order, so they agree
 to ``STATS_RTOL``; ``incr = m + log(Σw) - log(N)`` to ``INCR_ATOL``.
 """
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,7 +139,8 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
     shutil.copytree(build.KERNELS_DIR, kernels, ignore=shutil.ignore_patterns("_build"))
     monkeypatch.setattr(build, "KERNELS_DIR", kernels)
     monkeypatch.setattr(build, "BUILD_DIR", kernels / "_build")
-    assert build.sources() == ["megopolis/csrc/megopolis.cu", "metropolis/csrc/metropolis.cu"]
+    assert build.sources() == ["megopolis/csrc/megopolis.cu", "metropolis/csrc/c1c2.cu",
+                               "metropolis/csrc/metropolis.cu"]
     before = {src: build._target(src) for src in build.sources()}
     (kernels / "common.py").write_text("# not included by any source\n")
     assert {src: build._target(src) for src in build.sources()} == before
@@ -164,3 +171,17 @@ def test_planes_round_trip():
     q = torch.randn(4096)
     assert tc.to_planes(q, 1).shape == (1, 4096)
     assert torch.equal(tc.from_planes(tc.to_planes(q, 1), q), q)
+
+
+def test_first_threaded_exp_after_the_port_set_up_is_exact():
+    """Importing the port sets MKL's VML up on one thread, so a process's
+    first threaded ``exp`` (4096 elements, two OpenMP chunks) equals a later
+    one bit for bit while XLA runs beside it (``_torch_vml_first_call.py``'s
+    ``setup`` arm; its ``cold`` arm shows the unset-up race, which is
+    MKL's)."""
+    script = Path(__file__).with_name("_torch_vml_first_call.py")
+    env = dict(os.environ, PYTHONPATH=str(script.parent.parent / "src"))
+    out = subprocess.run([sys.executable, str(script), "--runs", "1", "--jobs", "2"],
+                         capture_output=True, text=True, env=env, timeout=600, check=True)
+    arms = {r["arm"]: r for r in map(json.loads, out.stdout.strip().splitlines())}
+    assert arms["setup"]["processes"] == 1 and arms["setup"]["first_call_differed"] == 0

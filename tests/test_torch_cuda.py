@@ -1,5 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions, and the filter's default device.  They skip without a card
+versions (Megopolis, Metropolis, Metropolis-C1/C2), and the filter's default
+device.  They skip without a card
 (this file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch: ``python -m pytest -q --noconftest -m cuda
 tests/test_torch_cuda.py``)."""
@@ -8,9 +9,15 @@ import pytest
 import torch
 
 from repro_torch import random as trandom
-from repro_torch.core.spec import MegopolisSpec, MetropolisSpec
+from repro_torch.core.spec import (
+    MegopolisSpec,
+    MetropolisC1Spec,
+    MetropolisC2Spec,
+    MetropolisSpec,
+)
 from repro_torch.kernels.megopolis import megopolis as mk
 from repro_torch.kernels.megopolis import ref
+from repro_torch.kernels.metropolis import c1c2 as ck
 from repro_torch.kernels.metropolis import metropolis as tk
 from repro_torch.kernels.metropolis import ref as tref
 from repro_torch.pf.filter import ParticleFilter, run_filter, simulate
@@ -128,3 +135,66 @@ def test_run_filter_with_metropolis_on_the_card(card):
     est = run_filter(key, pf, obs)
     assert est.is_cuda and est.shape == (5,) and torch.isfinite(est).all()
     assert tk.metropolis_step.launches == 5
+
+
+def _tables(dev, variant, s, n, b, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    width = n // 1024 * (1 if variant == 1 else b)
+    return torch.randint(0, n // 1024, (s, width), generator=g, dtype=torch.int32).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", (1, 2))
+@pytest.mark.parametrize("n,b", ((8192, 16), (3072, 16), (8192, 300)))
+def test_c1c2_rows_kernel_matches_plain_version(card, variant, n, b):
+    """Three tiles (N = 3072) and more iterations than one chunk of
+    prefixes (B = 300)."""
+    w, _, state, _, seeds = _inputs(card, n=n)
+    parts = _tables(card, variant, w.shape[0], n, b)
+    ck.reset_launch_counts()
+    c = f"metropolis_c{variant}"
+    want_anc, want_out = tref.metropolis_c1c2_rows_ref(w, state, parts, seeds, b, variant)
+    anc, out = getattr(ck, c + "_fused_batch")(w, state, parts, seeds, b)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert torch.equal(getattr(ck, c + "_batch")(w, parts, seeds, b), want_anc)
+    assert torch.equal(getattr(ck, c)(w[2], parts[2], seeds[2], b), want_anc[2])
+    assert torch.equal(getattr(ck, c + "_fused")(w[2], state[2], parts[2], seeds[2], b)[1],
+                       want_out[2])
+    counts = [getattr(ck, c + sfx).launches for sfx in ("", "_batch", "_fused", "_fused_batch")]
+    assert counts == [1, 1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", (1, 2))
+def test_c1c2_step_kernel_matches_plain_version(card, variant):
+    _, lw, state, _, seeds = _inputs(card)
+    parts = _tables(card, variant, lw.shape[0], lw.shape[1], 16)
+    ck.reset_launch_counts()
+    c = f"metropolis_c{variant}"
+    anc, out, stats = getattr(ck, c + "_step_rows")(lw, state, parts, seeds, 16, 0.5)
+    want_anc, want_out, want_stats = tref.metropolis_c1c2_step_rows_ref(
+        lw, state, parts, seeds, 16, 0.5, variant)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])  # the same triggers
+    # Sums in another order than torch.sum: as the Megopolis step kernel.
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert torch.equal(getattr(ck, c + "_step_rows")(lw, state, parts, seeds, 16, 0.5)[2], stats)
+    one = getattr(ck, c + "_step")(lw[0], state[0], parts[0], seeds[0], 16, 0.5)
+    assert torch.equal(one[0], want_anc[0])
+    assert (getattr(ck, c + "_step_rows").launches, getattr(ck, c + "_step").launches) == (2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", (MetropolisC1Spec, MetropolisC2Spec))
+def test_run_filter_with_c1c2_on_the_card(card, cls):
+    key = trandom.PRNGKey(0)
+    _, obs = simulate(key, ungm(), 5)
+    pf = ParticleFilter(ungm(), 8192, resampler=cls(num_iters=8), ess_threshold=0.5)
+    ck.reset_launch_counts()
+    est = run_filter(key, pf, obs)
+    assert est.is_cuda and est.shape == (5,) and torch.isfinite(est).all()
+    assert getattr(ck, f"{cls.name}_step").launches == 5
+    r = cls(num_iters=8).build()
+    w = torch.rand(4, 8192, device=card)
+    keys = trandom.split(key, 4)
+    assert torch.equal(r.batch_rows(keys, w).cpu(), r.batch_rows(keys, w.cpu()))

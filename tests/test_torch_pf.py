@@ -84,8 +84,8 @@ def _replay_alg6(zs, jspec, tspec, seed):
         k_pred, k_res = jax.random.split(ks)
         x, w = stage1(k_pred, particles, zs[t - 1], jnp.float32(t))
         jx, ja = jpf._built.apply(k_res, w, x)
-        tx, ta = tpf._built.apply(_tkey(k_res), convert.array_from_jax(w),
-                                  convert.array_from_jax(x))
+        tx, ta = tpf._built.apply(_tkey(k_res), convert.array_from_jax(w, device="cpu"),
+                                  convert.array_from_jax(x, device="cpu"))
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja), err_msg=f"step {t}")
         np.testing.assert_array_equal(_bits(tx.numpy()), _bits(jx), err_msg=f"step {t}")
         flushed += int((np.asarray(w) == 0).sum())
@@ -121,8 +121,9 @@ def test_replay_conditional_resample_stage(sim):
         log_w = log_w + jnp.log(jnp.maximum(model.likelihood(zs[t - 1], x, jnp.float32(t)),
                                             1e-30))
         jx, ja, js = jpf._built.step(k_res, log_w, x, 0.5)
-        tx, ta, ts = tpf._built.step(_tkey(k_res), convert.array_from_jax(log_w),
-                                     convert.array_from_jax(x), 0.5)
+        tx, ta, ts = tpf._built.step(_tkey(k_res),
+                                     convert.array_from_jax(log_w, device="cpu"),
+                                     convert.array_from_jax(x, device="cpu"), 0.5)
         assert float(ts.resampled) == float(js.resampled), f"step {t}"
         np.testing.assert_allclose(float(ts.ess_norm), float(js.ess_norm), rtol=STATS_RTOL)
         total += N
@@ -168,8 +169,8 @@ def test_run_filter_bank_matches(thr):
                                     {n: jnp.asarray(v) for n, v in thetas.items()},
                                     telemetry=True)
     test, ttel = tf.run_filter_bank(_tkey(key), tpf, torch.from_numpy(obs),
-                                    convert.theta_from_jax(thetas), telemetry=True,
-                                    device="cpu")
+                                    convert.theta_from_jax(thetas, device="cpu"),
+                                    telemetry=True, device="cpu")
     assert test.shape == (s, t_steps) and ttel.steps.ess_norm.shape == (s, t_steps)
     np.testing.assert_allclose(test.numpy(), np.asarray(jest), atol=WHOLE_RUN_ATOL, rtol=0)
     np.testing.assert_array_equal(ttel.steps.resampled.numpy(), np.asarray(jtel.steps.resampled))
@@ -280,11 +281,23 @@ def test_convert_keys_round_trip():
 
 def test_convert_arrays_and_theta_round_trip():
     x = np.array([1.5, -0.0, 1e-39, np.inf, np.nan], np.float32)
-    t = convert.array_from_jax(jnp.asarray(x))
+    t = convert.array_from_jax(jnp.asarray(x), device="cpu")
     np.testing.assert_array_equal(_bits(convert.array_to_jax(t)), _bits(x))
     theta = jm.ungm_theta(amp=7.0, obs_var=2.0)
-    back = convert.theta_to_jax(convert.theta_from_jax(theta))
+    back = convert.theta_to_jax(convert.theta_from_jax(theta, device="cpu"))
     assert {k: float(v) for k, v in back.items()} == {"amp": 7.0, "obs_var": 2.0}
+
+
+def test_convert_arrays_need_a_card_unless_cpu_is_asked():
+    """``array_from_jax``/``theta_from_jax`` follow the device rule: with no
+    device they make CUDA tensors, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.array_from_jax(np.zeros(4, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.theta_from_jax(jm.ungm_theta(amp=7.0, obs_var=2.0))
+    assert convert.array_from_jax(np.zeros(4, np.float32), device="cpu").device.type == "cpu"
 
 
 def test_convert_spec_round_trip():
