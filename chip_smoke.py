@@ -15,21 +15,32 @@ over, and there is no CPU fallback):
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
      each family: ``MegopolisSpec``, ``MetropolisSpec`` (Table 2's baseline
      column), ``MetropolisC1Spec`` and ``MetropolisC2Spec`` (Fig. 9's
-     segment-local baselines): ``run_filter`` in Alg. 6 and in conditional mode (ESS
-     threshold 0.5), ``run_filter_bank`` (S scenarios) in both modes, and
-     ``run_filter_timed``; RMSE against ``simulate``'s truth, steps/s, the
-     resample ratio and a ``StepStats`` summary, the families side by side;
+     segment-local baselines) and ``RejectionSpec(max_iters=1024)``
+     (Murray's rejection, paper §1): ``run_filter`` in Alg. 6 and in
+     conditional mode (ESS threshold 0.5), ``run_filter_bank`` (S
+     scenarios) in both modes, and ``run_filter_timed``; RMSE against
+     ``simulate``'s truth, steps/s, the resample ratio and a ``StepStats``
+     summary, the families side by side; for rejection also
+     ``r(key, w)``, ``r.batch(key, w_bank)`` and ``r.batch_rows(keys,
+     w_bank)`` on weights captured from its Alg. 6 runs (no step calls
+     them), and the spread of its kernel time and of sup w / mean w over
+     the steps of one Alg. 6 run;
    * Path B, the quality and speed study (paper §6.3, Fig. 6): for each y
      of 0, 2 and 4, Gaussian weights at N particles, B from eq. (3) in
      closed form, K Monte Carlo resamples in one ``batch_rows`` launch,
      then MSE/N and the bias share (eq. 21), and the time of one
-     ``r(key, w)`` and one ``r.batch(key, w_bank)``, for every family;
+     ``r(key, w)`` and one ``r.batch(key, w_bank)``, for every family of
+     Fig. 6's method set (rejection is not in it);
    * small runs of both paths on the card against the same runs on the CPU;
 4. for each kernel wrapper, on its inputs captured from a short full-width
    run of the entry point that calls it (for a step, the last captured call
    that resampled), compare the kernel with its plain version on the card,
-   time both, and compute the kernel's bound; time each bank step kernel
-   at capped cooperative grids (blocks per SM);
+   time both, and compute the kernel's bound (for rejection from the
+   rounds this run's data needs, with the rounds of the lanes and of their
+   warps); time each bank step kernel at capped cooperative grids (blocks
+   per SM) and each rejection rows case with either hash instance; hold
+   ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
+   particles, ``max_iters`` 64);
 5. print the card line, one JSON line of kernels, then a last JSON line
    naming the device.
 
@@ -76,7 +87,17 @@ CAPTURE_STEPS = 5
 #: or more instructions, so this too is a floor), shift, convert and scale
 #: 3, the product and the compare 2.  C1/C2: as Metropolis, with the mask
 #: (mod 1024) and the add of the partition's base in place of the modulo.
-SWEEP_OPS = {"megopolis": 20, "metropolis": 24, "metropolis_c1": 25, "metropolis_c2": 25}
+#: Rejection: a round is a Metropolis iteration (24), counted per realised
+#: round, not per ``max_iters``.
+SWEEP_OPS = {"megopolis": 20, "metropolis": 24, "metropolis_c1": 25, "metropolis_c2": 25,
+             "rejection": 24}
+#: Rejection on Path A: the JAX package's default cap.
+REJECTION_MAX_ITERS = 1024
+#: The cap of phase 4's extra rejection case on eq. (12) weights at y = 4,
+#: low enough that it binds for a share of the lanes.
+REJECTION_CAP_CASE_ITERS = 64
+#: Lanes of a warp: a warp runs as many rounds as its slowest lane.
+WARP = 32
 #: Per particle of the step prelude: max, subtract, exp (about 10), the
 #: flushes, three sums, a square and a max.
 PRELUDE_OPS = 20
@@ -203,11 +224,14 @@ def main(argv=None) -> int:
         MetropolisC1Spec,
         MetropolisC2Spec,
         MetropolisSpec,
+        RejectionSpec,
     )
     from repro_torch.kernels import build
     from repro_torch.kernels.megopolis import megopolis as mk
     from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import metropolis as tk
+    from repro_torch.kernels.rejection import ops as rops
+    from repro_torch.kernels.rejection import rejection as rk
     from repro_torch.pf.filter import simulate
     from repro_torch.pf.models import ungm, ungm_family
 
@@ -247,7 +271,16 @@ def main(argv=None) -> int:
                        "bank_conditional": getattr(ck, f"{c}_step_rows"),
                        "batch_rows": getattr(ck, f"{c}_batch"), "single": getattr(ck, c),
                        "batch": getattr(ck, f"{c}_batch")}
-    wrappers = mk.WRAPPERS + tk.WRAPPERS + ck.WRAPPERS
+    for f in families.values():
+        f.update(path_b=True, small=f["cls"](num_iters=16))
+    families["rejection"] = {
+        "spec": RejectionSpec(max_iters=REJECTION_MAX_ITERS), "cls": RejectionSpec,
+        "alg6": rk.rejection_fused, "conditional": rk.rejection_step,
+        "bank_alg6": rk.rejection_fused_batch, "bank_conditional": rk.rejection_step_rows,
+        "batch_rows": rk.rejection_batch, "single": rk.rejection, "batch": rk.rejection_batch,
+        "path_b": False, "small": RejectionSpec(max_iters=REJECTION_MAX_ITERS)}
+    path_b_families = {name: f for name, f in families.items() if f["path_b"]}
+    wrappers = mk.WRAPPERS + tk.WRAPPERS + ck.WRAPPERS + rk.WRAPPERS
     key = trandom.PRNGKey(args.seed)
     k_sim, k_run, k_bank, k_quality = trandom.split(key, 4)
     model, fam = ungm(), ungm_family()
@@ -265,7 +298,7 @@ def main(argv=None) -> int:
     results = {}
 
     def drive(name, fn, expected, n_steps=None):
-        for module in (mk, tk, ck):
+        for module in (mk, tk, ck, rk):
             module.reset_launch_counts()
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -286,7 +319,11 @@ def main(argv=None) -> int:
     for family, f in families.items():
         path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, thetas,
                k_run, drive, results)
-    for family, f in families.items():
+    path_a_index("rejection", families["rejection"], rops, args, dev, model, fam, obs,
+                 bank_obs, thetas, k_run, drive, results)
+    results["rejection_spread"] = rejection_spread(families["rejection"]["spec"], n, model,
+                                                   obs, k_run, dev)
+    for family, f in path_b_families.items():
         path_b(family, f, args, dev, k_quality, drive, results)
     results["small_runs_card_vs_cpu"] = small_runs(families, obs, k_run, k_quality, dev)
     results["host_and_device_per_step"] = {
@@ -303,16 +340,20 @@ def main(argv=None) -> int:
     for y in PATH_B_YS:
         side = {family: {k: results[f"fig6/y={y}/{family}"][k] for k in
                          ("B", "mse_over_n", "bias_share", "single_ms", "batch_ms")}
-                for family in families}
+                for family in path_b_families}
         print(f"compare fig6/y={y}: {json.dumps(side)}")
 
     # -- 4. kernels against their plain versions --------------------------------
     kernels = []
     for case in kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
                              k_quality):
-        kernels.append(check_kernel(case, path_launches))
+        entry = check_kernel(case, path_launches)
+        if case[0] in TPU_KERNELS:  # not the extra case where the cap binds
+            kernels.append(entry)
         if case[0].endswith("_step_rows"):
             print(f"grid {case[0]}: {json.dumps(grid_study(case))}", flush=True)
+        if case[4] == "rejection" and case[5] != "step":
+            print(f"hash {case[0]}: {json.dumps(hash_study(case))}", flush=True)
     # Launches made above to compare and time do not count: the counts
     # reported are those of the main path's runs.
     print(card)
@@ -363,6 +404,60 @@ def path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, t
     results[name].update(resample_ratio=resample_ratio(times), times=times)
 
 
+def path_a_index(family, f, ops, args, dev, model, fam, obs, bank_obs, thetas, k_run, drive,
+                 results):
+    """The index-only entries of a family that Path B does not run, on Path
+    A's weights: one population's and the bank's, captured from their last
+    Alg. 6 step (``CAPTURE_STEPS`` steps); ``r(key, w)``, ``r.batch(key,
+    w_bank)`` and ``r.batch_rows(keys, w_bank)``, each checked for ancestors
+    in ``[0, N)``."""
+    from repro_torch import random as trandom
+    from repro_torch.pf.filter import ParticleFilter, run_filter, run_filter_bank
+
+    n, spec = args.particles, f["spec"]
+    pf = ParticleFilter(model, n, resampler=spec)
+    w = capture(ops, f["alg6"].__name__,
+                lambda: run_filter(k_run, pf, obs[:CAPTURE_STEPS], device=dev))[0]
+    pf_bank = ParticleFilter(fam, n, resampler=spec)
+    w_bank = capture(ops, f["bank_alg6"].__name__, lambda: run_filter_bank(
+        k_run, pf_bank, bank_obs[:, :CAPTURE_STEPS], thetas, device=dev))[0]
+    r = spec.build()
+    key = trandom.fold_in(k_run, 7)
+    keys = trandom.split(key, w_bank.shape[0])
+    r(key, w)  # warm up
+    name = f"path_a_index/{family}"
+    anc, anc_b, anc_r = drive(
+        name, lambda: (r(key, w), r.batch(key, w_bank), r.batch_rows(keys, w_bank)),
+        [f["single"], f["batch"]])
+    for got, shape in ((anc, (n,)), (anc_b, tuple(w_bank.shape)), (anc_r, tuple(w_bank.shape))):
+        if tuple(got.shape) != shape or not bool(((got >= 0) & (got < n)).all()):
+            fail(f"{name}: ancestors not in [0, N) of shape {shape}")
+    results[name].update(rows=w_bank.shape[0], survivors=int(anc.unique().numel()))
+
+
+def rejection_spread(spec, n, model, obs, k_run, dev) -> dict:
+    """Rejection across a whole Alg. 6 run of Path A: per step, sup w / mean
+    w (the mean rounds a lane needs; the telemetry's max_weight·N) and the
+    device time of ``rejection_rows_kernel`` (profiler kernel events; it
+    may drop a few), each as min, median, p90 and max over the steps."""
+    from repro_torch.pf.filter import ParticleFilter, run_filter
+
+    pf = ParticleFilter(model, n, resampler=spec)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        _, tel = run_filter(k_run, pf, obs, telemetry=True, device=dev)
+        torch.cuda.synchronize()
+    ms = sorted(us / 1e3 for name, us in device_kernels(prof) if "rejection_rows_kernel" in name)
+    ratio = sorted((tel.steps.max_weight.float() * n).tolist())
+
+    def spread(xs):
+        return {"min": xs[0], "p50": xs[len(xs) // 2], "p90": xs[int(0.9 * len(xs))],
+                "max": xs[-1]} if xs else {}
+
+    return {"steps": len(ratio), "kernel_events": len(ms), "kernel_ms": spread(ms),
+            "sup_over_mean_w": spread(ratio)}
+
+
 def path_b(family, f, args, dev, k_quality, drive, results):
     """Path B for one family: Fig. 6's quality and speed study, index only,
     at N particles and K Monte Carlo resamples per y."""
@@ -403,7 +498,8 @@ def path_b(family, f, args, dev, k_quality, drive, results):
 def small_runs(families, obs, k_run, k_quality, dev) -> dict:
     """Both paths at a small size on the card against the same runs on the
     CPU (plain versions): the filter within ``SMALL_RUN_ATOL``, Path B's
-    offspring bit for bit (the same weights on both)."""
+    offspring bit for bit (the same weights on both; for rejection, which
+    Path B does not run, its index-only bank entry on the same weights)."""
     from repro_torch import random as trandom
     from repro_torch.core.metrics import offspring_counts
     from repro_torch.core.weightgen import gaussian_weights
@@ -412,14 +508,13 @@ def small_runs(families, obs, k_run, k_quality, dev) -> dict:
 
     out = {}
     for family, f in families.items():
-        small = ParticleFilter(ungm(), 4096, resampler=f["cls"](num_iters=16),
-                               ess_threshold=0.5)
+        small = ParticleFilter(ungm(), 4096, resampler=f["small"], ess_threshold=0.5)
         on_card = run_filter(k_run, small, obs[:20], device=dev).cpu()
         on_cpu = run_filter(k_run, small, obs[:20].cpu(), device="cpu")
         err = float((on_card - on_cpu).abs().max())
         if not err <= SMALL_RUN_ATOL:
             fail(f"small {family} filter: card and CPU differ by {err} > {SMALL_RUN_ATOL}")
-        r = f["cls"](num_iters=16).build()
+        r = f["small"].build()
         w = gaussian_weights(k_quality, 8192, 2.0, device="cpu")
         keys = trandom.split(k_quality, 4)
         bank = w[None].expand(4, -1).contiguous()
@@ -438,12 +533,15 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     from repro_torch import random as trandom
     from repro_torch.core.iterations import gaussian_weight_iterations
     from repro_torch.core.weightgen import gaussian_weights
+    from repro_torch.kernels.common import key_to_seed
     from repro_torch.kernels.megopolis import megopolis as mk
     from repro_torch.kernels.megopolis import ops as mops
     from repro_torch.kernels.megopolis import ref as mref
     from repro_torch.kernels.metropolis import metropolis as tk
     from repro_torch.kernels.metropolis import ops as tops
     from repro_torch.kernels.metropolis import ref as tref
+    from repro_torch.kernels.rejection import ref as rref
+    from repro_torch.kernels.rejection import rejection as rk
     from repro_torch.pf.filter import ParticleFilter, run_filter, run_filter_bank
 
     n = args.particles
@@ -538,6 +636,60 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
         c = f"metropolis_c{variant}"
         cases += c1c2_cases(c, variant, tops, fig6(c, "single"), fig6(c, "batch_rows"),
                             single(c, None), bank(c, None), single(c, 0.5), bank(c, 0.5), thr)
+    # Rejection, rows 19-24: the index-only wrappers on Path A's weights.
+    cases += rejection_cases(families["rejection"]["spec"], single("rejection", None),
+                             bank("rejection", None), single("rejection", 0.5),
+                             bank("rejection", 0.5), thr, k_run)
+    # Rejection where its cap binds: eq. (12) weights at y = 4.
+    k_cap = trandom.fold_in(k_quality, 400)
+    w_cap = gaussian_weights(k_cap, n, 4.0, device=dev)
+    sd_cap, it_cap = key_to_seed(trandom.fold_in(k_cap, 1)), REJECTION_CAP_CASE_ITERS
+    cases.append(("rejection_cap", rk.rejection, (w_cap, sd_cap, it_cap),
+                  lambda: rref.rejection_rows_ref(w_cap[None], None, sd_cap.reshape(1), it_cap),
+                  "rejection", "index", 1, it_cap))
+    return cases
+
+
+def rejection_cases(spec, alg6, bank_alg6, cond, bank_cond, thr, key) -> list:
+    """The six rejection wrappers on captured inputs, as ``kernel_cases``:
+    the fused and step wrappers from Path A's runs, the index-only ones from
+    ``r(key, w)``, ``r.batch_rows(keys, w_bank)`` on the weights those runs
+    captured; the plain version of each is the bank form on the same
+    arguments."""
+    from repro_torch import random as trandom
+    from repro_torch.kernels.rejection import ops as rops
+    from repro_torch.kernels.rejection import ref as rref
+    from repro_torch.kernels.rejection import rejection as rk
+
+    cases = []
+    w1, t1, sd1, it1 = capture(rops, "rejection_fused", alg6)
+    w2, t2, sd2, it2 = capture(rops, "rejection_fused_batch", bank_alg6)
+    r = spec.build()
+    k = trandom.fold_in(key, 7)
+    w, sd, it = capture(rops, "rejection", lambda: r(k, w1))
+    cases.append(("rejection", rk.rejection, (w, sd, it),
+                  lambda: rref.rejection_rows_ref(w[None], None, sd.reshape(1), it),
+                  "rejection", "index", 1, it))
+    keys = trandom.split(k, w2.shape[0])
+    wb, sdb, itb = capture(rops, "rejection_batch", lambda: r.batch_rows(keys, w2))
+    cases.append(("rejection_batch", rk.rejection_batch, (wb, sdb, itb),
+                  lambda: rref.rejection_rows_ref(wb, None, sdb, itb),
+                  "rejection", "index", wb.shape[0], itb))
+    cases.append(("rejection_fused", rk.rejection_fused, (w1, t1, sd1, it1),
+                  lambda: rref.rejection_rows_ref(w1[None], t1[None], sd1.reshape(1), it1),
+                  "rejection", "fused", 1, it1))
+    cases.append(("rejection_fused_batch", rk.rejection_fused_batch, (w2, t2, sd2, it2),
+                  lambda: rref.rejection_rows_ref(w2, t2, sd2, it2),
+                  "rejection", "fused", w2.shape[0], it2))
+    l3, t3, sd3, it3, _ = capture(rops, "rejection_step", cond)
+    cases.append(("rejection_step", rk.rejection_step, (l3, t3, sd3, it3, thr),
+                  lambda: rref.rejection_step_rows_ref(l3[None], t3[None], sd3.reshape(1), it3,
+                                                       thr),
+                  "rejection", "step", 1, it3))
+    l4, t4, sd4, it4, _ = capture(rops, "rejection_step_rows", bank_cond)
+    cases.append(("rejection_step_rows", rk.rejection_step_rows, (l4, t4, sd4, it4, thr),
+                  lambda: rref.rejection_step_rows_ref(l4, t4, sd4, it4, thr),
+                  "rejection", "step", l4.shape[0], it4))
     return cases
 
 
@@ -593,11 +745,15 @@ KERNEL_NAMES = {
     ("metropolis_c2", "index"): "metropolis_c1c2_rows_kernel<2",
     ("metropolis_c2", "fused"): "metropolis_c1c2_rows_kernel<2",
     ("metropolis_c2", "step"): "metropolis_c1c2_step_rows_kernel<2",
+    ("rejection", "index"): "rejection_rows_kernel<false",
+    ("rejection", "fused"): "rejection_rows_kernel<true",
+    ("rejection", "step"): "rejection_step_rows_kernel",
 }
 #: The CUDA source of each family's kernels.
 SOURCES = {"megopolis": "megopolis/csrc/megopolis.cu",
            "metropolis": "metropolis/csrc/metropolis.cu",
-           "metropolis_c1": "metropolis/csrc/c1c2.cu", "metropolis_c2": "metropolis/csrc/c1c2.cu"}
+           "metropolis_c1": "metropolis/csrc/c1c2.cu", "metropolis_c2": "metropolis/csrc/c1c2.cu",
+           "rejection": "rejection/csrc/rejection.cu"}
 #: The TPU kernel each wrapper replaces (``megopolis_rows`` is row 1 vmapped).
 TPU_KERNELS = {
     "megopolis": "megopolis_pallas", "megopolis_batch": "megopolis_pallas_batch",
@@ -609,6 +765,10 @@ TPU_KERNELS = {
     "metropolis_fused_batch": "metropolis_pallas_fused_batch",
     "metropolis_step": "metropolis_pallas_step",
     "metropolis_step_rows": "metropolis_pallas_step_rows",
+    "rejection": "rejection_pallas", "rejection_batch": "rejection_pallas_batch",
+    "rejection_fused": "rejection_pallas_fused",
+    "rejection_fused_batch": "rejection_pallas_fused_batch",
+    "rejection_step": "rejection_pallas_step", "rejection_step_rows": "rejection_pallas_step_rows",
 }
 for _c in ("metropolis_c1", "metropolis_c2"):
     # The JAX package has no C1/C2 bank kernel: the bank forms replace the
@@ -632,7 +792,7 @@ def check_kernel(case, path_launches) -> dict:
     got = tuple(g.reshape(wnt.shape) for g, wnt in zip(got, want))
     anc_mismatch = int((got[0] != want[0]).sum())
     state_err = float((got[1] - want[1]).abs().max()) if len(got) > 1 else 0.0
-    tpu_file, tpu_line = _tpu_kernel_lines()[TPU_KERNELS[name]]
+    tpu_file, tpu_line = _tpu_kernel_lines()[TPU_KERNELS[wrapper.__name__]]
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/{SOURCES[family]}",
              "replaces": f"{tpu_file}:{tpu_line}"}
@@ -660,18 +820,22 @@ def check_kernel(case, path_launches) -> dict:
         # Fixed-order block sums: the stats repeat bit for bit.
         if not torch.equal(wrapper(*kargs)[2].reshape(gs.shape), gs):
             fail(f"{name}: stats differ from one launch to the next")
-    work = rows * n * iters
+    # Rejection's work is the rounds this run's data needs (-1: a step row
+    # that did not resample runs none).
+    rounds = rejection_rounds(kargs, kind, iters) if family == "rejection" else None
+    work = rows * n * iters if rounds is None else int((rounds + 1).sum())
     reps = 20 if work < 2e9 else 4
     ms = kernel_ms(lambda: wrapper(*kargs), KERNEL_NAMES[(family, kind)], reps)
     call_ms = time_ms(lambda: wrapper(*kargs), reps)
     plain_ms = time_ms(plain, max(1, min(5, int(2e9 // work))), warmup=0)
     # Weights (or log-weights) in and ancestors out; the state in and out
     # (D = 1 on the path) for the fused and step kernels; C1/C2's partition
-    # table, read once.
+    # table, read once; rejection's sup w pass before a rows launch.
     table = kargs[-4 if kind == "step" else -3] if family.startswith("metropolis_c") else None
     n_bytes = rows * n * (8 if kind == "index" else 16)
     n_bytes += 0 if table is None else 4 * table.numel()
-    n_ops = rows * n * (iters * SWEEP_OPS[family] + (PRELUDE_OPS if kind == "step" else 0))
+    n_bytes += 4 * rows * n if family == "rejection" and kind != "step" else 0
+    n_ops = work * SWEEP_OPS[family] + rows * n * (PRELUDE_OPS if kind == "step" else 0)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     entry.update(launches=path_launches.get(name, 0), max_abs_err=max_abs_err,
                  ancestor_mismatches=anc_mismatch, ms=ms, call_ms=call_ms,
@@ -689,8 +853,65 @@ def check_kernel(case, path_launches) -> dict:
         # L2: once per own tile for C1, once per iteration for C2.
         loads = rows * (n // 1024) * (1 if family == "metropolis_c1" else iters)
         entry.update(partition_l2_bytes=loads * 4096, table_entries=table.numel())
+    elif rounds is not None:
+        entry.update(divergence(rounds, iters), l2_sector_bytes=(work - int((rounds >= 0).sum()))
+                     * L2_SECTOR)
     print(f"kernel {name}: {json.dumps(entry)}", flush=True)
     return entry
+
+
+def rejection_rounds(kargs, kind, max_iters) -> torch.Tensor:
+    """The round of each lane's accept on a rejection wrapper's inputs
+    (``rejection_rounds_ref``), ``[S, N]``: ``max_iters`` at the cap, -1 on
+    a step row that did not resample."""
+    from repro_torch.kernels.rejection.ref import rejection_rounds_ref
+
+    w = kargs[0].reshape(-1, kargs[0].shape[-1])
+    seeds = kargs[1 if kind == "index" else 2].reshape(-1)
+    if kind != "step":
+        return rejection_rounds_ref(w, seeds, max_iters)
+    return rejection_rounds_ref(w, seeds, max_iters, log_weights=True, thr=kargs[-1])
+
+
+def divergence(rounds: torch.Tensor, max_iters: int) -> dict:
+    """Rounds run by the lanes that ran (rounds + 1 each) against the
+    rounds of their warps (32 neighbouring lanes, each as many as its
+    slowest): the mean of each, the divergence share ``1 - lane / warp``
+    (paper §1's SIMD cost) and the share of lanes at the cap."""
+    ran = rounds[rounds >= 0]
+    if ran.numel() == 0:
+        return {"rows_run": 0}
+    lane = ran + 1
+    warp = (rounds.reshape(-1, WARP) + 1).amax(dim=1)
+    warp = warp[warp > 0]
+    lane_mean, warp_mean = float(lane.float().mean()), float(warp.float().mean())
+    return {"lane_rounds_mean": lane_mean, "warp_rounds_mean": warp_mean,
+            "lane_rounds_max": int(lane.max()), "divergence_share": 1 - lane_mean / warp_mean,
+            "cap_share": float((ran == max_iters).float().mean())}
+
+
+def hash_study(case) -> dict:
+    """Kernel ms of a rejection rows wrapper on its captured inputs with each
+    instance of the per-round hash prefix (``INLINE_HASH``: shared memory or
+    in each thread), and that both give the same ancestors; launches here do
+    not count."""
+    from repro_torch.kernels.rejection import rejection as rk
+
+    name, wrapper, kargs, _, family, kind, _, _ = case
+    chosen = rk.INLINE_HASH
+    out, ancs = {"chosen_inline": chosen}, []
+    try:
+        for inline in (False, True):
+            rk.INLINE_HASH = inline
+            got = wrapper(*kargs)
+            ancs.append(got[0] if isinstance(got, tuple) else got)
+            out["inline_ms" if inline else "shared_ms"] = kernel_ms(
+                lambda: wrapper(*kargs), KERNEL_NAMES[(family, kind)], 10)
+    finally:
+        rk.INLINE_HASH = chosen
+    if not torch.equal(ancs[0], ancs[1]):
+        fail(f"{name}: the two hash instances select different ancestors")
+    return out
 
 
 def grid_study(case) -> dict:
@@ -702,12 +923,14 @@ def grid_study(case) -> dict:
     from repro_torch.kernels.megopolis import megopolis as mk
     from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import metropolis as tk
+    from repro_torch.kernels.rejection import rejection as rk
 
     name, wrapper, kargs, _, family, kind, rows, _ = case
     if family.startswith("metropolis_c"):
         lib, attr, lead = ck._lib(), "metropolis_c1c2_step_grid", (int(family[-1]),)
     else:
-        lib, attr, lead = (mk if family == "megopolis" else tk)._lib(), f"{family}_step_grid", ()
+        module = {"megopolis": mk, "metropolis": tk, "rejection": rk}[family]
+        lib, attr, lead = module._lib(), f"{family}_step_grid", ()
     real = getattr(lib, attr)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(kargs[0].device):
@@ -733,8 +956,9 @@ def grid_study(case) -> dict:
 def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
     """What one filter step costs besides the kernel: the key derivation
     (split, split, then the family's tables: offsets and seed for Megopolis,
-    the seed alone for Metropolis, the partition table, drawn on the card,
-    and the seed for C1/C2), the UNGM noise draw on the card, and a profile
+    the seed alone for Metropolis and rejection, the partition table, drawn
+    on the card, and the seed for C1/C2), the UNGM noise draw on the card,
+    and a profile
     of a few conditional steps (device time by kernel name and the device's
     busy share of the wall time)."""
     from repro_torch import random as trandom
@@ -745,7 +969,8 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
 
     tables = {"megopolis": lambda k: key_tables(k, n, b), "metropolis": key_to_seed,
               "metropolis_c1": lambda k: c1c2_tables(1, k, n, b, dev),
-              "metropolis_c2": lambda k: c1c2_tables(2, k, n, b, dev)}[family]
+              "metropolis_c2": lambda k: c1c2_tables(2, k, n, b, dev),
+              "rejection": key_to_seed}[family]
     reps = 200
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -786,14 +1011,16 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
 
 def _tpu_kernel_lines() -> dict:
     """File and line of each ``def megopolis_pallas*``, ``def
-    metropolis_pallas*`` and ``def metropolis_c{1,2}_pallas*`` in the JAX
-    package's kernel files, read as text (nothing of the JAX package is
-    imported)."""
+    metropolis_pallas*``, ``def metropolis_c{1,2}_pallas*`` and ``def
+    rejection_pallas*`` in the JAX package's kernel files, read as text
+    (nothing of the JAX package is imported)."""
     lines = {}
-    for rel in ("megopolis/megopolis.py", "metropolis/metropolis.py", "metropolis/c1c2.py"):
+    for rel in ("megopolis/megopolis.py", "metropolis/metropolis.py", "metropolis/c1c2.py",
+                "rejection/rejection.py"):
         rel = f"src/repro/kernels/{rel}"
         for i, line in enumerate((ROOT / rel).read_text().splitlines(), 1):
-            if line.startswith(("def megopolis_pallas", "def metropolis_")) and "_pallas" in line:
+            if (line.startswith(("def megopolis_pallas", "def metropolis_", "def rejection_"))
+                    and "_pallas" in line):
                 lines[line[4:line.index("(")]] = (rel, i)
     return lines
 

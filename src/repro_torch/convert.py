@@ -9,8 +9,8 @@ module needs neither package's import of the other:
 * particle, weight and log-weight arrays <-> tensors, bit for bit;
 * UNGM ``theta`` dicts <-> dicts of float32 tensors;
 * the fields of a JAX ``MegopolisSpec``, ``MetropolisSpec``,
-  ``MetropolisC1Spec`` or ``MetropolisC2Spec`` -> the port's spec of the
-  same family, and back.
+  ``MetropolisC1Spec``, ``MetropolisC2Spec`` or ``RejectionSpec`` -> the
+  port's spec of the same family, and back.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from repro_torch.core.spec import (
     MetropolisC1Spec,
     MetropolisC2Spec,
     MetropolisSpec,
+    RejectionSpec,
     ResamplerSpec,
 )
 
@@ -74,19 +75,20 @@ def theta_to_jax(theta: dict) -> dict:
 
 #: The port's spec class of each ported JAX family, by the family's name.
 _FAMILIES = {cls.name: cls for cls in (MegopolisSpec, MetropolisSpec, MetropolisC1Spec,
-                                        MetropolisC2Spec)}
+                                        MetropolisC2Spec, RejectionSpec)}
 
 
 def spec_from_jax(spec) -> ResamplerSpec:
     """A JAX spec of a ported family -> the port's spec of the same family,
-    field by field (C1/C2 with ``partition_size_bytes`` and ``warp``); the
+    field by field (C1/C2 with ``partition_size_bytes`` and ``warp``,
+    rejection with ``max_iters``); the
     pallas backends map to ``cuda``, the others raise in the port's spec as
     not yet ported.  Another family raises ``NotImplementedError``."""
     cls = _FAMILIES.get(spec.name)
     if cls is None:
         raise NotImplementedError(
             f"spec_from_jax: the {spec.name!r} family is not ported yet "
-            "(ROADMAP Queue A, item 5: baseline families)"
+            "(ROADMAP Queue A, item 5: the prefix-sum family)"
         )
     fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(cls)}
     if fields["backend"] in _KERNEL_BACKENDS:

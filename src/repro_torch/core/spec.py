@@ -1,7 +1,9 @@
 """Typed resampler specs and the built resampler, after ``repro.core.spec``
-(the Megopolis and Metropolis families, Metropolis-C1 and -C2).
+(the Megopolis and Metropolis families, Metropolis-C1 and -C2, and Murray's
+rejection).
 
     spec = MegopolisSpec(num_iters=32)          # backend="cuda"
+    spec = RejectionSpec(max_iters=1024)        # no num_iters: a capped loop
     r = spec.build()
     ancestors = r(key, weights)
     particles2, ancestors = r.apply(key, weights, particles)
@@ -31,6 +33,7 @@ from repro_torch.core.metrics import (
 from repro_torch.core.resamplers.batched import split_batch_keys
 from repro_torch.kernels.megopolis import ops as mops
 from repro_torch.kernels.metropolis import ops as tops
+from repro_torch.kernels.rejection import ops as rops
 from repro_torch.obs.stats import stats_from_vector
 
 AUTO = "auto"
@@ -106,9 +109,10 @@ class Resampler:
 
     Row ``s`` of ``batch_rows``/``apply_rows``/``step_rows`` equals the
     single entry with ``keys[s]``.  ``batch``/``apply_batch`` follow the
-    family's contract: for Metropolis, C1 and C2 row ``s`` is the single
-    call with ``split(key, S)[s]``; Megopolis's shares one offset table over
-    the bank.
+    family's contract: for Metropolis, C1, C2 and rejection row ``s`` is the
+    single call with ``split(key, S)[s]``; Megopolis's shares one offset
+    table over the bank.  With a fixed iteration count (rejection always)
+    each bank form is one launch.
     ``apply`` selects ancestors and copies their state in one launch, with
     the ancestors of ``__call__``.  ``step`` normalises, computes the ESS,
     resamples iff ``ess_norm < threshold`` (strict) and copies state in one
@@ -208,14 +212,19 @@ class ResamplerSpec:
 
     name: ClassVar[str] = ""
 
-    def _validate(self):
-        """The checks every family shares: ``num_iters``, ``backend``,
-        ``plane_dtype`` and ``guard``; values the port does not have yet
-        raise ``NotImplementedError`` naming their ROADMAP item."""
-        cls = type(self).__name__
+    def _validate_num_iters(self):
+        """The check of the families with an iteration count B."""
         it = self.num_iters
         if it != AUTO and (isinstance(it, bool) or not isinstance(it, int) or it < 1):
-            raise ValueError(f"{cls}.num_iters must be a positive int or {AUTO!r}; got {it!r}")
+            raise ValueError(
+                f"{type(self).__name__}.num_iters must be a positive int or {AUTO!r}; got {it!r}"
+            )
+
+    def _validate(self):
+        """The checks every family shares: ``backend``, ``plane_dtype`` and
+        ``guard``; values the port does not have yet raise
+        ``NotImplementedError`` naming their ROADMAP item."""
+        cls = type(self).__name__
         if self.backend in _UNPORTED_BACKENDS:
             raise NotImplementedError(
                 f"{cls}.backend={self.backend!r} is not ported yet; the port "
@@ -265,6 +274,7 @@ class MegopolisSpec(ResamplerSpec):
     name: ClassVar[str] = "megopolis"
 
     def __post_init__(self):
+        self._validate_num_iters()
         self._validate()
         if self.segment != KERNEL_SEGMENT:
             raise ValueError(
@@ -361,6 +371,7 @@ class MetropolisSpec(ResamplerSpec):
     name: ClassVar[str] = "metropolis"
 
     def __post_init__(self):
+        self._validate_num_iters()
         self._validate()
 
     def build(self) -> Resampler:
@@ -385,6 +396,7 @@ class _PartitionedSpec(ResamplerSpec):
 
     def __post_init__(self):
         cls = type(self).__name__
+        self._validate_num_iters()
         self._validate()
         for field in ("partition_size_bytes", "warp"):
             value = getattr(self, field)
@@ -420,3 +432,42 @@ class MetropolisC2Spec(_PartitionedSpec):
 
     def build(self) -> Resampler:
         return _split_key_build(self, "metropolis_c2_cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class RejectionSpec(ResamplerSpec):
+    """Murray's rejection resampler (paper §1's unbiased baseline) on the
+    hand-written CUDA kernels: each particle proposes until its first
+    accept, at most ``max_iters`` rounds after its self-proposal; a
+    particle that never accepts keeps its own index.  It has no iteration
+    count B and so no 'auto'; ``step`` computes nothing on the host before
+    its launch.  Every bank form is one launch, ``batch``/``apply_batch``
+    under the split-key contract."""
+
+    max_iters: int = 1024
+    backend: str = "cuda"
+    plane_dtype: str = "float32"
+    guard: str = "off"
+
+    name: ClassVar[str] = "rejection"
+
+    def __post_init__(self):
+        m = self.max_iters
+        if isinstance(m, bool) or not isinstance(m, int) or m < 1:
+            raise ValueError(f"RejectionSpec.max_iters must be a positive int; got {m!r}")
+        self._validate()
+
+    def build(self) -> Resampler:
+        m = self.max_iters
+        return Resampler(
+            self,
+            single=lambda key, w: rops.rejection_cuda(key, w, m),
+            batch=lambda key, w: rops.rejection_cuda_batch(key, w, m),
+            batch_rows=lambda keys, w: rops.rejection_cuda_batch_rows(keys, w, m),
+            apply=lambda key, w, p: rops.rejection_cuda_apply(key, w, p, m),
+            apply_batch=lambda key, w, p: rops.rejection_cuda_apply_batch(key, w, p, m),
+            apply_rows=lambda keys, w, p: rops.rejection_cuda_apply_rows(keys, w, p, m),
+            step=lambda key, lw, p, thr: rops.rejection_cuda_step(key, lw, p, m, thr),
+            step_rows=lambda keys, lw, p, thr: rops.rejection_cuda_step_rows(
+                keys, lw, p, m, thr),
+        )

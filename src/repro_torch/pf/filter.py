@@ -47,13 +47,15 @@ from repro_torch.core.spec import (
     MetropolisC1Spec,
     MetropolisC2Spec,
     MetropolisSpec,
+    RejectionSpec,
     ResamplerSpec,
 )
 from repro_torch.obs.stats import StepStats, stack_stats
 from repro_torch.obs.telemetry import Telemetry
 
 #: The resampler families the filter takes.
-_PORTED_SPECS = (MegopolisSpec, MetropolisSpec, MetropolisC1Spec, MetropolisC2Spec)
+_PORTED_SPECS = (MegopolisSpec, MetropolisSpec, MetropolisC1Spec, MetropolisC2Spec,
+                 RejectionSpec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +71,10 @@ class StateSpaceModel:
 class ParticleFilter:
     """SIR filter config.  ``resampler`` is a ``MegopolisSpec`` (default:
     30 iterations, the fixed prior of paper §7), a ``MetropolisSpec`` (the
-    paper's Alg. 2 baseline, Table 2) or a ``MetropolisC1Spec`` /
-    ``MetropolisC2Spec`` (Algs. 3-4, Fig. 9); the other baseline families
-    are not ported yet (ROADMAP Queue A, item 5)."""
+    paper's Alg. 2 baseline, Table 2), a ``MetropolisC1Spec`` /
+    ``MetropolisC2Spec`` (Algs. 3-4, Fig. 9) or a ``RejectionSpec``
+    (Murray's rejection, paper §1); the prefix-sum family is not ported yet
+    (ROADMAP Queue A, item 5)."""
 
     model: StateSpaceModel
     num_particles: int
@@ -89,7 +92,7 @@ class ParticleFilter:
         if not isinstance(self.resampler, _PORTED_SPECS):
             raise NotImplementedError(
                 f"ParticleFilter: resampler {self.resampler!r} is not ported yet "
-                "(ROADMAP Queue A, item 5: baseline families)"
+                "(ROADMAP Queue A, item 5: the prefix-sum family)"
             )
         object.__setattr__(self, "_built", self.resampler.build())
 

@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions (Megopolis, Metropolis, Metropolis-C1/C2), and the filter's default
-device.  They skip without a card
+versions (Megopolis, Metropolis, Metropolis-C1/C2, rejection), and the
+filter's default device.  They skip without a card
 (this file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch: ``python -m pytest -q --noconftest -m cuda
 tests/test_torch_cuda.py``)."""
@@ -14,12 +14,15 @@ from repro_torch.core.spec import (
     MetropolisC1Spec,
     MetropolisC2Spec,
     MetropolisSpec,
+    RejectionSpec,
 )
 from repro_torch.kernels.megopolis import megopolis as mk
 from repro_torch.kernels.megopolis import ref
 from repro_torch.kernels.metropolis import c1c2 as ck
 from repro_torch.kernels.metropolis import metropolis as tk
 from repro_torch.kernels.metropolis import ref as tref
+from repro_torch.kernels.rejection import ref as rref
+from repro_torch.kernels.rejection import rejection as rk
 from repro_torch.pf.filter import ParticleFilter, run_filter, simulate
 from repro_torch.pf.models import ungm
 
@@ -196,5 +199,62 @@ def test_run_filter_with_c1c2_on_the_card(card, cls):
     assert getattr(ck, f"{cls.name}_step").launches == 5
     r = cls(num_iters=8).build()
     w = torch.rand(4, 8192, device=card)
+    keys = trandom.split(key, 4)
+    assert torch.equal(r.batch_rows(keys, w).cpu(), r.batch_rows(keys, w.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inline_hash", (False, True))
+@pytest.mark.parametrize("n,max_iters", ((8192, 1), (3072, 24), (8192, 1024)))
+def test_rejection_rows_kernel_matches_plain_version(card, monkeypatch, inline_hash, n,
+                                                     max_iters):
+    """Both instances of the hash prefix; max_iters = 1 (the cap binds for
+    most lanes, which keep their own index), 24, and 1024 (more rounds than
+    one chunk of prefixes); subnormal weights and a NaN row (no lane
+    accepts)."""
+    w, _, state, _, seeds = _inputs(card, n=n)
+    w[3, 5] = float("nan")
+    monkeypatch.setattr(rk, "INLINE_HASH", inline_hash)
+    rk.reset_launch_counts()
+    want_anc, want_out = rref.rejection_rows_ref(w, state, seeds, max_iters)
+    anc, out = rk.rejection_fused_batch(w, state, seeds, max_iters)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert torch.equal(anc[3].cpu(), torch.arange(n, dtype=torch.int32))
+    assert torch.equal(rk.rejection_batch(w, seeds, max_iters), want_anc)
+    assert torch.equal(rk.rejection(w[2], seeds[2], max_iters), want_anc[2])
+    assert torch.equal(rk.rejection_fused(w[2], state[2], seeds[2], max_iters)[1], want_out[2])
+    assert [fn.launches for fn in rk.WRAPPERS[:4]] == [1, 1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iters", (1, 64))
+def test_rejection_step_kernel_matches_plain_version(card, max_iters):
+    _, lw, state, _, seeds = _inputs(card)
+    rk.reset_launch_counts()
+    anc, out, stats = rk.rejection_step_rows(lw, state, seeds, max_iters, 0.5)
+    want_anc, want_out, want_stats = rref.rejection_step_rows_ref(lw, state, seeds, max_iters,
+                                                                  0.5)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])  # the same triggers
+    # Sums in another order than torch.sum: as the Megopolis step kernel.
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
+    # sup w = 1 (1/N on the dead row) in the kernel, the literal max here.
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert torch.equal(rk.rejection_step_rows(lw, state, seeds, max_iters, 0.5)[2], stats)
+    one = rk.rejection_step(lw[0], state[0], seeds[0], max_iters, 0.5)
+    assert torch.equal(one[0], want_anc[0])
+    assert (rk.rejection_step_rows.launches, rk.rejection_step.launches) == (2, 1)
+
+
+@pytest.mark.cuda
+def test_run_filter_with_rejection_on_the_card(card):
+    key = trandom.PRNGKey(0)
+    _, obs = simulate(key, ungm(), 5)
+    pf = ParticleFilter(ungm(), 8192, resampler=RejectionSpec(max_iters=64), ess_threshold=0.5)
+    rk.reset_launch_counts()
+    est = run_filter(key, pf, obs)
+    assert est.is_cuda and est.shape == (5,) and torch.isfinite(est).all()
+    assert rk.rejection_step.launches == 5
+    r = RejectionSpec(max_iters=64).build()
+    w = torch.rand(4, 8192, device=card) ** 8
     keys = trandom.split(key, 4)
     assert torch.equal(r.batch_rows(keys, w).cpu(), r.batch_rows(keys, w.cpu()))
