@@ -38,8 +38,7 @@ over, and there is no CPU fallback):
    time both, and compute the kernel's bound (for rejection from the
    rounds this run's data needs, with the rounds of the lanes and of their
    warps); time each bank step kernel at capped cooperative grids (blocks
-   per SM) and each rejection rows case with either hash instance; hold
-   ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
+   per SM); hold ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64);
 5. print the card line, one JSON line of kernels, then a last JSON line
    naming the device.
@@ -352,8 +351,6 @@ def main(argv=None) -> int:
             kernels.append(entry)
         if case[0].endswith("_step_rows"):
             print(f"grid {case[0]}: {json.dumps(grid_study(case))}", flush=True)
-        if case[4] == "rejection" and case[5] != "step":
-            print(f"hash {case[0]}: {json.dumps(hash_study(case))}", flush=True)
     # Launches made above to compare and time do not count: the counts
     # reported are those of the main path's runs.
     print(card)
@@ -888,30 +885,6 @@ def divergence(rounds: torch.Tensor, max_iters: int) -> dict:
     return {"lane_rounds_mean": lane_mean, "warp_rounds_mean": warp_mean,
             "lane_rounds_max": int(lane.max()), "divergence_share": 1 - lane_mean / warp_mean,
             "cap_share": float((ran == max_iters).float().mean())}
-
-
-def hash_study(case) -> dict:
-    """Kernel ms of a rejection rows wrapper on its captured inputs with each
-    instance of the per-round hash prefix (``INLINE_HASH``: shared memory or
-    in each thread), and that both give the same ancestors; launches here do
-    not count."""
-    from repro_torch.kernels.rejection import rejection as rk
-
-    name, wrapper, kargs, _, family, kind, _, _ = case
-    chosen = rk.INLINE_HASH
-    out, ancs = {"chosen_inline": chosen}, []
-    try:
-        for inline in (False, True):
-            rk.INLINE_HASH = inline
-            got = wrapper(*kargs)
-            ancs.append(got[0] if isinstance(got, tuple) else got)
-            out["inline_ms" if inline else "shared_ms"] = kernel_ms(
-                lambda: wrapper(*kargs), KERNEL_NAMES[(family, kind)], 10)
-    finally:
-        rk.INLINE_HASH = chosen
-    if not torch.equal(ancs[0], ancs[1]):
-        fail(f"{name}: the two hash instances select different ancestors")
-    return out
 
 
 def grid_study(case) -> dict:

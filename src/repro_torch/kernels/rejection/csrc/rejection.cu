@@ -22,7 +22,7 @@
 // while sup w >= 2^-102, and below that every lane accepts its
 // self-proposal, as the JAX package does (ROADMAP Queue C, item 13).
 //
-// rejection_rows_kernel<GATHER, INLINE> replaces four TPU kernels
+// rejection_rows_kernel<GATHER> replaces four TPU kernels
 // (repro/kernels/rejection/rejection.py): with GATHER = false,
 // rejection_pallas and rejection_pallas_batch, ancestors only; with
 // GATHER = true, rejection_pallas_fused and rejection_pallas_fused_batch,
@@ -46,13 +46,13 @@
 //   particle-fastest (grid.x over a row's particles, grid.y over the rows),
 //   as metropolis_rows_kernel, so one row's weights are the L2 working set;
 //   each thread leaves the chain at its first accept, and each block stops
-//   when its last lane is done.  Two ways to get the per-round half of the
-//   hash, fmix(seed + t·GOLDEN), are built: INLINE = false computes it per
-//   block into shared memory in chunks of CHUNK rounds, and a
-//   __syncthreads_or(!done) before each chunk lets the block stop; INLINE =
-//   true computes it in each thread (8 more operations a round) with no
-//   barrier.  The wrapper's INLINE_HASH picks one, by measurement
-//   (chip_smoke.py's hash study).
+//   when its last lane is done: the per-round half of the hash,
+//   fmix(seed + t·GOLDEN), is computed once per block into shared memory in
+//   chunks of CHUNK rounds, and a __syncthreads_or(!done) before each chunk
+//   lets the block stop.  Computing it in each thread instead (8 more
+//   operations a round, no barrier) measured 6-14% faster at S = 1 (2 us
+//   at most) and 0.5-7% slower at S = 16 (up to 60 us) on Path A's
+//   weights (PERF.md); the chunks stay.
 //
 // rejection_step_rows_kernel replaces rejection_pallas_step and
 // rejection_pallas_step_rows: the fused SMC step on the cooperative
@@ -116,7 +116,7 @@ __device__ __forceinline__ bool self_accept(uint32_t h0, uint32_t lane_u, float 
   return scaled_uniform(fmix(h0 ^ lane_u), scale) <= ftz(wi);
 }
 
-template <bool GATHER, bool INLINE>
+template <bool GATHER>
 __global__ void __launch_bounds__(NT) rejection_rows_kernel(
     const float* __restrict__ w, const float* __restrict__ wmax,
     const uint32_t* __restrict__ seeds, const float* __restrict__ state,
@@ -133,22 +133,15 @@ __global__ void __launch_bounds__(NT) rejection_rows_kernel(
   const uint32_t lane_u = ((uint32_t)i + (uint32_t)n) * GOLDEN;
   int k = i;
   bool done = !live || self_accept(fmix(seed), lane_u, scale, wr[i]);
-  if (INLINE) {
-    for (int t = 1; t <= max_iters && !done; ++t) {
-      const uint32_t h = fmix(seed + (uint32_t)t * GOLDEN);
-      done = rejection_chain<true>(wr, &h, 1, lane_j, lane_u, n, scale, k);
+  for (int t0 = 1; t0 <= max_iters; t0 += CHUNK) {
+    // A barrier too: no thread still reads the previous chunk's prefixes.
+    if (!__syncthreads_or(!done)) break;
+    const int cnt = min(CHUNK, max_iters - t0 + 1);
+    for (int t = threadIdx.x; t < cnt; t += NT) {
+      s_hh[t] = fmix(seed + (uint32_t)(t0 + t) * GOLDEN);
     }
-  } else {
-    for (int t0 = 1; t0 <= max_iters; t0 += CHUNK) {
-      // A barrier too: no thread still reads the previous chunk's prefixes.
-      if (!__syncthreads_or(!done)) break;
-      const int cnt = min(CHUNK, max_iters - t0 + 1);
-      for (int t = threadIdx.x; t < cnt; t += NT) {
-        s_hh[t] = fmix(seed + (uint32_t)(t0 + t) * GOLDEN);
-      }
-      __syncthreads();
-      if (!done) done = rejection_chain<true>(wr, s_hh, cnt, lane_j, lane_u, n, scale, k);
-    }
+    __syncthreads();
+    if (!done) done = rejection_chain<true>(wr, s_hh, cnt, lane_j, lane_u, n, scale, k);
   }
   if (!live) return;
   anc[(size_t)s * n + i] = k;
@@ -202,33 +195,26 @@ __global__ void __launch_bounds__(NT) rejection_step_rows_kernel(
   }
 }
 
-template <bool GATHER, bool INLINE>
-static int launch_rows(const void* w, const void* wmax, const void* seeds, const void* state,
-                       void* anc, void* out, int rows, int n, int d, int max_iters,
-                       void* stream) {
-  dim3 grid((n + NT - 1) / NT, rows);
-  rejection_rows_kernel<GATHER, INLINE><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (const float*)wmax, (const uint32_t*)seeds, (const float*)state,
-      (int*)anc, (float*)out, n, d, max_iters);
-  return (int)cudaGetLastError();
-}
-
 extern "C" {
 
 // The chain over a bank: ancestors, and with state (not null) the copy of
-// each ancestor's state.  inline_hash selects the INLINE instance.
+// each ancestor's state.
 int rejection_rows(const void* w, const void* wmax, const void* seeds, const void* state,
-                   void* anc, void* out, int rows, int n, int d, int max_iters,
-                   int inline_hash, void* stream) {
+                   void* anc, void* out, int rows, int n, int d, int max_iters, void* stream) {
+  dim3 grid((n + NT - 1) / NT, rows);
+  const float* a_w = (const float*)w;
+  const float* a_wmax = (const float*)wmax;
+  const uint32_t* a_seeds = (const uint32_t*)seeds;
+  const float* a_state = (const float*)state;
+  cudaStream_t st = (cudaStream_t)stream;
   if (state == nullptr) {
-    return inline_hash
-        ? launch_rows<false, true>(w, wmax, seeds, state, anc, out, rows, n, d, max_iters, stream)
-        : launch_rows<false, false>(w, wmax, seeds, state, anc, out, rows, n, d, max_iters,
-                                    stream);
+    rejection_rows_kernel<false><<<grid, NT, 0, st>>>(a_w, a_wmax, a_seeds, a_state, (int*)anc,
+                                                       (float*)out, n, d, max_iters);
+  } else {
+    rejection_rows_kernel<true><<<grid, NT, 0, st>>>(a_w, a_wmax, a_seeds, a_state, (int*)anc,
+                                                      (float*)out, n, d, max_iters);
   }
-  return inline_hash
-      ? launch_rows<true, true>(w, wmax, seeds, state, anc, out, rows, n, d, max_iters, stream)
-      : launch_rows<true, false>(w, wmax, seeds, state, anc, out, rows, n, d, max_iters, stream);
+  return (int)cudaGetLastError();
 }
 
 int rejection_step_grid(int rows, int n, int* blocks) {

@@ -43,11 +43,6 @@ from repro_torch.kernels.common import (
 from repro_torch.kernels.rejection.ref import rejection_rows_ref, rejection_step_rows_ref
 
 SOURCE = "rejection/csrc/rejection.cu"
-#: Which instance of ``rejection_rows_kernel`` the wrappers launch: False
-#: computes the per-round hash prefix once per block into shared memory,
-#: True in every thread (``csrc/rejection.cu``; chosen by chip_smoke.py's
-#: hash study).
-INLINE_HASH = False
 #: Largest ``max_iters``: the step kernel's hash prefixes cover rounds 0 ..
 #: max_iters in an int.
 MAX_ITERS = (1 << 31) - 2
@@ -58,7 +53,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if not getattr(lib, "_bound", False):
-        lib.rejection_rows.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.rejection_rows.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.rejection_rows.restype = _I
         lib.rejection_step_grid.argtypes = [_I, _I, ctypes.POINTER(_I)]
         lib.rejection_step_grid.restype = _I
@@ -88,8 +83,7 @@ def _launch_rows(w, state, seeds, max_iters, who):
     check_launch(_lib().rejection_rows(
         w.data_ptr(), w_max.data_ptr(), sd.data_ptr(),
         None if state is None else state.data_ptr(), anc.data_ptr(),
-        None if out is None else out.data_ptr(), s, n, d, max_iters, int(INLINE_HASH),
-        stream), who)
+        None if out is None else out.data_ptr(), s, n, d, max_iters, stream), who)
     return anc if state is None else (anc, out)
 
 

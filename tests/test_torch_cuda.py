@@ -204,17 +204,13 @@ def test_run_filter_with_c1c2_on_the_card(card, cls):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("inline_hash", (False, True))
 @pytest.mark.parametrize("n,max_iters", ((8192, 1), (3072, 24), (8192, 1024)))
-def test_rejection_rows_kernel_matches_plain_version(card, monkeypatch, inline_hash, n,
-                                                     max_iters):
-    """Both instances of the hash prefix; max_iters = 1 (the cap binds for
-    most lanes, which keep their own index), 24, and 1024 (more rounds than
-    one chunk of prefixes); subnormal weights and a NaN row (no lane
-    accepts)."""
+def test_rejection_rows_kernel_matches_plain_version(card, n, max_iters):
+    """max_iters = 1 (the cap binds for most lanes, which keep their own
+    index), 24, and 1024 (more rounds than one chunk of prefixes); subnormal
+    weights and a NaN row (no lane accepts)."""
     w, _, state, _, seeds = _inputs(card, n=n)
     w[3, 5] = float("nan")
-    monkeypatch.setattr(rk, "INLINE_HASH", inline_hash)
     rk.reset_launch_counts()
     want_anc, want_out = rref.rejection_rows_ref(w, state, seeds, max_iters)
     anc, out = rk.rejection_fused_batch(w, state, seeds, max_iters)
