@@ -15,22 +15,29 @@ over, and there is no CPU fallback):
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
      each family: ``MegopolisSpec``, ``MetropolisSpec`` (Table 2's baseline
      column), ``MetropolisC1Spec`` and ``MetropolisC2Spec`` (Fig. 9's
-     segment-local baselines) and ``RejectionSpec(max_iters=1024)``
-     (Murray's rejection, paper §1): ``run_filter`` in Alg. 6 and in
+     segment-local baselines), ``RejectionSpec(max_iters=1024)``
+     (Murray's rejection, paper §1) and ``PrefixSumSpec`` of the kinds
+     ``multinomial`` and ``improved_systematic`` (Table 2's unbiased
+     columns) and ``residual``: ``run_filter`` in Alg. 6 and in
      conditional mode (ESS threshold 0.5), ``run_filter_bank`` (S
      scenarios) in both modes, and ``run_filter_timed``; RMSE against
      ``simulate``'s truth, steps/s, the resample ratio and a ``StepStats``
-     summary, the families side by side; for rejection also
+     summary, the families side by side; for rejection and residual also
      ``r(key, w)``, ``r.batch(key, w_bank)`` and ``r.batch_rows(keys,
-     w_bank)`` on weights captured from its Alg. 6 runs (no step calls
-     them), and the spread of its kernel time and of sup w / mean w over
-     the steps of one Alg. 6 run;
+     w_bank)`` on weights captured from their Alg. 6 runs (no step calls
+     them), and the spread of rejection's kernel time and of sup w /
+     mean w over the steps of one Alg. 6 run;
    * Path B, the quality and speed study (paper §6.3, Fig. 6): for each y
      of 0, 2 and 4, Gaussian weights at N particles, B from eq. (3) in
      closed form, K Monte Carlo resamples in one ``batch_rows`` launch,
      then MSE/N and the bias share (eq. 21), and the time of one
      ``r(key, w)`` and one ``r.batch(key, w_bank)``, for every family of
      Fig. 6's method set (rejection is not in it);
+   * Path C, Fig. 8's study (paper §6.5): for N of 2^14, 2^18 and 2^22
+     and each y of 0, 2 and 4, Megopolis (B from eq. (3)) against the
+     multinomial and improved systematic kinds: K Monte Carlo resamples in
+     one ``batch_rows`` launch per stage, MSE/N, the bias share, and the
+     time of one ``r(key, w)``;
    * small runs of both paths on the card against the same runs on the CPU;
 4. for each kernel wrapper, on its inputs captured from a short full-width
    run of the entry point that calls it (for a step, the last captured call
@@ -39,7 +46,10 @@ over, and there is no CPU fallback):
    rounds this run's data needs, with the rounds of the lanes and of their
    warps); time each bank step kernel at capped cooperative grids (blocks
    per SM); hold ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
-   particles, ``max_iters`` 64);
+   particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
+   inputs (the systematic and stratified searches on its captured
+   weights), every kind of the step, and beside each scan and search the
+   one PyTorch call that computes it (``library_ms``);
 5. print the card line, one JSON line of kernels, then a last JSON line
    naming the device.
 
@@ -51,6 +61,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import subprocess
 import sys
 import time
@@ -95,6 +106,22 @@ REJECTION_MAX_ITERS = 1024
 #: The cap of phase 4's extra rejection case on eq. (12) weights at y = 4,
 #: low enough that it binds for a share of the lanes.
 REJECTION_CAP_CASE_ITERS = 64
+#: The prefix-sum kinds on Path A: Table 2's unbiased columns
+#: (``benchmarks/table2_e2e_pf.py``), and residual, the one kind that reaches
+#: the residual select and the residual step.
+PATH_A_PREFIX_KINDS = ("multinomial", "improved_systematic", "residual")
+#: Path C (Fig. 8, ``benchmarks/fig8_prefix_sum.py``): its methods and N.
+PATH_C_METHODS = ("megopolis", "multinomial", "improved_systematic")
+PATH_C_NS = (1 << 14, 1 << 18, 1 << 22)
+#: 32-bit operations per element of the prefix-sum kernels, counted from the
+#: source: the scan's adds (one in the row of 16, the offsets of the two
+#: levels, the carry); a bisection step (the midpoint's subtract, shift and
+#: add, the compare, two selects); the step's draw (convert, add, multiply)
+#: and residual's split of a weight (divide, multiply, floor, subtract, sum).
+SCAN_OPS = 3
+BISECT_OPS = 6
+DRAW_OPS = 3
+RESIDUAL_SPLIT_OPS = 5
 #: Lanes of a warp: a warp runs as many rounds as its slowest lane.
 WARP = 32
 #: Per particle of the step prelude: max, subtract, exp (about 10), the
@@ -165,12 +192,12 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     return sum(times) / len(times) / 1e3
 
 
-def capture(module, name: str, run) -> tuple:
+def capture(module, name: str, run, index: int = -1) -> tuple:
     """The arguments of one call of ``module.<name>`` made by ``run()``: of
     the calls after which some row resampled (every call of an index-only or
-    apply wrapper), the last; if there is none, the last call.  These
-    launches are not the main path's: its counts are set to 0 before each of
-    its runs."""
+    apply wrapper), the one at ``index`` (the last by default); if there is
+    none, the last call.  These launches are not the main path's: its counts
+    are set to 0 before each of its runs."""
     real = getattr(module, name)
     calls = []
 
@@ -189,7 +216,7 @@ def capture(module, name: str, run) -> tuple:
     if not calls:
         fail(f"{name} was not called while capturing its inputs")
     fired = [args for f, args in calls if f]
-    return (fired or [args for _, args in calls])[-1]
+    return fired[index] if fired else calls[-1][1]
 
 
 def summary(stats) -> dict:
@@ -223,12 +250,17 @@ def main(argv=None) -> int:
         MetropolisC1Spec,
         MetropolisC2Spec,
         MetropolisSpec,
+        PrefixSumSpec,
         RejectionSpec,
     )
     from repro_torch.kernels import build
     from repro_torch.kernels.megopolis import megopolis as mk
     from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import metropolis as tk
+    from repro_torch.kernels.prefix_sum import ops as pops
+    from repro_torch.kernels.prefix_sum import prefix_sum as pk
+    from repro_torch.kernels.prefix_sum import search as sk
+    from repro_torch.kernels.prefix_sum import step as stk
     from repro_torch.kernels.rejection import ops as rops
     from repro_torch.kernels.rejection import rejection as rk
     from repro_torch.pf.filter import simulate
@@ -278,8 +310,23 @@ def main(argv=None) -> int:
         "bank_alg6": rk.rejection_fused_batch, "bank_conditional": rk.rejection_step_rows,
         "batch_rows": rk.rejection_batch, "single": rk.rejection, "batch": rk.rejection_batch,
         "path_b": False, "small": RejectionSpec(max_iters=REJECTION_MAX_ITERS)}
+    # A wrapper tuple: the entry launches each of them.
+    one_index, bank_index = (pk.prefix_sum, sk.searchsorted), (pk.prefix_sum_rows,
+                                                                sk.searchsorted_rows)
+    for kind in PATH_A_PREFIX_KINDS:
+        res = kind == "residual"
+        families[kind] = {
+            "spec": PrefixSumSpec(kind=kind), "cls": PrefixSumSpec,
+            "alg6": (pk.prefix_sum, sk.residual_select_gather if res else sk.searchsorted_gather),
+            "conditional": stk.prefix_step,
+            "bank_alg6": (pk.prefix_sum_rows, sk.residual_select_gather_rows if res
+                          else sk.searchsorted_gather_rows),
+            "bank_conditional": stk.prefix_step_rows,
+            "batch_rows": bank_index, "single": one_index, "batch": bank_index,
+            "path_b": False, "small": PrefixSumSpec(kind=kind)}
     path_b_families = {name: f for name, f in families.items() if f["path_b"]}
-    wrappers = mk.WRAPPERS + tk.WRAPPERS + ck.WRAPPERS + rk.WRAPPERS
+    modules = (mk, tk, ck, rk, pk, sk, stk)
+    wrappers = sum((m.WRAPPERS for m in modules), ())
     key = trandom.PRNGKey(args.seed)
     k_sim, k_run, k_bank, k_quality = trandom.split(key, 4)
     model, fam = ungm(), ungm_family()
@@ -297,7 +344,7 @@ def main(argv=None) -> int:
     results = {}
 
     def drive(name, fn, expected, n_steps=None):
-        for module in (mk, tk, ck, rk):
+        for module in modules:
             module.reset_launch_counts()
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -305,6 +352,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t_start
         counts = {w.__name__: w.launches for w in wrappers if w.launches}
+        expected = [w for e in expected for w in (e if isinstance(e, tuple) else (e,))]
         for wrapper in expected:
             if counts.get(wrapper.__name__, 0) < 1:
                 fail(f"{name}: {wrapper.__name__} was launched no time ({counts})")
@@ -318,13 +366,22 @@ def main(argv=None) -> int:
     for family, f in families.items():
         path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, thetas,
                k_run, drive, results)
-    path_a_index("rejection", families["rejection"], rops, args, dev, model, fam, obs,
-                 bank_obs, thetas, k_run, drive, results)
+    path_a_index("rejection", families["rejection"], rops, ("rejection_fused", -1),
+                 ("rejection_fused_batch", -1), args, dev, model, fam, obs, bank_obs, thetas,
+                 k_run, drive, results)
+    # Residual's first scan of a step takes the weights: the third call
+    # from the end is the last step's.
+    path_a_index("residual", families["residual"], pops, ("prefix_sum", -3),
+                 ("prefix_sum_rows", -3), args, dev, model, fam, obs, bank_obs, thetas, k_run,
+                 drive, results)
     results["rejection_spread"] = rejection_spread(families["rejection"]["spec"], n, model,
                                                    obs, k_run, dev)
     for family, f in path_b_families.items():
         path_b(family, f, args, dev, k_quality, drive, results)
-    results["small_runs_card_vs_cpu"] = small_runs(families, obs, k_run, k_quality, dev)
+    path_c(args, dev, trandom.fold_in(k_quality, 8), drive, results,
+           {"megopolis": (mk.megopolis_rows, mk.megopolis),
+            "multinomial": bank_index + one_index, "improved_systematic": bank_index + one_index})
+    results["small_runs_card_vs_cpu"] = small_runs(families, obs, truth, k_run, k_quality, dev)
     results["host_and_device_per_step"] = {
         family: step_costs(family, k_run, n, ITERS, dev, model, f["spec"], obs)
         for family, f in families.items()}
@@ -341,6 +398,11 @@ def main(argv=None) -> int:
                          ("B", "mse_over_n", "bias_share", "single_ms", "batch_ms")}
                 for family in path_b_families}
         print(f"compare fig6/y={y}: {json.dumps(side)}")
+    for n_c in PATH_C_NS:
+        for y in PATH_B_YS:
+            side = {m: {k: results[f"fig8/n={n_c}/y={y}/{m}"][k] for k in
+                        ("mse_over_n", "bias_share", "single_ms")} for m in PATH_C_METHODS}
+            print(f"compare fig8/n={n_c}/y={y}: {json.dumps(side)}")
 
     # -- 4. kernels against their plain versions --------------------------------
     kernels = []
@@ -401,23 +463,24 @@ def path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, t
     results[name].update(resample_ratio=resample_ratio(times), times=times)
 
 
-def path_a_index(family, f, ops, args, dev, model, fam, obs, bank_obs, thetas, k_run, drive,
-                 results):
+def path_a_index(family, f, ops, single_cap, bank_cap, args, dev, model, fam, obs, bank_obs,
+                 thetas, k_run, drive, results):
     """The index-only entries of a family that Path B does not run, on Path
     A's weights: one population's and the bank's, captured from their last
-    Alg. 6 step (``CAPTURE_STEPS`` steps); ``r(key, w)``, ``r.batch(key,
-    w_bank)`` and ``r.batch_rows(keys, w_bank)``, each checked for ancestors
-    in ``[0, N)``."""
+    Alg. 6 step (``CAPTURE_STEPS`` steps) as the first argument of the
+    wrapper ``ops.<name>`` at call ``index`` (``single_cap``, ``bank_cap``);
+    ``r(key, w)``, ``r.batch(key, w_bank)`` and ``r.batch_rows(keys,
+    w_bank)``, each checked for ancestors in ``[0, N)``."""
     from repro_torch import random as trandom
     from repro_torch.pf.filter import ParticleFilter, run_filter, run_filter_bank
 
     n, spec = args.particles, f["spec"]
     pf = ParticleFilter(model, n, resampler=spec)
-    w = capture(ops, f["alg6"].__name__,
-                lambda: run_filter(k_run, pf, obs[:CAPTURE_STEPS], device=dev))[0]
+    w = capture(ops, single_cap[0], lambda: run_filter(k_run, pf, obs[:CAPTURE_STEPS], device=dev),
+                single_cap[1])[0]
     pf_bank = ParticleFilter(fam, n, resampler=spec)
-    w_bank = capture(ops, f["bank_alg6"].__name__, lambda: run_filter_bank(
-        k_run, pf_bank, bank_obs[:, :CAPTURE_STEPS], thetas, device=dev))[0]
+    w_bank = capture(ops, bank_cap[0], lambda: run_filter_bank(
+        k_run, pf_bank, bank_obs[:, :CAPTURE_STEPS], thetas, device=dev), bank_cap[1])[0]
     r = spec.build()
     key = trandom.fold_in(k_run, 7)
     keys = trandom.split(key, w_bank.shape[0])
@@ -492,11 +555,62 @@ def path_b(family, f, args, dev, k_quality, drive, results):
                              single_ms=single_ms, batch_ms=batch_ms)
 
 
-def small_runs(families, obs, k_run, k_quality, dev) -> dict:
+def path_c(args, dev, key, drive, results, expected):
+    """Path C, Fig. 8's study (``benchmarks/fig8_prefix_sum.py``): at each
+    N of ``PATH_C_NS`` and y of ``PATH_B_YS``, Gaussian weights, K Monte
+    Carlo resamples in one ``batch_rows`` call per method (Megopolis at B of
+    eq. (3), the multinomial and improved systematic kinds), then MSE/N, the
+    bias share, and the time of one ``r(key, w)`` (CUDA events, host work
+    in).  Fig. 8 runs K = 256; this runs ``--runs``."""
+    from repro_torch import random as trandom
+    from repro_torch.core.iterations import gaussian_weight_iterations
+    from repro_torch.core.metrics import bias_variance, offspring_counts
+    from repro_torch.core.spec import MegopolisSpec, PrefixSumSpec
+    from repro_torch.core.weightgen import gaussian_weights
+
+    k = args.runs
+    for n in PATH_C_NS:
+        for y in PATH_B_YS:
+            b = gaussian_weight_iterations(y, 0.01)
+            kw = trandom.fold_in(trandom.fold_in(key, n), int(y * 10))
+            w = gaussian_weights(kw, n, y, device=dev)
+            bank = w[None].expand(k, n).contiguous()
+            keys = trandom.split(trandom.fold_in(kw, 1), k)
+            k_time = trandom.fold_in(kw, 2)
+            for method in PATH_C_METHODS:
+                spec = (MegopolisSpec(num_iters=b) if method == "megopolis"
+                        else PrefixSumSpec(kind=method))
+                r = spec.build()
+                r.batch_rows(keys[:2], bank[:2])  # warm up
+                name = f"fig8/n={n}/y={y}/{method}"
+
+                def run():
+                    off = offspring_counts(r.batch_rows(keys, bank), n)
+                    _, bias_sq, total = bias_variance(off, w)
+                    return off, float(bias_sq), float(total), time_ms(lambda: r(k_time, w), 10,
+                                                                       warmup=1)
+
+                off, bias_sq, total, single_ms = drive(name, run, [expected[method]])
+                if off.shape != (k, n) or not bool((off.sum(dim=1) == n).all()):
+                    fail(f"{name}: offspring counts of shape {tuple(off.shape)} do not sum to N")
+                if not (torch.isfinite(torch.tensor([bias_sq, total])).all()
+                        and 0 <= bias_sq <= total):
+                    fail(f"{name}: bias² {bias_sq} and MSE {total} not finite with bias² <= MSE")
+                results[name].update(B=b if method == "megopolis" else None, K=k,
+                                     mse_over_n=total / n, bias_share=bias_sq / total,
+                                     single_ms=single_ms)
+
+
+def small_runs(families, obs, truth, k_run, k_quality, dev) -> dict:
     """Both paths at a small size on the card against the same runs on the
     CPU (plain versions): the filter within ``SMALL_RUN_ATOL``, Path B's
-    offspring bit for bit (the same weights on both; for rejection, which
-    Path B does not run, its index-only bank entry on the same weights)."""
+    offspring bit for bit (the same weights on both; for rejection and the
+    prefix-sum kinds, which Path B does not run, their index-only bank
+    entry on the same weights).  The prefix-sum kinds resample through a
+    CDF, which carries each weight's ULP (the card's noise and ``exp``
+    against the CPU's) into every later draw, so a flipped ancestor is
+    common and UNGM carries it on; their runs are held by the RMSE against
+    the truth instead, within the same bound."""
     from repro_torch import random as trandom
     from repro_torch.core.metrics import offspring_counts
     from repro_torch.core.weightgen import gaussian_weights
@@ -504,11 +618,17 @@ def small_runs(families, obs, k_run, k_quality, dev) -> dict:
     from repro_torch.pf.models import ungm
 
     out = {}
+    from repro_torch.pf.metrics import rmse
+
     for family, f in families.items():
         small = ParticleFilter(ungm(), 4096, resampler=f["small"], ess_threshold=0.5)
         on_card = run_filter(k_run, small, obs[:20], device=dev).cpu()
         on_cpu = run_filter(k_run, small, obs[:20].cpu(), device="cpu")
-        err = float((on_card - on_cpu).abs().max())
+        step_err = float((on_card - on_cpu).abs().max())
+        err = step_err
+        if f["cls"].__name__ == "PrefixSumSpec":
+            ref = truth[:20].cpu().numpy()
+            err = abs(rmse(on_card.numpy(), ref) - rmse(on_cpu.numpy(), ref))
         if not err <= SMALL_RUN_ATOL:
             fail(f"small {family} filter: card and CPU differ by {err} > {SMALL_RUN_ATOL}")
         r = f["small"].build()
@@ -518,7 +638,7 @@ def small_runs(families, obs, k_run, k_quality, dev) -> dict:
         got = offspring_counts(r.batch_rows(keys, bank.to(dev)), 8192).cpu()
         if not torch.equal(got, offspring_counts(r.batch_rows(keys, bank), 8192)):
             fail(f"small {family} Fig. 6 run: card and CPU offspring differ")
-        out[family] = {"filter_max_abs": err, "fig6_offspring_equal": True}
+        out[family] = {"filter_max_abs": step_err, "held": err, "fig6_offspring_equal": True}
     return out
 
 
@@ -529,6 +649,7 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     iters)``."""
     from repro_torch import random as trandom
     from repro_torch.core.iterations import gaussian_weight_iterations
+    from repro_torch.core.spec import PrefixSumSpec
     from repro_torch.core.weightgen import gaussian_weights
     from repro_torch.kernels.common import key_to_seed
     from repro_torch.kernels.megopolis import megopolis as mk
@@ -543,12 +664,15 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
 
     n = args.particles
 
+    def spec_of(family):
+        return families[family]["spec"] if family in families else PrefixSumSpec(kind=family)
+
     def single(family, thr):
-        pf = ParticleFilter(model, n, resampler=families[family]["spec"], ess_threshold=thr)
+        pf = ParticleFilter(model, n, resampler=spec_of(family), ess_threshold=thr)
         return lambda: run_filter(k_run, pf, obs[:CAPTURE_STEPS], device=dev)
 
     def bank(family, thr):
-        pf = ParticleFilter(fam, n, resampler=families[family]["spec"], ess_threshold=thr)
+        pf = ParticleFilter(fam, n, resampler=spec_of(family), ess_threshold=thr)
         return lambda: run_filter_bank(k_run, pf, bank_obs[:, :CAPTURE_STEPS], thetas,
                                        device=dev)
 
@@ -637,6 +761,8 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     cases += rejection_cases(families["rejection"]["spec"], single("rejection", None),
                              bank("rejection", None), single("rejection", 0.5),
                              bank("rejection", 0.5), thr, k_run)
+    # The prefix-sum kinds, rows 25-29.
+    cases += prefix_cases(single, bank, thr, k_run)
     # Rejection where its cap binds: eq. (12) weights at y = 4.
     k_cap = trandom.fold_in(k_quality, 400)
     w_cap = gaussian_weights(k_cap, n, 4.0, device=dev)
@@ -687,6 +813,79 @@ def rejection_cases(spec, alg6, bank_alg6, cond, bank_cond, thr, key) -> list:
     cases.append(("rejection_step_rows", rk.rejection_step_rows, (l4, t4, sd4, it4, thr),
                   lambda: rref.rejection_step_rows_ref(l4, t4, sd4, it4, thr),
                   "rejection", "step", l4.shape[0], it4))
+    return cases
+
+
+def prefix_cases(single, bank, thr, key) -> list:
+    """The ten prefix-sum wrappers on captured inputs, as ``kernel_cases``:
+    the scans and the multinomial searches from Path A's multinomial runs;
+    ``searchsorted`` from a systematic ``r(key, w)`` and
+    ``searchsorted_rows`` from a stratified ``r.batch_rows(keys, w_bank)``
+    on the weights those runs captured; the gather from improved
+    systematic's and multinomial's runs, the select from residual's; the
+    step from multinomial's single and residual's bank run.  Two more cases
+    hold the step's other instances (improved systematic, a bank; residual,
+    one population); they are not in the ``kernels`` line."""
+    from repro_torch import random as trandom
+    from repro_torch.core.spec import PrefixSumSpec
+    from repro_torch.kernels.prefix_sum import ops as pops
+    from repro_torch.kernels.prefix_sum import prefix_sum as pk
+    from repro_torch.kernels.prefix_sum import ref as pref
+    from repro_torch.kernels.prefix_sum import search as sk
+    from repro_torch.kernels.prefix_sum import step as stk
+
+    cases = []
+    (w1,) = capture(pops, "prefix_sum", single("multinomial", None))
+    (w2,) = capture(pops, "prefix_sum_rows", bank("multinomial", None))
+    cases.append(("prefix_sum", pk.prefix_sum, (w1,), lambda: pref.scan_rows_ref(w1[None]),
+                  "prefix", "scan", 1, 1))
+    cases.append(("prefix_sum_rows", pk.prefix_sum_rows, (w2,),
+                  lambda: pref.scan_rows_ref(w2), "prefix", "scan", w2.shape[0], 1))
+    k = trandom.fold_in(key, 9)
+    c, u, side = capture(pops, "searchsorted",
+                         lambda: PrefixSumSpec(kind="systematic").build()(k, w1))
+    cases.append(("searchsorted", sk.searchsorted, (c, u, side),
+                  lambda: pref.search_rows_ref(c[None], u[None], side == "right"),
+                  "prefix", "search", 1, 1))
+    keys = trandom.split(k, w2.shape[0])
+    cb, ub, sideb = capture(pops, "searchsorted_rows",
+                            lambda: PrefixSumSpec(kind="stratified").build().batch_rows(keys, w2))
+    cases.append(("searchsorted_rows", sk.searchsorted_rows, (cb, ub, sideb),
+                  lambda: pref.search_rows_ref(cb, ub, sideb == "right"),
+                  "prefix", "search", cb.shape[0], 1))
+    c3, u3, t3, s3 = capture(pops, "searchsorted_gather", single("improved_systematic", None))
+    cases.append(("searchsorted_gather", sk.searchsorted_gather, (c3, u3, t3, s3),
+                  lambda: pref.search_rows_ref(c3[None], u3[None], s3 == "right", t3[None]),
+                  "prefix", "gather", 1, 1))
+    c4, u4, t4, s4 = capture(pops, "searchsorted_gather_rows", bank("multinomial", None))
+    cases.append(("searchsorted_gather_rows", sk.searchsorted_gather_rows, (c4, u4, t4, s4),
+                  lambda: pref.search_rows_ref(c4, u4, s4 == "right", t4),
+                  "prefix", "gather", c4.shape[0], 1))
+    r5 = capture(pops, "residual_select_gather", single("residual", None))
+    cases.append(("residual_select_gather", sk.residual_select_gather, r5,
+                  lambda: pref.residual_select_rows_ref(r5[0][None], r5[1][None], r5[2][None],
+                                                        r5[3], r5[4][None]),
+                  "prefix", "residual", 1, 1))
+    r6 = capture(pops, "residual_select_gather_rows", bank("residual", None))
+    cases.append(("residual_select_gather_rows", sk.residual_select_gather_rows, r6,
+                  lambda: pref.residual_select_rows_ref(*r6), "prefix", "residual",
+                  r6[0].shape[0], 1))
+
+    def step_case(name, wrapper, run):
+        lw, st, ub, u0, _, kind = capture(pops, wrapper.__name__, run)
+        kargs = (lw, st, ub, u0, thr, kind)
+        if lw.ndim == 1:
+            return (name, wrapper, kargs, lambda: pref.prefix_step_rows_ref(
+                lw[None], st[None], None if ub is None else ub[None],
+                None if u0 is None else u0.reshape(1), thr, kind), "prefix", "step", 1, 1)
+        return (name, wrapper, kargs, lambda: pref.prefix_step_rows_ref(*kargs), "prefix",
+                "step", lw.shape[0], 1)
+
+    cases.append(step_case("prefix_step", stk.prefix_step, single("multinomial", 0.5)))
+    cases.append(step_case("prefix_step_rows", stk.prefix_step_rows, bank("residual", 0.5)))
+    cases.append(step_case("prefix_step_rows/improved_systematic", stk.prefix_step_rows,
+                           bank("improved_systematic", 0.5)))
+    cases.append(step_case("prefix_step/residual", stk.prefix_step, single("residual", 0.5)))
     return cases
 
 
@@ -745,12 +944,16 @@ KERNEL_NAMES = {
     ("rejection", "index"): "rejection_rows_kernel<false",
     ("rejection", "fused"): "rejection_rows_kernel<true",
     ("rejection", "step"): "rejection_step_rows_kernel",
+    ("prefix", "scan"): "prefix_scan_rows_kernel",
+    ("prefix", "search"): "prefix_search_rows_kernel<false, false>",
+    ("prefix", "gather"): "prefix_search_rows_kernel<true, false>",
+    ("prefix", "residual"): "prefix_search_rows_kernel<true, true>",
 }
 #: The CUDA source of each family's kernels.
 SOURCES = {"megopolis": "megopolis/csrc/megopolis.cu",
            "metropolis": "metropolis/csrc/metropolis.cu",
            "metropolis_c1": "metropolis/csrc/c1c2.cu", "metropolis_c2": "metropolis/csrc/c1c2.cu",
-           "rejection": "rejection/csrc/rejection.cu"}
+           "rejection": "rejection/csrc/rejection.cu", "prefix": "prefix_sum/csrc/prefix_sum.cu"}
 #: The TPU kernel each wrapper replaces (``megopolis_rows`` is row 1 vmapped).
 TPU_KERNELS = {
     "megopolis": "megopolis_pallas", "megopolis_batch": "megopolis_pallas_batch",
@@ -766,6 +969,15 @@ TPU_KERNELS = {
     "rejection_fused": "rejection_pallas_fused",
     "rejection_fused_batch": "rejection_pallas_fused_batch",
     "rejection_step": "rejection_pallas_step", "rejection_step_rows": "rejection_pallas_step_rows",
+    # The JAX package scans, searches and steps one population per call: the
+    # bank forms replace the single kernel mapped over the rows.
+    "prefix_sum": "prefix_sum_pallas", "prefix_sum_rows": "prefix_sum_pallas",
+    "searchsorted": "searchsorted_pallas", "searchsorted_rows": "searchsorted_pallas",
+    "searchsorted_gather": "searchsorted_gather_pallas",
+    "searchsorted_gather_rows": "searchsorted_gather_pallas",
+    "residual_select_gather": "residual_select_gather_pallas",
+    "residual_select_gather_rows": "residual_select_gather_pallas",
+    "prefix_step": "prefix_pallas_step", "prefix_step_rows": "prefix_pallas_step",
 }
 for _c in ("metropolis_c1", "metropolis_c2"):
     # The JAX package has no C1/C2 bank kernel: the bank forms replace the
@@ -774,6 +986,59 @@ for _c in ("metropolis_c1", "metropolis_c2"):
                         f"{_c}_fused": f"{_c}_pallas_fused",
                         f"{_c}_fused_batch": f"{_c}_pallas_fused",
                         f"{_c}_step": f"{_c}_pallas_step", f"{_c}_step_rows": f"{_c}_pallas_step"})
+
+
+def kernel_name(family, kind, kargs) -> str:
+    """The name the profiler gives the kernel a wrapper launches."""
+    if (family, kind) == ("prefix", "step"):
+        from repro_torch.kernels.prefix_sum.ref import KIND_CODES
+
+        return f"prefix_step_rows_kernel<{KIND_CODES[kargs[-1]]}>"
+    return KERNEL_NAMES[(family, kind)]
+
+
+def prefix_work(kind, kargs, rows, n) -> tuple:
+    """Bytes a prefix-sum wrapper must move (each input read once, each
+    output written once) and its 32-bit operations, on its captured
+    inputs: ``(bytes, operations)``."""
+    steps = max(1, math.ceil(math.log2(n + 1)))  # every lane bisects this or one less
+    elems = rows * n
+    if kind == "scan":
+        return 8 * elems, SCAN_OPS * elems
+    if kind == "search":  # CDF and draws in, ancestors out
+        return 12 * elems, BISECT_OPS * steps * elems
+    if kind == "gather":  # plus the state (D = 1) in and out
+        return 20 * elems, BISECT_OPS * steps * elems
+    if kind == "residual":  # two CDFs, the draws, the state; ancestors and state out
+        return 24 * elems, BISECT_OPS * steps * elems
+    # The step: log-weights, the state and the draw bases in; ancestors and
+    # state out; the prelude, the scans, the draws and the bisection.
+    code = 0 if kargs[-1] == "multinomial" else (3 if kargs[-1] == "residual" else 1)
+    base = 0 if kargs[2] is None else 4 * elems
+    scans = SCAN_OPS * (3 if code == 3 else 1) + (RESIDUAL_SPLIT_OPS if code == 3 else 0)
+    return (16 * elems + base,
+            (PRELUDE_OPS + scans + DRAW_OPS + BISECT_OPS * steps) * elems)
+
+
+def library_call(kind, kargs):
+    """One PyTorch call that computes the same function, on the same
+    inputs, or None: ``torch.cumsum`` for the scan, ``torch.searchsorted``
+    for the search, and with the index of the state for the gather (timed
+    beside the kernel only; the port never calls them)."""
+    if kind == "scan":
+        return lambda: torch.cumsum(kargs[0], dim=-1)
+    if kind in ("search", "gather"):
+        c, u, side = kargs[0], kargs[1], kargs[-1]
+        if kind == "search":
+            return lambda: torch.searchsorted(c, u, side=side)
+        state = kargs[2]
+        n = c.shape[-1]
+
+        def search_and_index():
+            k = torch.searchsorted(c, u, side=side).clamp_(max=n - 1)
+            return torch.gather(state, -1, k.unsqueeze(-2).expand_as(state))
+        return search_and_index
+    return None
 
 
 def check_kernel(case, path_launches) -> dict:
@@ -787,6 +1052,8 @@ def check_kernel(case, path_launches) -> dict:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     got = tuple(g.reshape(wnt.shape) for g, wnt in zip(got, want))
+    if kind == "scan":  # a CDF: every bit
+        got, want = (got[0].view(torch.int32),), (want[0].view(torch.int32),)
     anc_mismatch = int((got[0] != want[0]).sum())
     state_err = float((got[1] - want[1]).abs().max()) if len(got) > 1 else 0.0
     tpu_file, tpu_line = _tpu_kernel_lines()[TPU_KERNELS[wrapper.__name__]]
@@ -822,32 +1089,41 @@ def check_kernel(case, path_launches) -> dict:
     rounds = rejection_rounds(kargs, kind, iters) if family == "rejection" else None
     work = rows * n * iters if rounds is None else int((rounds + 1).sum())
     reps = 20 if work < 2e9 else 4
-    ms = kernel_ms(lambda: wrapper(*kargs), KERNEL_NAMES[(family, kind)], reps)
+    ms = kernel_ms(lambda: wrapper(*kargs), kernel_name(family, kind, kargs), reps)
     call_ms = time_ms(lambda: wrapper(*kargs), reps)
     plain_ms = time_ms(plain, max(1, min(5, int(2e9 // work))), warmup=0)
-    # Weights (or log-weights) in and ancestors out; the state in and out
-    # (D = 1 on the path) for the fused and step kernels; C1/C2's partition
-    # table, read once; rejection's sup w pass before a rows launch.
-    table = kargs[-4 if kind == "step" else -3] if family.startswith("metropolis_c") else None
-    n_bytes = rows * n * (8 if kind == "index" else 16)
-    n_bytes += 0 if table is None else 4 * table.numel()
-    n_bytes += 4 * rows * n if family == "rejection" and kind != "step" else 0
-    n_ops = work * SWEEP_OPS[family] + rows * n * (PRELUDE_OPS if kind == "step" else 0)
+    library = library_call(kind, kargs) if family == "prefix" else None
+    library_ms = None if library is None else time_ms(library, reps)
+    if family == "prefix":
+        n_bytes, n_ops = prefix_work(kind, kargs, rows, n)
+    else:
+        # Weights (or log-weights) in and ancestors out; the state in and
+        # out (D = 1 on the path) for the fused and step kernels; C1/C2's
+        # partition table, read once; rejection's sup w pass before a rows
+        # launch.
+        table = kargs[-4 if kind == "step" else -3] if family.startswith("metropolis_c") else None
+        n_bytes = rows * n * (8 if kind == "index" else 16)
+        n_bytes += 0 if table is None else 4 * table.numel()
+        n_bytes += 4 * rows * n if family == "rejection" and kind != "step" else 0
+        n_ops = work * SWEEP_OPS[family] + rows * n * (PRELUDE_OPS if kind == "step" else 0)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     entry.update(launches=path_launches.get(name, 0), max_abs_err=max_abs_err,
                  ancestor_mismatches=anc_mismatch, ms=ms, call_ms=call_ms,
                  plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
-                 library_ms=None, rows=rows, n=n, iters=iters, l2="warm")
+                 library_ms=library_ms, rows=rows, n=n, iters=iters, l2="warm")
+    if family == "prefix" and kind == "step":
+        entry["kind"] = kargs[-1]
     if family == "metropolis":
         # Every random w[j] read moves one L2 sector; one row's weights are
         # the working set the kernel's block order keeps live.
         entry.update(l2_sector_bytes=rows * n * iters * L2_SECTOR,
                      row_weights_fit_l2=4 * n <= L2_BYTES,
                      bank_weights_fit_l2=4 * n * rows <= L2_BYTES)
-    elif table is not None:
+    elif family.startswith("metropolis_c"):
         # Every partition tile a block loads is 4 KiB of weights re-read from
         # L2: once per own tile for C1, once per iteration for C2.
+        table = kargs[-4 if kind == "step" else -3]
         loads = rows * (n // 1024) * (1 if family == "metropolis_c1" else iters)
         entry.update(partition_l2_bytes=loads * 4096, table_entries=table.numel())
     elif rounds is not None:
@@ -901,6 +1177,11 @@ def grid_study(case) -> dict:
     name, wrapper, kargs, _, family, kind, rows, _ = case
     if family.startswith("metropolis_c"):
         lib, attr, lead = ck._lib(), "metropolis_c1c2_step_grid", (int(family[-1]),)
+    elif family == "prefix":
+        from repro_torch.kernels.prefix_sum import prefix_sum as pk
+        from repro_torch.kernels.prefix_sum.ref import KIND_CODES
+
+        lib, attr, lead = pk._lib(), "prefix_step_grid", (KIND_CODES[kargs[-1]],)
     else:
         module = {"megopolis": mk, "metropolis": tk, "rejection": rk}[family]
         lib, attr, lead = module._lib(), f"{family}_step_grid", ()
@@ -919,7 +1200,7 @@ def grid_study(case) -> dict:
             return err
         setattr(lib, attr, capped)
         try:
-            ms = kernel_ms(lambda: wrapper(*kargs), KERNEL_NAMES[(family, kind)], 10)
+            ms = kernel_ms(lambda: wrapper(*kargs), kernel_name(family, kind, kargs), 10)
         finally:
             setattr(lib, attr, real)
         out["ms_by_blocks_per_sm"][per_sm] = ms
@@ -930,7 +1211,9 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
     """What one filter step costs besides the kernel: the key derivation
     (split, split, then the family's tables: offsets and seed for Megopolis,
     the seed alone for Metropolis and rejection, the partition table, drawn
-    on the card, and the seed for C1/C2), the UNGM noise draw on the card,
+    on the card, and the seed for C1/C2, the draw bases for the prefix-sum
+    kinds: N uniforms on the card, or one on the host for improved
+    systematic), the UNGM noise draw on the card,
     and a profile
     of a few conditional steps (device time by kernel name and the device's
     busy share of the wall time)."""
@@ -938,12 +1221,14 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
     from repro_torch.kernels.common import key_to_seed
     from repro_torch.kernels.megopolis.ops import key_tables
     from repro_torch.kernels.metropolis.ops import c1c2_tables
+    from repro_torch.kernels.prefix_sum.ops import draw_bases
     from repro_torch.pf.filter import ParticleFilter, run_filter
 
     tables = {"megopolis": lambda k: key_tables(k, n, b), "metropolis": key_to_seed,
               "metropolis_c1": lambda k: c1c2_tables(1, k, n, b, dev),
               "metropolis_c2": lambda k: c1c2_tables(2, k, n, b, dev),
-              "rejection": key_to_seed}[family]
+              "rejection": key_to_seed}.get(
+                  family, lambda k: draw_bases(k[None], n, family, dev))
     reps = 200
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -984,15 +1269,18 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
 
 def _tpu_kernel_lines() -> dict:
     """File and line of each ``def megopolis_pallas*``, ``def
-    metropolis_pallas*``, ``def metropolis_c{1,2}_pallas*`` and ``def
-    rejection_pallas*`` in the JAX package's kernel files, read as text
-    (nothing of the JAX package is imported)."""
+    metropolis_pallas*``, ``def metropolis_c{1,2}_pallas*``, ``def
+    rejection_pallas*`` and of the prefix-sum kernels' ``def``s in the JAX
+    package's kernel files, read as text (nothing of the JAX package is
+    imported)."""
     lines = {}
     for rel in ("megopolis/megopolis.py", "metropolis/metropolis.py", "metropolis/c1c2.py",
-                "rejection/rejection.py"):
+                "rejection/rejection.py", "prefix_sum/prefix_sum.py", "prefix_sum/search.py",
+                "prefix_sum/step.py"):
         rel = f"src/repro/kernels/{rel}"
         for i, line in enumerate((ROOT / rel).read_text().splitlines(), 1):
-            if (line.startswith(("def megopolis_pallas", "def metropolis_", "def rejection_"))
+            if (line.startswith(("def megopolis_pallas", "def metropolis_", "def rejection_",
+                                 "def prefix_", "def searchsorted_", "def residual_select"))
                     and "_pallas" in line):
                 lines[line[4:line.index("(")]] = (rel, i)
     return lines

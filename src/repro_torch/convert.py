@@ -9,8 +9,8 @@ module needs neither package's import of the other:
 * particle, weight and log-weight arrays <-> tensors, bit for bit;
 * UNGM ``theta`` dicts <-> dicts of float32 tensors;
 * the fields of a JAX ``MegopolisSpec``, ``MetropolisSpec``,
-  ``MetropolisC1Spec``, ``MetropolisC2Spec`` or ``RejectionSpec`` -> the
-  port's spec of the same family, and back.
+  ``MetropolisC1Spec``, ``MetropolisC2Spec``, ``RejectionSpec`` or
+  ``PrefixSumSpec`` -> the port's spec of the same family, and back.
 """
 
 from __future__ import annotations
@@ -26,9 +26,11 @@ from repro_torch.core.spec import (
     MetropolisC1Spec,
     MetropolisC2Spec,
     MetropolisSpec,
+    PrefixSumSpec,
     RejectionSpec,
     ResamplerSpec,
 )
+from repro_torch.kernels.prefix_sum.ops import PREFIX_KINDS
 
 #: JAX backends whose kernels the port's ``cuda`` backend replaces.
 _KERNEL_BACKENDS = ("pallas", "pallas_interpret")
@@ -73,23 +75,22 @@ def theta_to_jax(theta: dict) -> dict:
     return {name: array_to_jax(v) for name, v in theta.items()}
 
 
-#: The port's spec class of each ported JAX family, by the family's name.
+#: The port's spec class of each JAX family, by the spec's name (a
+#: prefix-sum spec is named by its kind).
 _FAMILIES = {cls.name: cls for cls in (MegopolisSpec, MetropolisSpec, MetropolisC1Spec,
                                         MetropolisC2Spec, RejectionSpec)}
+_FAMILIES.update(dict.fromkeys(PREFIX_KINDS, PrefixSumSpec))
 
 
 def spec_from_jax(spec) -> ResamplerSpec:
-    """A JAX spec of a ported family -> the port's spec of the same family,
-    field by field (C1/C2 with ``partition_size_bytes`` and ``warp``,
-    rejection with ``max_iters``); the
-    pallas backends map to ``cuda``, the others raise in the port's spec as
-    not yet ported.  Another family raises ``NotImplementedError``."""
+    """A JAX spec -> the port's spec of the same family, field by field (C1/C2
+    with ``partition_size_bytes`` and ``warp``, rejection with
+    ``max_iters``, the prefix-sum family with ``kind``); the pallas backends
+    map to ``cuda``, the others raise in the port's spec as not yet
+    ported.  A spec of no known family raises ``ValueError``."""
     cls = _FAMILIES.get(spec.name)
     if cls is None:
-        raise NotImplementedError(
-            f"spec_from_jax: the {spec.name!r} family is not ported yet "
-            "(ROADMAP Queue A, item 5: the prefix-sum family)"
-        )
+        raise ValueError(f"spec_from_jax: no resampler family is named {spec.name!r}")
     fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(cls)}
     if fields["backend"] in _KERNEL_BACKENDS:
         fields["backend"] = "cuda"

@@ -1,9 +1,10 @@
 """Typed resampler specs and the built resampler, after ``repro.core.spec``
-(the Megopolis and Metropolis families, Metropolis-C1 and -C2, and Murray's
-rejection).
+(the Megopolis and Metropolis families, Metropolis-C1 and -C2, Murray's
+rejection and the five prefix-sum kinds: every family of the JAX package).
 
     spec = MegopolisSpec(num_iters=32)          # backend="cuda"
     spec = RejectionSpec(max_iters=1024)        # no num_iters: a capped loop
+    spec = PrefixSumSpec(kind="multinomial")    # no num_iters: one scan, one search
     r = spec.build()
     ancestors = r(key, weights)
     particles2, ancestors = r.apply(key, weights, particles)
@@ -20,6 +21,7 @@ nothing is computed another way.
 from __future__ import annotations
 
 import dataclasses
+import difflib
 from typing import Callable, ClassVar, Union
 
 import torch
@@ -33,6 +35,7 @@ from repro_torch.core.metrics import (
 from repro_torch.core.resamplers.batched import split_batch_keys
 from repro_torch.kernels.megopolis import ops as mops
 from repro_torch.kernels.metropolis import ops as tops
+from repro_torch.kernels.prefix_sum import ops as pops
 from repro_torch.kernels.rejection import ops as rops
 from repro_torch.obs.stats import stats_from_vector
 
@@ -110,9 +113,10 @@ class Resampler:
     Row ``s`` of ``batch_rows``/``apply_rows``/``step_rows`` equals the
     single entry with ``keys[s]``.  ``batch``/``apply_batch`` follow the
     family's contract: for Metropolis, C1, C2 and rejection row ``s`` is the
-    single call with ``split(key, S)[s]``; Megopolis's shares one offset
-    table over the bank.  With a fixed iteration count (rejection always)
-    each bank form is one launch.
+    single call with ``split(key, S)[s]``, and so for the prefix-sum kinds;
+    Megopolis's shares one offset table over the bank.  With a fixed
+    iteration count (rejection and the prefix-sum kinds always) each bank
+    form is one launch per stage.
     ``apply`` selects ancestors and copies their state in one launch, with
     the ancestors of ``__call__``.  ``step`` normalises, computes the ESS,
     resamples iff ``ess_norm < threshold`` (strict) and copies state in one
@@ -470,4 +474,50 @@ class RejectionSpec(ResamplerSpec):
             step=lambda key, lw, p, thr: rops.rejection_cuda_step(key, lw, p, m, thr),
             step_rows=lambda keys, lw, p, thr: rops.rejection_cuda_step_rows(
                 keys, lw, p, m, thr),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixSumSpec(ResamplerSpec):
+    """The prefix-sum family (paper §6.5): ``kind`` one of multinomial (Alg.
+    7), systematic and improved systematic (Alg. 8), stratified and
+    residual, on the hand-written CUDA kernels (a block scan, a bisection,
+    and the fused step).  None takes an iteration count, so there is no
+    'auto'; the spec's ``name`` is its kind, as in the JAX package.  Every
+    bank form launches each stage once over the bank, ``batch``/
+    ``apply_batch`` under the split-key contract; ``residual`` takes N <=
+    2**24."""
+
+    kind: str = "systematic"
+    backend: str = "cuda"
+    plane_dtype: str = "float32"
+    guard: str = "off"
+
+    def __post_init__(self):
+        if self.kind not in pops.PREFIX_KINDS:
+            hint = difflib.get_close_matches(str(self.kind), pops.PREFIX_KINDS, n=1)
+            did_you_mean = f" — did you mean {hint[0]!r}?" if hint else ""
+            raise ValueError(
+                f"PrefixSumSpec.kind must be one of {sorted(pops.PREFIX_KINDS)}; "
+                f"got {self.kind!r}{did_you_mean}"
+            )
+        self._validate()
+
+    @property
+    def name(self) -> str:
+        return self.kind
+
+    def build(self) -> Resampler:
+        kind = self.kind
+        return Resampler(
+            self,
+            single=lambda key, w: pops.prefix_resample_cuda(key, w, kind),
+            batch=lambda key, w: pops.prefix_resample_cuda_batch(key, w, kind),
+            batch_rows=lambda keys, w: pops.prefix_resample_cuda_batch_rows(keys, w, kind),
+            apply=lambda key, w, p: pops.prefix_resample_cuda_apply(key, w, p, kind),
+            apply_batch=lambda key, w, p: pops.prefix_resample_cuda_apply_batch(key, w, p, kind),
+            apply_rows=lambda keys, w, p: pops.prefix_resample_cuda_apply_rows(keys, w, p, kind),
+            step=lambda key, lw, p, thr: pops.prefix_resample_cuda_step(key, lw, p, thr, kind),
+            step_rows=lambda keys, lw, p, thr: pops.prefix_resample_cuda_step_rows(
+                keys, lw, p, thr, kind),
         )

@@ -194,10 +194,11 @@ def gather_state(state: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.gather(state, 2, k.unsqueeze(1).expand(-1, state.shape[1], -1))
 
 
-def check_bank(who: str, w: torch.Tensor, state, seeds: torch.Tensor):
+def check_bank(who: str, w: torch.Tensor, state, seeds):
     """Validate the arguments every bank kernel takes: weights ``f32[S, N]``,
     state ``[S, D, N]`` (or None for an index-only kernel) and ``seeds
-    [S]``.  Returns ``(S, N, D)`` (D = 0 without state)."""
+    [S]`` (None for the prefix-sum kernels, which take no seed).  Returns
+    ``(S, N, D)`` (D = 0 without state)."""
     if w.dtype != torch.float32 or w.ndim != 2:
         raise ValueError(f"{who}: weights must be float32[S, N]; got {w.dtype}{list(w.shape)}")
     s, n = w.shape
@@ -207,7 +208,7 @@ def check_bank(who: str, w: torch.Tensor, state, seeds: torch.Tensor):
         raise ValueError(f"{who}: between 1 and {MAX_ROWS} rows per launch; got {s}")
     if s * n >= 1 << 31:
         raise ValueError(f"{who}: S·N must stay below 2**31 (int32 indices); got {s}·{n}")
-    if seeds.shape != (s,):
+    if seeds is not None and seeds.shape != (s,):
         raise ValueError(f"{who}: seeds must be [S]; got {list(seeds.shape)}")
     if state is not None and (state.ndim != 3 or state.shape[0] != s or state.shape[2] != n):
         raise ValueError(f"{who}: state must be [S, D, N] = [{s}, D, {n}]; got {list(state.shape)}")

@@ -47,6 +47,7 @@ from repro_torch.core.spec import (
     MetropolisC1Spec,
     MetropolisC2Spec,
     MetropolisSpec,
+    PrefixSumSpec,
     RejectionSpec,
     ResamplerSpec,
 )
@@ -55,7 +56,7 @@ from repro_torch.obs.telemetry import Telemetry
 
 #: The resampler families the filter takes.
 _PORTED_SPECS = (MegopolisSpec, MetropolisSpec, MetropolisC1Spec, MetropolisC2Spec,
-                 RejectionSpec)
+                 RejectionSpec, PrefixSumSpec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +73,9 @@ class ParticleFilter:
     """SIR filter config.  ``resampler`` is a ``MegopolisSpec`` (default:
     30 iterations, the fixed prior of paper §7), a ``MetropolisSpec`` (the
     paper's Alg. 2 baseline, Table 2), a ``MetropolisC1Spec`` /
-    ``MetropolisC2Spec`` (Algs. 3-4, Fig. 9) or a ``RejectionSpec``
-    (Murray's rejection, paper §1); the prefix-sum family is not ported yet
-    (ROADMAP Queue A, item 5)."""
+    ``MetropolisC2Spec`` (Algs. 3-4, Fig. 9), a ``RejectionSpec``
+    (Murray's rejection, paper §1) or a ``PrefixSumSpec`` (the prefix-sum
+    kinds of paper §6.5, Table 2's unbiased columns)."""
 
     model: StateSpaceModel
     num_particles: int
@@ -91,8 +92,8 @@ class ParticleFilter:
             )
         if not isinstance(self.resampler, _PORTED_SPECS):
             raise NotImplementedError(
-                f"ParticleFilter: resampler {self.resampler!r} is not ported yet "
-                "(ROADMAP Queue A, item 5: the prefix-sum family)"
+                f"ParticleFilter: resampler {self.resampler!r} is not ported yet; pass a "
+                "spec (every family has one); names are ROADMAP Queue A, item 4"
             )
         object.__setattr__(self, "_built", self.resampler.build())
 

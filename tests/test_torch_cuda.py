@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions (Megopolis, Metropolis, Metropolis-C1/C2, rejection), and the
-filter's default device.  They skip without a card
+versions (Megopolis, Metropolis, Metropolis-C1/C2, rejection, the prefix-sum
+kinds), and the filter's default device.  They skip without a card
 (this file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch: ``python -m pytest -q --noconftest -m cuda
 tests/test_torch_cuda.py``)."""
@@ -14,6 +14,7 @@ from repro_torch.core.spec import (
     MetropolisC1Spec,
     MetropolisC2Spec,
     MetropolisSpec,
+    PrefixSumSpec,
     RejectionSpec,
 )
 from repro_torch.kernels.megopolis import megopolis as mk
@@ -21,6 +22,10 @@ from repro_torch.kernels.megopolis import ref
 from repro_torch.kernels.metropolis import c1c2 as ck
 from repro_torch.kernels.metropolis import metropolis as tk
 from repro_torch.kernels.metropolis import ref as tref
+from repro_torch.kernels.prefix_sum import prefix_sum as pk
+from repro_torch.kernels.prefix_sum import ref as pref
+from repro_torch.kernels.prefix_sum import search as sk
+from repro_torch.kernels.prefix_sum import step as stk
 from repro_torch.kernels.rejection import ref as rref
 from repro_torch.kernels.rejection import rejection as rk
 from repro_torch.pf.filter import ParticleFilter, run_filter, simulate
@@ -254,3 +259,108 @@ def test_run_filter_with_rejection_on_the_card(card):
     w = torch.rand(4, 8192, device=card) ** 8
     keys = trandom.split(key, 4)
     assert torch.equal(r.batch_rows(keys, w).cpu(), r.batch_rows(keys, w.cpu()))
+
+
+def _prefix_weights(dev, n):
+    """Four rows: subnormal and zero weights (flat CDF runs), equal weights
+    (systematic draws on the CDF's steps), one dominant weight among tiny
+    normal ones, and a NaN."""
+    g = torch.Generator().manual_seed(1)
+    w = torch.rand(4, n, generator=g) ** 8
+    w[0, ::7] = 1e-39
+    w[0, ::5] = 0.0
+    w[1] = 1.0
+    w[2] = 2e-38
+    w[2, n // 3] = 1.0
+    w[3, 5] = float("nan")
+    return w.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1 << 14, 1 << 20))
+def test_prefix_scan_kernel_matches_plain_version(card, n):
+    """Row 25: bit for bit, each row's carry restarting at 0."""
+    w = _prefix_weights(card, n)
+    pk.reset_launch_counts()
+    want = pref.scan_rows_ref(w)
+    got = pk.prefix_sum_rows(w)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(pk.prefix_sum(w[2]).view(torch.int32), want[2].view(torch.int32))
+    assert torch.equal(pk.prefix_sum_rows(w).view(torch.int32), got.view(torch.int32))
+    assert (pk.prefix_sum.launches, pk.prefix_sum_rows.launches) == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1 << 14, 1 << 20))
+def test_prefix_search_kernels_match_plain_version(card, n):
+    """Rows 26-28 on the scanned rows, with draws of every kind."""
+    w = _prefix_weights(card, n)
+    state = torch.randn(4, 2, n, generator=torch.Generator().manual_seed(2)).to(card)
+    c = pref.scan_rows_ref(w)
+    g = torch.Generator().manual_seed(3)
+    ubase = torch.rand(4, n, generator=g).to(card)
+    u0 = torch.rand(4, generator=g).to(card)
+    sk.reset_launch_counts()
+    for kind in ("multinomial", "systematic", "stratified"):
+        u = pref.scaled_draws(kind, c[:, -1], n, ubase, u0)
+        side = "right" if pref.side_is_right(kind) else "left"
+        want, want_out = pref.search_rows_ref(c, u, side == "right", state)
+        assert torch.equal(sk.searchsorted_rows(c, u, side), want)
+        anc, out = sk.searchsorted_gather_rows(c, u, state, side)
+        assert torch.equal(anc, want) and torch.equal(out, want_out)
+        assert torch.equal(sk.searchsorted(c[1], u[1], side), want[1])
+        assert torch.equal(sk.searchsorted_gather(c[0], u[0], state[0], side)[1], want_out[0])
+    counts, resid, n_det = pref.residual_parts(w, c[:, -1])
+    cc, cr = pref.scan_rows_ref(counts), pref.scan_rows_ref(resid)
+    u = pref.scaled_draws("residual", cr[:, -1], n, ubase)
+    want, want_out = pref.residual_select_rows_ref(cc, cr, u, n_det, state)
+    anc, out = sk.residual_select_gather_rows(cc, cr, u, n_det, state)
+    assert torch.equal(anc, want) and torch.equal(out, want_out)
+    one = sk.residual_select_gather(cc[0], cr[0], u[0], n_det[:1], state[0])
+    assert torch.equal(one[0], want[0])
+    assert [fn.launches for fn in sk.WRAPPERS] == [3, 3, 3, 3, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("multinomial", "systematic", "stratified", "residual"))
+@pytest.mark.parametrize("n", (1 << 14, 1 << 20))
+def test_prefix_step_kernel_matches_plain_version(card, kind, n):
+    """Row 29: the stats as the other step kernels, the ancestors and
+    states bit for bit (the same weights, the same scan)."""
+    _, lw, state, _, _ = _inputs(card, n=n)
+    g = torch.Generator().manual_seed(4)
+    ubase = None if kind == "systematic" else torch.rand(4, n, generator=g).to(card)
+    u0 = torch.rand(4, generator=g).to(card) if kind == "systematic" else None
+    stk.reset_launch_counts()
+    anc, out, stats = stk.prefix_step_rows(lw, state, ubase, u0, 0.5, kind)
+    want_anc, want_out, want_stats = pref.prefix_step_rows_ref(lw, state, ubase, u0, 0.5, kind)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])  # the same triggers
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert torch.equal(stk.prefix_step_rows(lw, state, ubase, u0, 0.5, kind)[2], stats)
+    one = stk.prefix_step(lw[0], state[0], None if ubase is None else ubase[0],
+                          None if u0 is None else u0[:1], 1.0, kind)
+    want_one = pref.prefix_step_rows_ref(lw[:1], state[:1], None if ubase is None else ubase[:1],
+                                         None if u0 is None else u0[:1], 1.0, kind)
+    assert torch.equal(one[0], want_one[0][0])
+    assert (stk.prefix_step_rows.launches, stk.prefix_step.launches) == (2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("multinomial", "improved_systematic", "residual"))
+def test_run_filter_with_prefix_sum_on_the_card(card, kind):
+    key = trandom.PRNGKey(0)
+    _, obs = simulate(key, ungm(), 5)
+    pf = ParticleFilter(ungm(), 8192, resampler=PrefixSumSpec(kind=kind), ess_threshold=0.5)
+    stk.reset_launch_counts()
+    est = run_filter(key, pf, obs)
+    assert est.is_cuda and est.shape == (5,) and torch.isfinite(est).all()
+    assert stk.prefix_step.launches == 5
+    r = PrefixSumSpec(kind=kind).build()
+    w = torch.rand(4, 8192, device=card) ** 8
+    keys = trandom.split(key, 4)
+    assert torch.equal(r.batch_rows(keys, w).cpu(), r.batch_rows(keys, w.cpu()))
+    p = torch.randn(4, 8192, device=card)
+    got = r.apply_rows(keys, w, p)
+    want = r.apply_rows(keys, w.cpu(), p.cpu())
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
