@@ -38,7 +38,9 @@ over, and there is no CPU fallback):
      multinomial and improved systematic kinds: K Monte Carlo resamples in
      one ``batch_rows`` launch per stage, MSE/N, the bias share, and the
      time of one ``r(key, w)``;
-   * small runs of both paths on the card against the same runs on the CPU;
+   * small runs of both paths on the card against the same runs on the CPU,
+     and for the prefix-sum kinds each step of an Alg. 6 run on the CPU
+     replayed on the card bit for bit;
 4. for each kernel wrapper, on its inputs captured from a short full-width
    run of the entry point that calls it (for a step, the last captured call
    that resampled), compare the kernel with its plain version on the card,
@@ -47,9 +49,10 @@ over, and there is no CPU fallback):
    warps); time each bank step kernel at capped cooperative grids (blocks
    per SM); hold ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
-   inputs (the systematic and stratified searches on its captured
-   weights), every kind of the step, and beside each scan and search the
-   one PyTorch call that computes it (``library_ms``);
+   inputs, on a bank and on one population (a bank of one row; the
+   systematic and stratified searches on its captured weights), every
+   kind of the step, and beside each scan and search the one PyTorch call
+   that computes it (``library_ms``);
 5. print the card line, one JSON line of kernels, then a last JSON line
    naming the device.
 
@@ -192,12 +195,11 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     return sum(times) / len(times) / 1e3
 
 
-def capture(module, name: str, run, index: int = -1) -> tuple:
-    """The arguments of one call of ``module.<name>`` made by ``run()``: of
-    the calls after which some row resampled (every call of an index-only or
-    apply wrapper), the one at ``index`` (the last by default); if there is
-    none, the last call.  These launches are not the main path's: its counts
-    are set to 0 before each of its runs."""
+def capture(module, name: str, run) -> tuple:
+    """The arguments of one call of ``module.<name>`` made by ``run()``: the
+    last call after which some row resampled (every call of an index-only or
+    apply wrapper); if there is none, the last call.  These launches are not
+    the main path's: its counts are set to 0 before each of its runs."""
     real = getattr(module, name)
     calls = []
 
@@ -216,7 +218,31 @@ def capture(module, name: str, run, index: int = -1) -> tuple:
     if not calls:
         fail(f"{name} was not called while capturing its inputs")
     fired = [args for f, args in calls if f]
-    return fired[index] if fired else calls[-1][1]
+    return fired[-1] if fired else calls[-1][1]
+
+
+def capture_weights(run, method: str) -> torch.Tensor:
+    """The weights of the last call of the built resampler's ``method``
+    (``apply`` or ``apply_rows``) that ``run()`` makes: an Alg. 6 filter
+    calls it once a step, so these are its last step's, for every family
+    alike."""
+    from repro_torch.core.spec import Resampler
+
+    real = getattr(Resampler, method)
+    seen = []
+
+    def record(self, key, w, particles):
+        seen[:] = [w.clone()]
+        return real(self, key, w, particles)
+
+    setattr(Resampler, method, record)
+    try:
+        run()
+    finally:
+        setattr(Resampler, method, real)
+    if not seen:
+        fail(f"Resampler.{method} was not called while capturing its weights")
+    return seen[0]
 
 
 def summary(stats) -> dict:
@@ -257,11 +283,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.megopolis import megopolis as mk
     from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import metropolis as tk
-    from repro_torch.kernels.prefix_sum import ops as pops
     from repro_torch.kernels.prefix_sum import prefix_sum as pk
     from repro_torch.kernels.prefix_sum import search as sk
     from repro_torch.kernels.prefix_sum import step as stk
-    from repro_torch.kernels.rejection import ops as rops
     from repro_torch.kernels.rejection import rejection as rk
     from repro_torch.pf.filter import simulate
     from repro_torch.pf.models import ungm, ungm_family
@@ -310,19 +334,17 @@ def main(argv=None) -> int:
         "bank_alg6": rk.rejection_fused_batch, "bank_conditional": rk.rejection_step_rows,
         "batch_rows": rk.rejection_batch, "single": rk.rejection, "batch": rk.rejection_batch,
         "path_b": False, "small": RejectionSpec(max_iters=REJECTION_MAX_ITERS)}
-    # A wrapper tuple: the entry launches each of them.
-    one_index, bank_index = (pk.prefix_sum, sk.searchsorted), (pk.prefix_sum_rows,
-                                                                sk.searchsorted_rows)
+    # A wrapper tuple: the entry launches each of them.  The prefix-sum
+    # wrappers take banks: one population is a bank of one row.
+    prefix_index = (pk.prefix_sum_rows, sk.searchsorted_rows)
     for kind in PATH_A_PREFIX_KINDS:
-        res = kind == "residual"
+        fused = (pk.prefix_sum_rows, sk.residual_select_gather_rows if kind == "residual"
+                 else sk.searchsorted_gather_rows)
         families[kind] = {
             "spec": PrefixSumSpec(kind=kind), "cls": PrefixSumSpec,
-            "alg6": (pk.prefix_sum, sk.residual_select_gather if res else sk.searchsorted_gather),
-            "conditional": stk.prefix_step,
-            "bank_alg6": (pk.prefix_sum_rows, sk.residual_select_gather_rows if res
-                          else sk.searchsorted_gather_rows),
-            "bank_conditional": stk.prefix_step_rows,
-            "batch_rows": bank_index, "single": one_index, "batch": bank_index,
+            "alg6": fused, "conditional": stk.prefix_step_rows, "bank_alg6": fused,
+            "bank_conditional": stk.prefix_step_rows, "batch_rows": prefix_index,
+            "single": prefix_index, "batch": prefix_index,
             "path_b": False, "small": PrefixSumSpec(kind=kind)}
     path_b_families = {name: f for name, f in families.items() if f["path_b"]}
     modules = (mk, tk, ck, rk, pk, sk, stk)
@@ -366,21 +388,16 @@ def main(argv=None) -> int:
     for family, f in families.items():
         path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, thetas,
                k_run, drive, results)
-    path_a_index("rejection", families["rejection"], rops, ("rejection_fused", -1),
-                 ("rejection_fused_batch", -1), args, dev, model, fam, obs, bank_obs, thetas,
-                 k_run, drive, results)
-    # Residual's first scan of a step takes the weights: the third call
-    # from the end is the last step's.
-    path_a_index("residual", families["residual"], pops, ("prefix_sum", -3),
-                 ("prefix_sum_rows", -3), args, dev, model, fam, obs, bank_obs, thetas, k_run,
-                 drive, results)
+    for family in ("rejection", "residual"):
+        path_a_index(family, families[family], args, dev, model, fam, obs, bank_obs, thetas,
+                     k_run, drive, results)
     results["rejection_spread"] = rejection_spread(families["rejection"]["spec"], n, model,
                                                    obs, k_run, dev)
     for family, f in path_b_families.items():
         path_b(family, f, args, dev, k_quality, drive, results)
     path_c(args, dev, trandom.fold_in(k_quality, 8), drive, results,
            {"megopolis": (mk.megopolis_rows, mk.megopolis),
-            "multinomial": bank_index + one_index, "improved_systematic": bank_index + one_index})
+            "multinomial": prefix_index, "improved_systematic": prefix_index})
     results["small_runs_card_vs_cpu"] = small_runs(families, obs, truth, k_run, k_quality, dev)
     results["host_and_device_per_step"] = {
         family: step_costs(family, k_run, n, ITERS, dev, model, f["spec"], obs)
@@ -463,24 +480,23 @@ def path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, t
     results[name].update(resample_ratio=resample_ratio(times), times=times)
 
 
-def path_a_index(family, f, ops, single_cap, bank_cap, args, dev, model, fam, obs, bank_obs,
-                 thetas, k_run, drive, results):
+def path_a_index(family, f, args, dev, model, fam, obs, bank_obs, thetas, k_run, drive,
+                 results):
     """The index-only entries of a family that Path B does not run, on Path
     A's weights: one population's and the bank's, captured from their last
-    Alg. 6 step (``CAPTURE_STEPS`` steps) as the first argument of the
-    wrapper ``ops.<name>`` at call ``index`` (``single_cap``, ``bank_cap``);
-    ``r(key, w)``, ``r.batch(key, w_bank)`` and ``r.batch_rows(keys,
-    w_bank)``, each checked for ancestors in ``[0, N)``."""
+    Alg. 6 step (``CAPTURE_STEPS`` steps) where they enter ``apply`` and
+    ``apply_rows``; ``r(key, w)``, ``r.batch(key, w_bank)`` and
+    ``r.batch_rows(keys, w_bank)``, each checked for ancestors in ``[0,
+    N)``."""
     from repro_torch import random as trandom
     from repro_torch.pf.filter import ParticleFilter, run_filter, run_filter_bank
 
     n, spec = args.particles, f["spec"]
     pf = ParticleFilter(model, n, resampler=spec)
-    w = capture(ops, single_cap[0], lambda: run_filter(k_run, pf, obs[:CAPTURE_STEPS], device=dev),
-                single_cap[1])[0]
+    w = capture_weights(lambda: run_filter(k_run, pf, obs[:CAPTURE_STEPS], device=dev), "apply")
     pf_bank = ParticleFilter(fam, n, resampler=spec)
-    w_bank = capture(ops, bank_cap[0], lambda: run_filter_bank(
-        k_run, pf_bank, bank_obs[:, :CAPTURE_STEPS], thetas, device=dev), bank_cap[1])[0]
+    w_bank = capture_weights(lambda: run_filter_bank(
+        k_run, pf_bank, bank_obs[:, :CAPTURE_STEPS], thetas, device=dev), "apply_rows")
     r = spec.build()
     key = trandom.fold_in(k_run, 7)
     keys = trandom.split(key, w_bank.shape[0])
@@ -609,26 +625,30 @@ def small_runs(families, obs, truth, k_run, k_quality, dev) -> dict:
     entry on the same weights).  The prefix-sum kinds resample through a
     CDF, which carries each weight's ULP (the card's noise and ``exp``
     against the CPU's) into every later draw, so a flipped ancestor is
-    common and UNGM carries it on; their runs are held by the RMSE against
-    the truth instead, within the same bound."""
+    common and UNGM carries it on: their runs are held by the RMSE against
+    the truth within the same bound, and each step of an Alg. 6 run on the
+    CPU is replayed on the card (``replay_alg6``)."""
     from repro_torch import random as trandom
     from repro_torch.core.metrics import offspring_counts
+    from repro_torch.core.spec import PrefixSumSpec
     from repro_torch.core.weightgen import gaussian_weights
     from repro_torch.pf.filter import ParticleFilter, run_filter
+    from repro_torch.pf.metrics import rmse
     from repro_torch.pf.models import ungm
 
     out = {}
-    from repro_torch.pf.metrics import rmse
-
     for family, f in families.items():
         small = ParticleFilter(ungm(), 4096, resampler=f["small"], ess_threshold=0.5)
         on_card = run_filter(k_run, small, obs[:20], device=dev).cpu()
         on_cpu = run_filter(k_run, small, obs[:20].cpu(), device="cpu")
         step_err = float((on_card - on_cpu).abs().max())
         err = step_err
-        if f["cls"].__name__ == "PrefixSumSpec":
+        out[family] = {"filter_max_abs": step_err}
+        if isinstance(f["small"], PrefixSumSpec):
             ref = truth[:20].cpu().numpy()
             err = abs(rmse(on_card.numpy(), ref) - rmse(on_cpu.numpy(), ref))
+            out[family]["alg6_steps_replayed_bit_equal"] = replay_alg6(f["small"], obs[:20],
+                                                                       k_run, dev)
         if not err <= SMALL_RUN_ATOL:
             fail(f"small {family} filter: card and CPU differ by {err} > {SMALL_RUN_ATOL}")
         r = f["small"].build()
@@ -638,8 +658,45 @@ def small_runs(families, obs, truth, k_run, k_quality, dev) -> dict:
         got = offspring_counts(r.batch_rows(keys, bank.to(dev)), 8192).cpu()
         if not torch.equal(got, offspring_counts(r.batch_rows(keys, bank), 8192)):
             fail(f"small {family} Fig. 6 run: card and CPU offspring differ")
-        out[family] = {"filter_max_abs": step_err, "held": err, "fig6_offspring_equal": True}
+        out[family].update(held=err, fig6_offspring_equal=True)
     return out
+
+
+def replay_alg6(spec, obs, k_run, dev) -> int:
+    """An Alg. 6 run at 4096 particles on the CPU (plain versions), each
+    step's resample replayed on the card through ``apply`` on the CPU's key,
+    weights and particles: the ancestors and the particles must be the same
+    bits (the witness ``test_replay_alg6_bits`` gives the CPU against the
+    JAX package).  Returns the steps replayed."""
+    from repro_torch.core.spec import Resampler
+    from repro_torch.pf.filter import ParticleFilter, run_filter
+    from repro_torch.pf.models import ungm
+
+    real = Resampler.apply
+    calls = []
+
+    def record(self, key, w, particles):
+        result = real(self, key, w, particles)
+        calls.append((key, w, particles, result))
+        return result
+
+    Resampler.apply = record
+    try:
+        run_filter(k_run, ParticleFilter(ungm(), 4096, resampler=spec), obs.cpu(),
+                   device="cpu")
+    finally:
+        Resampler.apply = real
+    r = spec.build()
+    for t, (key, w, particles, (want_x, want_anc)) in enumerate(calls):
+        got_x, got_anc = r.apply(key, w.to(dev), particles.to(dev))
+        if not (torch.equal(got_anc.cpu(), want_anc)
+                and torch.equal(got_x.cpu().view(torch.int32), want_x.view(torch.int32))):
+            fail(f"small {spec.name} Alg. 6 replay: the card's step {t + 1} differs from the "
+                 f"CPU's on the same inputs "
+                 f"({int((got_anc.cpu() != want_anc).sum())} ancestors)")
+    if len(calls) != obs.shape[0]:
+        fail(f"small {spec.name} Alg. 6 replay: {len(calls)} resamples in {obs.shape[0]} steps")
+    return len(calls)
 
 
 def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
@@ -817,15 +874,16 @@ def rejection_cases(spec, alg6, bank_alg6, cond, bank_cond, thr, key) -> list:
 
 
 def prefix_cases(single, bank, thr, key) -> list:
-    """The ten prefix-sum wrappers on captured inputs, as ``kernel_cases``:
-    the scans and the multinomial searches from Path A's multinomial runs;
-    ``searchsorted`` from a systematic ``r(key, w)`` and
+    """The five prefix-sum wrappers on captured inputs, as ``kernel_cases``:
+    on a bank, the scan and the gather from Path A's multinomial bank run,
     ``searchsorted_rows`` from a stratified ``r.batch_rows(keys, w_bank)``
-    on the weights those runs captured; the gather from improved
-    systematic's and multinomial's runs, the select from residual's; the
-    step from multinomial's single and residual's bank run.  Two more cases
-    hold the step's other instances (improved systematic, a bank; residual,
-    one population); they are not in the ``kernels`` line."""
+    on the weights that run captured, the select from residual's and the
+    step from residual's bank run.  More cases, not in the ``kernels``
+    line, hold the wrappers on one population (a bank of one row: the scan
+    and the step from multinomial's single run, the search from a
+    systematic ``r(key, w)``, the gather from improved systematic's run,
+    the select and the step from residual's) and the step's improved
+    systematic instance on a bank."""
     from repro_torch import random as trandom
     from repro_torch.core.spec import PrefixSumSpec
     from repro_torch.kernels.prefix_sum import ops as pops
@@ -834,59 +892,58 @@ def prefix_cases(single, bank, thr, key) -> list:
     from repro_torch.kernels.prefix_sum import search as sk
     from repro_torch.kernels.prefix_sum import step as stk
 
-    cases = []
-    (w1,) = capture(pops, "prefix_sum", single("multinomial", None))
-    (w2,) = capture(pops, "prefix_sum_rows", bank("multinomial", None))
-    cases.append(("prefix_sum", pk.prefix_sum, (w1,), lambda: pref.scan_rows_ref(w1[None]),
-                  "prefix", "scan", 1, 1))
-    cases.append(("prefix_sum_rows", pk.prefix_sum_rows, (w2,),
-                  lambda: pref.scan_rows_ref(w2), "prefix", "scan", w2.shape[0], 1))
-    k = trandom.fold_in(key, 9)
-    c, u, side = capture(pops, "searchsorted",
-                         lambda: PrefixSumSpec(kind="systematic").build()(k, w1))
-    cases.append(("searchsorted", sk.searchsorted, (c, u, side),
-                  lambda: pref.search_rows_ref(c[None], u[None], side == "right"),
-                  "prefix", "search", 1, 1))
-    keys = trandom.split(k, w2.shape[0])
-    cb, ub, sideb = capture(pops, "searchsorted_rows",
-                            lambda: PrefixSumSpec(kind="stratified").build().batch_rows(keys, w2))
-    cases.append(("searchsorted_rows", sk.searchsorted_rows, (cb, ub, sideb),
-                  lambda: pref.search_rows_ref(cb, ub, sideb == "right"),
-                  "prefix", "search", cb.shape[0], 1))
-    c3, u3, t3, s3 = capture(pops, "searchsorted_gather", single("improved_systematic", None))
-    cases.append(("searchsorted_gather", sk.searchsorted_gather, (c3, u3, t3, s3),
-                  lambda: pref.search_rows_ref(c3[None], u3[None], s3 == "right", t3[None]),
-                  "prefix", "gather", 1, 1))
-    c4, u4, t4, s4 = capture(pops, "searchsorted_gather_rows", bank("multinomial", None))
-    cases.append(("searchsorted_gather_rows", sk.searchsorted_gather_rows, (c4, u4, t4, s4),
-                  lambda: pref.search_rows_ref(c4, u4, s4 == "right", t4),
-                  "prefix", "gather", c4.shape[0], 1))
-    r5 = capture(pops, "residual_select_gather", single("residual", None))
-    cases.append(("residual_select_gather", sk.residual_select_gather, r5,
-                  lambda: pref.residual_select_rows_ref(r5[0][None], r5[1][None], r5[2][None],
-                                                        r5[3], r5[4][None]),
-                  "prefix", "residual", 1, 1))
-    r6 = capture(pops, "residual_select_gather_rows", bank("residual", None))
-    cases.append(("residual_select_gather_rows", sk.residual_select_gather_rows, r6,
-                  lambda: pref.residual_select_rows_ref(*r6), "prefix", "residual",
-                  r6[0].shape[0], 1))
+    def scan_case(name, run):
+        (w,) = capture(pops, "prefix_sum_rows", run)
+        return (name, pk.prefix_sum_rows, (w,), lambda: pref.scan_rows_ref(w), "prefix",
+                "scan", w.shape[0], 1)
 
-    def step_case(name, wrapper, run):
-        lw, st, ub, u0, _, kind = capture(pops, wrapper.__name__, run)
+    def search_case(name, run):
+        c, u, side = capture(pops, "searchsorted_rows", run)
+        return (name, sk.searchsorted_rows, (c, u, side),
+                lambda: pref.search_rows_ref(c, u, side == "right"), "prefix", "search",
+                c.shape[0], 1)
+
+    def gather_case(name, run):
+        c, u, t, side = capture(pops, "searchsorted_gather_rows", run)
+        return (name, sk.searchsorted_gather_rows, (c, u, t, side),
+                lambda: pref.search_rows_ref(c, u, side == "right", t), "prefix", "gather",
+                c.shape[0], 1)
+
+    def residual_case(name, run):
+        r = capture(pops, "residual_select_gather_rows", run)
+        return (name, sk.residual_select_gather_rows, r,
+                lambda: pref.residual_select_rows_ref(*r), "prefix", "residual",
+                r[0].shape[0], 1)
+
+    def step_case(name, run):
+        lw, st, ub, u0, _, kind = capture(pops, "prefix_step_rows", run)
         kargs = (lw, st, ub, u0, thr, kind)
-        if lw.ndim == 1:
-            return (name, wrapper, kargs, lambda: pref.prefix_step_rows_ref(
-                lw[None], st[None], None if ub is None else ub[None],
-                None if u0 is None else u0.reshape(1), thr, kind), "prefix", "step", 1, 1)
-        return (name, wrapper, kargs, lambda: pref.prefix_step_rows_ref(*kargs), "prefix",
-                "step", lw.shape[0], 1)
+        return (name, stk.prefix_step_rows, kargs, lambda: pref.prefix_step_rows_ref(*kargs),
+                "prefix", "step", lw.shape[0], 1)
 
-    cases.append(step_case("prefix_step", stk.prefix_step, single("multinomial", 0.5)))
-    cases.append(step_case("prefix_step_rows", stk.prefix_step_rows, bank("residual", 0.5)))
-    cases.append(step_case("prefix_step_rows/improved_systematic", stk.prefix_step_rows,
-                           bank("improved_systematic", 0.5)))
-    cases.append(step_case("prefix_step/residual", stk.prefix_step, single("residual", 0.5)))
-    return cases
+    # The scans' inputs are the weights of the last multinomial steps: the
+    # searches run on them.
+    scan_bank = scan_case("prefix_sum_rows", bank("multinomial", None))
+    scan_one = scan_case("prefix_sum_rows/one", single("multinomial", None))
+    w_bank, w_one = scan_bank[2][0], scan_one[2][0]
+    k = trandom.fold_in(key, 9)
+    keys = trandom.split(k, w_bank.shape[0])
+    return [
+        scan_bank,
+        search_case("searchsorted_rows",
+                    lambda: PrefixSumSpec(kind="stratified").build().batch_rows(keys, w_bank)),
+        gather_case("searchsorted_gather_rows", bank("multinomial", None)),
+        residual_case("residual_select_gather_rows", bank("residual", None)),
+        step_case("prefix_step_rows", bank("residual", 0.5)),
+        scan_one,
+        search_case("searchsorted_rows/one",
+                    lambda: PrefixSumSpec(kind="systematic").build()(k, w_one[0])),
+        gather_case("searchsorted_gather_rows/one", single("improved_systematic", None)),
+        residual_case("residual_select_gather_rows/one", single("residual", None)),
+        step_case("prefix_step_rows/one", single("multinomial", 0.5)),
+        step_case("prefix_step_rows/one/residual", single("residual", 0.5)),
+        step_case("prefix_step_rows/improved_systematic", bank("improved_systematic", 0.5)),
+    ]
 
 
 def c1c2_cases(c, variant, tops, fig6_single, fig6_rows, alg6, bank_alg6, cond, bank_cond,
@@ -971,13 +1028,10 @@ TPU_KERNELS = {
     "rejection_step": "rejection_pallas_step", "rejection_step_rows": "rejection_pallas_step_rows",
     # The JAX package scans, searches and steps one population per call: the
     # bank forms replace the single kernel mapped over the rows.
-    "prefix_sum": "prefix_sum_pallas", "prefix_sum_rows": "prefix_sum_pallas",
-    "searchsorted": "searchsorted_pallas", "searchsorted_rows": "searchsorted_pallas",
-    "searchsorted_gather": "searchsorted_gather_pallas",
+    "prefix_sum_rows": "prefix_sum_pallas", "searchsorted_rows": "searchsorted_pallas",
     "searchsorted_gather_rows": "searchsorted_gather_pallas",
-    "residual_select_gather": "residual_select_gather_pallas",
     "residual_select_gather_rows": "residual_select_gather_pallas",
-    "prefix_step": "prefix_pallas_step", "prefix_step_rows": "prefix_pallas_step",
+    "prefix_step_rows": "prefix_pallas_step",
 }
 for _c in ("metropolis_c1", "metropolis_c2"):
     # The JAX package has no C1/C2 bank kernel: the bank forms replace the
@@ -997,10 +1051,11 @@ def kernel_name(family, kind, kargs) -> str:
     return KERNEL_NAMES[(family, kind)]
 
 
-def prefix_work(kind, kargs, rows, n) -> tuple:
+def prefix_work(kind, kargs, rows, n, fired) -> tuple:
     """Bytes a prefix-sum wrapper must move (each input read once, each
     output written once) and its 32-bit operations, on its captured
-    inputs: ``(bytes, operations)``."""
+    inputs, of which ``fired`` rows resample (a step's others keep their
+    particles): ``(bytes, operations)``."""
     steps = max(1, math.ceil(math.log2(n + 1)))  # every lane bisects this or one less
     elems = rows * n
     if kind == "scan":
@@ -1011,13 +1066,15 @@ def prefix_work(kind, kargs, rows, n) -> tuple:
         return 20 * elems, BISECT_OPS * steps * elems
     if kind == "residual":  # two CDFs, the draws, the state; ancestors and state out
         return 24 * elems, BISECT_OPS * steps * elems
-    # The step: log-weights, the state and the draw bases in; ancestors and
-    # state out; the prelude, the scans, the draws and the bisection.
-    code = 0 if kargs[-1] == "multinomial" else (3 if kargs[-1] == "residual" else 1)
-    base = 0 if kargs[2] is None else 4 * elems
-    scans = SCAN_OPS * (3 if code == 3 else 1) + (RESIDUAL_SPLIT_OPS if code == 3 else 0)
+    # The step: every row's log-weights and state in, ancestors and state
+    # out, and its prelude; a row that resamples also reads its draw bases
+    # and runs the scans, the draws and the bisection.
+    residual = kargs[-1] == "residual"
+    drawn = fired * n
+    base = 0 if kargs[2] is None else 4 * drawn
+    scans = SCAN_OPS * (3 if residual else 1) + (RESIDUAL_SPLIT_OPS if residual else 0)
     return (16 * elems + base,
-            (PRELUDE_OPS + scans + DRAW_OPS + BISECT_OPS * steps) * elems)
+            PRELUDE_OPS * elems + (scans + DRAW_OPS + BISECT_OPS * steps) * drawn)
 
 
 def library_call(kind, kargs):
@@ -1095,7 +1152,8 @@ def check_kernel(case, path_launches) -> dict:
     library = library_call(kind, kargs) if family == "prefix" else None
     library_ms = None if library is None else time_ms(library, reps)
     if family == "prefix":
-        n_bytes, n_ops = prefix_work(kind, kargs, rows, n)
+        fired = entry.get("rows_resampled", rows)
+        n_bytes, n_ops = prefix_work(kind, kargs, rows, n, fired)
     else:
         # Weights (or log-weights) in and ancestors out; the state in and
         # out (D = 1 on the path) for the fused and step kernels; C1/C2's

@@ -406,13 +406,9 @@ int prefix_search_rows(const void* cdf, const void* cc, const void* u, const voi
 }
 
 int prefix_step_grid(int kind, int rows, int n, int* blocks) {
-  switch (kind) {
-    case 0: return coop_step_grid(prefix_step_rows_kernel<0>, rows, n, blocks);
-    case 1: return coop_step_grid(prefix_step_rows_kernel<1>, rows, n, blocks);
-    case 2: return coop_step_grid(prefix_step_rows_kernel<2>, rows, n, blocks);
-    case 3: return coop_step_grid(prefix_step_rows_kernel<3>, rows, n, blocks);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const void* kernel = step_kernel(kind);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return coop_step_grid(kernel, rows, n, blocks);
 }
 
 int prefix_step_rows(int kind, const void* lw, const void* state, const void* ubase,
@@ -433,10 +429,7 @@ int prefix_step_rows(int kind, const void* lw, const void* state, const void* ub
   void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_ubase, (void*)&a_u0, (void*)&thr,
                   (void*)&a_anc, (void*)&a_out, (void*)&a_stats, (void*)&a_scratch,
                   (void*)&a_work, (void*)&rows, (void*)&n, (void*)&d};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NT), args,
-                                                step_smem_bytes(rows), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return coop_step_launch(kernel, blocks, rows, args, stream);
 }
 
 }  // extern "C"

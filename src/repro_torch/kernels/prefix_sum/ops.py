@@ -19,9 +19,10 @@ scalar ``u0`` on the host beside the key, ``(N,)`` draws on the weights'
 device.  Keys: ``key`` for the single entries, ``split(key, S)`` for
 ``batch``/``apply_batch`` (row ``s`` is the single call with ``split(key,
 S)[s]``), ``keys[s]`` for the per-row forms.  Each stage is one launch
-over the bank: index only, a scan and a search (residual: three scans and
-two searches); ``apply``, a scan and a search with the state copy
-(residual: three scans and the select); ``step``, one launch.  Particles
+over the bank, of the bank wrappers (one population is a bank of one row):
+index only, a scan and a search (residual: three scans and two searches);
+``apply``, a scan and a search with the state copy (residual: three scans
+and the select); ``step``, one launch.  Particles
 are ``[N]`` or ``[N, ...]`` (``[S, N, ...]`` for the bank forms).
 """
 
@@ -32,7 +33,7 @@ import torch
 from repro_torch import random as trandom
 from repro_torch.core.resamplers.batched import split_batch_keys
 from repro_torch.kernels.common import flush_to_zero, from_planes, to_planes
-from repro_torch.kernels.prefix_sum.prefix_sum import prefix_sum, prefix_sum_rows
+from repro_torch.kernels.prefix_sum.prefix_sum import prefix_sum_rows
 from repro_torch.kernels.prefix_sum.ref import (  # noqa: F401  (PREFIX_KINDS re-exported)
     KIND_CODES,
     PREFIX_KINDS,
@@ -41,24 +42,21 @@ from repro_torch.kernels.prefix_sum.ref import (  # noqa: F401  (PREFIX_KINDS re
     side_is_right,
 )
 from repro_torch.kernels.prefix_sum.search import (
-    residual_select_gather,
     residual_select_gather_rows,
-    searchsorted,
-    searchsorted_gather,
     searchsorted_gather_rows,
     searchsorted_rows,
 )
-from repro_torch.kernels.prefix_sum.step import check_kind, prefix_step, prefix_step_rows
+from repro_torch.kernels.prefix_sum.step import check_kind, prefix_step_rows
 
 
 def prefix_sum_cuda(x: torch.Tensor) -> torch.Tensor:
     """The raw 1-D inclusive scan (``prefix_sum_tpu``)."""
-    return prefix_sum(x)
+    return prefix_sum_rows(x.unsqueeze(0))[0]
 
 
 def searchsorted_cuda(cdf: torch.Tensor, u: torch.Tensor, side: str = "left") -> torch.Tensor:
     """The raw 1-D bisection (``searchsorted_tpu``)."""
-    return searchsorted(cdf, u, side)
+    return searchsorted_rows(cdf.unsqueeze(0), u.unsqueeze(0), side)[0]
 
 
 def draw_bases(keys: torch.Tensor, n: int, kind: str, device):
@@ -79,104 +77,75 @@ def kind_draws(keys: torch.Tensor, n: int, total: torch.Tensor, kind: str):
     return scaled_draws(kind, total, n, ubase, u0), "right" if side_is_right(kind) else "left"
 
 
-class _Stages:
-    """The launches of one entry: the single wrappers on ``[1, N]`` (one
-    population) or the bank wrappers on ``[S, N]``."""
-
-    def __init__(self, bank: bool):
-        self.bank = bank
-
-    def scan(self, x):
-        return prefix_sum_rows(x) if self.bank else prefix_sum(x[0]).unsqueeze(0)
-
-    def search(self, c, u, side):
-        return searchsorted_rows(c, u, side) if self.bank else searchsorted(c[0], u[0], side)[None]
-
-    def gather(self, c, u, state, side):
-        if self.bank:
-            return searchsorted_gather_rows(c, u, state, side)
-        anc, out = searchsorted_gather(c[0], u[0], state[0], side)
-        return anc[None], out[None]
-
-    def residual(self, cc, c, u, n_det, state):
-        if self.bank:
-            return residual_select_gather_rows(cc, c, u, n_det, state)
-        anc, out = residual_select_gather(cc[0], c[0], u[0], n_det, state[0])
-        return anc[None], out[None]
-
-
-def _residual_scans(stages, keys, w):
+def _residual_scans(keys, w):
     """Residual's three scans and its draws: ``(cc, c, u, n_det)``."""
     n = w.shape[-1]
-    total = stages.scan(w)[:, -1]
+    total = prefix_sum_rows(w)[:, -1]
     counts, resid, n_det = residual_parts(flush_to_zero(w), total)
-    cc, c = stages.scan(counts), stages.scan(resid)
+    cc, c = prefix_sum_rows(counts), prefix_sum_rows(resid)
     u = scaled_draws("residual", c[:, -1], n, draw_bases(keys, n, "residual", w.device)[0])
     return cc, c, u, n_det
 
 
-def _residual_cuda(stages, keys, w):
+def _residual_cuda(keys, w):
     """Residual on the kernels, index only: three scans, then the two
     searches and the slot select (the launches of ``ops._residual_tpu``)."""
     s, n = w.shape
-    cc, c, u, n_det = _residual_scans(stages, keys, w)
+    cc, c, u, n_det = _residual_scans(keys, w)
     slots = torch.arange(n, device=w.device)
-    det = stages.search(cc, slots.to(torch.float32).expand(s, n).contiguous(), "right")
-    rnd = stages.search(c, u, "right")
+    det = searchsorted_rows(cc, slots.to(torch.float32).expand(s, n).contiguous(), "right")
+    rnd = searchsorted_rows(c, u, "right")
     return torch.where(slots < n_det.unsqueeze(-1), det, rnd)
 
 
-def _residual_cuda_fused(stages, keys, w, state):
+def _residual_cuda_fused(keys, w, state):
     """Residual on the kernels with the state copy: three scans, then one
     launch of the select (``ops._residual_tpu_fused``)."""
-    cc, c, u, n_det = _residual_scans(stages, keys, w)
-    return stages.residual(cc, c, u, n_det, state)
+    cc, c, u, n_det = _residual_scans(keys, w)
+    return residual_select_gather_rows(cc, c, u, n_det, state)
 
 
-def _resample(stages, keys, w, kind, state=None):
+def _resample(keys, w, kind, state=None):
     """One entry's launches over ``w [S, N]`` with per-row keys ``[S, 2]``:
     ancestors ``int32[S, N]``, or with ``state [S, D, N]`` ``(ancestors,
     state')``."""
     check_kind("prefix_resample_cuda", kind, w.shape[-1])
     if kind == "residual":
         if state is None:
-            return _residual_cuda(stages, keys, w)
-        return _residual_cuda_fused(stages, keys, w, state)
-    c = stages.scan(w)
+            return _residual_cuda(keys, w)
+        return _residual_cuda_fused(keys, w, state)
+    c = prefix_sum_rows(w)
     u, side = kind_draws(keys, w.shape[-1], c[:, -1], kind)
     if state is None:
-        return stages.search(c, u, side)
-    return stages.gather(c, u, state, side)
-
-
-_ONE, _BANK = _Stages(bank=False), _Stages(bank=True)
+        return searchsorted_rows(c, u, side)
+    return searchsorted_gather_rows(c, u, state, side)
 
 
 def prefix_resample_cuda(key, weights, kind: str = "systematic"):
     """Index-only resample of one population: ancestors ``int32[N]``."""
-    return _resample(_ONE, key[None], weights[None], kind)[0]
+    return _resample(key[None], weights[None], kind)[0]
 
 
 def prefix_resample_cuda_batch(key, weights, kind: str = "systematic"):
     """Index-only resample of a bank under one key; row ``s`` equals
     ``prefix_resample_cuda(split(key, S)[s], weights[s])``."""
-    return _resample(_BANK, split_batch_keys(key, weights.shape[0]), weights, kind)
+    return _resample(split_batch_keys(key, weights.shape[0]), weights, kind)
 
 
 def prefix_resample_cuda_batch_rows(keys, weights, kind: str = "systematic"):
     """Index-only resample over explicit per-row keys ``[S, 2]``."""
-    return _resample(_BANK, keys, weights, kind)
+    return _resample(keys, weights, kind)
 
 
 def prefix_resample_cuda_apply(key, weights, particles, kind: str = "systematic"):
     """Fused resample + gather of one population; returns ``(particles',
     ancestors int32[N])``."""
-    anc, out = _resample(_ONE, key[None], weights[None], kind, to_planes(particles, 1)[None])
+    anc, out = _resample(key[None], weights[None], kind, to_planes(particles, 1)[None])
     return from_planes(out[0], particles), anc[0]
 
 
 def _apply_bank(keys, weights, particles, kind):
-    anc, out = _resample(_BANK, keys, weights, kind, to_planes(particles, 2))
+    anc, out = _resample(keys, weights, kind, to_planes(particles, 2))
     return from_planes(out, particles), anc
 
 
@@ -196,9 +165,9 @@ def prefix_resample_cuda_step(key, log_weights, particles, ess_threshold: float,
     one launch: ``(particles', ancestors, stats f32[4])``."""
     check_kind("prefix_resample_cuda_step", kind, log_weights.shape[-1])
     ubase, u0 = draw_bases(key[None], log_weights.shape[-1], kind, log_weights.device)
-    anc, out, stats = prefix_step(log_weights, to_planes(particles, 1),
-                                  None if ubase is None else ubase[0], u0, ess_threshold, kind)
-    return from_planes(out, particles), anc, stats
+    anc, out, stats = prefix_step_rows(log_weights[None], to_planes(particles, 1)[None], ubase,
+                                       u0, ess_threshold, kind)
+    return from_planes(out[0], particles), anc[0], stats[0]
 
 
 def prefix_resample_cuda_step_rows(keys, log_weights, particles, ess_threshold: float,

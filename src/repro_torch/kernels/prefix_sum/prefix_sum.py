@@ -2,10 +2,10 @@
 ``repro.kernels.prefix_sum.prefix_sum``), and the library binding and checks
 that ``search.py`` and ``step.py`` share:
 
-    prefix_sum       <- prefix_sum_pallas  (kernel: prefix_scan_rows_kernel, S = 1)
     prefix_sum_rows  <- prefix_sum_pallas  (kernel: prefix_scan_rows_kernel, a bank of S
                                             rows; the JAX package scans one row per call)
 
+The family's wrappers take banks only: one population is a bank of one row.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and adds one to its ``launches`` count where
@@ -74,7 +74,10 @@ def ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _scan(who: str, x: torch.Tensor) -> torch.Tensor:
+def prefix_sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """The tiled inclusive scan of each row of ``x f32[S, N]``, in one
+    launch: ``f32[S, N]``."""
+    who = "prefix_sum_rows"
     s, n, _ = check_rows(who, x)
     if not x.is_cuda:
         return scan_rows_ref(x)
@@ -86,25 +89,11 @@ def _scan(who: str, x: torch.Tensor) -> torch.Tensor:
     tot = torch.empty(s * (n // TILE), dtype=torch.float32, device=x.device)
     check_launch(lib.prefix_scan_rows(x.data_ptr(), y.data_ptr(), tot.data_ptr(), s, n,
                                       blocks.value, stream(x)), who)
+    prefix_sum_rows.launches += 1
     return y
 
 
-def prefix_sum_rows(x: torch.Tensor) -> torch.Tensor:
-    """The tiled inclusive scan of each row of ``x f32[S, N]``, in one
-    launch: ``f32[S, N]``."""
-    y = _scan("prefix_sum_rows", x)
-    prefix_sum_rows.launches += x.is_cuda
-    return y
-
-
-def prefix_sum(x: torch.Tensor) -> torch.Tensor:
-    """The tiled inclusive scan of ``x f32[N]``: ``f32[N]``."""
-    y = _scan("prefix_sum", x.unsqueeze(0))[0]
-    prefix_sum.launches += x.is_cuda
-    return y
-
-
-WRAPPERS = (prefix_sum, prefix_sum_rows)
+WRAPPERS = (prefix_sum_rows,)
 
 
 def reset_launch_counts():

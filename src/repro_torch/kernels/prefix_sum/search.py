@@ -1,18 +1,16 @@
 """Launch wrappers of the prefix-sum search kernel, one per TPU kernel (after
 ``repro.kernels.prefix_sum.search``):
 
-    searchsorted                 <- searchsorted_pallas            (kernel: <false, false>, S = 1)
-    searchsorted_rows            <- searchsorted_pallas            (kernel: <false, false>, a bank)
-    searchsorted_gather          <- searchsorted_gather_pallas     (kernel: <true, false>, S = 1)
-    searchsorted_gather_rows     <- searchsorted_gather_pallas     (kernel: <true, false>, a bank)
-    residual_select_gather       <- residual_select_gather_pallas  (kernel: <true, true>, S = 1)
-    residual_select_gather_rows  <- residual_select_gather_pallas  (kernel: <true, true>, a bank)
+    searchsorted_rows            <- searchsorted_pallas            (kernel: <false, false>)
+    searchsorted_gather_rows     <- searchsorted_gather_pallas     (kernel: <true, false>)
+    residual_select_gather_rows  <- residual_select_gather_pallas  (kernel: <true, true>)
 
 ``side`` follows ``jnp.searchsorted``: ``"left"`` the first index with
-``c >= u``, ``"right"`` the first with ``c > u``, clipped to N - 1.  State is
-``[D, N]`` (``[S, D, N]`` for the bank forms).  The wrappers behave as those
-of ``prefix_sum.py``: plain version on CPU tensors, the kernel or an error on
-CUDA tensors, one count per launch.
+``c >= u``, ``"right"`` the first with ``c > u``, clipped to N - 1.  Each
+wrapper takes a bank of S rows (one population is a bank of one row);
+state is ``[S, D, N]``.  The wrappers behave as that of ``prefix_sum.py``:
+plain version on CPU tensors, the kernel or an error on CUDA tensors, one
+count per launch.
 """
 
 from __future__ import annotations
@@ -55,13 +53,6 @@ def searchsorted_rows(cdf: torch.Tensor, u: torch.Tensor, side: str = "left"):
     return anc
 
 
-def searchsorted(cdf: torch.Tensor, u: torch.Tensor, side: str = "left"):
-    """Bisect ``cdf f32[N]`` at ``u f32[N]``: ancestors ``int32[N]``."""
-    anc = _search("searchsorted", cdf.unsqueeze(0), u.unsqueeze(0), side)
-    searchsorted.launches += cdf.is_cuda
-    return anc[0]
-
-
 def searchsorted_gather_rows(cdf: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
                              side: str = "left"):
     """``searchsorted_rows`` plus the copy of each ancestor's state ``[S, D,
@@ -69,15 +60,6 @@ def searchsorted_gather_rows(cdf: torch.Tensor, u: torch.Tensor, state: torch.Te
     result = _search("searchsorted_gather_rows", cdf, u, side, state)
     searchsorted_gather_rows.launches += cdf.is_cuda
     return result
-
-
-def searchsorted_gather(cdf: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                        side: str = "left"):
-    """``searchsorted`` plus the copy of each ancestor's state ``[D, N]``."""
-    anc, out = _search("searchsorted_gather", cdf.unsqueeze(0), u.unsqueeze(0), side,
-                       state.unsqueeze(0))
-    searchsorted_gather.launches += cdf.is_cuda
-    return anc[0], out[0]
 
 
 def residual_select_gather_rows(cc: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
@@ -91,18 +73,7 @@ def residual_select_gather_rows(cc: torch.Tensor, c: torch.Tensor, u: torch.Tens
     return result
 
 
-def residual_select_gather(cc: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
-                           n_det: torch.Tensor, state: torch.Tensor):
-    """Residual resampling's tail of one population (``n_det`` an integer
-    tensor of one element)."""
-    anc, out = _search("residual_select_gather", c.unsqueeze(0), u.unsqueeze(0), "right",
-                       state.unsqueeze(0), cc.unsqueeze(0), n_det.reshape(1))
-    residual_select_gather.launches += c.is_cuda
-    return anc[0], out[0]
-
-
-WRAPPERS = (searchsorted, searchsorted_rows, searchsorted_gather, searchsorted_gather_rows,
-            residual_select_gather, residual_select_gather_rows)
+WRAPPERS = (searchsorted_rows, searchsorted_gather_rows, residual_select_gather_rows)
 
 
 def reset_launch_counts():

@@ -1,16 +1,16 @@
 """Launch wrappers of the prefix-sum step kernel (after
 ``repro.kernels.prefix_sum.step``):
 
-    prefix_step       <- prefix_pallas_step  (kernel: prefix_step_rows_kernel<KIND>, S = 1)
     prefix_step_rows  <- prefix_pallas_step  (kernel: prefix_step_rows_kernel<KIND>, a bank;
                                               the JAX package maps the single step)
 
-The draw bases come from the caller, as the JAX wrapper draws them from the
-key: ``ubase f32[S, N] = uniform(key, (N,))`` for multinomial, stratified and
-residual (None for the systematic kinds) and ``u0 f32[S] = uniform(key,
-())`` for the systematic kinds (None otherwise); the kernel scales them
-over its own scan.  ``residual`` takes N <= 2**24.  The wrappers behave as
-those of ``prefix_sum.py``.
+One population is a bank of one row.  The draw bases come from the caller,
+as the JAX wrapper draws them from the key: ``ubase f32[S, N] =
+uniform(key, (N,))`` for multinomial, stratified and residual (None for
+the systematic kinds) and ``u0 f32[S] = uniform(key, ())`` for the
+systematic kinds (None otherwise); the kernel scales them over its own
+scan.  ``residual`` takes N <= 2**24.  The wrapper behaves as
+that of ``prefix_sum.py``.
 """
 
 from __future__ import annotations
@@ -74,18 +74,7 @@ def prefix_step_rows(lw: torch.Tensor, state: torch.Tensor, ubase, u0, thr: floa
     return result
 
 
-def prefix_step(lw: torch.Tensor, state: torch.Tensor, ubase, u0, thr: float, kind: str):
-    """Fused SMC step of one population: ``lw f32[N]``, ``state [D, N]``,
-    ``ubase [N]`` or ``u0`` of one element.  Returns ``(ancestors
-    int32[N], state' [D, N], stats f32[4])``."""
-    anc, out, stats = _step("prefix_step", lw.unsqueeze(0), state.unsqueeze(0),
-                            None if ubase is None else ubase.unsqueeze(0),
-                            None if u0 is None else u0.reshape(1), thr, kind)
-    prefix_step.launches += lw.is_cuda
-    return anc[0], out[0], stats[0]
-
-
-WRAPPERS = (prefix_step, prefix_step_rows)
+WRAPPERS = (prefix_step_rows,)
 
 
 def reset_launch_counts():

@@ -285,9 +285,10 @@ def test_prefix_scan_kernel_matches_plain_version(card, n):
     want = pref.scan_rows_ref(w)
     got = pk.prefix_sum_rows(w)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert torch.equal(pk.prefix_sum(w[2]).view(torch.int32), want[2].view(torch.int32))
+    assert torch.equal(pk.prefix_sum_rows(w[2:3].contiguous())[0].view(torch.int32),
+                       want[2].view(torch.int32))
     assert torch.equal(pk.prefix_sum_rows(w).view(torch.int32), got.view(torch.int32))
-    assert (pk.prefix_sum.launches, pk.prefix_sum_rows.launches) == (1, 2)
+    assert pk.prefix_sum_rows.launches == 3
 
 
 @pytest.mark.cuda
@@ -308,17 +309,18 @@ def test_prefix_search_kernels_match_plain_version(card, n):
         assert torch.equal(sk.searchsorted_rows(c, u, side), want)
         anc, out = sk.searchsorted_gather_rows(c, u, state, side)
         assert torch.equal(anc, want) and torch.equal(out, want_out)
-        assert torch.equal(sk.searchsorted(c[1], u[1], side), want[1])
-        assert torch.equal(sk.searchsorted_gather(c[0], u[0], state[0], side)[1], want_out[0])
+        assert torch.equal(sk.searchsorted_rows(c[1:2], u[1:2], side)[0], want[1])
+        assert torch.equal(sk.searchsorted_gather_rows(c[:1], u[:1], state[:1], side)[1][0],
+                           want_out[0])
     counts, resid, n_det = pref.residual_parts(w, c[:, -1])
     cc, cr = pref.scan_rows_ref(counts), pref.scan_rows_ref(resid)
     u = pref.scaled_draws("residual", cr[:, -1], n, ubase)
     want, want_out = pref.residual_select_rows_ref(cc, cr, u, n_det, state)
     anc, out = sk.residual_select_gather_rows(cc, cr, u, n_det, state)
     assert torch.equal(anc, want) and torch.equal(out, want_out)
-    one = sk.residual_select_gather(cc[0], cr[0], u[0], n_det[:1], state[0])
-    assert torch.equal(one[0], want[0])
-    assert [fn.launches for fn in sk.WRAPPERS] == [3, 3, 3, 3, 1, 1]
+    one = sk.residual_select_gather_rows(cc[:1], cr[:1], u[:1], n_det[:1], state[:1])
+    assert torch.equal(one[0][0], want[0])
+    assert [fn.launches for fn in sk.WRAPPERS] == [6, 6, 2]
 
 
 @pytest.mark.cuda
@@ -338,12 +340,10 @@ def test_prefix_step_kernel_matches_plain_version(card, kind, n):
     torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
     assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
     assert torch.equal(stk.prefix_step_rows(lw, state, ubase, u0, 0.5, kind)[2], stats)
-    one = stk.prefix_step(lw[0], state[0], None if ubase is None else ubase[0],
-                          None if u0 is None else u0[:1], 1.0, kind)
-    want_one = pref.prefix_step_rows_ref(lw[:1], state[:1], None if ubase is None else ubase[:1],
-                                         None if u0 is None else u0[:1], 1.0, kind)
-    assert torch.equal(one[0], want_one[0][0])
-    assert (stk.prefix_step_rows.launches, stk.prefix_step.launches) == (2, 1)
+    one_args = (lw[:1], state[:1], None if ubase is None else ubase[:1],
+                None if u0 is None else u0[:1], 1.0, kind)
+    assert torch.equal(stk.prefix_step_rows(*one_args)[0], pref.prefix_step_rows_ref(*one_args)[0])
+    assert stk.prefix_step_rows.launches == 3
 
 
 @pytest.mark.cuda
@@ -355,7 +355,7 @@ def test_run_filter_with_prefix_sum_on_the_card(card, kind):
     stk.reset_launch_counts()
     est = run_filter(key, pf, obs)
     assert est.is_cuda and est.shape == (5,) and torch.isfinite(est).all()
-    assert stk.prefix_step.launches == 5
+    assert stk.prefix_step_rows.launches == 5
     r = PrefixSumSpec(kind=kind).build()
     w = torch.rand(4, 8192, device=card) ** 8
     keys = trandom.split(key, 4)
