@@ -10,7 +10,20 @@ over, and there is no CPU fallback):
 2. build every CUDA source of ``src/repro_torch`` with ``nvcc`` for sm_90a
    (one ``nvcc`` per source, started together) and print ``ptxas``'
    registers per kernel;
-3. drive the paths through the user's entry points, each run with every
+3. the contract checks (``python -m repro_torch.analysis``) on the card,
+   first, while the process is young (on an H100 the profiler lost no
+   kernel record of 24 short runs in a fresh process, and 8-13 of 24 runs
+   lost one after four minutes, with or without idle time around each
+   run): the resource
+   tables against the card's own attributes and limits; the 80 matrix
+   cells, the filter's consumers and pass 6 for the eight Path A families
+   (``--check``), each recorded run's census held to the profiler's count
+   of the port's kernels in it; every kernel within the card's shared
+   memory and registers at its largest admitted shapes, and the oversized
+   fixture refused with no launch; ``--selftest``; then the two fixture
+   kernels (rows 30-31) against their plain versions on their inputs in
+   ``--selftest`` and at 2^23, timed and bounded as in phase 5;
+4. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
      each family: ``MegopolisSpec``, ``MetropolisSpec`` (Table 2's baseline
@@ -22,7 +35,9 @@ over, and there is no CPU fallback):
      conditional mode (ESS threshold 0.5), ``run_filter_bank`` (S
      scenarios) in both modes, and ``run_filter_timed``; RMSE against
      ``simulate``'s truth, steps/s, the resample ratio and a ``StepStats``
-     summary, the families side by side; for rejection and residual also
+     summary, the families side by side, and the census of each run held
+     to the entry's launch budget x steps, beside all CUDA launches of a
+     conditional step; for rejection and residual also
      ``r(key, w)``, ``r.batch(key, w_bank)`` and ``r.batch_rows(keys,
      w_bank)`` on weights captured from their Alg. 6 runs (no step calls
      them), and the spread of rejection's kernel time and of sup w /
@@ -41,7 +56,7 @@ over, and there is no CPU fallback):
    * small runs of both paths on the card against the same runs on the CPU,
      and for the prefix-sum kinds each step of an Alg. 6 run on the CPU
      replayed on the card bit for bit;
-4. for each kernel wrapper, on its inputs captured from a short full-width
+5. for each kernel wrapper, on its inputs captured from a short full-width
    run of the entry point that calls it (for a step, the last captured call
    that resampled), compare the kernel with its plain version on the card,
    time both, and compute the kernel's bound (for rejection from the
@@ -53,8 +68,8 @@ over, and there is no CPU fallback):
    systematic and stratified searches on its captured weights), every
    kind of the step, and beside each scan and search the one PyTorch call
    that computes it (``library_ms``);
-5. print the card line, one JSON line of kernels, then a last JSON line
-   naming the device.
+6. print the card line, one JSON line of kernels (all 31 rows), then a
+   last JSON line naming the device.
 
 Run it from the root of a checkout; it needs one card.
 """
@@ -62,9 +77,12 @@ Run it from the root of a checkout; it needs one card.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -173,6 +191,21 @@ def device_kernels(prof) -> list:
     return [(e.name, e.device_time_total) for e in prof.events() if e.device_type == cuda]
 
 
+def kernel_instance(event: str):
+    """The kernel's name with its template arguments (``copy_kernel``,
+    ``prefix_step_rows_kernel<3>``) in a profiler event's name, or None for
+    a kernel that is not a plain function (PyTorch's ``at::native::``)."""
+    m = re.match(r"(?:void )?(\w+(?:<[^()]*>)?)\(", event)
+    return None if m is None else m.group(1)
+
+
+def is_kernel(event: str, kernel: str) -> bool:
+    """True when a profiler event is a launch of ``kernel`` (a name, or the
+    start of one: ``metropolis_c1c2_rows_kernel<1``)."""
+    inst = kernel_instance(event)
+    return inst is not None and inst.startswith(kernel)
+
+
 def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the CUDA kernel named ``kernel`` over at least
     ``reps`` launches, from the profiler's kernel events (CUDA events around
@@ -188,7 +221,7 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
         for _ in range(3 * reps):
             fn()
         torch.cuda.synchronize()
-    times = [us for name, us in device_kernels(prof) if kernel in name]
+    times = [us for name, us in device_kernels(prof) if is_kernel(name, kernel)]
     if len(times) < reps:
         fail(f"profiler saw {len(times)} launches of {kernel} in {3 * reps} calls, "
              f"fewer than {reps}")
@@ -280,6 +313,7 @@ def main(argv=None) -> int:
         RejectionSpec,
     )
     from repro_torch.kernels import build
+    from repro_torch.kernels.fixtures import fixtures as fk
     from repro_torch.kernels.megopolis import megopolis as mk
     from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import metropolis as tk
@@ -347,7 +381,7 @@ def main(argv=None) -> int:
             "single": prefix_index, "batch": prefix_index,
             "path_b": False, "small": PrefixSumSpec(kind=kind)}
     path_b_families = {name: f for name, f in families.items() if f["path_b"]}
-    modules = (mk, tk, ck, rk, pk, sk, stk)
+    modules = (mk, tk, ck, rk, pk, sk, stk, fk)
     wrappers = sum((m.WRAPPERS for m in modules), ())
     key = trandom.PRNGKey(args.seed)
     k_sim, k_run, k_bank, k_quality = trandom.split(key, 4)
@@ -361,7 +395,6 @@ def main(argv=None) -> int:
     bank_truth = torch.stack([x for x, _ in sims])
     bank_obs = torch.stack([z for _, z in sims])
 
-    # -- 3. the paths ----------------------------------------------------------
     path_launches = {}
     results = {}
 
@@ -385,6 +418,13 @@ def main(argv=None) -> int:
             results[name]["steps_per_s"] = n_steps / secs
         return out
 
+    # -- 3. the contract checks -------------------------------------------------
+    from repro_torch.analysis import fixtures as afix
+
+    contract_checks(dev, families, wrappers, fk, drive)
+    fixture_entries = [check_kernel(case, path_launches) for case in fixture_cases(dev, fk, afix)]
+
+    # -- 4. the paths ----------------------------------------------------------
     for family, f in families.items():
         path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, thetas,
                k_run, drive, results)
@@ -404,6 +444,7 @@ def main(argv=None) -> int:
         for family, f in families.items()}
     for name, r in results.items():
         print(f"path {name}: {json.dumps(r, default=float)}", flush=True)
+    path_a_census(args, families, results)
     for mode in ("run_filter/alg6", "run_filter/conditional", "run_filter_bank/alg6",
                  "run_filter_bank/conditional", "run_filter_timed/alg6"):
         side = {family: {k: results[f"{mode}/{family}"].get(k) for k in
@@ -421,7 +462,7 @@ def main(argv=None) -> int:
                         ("mse_over_n", "bias_share", "single_ms")} for m in PATH_C_METHODS}
             print(f"compare fig8/n={n_c}/y={y}: {json.dumps(side)}")
 
-    # -- 4. kernels against their plain versions --------------------------------
+    # -- 5. kernels against their plain versions --------------------------------
     kernels = []
     for case in kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
                              k_quality):
@@ -430,6 +471,7 @@ def main(argv=None) -> int:
             kernels.append(entry)
         if case[0].endswith("_step_rows"):
             print(f"grid {case[0]}: {json.dumps(grid_study(case))}", flush=True)
+    kernels += [e for e in fixture_entries if e["name"] in TPU_KERNELS]  # not the 2^23 cases
     # Launches made above to compare and time do not count: the counts
     # reported are those of the main path's runs.
     print(card)
@@ -1005,12 +1047,15 @@ KERNEL_NAMES = {
     ("prefix", "search"): "prefix_search_rows_kernel<false, false>",
     ("prefix", "gather"): "prefix_search_rows_kernel<true, false>",
     ("prefix", "residual"): "prefix_search_rows_kernel<true, true>",
+    ("fixtures", "copy"): "copy_kernel",
+    ("fixtures", "iota"): "iota_kernel",
 }
 #: The CUDA source of each family's kernels.
 SOURCES = {"megopolis": "megopolis/csrc/megopolis.cu",
            "metropolis": "metropolis/csrc/metropolis.cu",
            "metropolis_c1": "metropolis/csrc/c1c2.cu", "metropolis_c2": "metropolis/csrc/c1c2.cu",
-           "rejection": "rejection/csrc/rejection.cu", "prefix": "prefix_sum/csrc/prefix_sum.cu"}
+           "rejection": "rejection/csrc/rejection.cu", "prefix": "prefix_sum/csrc/prefix_sum.cu",
+           "fixtures": "fixtures/csrc/fixtures.cu"}
 #: The TPU kernel each wrapper replaces (``megopolis_rows`` is row 1 vmapped).
 TPU_KERNELS = {
     "megopolis": "megopolis_pallas", "megopolis_batch": "megopolis_pallas_batch",
@@ -1032,6 +1077,8 @@ TPU_KERNELS = {
     "searchsorted_gather_rows": "searchsorted_gather_pallas",
     "residual_select_gather_rows": "residual_select_gather_pallas",
     "prefix_step_rows": "prefix_pallas_step",
+    # The contract checks' fixtures (``src/repro/analysis/fixtures.py``).
+    "copy_launch": "_copy_launch", "iota_launch": "hbm_roundtrip",
 }
 for _c in ("metropolis_c1", "metropolis_c2"):
     # The JAX package has no C1/C2 bank kernel: the bank forms replace the
@@ -1080,8 +1127,16 @@ def prefix_work(kind, kargs, rows, n, fired) -> tuple:
 def library_call(kind, kargs):
     """One PyTorch call that computes the same function, on the same
     inputs, or None: ``torch.cumsum`` for the scan, ``torch.searchsorted``
-    for the search, and with the index of the state for the gather (timed
-    beside the kernel only; the port never calls them)."""
+    for the search, and with the index of the state for the gather;
+    ``Tensor.clone`` for the copy, and for the iota ``torch.arange`` with
+    the ``index_select`` of a ``[N, 4]`` state that ``hbm_roundtrip`` makes
+    of it (timed beside the kernel only; the port never calls them)."""
+    if kind == "copy":
+        return kargs[0].clone
+    if kind == "iota":
+        n, dev = kargs[0].shape[0], kargs[0].device
+        state = torch.zeros(n, 4, device=dev)
+        return lambda: state.index_select(0, torch.arange(n, device=dev))
     if kind == "scan":
         return lambda: torch.cumsum(kargs[0], dim=-1)
     if kind in ("search", "gather"):
@@ -1109,7 +1164,7 @@ def check_kernel(case, path_launches) -> dict:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     got = tuple(g.reshape(wnt.shape) for g, wnt in zip(got, want))
-    if kind == "scan":  # a CDF: every bit
+    if kind in ("scan", "copy"):  # a CDF, a copy: every bit
         got, want = (got[0].view(torch.int32),), (want[0].view(torch.int32),)
     anc_mismatch = int((got[0] != want[0]).sum())
     state_err = float((got[1] - want[1]).abs().max()) if len(got) > 1 else 0.0
@@ -1149,11 +1204,13 @@ def check_kernel(case, path_launches) -> dict:
     ms = kernel_ms(lambda: wrapper(*kargs), kernel_name(family, kind, kargs), reps)
     call_ms = time_ms(lambda: wrapper(*kargs), reps)
     plain_ms = time_ms(plain, max(1, min(5, int(2e9 // work))), warmup=0)
-    library = library_call(kind, kargs) if family == "prefix" else None
+    library = library_call(kind, kargs) if family in ("prefix", "fixtures") else None
     library_ms = None if library is None else time_ms(library, reps)
     if family == "prefix":
         fired = entry.get("rows_resampled", rows)
         n_bytes, n_ops = prefix_work(kind, kargs, rows, n, fired)
+    elif family == "fixtures":  # the copy reads and writes N f32, the iota writes N int32
+        n_bytes, n_ops = (8 if kind == "copy" else 4) * rows * n, 0
     else:
         # Weights (or log-weights) in and ancestors out; the state in and
         # out (D = 1 on the path) for the fused and step kernels; C1/C2's
@@ -1325,12 +1382,127 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
     }
 
 
+#: The entry a Path A run goes through, by mode: its launch budget per step.
+PATH_A_ENTRIES = {"run_filter/alg6": "apply", "run_filter/conditional": "step",
+                  "run_filter_bank/alg6": "apply_rows",
+                  "run_filter_bank/conditional": "step_rows", "run_filter_timed/alg6": "apply"}
+#: The fixture kernels' length in the contract checks (``AUDIT_N``), and the
+#: length they are also timed at: ``oversized_vmem``'s 8M f32.
+FIXTURE_NS = (2048, 1 << 23)
+
+
+def contract_checks(dev, families, wrappers, fk, drive):
+    """Phase 3, the contract checks of ``repro_torch.analysis`` on the card.
+
+    The resource tables (``smem.KERNELS``, ``smem.CARD_LIMITS``) must be the
+    card's.  ``--check`` runs with every recorded run profiled: its census
+    must equal the count of the port's kernels among the profiler's device
+    events.  ``--selftest`` must pass, the oversized fixture with no
+    launch."""
+    from repro_torch.analysis import fixtures as afix
+    from repro_torch.analysis import smem
+    from repro_torch.analysis.report import build_report, summarise
+
+    drift = smem.card_drift()
+    if drift:
+        fail("the resource tables are not the card's:\n  " + "\n  ".join(drift))
+    print(f"smem limits: {json.dumps(smem.card_limits())}")
+    for kernel, (regs, static, most, per_sm) in smem.card_attributes().items():
+        big = [smem.price(kernel, r, n_) for r, n_ in smem.largest_shapes(kernel)]
+        print(f"smem {kernel}: " + json.dumps({
+            "registers": regs, "static_smem": static, "max_threads": most,
+            "blocks_per_sm": per_sm,
+            "largest": [{"rows": fp.rows, "n": fp.n, "smem": fp.smem, "blocks": fp.blocks,
+                         "per_sm": fp.per_sm} for fp in big],
+            "within": not smem.smem_findings(big)}))
+
+    witnessed = []
+
+    @contextlib.contextmanager
+    def witness(rec):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            yield
+            torch.cuda.synchronize()
+        seen = collections.Counter(k for k in (kernel_instance(name) for name, _ in
+                                               device_kernels(prof)) if k in smem.KERNELS)
+        witnessed.append((dict(rec.census), dict(seen)))
+
+    port = [w for w in wrappers if w not in fk.WRAPPERS]
+    report = drive("analysis/check", lambda: build_report(
+        device=dev, telemetry_families=list(families), around=witness), port)
+    print(summarise(report))
+    census = collections.defaultdict(dict)
+    for cell in report["matrix"]:
+        family, _, entry = cell["cell"].split("/")
+        census[family][entry] = cell["launches"]
+    print(f"census by entry: {json.dumps(census)}")
+    bad = [(c, s) for c, s in witnessed if c != s]
+    print(f"census witness: {len(witnessed)} recorded runs, {len(bad)} differ from the "
+          f"profiler")
+    if bad:
+        fail(f"census and profiler differ: {bad[:5]}")
+    if not report["ok"]:
+        fail("the contract checks failed on the card (see the VIOLATION lines above)")
+
+    before = fk.copy_launch.launches
+    rep = afix.FIXTURES["oversized_vmem"][0](dev)
+    if rep.ok or fk.copy_launch.launches != before or rep.launches:
+        fail(f"oversized_vmem: expected a refusal with no launch ({rep.violations})")
+    print(f"smem oversized_vmem: refused without a launch: {rep.violations[0]}")
+    problems = drive("analysis/selftest", lambda: afix.selftest(dev), fk.WRAPPERS)
+    if problems:
+        fail(f"selftest on the card: {problems}")
+    print("selftest: OK")
+
+
+def path_a_census(args, families, results):
+    """Each Path A run of phase 4 launched its entry's budget x steps of the
+    port's kernels (the wrappers' counts); printed beside all CUDA launches
+    of a conditional step (``step_costs``' profile)."""
+    from repro_torch.core.spec import launch_budget
+
+    for mode, entry in PATH_A_ENTRIES.items():
+        steps = args.bank_steps if mode.startswith("run_filter_bank") else args.steps
+        for family in families:
+            got = sum(results[f"{mode}/{family}"]["launches"].values())
+            want = launch_budget(family, entry) * steps
+            if got != want:
+                fail(f"{mode}/{family}: {got} port kernel launches, budget x steps {want}")
+    split = {family: {"port_per_step": launch_budget(family, "step"),
+                      "all_cuda_per_step": results["host_and_device_per_step"][family][
+                          "launches_per_step"]} for family in families}
+    print(f"census path_a: every run at budget x steps; conditional step {json.dumps(split)}")
+
+
+def fixture_cases(dev, fk, afix) -> list:
+    """The fixture kernels on their inputs in the contract checks (the
+    weights ``leaky_telemetry`` copies, the weights ``hbm_roundtrip``
+    takes), then at 2^23 (not in the ``kernels`` line)."""
+    from repro_torch.kernels.fixtures import ref as fref
+
+    (x,) = capture(afix, "copy_launch", lambda: afix.leaky_telemetry(dev))
+    (w,) = capture(afix, "iota_launch", lambda: afix.hbm_roundtrip(
+        torch.zeros(FIXTURE_NS[0], device=dev), torch.zeros(FIXTURE_NS[0], 4, device=dev)))
+    big = torch.rand(FIXTURE_NS[1], generator=torch.Generator().manual_seed(0)).to(dev)
+    cases = []
+    for suffix, xc, wc in (("", x, w), (f"/n={FIXTURE_NS[1]}", big, big)):
+        cases.append((f"copy_launch{suffix}", fk.copy_launch, (xc,),
+                      lambda xc=xc: fref.copy_ref(xc), "fixtures", "copy", 1, 1))
+        cases.append((f"iota_launch{suffix}", fk.iota_launch, (wc,),
+                      lambda wc=wc: fref.iota_ref(wc.shape[0], wc.device), "fixtures", "iota",
+                      1, 1))
+    return cases
+
+
 def _tpu_kernel_lines() -> dict:
     """File and line of each ``def megopolis_pallas*``, ``def
     metropolis_pallas*``, ``def metropolis_c{1,2}_pallas*``, ``def
     rejection_pallas*`` and of the prefix-sum kernels' ``def``s in the JAX
-    package's kernel files, read as text (nothing of the JAX package is
-    imported)."""
+    package's kernel files, and of the analyzer's two fixture kernels
+    (``_copy_launch``, ``hbm_roundtrip``), read as text (nothing of the JAX
+    package is imported)."""
     lines = {}
     for rel in ("megopolis/megopolis.py", "metropolis/metropolis.py", "metropolis/c1c2.py",
                 "rejection/rejection.py", "prefix_sum/prefix_sum.py", "prefix_sum/search.py",
@@ -1341,6 +1513,10 @@ def _tpu_kernel_lines() -> dict:
                                  "def prefix_", "def searchsorted_", "def residual_select"))
                     and "_pallas" in line):
                 lines[line[4:line.index("(")]] = (rel, i)
+    rel = "src/repro/analysis/fixtures.py"
+    for i, line in enumerate((ROOT / rel).read_text().splitlines(), 1):
+        if line.startswith(("def _copy_launch(", "def hbm_roundtrip(")):
+            lines[line[4:line.index("(")]] = (rel, i)
     return lines
 
 

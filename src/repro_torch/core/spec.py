@@ -521,3 +521,90 @@ class PrefixSumSpec(ResamplerSpec):
             step_rows=lambda keys, lw, p, thr: pops.prefix_resample_cuda_step_rows(
                 keys, lw, p, thr, kind),
         )
+
+
+# ---------------------------------------------------------------------------
+# Static contracts (DESIGN.md §13), after ``repro.core.spec``: the families
+# by name and the launch budget of each (family, entry) cell, which the
+# contract checks (``python -m repro_torch.analysis``) hold every cell to.
+# The port's one backend, ``cuda``, takes the JAX package's ``pallas``
+# budgets.
+# ---------------------------------------------------------------------------
+
+#: Every entry point of a built ``Resampler``, audited per cell.
+ENTRY_POINTS = ("call", "batch", "batch_rows", "apply", "apply_batch", "apply_rows", "step",
+                "step_rows")
+
+#: The ten families by name: ``(spec class, fixed fields)``.  The name
+#: registry of ROADMAP Queue A item 4 (``spec_from_name``) takes it over.
+FAMILIES = {
+    "megopolis": (MegopolisSpec, {}),
+    "metropolis": (MetropolisSpec, {}),
+    "metropolis_c1": (MetropolisC1Spec, {}),
+    "metropolis_c2": (MetropolisC2Spec, {}),
+    "rejection": (RejectionSpec, {}),
+    **{kind: (PrefixSumSpec, {"kind": kind}) for kind in pops.PREFIX_KINDS},
+}
+
+# Direct families (Megopolis, Metropolis, C1/C2, rejection) launch once per
+# entry.  The prefix-sum kinds pay a scan before the search, except the
+# fused step, one launch for every family (DESIGN.md §12); residual pays
+# three scans and two searches (index only) or three scans and the select.
+_DIRECT_BUDGET = {entry: 1 for entry in ENTRY_POINTS}
+_PREFIX_BUDGET = {entry: 2 for entry in ENTRY_POINTS} | {"step": 1, "step_rows": 1}
+_RESIDUAL_BUDGET = {"call": 5, "batch": 5, "batch_rows": 5, "apply": 4, "apply_batch": 4,
+                    "apply_rows": 4, "step": 1, "step_rows": 1}
+LAUNCH_BUDGETS = {
+    "megopolis": _DIRECT_BUDGET,
+    "metropolis": _DIRECT_BUDGET,
+    "metropolis_c1": _DIRECT_BUDGET,
+    "metropolis_c2": _DIRECT_BUDGET,
+    "rejection": _DIRECT_BUDGET,
+    "multinomial": _PREFIX_BUDGET,
+    "systematic": _PREFIX_BUDGET,
+    "improved_systematic": _PREFIX_BUDGET,
+    "stratified": _PREFIX_BUDGET,
+    "residual": _RESIDUAL_BUDGET,
+}
+
+
+def family_names() -> list:
+    """The family names, sorted."""
+    return sorted(FAMILIES)
+
+
+def _family(name: str):
+    try:
+        return FAMILIES[name]
+    except KeyError:
+        hint = difflib.get_close_matches(str(name), FAMILIES, n=1)
+        did_you_mean = f" — did you mean {hint[0]!r}?" if hint else ""
+        raise KeyError(f"unknown resampler family {name!r}{did_you_mean}; choices: "
+                       f"{family_names()}") from None
+
+
+def family_spec(name: str, **fields) -> ResamplerSpec:
+    """The spec of family ``name`` with those of ``fields`` it has (so
+    ``num_iters`` and ``max_iters`` may both be given for any family)."""
+    cls, fixed = _family(name)
+    own = {f.name for f in dataclasses.fields(cls)}
+    return cls(**fixed, **{k: v for k, v in fields.items() if k in own})
+
+
+def launch_budget(name: str, entry: str) -> int:
+    """Declared most kernel launches of one (family, entry) cell."""
+    if entry not in ENTRY_POINTS:
+        raise KeyError(f"unknown entry point {entry!r}; choices: {ENTRY_POINTS}")
+    _family(name)
+    return LAUNCH_BUDGETS[name][entry]
+
+
+def contract_cells(families=None, entries=None):
+    """The audited (family, entry) cells: every family of ``FAMILIES`` (or
+    ``families``) by every entry point (or ``entries``)."""
+    for name in families if families is not None else family_names():
+        _family(name)
+        for entry in entries if entries is not None else ENTRY_POINTS:
+            if entry not in ENTRY_POINTS:
+                raise KeyError(f"unknown entry point {entry!r}; choices: {ENTRY_POINTS}")
+            yield name, entry

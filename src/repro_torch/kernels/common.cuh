@@ -1,9 +1,9 @@
 // Shared device code of the port's resampling kernels (sm_90a): the hash
 // RNG, the flush to zero, the deterministic block reductions and the fused
-// step's statistics prelude.  The CUDA twin of repro_torch/kernels/common.py;
-// included by megopolis/csrc/megopolis.cu and metropolis/csrc/metropolis.cu.
-// kernels/build.py hashes this header into the name of every library that
-// includes it, so an edit here rebuilds both.
+// step's statistics prelude, and the attribute query of the contract checks.
+// The CUDA twin of repro_torch/kernels/common.py; included by every source
+// under kernels/*/csrc/.  kernels/build.py hashes this header into the name
+// of every library that includes it, so an edit here rebuilds them all.
 
 #pragma once
 
@@ -210,4 +210,24 @@ static int coop_step_launch(Kernel kernel, int blocks, int rows, void** args, vo
                                                 (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Attributes of one kernel for the contract checks' resource table
+// (repro_torch/analysis/smem.py): out = {registers per thread, static shared
+// memory, largest block, blocks of NT threads co-resident on one SM with
+// `dynamic_smem` bytes of dynamic shared memory}.
+template <class Kernel>
+static int kernel_attributes(Kernel kernel, int dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, (const void*)kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kernel, NT,
+                                                        (size_t)dynamic_smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = per_sm;
+  return 0;
 }

@@ -7,7 +7,8 @@ PyTorch.  The plain versions of the CUDA kernels call them, and the CUDA
 sources spell out the same arithmetic in ``common.cuh``, which both
 ``megopolis/csrc/megopolis.cu`` and ``metropolis/csrc/metropolis.cu``
 include.  The checks every bank wrapper makes before a launch
-(``check_bank``, ``check_launch``) live here too.
+(``check_bank``, ``check_launch``) live here too, and the launch census
+hook every wrapper carries (``kernel_wrapper``).
 
 uint32 arithmetic runs in ``int64`` masked to 32 bits (torch's ``uint32``
 has no ``+``, ``>>`` or ``%`` on the CPU); products are split into 16-bit
@@ -27,7 +28,9 @@ not carry over: the port keeps state flat, ``[N, D]`` at the public API and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -257,3 +260,60 @@ def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_i
     scratch = torch.empty(s * g * 5 + s * num_iters + s * n, dtype=torch.float32,
                           device=lw.device)
     return g, anc, torch.empty_like(state), stats, scratch
+
+
+#: Observers of the wrappers' launches (``repro_torch.analysis`` adds them):
+#: objects with ``launched(kernel, wrapper, args, out)``.
+_LAUNCH_OBSERVERS: list = []
+#: Wrapper calls in progress: a wrapper called inside another is part of
+#: that one's work, not a launch of its own.
+_DEPTH = [0]
+
+
+def kernel_wrapper(kernel):
+    """Decorator of a kernel's launch wrapper, the launch census hook.
+    ``kernel`` names the CUDA kernel the wrapper launches as the profiler
+    prints it (``megopolis_fused_rows_kernel<true>``), or is a function of
+    the call's arguments that gives the name.
+
+    While an observer is installed, each call reports one launch to it, on
+    both devices (on a CPU tensor the plain version stands for the launch,
+    as interpret mode stands for a ``pallas_call``), with the call's
+    arguments and outputs; a wrapper called inside another reports nothing.
+    While the call runs, ``inside_kernel_wrapper()`` is True.  The
+    wrapper's own ``launches`` count is untouched."""
+
+    def decorate(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if _DEPTH[0] or not _LAUNCH_OBSERVERS:
+                return fn(*args, **kwargs)
+            _DEPTH[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                _DEPTH[0] -= 1
+            name = kernel(*args, **kwargs) if callable(kernel) else kernel
+            for observer in tuple(_LAUNCH_OBSERVERS):
+                observer.launched(name, wrapper.__name__, args, out)
+            return out
+
+        return wrapper
+
+    return decorate
+
+
+def inside_kernel_wrapper() -> bool:
+    """True while a kernel wrapper's call runs: its tensor work (a plain
+    version's gather) is the kernel's own."""
+    return _DEPTH[0] > 0
+
+
+@contextlib.contextmanager
+def observe_launches(observer):
+    """Report every wrapper call made inside the block to ``observer``."""
+    _LAUNCH_OBSERVERS.append(observer)
+    try:
+        yield observer
+    finally:
+        _LAUNCH_OBSERVERS.remove(observer)

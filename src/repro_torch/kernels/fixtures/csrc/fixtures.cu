@@ -1,0 +1,91 @@
+// The contract checks' two fixture kernels for NVIDIA Hopper (sm_90a), and
+// the card's limits that the checks read.
+//
+// Built by repro_torch/kernels/build.py (nvcc -gencode arch=compute_90a,
+// code=sm_90a -O3 -ftz=true -shared) and bound with ctypes by
+// repro_torch/kernels/fixtures/fixtures.py.  Each entry point launches on the
+// caller's stream, allocates nothing and returns cudaGetLastError().  Their
+// plain PyTorch versions are in ../ref.py.  They are deliberately misused by
+// repro_torch/analysis/fixtures.py, the programs that prove each pass of the
+// contract checks fires; the kernels themselves are right.
+//
+// copy_kernel replaces _copy_launch (repro/analysis/fixtures.py), a Pallas
+// whole-array copy o = x: two chained in extra_launch, one in the
+// telemetry-on run of leaky_telemetry.
+//
+//   What bounds it: each element read once and written once, 8 bytes: at
+//   N = 2^23 f32, 64 MiB, 0.020 ms at 3.35 TB/s; at the fixtures' N = 2048,
+//   16 KiB, so a launch's latency.
+//   What the design does about it: a grid-stride loop of coalesced 4-byte
+//   loads and stores, one element per thread up to 65535 blocks.  The TPU
+//   kernel stages the whole array in VMEM; nothing is staged here.
+//
+// iota_kernel replaces the pallas_call of hbm_roundtrip (same file), which
+// writes int32[1, N] = 0..N-1; the fixture then indexes the state with it
+// outside any kernel, the round trip of ancestors through device memory
+// that the fused apply and step remove.
+//
+//   What bounds it: the 4N bytes written.
+//   What the design does about it: the same grid-stride loop.
+
+#include "../../common.cuh"
+
+// Most blocks of a grid-stride launch; past 65535·NT elements a thread
+// takes more than one.
+#define MAX_STRIDE_BLOCKS 65535
+
+__global__ void __launch_bounds__(NT) copy_kernel(const float* x, float* o, long long n) {
+  const long long stride = (long long)gridDim.x * NT;
+  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n; i += stride) o[i] = x[i];
+}
+
+__global__ void __launch_bounds__(NT) iota_kernel(int* o, long long n) {
+  const long long stride = (long long)gridDim.x * NT;
+  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n; i += stride) o[i] = (int)i;
+}
+
+static dim3 stride_grid(long long n) {
+  long long g = (n + NT - 1) / NT;
+  if (g > MAX_STRIDE_BLOCKS) g = MAX_STRIDE_BLOCKS;
+  return dim3((unsigned)(g < 1 ? 1 : g));
+}
+
+extern "C" {
+
+int fixture_copy(const void* x, void* o, long long n, void* stream) {
+  copy_kernel<<<stride_grid(n), NT, 0, (cudaStream_t)stream>>>((const float*)x, (float*)o, n);
+  return (int)cudaGetLastError();
+}
+
+int fixture_iota(void* o, long long n, void* stream) {
+  iota_kernel<<<stride_grid(n), NT, 0, (cudaStream_t)stream>>>((int*)o, n);
+  return (int)cudaGetLastError();
+}
+
+// Kernel `which` of this file's resource table rows, in the order of
+// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+int fixtures_attributes(int which, int dynamic_smem, int* out) {
+  switch (which) {
+    case 0: return kernel_attributes(copy_kernel, dynamic_smem, out);
+    case 1: return kernel_attributes(iota_kernel, dynamic_smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The current card's limits, in the order of repro_torch/analysis/smem.py's
+// CARD_LIMITS: opt-in shared memory per block, shared memory per block
+// without opt-in, shared memory per SM, shared memory reserved per block,
+// registers per SM, threads per SM, blocks per SM, SMs.
+int fixtures_device_limits(int* out) {
+  const cudaDeviceAttr attrs[] = {
+      cudaDevAttrMaxSharedMemoryPerBlockOptin,   cudaDevAttrMaxSharedMemoryPerBlock,
+      cudaDevAttrMaxSharedMemoryPerMultiprocessor, cudaDevAttrReservedSharedMemoryPerBlock,
+      cudaDevAttrMaxRegistersPerMultiprocessor,  cudaDevAttrMaxThreadsPerMultiProcessor,
+      cudaDevAttrMaxBlocksPerMultiprocessor,     cudaDevAttrMultiProcessorCount};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  for (int i = 0; err == cudaSuccess && i < 8; ++i) err = cudaDeviceGetAttribute(&out[i], attrs[i], dev);
+  return (int)err;
+}
+
+}  // extern "C"

@@ -201,4 +201,15 @@ int megopolis_step_rows(const void* lw, const void* state, const void* offsets,
   return coop_step_launch(megopolis_step_rows_kernel, blocks, rows, args, stream);
 }
 
+// Kernel `which` of this file's resource table rows, in the order of
+// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+int megopolis_attributes(int which, int dynamic_smem, int* out) {
+  switch (which) {
+    case 0: return kernel_attributes(megopolis_fused_rows_kernel<false>, dynamic_smem, out);
+    case 1: return kernel_attributes(megopolis_fused_rows_kernel<true>, dynamic_smem, out);
+    case 2: return kernel_attributes(megopolis_step_rows_kernel, dynamic_smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // extern "C"

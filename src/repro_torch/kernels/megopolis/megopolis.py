@@ -27,7 +27,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import check_bank, check_launch, device_seeds, step_buffers
+from repro_torch.kernels.common import (
+    check_bank,
+    check_launch,
+    device_seeds,
+    kernel_wrapper,
+    step_buffers,
+)
 from repro_torch.kernels.megopolis.ref import (
     megopolis_fused_rows_ref,
     megopolis_rows_ref,
@@ -106,6 +112,7 @@ def _launch_step(lw, state, offsets, seeds, thr, who):
     return anc, out, stats
 
 
+@kernel_wrapper("megopolis_fused_rows_kernel<false>")
 def megopolis_rows(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
     """Index-only resample of a bank: ``w f32[S, N]``, per-row ``offsets
     int32[S, B]`` and ``seeds [S]``.  Returns ``ancestors int32[S, N]``;
@@ -118,6 +125,7 @@ def megopolis_rows(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
     return anc
 
 
+@kernel_wrapper("megopolis_fused_rows_kernel<false>")
 def megopolis_batch(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
     """Index-only resample of a bank under ONE offset table ``int32[B]``
     shared by every row, with per-row ``seeds [S]``.  Returns
@@ -131,6 +139,7 @@ def megopolis_batch(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor)
     return anc
 
 
+@kernel_wrapper("megopolis_fused_rows_kernel<false>")
 def megopolis(w: torch.Tensor, offsets: torch.Tensor, seed: torch.Tensor):
     """Index-only resample of one population: ``w f32[N]``, ``offsets
     int32[B]``, a scalar ``seed``.  Returns ``ancestors int32[N]``."""
@@ -143,6 +152,7 @@ def megopolis(w: torch.Tensor, offsets: torch.Tensor, seed: torch.Tensor):
     return anc[0]
 
 
+@kernel_wrapper("megopolis_fused_rows_kernel<true>")
 def megopolis_fused_rows(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                          seeds: torch.Tensor):
     """Fused resample + state copy over a bank: ``w f32[S, N]``, ``state
@@ -157,6 +167,7 @@ def megopolis_fused_rows(w: torch.Tensor, state: torch.Tensor, offsets: torch.Te
     return result
 
 
+@kernel_wrapper("megopolis_fused_rows_kernel<true>")
 def megopolis_fused(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                     seed: torch.Tensor):
     """Fused resample + state copy of one population: ``w f32[N]``, ``state
@@ -172,6 +183,7 @@ def megopolis_fused(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
     return anc[0], out[0]
 
 
+@kernel_wrapper("megopolis_step_rows_kernel")
 def megopolis_step_rows(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                         seeds: torch.Tensor, thr: float):
     """Fused SMC step over a bank of log-weights ``f32[S, N]``: each row takes
@@ -185,6 +197,7 @@ def megopolis_step_rows(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Te
     return result
 
 
+@kernel_wrapper("megopolis_step_rows_kernel")
 def megopolis_step(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                    seed: torch.Tensor, thr: float):
     """Fused SMC step of one population: ``lw f32[N]``, ``state [D, N]``.

@@ -39,7 +39,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import SEG, check_launch, device_seeds, step_buffers
+from repro_torch.kernels.common import (
+    SEG,
+    check_launch,
+    device_seeds,
+    kernel_wrapper,
+    step_buffers,
+)
 from repro_torch.kernels.metropolis.metropolis import _check
 from repro_torch.kernels.metropolis.ref import (
     metropolis_c1c2_rows_ref,
@@ -125,34 +131,40 @@ def _family(variant: int) -> tuple:
     """The six wrappers of one variant, named after its TPU kernels."""
     c = f"metropolis_c{variant}"
 
+    @kernel_wrapper(f"metropolis_c1c2_rows_kernel<{variant}, false>")
     def batch(w, partitions, seeds, num_iters):
         anc = _rows(batch.__name__, variant, w, None, partitions, seeds, num_iters)
         batch.launches += w.is_cuda
         return anc
 
+    @kernel_wrapper(f"metropolis_c1c2_rows_kernel<{variant}, false>")
     def single(w, partitions, seed, num_iters):
         anc = _rows(single.__name__, variant, w.unsqueeze(0), None, partitions.unsqueeze(0),
                     seed.reshape(1), num_iters)
         single.launches += w.is_cuda
         return anc[0]
 
+    @kernel_wrapper(f"metropolis_c1c2_rows_kernel<{variant}, true>")
     def fused_batch(w, state, partitions, seeds, num_iters):
         result = _rows(fused_batch.__name__, variant, w, state, partitions, seeds, num_iters)
         fused_batch.launches += w.is_cuda
         return result
 
+    @kernel_wrapper(f"metropolis_c1c2_rows_kernel<{variant}, true>")
     def fused(w, state, partitions, seed, num_iters):
         anc, out = _rows(fused.__name__, variant, w.unsqueeze(0), state.unsqueeze(0),
                          partitions.unsqueeze(0), seed.reshape(1), num_iters)
         fused.launches += w.is_cuda
         return anc[0], out[0]
 
+    @kernel_wrapper(f"metropolis_c1c2_step_rows_kernel<{variant}>")
     def step_rows(lw, state, partitions, seeds, num_iters, thr):
         result = _step(step_rows.__name__, variant, lw, state, partitions, seeds, num_iters,
                        thr)
         step_rows.launches += lw.is_cuda
         return result
 
+    @kernel_wrapper(f"metropolis_c1c2_step_rows_kernel<{variant}>")
     def step(lw, state, partitions, seed, num_iters, thr):
         anc, out, stats = _step(step.__name__, variant, lw.unsqueeze(0), state.unsqueeze(0),
                                 partitions.unsqueeze(0), seed.reshape(1), num_iters, thr)

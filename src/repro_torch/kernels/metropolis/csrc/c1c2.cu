@@ -282,4 +282,18 @@ int metropolis_c1c2_step_rows(int variant, const void* lw, const void* state,
                                        rows, n, d, iters, blocks, stream);
 }
 
+// Kernel `which` of this file's resource table rows, in the order of
+// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+int c1c2_attributes(int which, int dynamic_smem, int* out) {
+  switch (which) {
+    case 0: return kernel_attributes(metropolis_c1c2_rows_kernel<1, false>, dynamic_smem, out);
+    case 1: return kernel_attributes(metropolis_c1c2_rows_kernel<1, true>, dynamic_smem, out);
+    case 2: return kernel_attributes(metropolis_c1c2_rows_kernel<2, false>, dynamic_smem, out);
+    case 3: return kernel_attributes(metropolis_c1c2_rows_kernel<2, true>, dynamic_smem, out);
+    case 4: return kernel_attributes(metropolis_c1c2_step_rows_kernel<1>, dynamic_smem, out);
+    case 5: return kernel_attributes(metropolis_c1c2_step_rows_kernel<2>, dynamic_smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // extern "C"

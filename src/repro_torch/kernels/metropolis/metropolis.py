@@ -28,7 +28,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import check_bank, check_launch, device_seeds, step_buffers
+from repro_torch.kernels.common import (
+    check_bank,
+    check_launch,
+    device_seeds,
+    kernel_wrapper,
+    step_buffers,
+)
 from repro_torch.kernels.metropolis.ref import metropolis_rows_ref, metropolis_step_rows_ref
 
 SOURCE = "metropolis/csrc/metropolis.cu"
@@ -106,6 +112,7 @@ def _step(who, lw, state, seeds, num_iters, thr):
     return _launch_step(lw, state, seeds, num_iters, thr, who)
 
 
+@kernel_wrapper("metropolis_rows_kernel<false>")
 def metropolis_batch(w: torch.Tensor, seeds: torch.Tensor, num_iters: int):
     """Index-only resample of a bank ``w f32[S, N]`` with one seed per row
     ``[S]``.  Returns ``ancestors int32[S, N]``; row ``s`` equals
@@ -115,6 +122,7 @@ def metropolis_batch(w: torch.Tensor, seeds: torch.Tensor, num_iters: int):
     return anc
 
 
+@kernel_wrapper("metropolis_rows_kernel<false>")
 def metropolis(w: torch.Tensor, seed: torch.Tensor, num_iters: int):
     """Index-only resample of one population ``w f32[N]`` with a scalar
     ``seed``.  Returns ``ancestors int32[N]``."""
@@ -123,6 +131,7 @@ def metropolis(w: torch.Tensor, seed: torch.Tensor, num_iters: int):
     return anc[0]
 
 
+@kernel_wrapper("metropolis_rows_kernel<true>")
 def metropolis_fused_batch(w: torch.Tensor, state: torch.Tensor, seeds: torch.Tensor,
                            num_iters: int):
     """Fused resample + state copy over a bank: ``w f32[S, N]``, ``state
@@ -133,6 +142,7 @@ def metropolis_fused_batch(w: torch.Tensor, state: torch.Tensor, seeds: torch.Te
     return result
 
 
+@kernel_wrapper("metropolis_rows_kernel<true>")
 def metropolis_fused(w: torch.Tensor, state: torch.Tensor, seed: torch.Tensor,
                      num_iters: int):
     """Fused resample + state copy of one population: ``w f32[N]``, ``state
@@ -144,6 +154,7 @@ def metropolis_fused(w: torch.Tensor, state: torch.Tensor, seed: torch.Tensor,
     return anc[0], out[0]
 
 
+@kernel_wrapper("metropolis_step_rows_kernel")
 def metropolis_step_rows(lw: torch.Tensor, state: torch.Tensor, seeds: torch.Tensor,
                          num_iters: int, thr: float):
     """Fused SMC step over a bank of log-weights ``f32[S, N]``: each row takes
@@ -154,6 +165,7 @@ def metropolis_step_rows(lw: torch.Tensor, state: torch.Tensor, seeds: torch.Ten
     return result
 
 
+@kernel_wrapper("metropolis_step_rows_kernel")
 def metropolis_step(lw: torch.Tensor, state: torch.Tensor, seed: torch.Tensor,
                     num_iters: int, thr: float):
     """Fused SMC step of one population: ``lw f32[N]``, ``state [D, N]``.

@@ -432,4 +432,18 @@ int prefix_step_rows(int kind, const void* lw, const void* state, const void* ub
   return coop_step_launch(kernel, blocks, rows, args, stream);
 }
 
+// Kernel `which` of this file's resource table rows, in the order of
+// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+int prefix_sum_attributes(int which, int dynamic_smem, int* out) {
+  switch (which) {
+    case 0: return kernel_attributes(prefix_scan_rows_kernel, dynamic_smem, out);
+    case 1: return kernel_attributes(prefix_search_rows_kernel<false, false>, dynamic_smem, out);
+    case 2: return kernel_attributes(prefix_search_rows_kernel<true, false>, dynamic_smem, out);
+    case 3: return kernel_attributes(prefix_search_rows_kernel<true, true>, dynamic_smem, out);
+    case 4: case 5: case 6: case 7:
+      return kernel_attributes(step_kernel(which - 4), dynamic_smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // extern "C"

@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import TILE, check_bank, check_launch
+from repro_torch.kernels.common import TILE, check_bank, check_launch, kernel_wrapper
 from repro_torch.kernels.prefix_sum.ref import scan_rows_ref
 
 SOURCE = "prefix_sum/csrc/prefix_sum.cu"
@@ -74,6 +74,7 @@ def ptr(x):
     return None if x is None else x.data_ptr()
 
 
+@kernel_wrapper("prefix_scan_rows_kernel")
 def prefix_sum_rows(x: torch.Tensor) -> torch.Tensor:
     """The tiled inclusive scan of each row of ``x f32[S, N]``, in one
     launch: ``f32[S, N]``."""

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import check_launch
+from repro_torch.kernels.common import check_launch, kernel_wrapper
 from repro_torch.kernels.prefix_sum.prefix_sum import _lib, check_rows, ptr, stream
 from repro_torch.kernels.prefix_sum.ref import residual_select_rows_ref, search_rows_ref
 
@@ -45,6 +45,7 @@ def _search(who, cdf, u, side, state=None, cc=None, n_det=None):
     return anc if state is None else (anc, out)
 
 
+@kernel_wrapper("prefix_search_rows_kernel<false, false>")
 def searchsorted_rows(cdf: torch.Tensor, u: torch.Tensor, side: str = "left"):
     """Bisect each row of the CDF bank ``cdf f32[S, N]`` at ``u f32[S, N]``:
     ancestors ``int32[S, N]``."""
@@ -53,6 +54,7 @@ def searchsorted_rows(cdf: torch.Tensor, u: torch.Tensor, side: str = "left"):
     return anc
 
 
+@kernel_wrapper("prefix_search_rows_kernel<true, false>")
 def searchsorted_gather_rows(cdf: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
                              side: str = "left"):
     """``searchsorted_rows`` plus the copy of each ancestor's state ``[S, D,
@@ -62,6 +64,7 @@ def searchsorted_gather_rows(cdf: torch.Tensor, u: torch.Tensor, state: torch.Te
     return result
 
 
+@kernel_wrapper("prefix_search_rows_kernel<true, true>")
 def residual_select_gather_rows(cc: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
                                 n_det: torch.Tensor, state: torch.Tensor):
     """Residual resampling's tail over a bank: slot ``i < n_det[s]`` takes

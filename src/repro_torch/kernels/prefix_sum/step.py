@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import TILE, check_launch, step_buffers
+from repro_torch.kernels.common import TILE, check_launch, kernel_wrapper, step_buffers
 from repro_torch.kernels.prefix_sum.prefix_sum import _lib, check_rows, ptr, stream
 from repro_torch.kernels.prefix_sum.ref import (
     KIND_CODES,
@@ -65,6 +65,12 @@ def _step(who, lw, state, ubase, u0, thr, kind):
     return anc, out, stats
 
 
+def _step_kernel(lw, state, ubase, u0, thr, kind):
+    """The instance of the step kernel a call launches."""
+    return f"prefix_step_rows_kernel<{KIND_CODES[kind]}>"
+
+
+@kernel_wrapper(_step_kernel)
 def prefix_step_rows(lw: torch.Tensor, state: torch.Tensor, ubase, u0, thr: float, kind: str):
     """Fused SMC step over a bank of log-weights ``f32[S, N]``, each row with
     its own decision ``ess_norm < thr``.  Returns ``(ancestors int32[S, N],

@@ -38,6 +38,7 @@ from repro_torch.kernels.common import (
     check_launch,
     device_seeds,
     flush_to_zero,
+    kernel_wrapper,
     step_buffers,
 )
 from repro_torch.kernels.rejection.ref import rejection_rows_ref, rejection_step_rows_ref
@@ -118,6 +119,7 @@ def _step(who, lw, state, seeds, max_iters, thr):
     return _launch_step(lw, state, seeds, max_iters, thr, who)
 
 
+@kernel_wrapper("rejection_rows_kernel<false>")
 def rejection_batch(w: torch.Tensor, seeds: torch.Tensor, max_iters: int):
     """Index-only resample of a bank ``w f32[S, N]`` with one seed per row
     ``[S]``.  Returns ``ancestors int32[S, N]``; row ``s`` equals
@@ -127,6 +129,7 @@ def rejection_batch(w: torch.Tensor, seeds: torch.Tensor, max_iters: int):
     return anc
 
 
+@kernel_wrapper("rejection_rows_kernel<false>")
 def rejection(w: torch.Tensor, seed: torch.Tensor, max_iters: int):
     """Index-only resample of one population ``w f32[N]`` with a scalar
     ``seed``.  Returns ``ancestors int32[N]``."""
@@ -135,6 +138,7 @@ def rejection(w: torch.Tensor, seed: torch.Tensor, max_iters: int):
     return anc[0]
 
 
+@kernel_wrapper("rejection_rows_kernel<true>")
 def rejection_fused_batch(w: torch.Tensor, state: torch.Tensor, seeds: torch.Tensor,
                           max_iters: int):
     """Fused resample + state copy over a bank: ``w f32[S, N]``, ``state
@@ -145,6 +149,7 @@ def rejection_fused_batch(w: torch.Tensor, state: torch.Tensor, seeds: torch.Ten
     return result
 
 
+@kernel_wrapper("rejection_rows_kernel<true>")
 def rejection_fused(w: torch.Tensor, state: torch.Tensor, seed: torch.Tensor, max_iters: int):
     """Fused resample + state copy of one population: ``w f32[N]``, ``state
     [D, N]``, a scalar ``seed``.  Returns ``(ancestors int32[N], state' [D,
@@ -155,6 +160,7 @@ def rejection_fused(w: torch.Tensor, state: torch.Tensor, seed: torch.Tensor, ma
     return anc[0], out[0]
 
 
+@kernel_wrapper("rejection_step_rows_kernel")
 def rejection_step_rows(lw: torch.Tensor, state: torch.Tensor, seeds: torch.Tensor,
                         max_iters: int, thr: float):
     """Fused SMC step over a bank of log-weights ``f32[S, N]``: each row takes
@@ -165,6 +171,7 @@ def rejection_step_rows(lw: torch.Tensor, state: torch.Tensor, seeds: torch.Tens
     return result
 
 
+@kernel_wrapper("rejection_step_rows_kernel")
 def rejection_step(lw: torch.Tensor, state: torch.Tensor, seed: torch.Tensor, max_iters: int,
                    thr: float):
     """Fused SMC step of one population: ``lw f32[N]``, ``state [D, N]``.

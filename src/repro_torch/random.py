@@ -22,10 +22,16 @@ JAX's raw key data.  All integer arithmetic runs in ``int64`` masked with
 on the CPU.  The same code runs on Python ints, CPU tensors and CUDA
 tensors; key chains live on the CPU, and bulk draws (``normal`` over N
 particles) run on the device of the ``device`` argument.
+
+``split``, ``fold_in`` and ``random_bits`` are the points that consume a
+key (``randint``, ``uniform`` and ``normal`` go through them); while an
+observer is installed (``observe_keys``) each reports its key to it, for
+the contract checks' RNG pass.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -33,6 +39,25 @@ import torch
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
+#: Observers of key consumption: callables ``(kind, key, data)``.
+_KEY_OBSERVERS: list = []
+
+
+@contextlib.contextmanager
+def observe_keys(observer):
+    """Report every key consumed inside the block to ``observer(kind, key,
+    data)``: ``kind`` is ``"split"``, ``"fold_in"`` (``data`` its int) or
+    ``"random_bits"``, ``key`` the key or key bank consumed."""
+    _KEY_OBSERVERS.append(observer)
+    try:
+        yield observer
+    finally:
+        _KEY_OBSERVERS.remove(observer)
+
+
+def _consumed(kind: str, key, data=None):
+    for observer in tuple(_KEY_OBSERVERS):
+        observer(kind, key, data)
 
 
 def _rotl(x, r: int):
@@ -91,6 +116,8 @@ def _iota(shape, device) -> torch.Tensor:
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): ``[..., 2] -> [..., num, 2]``;
     a key bank splits row by row as ``jax.vmap(jax.random.split)``."""
+    if _KEY_OBSERVERS:
+        _consumed("split", key)
     k1, k2 = _words(key, 1)
     b1, b2 = threefry2x32(k1, k2, 0, _iota((num,), key.device))
     return torch.stack([b1, b2], dim=-1)
@@ -98,6 +125,8 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
+    if _KEY_OBSERVERS:
+        _consumed("fold_in", key, int(data) & MASK32)
     k1, k2 = key[..., 0], key[..., 1]
     b1, b2 = threefry2x32(k1, k2, 0, int(data) & MASK32)
     return torch.stack([b1, b2], dim=-1)
@@ -107,6 +136,8 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """32 random bits per element (``_threefry_random_bits_partitionable``):
     ``int64[..., *shape]`` in ``[0, 2**32)``.  The counters are made on
     ``device`` (default: the key's)."""
+    if _KEY_OBSERVERS:
+        _consumed("random_bits", key)
     shape = tuple(shape)
     device = key.device if device is None else torch.device(device)
     k1, k2 = _words(key.to(device), len(shape))

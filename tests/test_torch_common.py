@@ -139,7 +139,8 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
     shutil.copytree(build.KERNELS_DIR, kernels, ignore=shutil.ignore_patterns("_build"))
     monkeypatch.setattr(build, "KERNELS_DIR", kernels)
     monkeypatch.setattr(build, "BUILD_DIR", kernels / "_build")
-    assert build.sources() == ["megopolis/csrc/megopolis.cu", "metropolis/csrc/c1c2.cu",
+    assert build.sources() == ["fixtures/csrc/fixtures.cu", "megopolis/csrc/megopolis.cu",
+                               "metropolis/csrc/c1c2.cu",
                                "metropolis/csrc/metropolis.cu", "prefix_sum/csrc/prefix_sum.cu",
                                "rejection/csrc/rejection.cu"]
     before = {src: build._target(src) for src in build.sources()}

@@ -1,14 +1,22 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions (Megopolis, Metropolis, Metropolis-C1/C2, rejection, the prefix-sum
-kinds), and the filter's default device.  They skip without a card
+kinds, the contract checks' two fixture kernels), the filter's default
+device, and the contract checks on the card (the resource tables are the
+card's, the census equals the profiler's count, the selftest passes).  They skip without a card
 (this file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch: ``python -m pytest -q --noconftest -m cuda
 tests/test_torch_cuda.py``)."""
+
+import collections
+import contextlib
+import re
 
 import pytest
 import torch
 
 from repro_torch import random as trandom
+from repro_torch.analysis import contracts, smem
+from repro_torch.analysis import fixtures as afix
 from repro_torch.core.spec import (
     MegopolisSpec,
     MetropolisC1Spec,
@@ -17,6 +25,8 @@ from repro_torch.core.spec import (
     PrefixSumSpec,
     RejectionSpec,
 )
+from repro_torch.kernels.fixtures import fixtures as fk
+from repro_torch.kernels.fixtures import ref as fref
 from repro_torch.kernels.megopolis import megopolis as mk
 from repro_torch.kernels.megopolis import ref
 from repro_torch.kernels.metropolis import c1c2 as ck
@@ -364,3 +374,54 @@ def test_run_filter_with_prefix_sum_on_the_card(card, kind):
     got = r.apply_rows(keys, w, p)
     want = r.apply_rows(keys, w.cpu(), p.cpu())
     assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2048, 3000, 1 << 20))
+def test_fixture_kernels_match_plain_version(card, n):
+    x = torch.randn(n, generator=torch.Generator().manual_seed(0)).to(card)
+    fk.reset_launch_counts()
+    got = fk.copy_launch(x)
+    assert got.data_ptr() != x.data_ptr()
+    assert torch.equal(got.view(torch.int32), fref.copy_ref(x).view(torch.int32))
+    assert torch.equal(fk.iota_launch(x), fref.iota_ref(n, card))
+    assert fk.copy_launch.launches == 1 and fk.iota_launch.launches == 1
+
+
+@pytest.mark.cuda
+def test_resource_tables_are_the_cards(card):
+    assert smem.card_drift() == []
+
+
+def _kernel_instance(event: str):
+    m = re.match(r"(?:void )?(\w+(?:<[^()]*>)?)\(", event)
+    return None if m is None else m.group(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,entry", (("megopolis", "step"), ("residual", "call"),
+                                        ("metropolis_c2", "apply_rows"),
+                                        ("multinomial", "step_rows")))
+def test_census_matches_the_profiler(card, name, entry):
+    args = contracts.audit_args(device=card)
+    seen = collections.Counter()
+
+    @contextlib.contextmanager
+    def profiled(rec):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            yield
+            torch.cuda.synchronize()
+        for e in prof.events():
+            k = _kernel_instance(e.name)
+            if e.device_type == torch.autograd.DeviceType.CUDA and k in smem.KERNELS:
+                seen[k] += 1
+
+    rep = contracts.audit_cell(name, entry, args, around=profiled)
+    assert rep.ok, rep.violations
+    assert dict(rep.census) == dict(seen)
+
+
+@pytest.mark.cuda
+def test_selftest_on_the_card(card):
+    assert afix.selftest(card) == []
