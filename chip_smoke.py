@@ -10,20 +10,32 @@ over, and there is no CPU fallback):
 2. build every CUDA source of ``src/repro_torch`` with ``nvcc`` for sm_90a
    (one ``nvcc`` per source, started together) and print ``ptxas``'
    registers per kernel;
-3. the contract checks (``python -m repro_torch.analysis``) on the card,
-   first, while the process is young (on an H100 the profiler lost no
-   kernel record of 24 short runs in a fresh process, and 8-13 of 24 runs
-   lost one after four minutes, with or without idle time around each
-   run): the resource
-   tables against the card's own attributes and limits; the 80 matrix
-   cells, the filter's consumers and pass 6 for the eight Path A families
-   (``--check``), each recorded run's census held to the profiler's count
-   of the port's kernels in it; every kernel within the card's shared
-   memory and registers at its largest admitted shapes, and the oversized
-   fixture refused with no launch; ``--selftest``; then the two fixture
-   kernels (rows 30-31) against their plain versions on their inputs in
-   ``--selftest`` and at 2^23, timed and bounded as in phase 5;
-4. drive the paths through the user's entry points, each run with every
+3. in a process of its own (``--phase checks``: ``torch.profiler`` loses
+   kernel records in a process that has run for minutes, and on an H100
+   lost none in a new one), the contract checks
+   (``python -m repro_torch.analysis``) on the card: the resource tables
+   against the card's own attributes and limits; the 80 matrix cells, the
+   filter's consumers and pass 6 for all ten families (``--check``), each
+   recorded run's census, both sides of a step cell's flag, held to the
+   profiler's count of the port's kernels in it; every kernel within the
+   card's shared memory and registers at its largest admitted shapes, and
+   the oversized fixture refused with no launch; ``--selftest``; then the
+   two fixture kernels (rows 30-31) against their plain versions on their
+   inputs in ``--selftest`` and at 2^23, timed and bounded as in phase 4;
+4. in a process of its own (``--phase kernels``), for each kernel wrapper,
+   on its inputs captured from a short full-width run of the entry point
+   that calls it (for a step, the last captured call that resampled),
+   compare the kernel with its plain version on the card, time both, and
+   compute the kernel's bound (for rejection from the rounds this run's
+   data needs, with the rounds of the lanes and of their warps); time each
+   bank step kernel at capped cooperative grids (blocks per SM); hold
+   ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
+   particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
+   inputs, on a bank and on one population (a bank of one row; the
+   systematic and stratified searches on its captured weights), every
+   kind of the step, and beside each scan, search and fixture kernel the
+   one PyTorch call that computes it (``library_ms``);
+5. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
      each family: ``MegopolisSpec``, ``MetropolisSpec`` (Table 2's baseline
@@ -56,18 +68,6 @@ over, and there is no CPU fallback):
    * small runs of both paths on the card against the same runs on the CPU,
      and for the prefix-sum kinds each step of an Alg. 6 run on the CPU
      replayed on the card bit for bit;
-5. for each kernel wrapper, on its inputs captured from a short full-width
-   run of the entry point that calls it (for a step, the last captured call
-   that resampled), compare the kernel with its plain version on the card,
-   time both, and compute the kernel's bound (for rejection from the
-   rounds this run's data needs, with the rounds of the lanes and of their
-   warps); time each bank step kernel at capped cooperative grids (blocks
-   per SM); hold ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
-   particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
-   inputs, on a bank and on one population (a bank of one row; the
-   systematic and stratified searches on its captured weights), every
-   kind of the step, and beside each scan and search the one PyTorch call
-   that computes it (``library_ms``);
 6. print the card line, one JSON line of kernels (all 31 rows), then a
    last JSON line naming the device.
 
@@ -86,6 +86,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -209,23 +210,27 @@ def is_kernel(event: str, kernel: str) -> bool:
 def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the CUDA kernel named ``kernel`` over at least
     ``reps`` launches, from the profiler's kernel events (CUDA events around
-    the calls would also count the wrapper's host work).  The profiler can
-    drop kernel records early in a session (seen on the card: 9 of 25, 19
-    of 20), so the profile makes ``3·reps`` calls and averages every launch
-    it recorded; each is the same work on the same inputs.  The calls run
-    back to back, so the weights are warm in L2, as the filter leaves them."""
+    the calls would also count the wrapper's host work).  The profiler
+    drops kernel records, early in a session (seen on the card: 9 of 25, 19
+    of 20 seen) and in a process that has run for minutes (1 of 60), so a
+    profile makes ``3·reps`` calls, up to three profiles run until ``reps``
+    launches are recorded, and every launch recorded is averaged;
+    each is the same work on the same inputs.  The calls run back to back,
+    so the weights are warm in L2, as the filter leaves them."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.02)
-        for _ in range(3 * reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [us for name, us in device_kernels(prof) if is_kernel(name, kernel)]
-    if len(times) < reps:
-        fail(f"profiler saw {len(times)} launches of {kernel} in {3 * reps} calls, "
-             f"fewer than {reps}")
-    return sum(times) / len(times) / 1e3
+    times = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for _ in range(3 * reps):
+                fn()
+            torch.cuda.synchronize()
+        times += [us for name, us in device_kernels(prof) if is_kernel(name, kernel)]
+        if len(times) >= reps:
+            return sum(times) / len(times) / 1e3
+    fail(f"profiler saw {len(times)} launches of {kernel} in three profiles of "
+         f"{3 * reps} calls, fewer than {reps}")
 
 
 def capture(module, name: str, run) -> tuple:
@@ -288,6 +293,13 @@ def summary(stats) -> dict:
     }
 
 
+#: The phases that run in a process of their own, before the paths: each
+#: relies on ``torch.profiler``'s kernel records, which a process that has
+#: run for minutes loses (``kernel_ms``).
+PHASES = ("checks", "kernels")
+PHASE_TIMEOUT_S = 600
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--particles", type=int, default=1 << 20)
@@ -296,6 +308,7 @@ def main(argv=None) -> int:
     ap.add_argument("--bank-steps", type=int, default=100)
     ap.add_argument("--runs", type=int, default=64, help="Path B's K Monte Carlo resamples")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=PHASES, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -303,26 +316,15 @@ def main(argv=None) -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT / 'src' / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import random as trandom
-    from repro_torch.core.spec import (
-        MegopolisSpec,
-        MetropolisC1Spec,
-        MetropolisC2Spec,
-        MetropolisSpec,
-        PrefixSumSpec,
-        RejectionSpec,
-    )
+
+    if args.phase is not None:
+        ctx = setup(args)
+        kernels = {"checks": checks_phase, "kernels": kernels_phase}[args.phase](ctx)
+        print(json.dumps({"phase": args.phase, "path_launches": ctx.path_launches,
+                          "results": ctx.results, "kernels": kernels}, default=float))
+        return 0
+
     from repro_torch.kernels import build
-    from repro_torch.kernels.fixtures import fixtures as fk
-    from repro_torch.kernels.megopolis import megopolis as mk
-    from repro_torch.kernels.metropolis import c1c2 as ck
-    from repro_torch.kernels.metropolis import metropolis as tk
-    from repro_torch.kernels.prefix_sum import prefix_sum as pk
-    from repro_torch.kernels.prefix_sum import search as sk
-    from repro_torch.kernels.prefix_sum import step as stk
-    from repro_torch.kernels.rejection import rejection as rk
-    from repro_torch.pf.filter import simulate
-    from repro_torch.pf.models import ungm, ungm_family
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -336,8 +338,112 @@ def main(argv=None) -> int:
             if any(s in line for s in ("entry function", "registers", "spill")):
                 print(f"  {src}: {line.strip()}")
 
+    # -- 3-4. the contract checks; kernels against their plain versions ------
+    phases = {name: run_phase(name, argv) for name in PHASES}
+
+    # -- 5. the paths ----------------------------------------------------------
+    ctx = setup(args)
+    for out in phases.values():
+        for wname, c in out["path_launches"].items():
+            ctx.path_launches[wname] = ctx.path_launches.get(wname, 0) + c
+        ctx.results.update(out["results"])
+    families, results, dev, n = ctx.families, ctx.results, ctx.dev, ctx.n
+    model, fam, obs, k_run, drive = ctx.model, ctx.fam, ctx.obs, ctx.k_run, ctx.drive
+    for family, f in families.items():
+        path_a(family, f, args, dev, model, fam, obs, ctx.truth, ctx.bank_obs, ctx.bank_truth,
+               ctx.thetas, k_run, drive, results)
+    for family in ("rejection", "residual"):
+        path_a_index(family, families[family], args, dev, model, fam, obs, ctx.bank_obs,
+                     ctx.thetas, k_run, drive, results)
+    results["rejection_spread"] = rejection_spread(families["rejection"]["spec"], n, model,
+                                                   obs, k_run, dev)
+    for family, f in ctx.path_b_families.items():
+        path_b(family, f, args, dev, ctx.k_quality, drive, results)
+    path_c(args, dev, ctx.trandom.fold_in(ctx.k_quality, 8), drive, results,
+           {"megopolis": (ctx.mk.megopolis_rows, ctx.mk.megopolis),
+            "multinomial": ctx.prefix_index, "improved_systematic": ctx.prefix_index})
+    results["small_runs_card_vs_cpu"] = small_runs(families, obs, ctx.truth, k_run,
+                                                   ctx.k_quality, dev)
+    results["host_and_device_per_step"] = {
+        family: step_costs(family, k_run, n, ITERS, dev, model, f["spec"], obs)
+        for family, f in families.items()}
+    for name, r in results.items():
+        print(f"path {name}: {json.dumps(r, default=float)}", flush=True)
+    path_a_census(args, families, results)
+    for mode in ("run_filter/alg6", "run_filter/conditional", "run_filter_bank/alg6",
+                 "run_filter_bank/conditional", "run_filter_timed/alg6"):
+        side = {family: {k: results[f"{mode}/{family}"].get(k) for k in
+                         ("steps_per_s", "rmse", "rmse_mean", "resample_ratio")}
+                for family in families}
+        print(f"compare {mode}: {json.dumps(side)}")
+    for y in PATH_B_YS:
+        side = {family: {k: results[f"fig6/y={y}/{family}"][k] for k in
+                         ("B", "mse_over_n", "bias_share", "single_ms", "batch_ms")}
+                for family in ctx.path_b_families}
+        print(f"compare fig6/y={y}: {json.dumps(side)}")
+    for n_c in PATH_C_NS:
+        for y in PATH_B_YS:
+            side = {m: {k: results[f"fig8/n={n_c}/y={y}/{m}"][k] for k in
+                        ("mse_over_n", "bias_share", "single_ms")} for m in PATH_C_METHODS}
+            print(f"compare fig8/n={n_c}/y={y}: {json.dumps(side)}")
+
+    # The launches reported are those of the main path's runs (phases 3 and
+    # 5), not the ones made to compare and time.
+    kernels = phases["kernels"]["kernels"] + phases["checks"]["kernels"]
+    for entry in kernels:
+        entry["launches"] = ctx.path_launches.get(entry["name"], 0)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phase(name: str, argv) -> dict:
+    """Run one phase of ``PHASES`` in a new process (``--phase``), young, as
+    the profiler needs it: its output passes through, and its last line, a
+    JSON object with the counts of its ``drive`` runs and its ``kernels``
+    entries, is returned.  Any failure there fails here."""
+    cmd = [sys.executable, str(Path(__file__).resolve()),
+           *(sys.argv[1:] if argv is None else argv), "--phase", name]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=PHASE_TIMEOUT_S)
+    lines = proc.stdout.splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
+    if proc.returncode != 0 or not lines:
+        fail(f"phase {name} exited {proc.returncode}")
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s in its own process", flush=True)
+    return json.loads(lines[-1])
+
+
+def setup(args) -> types.SimpleNamespace:
+    """What every phase shares: the families and their wrappers, the keys,
+    the simulated observations of Path A and ``drive``, which runs one
+    main-path call with every kernel's count set to 0 just before, reads
+    the counts just after (into ``path_launches`` and ``results``) and
+    fails if an expected wrapper was launched no time."""
+    from repro_torch import random as trandom
+    from repro_torch.core.spec import (
+        MegopolisSpec,
+        MetropolisC1Spec,
+        MetropolisC2Spec,
+        MetropolisSpec,
+        PrefixSumSpec,
+        RejectionSpec,
+    )
+    from repro_torch.kernels.fixtures import fixtures as fk
+    from repro_torch.kernels.megopolis import megopolis as mk
+    from repro_torch.kernels.metropolis import c1c2 as ck
+    from repro_torch.kernels.metropolis import metropolis as tk
+    from repro_torch.kernels.prefix_sum import prefix_sum as pk
+    from repro_torch.kernels.prefix_sum import search as sk
+    from repro_torch.kernels.prefix_sum import step as stk
+    from repro_torch.kernels.rejection import rejection as rk
+    from repro_torch.pf.filter import simulate
+    from repro_torch.pf.models import ungm, ungm_family
+
     dev = torch.device("cuda")
-    n = args.particles
     families = {
         "megopolis": {"spec": MegopolisSpec(num_iters=ITERS), "cls": MegopolisSpec,
                       "alg6": mk.megopolis_fused, "conditional": mk.megopolis_step,
@@ -380,7 +486,6 @@ def main(argv=None) -> int:
             "bank_conditional": stk.prefix_step_rows, "batch_rows": prefix_index,
             "single": prefix_index, "batch": prefix_index,
             "path_b": False, "small": PrefixSumSpec(kind=kind)}
-    path_b_families = {name: f for name, f in families.items() if f["path_b"]}
     modules = (mk, tk, ck, rk, pk, sk, stk, fk)
     wrappers = sum((m.WRAPPERS for m in modules), ())
     key = trandom.PRNGKey(args.seed)
@@ -392,11 +497,7 @@ def main(argv=None) -> int:
     sims = [simulate(k, fam, args.bank_steps, theta={"amp": thetas["amp"][i],
                                                      "obs_var": thetas["obs_var"][i]}, device=dev)
             for i, k in enumerate(trandom.split(k_bank, args.bank))]
-    bank_truth = torch.stack([x for x, _ in sims])
-    bank_obs = torch.stack([z for _, z in sims])
-
-    path_launches = {}
-    results = {}
+    path_launches, results = {}, {}
 
     def drive(name, fn, expected, n_steps=None):
         for module in modules:
@@ -418,68 +519,40 @@ def main(argv=None) -> int:
             results[name]["steps_per_s"] = n_steps / secs
         return out
 
-    # -- 3. the contract checks -------------------------------------------------
+    return types.SimpleNamespace(
+        dev=dev, n=args.particles, args=args, families=families, prefix_index=prefix_index,
+        path_b_families={name: f for name, f in families.items() if f["path_b"]},
+        wrappers=wrappers, trandom=trandom, mk=mk, fk=fk, k_run=k_run, k_quality=k_quality,
+        model=model, fam=fam, truth=truth, obs=obs, thetas=thetas,
+        bank_truth=torch.stack([x for x, _ in sims]), bank_obs=torch.stack([z for _, z in sims]),
+        path_launches=path_launches, results=results, drive=drive)
+
+
+def checks_phase(ctx) -> list:
+    """Phase 3: the contract checks (``contract_checks``), then the fixture
+    kernels against their plain versions; returns their ``kernels``
+    entries (the N = 2^23 cases are printed, not listed)."""
     from repro_torch.analysis import fixtures as afix
 
-    contract_checks(dev, families, wrappers, fk, drive)
-    fixture_entries = [check_kernel(case, path_launches) for case in fixture_cases(dev, fk, afix)]
+    contract_checks(ctx.dev, ctx.wrappers, ctx.fk, ctx.drive)
+    entries = [check_kernel(case) for case in fixture_cases(ctx.dev, ctx.fk, afix)]
+    return [e for e in entries if e["name"] in TPU_KERNELS]
 
-    # -- 4. the paths ----------------------------------------------------------
-    for family, f in families.items():
-        path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, thetas,
-               k_run, drive, results)
-    for family in ("rejection", "residual"):
-        path_a_index(family, families[family], args, dev, model, fam, obs, bank_obs, thetas,
-                     k_run, drive, results)
-    results["rejection_spread"] = rejection_spread(families["rejection"]["spec"], n, model,
-                                                   obs, k_run, dev)
-    for family, f in path_b_families.items():
-        path_b(family, f, args, dev, k_quality, drive, results)
-    path_c(args, dev, trandom.fold_in(k_quality, 8), drive, results,
-           {"megopolis": (mk.megopolis_rows, mk.megopolis),
-            "multinomial": prefix_index, "improved_systematic": prefix_index})
-    results["small_runs_card_vs_cpu"] = small_runs(families, obs, truth, k_run, k_quality, dev)
-    results["host_and_device_per_step"] = {
-        family: step_costs(family, k_run, n, ITERS, dev, model, f["spec"], obs)
-        for family, f in families.items()}
-    for name, r in results.items():
-        print(f"path {name}: {json.dumps(r, default=float)}", flush=True)
-    path_a_census(args, families, results)
-    for mode in ("run_filter/alg6", "run_filter/conditional", "run_filter_bank/alg6",
-                 "run_filter_bank/conditional", "run_filter_timed/alg6"):
-        side = {family: {k: results[f"{mode}/{family}"].get(k) for k in
-                         ("steps_per_s", "rmse", "rmse_mean", "resample_ratio")}
-                for family in families}
-        print(f"compare {mode}: {json.dumps(side)}")
-    for y in PATH_B_YS:
-        side = {family: {k: results[f"fig6/y={y}/{family}"][k] for k in
-                         ("B", "mse_over_n", "bias_share", "single_ms", "batch_ms")}
-                for family in path_b_families}
-        print(f"compare fig6/y={y}: {json.dumps(side)}")
-    for n_c in PATH_C_NS:
-        for y in PATH_B_YS:
-            side = {m: {k: results[f"fig8/n={n_c}/y={y}/{m}"][k] for k in
-                        ("mse_over_n", "bias_share", "single_ms")} for m in PATH_C_METHODS}
-            print(f"compare fig8/n={n_c}/y={y}: {json.dumps(side)}")
 
-    # -- 5. kernels against their plain versions --------------------------------
+def kernels_phase(ctx) -> list:
+    """Phase 4: each wrapper's kernel against its plain version on inputs
+    captured from short full-width runs, timed and bounded, and each bank
+    step's grid study; returns the ``kernels`` entries of rows 1-29."""
+    a = ctx.args
     kernels = []
-    for case in kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
-                             k_quality):
-        entry = check_kernel(case, path_launches)
+    for case in kernel_cases(a, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs,
+                             ctx.bank_obs, ctx.thetas, ctx.k_run, ctx.k_quality):
+        entry = check_kernel(case)
         if case[0] in TPU_KERNELS:  # not the extra case where the cap binds
             kernels.append(entry)
         if case[0].endswith("_step_rows"):
             print(f"grid {case[0]}: {json.dumps(grid_study(case))}", flush=True)
-    kernels += [e for e in fixture_entries if e["name"] in TPU_KERNELS]  # not the 2^23 cases
-    # Launches made above to compare and time do not count: the counts
-    # reported are those of the main path's runs.
-    print(card)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 def path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, thetas, k_run,
@@ -1128,15 +1201,13 @@ def library_call(kind, kargs):
     """One PyTorch call that computes the same function, on the same
     inputs, or None: ``torch.cumsum`` for the scan, ``torch.searchsorted``
     for the search, and with the index of the state for the gather;
-    ``Tensor.clone`` for the copy, and for the iota ``torch.arange`` with
-    the ``index_select`` of a ``[N, 4]`` state that ``hbm_roundtrip`` makes
-    of it (timed beside the kernel only; the port never calls them)."""
+    ``Tensor.clone`` for the copy, ``torch.arange`` for the iota (timed
+    beside the kernel only; the port never calls them)."""
     if kind == "copy":
         return kargs[0].clone
     if kind == "iota":
         n, dev = kargs[0].shape[0], kargs[0].device
-        state = torch.zeros(n, 4, device=dev)
-        return lambda: state.index_select(0, torch.arange(n, device=dev))
+        return lambda: torch.arange(n, dtype=torch.int32, device=dev)
     if kind == "scan":
         return lambda: torch.cumsum(kargs[0], dim=-1)
     if kind in ("search", "gather"):
@@ -1153,7 +1224,7 @@ def library_call(kind, kargs):
     return None
 
 
-def check_kernel(case, path_launches) -> dict:
+def check_kernel(case) -> dict:
     """Hold one wrapper's kernel against its plain version on its captured
     inputs, time both, and compute its bound; fails on any disagreement."""
     name, wrapper, kargs, plain, family, kind, rows, iters = case
@@ -1222,7 +1293,7 @@ def check_kernel(case, path_launches) -> dict:
         n_bytes += 4 * rows * n if family == "rejection" and kind != "step" else 0
         n_ops = work * SWEEP_OPS[family] + rows * n * (PRELUDE_OPS if kind == "step" else 0)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
-    entry.update(launches=path_launches.get(name, 0), max_abs_err=max_abs_err,
+    entry.update(max_abs_err=max_abs_err,
                  ancestor_mismatches=anc_mismatch, ms=ms, call_ms=call_ms,
                  plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1391,7 +1462,7 @@ PATH_A_ENTRIES = {"run_filter/alg6": "apply", "run_filter/conditional": "step",
 FIXTURE_NS = (2048, 1 << 23)
 
 
-def contract_checks(dev, families, wrappers, fk, drive):
+def contract_checks(dev, wrappers, fk, drive):
     """Phase 3, the contract checks of ``repro_torch.analysis`` on the card.
 
     The resource tables (``smem.KERNELS``, ``smem.CARD_LIMITS``) must be the
@@ -1430,8 +1501,7 @@ def contract_checks(dev, families, wrappers, fk, drive):
         witnessed.append((dict(rec.census), dict(seen)))
 
     port = [w for w in wrappers if w not in fk.WRAPPERS]
-    report = drive("analysis/check", lambda: build_report(
-        device=dev, telemetry_families=list(families), around=witness), port)
+    report = drive("analysis/check", lambda: build_report(device=dev, around=witness), port)
     print(summarise(report))
     census = collections.defaultdict(dict)
     for cell in report["matrix"]:

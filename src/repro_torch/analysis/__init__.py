@@ -4,7 +4,7 @@ Runs every resampler entry point, and the particle filter that consumes
 them, once at the JAX auditor's geometry under recorders, and checks the
 counted invariants the port's speed argument rests on: launch budgets by
 kernel name, no ancestor round trip through device memory, RNG discipline,
-each launch's shared memory, registers and co-residency on the card, the
+each launch's shared memory and registers on the card, the
 paper's §2.4 transaction counts and telemetry neutrality.  CLI:
 ``python -m repro_torch.analysis --check``.
 """

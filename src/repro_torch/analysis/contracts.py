@@ -143,14 +143,16 @@ def audit_program(cell: str, program: Optional[Callable], contract: Contract, *,
     ``other_side`` is the same program on the other side of its flag: its
     keys must be consumed alike (branch-drop).  ``declared`` are footprints
     of launches that are priced and never made (``program`` may then be
-    None)."""
+    None).  ``around`` is entered around each run (``record``), the other
+    side's too."""
     if program is None:
         rec = Recording([], [], rng.KeyLog())
     else:
         rec = record(program, around=around)[1]
     rng_found = rng.rng_findings(rec.keys)
     if other_side is not None:
-        rng_found += rng.branch_findings(rec.keys, record(other_side, taint=False)[1].keys)
+        other = record(other_side, taint=False, around=around)[1]
+        rng_found += rng.branch_findings(rec.keys, other.keys)
     footprints = [smem.price(x.kernel, x.rows, x.n) for x in rec.launches] + list(declared)
     smem_over = smem.smem_findings(footprints)
     launches = walker.count_launches(rec.launches)

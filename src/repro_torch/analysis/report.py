@@ -39,7 +39,7 @@ def transaction_report(*, n: int = 4096, num_iters: int = 32, word_bytes: int = 
 
 def build_report(*, families=None, entries=None, device="cpu", consumers: bool = True,
                  large_n: bool = True, transactions: bool = True, telemetry: bool = True,
-                 telemetry_families=None, around=None) -> dict:
+                 around=None) -> dict:
     """Run every audit and return one JSON-serialisable report.
 
     ``report["ok"]`` is the single bit the CLI exits on: every cell within
@@ -47,7 +47,6 @@ def build_report(*, families=None, entries=None, device="cpu", consumers: bool =
     finding, every consumer likewise, every kernel within the card's limits
     at its largest admitted shapes, telemetry free (pass 6), and every
     measured transaction count within its declared §2.4 bound.
-    ``telemetry_families`` narrows pass 6 (default: ``families``).
     ``around(recording)`` is entered around each recorded run."""
     matrix = [rep.as_dict() for rep in contracts_mod.audit_matrix(families, entries, device,
                                                                    around)]
@@ -67,9 +66,7 @@ def build_report(*, families=None, entries=None, device="cpu", consumers: bool =
         report["consumers"] = cons
         report["consumer_violations"] = [c for c in cons if not c["ok"]]
     if telemetry:
-        tel = list(telemetry_mod.audit_telemetry(
-            telemetry_families if telemetry_families is not None else families, device,
-            around))
+        tel = list(telemetry_mod.audit_telemetry(families, device, around))
         report["telemetry"] = tel
         report["telemetry_violations"] = [c for c in tel if not c["ok"]]
     if transactions:

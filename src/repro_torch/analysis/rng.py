@@ -4,12 +4,13 @@ Parallel resamplers fail *silently* through RNG misuse: correlated streams
 bias the resampled population without any crash.  The JAX pass reads the
 random primitives of a jaxpr; the port records every key that
 ``repro_torch.random`` consumes (``split``, ``fold_in``, ``random_bits``,
-through which ``uniform``, ``normal`` and ``randint`` go) while one audited
-program runs, by value and with the program's call stack, and grades the
+through which ``uniform``, ``normal`` and ``randint`` go) and every key
+that ``kernels.common.key_to_seed`` turns into a kernel's seed, while one
+audited program runs, by value and with the program's call stack, and grades the
 record:
 
-  * **key-reuse**: one key value consumed twice by ``split`` or
-    ``random_bits``, or by ``fold_in`` with equal data.  ``fold_in`` of
+  * **key-reuse**: one key value consumed twice by ``split``,
+    ``random_bits`` or ``key_to_seed``, or by ``fold_in`` with equal data.  ``fold_in`` of
     distinct data is the documented idiom and is exempt.
   * **loop-invariant-key**: the same reuse, seen across iterations: every
     consumption of the key made by separate calls from the same call stack,
@@ -37,7 +38,7 @@ from repro_torch.analysis.walker import Finding, program_stack
 
 @dataclasses.dataclass(frozen=True)
 class KeyEvent:
-    """One key consumed: ``kind`` ``split``/``fold_in``/``random_bits``, the
+    """One key consumed: ``kind`` ``split``/``fold_in``/``random_bits``/``seed``, the
     key's two uint32 words, ``fold_in``'s data, the call that consumed it
     (a bank key's rows share one) and the call stack, innermost first
     (``walker.program_stack``)."""

@@ -5,7 +5,9 @@ The TPU pass prices each ``pallas_call``'s VMEM-resident blocks against
 ``MAX_VMEM_*``.  On the card a launch is limited by what one block may hold
 (shared memory, registers) and, for a cooperative launch, by how many blocks
 can be co-resident, because its grid barriers need the whole grid on the
-card at once.  This pass prices each launch of a recorded run from
+card at once: that grid is sized to the co-resident count, so it holds
+when the count is right, and the card's occupancy query checks the count
+(``card_drift``).  This pass prices each launch of a recorded run from
 ``KERNELS``, the port's per-kernel resource table, and the launch's rows and
 length (the step kernels' dynamic shared memory holds 8 bytes per row;
 their grid, and the scan's, is as many blocks as can be co-resident, no more
@@ -183,8 +185,10 @@ def smem_findings(footprints) -> list:
     """Findings for every launch over the card's limits: shared memory per
     block (48 KiB without the opt-in, which no kernel of the port makes;
     227 KiB with it), registers per thread and per SM, a grid's rows past
-    65535, and a cooperative grid larger than the blocks that can be
-    co-resident (a kernel that fits no SM has none)."""
+    65535, and a block that fits no SM.  A cooperative grid is co-resident
+    by its construction (``price`` caps it at ``per_sm`` x SMs, as
+    ``coop_step_grid`` does); ``card_drift`` holds ``per_sm`` to the
+    card's occupancy query."""
     findings = []
     for fp in footprints:
         problems = []
@@ -199,9 +203,6 @@ def smem_findings(footprints) -> list:
             problems.append(f"{fp.grid_y} rows on grid.y (most 65535)")
         if fp.per_sm < 1:
             problems.append("no block fits an SM")
-        elif fp.cooperative and fp.blocks > fp.per_sm * CARD_LIMITS["sms"]:
-            problems.append(f"cooperative grid of {fp.blocks} blocks, {fp.per_sm} per SM x "
-                            f"{CARD_LIMITS['sms']} SMs co-resident")
         if problems:
             findings.append(Finding(
                 "smem", "over-budget", f"{fp.kernel}@S={fp.rows},N={fp.n}",

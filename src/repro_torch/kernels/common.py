@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from repro_torch import random as trandom
 from repro_torch.resilience.errors import KernelLaunchError
 
 MASK32 = 0xFFFFFFFF
@@ -83,7 +84,10 @@ def hash_uniform(seed, lane_index, iteration: int) -> torch.Tensor:
 
 def key_to_seed(key: torch.Tensor) -> torch.Tensor:
     """uint32 hash seed of a key (``int64[..., 2]`` key data):
-    ``fmix(k0 ^ k1·GOLDEN)``, returned as ``int64[...]``."""
+    ``fmix(k0 ^ k1·GOLDEN)``, returned as ``int64[...]``.  It consumes the
+    key, as ``random_bits`` does: the observers of ``random.observe_keys``
+    see it as ``"seed"``."""
+    trandom.report_key("seed", key)
     return murmur3_fmix(key[..., 0] ^ mul32(key[..., 1], _GOLDEN))
 
 

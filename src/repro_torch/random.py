@@ -24,9 +24,11 @@ tensors; key chains live on the CPU, and bulk draws (``normal`` over N
 particles) run on the device of the ``device`` argument.
 
 ``split``, ``fold_in`` and ``random_bits`` are the points that consume a
-key (``randint``, ``uniform`` and ``normal`` go through them); while an
-observer is installed (``observe_keys``) each reports its key to it, for
-the contract checks' RNG pass.
+key (``randint``, ``uniform`` and ``normal`` go through them), and so is
+``kernels.common.key_to_seed``, which turns a key into the seed of the
+kernels' hash RNG; while an observer is installed (``observe_keys``) each
+reports its key to it (``report_key``), for the contract checks' RNG
+pass.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ _KEY_OBSERVERS: list = []
 @contextlib.contextmanager
 def observe_keys(observer):
     """Report every key consumed inside the block to ``observer(kind, key,
-    data)``: ``kind`` is ``"split"``, ``"fold_in"`` (``data`` its int) or
-    ``"random_bits"``, ``key`` the key or key bank consumed."""
+    data)``: ``kind`` is ``"split"``, ``"fold_in"`` (``data`` its int),
+    ``"random_bits"`` or ``"seed"`` (``key_to_seed``), ``key`` the key or
+    key bank consumed."""
     _KEY_OBSERVERS.append(observer)
     try:
         yield observer
@@ -55,7 +58,8 @@ def observe_keys(observer):
         _KEY_OBSERVERS.remove(observer)
 
 
-def _consumed(kind: str, key, data=None):
+def report_key(kind: str, key, data=None):
+    """Report one consumed key to the observers of ``observe_keys``."""
     for observer in tuple(_KEY_OBSERVERS):
         observer(kind, key, data)
 
@@ -117,7 +121,7 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): ``[..., 2] -> [..., num, 2]``;
     a key bank splits row by row as ``jax.vmap(jax.random.split)``."""
     if _KEY_OBSERVERS:
-        _consumed("split", key)
+        report_key("split", key)
     k1, k2 = _words(key, 1)
     b1, b2 = threefry2x32(k1, k2, 0, _iota((num,), key.device))
     return torch.stack([b1, b2], dim=-1)
@@ -126,7 +130,7 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
     if _KEY_OBSERVERS:
-        _consumed("fold_in", key, int(data) & MASK32)
+        report_key("fold_in", key, int(data) & MASK32)
     k1, k2 = key[..., 0], key[..., 1]
     b1, b2 = threefry2x32(k1, k2, 0, int(data) & MASK32)
     return torch.stack([b1, b2], dim=-1)
@@ -137,7 +141,7 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     ``int64[..., *shape]`` in ``[0, 2**32)``.  The counters are made on
     ``device`` (default: the key's)."""
     if _KEY_OBSERVERS:
-        _consumed("random_bits", key)
+        report_key("random_bits", key)
     shape = tuple(shape)
     device = key.device if device is None else torch.device(device)
     k1, k2 = _words(key.to(device), len(shape))

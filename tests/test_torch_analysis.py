@@ -217,6 +217,18 @@ def test_rng_record_is_scoped_to_one_program():
     assert [f.code for f in _rng(two)] == ["key-reuse"]
 
 
+def test_rng_sees_the_kernel_seed():
+    """``key_to_seed`` consumes its key: two Metropolis launches seeded from
+    one key draw the same ancestor stream, and that is reuse."""
+    key, w = trandom.PRNGKey(0), torch.full((N,), 1.0 / N)
+    r = contracts.cell_resampler("metropolis")
+    assert [f.code for f in _rng(lambda: (r(key, w), r.apply(key, w, torch.zeros(N, 1))))] \
+        == ["key-reuse"]
+    assert not _rng(lambda: [r(k, w) for k in trandom.split(key)])
+    log = contracts.record(lambda: r(key, w), taint=False)[1].keys
+    assert [e.kind for e in log.events] == ["seed"]
+
+
 def test_step_cells_consume_the_key_alike_on_both_sides(args):
     """The §12 rule: each family's step consumes its key whether or not the
     row resamples."""
@@ -227,7 +239,7 @@ def test_step_cells_consume_the_key_alike_on_both_sides(args):
             out, rec = contracts.record(contracts.entry_callable(r, "step", args, fire))
             sides.append(rec.keys)
             assert bool(out[2].resampled) is fire
-        assert not rng.branch_findings(*sides), name
+        assert sides[0].events and not rng.branch_findings(*sides), name
 
 
 # ---------------------------------------------------------- fixtures
