@@ -6,7 +6,8 @@ Each module sits at the same relative path as its JAX counterpart under
 
 Device rule: entry points that create tensors (``run_filter``,
 ``run_filter_bank``, ``simulate``, ``model.init``, ``gaussian_weights``,
-``convert.array_from_jax``, ``convert.theta_from_jax``) default to
+``convert.array_from_jax``, ``convert.theta_from_jax``, and the contract
+checks' entry points in ``repro_torch.analysis``) default to
 ``device="cuda"`` and raise when no card is present unless the
 caller passes ``device="cpu"``.  The resampler entries follow their inputs'
 device: on a CUDA tensor they launch the hand-written kernel (or raise),

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random as trandom
+from repro_torch import resolve_device
 from repro_torch.analysis.contracts import (
     AUDIT_BATCH,
     AUDIT_N,
@@ -44,7 +45,7 @@ def _programs(device):
     """name -> (program, steps)."""
     from repro_torch.pf.filter import run_filter, run_filter_bank
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     key = trandom.PRNGKey(0)
     x = torch.zeros(AUDIT_N, device=dev)
     lw = torch.zeros(AUDIT_N, device=dev)
@@ -60,10 +61,10 @@ def _programs(device):
     }
 
 
-def audit_consumers(names=None, device="cpu", around=None):
-    """Run and audit each consumer program, one launch per step; yields
-    CellReports."""
+def audit_consumers(names=None, device="cuda", around=None):
+    """Run and audit each consumer program, one launch per step; returns a
+    generator of CellReports (``cuda`` without a card raises here, before
+    the first)."""
     programs = _programs(device)
-    for name in names or programs:
-        program, steps = programs[name]
-        yield audit_program(name, program, Contract(max_launches=steps), around=around)
+    return (audit_program(name, programs[name][0], Contract(max_launches=programs[name][1]),
+                          around=around) for name in names or programs)

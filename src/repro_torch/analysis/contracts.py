@@ -28,6 +28,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import random as trandom
+from repro_torch import resolve_device
 from repro_torch.analysis import rng, smem, walker
 from repro_torch.analysis.walker import Finding
 from repro_torch.core.resamplers.batched import split_batch_keys
@@ -187,13 +188,14 @@ def audit_program(cell: str, program: Optional[Callable], contract: Contract, *,
 
 
 # ------------------------------------------------------------ matrix cells
-def audit_args(n=AUDIT_N, batch=AUDIT_BATCH, d=AUDIT_STATE_DIM, device="cpu") -> dict:
+def audit_args(n=AUDIT_N, batch=AUDIT_BATCH, d=AUDIT_STATE_DIM, device="cuda") -> dict:
     """The audit's inputs: the key and a key bank on the CPU (as the filter
     keeps them), uniform weights, zero log-weights (no row resamples) and
     ``lw_fire``/``lwb_fire`` (an eighth of the mass-bearing particles: every
-    row resamples), zero particles, on ``device``."""
+    row resamples), zero particles, on ``device`` (the package's device
+    rule: ``cuda`` needs a card)."""
     key = trandom.PRNGKey(0)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     fire = torch.where(torch.arange(n, device=dev) < n // 8, 0.0, -20.0)
     return {
         "key": key,
@@ -251,13 +253,14 @@ def audit_cell(name: str, entry: str, args: dict, around=None) -> CellReport:
         other_side=entry_callable(r, entry, args) if steps else None, around=around)
 
 
-def audit_matrix(families=None, entries=None, device="cpu", around=None):
-    """Run and audit every requested matrix cell; yields CellReports.  One
-    shared args dict; cells are independent, so a failure in one family
-    still reports every other cell."""
+def audit_matrix(families=None, entries=None, device="cuda", around=None):
+    """Run and audit every requested matrix cell; returns a generator of
+    CellReports.  One shared args dict, made before the first cell (so a
+    device without a card raises here); cells are independent, so a
+    failure in one family still reports every other cell."""
     args = audit_args(device=device)
-    for name, entry in contract_cells(families, entries):
-        yield audit_cell(name, entry, args, around)
+    return (audit_cell(name, entry, args, around)
+            for name, entry in contract_cells(families, entries))
 
 
 def audit_large_n():

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random as trandom
+from repro_torch import resolve_device
 from repro_torch.analysis import smem
 from repro_torch.analysis.contracts import Contract, audit_program, record
 from repro_torch.kernels.fixtures.fixtures import copy_launch, iota_launch
@@ -73,7 +74,7 @@ def oversized_vmem():
 
 
 def _inputs(device):
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return trandom.PRNGKey(0), torch.zeros(_N, device=dev), torch.zeros(_N, 4, device=dev)
 
 
@@ -106,12 +107,13 @@ FIXTURES = {
 }
 
 
-def leaky_telemetry(device="cpu"):
+def leaky_telemetry(device="cuda"):
     """The pass-6 anti-fixture: a 'consumer' whose telemetry flag is NOT
     free.  Enabling it stages the weights through an extra kernel launch AND
     threads the record back into the estimate, so both halves of the
     neutrality check (launch parity, estimate parity) must fire.  Returns
     the recorded ``(off, on)`` runs."""
+    device = resolve_device(device)
 
     def run(telemetry):
         key, z, _ = _inputs(device)
@@ -125,11 +127,12 @@ def leaky_telemetry(device="cpu"):
     return record(lambda: run(False)), record(lambda: run(True))
 
 
-def telemetry_selftest(device="cpu") -> list:
+def telemetry_selftest(device="cuda") -> list:
     """Pass 6 must flag the leaky fixture (both violations) and pass a real
     cell; returns problems, empty when healthy."""
     from repro_torch.analysis.telemetry import audit_telemetry_cell, compare_runs
 
+    device = resolve_device(device)
     problems = []
     rep = compare_runs("fixture:leaky_telemetry", *leaky_telemetry(device))
     if rep["ok"]:
@@ -150,15 +153,17 @@ PASS_MARKS = {"launches": "launches exceed", "census": "ancestor-roundtrip", "rn
               "smem": "[smem:"}
 
 
-def audit_fixtures(device="cpu"):
-    """Audit every fixture; yields ``(name, expected_pass, CellReport)``."""
-    for name, (audit, expected) in FIXTURES.items():
-        yield name, expected, audit(device)
+def audit_fixtures(device="cuda"):
+    """Audit every fixture; returns a generator of ``(name, expected_pass,
+    CellReport)`` (``cuda`` without a card raises here, before the first)."""
+    device = resolve_device(device)
+    return ((name, expected, audit(device)) for name, (audit, expected) in FIXTURES.items())
 
 
-def selftest(device="cpu") -> list:
+def selftest(device="cuda") -> list:
     """Returns a list of problems; empty means every pass catches its
     fixture and nothing else fires."""
+    device = resolve_device(device)
     problems = []
     for name, expected, rep in audit_fixtures(device):
         if rep.ok:

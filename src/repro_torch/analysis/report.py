@@ -9,6 +9,7 @@ telemetry neutrality and the §2.4 transaction table.  The CLI
 
 from __future__ import annotations
 
+from repro_torch import resolve_device
 from repro_torch.analysis import consumers as consumers_mod
 from repro_torch.analysis import contracts as contracts_mod
 from repro_torch.analysis import telemetry as telemetry_mod
@@ -37,7 +38,7 @@ def transaction_report(*, n: int = 4096, num_iters: int = 32, word_bytes: int = 
     return out
 
 
-def build_report(*, families=None, entries=None, device="cpu", consumers: bool = True,
+def build_report(*, families=None, entries=None, device="cuda", consumers: bool = True,
                  large_n: bool = True, transactions: bool = True, telemetry: bool = True,
                  around=None) -> dict:
     """Run every audit and return one JSON-serialisable report.
@@ -47,7 +48,9 @@ def build_report(*, families=None, entries=None, device="cpu", consumers: bool =
     finding, every consumer likewise, every kernel within the card's limits
     at its largest admitted shapes, telemetry free (pass 6), and every
     measured transaction count within its declared §2.4 bound.
-    ``around(recording)`` is entered around each recorded run."""
+    ``around(recording)`` is entered around each recorded run.  ``device``
+    follows the package's device rule: ``cuda`` needs a card."""
+    device = resolve_device(device)
     matrix = [rep.as_dict() for rep in contracts_mod.audit_matrix(families, entries, device,
                                                                    around)]
     report: dict = {

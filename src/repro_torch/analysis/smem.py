@@ -66,7 +66,10 @@ class KernelResources:
     ``rows`` (``ceil(N / NT)`` by S), ``tiles`` (``N / 1024`` by S),
     ``stride`` (``min(ceil(N / NT), 65535)``), or cooperative ``coop_step``
     (co-resident, at most ``ceil(S·N / NT)``) and ``coop_scan`` (co-resident,
-    at most ``S·N / 1024``)."""
+    at most ``S·N / 1024``).  ``optin``: the kernel raises its dynamic
+    shared memory limit (``cudaFuncAttributeMaxDynamicSharedMemorySize``)
+    where a launch needs more than 48 KiB in all, so its budget is the
+    opt-in limit."""
 
     source: str
     index: int
@@ -75,6 +78,7 @@ class KernelResources:
     grid: str
     smem_per_row: int = 0
     smem_per_element: int = 0
+    optin: bool = False
 
     @property
     def cooperative(self) -> bool:
@@ -85,8 +89,8 @@ def _rows(source, index, regs, smem, grid="rows"):
     return KernelResources(source, index, regs, smem, grid)
 
 
-def _step(source, index, regs, smem):
-    return KernelResources(source, index, regs, smem, "coop_step", smem_per_row=8)
+def _step(source, index, regs, smem, optin=False):
+    return KernelResources(source, index, regs, smem, "coop_step", smem_per_row=8, optin=optin)
 
 
 _MEGO, _METRO, _C1C2 = ("megopolis/csrc/megopolis.cu", "metropolis/csrc/metropolis.cu",
@@ -95,9 +99,12 @@ _REJ, _PREFIX, _FIX = ("rejection/csrc/rejection.cu", "prefix_sum/csrc/prefix_su
                        "fixtures/csrc/fixtures.cu")
 #: Every kernel instance of the port, by the name the profiler gives it.
 KERNELS = {
-    "megopolis_fused_rows_kernel<false>": _rows(_MEGO, 0, 32, 2048),
-    "megopolis_fused_rows_kernel<true>": _rows(_MEGO, 1, 32, 2048),
-    "megopolis_step_rows_kernel": _step(_MEGO, 2, 32, 32),
+    # The Megopolis kernels' static shared memory is their ring of four
+    # comparison segments (4 KiB and 16 bytes each) and the per-chunk table;
+    # the bank kernel runs a block per 1024 particles ("tiles").
+    "megopolis_fused_rows_kernel<false>": _rows(_MEGO, 0, 32, 18688, "tiles"),
+    "megopolis_fused_rows_kernel<true>": _rows(_MEGO, 1, 32, 18688, "tiles"),
+    "megopolis_step_rows_kernel": _step(_MEGO, 2, 32, 18816, optin=True),
     "metropolis_rows_kernel<false>": _rows(_METRO, 0, 32, 1024),
     "metropolis_rows_kernel<true>": _rows(_METRO, 1, 40, 1024),
     "metropolis_step_rows_kernel": _step(_METRO, 2, 32, 32),
@@ -138,6 +145,7 @@ class Footprint:
     grid_y: int
     per_sm: int
     cooperative: bool
+    optin: bool = False
 
     @property
     def smem(self) -> int:
@@ -178,13 +186,13 @@ def price(kernel: str, rows: int, n: int, resources: KernelResources | None = No
     else:
         blocks = max(1, min(co_resident, rows * (n // 1024)))
     return Footprint(kernel, rows, n, NT, res.registers, res.static_smem, dynamic,
-                     blocks * grid_y, grid_y, per_sm, res.cooperative)
+                     blocks * grid_y, grid_y, per_sm, res.cooperative, res.optin)
 
 
 def smem_findings(footprints) -> list:
     """Findings for every launch over the card's limits: shared memory per
-    block (48 KiB without the opt-in, which no kernel of the port makes;
-    227 KiB with it), registers per thread and per SM, a grid's rows past
+    block (48 KiB without the opt-in; 227 KiB for a kernel that opts in,
+    the Megopolis step alone), registers per thread and per SM, a grid's rows past
     65535, and a block that fits no SM.  A cooperative grid is co-resident
     by its construction (``price`` caps it at ``per_sm`` x SMs, as
     ``coop_step_grid`` does); ``card_drift`` holds ``per_sm`` to the
@@ -192,11 +200,13 @@ def smem_findings(footprints) -> list:
     findings = []
     for fp in footprints:
         problems = []
-        if fp.smem > CARD_LIMITS["smem_per_block"]:
+        budget = CARD_LIMITS["smem_per_block_optin" if fp.optin else "smem_per_block"]
+        if fp.smem > budget:
             problems.append(
                 f"{fp.smem} bytes of shared memory per block (budget "
                 f"{CARD_LIMITS['smem_per_block']} without the opt-in, "
-                f"{CARD_LIMITS['smem_per_block_optin']} with it)")
+                f"{CARD_LIMITS['smem_per_block_optin']} with it; this kernel "
+                f"{'opts in' if fp.optin else 'does not opt in'})")
         if fp.registers > REGS_PER_THREAD or fp.registers * fp.threads > CARD_LIMITS["regs_per_sm"]:
             problems.append(f"{fp.registers} registers x {fp.threads} threads")
         if fp.grid_y > 65535:

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random as trandom
+from repro_torch import resolve_device
 from repro_torch.analysis.contracts import record
 from repro_torch.core.spec import family_names, family_spec
 
@@ -71,10 +72,11 @@ def compare_runs(cell: str, off, on) -> dict:
     }
 
 
-def audit_telemetry_cell(name: str, device="cpu", around=None) -> dict:
+def audit_telemetry_cell(name: str, device="cuda", around=None) -> dict:
     """Audit one family's ``run_filter`` for neutrality."""
     from repro_torch.pf.filter import run_filter
 
+    device = resolve_device(device)
     pf = _probe_filter(name)
     key = trandom.PRNGKey(0)
     obs = torch.zeros(NEUTRALITY_STEPS)
@@ -88,7 +90,9 @@ def audit_telemetry_cell(name: str, device="cpu", around=None) -> dict:
     return compare_runs(f"{name}/cuda/run_filter", off, on)
 
 
-def audit_telemetry(families=None, device="cpu", around=None):
-    """Audit neutrality across the families; yields cell dicts."""
-    for name in families if families is not None else family_names():
-        yield audit_telemetry_cell(name, device, around)
+def audit_telemetry(families=None, device="cuda", around=None):
+    """Audit neutrality across the families; returns a generator of cell
+    dicts (``cuda`` without a card raises here, before the first)."""
+    device = resolve_device(device)
+    return (audit_telemetry_cell(name, device, around)
+            for name in (families if families is not None else family_names()))

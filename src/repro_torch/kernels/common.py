@@ -250,8 +250,9 @@ def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_i
     """The grid and buffers of one cooperative step launch over ``lw [S,
     N]``: the co-resident block count from the library's ``grid_fn(S, N,
     &blocks)`` on the weights' device, then the outputs and the scratch of
-    ``common.cuh``'s ``StepScratch`` layout.  Returns ``(blocks, ancestors,
-    state', stats, scratch)``."""
+    ``common.cuh``'s ``StepScratch`` layout, with 16 bytes of slack so that
+    a kernel may start its weights buffer on a 16-byte boundary.  Returns
+    ``(blocks, ancestors, state', stats, scratch)``."""
     s, n = lw.shape
     if s > MAX_STEP_ROWS:
         raise ValueError(f"{who}: at most {MAX_STEP_ROWS} rows per step launch; got {s}")
@@ -261,7 +262,7 @@ def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_i
     g = blocks.value
     anc = torch.empty((s, n), dtype=torch.int32, device=lw.device)
     stats = torch.empty((s, 4), dtype=torch.float32, device=lw.device)
-    scratch = torch.empty(s * g * 5 + s * num_iters + s * n, dtype=torch.float32,
+    scratch = torch.empty(s * g * 5 + s * num_iters + s * n + 4, dtype=torch.float32,
                           device=lw.device)
     return g, anc, torch.empty_like(state), stats, scratch
 

@@ -20,20 +20,37 @@
 //
 //   What bounds it: per row it must move w (4N bytes), the ancestors (4N)
 //   and, with GATHER, the state in and out (8DN): 16 MiB at N = 2^20, D = 1,
-//   about 5 us at 3.35 TB/s (8 MiB, 2.5 us, without the state).  The sweep
-//   does B·N comparisons, each about 20 32-bit operations (the index map,
-//   one murmur3 finalizer, the float conversion, the product and the
-//   select): at B = 32 that is 6.7·10^8 operations, about 10 us at the
-//   67 T/s of 32-bit arithmetic outside the tensor cores, so the operations
-//   bound it, not the bytes.
-//   What the design does about it: one thread per particle, the B-loop in
-//   registers with w[k] carried by value (never re-read), and the
-//   per-iteration part of the hash, fmix(seed + b·GOLDEN), computed once per
-//   block into shared memory rather than by every lane.  For a fixed b the
-//   lanes of a warp read consecutive j (at most one wrap), so every w[j]
-//   read is coalesced: the paper's argument, at segment 1024 as on the TPU.
-//   GATHER is a template argument, so the state loop and its pointers are
-//   compiled out of the index-only instance and the fused one is unchanged.
+//   about 5 us at 3.35 TB/s.  The sweep does B·N comparisons, each about 20
+//   32-bit operations (the index, one murmur3 finalizer, the float
+//   conversion, the product and the select): at B = 32 that is 6.7·10^8
+//   operations, about 10 us at the 67 T/s of 32-bit arithmetic outside the
+//   tensor cores, so the operations bound it, not the bytes.  The design's
+//   own floor is the comparison weights: for a fixed b every w value is read
+//   once across the row, so B·N·4 bytes move from L2 to the SMs.
+//   What the design does about it: the TPU kernel's data flow.  Its
+//   BlockSpec fetches the aligned comparison tile (t + o_b / 1024) mod T into
+//   VMEM, pipelined, and rolls it in place (_cmp_index, _sweep).  Here one
+//   block of NT threads owns one 1024-particle segment of one row (4
+//   particles a thread, strided by NT, carrying w[k] in registers), and for
+//   iteration b its comparison segment ((i >> 10) + (o_b >> 10)) mod T moves
+//   whole into a ring of STAGES shared-memory buffers, by bulk TMA copies
+//   (cp.async.bulk ... mbarrier::complete_tx) that one thread starts AHEAD
+//   iterations before the sweep reaches it.  The copies roll it as they land:
+//   words a .. 1023 then 0 .. a + 3 of the segment, a = (o_b mod 1024)
+//   rounded down to the copies' 16-byte grain, so lane i reads word (i mod
+//   1024) + (o_b mod 4), with no index arithmetic and no bank conflict
+//   (consecutive lanes, consecutive words).  Each stage has a full mbarrier
+//   (the copies' bytes) and an empty one (one arrival per warp); there is
+//   no __syncthreads() per iteration.  No lane gathers w[j] from device
+//   memory: a segment moves as 128 whole 32-byte sectors, 4 per
+//   warp-iteration, where a warp's own gather of 32 consecutive j from (i +
+//   o_b) mod 1024 touched 5 on 7 of 8 offsets.  A particle keeps the
+//   iteration of its last accept, not its index, and forms its ancestor from
+//   that iteration's offset once, at the end.  The per-iteration part of the
+//   hash, fmix(seed + b·GOLDEN), and each iteration's segment and offset are
+//   staged per chunk of CHUNK iterations in shared memory.  GATHER is a
+//   template argument, so the state loop and its pointers are compiled out
+//   of the index-only instance.
 //
 // megopolis_step_rows_kernel replaces megopolis_pallas_step and
 // megopolis_pallas_step_rows (_kernel_step, _kernel_step_rows): the fused SMC
@@ -48,83 +65,237 @@
 //   What the design does about it: the TPU runs the prelude once, at grid
 //   step (0, 0), and latches it in SMEM; blocks on this card run in no
 //   order, so the kernel is one cooperative launch whose grid is sized to be
-//   co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and walks the
-//   particles with grid-stride loops, with the prelude's two grid.sync()
-//   barriers.  Per-block partials are reduced in one fixed order, so the
-//   stats are the same from run to run (no float atomics).  The weights
-//   exp(lw - m) are written once to scratch in the sums pass and read by the
-//   sweep.  expf (not __expf) keeps the weights bit-identical to torch.exp
-//   on the card.  __launch_bounds__(NT, 8) holds it to 32 registers, so 8
-//   blocks fit an SM and the grid is 8 blocks per SM: with the prelude
-//   inlined from common.cuh, ptxas would otherwise take 40 registers and
-//   fit 6.
+//   co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with the
+//   prelude's two grid.sync() barriers.  Per-block partials are reduced in
+//   one fixed order, so the stats are the same from run to run (no float
+//   atomics).  The weights exp(lw - m) are written once to scratch in the
+//   sums pass (expf, not __expf, keeps them bit-identical to torch.exp on the
+//   card); then each block walks (row, segment) pairs in a grid-stride loop
+//   and runs the sweep of the fused kernel on them (mego_sweep, one
+//   function, so the two kernels cannot drift), its ring continuing from
+//   pair to pair.  The ring sits beside the per-row shift and flags: at the
+//   most rows a step admits the block passes 48 KiB, so the kernel opts in
+//   to more dynamic shared memory (mego_step_optin).
 //
-// Subnormals: built with -ftz=true, and flushed explicitly (ftz()) on the
-// values selection depends on, as XLA does on the CPU.  State copies are bit
+// Subnormals: every value selection depends on is flushed, as XLA does on
+// the CPU: built with -ftz=true, the sweep's product and comparison flush
+// their operands and results in hardware; the loaded w[k] and the step
+// prelude's values are flushed explicitly (ftz()).  State copies are bit
 // moves and are never flushed.
 
 #include "../../common.cuh"
 
 #define SEG 1024
+#define PER_THREAD (SEG / NT)
+// A ring buffer holds one comparison segment rotated by its offset, rounded
+// down to 4 words (16 bytes, the bulk copies' grain), and 4 more words, so
+// that lane i reads word (i mod 1024) + (o_b mod 4) with no wrap.
+#define RING_WORDS (SEG + 4)
+// Buffers of the ring, and how many iterations ahead of the sweep a segment
+// is requested: a buffer is refilled when every warp is done with the
+// iteration two before, so the one thread that starts the copies waits for
+// the slowest warp with one iteration of slack.  Six buffers are the most
+// that keep 8 blocks on an SM; four by measurement on the H100
+// (benchmarks/torch_megopolis_ab.py): three were 1-3% faster on the
+// index-only and fused kernels and 2-3% slower on the step, six 1-3% slower
+// but on the step (within 1% there).
+#define STAGES 4
+#define AHEAD (STAGES - 2)
 
-// The Megopolis comparison index at segment 1024 (Alg. 5 lines 7-11):
-// j = (aligned(i) + aligned(o) + (i + o) mod 1024) mod n, for 0 <= i, o < n
-// and n a multiple of 1024, so the sum is below 2n and one subtraction wraps.
-__device__ __forceinline__ int cmp_index(int i, int o, int n) {
-  uint32_t j = (uint32_t)(i - (i & (SEG - 1))) + (uint32_t)(o - (o & (SEG - 1))) +
-               (uint32_t)((i + o) & (SEG - 1));
-  return (int)(j >= (uint32_t)n ? j - (uint32_t)n : j);
+// --------------------------------------------------------------- mbarriers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// cnt iterations of the sweep for particle i; offs[t] and hh[t] =
-// fmix(seed + b·GOLDEN) are those of iteration b = b0 + t.
-__device__ __forceinline__ void sweep(const float* __restrict__ w, const int* offs,
-                                      const uint32_t* hh, int cnt, int i, int n,
-                                      int& k, float& wk) {
-  const uint32_t lane = (uint32_t)i * GOLDEN;
-  for (int t = 0; t < cnt; ++t) {
-    const int j = cmp_index(i, offs[t], n);
-    const float wj = ftz(__ldg(w + j));
-    const float u = bits_to_uniform(fmix(hh[t] ^ lane));
-    if (ftz(__fmul_rn(u, wk)) <= wj) {  // u <= w[j] / w[k]   (Alg. 5 line 13)
-      k = j;
-      wk = wj;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\tmbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The ring of comparison segments and the per-chunk table of a block:
+// tab[t] = {(segment << 10) | (o_b & 1023), fmix(seed + b·GOLDEN)} for b =
+// b0 + t; its first words run AHEAD entries past the chunk for the copies
+// started ahead.
+struct MegoRing {
+  __align__(128) float seg[STAGES][RING_WORDS];
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+  uint2 tab[CHUNK + AHEAD];
+};
+
+__device__ __forceinline__ void ring_init(MegoRing& r) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], NT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Request the comparison segment of the block's u-th iteration (counted over
+// every segment the block sweeps) into buffer u mod STAGES, once every warp
+// is done with that buffer's previous use, iteration u - STAGES: two bulk
+// copies lay out words a .. 1023, then 0 .. a + 3 of the segment, a = (o_b
+// mod 1024) rounded down to 4.  One thread.
+__device__ __forceinline__ void ring_fill(MegoRing& r, uint32_t u, const float* wr, int cmp) {
+  const uint32_t st = u % STAGES;
+  if (u >= STAGES) mbar_wait(&r.empty[st], (u / STAGES - 1) & 1);
+  const int a = cmp & (SEG - 4);
+  const float* g = wr + (cmp & ~(SEG - 1));
+  float* dst = r.seg[st];
+  mbar_expect(&r.full[st], RING_WORDS * 4);
+  bulk_load(dst, g + a, (SEG - a) * 4, &r.full[st]);
+  bulk_load(dst + SEG - a, g, (a + 4) * 4, &r.full[st]);
+}
+
+// The comparison index of particle i at offset o (Alg. 5 lines 7-11) in the
+// kernels' segment form: slot (i + o) mod 1024 of comparison segment
+// ((i >> 10) + (o >> 10)) mod tiles, for 0 <= i, o < n.
+__device__ __forceinline__ int cmp_index(int i, int o, int tiles) {
+  int c = (i >> 10) + (o >> 10);
+  if (c >= tiles) c -= tiles;
+  return (c << 10) | ((i + o) & (SEG - 1));
+}
+
+// The Alg. 5 sweep of segment `seg` of a row of n weights `wr` (tiles = n /
+// 1024 segments, 16-byte aligned) over `iters` iterations with the row's
+// offsets and seed: each thread's PER_THREAD particles i = seg·1024 + q·NT +
+// tid end with their ancestors k[q].  A particle keeps the iteration of its
+// last accept, and its ancestor is formed from that iteration's offset at
+// the end.  `seq` counts the block's iterations over every segment it
+// sweeps, so the ring's phases carry on from one segment to the next.
+// Every thread of the block calls it.
+__device__ __forceinline__ void mego_sweep(MegoRing& r, uint32_t& seq, const float* wr,
+                                           const int* __restrict__ offs, uint32_t seed,
+                                           int seg, int tiles, int iters,
+                                           int (&k)[PER_THREAD]) {
+  const int tid = threadIdx.x;
+  const uint32_t lane0 = (uint32_t)(seg * SEG + tid) * GOLDEN;
+  float wk[PER_THREAD];
+  int tk[PER_THREAD];  // iteration of the last accept, -1 for none
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    wk[q] = ftz(wr[seg * SEG + q * NT + tid]);
+    tk[q] = -1;
+  }
+  for (int b0 = 0; b0 < iters; b0 += CHUNK) {
+    const int cnt = min(CHUNK, iters - b0);
+    const int look = min(CHUNK + AHEAD, iters - b0);
+    __syncthreads();  // the previous chunk's (or segment's) table is no longer read
+    for (int t = tid; t < look; t += NT) {
+      const int o = offs[b0 + t];
+      r.tab[t] = make_uint2((uint32_t)cmp_index(seg * SEG, o, tiles),
+                            t < cnt ? fmix(seed + (uint32_t)(b0 + t) * GOLDEN) : 0u);
+    }
+    __syncthreads();
+    if (tid == 0 && b0 == 0) {
+      for (int t = 0; t < min(AHEAD, iters); ++t) ring_fill(r, seq + t, wr, (int)r.tab[t].x);
+    }
+    for (int t = 0; t < cnt; ++t) {
+      const uint32_t u = seq + b0 + t;
+      if (tid == 0 && b0 + t + AHEAD < iters)
+        ring_fill(r, u + AHEAD, wr, (int)r.tab[t + AHEAD].x);
+      const uint32_t st = u % STAGES;
+      mbar_wait(&r.full[st], (u / STAGES) & 1);
+      const uint2 e = r.tab[t];
+      const float* x = r.seg[st] + tid + (e.x & 3);  // word (i + o_b) mod 1024, rotated
+      // u <= w[j] / w[k] (Alg. 5 line 13) as ftz(u·w[k]) <= ftz(w[j]): built
+      // with -ftz=true, the product flushes its operands and its result and
+      // the comparison its operands, so w[j] and the product need no
+      // separate flush (a kept w[j] is flushed by its next product), and
+      // every accept is the plain version's.
+#pragma unroll
+      for (int q = 0; q < PER_THREAD; ++q) {
+        const float wj = x[q * NT];
+        const float u01 = bits_to_uniform(fmix(e.y ^ (lane0 + (uint32_t)(q * NT) * GOLDEN)));
+        if (__fmul_rn(u01, wk[q]) <= wj) {
+          tk[q] = b0 + t;
+          wk[q] = wj;
+        }
+      }
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(&r.empty[st]);  // this warp is done with the buffer
+    }
+  }
+  seq += iters;
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int i = seg * SEG + q * NT + tid;
+    k[q] = tk[q] < 0 ? i : cmp_index(i, offs[tk[q]], tiles);
+  }
+}
+
+// The ancestors (the identity unless `keep`) and, with d > 0, the state copy
+// of the thread's particles of segment seg of row s.
+__device__ __forceinline__ void mego_commit(const int (&k)[PER_THREAD], int* __restrict__ anc,
+                                            const float* __restrict__ state,
+                                            float* __restrict__ out, int s, int seg, int n,
+                                            int d, bool keep) {
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int i = seg * SEG + q * NT + threadIdx.x;
+    const int kq = keep ? k[q] : i;
+    anc[(size_t)s * n + i] = kq;
+    for (int c = 0; c < d; ++c) {
+      const size_t plane = ((size_t)s * d + c) * n;
+      out[plane + i] = state[plane + kq];
     }
   }
 }
 
+// Grid (N / 1024, S): block (seg, s) sweeps segment seg of row s.
 template <bool GATHER>
-__global__ void __launch_bounds__(NT) megopolis_fused_rows_kernel(
+__global__ void __launch_bounds__(NT, 8) megopolis_fused_rows_kernel(
     const float* __restrict__ w, const float* __restrict__ state,
     const int* __restrict__ offsets, const uint32_t* __restrict__ seeds,
     int* __restrict__ anc, float* __restrict__ out, int n, int d, int iters) {
-  __shared__ int s_off[CHUNK];
-  __shared__ uint32_t s_hh[CHUNK];
+  __shared__ MegoRing ring;
+  ring_init(ring);
   const int s = blockIdx.y;
-  const int i = blockIdx.x * NT + threadIdx.x;
-  const bool live = i < n;
-  const float* wr = w + (size_t)s * n;
-  const uint32_t seed = seeds[s];
-  int k = i;
-  float wk = live ? ftz(wr[i]) : 0.0f;
-  for (int b0 = 0; b0 < iters; b0 += CHUNK) {
-    const int cnt = min(CHUNK, iters - b0);
-    for (int t = threadIdx.x; t < cnt; t += NT) {
-      s_off[t] = offsets[(size_t)s * iters + b0 + t];
-      s_hh[t] = fmix(seed + (uint32_t)(b0 + t) * GOLDEN);
-    }
-    __syncthreads();
-    if (live) sweep(wr, s_off, s_hh, cnt, i, n, k, wk);
-    __syncthreads();
-  }
-  if (!live) return;
-  anc[(size_t)s * n + i] = k;
-  if (GATHER) {
-    for (int c = 0; c < d; ++c) {
-      const size_t plane = ((size_t)s * d + c) * n;
-      out[plane + i] = state[plane + k];
-    }
-  }
+  const int seg = blockIdx.x;
+  uint32_t seq = 0;
+  int k[PER_THREAD];
+  mego_sweep(ring, seq, w + (size_t)s * n, offsets + (size_t)s * iters, seeds[s], seg,
+             n / SEG, iters, k);
+  mego_commit(k, anc, state, out, s, seg, n, GATHER ? d : 0, true);
 }
 
 __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
@@ -136,25 +307,40 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
   extern __shared__ float row_m[];          // [rows] shift m per row
   int* row_flag = (int*)(row_m + rows);     // [rows] bit 0: degenerate, bit 1: do
   __shared__ float red[NT / 32];
-  const StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
+  __shared__ MegoRing ring;
+  StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
+  // The bulk copies read wbuf in whole 16-byte words: its start is rounded
+  // up (the wrapper's scratch has the slack).
+  sc.wbuf = (float*)(((uintptr_t)sc.wbuf + 15) & ~(uintptr_t)15);
+  ring_init(ring);
   step_prelude(grid, lw, seeds, thr, stats, sc, row_m, row_flag, red, rows, n, iters);
+  // wbuf was written through the generic proxy before the prelude's last
+  // grid.sync(); the bulk copies read it through the async proxy.
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 
-  // The sweep, then commit (selection or identity) and state copy.
-  const size_t gstride = (size_t)gridDim.x * NT;
-  for (size_t q = (size_t)blockIdx.x * NT + threadIdx.x; q < (size_t)rows * n; q += gstride) {
-    const int s = (int)(q / n);
-    const int i = (int)(q % n);
-    const float* wr = sc.wbuf + (size_t)s * n;
-    int k = i;
-    float wk = wr[i];
-    sweep(wr, offsets + (size_t)s * iters, sc.hh + (size_t)s * iters, iters, i, n, k, wk);
-    if (!(row_flag[s] & 2)) k = i;
-    anc[q] = k;
-    for (int c = 0; c < d; ++c) {
-      const size_t plane = ((size_t)s * d + c) * n;
-      out[plane + i] = state[plane + k];
-    }
+  // The sweep over (row, segment) pairs, then commit (selection or
+  // identity) and state copy.
+  const int tiles = n / SEG;
+  const size_t pairs = (size_t)rows * tiles;
+  uint32_t seq = 0;
+  for (size_t p = blockIdx.x; p < pairs; p += gridDim.x) {
+    const int s = (int)(p / tiles);
+    const int seg = (int)(p % tiles);
+    int k[PER_THREAD];
+    mego_sweep(ring, seq, sc.wbuf + (size_t)s * n, offsets + (size_t)s * iters, seeds[s], seg,
+               tiles, iters, k);
+    mego_commit(k, anc, state, out, s, seg, n, d, row_flag[s] & 2);
   }
+}
+
+// The step kernel's static shared memory (the ring, the reduction's
+// floats) and its dynamic shared memory (8 bytes a row) pass 48 KiB together
+// from about 3,800 rows: from there raise its dynamic limit to `dynamic`
+// bytes (on the current device; the margin covers the compiler's padding).
+static int mego_step_optin(size_t dynamic) {
+  if (dynamic + sizeof(MegoRing) + 1024 <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute((const void*)megopolis_step_rows_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic);
 }
 
 extern "C" {
@@ -162,7 +348,7 @@ extern "C" {
 int megopolis_fused_rows(const void* w, const void* state, const void* offsets,
                          const void* seeds, void* anc, void* out, int rows, int n,
                          int d, int iters, void* stream) {
-  dim3 grid((n + NT - 1) / NT, rows);
+  dim3 grid(n / SEG, rows);
   megopolis_fused_rows_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)w, (const float*)state, (const int*)offsets,
       (const uint32_t*)seeds, (int*)anc, (float*)out, n, d, iters);
@@ -172,7 +358,7 @@ int megopolis_fused_rows(const void* w, const void* state, const void* offsets,
 // The index-only sweep: ancestors of a bank, no state.
 int megopolis_rows(const void* w, const void* offsets, const void* seeds, void* anc,
                    int rows, int n, int iters, void* stream) {
-  dim3 grid((n + NT - 1) / NT, rows);
+  dim3 grid(n / SEG, rows);
   megopolis_fused_rows_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)w, nullptr, (const int*)offsets, (const uint32_t*)seeds, (int*)anc,
       nullptr, n, 0, iters);
@@ -180,6 +366,8 @@ int megopolis_rows(const void* w, const void* offsets, const void* seeds, void* 
 }
 
 int megopolis_step_grid(int rows, int n, int* blocks) {
+  const int err = mego_step_optin(step_smem_bytes(rows));
+  if (err != 0) return err;
   return coop_step_grid(megopolis_step_rows_kernel, rows, n, blocks);
 }
 
@@ -198,6 +386,8 @@ int megopolis_step_rows(const void* lw, const void* state, const void* offsets,
   void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_off, (void*)&a_seeds,
                   (void*)&thr, (void*)&a_anc, (void*)&a_out, (void*)&a_stats,
                   (void*)&a_scratch, (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
+  const int err = mego_step_optin(step_smem_bytes(rows));
+  if (err != 0) return err;
   return coop_step_launch(megopolis_step_rows_kernel, blocks, rows, args, stream);
 }
 
@@ -207,7 +397,11 @@ int megopolis_attributes(int which, int dynamic_smem, int* out) {
   switch (which) {
     case 0: return kernel_attributes(megopolis_fused_rows_kernel<false>, dynamic_smem, out);
     case 1: return kernel_attributes(megopolis_fused_rows_kernel<true>, dynamic_smem, out);
-    case 2: return kernel_attributes(megopolis_step_rows_kernel, dynamic_smem, out);
+    case 2: {
+      const int err = mego_step_optin((size_t)dynamic_smem);
+      if (err != 0) return err;
+      return kernel_attributes(megopolis_step_rows_kernel, dynamic_smem, out);
+    }
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,7 +9,9 @@
     megopolis_step        <- megopolis_pallas_step        (kernel: step_rows, S = 1)
     megopolis_step_rows   <- megopolis_pallas_step_rows   (kernel: step_rows)
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its
+Each wrapper checks device, dtype, shape and contiguity (and, for the
+index-only and fused kernels, that the weights start on a 16-byte boundary,
+as their bulk copies need), allocates its
 outputs (and the step kernel's scratch) with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and adds one to its ``launches`` count where
 it launches.  On CPU tensors it runs the plain version (``ref.py``) and
@@ -46,7 +48,12 @@ _I = ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
-    lib = load(SOURCE)
+    return bind(load(SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument types on a loaded library of
+    ``megopolis.cu`` (this source or another build of its interface)."""
     if not getattr(lib, "_bound", False):
         lib.megopolis_rows.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.megopolis_rows.restype = _I
@@ -73,12 +80,24 @@ def _check_bank(who: str, w, state, offsets, seeds):
     return s, n, d, offsets.shape[1]
 
 
+def _check_aligned(who: str, w: torch.Tensor):
+    """The kernels copy whole 4 KiB segments of ``w`` into shared memory by
+    bulk copies, which need 16-byte aligned addresses: a contiguous ``[S,
+    N]`` tensor from the allocator is, a view with an odd storage offset may
+    not be (no silent copy)."""
+    if w.data_ptr() % 16:
+        raise ValueError(f"{who}: the weights must start on a 16-byte boundary for the "
+                         f"kernel's bulk copies; got address {w.data_ptr():#x} (a view "
+                         f"with a storage offset of {w.storage_offset()}): pass a copy")
+
+
 def _device_offsets(w, offsets):
     return offsets.to(device=w.device, dtype=torch.int32).contiguous()
 
 
 def _launch_rows(w, offsets, seeds, who):
     s, n, _, b = _check_bank(who, w, None, offsets, seeds)
+    _check_aligned(who, w)
     offs, sd = _device_offsets(w, offsets), device_seeds(seeds, w.device)
     anc = torch.empty((s, n), dtype=torch.int32, device=w.device)
     stream = torch.cuda.current_stream(w.device).cuda_stream
@@ -89,6 +108,7 @@ def _launch_rows(w, offsets, seeds, who):
 
 def _launch_fused(w, state, offsets, seeds, who):
     s, n, d, b = _check_bank(who, w, state, offsets, seeds)
+    _check_aligned(who, w)
     offs, sd = _device_offsets(w, offsets), device_seeds(seeds, w.device)
     anc = torch.empty((s, n), dtype=torch.int32, device=w.device)
     out = torch.empty_like(state)

@@ -61,7 +61,7 @@ MODULES = (mk, tk, ck, rk, pk, sk, stk, fk)
 
 @pytest.fixture(scope="module")
 def args():
-    return contracts.audit_args()
+    return contracts.audit_args(device="cpu")
 
 
 # ---------------------------------------------------------- rows 30-31
@@ -286,14 +286,14 @@ def test_fixture_selftest_clean():
 # ---------------------------------------------------------- pass 6
 @pytest.mark.parametrize("name", spec.family_names())
 def test_telemetry_neutral(name):
-    rep = telemetry.audit_telemetry_cell(name)
+    rep = telemetry.audit_telemetry_cell(name, "cpu")
     assert rep["ok"], rep["violations"]
     assert rep["launches_on"] == rep["launches_off"] == telemetry.NEUTRALITY_STEPS * \
         spec.launch_budget(name, "step")
 
 
 def test_leaky_telemetry_fires_both_halves():
-    rep = telemetry.compare_runs("fixture:leaky_telemetry", *fixtures.leaky_telemetry())
+    rep = telemetry.compare_runs("fixture:leaky_telemetry", *fixtures.leaky_telemetry("cpu"))
     assert not rep["ok"] and len(rep["violations"]) == 2
     assert (rep["launches_off"], rep["launches_on"]) == (0, 1)
     assert not rep["estimates_match"]
@@ -301,7 +301,7 @@ def test_leaky_telemetry_fires_both_halves():
 
 # ---------------------------------------------------------- consumers
 def test_consumers_one_launch_per_step():
-    reps = {r.cell: r for r in audit_consumers()}
+    reps = {r.cell: r for r in audit_consumers(device="cpu")}
     assert set(reps) == {"pf.step", "pf.step_conditional", "pf.run_filter",
                          "pf.run_filter_bank"}
     for name, r in reps.items():
@@ -339,6 +339,31 @@ def test_cli_refuses_the_card_without_one():
         pytest.skip("a card is present: --device cuda runs")
     with pytest.raises(RuntimeError, match="device='cuda'"):
         main(["--selftest"])
+
+
+#: The checks' public entry points, called with their default device.
+DEFAULT_DEVICE_CALLS = {
+    "audit_args": lambda: contracts.audit_args(),
+    "audit_matrix": lambda: contracts.audit_matrix(),
+    "build_report": lambda: report.build_report(),
+    "audit_consumers": lambda: audit_consumers(),
+    "audit_telemetry_cell": lambda: telemetry.audit_telemetry_cell("megopolis"),
+    "audit_telemetry": lambda: telemetry.audit_telemetry(),
+    "leaky_telemetry": lambda: fixtures.leaky_telemetry(),
+    "telemetry_selftest": lambda: fixtures.telemetry_selftest(),
+    "audit_fixtures": lambda: fixtures.audit_fixtures(),
+    "selftest": lambda: fixtures.selftest(),
+}
+
+
+@pytest.mark.parametrize("entry", list(DEFAULT_DEVICE_CALLS))
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """The package's device rule: with no device given an entry point asks
+    for the card, and without one it raises before any work (no CPU
+    fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        DEFAULT_DEVICE_CALLS[entry]()
 
 
 def test_partitionable_threefry():

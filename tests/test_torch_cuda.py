@@ -1,5 +1,7 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions (Megopolis, Metropolis, Metropolis-C1/C2, rejection, the prefix-sum
+versions (Megopolis, with its ring of segment copies across ring depths, bank
+sizes and the most rows a step admits, and its refusal of misaligned weights;
+Metropolis, Metropolis-C1/C2, rejection, the prefix-sum
 kinds, the contract checks' two fixture kernels), the filter's default
 device, and the contract checks on the card (the resource tables are the
 card's, the census equals the profiler's count, the selftest passes).  They skip without a card
@@ -10,6 +12,7 @@ tests/test_torch_cuda.py``)."""
 import collections
 import contextlib
 import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -25,6 +28,7 @@ from repro_torch.core.spec import (
     PrefixSumSpec,
     RejectionSpec,
 )
+from repro_torch.kernels.common import MAX_STEP_ROWS
 from repro_torch.kernels.fixtures import fixtures as fk
 from repro_torch.kernels.fixtures import ref as fref
 from repro_torch.kernels.megopolis import megopolis as mk
@@ -112,6 +116,94 @@ def test_megopolis_index_only_kernel_matches_plain_version(card, n):
     assert torch.equal(mk.megopolis_fused_rows(w, w[:, None], offsets, seeds)[0], want)
     assert (mk.megopolis_rows.launches, mk.megopolis_batch.launches, mk.megopolis.launches) == (
         1, 1, 1)
+
+
+#: Buffers of the Megopolis kernels' ring of comparison segments
+#: (``#define STAGES`` in their source): the iteration counts below straddle it.
+RING_STAGES = int(re.search(r"#define STAGES (\d+)", (
+    Path(mk.__file__).parent / "csrc" / "megopolis.cu").read_text()).group(1))
+#: (N, S, B) of the ring cases: one segment and Path A's width; B = 1, the
+#: ring's depth less one, itself and one more, and Path B's y = 4 (354, past
+#: one chunk of 256 iterations); one, 16 and 64 rows.
+RING_CASES = [
+    (1024, 1, 1), (1024, 16, RING_STAGES - 1), (1024, 64, RING_STAGES),
+    (1024, 1, RING_STAGES + 1), (1024, 16, 354),
+    (1 << 20, 1, 1), (1 << 20, 1, 354), (1 << 20, 16, RING_STAGES - 1),
+    (1 << 20, 16, RING_STAGES + 1), (1 << 20, 64, RING_STAGES),
+]
+
+
+def _ring_inputs(dev, n, s, b):
+    """Weights with zeros and subnormals; log-weights whose row 0 is
+    degenerate (all -inf: the uniform 1/N bank), row 1 (when there is one)
+    all equal, neither firing at the threshold 0.5 (ess_norm = 1), and the
+    others firing; state of two planes."""
+    g = torch.Generator().manual_seed(n + 7 * s + b)
+    w = torch.rand(s, n, generator=g) ** 8
+    w[:, ::5] = 0.0
+    w[:, 1::7] = 1e-39
+    lw = -0.5 * (torch.rand(s, n, generator=g) * 12) ** 2
+    lw[0] = float("-inf")
+    if s > 1:
+        lw[1] = 0.0
+    state = torch.randn(s, 2, n, generator=g)
+    offsets = torch.randint(0, n, (s, b), generator=g, dtype=torch.int32)
+    seeds = torch.randint(0, 2**32, (s,), generator=g)
+    return w.to(dev), lw.to(dev), state.to(dev), offsets, seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,b", RING_CASES)
+def test_megopolis_ring_kernels_match_plain_version(card, n, s, b):
+    w, lw, state, offsets, seeds = _ring_inputs(card, n, s, b)
+    mk.reset_launch_counts()
+    assert torch.equal(mk.megopolis_rows(w, offsets, seeds),
+                       ref.megopolis_rows_ref(w, offsets, seeds))
+    anc, out = mk.megopolis_fused_rows(w, state, offsets, seeds)
+    want_anc, want_out = ref.megopolis_fused_rows_ref(w, state, offsets, seeds)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    anc, out, stats = mk.megopolis_step_rows(lw, state, offsets, seeds, 0.5)
+    want_anc, want_out, want_stats = ref.megopolis_step_rows_ref(lw, state, offsets, seeds, 0.5)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])
+    ids = torch.arange(n, dtype=torch.int32, device=card)
+    assert stats[0, 2] == 0.0 and torch.equal(anc[0], ids)  # degenerate: kept
+    if s > 1:
+        assert stats[1, 2] == 0.0 and torch.equal(anc[1], ids)  # did not fire: kept
+        assert bool(stats[2:, 2].all())  # the others resampled
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert (mk.megopolis_rows.launches, mk.megopolis_fused_rows.launches,
+            mk.megopolis_step_rows.launches) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_megopolis_step_kernel_at_the_most_rows(card):
+    # 4096 rows: the ring and the per-row shift and flags pass 48 KiB, so the
+    # launch needs the kernel's opt-in.
+    _, lw, state, offsets, seeds = _ring_inputs(card, 1024, MAX_STEP_ROWS, 3)
+    anc, out, stats = mk.megopolis_step_rows(lw, state, offsets, seeds, 0.5)
+    want_anc, want_out, want_stats = ref.megopolis_step_rows_ref(lw, state, offsets, seeds, 0.5)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ("megopolis", "megopolis_batch", "megopolis_rows",
+                                     "megopolis_fused", "megopolis_fused_rows"))
+def test_megopolis_misaligned_weights_raise(card, wrapper):
+    n = 2048
+    w = torch.rand(2 * n + 1, device=card)[1:]  # 4 bytes past a 16-byte boundary
+    state = torch.zeros(1, n, device=card)
+    offsets, seed = torch.zeros(1, 4, dtype=torch.int32), torch.zeros(1, dtype=torch.int64)
+    args = {"megopolis": (w[:n], offsets[0], seed[0]),
+            "megopolis_batch": (w.view(2, n), offsets[0], seed.expand(2)),
+            "megopolis_rows": (w.view(2, n), offsets.expand(2, -1), seed.expand(2)),
+            "megopolis_fused": (w[:n], state, offsets[0], seed[0]),
+            "megopolis_fused_rows": (w[:n].view(1, n), state[None], offsets, seed)}[wrapper]
+    mk.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        getattr(mk, wrapper)(*args)
+    assert getattr(mk, wrapper).launches == 0
 
 
 @pytest.mark.cuda

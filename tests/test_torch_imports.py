@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch`` nor ``chip_smoke.py``
-imports ``jax`` or the JAX package ``repro``, and importing the port leaves
+"""The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``
+nor the port's ``benchmarks/torch_*.py`` imports ``jax`` or the JAX package ``repro``, and importing the port leaves
 ``jax`` out of ``sys.modules``."""
 
 import ast
@@ -11,7 +11,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + sorted((REPO / "benchmarks").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -13,6 +13,9 @@ package's Pallas kernels in interpret mode, at kernel and wrapper level.
 * ``step`` fed the weights JAX normalised must equal the port's own
   ``apply`` bit for bit.
 * Bank row ``s`` equals the single call with ``keys[s]``.
+* The CUDA kernels' index arithmetic (each block's comparison segment and
+  its rotated slot) equals ``megopolis_indices``, and the §2.4 sectors per
+  warp-iteration of a lane gather and of the kernels' segment copies.
 """
 
 import jax
@@ -27,6 +30,8 @@ from repro.kernels.common import key_to_seed as jax_key_to_seed
 from repro.kernels.megopolis import megopolis as jk
 from repro_torch.convert import key_from_jax, spec_from_jax
 from repro_torch.core.spec import MegopolisSpec
+from repro_torch.core.transactions import transactions_per_group
+from repro_torch.kernels.common import SEG, megopolis_indices
 from repro_torch.kernels.megopolis import megopolis as tk
 from repro_torch.kernels.megopolis import ref
 from repro_torch.kernels.megopolis.ops import key_tables
@@ -437,3 +442,51 @@ def test_ref_matches_composition():
     anc2, out2 = ref.megopolis_fused_rows_ref(w, state, offsets, seeds)
     assert torch.equal(anc, anc2) and torch.equal(out, out2)
     assert stats[:, 2].eq(1).all()
+
+
+# ------------------------------------------------- the CUDA kernels' indexing
+def _ring_index(i: torch.Tensor, o: int, n: int) -> torch.Tensor:
+    """The comparison index as ``megopolis.cu``'s sweep forms it: the block
+    of segment ``i >> 10`` stages ``cmp = (c << 10) | (o & 1023)`` with
+    comparison segment ``c = ((i >> 10) + (o >> 10)) mod (N / 1024)`` (one
+    subtraction), reads its ring buffer at slot ``(cmp + (i & 1023)) & 1023``
+    and takes ``j = (cmp & ~1023) | slot``."""
+    tiles = n // SEG
+    c = (i >> 10) + (o >> 10)
+    c = torch.where(c >= tiles, c - tiles, c)
+    cmp = (c << 10) | (o & (SEG - 1))
+    slot = (cmp + (i & (SEG - 1))) & (SEG - 1)
+    return (cmp & ~(SEG - 1)) | slot
+
+
+def _ring_offsets(n: int) -> list:
+    """0, the first offsets off a sector and a segment boundary, the segment
+    boundary itself, a middle offset and the last offsets before N (their
+    lanes wrap past the row's end)."""
+    cand = (0, 1, 7, 8, SEG - 1, SEG, SEG + 1, n // 2 + 3, n - SEG, n - SEG + 1, n - 1)
+    return sorted({o for o in cand if 0 <= o < n})
+
+
+@pytest.mark.parametrize("n,o", [(n, o) for n in (1024, 2048, 8192) for o in _ring_offsets(n)])
+def test_ring_index_equals_megopolis_indices(n, o):
+    i = torch.arange(n, dtype=torch.int64)
+    want = megopolis_indices(i, torch.tensor(o), SEG, n)
+    assert torch.equal(_ring_index(i, o, n), want)
+    # For a fixed offset the map is a bijection: each block's comparison
+    # segment is one whole 4 KiB segment, and every w value is read once.
+    assert torch.equal(torch.sort(want // SEG).values, torch.arange(n) // SEG)
+    assert torch.equal(torch.sort(want).values, i)
+
+
+@pytest.mark.parametrize("o", (0, 1, 7, 8, 31, 32, 1000, 1023, 1024, 4095))
+def test_sectors_per_warp_iteration(o):
+    """The §2.4 count from the addresses at the kernels' segment of 1024: a
+    warp whose 32 lanes gather their own w[j] touches 5 32-byte sectors
+    unless o ≡ 0 mod 8, 4 then; the ring's copy of the comparison segment
+    moves 4 per warp-iteration at every offset."""
+    n = 4096
+    j = megopolis_indices(torch.arange(n), torch.tensor(o), SEG, n).numpy()
+    per_warp = transactions_per_group(j, group=32, word_bytes=4, segment_bytes=32)
+    assert set(per_warp.tolist()) == {4 if o % 8 == 0 else 5}
+    segment = (j[:SEG] // SEG)[0] * SEG + np.arange(SEG)  # the copy, in address order
+    assert set(transactions_per_group(segment).tolist()) == {4}
