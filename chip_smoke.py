@@ -27,10 +27,7 @@ over, and there is no CPU fallback):
    that calls it (for a step, the last captured call that resampled),
    compare the kernel with its plain version on the card, time both, and
    compute the kernel's bound (for rejection from the rounds this run's
-   data needs, with the rounds of the lanes and of their warps; for
-   Megopolis the B·N·4 bytes its segment copies move from L2, the rate it
-   reaches on them and the 32-byte sectors per warp-iteration of a lane
-   gather against the copies'); time each
+   data needs, with the rounds of the lanes and of their warps); time each
    bank step kernel at capped cooperative grids (blocks per SM); hold
    ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
@@ -817,16 +814,24 @@ def replay_alg6(spec, obs, k_run, dev) -> int:
     return len(calls)
 
 
-def capture_runs(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
-                 k_quality) -> tuple:
-    """The short full-width runs whose calls phase 4 captures, as functions
-    that return thunks: ``single(family, thr)`` (``run_filter``), ``bank(family,
-    thr)`` (``run_filter_bank``) and ``fig6(family, entry)`` (Path B's
-    largest shapes, y = 4)."""
+def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
+                 k_quality) -> list:
+    """Each wrapper's captured inputs, its plain version on them, and what
+    its bound needs: ``(name, wrapper, inputs, plain, family, kind, rows,
+    iters)``."""
     from repro_torch import random as trandom
     from repro_torch.core.iterations import gaussian_weight_iterations
     from repro_torch.core.spec import PrefixSumSpec
     from repro_torch.core.weightgen import gaussian_weights
+    from repro_torch.kernels.common import key_to_seed
+    from repro_torch.kernels.megopolis import megopolis as mk
+    from repro_torch.kernels.megopolis import ops as mops
+    from repro_torch.kernels.megopolis import ref as mref
+    from repro_torch.kernels.metropolis import metropolis as tk
+    from repro_torch.kernels.metropolis import ops as tops
+    from repro_torch.kernels.metropolis import ref as tref
+    from repro_torch.kernels.rejection import ref as rref
+    from repro_torch.kernels.rejection import rejection as rk
     from repro_torch.pf.filter import ParticleFilter, run_filter, run_filter_bank
 
     n = args.particles
@@ -860,17 +865,8 @@ def capture_runs(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
             return lambda: r.batch(k_time, bank_b)
         return lambda: r(k_time, w_b)
 
-    return single, bank, fig6
-
-
-def megopolis_cases(single, bank, fig6) -> tuple:
-    """Rows 1-6: each Megopolis wrapper's case on its captured inputs (as
-    ``kernel_cases``), and the step's captured threshold."""
-    from repro_torch.kernels.megopolis import megopolis as mk
-    from repro_torch.kernels.megopolis import ops as mops
-    from repro_torch.kernels.megopolis import ref as mref
-
     cases = []
+    # Megopolis, rows 1-6.
     w, offs, seed = capture(mops, "megopolis", fig6("megopolis", "single"))
     cases.append(("megopolis", mk.megopolis, (w, offs, seed),
                   lambda: mref.megopolis_rows_ref(w[None], offs[None], seed.reshape(1)),
@@ -902,28 +898,6 @@ def megopolis_cases(single, bank, fig6) -> tuple:
     cases.append(("megopolis_step_rows", mk.megopolis_step_rows, (l4, st4, o4, s4, thr),
                   lambda: mref.megopolis_step_rows_ref(l4, st4, o4, s4, thr),
                   "megopolis", "step", l4.shape[0], o4.shape[-1]))
-    return cases, thr
-
-
-def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
-                 k_quality) -> list:
-    """Each wrapper's captured inputs, its plain version on them, and what
-    its bound needs: ``(name, wrapper, inputs, plain, family, kind, rows,
-    iters)``."""
-    from repro_torch import random as trandom
-    from repro_torch.core.weightgen import gaussian_weights
-    from repro_torch.kernels.common import key_to_seed
-    from repro_torch.kernels.metropolis import metropolis as tk
-    from repro_torch.kernels.metropolis import ops as tops
-    from repro_torch.kernels.metropolis import ref as tref
-    from repro_torch.kernels.rejection import ref as rref
-    from repro_torch.kernels.rejection import rejection as rk
-
-    n = args.particles
-    single, bank, fig6 = capture_runs(args, dev, families, model, fam, obs, bank_obs, thetas,
-                                      k_run, k_quality)
-    # Megopolis, rows 1-6.
-    cases, thr = megopolis_cases(single, bank, fig6)
     # Metropolis, rows 7-12.
     v, sd, it = capture(tops, "metropolis", fig6("metropolis", "single"))
     cases.append(("metropolis", tk.metropolis, (v, sd, it),
@@ -1326,9 +1300,7 @@ def check_kernel(case) -> dict:
                  library_ms=library_ms, rows=rows, n=n, iters=iters, l2="warm")
     if family == "prefix" and kind == "step":
         entry["kind"] = kargs[-1]
-    if family == "megopolis":
-        entry.update(megopolis_l2(kargs[1 if kind == "index" else 2], rows, n, iters, ms))
-    elif family == "metropolis":
+    if family == "metropolis":
         # Every random w[j] read moves one L2 sector; one row's weights are
         # the working set the kernel's block order keeps live.
         entry.update(l2_sector_bytes=rows * n * iters * L2_SECTOR,
@@ -1345,31 +1317,6 @@ def check_kernel(case) -> dict:
                      * L2_SECTOR)
     print(f"kernel {name}: {json.dumps(entry)}", flush=True)
     return entry
-
-
-def megopolis_l2(offsets, rows, n, iters, ms) -> dict:
-    """What a Megopolis sweep moves from L2 on its captured offsets: for a
-    fixed b every w value is read once across a row, so B·N·4 bytes a row,
-    the design's floor, and the rate the kernel reaches on it; and the
-    32-byte sectors per warp-iteration, from the addresses (``core/
-    transactions.py``'s §2.4 count): a warp whose lanes gather their own
-    w[j] (32 consecutive j from (i + o) mod 1024, within one aligned
-    segment), against the kernels' whole-segment copies (4 at every
-    offset).  The count depends on ``o`` mod 1024 only, so each distinct
-    value is priced on the 32 warps of one segment."""
-    from repro_torch.core.transactions import transactions_per_group
-    from repro_torch.kernels.common import SEG, megopolis_indices
-
-    o = offsets.reshape(-1).to("cpu", torch.int64)
-    vals, counts = torch.unique(o % SEG, return_counts=True)
-    lanes = torch.arange(SEG)
-    per_o = [float(transactions_per_group(megopolis_indices(lanes, v, SEG, n).numpy()).mean())
-             for v in vals]
-    gather = sum(t * int(c) for t, c in zip(per_o, counts)) / int(counts.sum())
-    segment_bytes = rows * n * iters * 4
-    return {"segment_l2_bytes": segment_bytes,
-            "segment_l2_tb_per_s": segment_bytes / (ms * 1e-3) / 1e12,
-            "sectors_per_warp_iteration": {"lane_gather": gather, "segment_copy": 4}}
 
 
 def rejection_rounds(kargs, kind, max_iters) -> torch.Tensor:

@@ -99,11 +99,12 @@ _REJ, _PREFIX, _FIX = ("rejection/csrc/rejection.cu", "prefix_sum/csrc/prefix_su
                        "fixtures/csrc/fixtures.cu")
 #: Every kernel instance of the port, by the name the profiler gives it.
 KERNELS = {
-    # The Megopolis kernels' static shared memory is their ring of four
-    # comparison segments (4 KiB and 16 bytes each) and the per-chunk table;
-    # the bank kernel runs a block per 1024 particles ("tiles").
-    "megopolis_fused_rows_kernel<false>": _rows(_MEGO, 0, 32, 18688, "tiles"),
-    "megopolis_fused_rows_kernel<true>": _rows(_MEGO, 1, 32, 18688, "tiles"),
+    # The Megopolis kernels' static shared memory is their ring of
+    # comparison segments (4 KiB and 16 bytes each; three for the bank
+    # kernel, four for the step) and the per-chunk table; the bank kernel
+    # runs a block per 1024 particles ("tiles").
+    "megopolis_fused_rows_kernel<false>": _rows(_MEGO, 0, 32, 14464, "tiles"),
+    "megopolis_fused_rows_kernel<true>": _rows(_MEGO, 1, 32, 14464, "tiles"),
     "megopolis_step_rows_kernel": _step(_MEGO, 2, 32, 18816, optin=True),
     "metropolis_rows_kernel<false>": _rows(_METRO, 0, 32, 1024),
     "metropolis_rows_kernel<true>": _rows(_METRO, 1, 40, 1024),

@@ -33,7 +33,7 @@
 //   block of NT threads owns one 1024-particle segment of one row (4
 //   particles a thread, strided by NT, carrying w[k] in registers), and for
 //   iteration b its comparison segment ((i >> 10) + (o_b >> 10)) mod T moves
-//   whole into a ring of STAGES shared-memory buffers, by bulk TMA copies
+//   whole into a ring of shared-memory buffers, by bulk TMA copies
 //   (cp.async.bulk ... mbarrier::complete_tx) that one thread starts AHEAD
 //   iterations before the sweep reaches it.  The copies roll it as they land:
 //   words a .. 1023 then 0 .. a + 3 of the segment, a = (o_b mod 1024)
@@ -73,7 +73,7 @@
 //   card); then each block walks (row, segment) pairs in a grid-stride loop
 //   and runs the sweep of the fused kernel on them (mego_sweep, one
 //   function, so the two kernels cannot drift), its ring continuing from
-//   pair to pair.  The ring sits beside the per-row shift and flags: at the
+//   pair to pair.  Its ring sits beside the per-row shift and flags: at the
 //   most rows a step admits the block passes 48 KiB, so the kernel opts in
 //   to more dynamic shared memory (mego_step_optin).
 //
@@ -91,16 +91,13 @@
 // down to 4 words (16 bytes, the bulk copies' grain), and 4 more words, so
 // that lane i reads word (i mod 1024) + (o_b mod 4) with no wrap.
 #define RING_WORDS (SEG + 4)
-// Buffers of the ring, and how many iterations ahead of the sweep a segment
-// is requested: a buffer is refilled when every warp is done with the
-// iteration two before, so the one thread that starts the copies waits for
-// the slowest warp with one iteration of slack.  Six buffers are the most
-// that keep 8 blocks on an SM; four by measurement on the H100
-// (benchmarks/torch_megopolis_ab.py): three were 1-3% faster on the
-// index-only and fused kernels and 2-3% slower on the step, six 1-3% slower
-// but on the step (within 1% there).
-#define STAGES 4
-#define AHEAD (STAGES - 2)
+// Buffers of each kernel's ring (MegoRing's STAGES).  Six are the most that
+// keep 8 blocks on an SM.  Chosen by measurement on the H100
+// (benchmarks/torch_kernel_ab.py, three and four in turns): three were 1-4%
+// faster than four on both instances of the bank kernel, four 1-3% faster
+// on the step, whose ring then needs the opt-in below at the most rows.
+#define ROWS_STAGES 3  // megopolis_fused_rows_kernel<false/true>
+#define STEP_STAGES 4  // megopolis_step_rows_kernel
 
 // --------------------------------------------------------------- mbarriers
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -148,18 +145,24 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t
       : "memory");
 }
 
-// The ring of comparison segments and the per-chunk table of a block:
-// tab[t] = {(segment << 10) | (o_b & 1023), fmix(seed + b·GOLDEN)} for b =
-// b0 + t; its first words run AHEAD entries past the chunk for the copies
-// started ahead.
+// The ring of STAGES comparison segments and the per-chunk table of a
+// block: tab[t] = {(segment << 10) | (o_b & 1023), fmix(seed + b·GOLDEN)}
+// for b = b0 + t; its first words run AHEAD entries past the chunk for the
+// copies started ahead.  A segment is requested AHEAD iterations before the
+// sweep reaches it, so a buffer is refilled when every warp is done with
+// the iteration two before: the one thread that starts the copies waits for
+// the slowest warp with one iteration of slack.
+template <int STAGES>
 struct MegoRing {
+  static constexpr int AHEAD = STAGES - 2;
   __align__(128) float seg[STAGES][RING_WORDS];
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
   uint2 tab[CHUNK + AHEAD];
 };
 
-__device__ __forceinline__ void ring_init(MegoRing& r) {
+template <int STAGES>
+__device__ __forceinline__ void ring_init(MegoRing<STAGES>& r) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&r.full[s], 1);
@@ -175,7 +178,9 @@ __device__ __forceinline__ void ring_init(MegoRing& r) {
 // is done with that buffer's previous use, iteration u - STAGES: two bulk
 // copies lay out words a .. 1023, then 0 .. a + 3 of the segment, a = (o_b
 // mod 1024) rounded down to 4.  One thread.
-__device__ __forceinline__ void ring_fill(MegoRing& r, uint32_t u, const float* wr, int cmp) {
+template <int STAGES>
+__device__ __forceinline__ void ring_fill(MegoRing<STAGES>& r, uint32_t u, const float* wr,
+                                          int cmp) {
   const uint32_t st = u % STAGES;
   if (u >= STAGES) mbar_wait(&r.empty[st], (u / STAGES - 1) & 1);
   const int a = cmp & (SEG - 4);
@@ -203,10 +208,12 @@ __device__ __forceinline__ int cmp_index(int i, int o, int tiles) {
 // the end.  `seq` counts the block's iterations over every segment it
 // sweeps, so the ring's phases carry on from one segment to the next.
 // Every thread of the block calls it.
-__device__ __forceinline__ void mego_sweep(MegoRing& r, uint32_t& seq, const float* wr,
+template <int STAGES>
+__device__ __forceinline__ void mego_sweep(MegoRing<STAGES>& r, uint32_t& seq, const float* wr,
                                            const int* __restrict__ offs, uint32_t seed,
                                            int seg, int tiles, int iters,
                                            int (&k)[PER_THREAD]) {
+  constexpr int AHEAD = MegoRing<STAGES>::AHEAD;
   const int tid = threadIdx.x;
   const uint32_t lane0 = (uint32_t)(seg * SEG + tid) * GOLDEN;
   float wk[PER_THREAD];
@@ -287,7 +294,7 @@ __global__ void __launch_bounds__(NT, 8) megopolis_fused_rows_kernel(
     const float* __restrict__ w, const float* __restrict__ state,
     const int* __restrict__ offsets, const uint32_t* __restrict__ seeds,
     int* __restrict__ anc, float* __restrict__ out, int n, int d, int iters) {
-  __shared__ MegoRing ring;
+  __shared__ MegoRing<ROWS_STAGES> ring;
   ring_init(ring);
   const int s = blockIdx.y;
   const int seg = blockIdx.x;
@@ -307,12 +314,15 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
   extern __shared__ float row_m[];          // [rows] shift m per row
   int* row_flag = (int*)(row_m + rows);     // [rows] bit 0: degenerate, bit 1: do
   __shared__ float red[NT / 32];
-  __shared__ MegoRing ring;
+  __shared__ MegoRing<STEP_STAGES> ring;
   StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
   // The bulk copies read wbuf in whole 16-byte words: its start is rounded
   // up (the wrapper's scratch has the slack).
   sc.wbuf = (float*)(((uintptr_t)sc.wbuf + 15) & ~(uintptr_t)15);
   ring_init(ring);
+  // The prelude also writes sc.hh, the per-iteration hash prefixes the
+  // Metropolis step kernels read; this kernel stages its own per chunk and
+  // leaves sc.hh unread (S·B words).
   step_prelude(grid, lw, seeds, thr, stats, sc, row_m, row_flag, red, rows, n, iters);
   // wbuf was written through the generic proxy before the prelude's last
   // grid.sync(); the bulk copies read it through the async proxy.
@@ -333,12 +343,12 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
   }
 }
 
-// The step kernel's static shared memory (the ring, the reduction's
-// floats) and its dynamic shared memory (8 bytes a row) pass 48 KiB together
-// from about 3,800 rows: from there raise its dynamic limit to `dynamic`
-// bytes (on the current device; the margin covers the compiler's padding).
+// The step kernel's static shared memory (its ring, the reduction's floats)
+// and its dynamic shared memory (8 bytes a row) pass 48 KiB together from
+// about 3,790 rows.  Every launch and every occupancy query of it first sets
+// its dynamic limit to the `dynamic` bytes it asks for (a host-side
+// attribute, on the current device), so no size here is guessed.
 static int mego_step_optin(size_t dynamic) {
-  if (dynamic + sizeof(MegoRing) + 1024 <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute((const void*)megopolis_step_rows_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic);
 }

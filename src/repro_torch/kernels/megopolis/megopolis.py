@@ -48,12 +48,7 @@ _I = ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
-    return bind(load(SOURCE))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points' argument types on a loaded library of
-    ``megopolis.cu`` (this source or another build of its interface)."""
+    lib = load(SOURCE)
     if not getattr(lib, "_bound", False):
         lib.megopolis_rows.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.megopolis_rows.restype = _I

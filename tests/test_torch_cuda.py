@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions (Megopolis, with its ring of segment copies across ring depths, bank
-sizes and the most rows a step admits, and its refusal of misaligned weights;
+versions (Megopolis, with its rings of segment copies across ring depths,
+bank sizes, boundary offsets and the most rows a step admits, and its refusal
+of misaligned weights;
 Metropolis, Metropolis-C1/C2, rejection, the prefix-sum
 kinds, the contract checks' two fixture kernels), the filter's default
 device, and the contract checks on the card (the resource tables are the
@@ -28,7 +29,7 @@ from repro_torch.core.spec import (
     PrefixSumSpec,
     RejectionSpec,
 )
-from repro_torch.kernels.common import MAX_STEP_ROWS
+from repro_torch.kernels.common import MAX_STEP_ROWS, megopolis_indices
 from repro_torch.kernels.fixtures import fixtures as fk
 from repro_torch.kernels.fixtures import ref as fref
 from repro_torch.kernels.megopolis import megopolis as mk
@@ -118,19 +119,19 @@ def test_megopolis_index_only_kernel_matches_plain_version(card, n):
         1, 1, 1)
 
 
-#: Buffers of the Megopolis kernels' ring of comparison segments
-#: (``#define STAGES`` in their source): the iteration counts below straddle it.
-RING_STAGES = int(re.search(r"#define STAGES (\d+)", (
-    Path(mk.__file__).parent / "csrc" / "megopolis.cu").read_text()).group(1))
-#: (N, S, B) of the ring cases: one segment and Path A's width; B = 1, the
+#: Buffers of the Megopolis kernels' rings of comparison segments (the
+#: ``*_STAGES`` defines of their source): the iteration counts below
+#: straddle each depth.
+RING_STAGES = sorted({int(d) for d in re.findall(r"#define \w+_STAGES (\d+)", (
+    Path(mk.__file__).parent / "csrc" / "megopolis.cu").read_text())})
+#: (N, S, B) of the ring cases: one segment and Path A's width; B = 1, each
 #: ring's depth less one, itself and one more, and Path B's y = 4 (354, past
 #: one chunk of 256 iterations); one, 16 and 64 rows.
-RING_CASES = [
-    (1024, 1, 1), (1024, 16, RING_STAGES - 1), (1024, 64, RING_STAGES),
-    (1024, 1, RING_STAGES + 1), (1024, 16, 354),
-    (1 << 20, 1, 1), (1 << 20, 1, 354), (1 << 20, 16, RING_STAGES - 1),
-    (1 << 20, 16, RING_STAGES + 1), (1 << 20, 64, RING_STAGES),
-]
+RING_CASES = sorted({
+    (1024, 1, 1), (1024, 16, 354), (1 << 20, 1, 1), (1 << 20, 1, 354),
+    *((1024, s, d + e) for d in RING_STAGES for e, s in ((-1, 16), (0, 64), (1, 1))),
+    *(((1 << 20), s, d + e) for d in RING_STAGES for e, s in ((-1, 16), (0, 64), (1, 16))),
+})
 
 
 def _ring_inputs(dev, n, s, b):
@@ -174,6 +175,34 @@ def test_megopolis_ring_kernels_match_plain_version(card, n, s, b):
     assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
     assert (mk.megopolis_rows.launches, mk.megopolis_fused_rows.launches,
             mk.megopolis_step_rows.launches) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1024, 2048, 8192))
+def test_megopolis_kernels_at_boundary_offsets(card, n):
+    """Row s has the s-th of the offsets 0, 1, 7, 8, 1023, 1024, 1025, the
+    middle and the last ones (whose lanes wrap past the row's end), and B =
+    1 on equal weights, so every particle accepts its
+    comparison: each kernel's ancestors are ``megopolis_indices`` at that
+    offset, as is the plain version's."""
+    offs = sorted({o for o in (0, 1, 7, 8, 1023, 1024, 1025, n // 2 + 3, n - 1024,
+                               n - 1023, n - 1) if o < n})
+    s = len(offs)
+    w = torch.ones(s, n, device=card)
+    offsets = torch.tensor(offs, dtype=torch.int32)[:, None]
+    seeds = torch.arange(s, dtype=torch.int64)
+    i = torch.arange(n, dtype=torch.int64)
+    want = torch.stack([megopolis_indices(i, torch.tensor(o), 1024, n) for o in offs])
+    want = want.to(device=card, dtype=torch.int32)
+    state = torch.arange(s * n, dtype=torch.float32, device=card).reshape(s, 1, n)
+    assert torch.equal(ref.megopolis_rows_ref(w, offsets, seeds), want)
+    assert torch.equal(mk.megopolis_rows(w, offsets, seeds), want)
+    anc, out = mk.megopolis_fused_rows(w, state, offsets, seeds)
+    assert torch.equal(anc, want) and torch.equal(out, torch.gather(state, 2, want[:, None].long()))
+    # Equal log-weights: ess_norm = 1 < 2 fires every row.
+    anc, _, stats = mk.megopolis_step_rows(torch.zeros(s, n, device=card), state, offsets, seeds,
+                                           2.0)
+    assert bool(stats[:, 2].all()) and torch.equal(anc, want)
 
 
 @pytest.mark.cuda

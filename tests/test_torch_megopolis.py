@@ -14,8 +14,8 @@ package's Pallas kernels in interpret mode, at kernel and wrapper level.
   ``apply`` bit for bit.
 * Bank row ``s`` equals the single call with ``keys[s]``.
 * The CUDA kernels' index arithmetic (each block's comparison segment and
-  its rotated slot) equals ``megopolis_indices``, and the §2.4 sectors per
-  warp-iteration of a lane gather and of the kernels' segment copies.
+  its rotated slot), written out in Python, equals ``megopolis_indices``,
+  and the §2.4 sectors per warp-iteration of a lane gather.
 """
 
 import jax
@@ -446,17 +446,22 @@ def test_ref_matches_composition():
 
 # ------------------------------------------------- the CUDA kernels' indexing
 def _ring_index(i: torch.Tensor, o: int, n: int) -> torch.Tensor:
-    """The comparison index as ``megopolis.cu``'s sweep forms it: the block
-    of segment ``i >> 10`` stages ``cmp = (c << 10) | (o & 1023)`` with
-    comparison segment ``c = ((i >> 10) + (o >> 10)) mod (N / 1024)`` (one
-    subtraction), reads its ring buffer at slot ``(cmp + (i & 1023)) & 1023``
-    and takes ``j = (cmp & ~1023) | slot``."""
+    """The comparison index as ``megopolis.cu``'s sweep forms it, written
+    out in Python: the block of segment ``i >> 10`` requests comparison
+    segment ``c = ((i >> 10) + (o >> 10)) mod (N / 1024)`` (one subtraction);
+    two bulk copies fill its ring buffer with words ``a .. 1023``, then ``0
+    .. a + 3`` of that segment, ``a = (o mod 1024)`` rounded down to 4; lane
+    ``i`` reads buffer word ``(i mod 1024) + (o mod 4)``.  This documents the
+    arithmetic the kernel is written from; the kernel itself is held to the
+    plain version on the card (``tests/test_torch_cuda.py``, at these
+    offsets too)."""
     tiles = n // SEG
     c = (i >> 10) + (o >> 10)
     c = torch.where(c >= tiles, c - tiles, c)
-    cmp = (c << 10) | (o & (SEG - 1))
-    slot = (cmp + (i & (SEG - 1))) & (SEG - 1)
-    return (cmp & ~(SEG - 1)) | slot
+    a = (o % SEG) & ~3
+    buffer = torch.cat([torch.arange(a, SEG), torch.arange(0, a + 4)])  # segment words
+    slot = buffer[(i % SEG) + (o % 4)]
+    return c * SEG + slot
 
 
 def _ring_offsets(n: int) -> list:
@@ -481,12 +486,11 @@ def test_ring_index_equals_megopolis_indices(n, o):
 @pytest.mark.parametrize("o", (0, 1, 7, 8, 31, 32, 1000, 1023, 1024, 4095))
 def test_sectors_per_warp_iteration(o):
     """The §2.4 count from the addresses at the kernels' segment of 1024: a
-    warp whose 32 lanes gather their own w[j] touches 5 32-byte sectors
-    unless o ≡ 0 mod 8, 4 then; the ring's copy of the comparison segment
-    moves 4 per warp-iteration at every offset."""
+    warp whose 32 lanes gather their own w[j] (the kernel before its ring of
+    segment copies) touches 5 32-byte sectors unless o ≡ 0 mod 8, 4 then.
+    The copies move whole 4 KiB segments, 4 sectors a warp-iteration at any
+    offset."""
     n = 4096
     j = megopolis_indices(torch.arange(n), torch.tensor(o), SEG, n).numpy()
     per_warp = transactions_per_group(j, group=32, word_bytes=4, segment_bytes=32)
     assert set(per_warp.tolist()) == {4 if o % 8 == 0 else 5}
-    segment = (j[:SEG] // SEG)[0] * SEG + np.arange(SEG)  # the copy, in address order
-    assert set(transactions_per_group(segment).tolist()) == {4}
