@@ -7,21 +7,26 @@ shapes of ``chip_smoke.py``'s phase 4.
 ``--module`` names a wrapper module under ``repro_torch.kernels`` (its
 ``SOURCE`` is the source under test: ``megopolis.megopolis``,
 ``metropolis.metropolis``, ``metropolis.c1c2``, ``rejection.rejection``,
-``prefix_sum.prefix_sum``).  Every ``--source LABEL=PATH`` is a build of that
-source with the same C interface (an earlier commit's, or a variant of the
-current one), next to its own headers; the current source is always built
-too, as ``new``.  Each is compiled with ``kernels/build.py``'s ``nvcc`` flags
-into ``kernels/_build/ab/`` (its ``ptxas`` registers, shared memory and
-spills are printed; with ``--sass`` its SASS is written to
-``DIR/<label>.sass``) and handed to the module in place of its own library.
+``prefix_sum.prefix_sum``, ``fixtures.fixtures``).  Every ``--source
+LABEL=PATH`` is a build of that source with the same C interface (an
+earlier commit's, or a variant of the current one), next to its own
+headers; the current source is always built too, as ``new``.  Each is
+compiled with ``kernels/build.py``'s ``nvcc`` flags into
+``kernels/_build/ab/`` (its ``ptxas`` registers, shared memory and spills
+are printed; with ``--sass`` its SASS is written to ``DIR/<label>.sass``)
+and handed to the module in place of its own library.
 Phase 4's inputs are captured as phase 4 captures them
 (``chip_smoke.kernel_cases``), and its cases whose kernel comes from that
-source are kept.  Every build's outputs are held bit for bit to the plain
-version, and then each case's kernel is timed (``chip_smoke.kernel_ms``,
-the profiler's kernel events) with every build in turns: in the order
-given, then reversed (old, new, new, old for two).  Prints the card's name
-and power limit, one JSON line per case and one summary line.  It needs one
-card; the launches here count nowhere.
+source are kept; the fixture kernels' are those of phase 3
+(``chip_smoke.fixture_cases``: the contract checks' inputs and N = 2^23).
+Every build's outputs are held bit for bit to the plain version, and then
+each case's kernel is timed (``chip_smoke.kernel_ms``, the profiler's
+kernel events) with every build in turns: in the order given, then
+reversed (old, new, new, old for two); the one PyTorch call that computes
+the same function (``chip_smoke.library_call``), where there is one, is
+timed as phase 4 times it (``chip_smoke.time_ms``) before and after the
+turns.  Prints the card's name and power limit, one JSON line per case and
+one summary line.  It needs one card; the launches here count nowhere.
 """
 
 from __future__ import annotations
@@ -94,14 +99,19 @@ def main(argv=None) -> int:
     libs = {label: build(label, Path(path).resolve(), args.sass) for label, path in sources}
     labels = list(libs)
 
-    # chip_smoke.py's defaults: the shapes of its phase 4.
-    run = types.SimpleNamespace(particles=1 << 20, steps=100, bank=16, bank_steps=100, runs=64,
-                                seed=0)
-    ctx = cs.setup(run)
-    cases = [c for c in cs.kernel_cases(run, ctx.dev, ctx.families, ctx.model, ctx.fam,
-                                        ctx.obs, ctx.bank_obs, ctx.thetas, ctx.k_run,
-                                        ctx.k_quality)
-             if cs.SOURCES[c[4]] == mod.SOURCE]
+    if mod.SOURCE == cs.SOURCES["fixtures"]:
+        from repro_torch.analysis import fixtures as afix
+
+        cases = cs.fixture_cases(torch.device("cuda"), mod, afix)
+    else:
+        # chip_smoke.py's defaults: the shapes of its phase 4.
+        run = types.SimpleNamespace(particles=1 << 20, steps=100, bank=16, bank_steps=100,
+                                    runs=64, seed=0)
+        ctx = cs.setup(run)
+        cases = [c for c in cs.kernel_cases(run, ctx.dev, ctx.families, ctx.model, ctx.fam,
+                                            ctx.obs, ctx.bank_obs, ctx.thetas, ctx.k_run,
+                                            ctx.k_quality)
+                 if cs.SOURCES[c[4]] == mod.SOURCE]
     if not cases:
         raise SystemExit(f"torch_kernel_ab: phase 4 has no case of {mod.SOURCE}")
     # The module loads its library through its own ``load``: hand it a build.
@@ -117,14 +127,21 @@ def main(argv=None) -> int:
             n = kargs[0].shape[-1]
             reps = 20 if rows * n * iters < 2e9 else 4
             kernel = cs.kernel_name(family, kind, kargs)
+            library = cs.library_call(kind, kargs)
+            library_ms = [] if library is None else [cs.time_ms(library, reps)]
             times = {label: [] for label in labels}
             for label in labels + labels[::-1]:
                 mod.load = lambda source, lib=libs[label]: lib
                 times[label].append(cs.kernel_ms(lambda: wrapper(*kargs), kernel, reps))
+            if library is not None:
+                library_ms.append(cs.time_ms(library, reps))
             mean = {label: sum(t) / len(t) for label, t in times.items()}
+            if library_ms:
+                mean["library"] = sum(library_ms) / len(library_ms)
             summary[name] = mean
             print(f"ab {name}: " + json.dumps({"kernel": kernel, "rows": rows, "n": n,
                                                "iters": iters, "ms": times,
+                                               "library_ms": library_ms or None,
                                                "mean_ms": mean}), flush=True)
     finally:
         mod.load = real_load

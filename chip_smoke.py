@@ -997,8 +997,9 @@ def prefix_cases(single, bank, thr, key) -> list:
     line, hold the wrappers on one population (a bank of one row: the scan
     and the step from multinomial's single run, the search from a
     systematic ``r(key, w)``, the gather from improved systematic's run,
-    the select and the step from residual's) and the step's improved
-    systematic instance on a bank."""
+    the select and the step from residual's, the step from systematic's
+    and stratified's) and the step's improved systematic, multinomial and
+    stratified instances on a bank."""
     from repro_torch import random as trandom
     from repro_torch.core.spec import PrefixSumSpec
     from repro_torch.kernels.prefix_sum import ops as pops
@@ -1057,7 +1058,11 @@ def prefix_cases(single, bank, thr, key) -> list:
         residual_case("residual_select_gather_rows/one", single("residual", None)),
         step_case("prefix_step_rows/one", single("multinomial", 0.5)),
         step_case("prefix_step_rows/one/residual", single("residual", 0.5)),
+        step_case("prefix_step_rows/one/systematic", single("systematic", 0.5)),
+        step_case("prefix_step_rows/one/stratified", single("stratified", 0.5)),
         step_case("prefix_step_rows/improved_systematic", bank("improved_systematic", 0.5)),
+        step_case("prefix_step_rows/multinomial", bank("multinomial", 0.5)),
+        step_case("prefix_step_rows/stratified", bank("stratified", 0.5)),
     ]
 
 
@@ -1549,7 +1554,8 @@ def path_a_census(args, families, results):
 def fixture_cases(dev, fk, afix) -> list:
     """The fixture kernels on their inputs in the contract checks (the
     weights ``leaky_telemetry`` copies, the weights ``hbm_roundtrip``
-    takes), then at 2^23 (not in the ``kernels`` line)."""
+    takes), then at 2^23, and the copy of a view one element into its
+    tensor at 2^23 + 3 (its head and tail; not in the ``kernels`` line)."""
     from repro_torch.kernels.fixtures import ref as fref
 
     (x,) = capture(afix, "copy_launch", lambda: afix.leaky_telemetry(dev))
@@ -1563,6 +1569,9 @@ def fixture_cases(dev, fk, afix) -> list:
         cases.append((f"iota_launch{suffix}", fk.iota_launch, (wc,),
                       lambda wc=wc: fref.iota_ref(wc.shape[0], wc.device), "fixtures", "iota",
                       1, 1))
+    view = torch.rand(FIXTURE_NS[1] + 4, generator=torch.Generator().manual_seed(1)).to(dev)[1:]
+    cases.append((f"copy_launch/n={view.shape[0]}/offset=1", fk.copy_launch, (view,),
+                  lambda: fref.copy_ref(view), "fixtures", "copy", 1, 1))
     return cases
 
 

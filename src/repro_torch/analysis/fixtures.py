@@ -63,7 +63,8 @@ def key_dropped_in_branch(key, w, flag):
 #: operand: the whole array staged in shared memory, 4 bytes an element.
 OVERSIZED_COPY = smem.KernelResources(
     smem.KERNELS["copy_kernel"].source, smem.KERNELS["copy_kernel"].index,
-    smem.KERNELS["copy_kernel"].registers, 0, "stride", smem_per_element=4)
+    smem.KERNELS["copy_kernel"].registers, 0, smem.KERNELS["copy_kernel"].grid,
+    smem_per_element=4)
 
 
 def oversized_vmem():

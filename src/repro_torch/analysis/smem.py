@@ -64,9 +64,10 @@ class KernelResources:
     the source's ``<stem>_attributes``, registers per thread, static shared
     memory, dynamic shared memory per row of a launch, and its grid:
     ``rows`` (``ceil(N / NT)`` by S), ``tiles`` (``N / 1024`` by S),
-    ``stride`` (``min(ceil(N / NT), 65535)``), or cooperative ``coop_step``
-    (co-resident, at most ``ceil(S·N / NT)``) and ``coop_scan`` (co-resident,
-    at most ``S·N / 1024``).  ``optin``: the kernel raises its dynamic
+    ``stride`` (``min(ceil(N / NT), 65535)``), ``resident`` (co-resident,
+    at most ``ceil(N / (4·NT))``: one 16-byte vector a thread), or
+    cooperative ``coop_step`` (co-resident, at most ``ceil(S·N / NT)``) and
+    ``coop_scan`` (co-resident, at most ``S·N / 1024``).  ``optin``: the kernel raises its dynamic
     shared memory limit (``cudaFuncAttributeMaxDynamicSharedMemorySize``)
     where a launch needs more than 48 KiB in all, so its budget is the
     opt-in limit."""
@@ -118,15 +119,15 @@ KERNELS = {
     "rejection_rows_kernel<false>": _rows(_REJ, 0, 30, 1024),
     "rejection_rows_kernel<true>": _rows(_REJ, 1, 32, 1024),
     "rejection_step_rows_kernel": _step(_REJ, 2, 32, 32),
-    "prefix_scan_rows_kernel": _rows(_PREFIX, 0, 32, 4640, "coop_scan"),
+    "prefix_scan_rows_kernel": _rows(_PREFIX, 0, 32, 4688, "coop_scan"),
     "prefix_search_rows_kernel<false, false>": _rows(_PREFIX, 1, 16, 0),
     "prefix_search_rows_kernel<true, false>": _rows(_PREFIX, 2, 31, 0),
     "prefix_search_rows_kernel<true, true>": _rows(_PREFIX, 3, 32, 0),
-    "prefix_step_rows_kernel<0>": _step(_PREFIX, 4, 40, 4672),
-    "prefix_step_rows_kernel<1>": _step(_PREFIX, 5, 40, 4672),
-    "prefix_step_rows_kernel<2>": _step(_PREFIX, 6, 40, 4672),
-    "prefix_step_rows_kernel<3>": _step(_PREFIX, 7, 48, 4672),
-    "copy_kernel": _rows(_FIX, 0, 26, 0, "stride"),
+    "prefix_step_rows_kernel<0>": _step(_PREFIX, 4, 63, 4720),
+    "prefix_step_rows_kernel<1>": _step(_PREFIX, 5, 40, 4720),
+    "prefix_step_rows_kernel<2>": _step(_PREFIX, 6, 40, 4720),
+    "prefix_step_rows_kernel<3>": _step(_PREFIX, 7, 48, 4720),
+    "copy_kernel": _rows(_FIX, 0, 32, 0, "resident"),
     "iota_kernel": _rows(_FIX, 1, 24, 0, "stride"),
 }
 
@@ -182,6 +183,8 @@ def price(kernel: str, rows: int, n: int, resources: KernelResources | None = No
         blocks, grid_y = n // 1024, rows
     elif res.grid == "stride":
         blocks = min(-(-rows * n // NT), 65535)
+    elif res.grid == "resident":
+        blocks = max(1, min(co_resident, -(-rows * n // (4 * NT))))
     elif res.grid == "coop_step":
         blocks = max(1, min(co_resident, -(-rows * n // NT)))
     else:
@@ -227,7 +230,7 @@ def largest_shapes(kernel: str) -> list:
     of ``MAX_PARTICLES``, and the most rows of a launch (``MAX_STEP_ROWS``
     for a step, ``MAX_ROWS`` for a bank) at the largest N, a multiple of
     1024, with ``S·N < 2**31``."""
-    if KERNELS[kernel].grid == "stride":
+    if KERNELS[kernel].grid in ("stride", "resident"):
         return [(1, MAX_PARTICLES)]
     rows = MAX_STEP_ROWS if KERNELS[kernel].grid == "coop_step" else MAX_ROWS
     return [(1, MAX_PARTICLES), (rows, MAX_ELEMENTS // rows // 1024 * 1024)]

@@ -184,22 +184,30 @@ __device__ __forceinline__ void step_prelude(cg::grid_group& grid, const float* 
 // Shared memory of a step launch: the per-row shift and flags.
 static size_t step_smem_bytes(int rows) { return (size_t)rows * 8; }
 
-// Blocks of a cooperative step grid for a bank of `rows` rows: as many as
-// can be co-resident on the current device, and no more than the work needs.
+// Blocks of NT threads of `kernel`, with `smem` bytes of dynamic shared
+// memory, that can be co-resident on the current device (blocks per SM x
+// SMs), no more than `need` and at least one.  Fails where no block fits an
+// SM, which a cooperative grid cannot launch around.
 template <class Kernel>
-static int coop_step_grid(Kernel kernel, int rows, int n, int* blocks) {
+static int resident_blocks(Kernel kernel, size_t smem, long long need, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
-                                                        step_smem_bytes(rows));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long need = ((long long)rows * n + NT - 1) / NT;
   long long g = (long long)per_sm * sms;
   if (g > need) g = need;
   *blocks = (int)(g < 1 ? 1 : g);
   return per_sm < 1 ? (int)cudaErrorCooperativeLaunchTooLarge : 0;
+}
+
+// Blocks of a cooperative step grid for a bank of `rows` rows: as many as
+// can be co-resident on the current device, and no more than the work needs.
+template <class Kernel>
+static int coop_step_grid(Kernel kernel, int rows, int n, int* blocks) {
+  return resident_blocks(kernel, step_smem_bytes(rows), ((long long)rows * n + NT - 1) / NT,
+                         blocks);
 }
 
 // One cooperative launch of a step kernel with its argument array.

@@ -16,9 +16,16 @@
 //   What bounds it: each element read once and written once, 8 bytes: at
 //   N = 2^23 f32, 64 MiB, 0.020 ms at 3.35 TB/s; at the fixtures' N = 2048,
 //   16 KiB, so a launch's latency.
-//   What the design does about it: a grid-stride loop of coalesced 4-byte
-//   loads and stores, one element per thread up to 65535 blocks.  The TPU
-//   kernel stages the whole array in VMEM; nothing is staged here.
+//   What the design does about it: 16-byte vectors, COPY_UNROLL of them a
+//   thread loaded before any is stored, on a grid of the blocks that can be
+//   co-resident (blocks per SM x SMs), no more than one vector a thread
+//   needs, so N = 2048 stays two blocks.  A torch view may start at any
+//   4-byte offset and N need not be a multiple of 4: the up to 3 elements
+//   before x's first 16-byte boundary (the head) and after the last whole
+//   vector (the tail) are copied one by one.  The wrapper gives o the same
+//   offset modulo 16 bytes as x (same_phase_empty); fixture_copy refuses a
+//   pair whose offsets differ (cudaErrorInvalidValue).  The TPU kernel
+//   stages the whole array in VMEM; nothing is staged here.
 //
 // iota_kernel replaces the pallas_call of hbm_roundtrip (same file), which
 // writes int32[1, N] = 0..N-1; the fixture then indexes the state with it
@@ -26,17 +33,43 @@
 // that the fused apply and step remove.
 //
 //   What bounds it: the 4N bytes written.
-//   What the design does about it: the same grid-stride loop.
+//   What the design does about it: a grid-stride loop of coalesced 4-byte
+//   stores, one element per thread up to 65535 blocks (stride_grid).
 
 #include "../../common.cuh"
 
 // Most blocks of a grid-stride launch; past 65535·NT elements a thread
 // takes more than one.
 #define MAX_STRIDE_BLOCKS 65535
+// 16-byte vectors a thread of copy_kernel loads before it stores them.
+#define COPY_UNROLL 4
 
-__global__ void __launch_bounds__(NT) copy_kernel(const float* x, float* o, long long n) {
+__global__ void __launch_bounds__(NT) copy_kernel(const float* __restrict__ x,
+                                                  float* __restrict__ o, long long n) {
+  const long long tid = (long long)blockIdx.x * NT + threadIdx.x;
   const long long stride = (long long)gridDim.x * NT;
-  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n; i += stride) o[i] = x[i];
+  const long long head = min(n, (long long)(((16 - ((uintptr_t)x & 15)) & 15) >> 2));
+  const long long nvec = (n - head) >> 2;
+  const long long tail = head + 4 * nvec;
+  const float4* x4 = reinterpret_cast<const float4*>(x + head);
+  float4* o4 = reinterpret_cast<float4*>(o + head);
+  if (nvec <= stride) {  // at most one vector a thread: no unrolled guards
+    if (tid < nvec) o4[tid] = __ldg(x4 + tid);
+  } else {
+    for (long long j = tid; j < nvec; j += COPY_UNROLL * stride) {
+      float4 v[COPY_UNROLL];
+#pragma unroll
+      for (int k = 0; k < COPY_UNROLL; ++k) {
+        if (j + k * stride < nvec) v[k] = __ldg(x4 + j + k * stride);
+      }
+#pragma unroll
+      for (int k = 0; k < COPY_UNROLL; ++k) {
+        if (j + k * stride < nvec) o4[j + k * stride] = v[k];
+      }
+    }
+  }
+  if (tid < head) o[tid] = x[tid];
+  if (tid < n - tail) o[tail + tid] = x[tail + tid];
 }
 
 __global__ void __launch_bounds__(NT) iota_kernel(int* o, long long n) {
@@ -52,8 +85,15 @@ static dim3 stride_grid(long long n) {
 
 extern "C" {
 
+// o = x; x and o start at the same offset modulo 16 bytes.  The grid is
+// the blocks co-resident on the current device, no more than one vector a
+// thread needs.
 int fixture_copy(const void* x, void* o, long long n, void* stream) {
-  copy_kernel<<<stride_grid(n), NT, 0, (cudaStream_t)stream>>>((const float*)x, (float*)o, n);
+  if ((((uintptr_t)x ^ (uintptr_t)o) & 15) != 0) return (int)cudaErrorInvalidValue;
+  int blocks = 1;
+  const int err = resident_blocks(copy_kernel, 0, (n + 4LL * NT - 1) / (4LL * NT), &blocks);
+  if (err != 0) return err;
+  copy_kernel<<<blocks, NT, 0, (cudaStream_t)stream>>>((const float*)x, (float*)o, n);
   return (int)cudaGetLastError();
 }
 

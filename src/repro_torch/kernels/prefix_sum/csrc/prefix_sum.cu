@@ -17,27 +17,40 @@
 // the rows before it.  Across tiles it adds a carry strictly in tile order:
 // y_t = local_t + C_t, C_0 = 0, C_{t+1} = C_t + local_t[-1].  A decoupled
 // look-back, or any other re-association of the carry, would give other
-// bits; so each row's carry is one thread's chain of adds.  Adds and
-// products that must match are __fadd_rn/__fmul_rn/__fsub_rn/__fdiv_rn (the
-// build keeps nvcc's default --fmad=true, which would contract N·w - counts
-// into an FMA), and the values selection depends on are flushed (ftz()),
-// as XLA on the CPU does.
+// bits; so each carry is one thread's chain of adds.  Adds and products that
+// must match are __fadd_rn/__fmul_rn/__fsub_rn/__fdiv_rn (the build keeps
+// nvcc's default --fmad=true, which would contract N·w - counts into an
+// FMA), and the values selection depends on are flushed, as XLA on the CPU
+// does: the scan's adds in hardware (-ftz=true, see fadd), the rest by
+// ftz().
 //
 // prefix_scan_rows_kernel replaces prefix_sum_pallas
 // (repro/kernels/prefix_sum/prefix_sum.py): the tiled inclusive scan of a
-// bank of S rows [S, N] in one cooperative launch.  Phase 1: each block
-// scans tiles in shared memory (rows padded to 17 floats, so the 64 row
-// scans hit 32 banks), writes the local scan and the tile's total.  After a
-// grid.sync(), phase 2: one thread per row walks the row's tile totals in
-// order (staged in shared memory) and turns them into the exclusive carries
-// C_t.  After another grid.sync(), phase 3: each tile adds its carry (tile
-// 0 adds 0, as the TPU kernel does).
+// bank of S rows [S, N] in one cooperative launch.
 //
 //   What bounds it: 4N bytes in and 4N out per row, 8 MiB at N = 2^20,
-//   2.5 us at 3.35 TB/s; the design moves 16N (the local scan is re-read
-//   and re-written in phase 3, from L2 at Path A's sizes).  The chain of
-//   N/1024 dependent adds per row (1024 at N = 2^20, a few us) and the two
-//   grid barriers are latency the bound does not count.
+//   2.5 us at 3.35 TB/s.  Beyond the bytes, latency the bound does not
+//   count: the carry is a chain of N/1024 - 1 dependent adds (1023 at N =
+//   2^20, about 2 us at 4 clocks an add), and blocks that run in no order
+//   meet at a grid barrier.
+//   What the design does about it: reduce then scan, with one grid.sync().
+//   Each block owns a contiguous span of the bank's tiles (split into
+//   segments at row ends).  Phase 1: each tile of the span is scanned in
+//   registers, thread t holding elements 4t .. 4t+3 as a float4 (a row of
+//   16 is four neighbouring lanes, scanned by passing the running total one
+//   lane up; the 64 row totals go through shared memory and one warp scans
+//   them the same way), and the tile's last scanned element, its total in
+//   the scan's own association, goes to tot.  Phase 2, after the barrier:
+//   thread 0 of each block folds its row's totals from C_0 = 0 up to its
+//   segment's first tile, left to right (the same chain of adds, run by
+//   every block of the row at once instead of by one thread while the grid
+//   waits), and each tile of the segment is scanned again, adds its carry
+//   (tile 0 adds 0, as the TPU kernel does) and is written once; the next
+//   carry is the last lane's C_t + total_t.  The span's last tile stays in
+//   registers across the barrier, so at S = 1, where a block owns one
+//   tile, the kernel moves the bound's 8N; with more tiles a block it
+//   moves 12N (x is read again: from L2 while the bank fits there, from
+//   device memory at S = 16, N = 2^20, 64 MiB).
 //
 // prefix_search_rows_kernel<GATHER, RESIDUAL> replaces searchsorted_pallas
 // (<false, false>), searchsorted_gather_pallas (<true, false>) and
@@ -79,121 +92,175 @@
 #include "../../common.cuh"
 
 #define TILE 1024
-#define PAD 17  // a row of 16 in shared memory, padded
+#define FOLD 1024  // tile totals of a row staged per chunk of the carry chain
 
-// The in-tile scan's shared memory: the tile as 64 rows of 16, their totals
-// as 4 rows of 16, and the scan of those 4 totals.
+// The scan's shared memory: a tile's 64 row totals, their level-1 scan, the
+// carry of the tile being written and of the next one, and a chunk of a
+// row's tile totals for the fold (with slack for fold's reads ahead).
 struct ScanSmem {
-  float l0[64 * PAD];
-  float l1[4 * PAD];
-  float l2[4];
+  alignas(16) float rt[64];
+  alignas(16) float o1[64];
+  float carry[2];
+  alignas(16) float buf[FOLD + 16];
 };
 
-__device__ __forceinline__ float fadd(float a, float b) { return ftz(__fadd_rn(a, b)); }
+// Every add of the scan.  build.py compiles with -ftz=true, so __fadd_rn is
+// add.rn.ftz.f32: subnormal operands and a subnormal sum flush to zero of
+// their sign in hardware, which is the plain version's add of flushed values
+// (a sum below 2^-126 is exact, so flushing before or after the rounding
+// agree).  Every element of y goes through at least one add (the carry), so
+// the inputs need no separate flush.
+__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
 
-__device__ __forceinline__ float& at0(ScanSmem& sm, int e) {
-  return sm.l0[(e >> 4) * PAD + (e & 15)];
+__device__ __forceinline__ float4 add4(float4 a, float c) {
+  return make_float4(fadd(a.x, c), fadd(a.y, c), fadd(a.z, c), fadd(a.w, c));
 }
 
-// Inclusive scan of 16 values in place, left to right; returns the last.
-__device__ __forceinline__ float seq16(float* p) {
-  float acc = p[0];
+// A thread's four elements, as one 16-byte access when both pointers allow
+// it (vec), else one by one.
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
+  }
+}
+
+// Inclusive scans of rows of 16 values, left to right, a row held by four
+// neighbouring lanes as float4s (lane & 3 its quarter), in place: four
+// stages, each passing the running total one lane up.  Every lane of the
+// warp calls it.
+__device__ __forceinline__ void rows16(float4& a) {
+  const int k = threadIdx.x & 3;
 #pragma unroll
-  for (int j = 1; j < 16; ++j) {
-    acc = fadd(acc, p[j]);
-    p[j] = acc;
-  }
-  return acc;
-}
-
-// The tile in sm.l0, scanned in place in XLA-CPU's base-16 order; every
-// thread of the block calls it.  The total lands in at0(sm, TILE - 1).
-__device__ void tile_scan16(ScanSmem& sm) {
-  const int tid = threadIdx.x;
-  if (tid < 64) sm.l1[(tid >> 4) * PAD + (tid & 15)] = seq16(sm.l0 + tid * PAD);
-  __syncthreads();
-  if (tid < 4) seq16(sm.l1 + tid * PAD);
-  __syncthreads();
-  if (tid == 0) {
-    float acc = sm.l1[15];
-    sm.l2[0] = acc;
-    for (int q = 1; q < 4; ++q) {
-      acc = fadd(acc, sm.l1[q * PAD + 15]);
-      sm.l2[q] = acc;
+  for (int s = 0; s < 4; ++s) {
+    const float in = s > 0 ? __shfl_up_sync(0xffffffffu, a.w, 1) : 0.0f;
+    if (k == s) {
+      if (s > 0) a.x = fadd(in, a.x);
+      a.y = fadd(a.x, a.y);
+      a.z = fadd(a.y, a.z);
+      a.w = fadd(a.z, a.w);
     }
   }
-  __syncthreads();
-  if (tid >= 16 && tid < 64) {
-    float& v = sm.l1[(tid >> 4) * PAD + (tid & 15)];
-    v = fadd(v, sm.l2[(tid >> 4) - 1]);
-  }
-  __syncthreads();
-  for (int e = tid; e < TILE; e += NT) {
-    if (e < 16) continue;  // row 0 keeps its own scan
-    const int p = (e >> 4) - 1;
-    at0(sm, e) = fadd(at0(sm, e), sm.l1[(p >> 4) * PAD + (p & 15)]);
-  }
-  __syncthreads();
 }
 
-// A row's tile totals tot[0 .. T) become its exclusive carries in tile
-// order: C_0 = 0, C_{t+1} = C_t + tot_t, one thread adding, staged through
-// shared memory (buf, TILE floats) in chunks.
-__device__ void row_carries(float* tot, int T, float* buf) {
-  float c = 0.0f;
-  for (int t0 = 0; t0 < T; t0 += TILE) {
-    const int cnt = min(TILE, T - t0);
-    for (int t = threadIdx.x; t < cnt; t += NT) buf[t] = tot[t0 + t];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int t = 0; t < cnt; ++t) {
-        const float v = buf[t];
-        buf[t] = c;
-        c = fadd(c, v);
-      }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < cnt; t += NT) tot[t0 + t] = buf[t];
-    __syncthreads();
+// The local scan of one tile in XLA-CPU's base-16 order: the 64 rows of 16;
+// their totals as 4 rows of 16 (warp 0, lanes 0-15); the 4 totals of those
+// one after the other; each level-1 row after the first offset by that; each
+// row after the first offset by the level-1 scan before it.  Thread t passes
+// elements 4t .. 4t+3 and gets them back scanned; thread NT - 1's last is the
+// tile's total.  Every thread of the block calls it (two __syncthreads();
+// the next call writes sm.rt only after the second, sm.o1 only after the
+// next call's first).
+__device__ __forceinline__ float4 tile_scan(float4 a, ScanSmem& sm) {
+  const int tid = threadIdx.x, row = tid >> 2;
+  rows16(a);
+  if ((tid & 3) == 3) sm.rt[row] = a.w;
+  __syncthreads();
+  if (tid < 32) {
+    const int l = tid & 15;
+    float4 g = reinterpret_cast<const float4*>(sm.rt)[l];
+    rows16(g);
+    const float s0 = __shfl_sync(0xffffffffu, g.w, 3);
+    const float s1 = fadd(s0, __shfl_sync(0xffffffffu, g.w, 7));
+    const float s2 = fadd(s1, __shfl_sync(0xffffffffu, g.w, 11));
+    const int q = l >> 2;
+    if (q > 0) g = add4(g, q == 1 ? s0 : (q == 2 ? s1 : s2));
+    if (tid < 16) reinterpret_cast<float4*>(sm.o1)[l] = g;
   }
+  __syncthreads();
+  return row > 0 ? add4(a, sm.o1[row - 1]) : a;
 }
 
-// The tiled scan of rows [rows, n] from x into y (y may be x), with the
-// tile totals and then the carries in tot [rows, n / TILE]; rows for which
-// skip(r) holds are left alone.  Every block of the grid calls it (two
-// grid.sync()).  On return a block has finished its own tiles; the caller
-// syncs the grid before reading another block's.
+// One thread's chain C = C + tot_t over the cnt totals in buf, in order (the
+// order is the contract); the loads run a pair of float4s ahead of the adds.
+__device__ __forceinline__ float fold(const float* buf, int cnt, float c) {
+  const float4* b4 = reinterpret_cast<const float4*>(buf);
+  const int n4 = cnt >> 2;
+  float4 u = b4[0], v = b4[1];
+  for (int j = 0; j < n4; j += 2) {
+    const float4 nu = b4[j + 2], nv = b4[j + 3];  // inside buf's slack
+    c = fadd(fadd(fadd(fadd(c, u.x), u.y), u.z), u.w);
+    if (j + 1 < n4) c = fadd(fadd(fadd(fadd(c, v.x), v.y), v.z), v.w);
+    u = nu;
+    v = nv;
+  }
+  for (int i = n4 * 4; i < cnt; ++i) c = fadd(c, buf[i]);
+  return c;
+}
+
+// The tiled scan of rows [rows, n] from x into y (y may be x), with the tile
+// totals in tot [rows, n / TILE]; rows for which skip(r) holds are left
+// alone.  Every block of the grid calls it (one grid.sync()).  Block b owns
+// tiles [Q·b / G, Q·(b + 1) / G) of the Q in the bank (Q < 2^21: S·N <
+// 2^31); it reads x and writes y only there, so the scan may run in place.
+// The span's last tile stays in registers across the barrier.  On return a
+// block has finished its own tiles; the caller syncs the grid before reading
+// another block's.
 template <class Skip>
 __device__ void scan_rows(cg::grid_group& grid, const float* x, float* y, float* tot, int rows,
                           int n, ScanSmem& sm, Skip skip) {
   const int T = n / TILE;
-  const long long tiles = (long long)rows * T;
-  for (long long q = blockIdx.x; q < tiles; q += gridDim.x) {
-    if (skip((int)(q / T))) continue;
-    const float* xt = x + q * TILE;
-    for (int e = threadIdx.x; e < TILE; e += NT) at0(sm, e) = ftz(xt[e]);
-    __syncthreads();
-    tile_scan16(sm);
-    float* yt = y + q * TILE;
-    for (int e = threadIdx.x; e < TILE; e += NT) yt[e] = at0(sm, e);
-    if (threadIdx.x == 0) tot[q] = at0(sm, TILE - 1);
-    __syncthreads();
+  const int tiles = rows * T;
+  const int q0 = (int)((long long)tiles * blockIdx.x / gridDim.x);
+  const int q1 = (int)((long long)tiles * (blockIdx.x + 1) / gridDim.x);
+  const bool vec = (((uintptr_t)x | (uintptr_t)y) & 15) == 0;
+  const int e4 = 4 * threadIdx.x;
+  float4 kept = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int q = q0; q < q1; ++q) {
+    if (skip(q / T)) continue;
+    const float4 v = tile_scan(load4(x + (size_t)q * TILE + e4, vec), sm);
+    if (threadIdx.x == NT - 1) tot[q] = v.w;
+    kept = v;
   }
   grid.sync();
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    if (!skip(r)) row_carries(tot + (size_t)r * T, T, sm.l0);
-  }
-  grid.sync();
-  for (long long q = blockIdx.x; q < tiles; q += gridDim.x) {
-    if (skip((int)(q / T))) continue;
-    const float c = tot[q];
-    float* yt = y + q * TILE;
-    for (int e = threadIdx.x; e < TILE; e += NT) yt[e] = fadd(yt[e], c);
+  for (int seg = q0; seg < q1;) {
+    const int r = seg / T;
+    const int row0 = r * T;
+    const int a = seg - row0;
+    const int e = min(T, q1 - row0);
+    seg = row0 + e;
+    if (skip(r)) continue;
+    // C_a: the row's totals before the segment, folded from C_0 = 0.
+    float c = 0.0f;
+    for (int t0 = 0; t0 < a; t0 += FOLD) {
+      const int cnt = min(FOLD, a - t0);
+      __syncthreads();  // buf is free
+      for (int i = threadIdx.x; i < cnt; i += NT) sm.buf[i] = tot[row0 + t0 + i];
+      __syncthreads();
+      if (threadIdx.x == 0) c = fold(sm.buf, cnt, c);
+    }
+    __syncthreads();  // the segment before has read and written its carries
+    if (threadIdx.x == 0) sm.carry[a & 1] = c;
+    __syncthreads();
+    for (int t = a; t < e; ++t) {
+      const int q = row0 + t;
+      float4 v;
+      if (q == q1 - 1) {
+        if (t > a) __syncthreads();  // the last lane's carry of the tile before
+        v = kept;
+      } else {
+        v = tile_scan(load4(x + (size_t)q * TILE + e4, vec), sm);
+      }
+      const float ct = sm.carry[t & 1];
+      if (threadIdx.x == NT - 1) sm.carry[(t + 1) & 1] = fadd(ct, v.w);
+      store4(y + (size_t)q * TILE + e4, add4(v, ct), vec);
+    }
   }
 }
 
-__global__ void __launch_bounds__(NT) prefix_scan_rows_kernel(const float* x, float* y,
-                                                              float* tot, int rows, int n) {
+// 8 blocks per SM (at most 32 registers): 1056 co-resident blocks, so at S =
+// 1, N = 2^20 each of the 1024 tiles has a block of its own.
+__global__ void __launch_bounds__(NT, 8) prefix_scan_rows_kernel(const float* x, float* y,
+                                                                 float* tot, int rows, int n) {
   cg::grid_group grid = cg::this_grid();
   __shared__ ScanSmem sm;
   scan_rows(grid, x, y, tot, rows, n, sm, [](int) { return false; });
@@ -242,8 +309,14 @@ __global__ void __launch_bounds__(NT) prefix_search_rows_kernel(
   }
 }
 
+// Registers by KIND, from A/Bs on the card at Path A's shapes: multinomial
+// free (63, 4 blocks per SM); systematic and stratified capped at 40 (6
+// blocks per SM, 8 bytes spilled), faster on a bank of 16 than 48 or free
+// by 8-21% and slower on one row by 5-7%; residual keeps its 48 (5), the
+// count it had before the scan held four elements a thread in registers.
 template <int KIND>
-__global__ void __launch_bounds__(NT) prefix_step_rows_kernel(
+__global__ void __launch_bounds__(NT, KIND == 0 ? 1 : (KIND == 3 ? 5 : 6))
+    prefix_step_rows_kernel(
     const float* __restrict__ lw, const float* __restrict__ state,
     const float* __restrict__ ubase, const float* __restrict__ u0, float thr,
     int* __restrict__ anc, float* __restrict__ out, float* __restrict__ stats,
@@ -256,11 +329,8 @@ __global__ void __launch_bounds__(NT) prefix_step_rows_kernel(
   const StepScratch sc = step_scratch(scratch, rows, gridDim.x, 0);
   step_prelude(grid, lw, nullptr, thr, stats, sc, row_m, row_flag, red, rows, n, 0);
 
-  const int T = n / TILE;
-  const size_t sn = (size_t)rows * n;
-  const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
-  const size_t gstride = (size_t)gridDim.x * NT;
-  const float nf = (float)n;
+  // The indices below are formed after the scan, so that none is held in a
+  // register across it.
   float* w = sc.wbuf;  // exp(lw - m), 1/N on a degenerate row
   float* cdf;          // the CDF the draws are scaled from and searched
   float* cc = nullptr;
@@ -268,6 +338,11 @@ __global__ void __launch_bounds__(NT) prefix_step_rows_kernel(
     scan_rows(grid, w, w, work, rows, n, sm, [&](int r) { return !(row_flag[r] & 2); });
     cdf = w;
   } else {
+    const int T = n / TILE;
+    const size_t sn = (size_t)rows * n;
+    const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
+    const size_t gstride = (size_t)gridDim.x * NT;
+    const float nf = (float)n;
     float* cw = work;
     cc = cw + sn;                  // counts, then their CDF
     cdf = cc + sn;                 // residuals, then their CDF
@@ -304,6 +379,10 @@ __global__ void __launch_bounds__(NT) prefix_step_rows_kernel(
   }
   grid.sync();
 
+  const size_t sn = (size_t)rows * n;
+  const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
+  const size_t gstride = (size_t)gridDim.x * NT;
+  const float nf = (float)n;
   const float inv_n = __fdiv_rn(1.0f, nf);  // x / N as XLA computes it: x·fl(1/N)
   for (size_t q = gtid; q < sn; q += gstride) {
     const int s = (int)(q / n);
@@ -351,17 +430,7 @@ extern "C" {
 // Blocks of the cooperative scan grid: as many as can be co-resident, and
 // no more than the bank has tiles.
 int prefix_scan_grid(int rows, int n, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prefix_scan_rows_kernel, NT, 0);
-  if (err != cudaSuccess) return (int)err;
-  const long long need = (long long)rows * (n / TILE);
-  long long g = (long long)per_sm * sms;
-  if (g > need) g = need;
-  *blocks = (int)(g < 1 ? 1 : g);
-  return per_sm < 1 ? (int)cudaErrorCooperativeLaunchTooLarge : 0;
+  return resident_blocks(prefix_scan_rows_kernel, 0, (long long)rows * (n / TILE), blocks);
 }
 
 int prefix_scan_rows(const void* x, void* y, void* tot, int rows, int n, int blocks,

@@ -407,19 +407,48 @@ def _prefix_weights(dev, n):
     return w.to(dev)
 
 
+def _scan_rows(dev, s, n):
+    """``_prefix_weights``' four rows, then signed values: tiny normals of
+    alternating sign (sums below 2^-126, flushed by the adds), infinities of
+    both signs, -0.0 throughout, and normal draws."""
+    g = torch.Generator().manual_seed(5)
+    extra = torch.randn(s - 4, n, generator=g)
+    extra[0] = (1.0 + torch.rand(n, generator=g)) * 1.2e-38 * (-1.0) ** torch.arange(n)
+    extra[1, 100], extra[1, n - 1] = float("inf"), float("-inf")
+    extra[2] = -0.0
+    return torch.cat([_prefix_weights("cpu", n), extra]).to(dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", (1 << 14, 1 << 20))
-def test_prefix_scan_kernel_matches_plain_version(card, n):
-    """Row 25: bit for bit, each row's carry restarting at 0."""
-    w = _prefix_weights(card, n)
+@pytest.mark.parametrize("s,n", ((8, 1024), (8, 1 << 14), (8, 1 << 20), (16, 1 << 20),
+                                 (7, 1 << 22)))
+def test_prefix_scan_kernel_matches_plain_version(card, s, n):
+    """Row 25: bit for bit, each row's carry restarting at 0, over spans of
+    one tile (S = 8, N = 2^20: 8192 tiles on at most 1056 blocks, so
+    several), spans across row ends, folds longer than a staged chunk
+    (N = 2^22: 4096 tiles a row), and a view 4 bytes off a 16-byte
+    boundary (one element at a time); then on grids of 3 and 7 blocks,
+    whose spans hold many tiles and cross row ends, in place as the step
+    scans."""
+    w = _scan_rows(card, s, n)
     pk.reset_launch_counts()
     want = pref.scan_rows_ref(w)
+    lib = pk._lib()
+    tot = torch.empty(s * (n // 1024), device=card)
+    for blocks in (3, 7):
+        y = w.clone()
+        assert lib.prefix_scan_rows(y.data_ptr(), y.data_ptr(), tot.data_ptr(), s, n, blocks,
+                                    pk.stream(y)) == 0
+        assert torch.equal(y.view(torch.int32), want.view(torch.int32)), blocks
     got = pk.prefix_sum_rows(w)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(pk.prefix_sum_rows(w[2:3].contiguous())[0].view(torch.int32),
                        want[2].view(torch.int32))
     assert torch.equal(pk.prefix_sum_rows(w).view(torch.int32), got.view(torch.int32))
-    assert pk.prefix_sum_rows.launches == 3
+    view = torch.empty(s * n + 1, device=card)[1:].view(s, n)
+    view.copy_(w)
+    assert torch.equal(pk.prefix_sum_rows(view).view(torch.int32), want.view(torch.int32))
+    assert pk.prefix_sum_rows.launches == 4
 
 
 @pytest.mark.cuda
@@ -456,10 +485,11 @@ def test_prefix_search_kernels_match_plain_version(card, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ("multinomial", "systematic", "stratified", "residual"))
-@pytest.mark.parametrize("n", (1 << 14, 1 << 20))
+@pytest.mark.parametrize("n", (1024, 1 << 14, 1 << 20))
 def test_prefix_step_kernel_matches_plain_version(card, kind, n):
     """Row 29: the stats as the other step kernels, the ancestors and
-    states bit for bit (the same weights, the same scan)."""
+    states bit for bit (the same weights, the same scan, run in place on
+    the step's weights; residual's counts and residuals as one bank)."""
     _, lw, state, _, _ = _inputs(card, n=n)
     g = torch.Generator().manual_seed(4)
     ubase = None if kind == "systematic" else torch.rand(4, n, generator=g).to(card)
@@ -498,15 +528,26 @@ def test_run_filter_with_prefix_sum_on_the_card(card, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", (2048, 3000, 1 << 20))
+@pytest.mark.parametrize("n", (1, 2048, 3000, 1 << 20, (1 << 23) + 3))
 def test_fixture_kernels_match_plain_version(card, n):
-    x = torch.randn(n, generator=torch.Generator().manual_seed(0)).to(card)
+    """Rows 30-31; the copy also of views 1-3 elements into their tensor
+    (its head, vectors and tail), and its library refuses an output at
+    another offset modulo 16 bytes (cudaErrorInvalidValue, 1), which
+    ``copy_launch`` never passes."""
+    base = torch.randn(n + 3, generator=torch.Generator().manual_seed(0)).to(card)
+    x = base[:n]
     fk.reset_launch_counts()
     got = fk.copy_launch(x)
     assert got.data_ptr() != x.data_ptr()
     assert torch.equal(got.view(torch.int32), fref.copy_ref(x).view(torch.int32))
+    for off in (1, 2, 3):
+        view = base[off:off + n]
+        assert torch.equal(fk.copy_launch(view).view(torch.int32), view.view(torch.int32))
     assert torch.equal(fk.iota_launch(x), fref.iota_ref(n, card))
-    assert fk.copy_launch.launches == 1 and fk.iota_launch.launches == 1
+    assert fk.copy_launch.launches == 4 and fk.iota_launch.launches == 1
+    out = torch.empty(n + 1, device=card)[1:]
+    assert fk._lib().fixture_copy(x.data_ptr(), out.data_ptr(), n,
+                                  torch.cuda.current_stream().cuda_stream) == 1
 
 
 @pytest.mark.cuda

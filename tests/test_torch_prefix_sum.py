@@ -15,6 +15,11 @@ and filter level.
   ``floor(N·w)`` and so every later slot; the test prints the rate); fed
   the weights JAX normalised, the port's ``apply`` equals JAX's step bit
   for bit.
+* The scan kernel's own arithmetic, written out in torch: each tile's
+  total in the association of its scan, and the per-span folds of the
+  carry on the kernel's grids.  These document the design and do not test
+  the kernel: the torch transcript is checked against the plain version,
+  and only the card tests (``tests/test_torch_cuda.py``) run the kernel.
 * Filters: the Alg. 6 replay bit for bit, and a whole Alg. 6 run on the JAX
   model's arithmetic to the order of the mean's sum; whole runs on the
   port's own UNGM with their RMSE within ``WHOLE_RUN_ATOL``, the bound of
@@ -132,6 +137,115 @@ def test_scan_is_not_torch_cumsum():
     not (it accumulates in a wider type)."""
     x = torch.from_numpy(_weights("gamma", 8192, seed=5))
     assert not torch.equal(ref.scan_rows_ref(x[None])[0], torch.cumsum(x, 0))
+
+
+def _scan_kernel_rows(seed: int, n: int) -> torch.Tensor:
+    """Rows with NaN, infinities, subnormals, signed tiny normals (sums
+    below 2^-126), zeros and -0.0, beside gamma weights."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([_weights(k, n, seed=seed + i) for i, k in
+                  enumerate(("gamma", "nan", "subnormal", "zeros"))]
+                 + [(rng.normal(size=n) * 1e3).astype(np.float32) for _ in range(3)])
+    x[4, 7], x[4, n - 3] = np.inf, -np.inf
+    x[5] = (rng.uniform(1.0, 2.0, size=n) * 1.2e-38 * (-1.0) ** np.arange(n)).astype(np.float32)
+    x[6, : n // 2] = -0.0
+    return torch.from_numpy(x)
+
+
+def _tile_totals(x: torch.Tensor, association: str) -> torch.Tensor:
+    """Phase 1 of ``prefix_scan_rows_kernel``: each tile's total ``[S, T]``.
+    ``"scan"``: element 1023 of the tile's scan, as the kernel's last lane
+    forms it, ``r63 + (g3[14] + L2[2])`` (row 63's own scan, plus the level-1
+    scan before it: element 14 of level-1 row 3 plus the level-2 scan of
+    rows 0-2); ``"reduction"``: the same three terms added the other way
+    round, ``L2[2] + (g3[14] + r63)``, as a plain reduction would."""
+    s, n = x.shape
+    rows = ref._sequential(ref.flush_to_zero(x).reshape(s, n // 1024, 64, 16))
+    r = rows[..., 15]                                   # the 64 row totals
+    g = ref._sequential(r.reshape(s, n // 1024, 4, 16))  # level 1
+    l2 = ref._add(ref._add(g[..., 0, 15], g[..., 1, 15]), g[..., 2, 15])
+    if association == "scan":
+        return ref._add(r[..., 63], ref._add(g[..., 3, 14], l2))
+    return ref._add(l2, ref._add(g[..., 3, 14], r[..., 63]))
+
+
+def _fold(tot: torch.Tensor) -> torch.Tensor:
+    """The carries ``C_{t+1} = C_t + total_t`` from ``C_0 = 0``, ``[S, T]``."""
+    c = torch.zeros(tot.shape[0], dtype=torch.float32)
+    out = torch.empty_like(tot)
+    for t in range(tot.shape[1]):
+        c = ref._add(c, tot[:, t])
+        out[:, t] = c
+    return out
+
+
+@pytest.mark.parametrize("n", (1024, 8192))
+def test_scan_tile_total_association(n):
+    """The scan kernel's phase 1, as a transcript (it documents the
+    arithmetic; the kernel runs only in the card tests): the last lane's
+    total, folded into carries, gives the plain scan at every tile end bit
+    for bit (NaN, infinities, subnormals, zeros); the same terms in a
+    reduction's order give other bits on some seed, so the kernel must not
+    reduce."""
+    x = _scan_kernel_rows(n, n)
+    want = ref.scan_rows_ref(x)[:, 1023::1024]
+    got = _fold(_tile_totals(x, "scan"))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    local = ref._scan16(ref.flush_to_zero(x).reshape(x.shape[0], -1, 1024))[..., -1]
+    assert torch.equal(_tile_totals(x, "scan").view(torch.int32), local.view(torch.int32))
+    differs = [seed for seed in range(8) if not torch.equal(
+        _tile_totals(_scan_kernel_rows(seed, n), "scan"),
+        _tile_totals(_scan_kernel_rows(seed, n), "reduction"))]
+    assert differs
+
+
+def _span_carries(tot: torch.Tensor, blocks: int) -> torch.Tensor:
+    """Phase 2 of ``scan_rows``: block b owns tiles ``[Q·b // G, Q·(b+1) //
+    G)`` of the bank's Q, split at row ends; each segment folds its row's
+    totals from ``C_0 = 0`` up to its first tile, then carries on through
+    its tiles.  Returns each tile's carry ``[S, T]``, NaN where no block
+    wrote one."""
+    s, t_row = tot.shape
+    q_all = s * t_row
+    carry = torch.full((s, t_row), float("nan"))
+    written = torch.zeros(s, t_row, dtype=torch.int64)
+    for b in range(blocks):
+        q0, q1 = q_all * b // blocks, q_all * (b + 1) // blocks
+        seg = q0
+        while seg < q1:
+            r = seg // t_row
+            a, e = seg - r * t_row, min(t_row, q1 - r * t_row)
+            seg = r * t_row + e
+            c = torch.zeros((), dtype=torch.float32)
+            for t in range(a):
+                c = ref._add(c, tot[r, t])
+            for t in range(a, e):
+                carry[r, t] = c
+                written[r, t] += 1
+                c = ref._add(c, tot[r, t])
+    assert (written == 1).all()  # every tile in exactly one span
+    return carry
+
+
+@pytest.mark.parametrize("blocks", ("scan", "step", 3, 7))
+@pytest.mark.parametrize("n", (1024, 1 << 14))
+@pytest.mark.parametrize("s", (1, 2, 16))
+def test_scan_span_carries(s, n, blocks):
+    """The scan kernel's phase 2, as a transcript (it documents the
+    arithmetic; ``test_prefix_scan_kernel_matches_plain_version`` runs the
+    kernel on the card at these grids): the per-span folds give
+    ``scan_rows_ref``'s carries bit for bit, on the grid of the scan kernel
+    and of the multinomial step (``analysis/smem.py``) and on grids small
+    enough that spans hold several tiles and cross row ends."""
+    from repro_torch.analysis import smem
+
+    kernel = {"scan": "prefix_scan_rows_kernel", "step": "prefix_step_rows_kernel<0>"}
+    g = smem.price(kernel[blocks], s, n).blocks if blocks in kernel else blocks
+    x = _scan_kernel_rows(s, n)[np.arange(s) % 7]
+    y = ref.scan_rows_ref(x)
+    want = torch.cat([torch.zeros(s, 1), y[:, 1023:-1:1024]], dim=1)
+    got = _span_carries(_tile_totals(x, "scan"), g)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _search_inputs(wkind, n, seed):
