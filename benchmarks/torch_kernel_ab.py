@@ -25,8 +25,10 @@ kernel events) with every build in turns: in the order given, then
 reversed (old, new, new, old for two); the one PyTorch call that computes
 the same function (``chip_smoke.library_call``), where there is one, is
 timed as phase 4 times it (``chip_smoke.time_ms``) before and after the
-turns.  Prints the card's name and power limit, one JSON line per case and
-one summary line.  It needs one card; the launches here count nowhere.
+turns.  For ``metropolis.metropolis`` the random-read yardstick of phase 4
+(``chip_smoke.gather_probe``) is printed before and after the cases.
+Prints the card's name and power limit, one JSON line per case and one
+summary line.  It needs one card; the launches here count nowhere.
 """
 
 from __future__ import annotations
@@ -98,6 +100,7 @@ def main(argv=None) -> int:
     sources.append(("new", str(ROOT / "src/repro_torch/kernels" / mod.SOURCE)))
     libs = {label: build(label, Path(path).resolve(), args.sass) for label, path in sources}
     labels = list(libs)
+    probe = mod.SOURCE == cs.SOURCES["metropolis"]
 
     if mod.SOURCE == cs.SOURCES["fixtures"]:
         from repro_torch.analysis import fixtures as afix
@@ -114,6 +117,8 @@ def main(argv=None) -> int:
                  if cs.SOURCES[c[4]] == mod.SOURCE]
     if not cases:
         raise SystemExit(f"torch_kernel_ab: phase 4 has no case of {mod.SOURCE}")
+    if probe:
+        cs.gather_probe(0, torch.device("cuda"))
     # The module loads its library through its own ``load``: hand it a build.
     real_load = mod.load
     summary = {}
@@ -145,6 +150,8 @@ def main(argv=None) -> int:
                                                "mean_ms": mean}), flush=True)
     finally:
         mod.load = real_load
+    if probe:
+        cs.gather_probe(0, torch.device("cuda"))
     print(f"ab summary: {json.dumps(summary)}")
     print(f"card: {cs.card_line()}")
     return 0

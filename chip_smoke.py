@@ -34,7 +34,9 @@ over, and there is no CPU fallback):
    inputs, on a bank and on one population (a bank of one row; the
    systematic and stratified searches on its captured weights), every
    kind of the step, and beside each scan, search and fixture kernel the
-   one PyTorch call that computes it (``library_ms``);
+   one PyTorch call that computes it (``library_ms``); beside the
+   Metropolis cases, the rate of random 4-byte reads from one row in L2
+   that one plain PyTorch gather reaches (``gather_probe``);
 5. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
@@ -105,6 +107,9 @@ FP32_OPS_PER_S = 67e12
 L2_BYTES = 50e6
 #: Bytes of one L2 sector: each random 4-byte read of w[j] moves one.
 L2_SECTOR = 32
+#: The random-read yardstick (``gather_probe``): indices, over one row of N.
+PROBE_INDICES = 1 << 26
+PROBE_N = 1 << 20
 #: Iterations on Path A, the middle of the paper's B sweep (§7).
 ITERS = 32
 #: Path B's weight sequences: y of eq. (12), a third of GAUSSIAN_Y_GRID.
@@ -540,11 +545,13 @@ def checks_phase(ctx) -> list:
 
 
 def kernels_phase(ctx) -> list:
-    """Phase 4: each wrapper's kernel against its plain version on inputs
-    captured from short full-width runs, timed and bounded, and each bank
-    step's grid study; returns the ``kernels`` entries of rows 1-29."""
+    """Phase 4: the random-read yardstick (``gather_probe``), then each
+    wrapper's kernel against its plain version on inputs captured from short
+    full-width runs, timed and bounded, and each bank step's grid study;
+    returns the ``kernels`` entries of rows 1-29."""
     a = ctx.args
     kernels = []
+    gather_probe(a.seed, ctx.dev)
     for case in kernel_cases(a, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs,
                              ctx.bank_obs, ctx.thetas, ctx.k_run, ctx.k_quality):
         entry = check_kernel(case)
@@ -1227,6 +1234,31 @@ def library_call(kind, kargs):
             return torch.gather(state, -1, k.unsqueeze(-2).expand_as(state))
         return search_and_index
     return None
+
+
+def gather_probe(seed: int, dev) -> dict:
+    """The rate of random 4-byte reads from one row that L2 holds that one
+    plain PyTorch gather reaches: ``w.index_select(0, idx)`` with
+    ``PROBE_INDICES`` random ``int32`` indices over ``PROBE_N`` floats, made
+    from ``seed``, timed by CUDA events (a yardstick beside the Metropolis
+    kernels; the port never calls it).  Each index moves one 32-byte L2
+    sector; the gather also streams 8 bytes an index (the index in, the
+    value out), which at the card's memory rate would allow
+    ``sector_rate_at_hbm_limit`` before HBM binds.  Prints one line."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.rand(PROBE_N, generator=g, device=dev)
+    idx = torch.randint(0, PROBE_N, (PROBE_INDICES,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ms = time_ms(lambda: w.index_select(0, idx), 20)
+    sec = ms / 1e3
+    probe = {"op": "index_select", "indices": PROBE_INDICES, "n": PROBE_N, "ms": ms,
+             "indices_per_s": PROBE_INDICES / sec,
+             "sector_bytes_per_s": PROBE_INDICES * L2_SECTOR / sec,
+             "stream_bytes": 8 * PROBE_INDICES,
+             "stream_bytes_per_s": 8 * PROBE_INDICES / sec,
+             "sector_rate_at_hbm_limit": HBM_BYTES_PER_S / 8 * L2_SECTOR}
+    print(f"probe gather: {json.dumps(probe)}", flush=True)
+    return probe
 
 
 def check_kernel(case) -> dict:

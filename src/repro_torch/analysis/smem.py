@@ -110,12 +110,16 @@ KERNELS = {
     "metropolis_rows_kernel<false>": _rows(_METRO, 0, 32, 1024),
     "metropolis_rows_kernel<true>": _rows(_METRO, 1, 40, 1024),
     "metropolis_step_rows_kernel": _step(_METRO, 2, 32, 32),
-    "metropolis_c1c2_rows_kernel<1, false>": _rows(_C1C2, 0, 32, 5120, "tiles"),
-    "metropolis_c1c2_rows_kernel<1, true>": _rows(_C1C2, 1, 32, 5120, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, false>": _rows(_C1C2, 2, 32, 5120, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, true>": _rows(_C1C2, 3, 40, 5120, "tiles"),
-    "metropolis_c1c2_step_rows_kernel<1>": _step(_C1C2, 4, 48, 4128),
-    "metropolis_c1c2_step_rows_kernel<2>": _step(_C1C2, 5, 40, 4128),
+    # The C1/C2 kernels' static shared memory is their partition tiles (one
+    # for C1; C2's ring of five buffers of two in the bank kernel, three of
+    # two in the step, 4 KiB a tile) with the per-chunk table of hash
+    # prefixes and C2's tiles; C2's step opts in above 48 KiB.
+    "metropolis_c1c2_rows_kernel<1, false>": _rows(_C1C2, 0, 32, 6272, "tiles"),
+    "metropolis_c1c2_rows_kernel<1, true>": _rows(_C1C2, 1, 40, 6272, "tiles"),
+    "metropolis_c1c2_rows_kernel<2, false>": _rows(_C1C2, 2, 47, 43136, "tiles"),
+    "metropolis_c1c2_rows_kernel<2, true>": _rows(_C1C2, 3, 48, 43136, "tiles"),
+    "metropolis_c1c2_step_rows_kernel<1>": _step(_C1C2, 4, 57, 6400),
+    "metropolis_c1c2_step_rows_kernel<2>": _step(_C1C2, 5, 64, 26880, optin=True),
     "rejection_rows_kernel<false>": _rows(_REJ, 0, 30, 1024),
     "rejection_rows_kernel<true>": _rows(_REJ, 1, 32, 1024),
     "rejection_step_rows_kernel": _step(_REJ, 2, 32, 32),

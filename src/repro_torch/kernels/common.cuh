@@ -1,6 +1,7 @@
 // Shared device code of the port's resampling kernels (sm_90a): the hash
-// RNG, the flush to zero, the deterministic block reductions and the fused
-// step's statistics prelude, and the attribute query of the contract checks.
+// RNG, the flush to zero, the deterministic block reductions, the mbarriers
+// and bulk copies of the kernels' shared-memory rings, the fused step's
+// statistics prelude, and the attribute query of the contract checks.
 // The CUDA twin of repro_torch/kernels/common.py; included by every source
 // under kernels/*/csrc/.  kernels/build.py hashes this header into the name
 // of every library that includes it, so an edit here rebuilds them all.
@@ -55,6 +56,71 @@ __device__ float block_reduce(float v, float* red) {
   v = red[0];
   for (int q = 1; q < NT / 32; ++q) v = IS_MAX ? nanmax(v, red[q]) : v + red[q];
   return v;
+}
+
+// --------------------------------------------------------------- mbarriers
+// The rings of the Megopolis and C2 kernels: one thread starts bulk copies
+// (cp.async.bulk) from device memory into a shared-memory buffer, counted on
+// the buffer's full mbarrier; each warp arrives on its empty mbarrier when
+// it is done with the buffer.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\tmbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Initialise a ring's barriers (full: one arrival and the copies' bytes;
+// empty: one arrival per warp) and make them visible to the block.
+template <int STAGES>
+__device__ __forceinline__ void ring_barriers_init(uint64_t (&full)[STAGES],
+                                                   uint64_t (&empty)[STAGES]) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 }
 
 // Scratch of a cooperative step launch (floats):
@@ -183,6 +249,17 @@ __device__ __forceinline__ void step_prelude(cg::grid_group& grid, const float* 
 
 // Shared memory of a step launch: the per-row shift and flags.
 static size_t step_smem_bytes(int rows) { return (size_t)rows * 8; }
+
+// A step kernel whose ring and reduction floats (static shared memory) and
+// per-row shift and flags (dynamic, 8 bytes a row) pass 48 KiB together at
+// the most rows a step admits: every launch and every occupancy query of
+// it first sets its dynamic limit to the `dynamic` bytes it asks for (a
+// host-side attribute, on the current device), so no size is guessed.
+template <class Kernel>
+static int smem_optin(Kernel kernel, size_t dynamic) {
+  return (int)cudaFuncSetAttribute((const void*)kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic);
+}
 
 // Blocks of NT threads of `kernel`, with `smem` bytes of dynamic shared
 // memory, that can be co-resident on the current device (blocks per SM x

@@ -234,6 +234,17 @@ def check_bank(who: str, w: torch.Tensor, state, seeds):
     return s, n, 0 if state is None else state.shape[1]
 
 
+def check_aligned(who: str, w: torch.Tensor):
+    """The Megopolis and C1/C2 kernels copy whole 4 KiB tiles of ``w`` into
+    shared memory by bulk copies, which need 16-byte aligned addresses: a
+    contiguous ``[S, N]`` tensor from the allocator is, a view with an odd
+    storage offset may not be (no silent copy)."""
+    if w.data_ptr() % 16:
+        raise ValueError(f"{who}: the weights must start on a 16-byte boundary for the "
+                         f"kernel's bulk copies; got address {w.data_ptr():#x} (a view "
+                         f"with a storage offset of {w.storage_offset()}): pass a copy")
+
+
 def device_seeds(seeds: torch.Tensor, device) -> torch.Tensor:
     """uint32 seeds (``int64``, possibly on the host) as the int32 bit
     patterns a kernel reads as ``uint32_t``, on ``device``."""

@@ -5,8 +5,9 @@
 // bound with ctypes by repro_torch/kernels/megopolis/megopolis.py.  Every
 // entry point launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().  Their plain PyTorch versions are in ../ref.py; the
-// hash, the flushes, the block reductions and the step prelude they share
-// with the Metropolis kernels are in ../../common.cuh.
+// hash, the flushes, the block reductions, the ring's mbarriers and bulk
+// copies and the step prelude they share with the Metropolis kernels are in
+// ../../common.cuh.
 //
 // megopolis_fused_rows_kernel<GATHER> replaces four TPU kernels
 // (repro/kernels/megopolis/megopolis.py): with GATHER = false,
@@ -75,7 +76,7 @@
 //   function, so the two kernels cannot drift), its ring continuing from
 //   pair to pair.  Its ring sits beside the per-row shift and flags: at the
 //   most rows a step admits the block passes 48 KiB, so the kernel opts in
-//   to more dynamic shared memory (mego_step_optin).
+//   to more dynamic shared memory (smem_optin in ../../common.cuh).
 //
 // Subnormals: every value selection depends on is flushed, as XLA does on
 // the CPU: built with -ftz=true, the sweep's product and comparison flush
@@ -99,52 +100,6 @@
 #define ROWS_STAGES 3  // megopolis_fused_rows_kernel<false/true>
 #define STEP_STAGES 4  // megopolis_step_rows_kernel
 
-// --------------------------------------------------------------- mbarriers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n\t.reg .b64 state;\n\tmbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from device memory into shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // The ring of STAGES comparison segments and the per-chunk table of a
 // block: tab[t] = {(segment << 10) | (o_b & 1023), fmix(seed + b·GOLDEN)}
 // for b = b0 + t; its first words run AHEAD entries past the chunk for the
@@ -160,18 +115,6 @@ struct MegoRing {
   uint64_t empty[STAGES];
   uint2 tab[CHUNK + AHEAD];
 };
-
-template <int STAGES>
-__device__ __forceinline__ void ring_init(MegoRing<STAGES>& r) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&r.full[s], 1);
-      mbar_init(&r.empty[s], NT / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-}
 
 // Request the comparison segment of the block's u-th iteration (counted over
 // every segment the block sweeps) into buffer u mod STAGES, once every warp
@@ -295,7 +238,7 @@ __global__ void __launch_bounds__(NT, 8) megopolis_fused_rows_kernel(
     const int* __restrict__ offsets, const uint32_t* __restrict__ seeds,
     int* __restrict__ anc, float* __restrict__ out, int n, int d, int iters) {
   __shared__ MegoRing<ROWS_STAGES> ring;
-  ring_init(ring);
+  ring_barriers_init(ring.full, ring.empty);
   const int s = blockIdx.y;
   const int seg = blockIdx.x;
   uint32_t seq = 0;
@@ -319,7 +262,7 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
   // The bulk copies read wbuf in whole 16-byte words: its start is rounded
   // up (the wrapper's scratch has the slack).
   sc.wbuf = (float*)(((uintptr_t)sc.wbuf + 15) & ~(uintptr_t)15);
-  ring_init(ring);
+  ring_barriers_init(ring.full, ring.empty);
   // The prelude also writes sc.hh, the per-iteration hash prefixes the
   // Metropolis step kernels read; this kernel stages its own per chunk and
   // leaves sc.hh unread (S·B words).
@@ -341,16 +284,6 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
                tiles, iters, k);
     mego_commit(k, anc, state, out, s, seg, n, d, row_flag[s] & 2);
   }
-}
-
-// The step kernel's static shared memory (its ring, the reduction's floats)
-// and its dynamic shared memory (8 bytes a row) pass 48 KiB together from
-// about 3,790 rows.  Every launch and every occupancy query of it first sets
-// its dynamic limit to the `dynamic` bytes it asks for (a host-side
-// attribute, on the current device), so no size here is guessed.
-static int mego_step_optin(size_t dynamic) {
-  return (int)cudaFuncSetAttribute((const void*)megopolis_step_rows_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic);
 }
 
 extern "C" {
@@ -376,7 +309,7 @@ int megopolis_rows(const void* w, const void* offsets, const void* seeds, void* 
 }
 
 int megopolis_step_grid(int rows, int n, int* blocks) {
-  const int err = mego_step_optin(step_smem_bytes(rows));
+  const int err = smem_optin(megopolis_step_rows_kernel, step_smem_bytes(rows));
   if (err != 0) return err;
   return coop_step_grid(megopolis_step_rows_kernel, rows, n, blocks);
 }
@@ -396,7 +329,7 @@ int megopolis_step_rows(const void* lw, const void* state, const void* offsets,
   void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_off, (void*)&a_seeds,
                   (void*)&thr, (void*)&a_anc, (void*)&a_out, (void*)&a_stats,
                   (void*)&a_scratch, (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
-  const int err = mego_step_optin(step_smem_bytes(rows));
+  const int err = smem_optin(megopolis_step_rows_kernel, step_smem_bytes(rows));
   if (err != 0) return err;
   return coop_step_launch(megopolis_step_rows_kernel, blocks, rows, args, stream);
 }
@@ -408,7 +341,7 @@ int megopolis_attributes(int which, int dynamic_smem, int* out) {
     case 0: return kernel_attributes(megopolis_fused_rows_kernel<false>, dynamic_smem, out);
     case 1: return kernel_attributes(megopolis_fused_rows_kernel<true>, dynamic_smem, out);
     case 2: {
-      const int err = mego_step_optin((size_t)dynamic_smem);
+      const int err = smem_optin(megopolis_step_rows_kernel, (size_t)dynamic_smem);
       if (err != 0) return err;
       return kernel_attributes(megopolis_step_rows_kernel, dynamic_smem, out);
     }

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.common import (
+    check_aligned,
     check_bank,
     check_launch,
     device_seeds,
@@ -75,24 +76,13 @@ def _check_bank(who: str, w, state, offsets, seeds):
     return s, n, d, offsets.shape[1]
 
 
-def _check_aligned(who: str, w: torch.Tensor):
-    """The kernels copy whole 4 KiB segments of ``w`` into shared memory by
-    bulk copies, which need 16-byte aligned addresses: a contiguous ``[S,
-    N]`` tensor from the allocator is, a view with an odd storage offset may
-    not be (no silent copy)."""
-    if w.data_ptr() % 16:
-        raise ValueError(f"{who}: the weights must start on a 16-byte boundary for the "
-                         f"kernel's bulk copies; got address {w.data_ptr():#x} (a view "
-                         f"with a storage offset of {w.storage_offset()}): pass a copy")
-
-
 def _device_offsets(w, offsets):
     return offsets.to(device=w.device, dtype=torch.int32).contiguous()
 
 
 def _launch_rows(w, offsets, seeds, who):
     s, n, _, b = _check_bank(who, w, None, offsets, seeds)
-    _check_aligned(who, w)
+    check_aligned(who, w)
     offs, sd = _device_offsets(w, offsets), device_seeds(seeds, w.device)
     anc = torch.empty((s, n), dtype=torch.int32, device=w.device)
     stream = torch.cuda.current_stream(w.device).cuda_stream
@@ -103,7 +93,7 @@ def _launch_rows(w, offsets, seeds, who):
 
 def _launch_fused(w, state, offsets, seeds, who):
     s, n, d, b = _check_bank(who, w, state, offsets, seeds)
-    _check_aligned(who, w)
+    check_aligned(who, w)
     offs, sd = _device_offsets(w, offsets), device_seeds(seeds, w.device)
     anc = torch.empty((s, n), dtype=torch.int32, device=w.device)
     out = torch.empty_like(state)

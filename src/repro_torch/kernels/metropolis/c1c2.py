@@ -19,10 +19,12 @@ The JAX package has no bank kernel for C1/C2 (its bank forms map the single
 kernel over the rows); here a bank is one launch, with one seed and one
 partition-table row per row.
 
-Each wrapper checks device, dtype, shape and contiguity, and that the
+Each wrapper checks device, dtype, shape and contiguity, that the
 partition table is ``int32[S, T]`` for C1 or ``int32[S, T·B]`` for C2 (T =
-N / 1024) with entries in ``[0, T)``; it allocates its outputs (and the step
-kernel's scratch) with ``torch.empty``, launches on
+N / 1024) with entries in ``[0, T)``, and, for the index-only and fused
+kernels, that the weights start on a 16-byte boundary, as C2's bulk copies
+of partition tiles need (one rule for both variants); it allocates its
+outputs (and the step kernel's scratch) with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and adds one to its ``launches`` count where
 it launches.  On CPU tensors it runs the plain version (``ref.py``) and
 counts nothing; on a CUDA tensor it launches the kernel or raises.
@@ -41,6 +43,7 @@ import torch
 from repro_torch.kernels.build import load
 from repro_torch.kernels.common import (
     SEG,
+    check_aligned,
     check_launch,
     device_seeds,
     kernel_wrapper,
@@ -96,6 +99,7 @@ def _rows(who, variant, w, state, partitions, seeds, num_iters):
     s, n, d = _check_c1c2(who, variant, w, state, partitions, seeds, num_iters)
     if not w.is_cuda:
         return metropolis_c1c2_rows_ref(w, state, partitions, seeds, num_iters, variant)
+    check_aligned(who, w)
     parts = partitions.to(w.device).contiguous()
     sd = device_seeds(seeds, w.device)
     anc = torch.empty((s, n), dtype=torch.int32, device=w.device)

@@ -41,103 +41,230 @@
 //   tile of 1024 particles (4 a thread, strided by NT, so every load and
 //   store is coalesced) and its partition tile: C1 loads its 4 KiB once,
 //   coalesced, and keeps it for all B iterations, one transaction amortised
-//   over B, which is the variant's point; C2 loads a fresh 4 KiB tile at
-//   every iteration, with a __syncthreads() on either side (double buffering
-//   with cp.async or TMA is for a later PR).  The proposal is a random read
-//   of shared memory, not of L2 as in Alg. 2.  fmix(seed + b·GOLDEN), the
-//   per-iteration half of both hashes, is computed once per block into
-//   shared memory, as metropolis_rows_kernel does.
+//   over B, which is the variant's point.  C2 takes a fresh 4 KiB tile at
+//   every iteration through a ring of shared-memory buffers (C1C2Smem), as
+//   the Megopolis kernels take their comparison segments: a buffer holds
+//   the tiles of GROUP consecutive iterations, one thread starts their bulk
+//   TMA copies (cp.async.bulk ... mbarrier::complete_tx) AHEAD groups before
+//   the sweep reaches them, and each buffer has a full mbarrier (the
+//   copies' bytes) and an empty one (one arrival per warp), so no iteration
+//   waits on its own L2 round trip and there is no __syncthreads() per
+//   iteration.  The proposal is a random read of shared memory, not of L2
+//   as in Alg. 2.  fmix(seed + b·GOLDEN), the per-iteration half of both
+//   hashes, and C2's tile of each iteration are staged per chunk of CHUNK
+//   iterations in shared memory.
 //
 // metropolis_c1c2_step_rows_kernel<VARIANT> replaces metropolis_c1_pallas_step
 // and metropolis_c2_pallas_step (via _c1c2_step_call): the fused SMC step, one
 // cooperative launch on the design of metropolis_step_rows_kernel.  The shared
 // prelude (two grid.sync() barriers) writes exp(lw - m) once to scratch; then
 // each block grid-strides over (row, own tile) pairs, so that a block owns
-// whole tiles and their shared partition, reads the partition tiles from
-// that scratch into shared memory, and commits the selection or the identity
-// and copies the state.  The TPU kernel recomputes exp(lw - m) for its own
-// and its partition tile at every grid step; here it is computed once per
-// particle.
+// whole tiles and their shared partition, runs the rows kernel's sweep
+// (c1c2_sweep, one function, so the two kernels cannot drift) with the
+// partition tiles read from that scratch, C2's ring continuing from pair to
+// pair, and commits the selection or the identity and copies the state.
+// The TPU kernel recomputes exp(lw - m) for its own and its partition tile
+// at every grid step; here it is computed once per particle.  With C2's
+// ring beside the per-row shift and flags, the block passes 48 KiB at the
+// most rows a step admits, so the kernel opts in to more dynamic shared
+// memory (smem_optin), as the Megopolis step does.
 //
 //   What bounds it: the bytes of the fused kernel plus one more read of lw,
 //   the same integer work and partition traffic, and the prelude.
 //
-// Subnormals: built with -ftz=true, and flushed explicitly (ftz()) on the
-// values selection depends on, as XLA does on the CPU.
+// Subnormals: every value selection depends on is flushed, as XLA does on
+// the CPU: built with -ftz=true, the sweep's product and comparison flush
+// their operands and results in hardware, so the weights are copied raw
+// (C2's bulk copies cannot flush) and the carried w[k] may hold an
+// unflushed subnormal that only its next product reads; the step prelude's
+// values are flushed explicitly (ftz()).  State copies are bit moves and are
+// never flushed.
 
 #include "../../common.cuh"
 
 #define SEG 1024
 #define PER_THREAD (SEG / NT)
+// C2's ring, per kernel: buffers (C1C2Smem's STAGES), each holding the
+// partition tiles of GROUP consecutive iterations under one pair of
+// barriers.  Chosen by measurement on the H100 (benchmarks/torch_kernel_ab.py
+// --module metropolis.c1c2, each depth given with --source LABEL=<a copy of
+// this file with other values>): against one tile a buffer, two took 3-7%
+// off the bank kernel and 7% off the step; five buffers of two (40 KiB)
+// were the fastest bank ring.  The step's three buffers of two and its
+// per-row shift and flags pass 48 KiB together at the most rows, so it
+// opts in to more dynamic shared memory (smem_optin).
+#define C2_ROWS_STAGES 5  // metropolis_c1c2_rows_kernel<2, *>
+#define C2_ROWS_GROUP 2
+#define C2_STEP_STAGES 3  // metropolis_c1c2_step_rows_kernel<2>
+#define C2_STEP_GROUP 2
 
-// Copy one partition tile of weights into shared memory, flushed; called by
-// every thread of the block, coalesced.
-__device__ __forceinline__ void load_partition(float* s_part, const float* w_tile) {
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    s_part[q * NT + threadIdx.x] = ftz(w_tile[q * NT + threadIdx.x]);
+// A block's shared memory: STAGES buffers of GROUP partition tiles, with a
+// full and an empty mbarrier each (C2's ring; C1 keeps its one tile in
+// tile[0][0] and uses no barrier), and the per-chunk table tab[t] =
+// {partition tile of iteration b0 + t (C2), fmix(seed + (b0 + t)·GOLDEN)},
+// whose first words run AHEAD groups past the chunk for the copies started
+// ahead.  A group's tiles are requested AHEAD groups before the sweep
+// reaches them, so a buffer is refilled when every warp is done with the
+// group two before: the one thread that starts the copies waits for the
+// slowest warp with one group of slack.
+template <int STAGES, int GROUP>
+struct C1C2Smem {
+  static constexpr int AHEAD = STAGES > 1 ? STAGES - 2 : 0;  // in groups
+  __align__(128) float tile[STAGES][GROUP][SEG];
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+  uint2 tab[CHUNK + AHEAD * GROUP];
+};
+
+template <int VARIANT>
+using C1C2RowsSmem =
+    C1C2Smem<VARIANT == 1 ? 1 : C2_ROWS_STAGES, VARIANT == 1 ? 1 : C2_ROWS_GROUP>;
+template <int VARIANT>
+using C1C2StepSmem =
+    C1C2Smem<VARIANT == 1 ? 1 : C2_STEP_STAGES, VARIANT == 1 ? 1 : C2_STEP_GROUP>;
+
+template <int STAGES, int GROUP>
+__device__ __forceinline__ void c1c2_init(C1C2Smem<STAGES, GROUP>& r) {
+  if constexpr (STAGES > 1) ring_barriers_init(r.full, r.empty);
+}
+
+// Request the `cnt` partition tiles of the block's u-th group of GROUP
+// iterations (counted over every own tile it sweeps), tab[0 .. cnt) their
+// table entries, from row wr (16-byte aligned) into buffer u mod STAGES,
+// once every warp is done with that buffer's previous use, group u -
+// STAGES: one bulk copy of 4 KiB a tile.  One thread.
+template <int STAGES, int GROUP>
+__device__ __forceinline__ void c2_fill(C1C2Smem<STAGES, GROUP>& r, uint32_t u, const float* wr,
+                                        const uint2* tab, int cnt) {
+  const uint32_t st = u % STAGES;
+  if (u >= STAGES) mbar_wait(&r.empty[st], (u / STAGES - 1) & 1);
+  mbar_expect(&r.full[st], cnt * SEG * 4);
+  for (int g = 0; g < cnt; ++g) {
+    bulk_load(r.tile[st][g], wr + (size_t)tab[g].x * SEG, SEG * 4, &r.full[st]);
   }
 }
 
-// The sweep state of one thread's PER_THREAD particles of one own tile:
-// their lanes (i·GOLDEN and the accept lane (uint32)(i + N)·GOLDEN), their
-// ancestors k and the carried w[k], and the partition's first particle.
+// The sweep state of one thread's PER_THREAD particles i = tile·1024 + q·NT
+// + tid of one own tile: their ancestors k and the carried w[k] (their
+// lanes are formed from lane0 = (tile·1024 + tid)·GOLDEN), and C1's
+// partition's first particle.
 struct C1C2Lanes {
-  uint32_t lane_j[PER_THREAD];
-  uint32_t lane_u[PER_THREAD];
   int k[PER_THREAD];
   float wk[PER_THREAD];
+  uint32_t lane0;
   int base;
 };
 
 // Start the sweep of own tile `tile` of a row of n weights `wr` with the
-// row's partition table `part`; C1 loads its one partition into s_part here
-// (visible after the caller's next __syncthreads()).
-template <int VARIANT>
-__device__ __forceinline__ void c1c2_start(C1C2Lanes& t, const float* wr,
-                                           const int* __restrict__ part, float* s_part,
-                                           int tile, int n) {
+// row's partition table `part`; C1 copies its one partition into r.tile[0]
+// here (visible after the sweep's first __syncthreads()).  Raw bits: with
+// -ftz=true the sweep's product and compare flush what they read.
+template <int VARIANT, int STAGES, int GROUP>
+__device__ __forceinline__ void c1c2_start(C1C2Lanes& t, C1C2Smem<STAGES, GROUP>& r,
+                                           const float* wr,
+                                           const int* __restrict__ part, int tile) {
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
-    const int i = tile * SEG + q * NT + threadIdx.x;
-    t.lane_j[q] = (uint32_t)i * GOLDEN;
-    t.lane_u[q] = ((uint32_t)i + (uint32_t)n) * GOLDEN;
-    t.k[q] = i;
-    t.wk[q] = ftz(wr[i]);
+    t.k[q] = tile * SEG + q * NT + threadIdx.x;
+    t.wk[q] = wr[t.k[q]];
   }
+  t.lane0 = (uint32_t)(tile * SEG + threadIdx.x) * GOLDEN;
   t.base = 0;
   if (VARIANT == 1) {
     t.base = part[tile] * SEG;  // Alg. 3: one partition for every iteration
-    load_partition(s_part, wr + t.base);
+#pragma unroll
+    for (int q = 0; q < PER_THREAD; ++q) {
+      r.tile[0][0][q * NT + threadIdx.x] = wr[t.base + q * NT + threadIdx.x];
+    }
   }
 }
 
-// Iterations b0 .. b0 + cnt - 1 of the sweep; hh[c] = fmix(seed + (b0 +
-// c)·GOLDEN), readable by every thread.  Every thread of the block calls it.
-template <int VARIANT>
-__device__ __forceinline__ void c1c2_sweep(C1C2Lanes& t, const float* wr,
-                                           const int* __restrict__ part, float* s_part,
-                                           const uint32_t* hh, int tile, int iters, int b0,
-                                           int cnt) {
-  for (int c = 0; c < cnt; ++c) {
-    if (VARIANT == 2) {
-      __syncthreads();  // every thread is done with the previous partition
-      t.base = part[(size_t)tile * iters + b0 + c] * SEG;  // Alg. 4: a fresh partition
-      load_partition(s_part, wr + t.base);
+// One iteration of the sweep against partition tile x (its first particle
+// `base`) with hash prefix h; lane_n = n·GOLDEN, so the accept lane
+// (uint32)(i + n)·GOLDEN = i·GOLDEN + lane_n.  Built with -ftz=true, the
+// product flushes its operands and result and the compare its operands: no
+// w value needs a separate flush (a kept w[j] is flushed by its next
+// product), and every accept is the plain version's.
+__device__ __forceinline__ void c1c2_iteration(C1C2Lanes& t, const float* x, int base,
+                                               uint32_t h, uint32_t lane_n) {
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const uint32_t lane = t.lane0 + (uint32_t)(q * NT) * GOLDEN;
+    const int jl = (int)(fmix(h ^ lane) & (SEG - 1));  // U{0, N_w - 1}
+    const float wj = x[jl];                            // a random shared read
+    const float u = bits_to_uniform(fmix(h ^ (lane + lane_n)));
+    if (__fmul_rn(u, t.wk[q]) <= wj) {  // u <= w[j] / w[k]
+      t.k[q] = base + jl;
+      t.wk[q] = wj;
+    }
+  }
+}
+
+// The sweep of own tile `tile` of row wr (n weights) over `iters`
+// iterations with the row's partition table and hash prefixes: for C1,
+// `hh`, the row's fmix(seed + b·GOLDEN) in device memory (the step
+// kernel's, written by its prelude), or nullptr to stage them per chunk
+// from `seed`, as C2 always does (its loop waits on the ring's barriers,
+// behind which a load from device memory would stall every iteration).  C1
+// reads its one tile (written by c1c2_start, visible after the caller's
+// next __syncthreads()); C2 takes each group of GROUP iterations' tiles
+// from the ring, requested AHEAD groups before by one thread, with no
+// __syncthreads() per iteration.  `seq` counts the block's groups over
+// every own tile it sweeps, so the ring's phases carry on from one tile to
+// the next.  Every thread of the block calls it.
+template <int VARIANT, int STAGES, int GROUP>
+__device__ __forceinline__ void c1c2_sweep(C1C2Lanes& t, C1C2Smem<STAGES, GROUP>& r,
+                                           uint32_t& seq, const float* wr,
+                                           const int* __restrict__ part, const uint32_t* hh,
+                                           uint32_t seed, int tile, int n, int iters) {
+  constexpr int AHEAD = C1C2Smem<STAGES, GROUP>::AHEAD;
+  const int tid = threadIdx.x;
+  const uint32_t lane_n = (uint32_t)n * GOLDEN;
+  const int groups = (iters + GROUP - 1) / GROUP;
+  for (int b0 = 0; b0 < iters; b0 += CHUNK) {  // CHUNK % GROUP == 0
+    const int cnt = min(CHUNK, iters - b0);
+    const int look = VARIANT == 2 ? min(CHUNK + AHEAD * GROUP, iters - b0) : cnt;
+    if (VARIANT == 2 || hh == nullptr) {
+      __syncthreads();  // the previous chunk's (or tile's) table is no longer read
+      for (int c = tid; c < look; c += NT) {
+        const uint32_t p = VARIANT == 2 ? (uint32_t)part[(size_t)tile * iters + b0 + c] : 0u;
+        const uint32_t h = c < cnt && hh == nullptr ? fmix(seed + (uint32_t)(b0 + c) * GOLDEN)
+                                                    : 0u;
+        r.tab[c] = make_uint2(p, h);
+      }
       __syncthreads();
     }
-    const uint32_t h = hh[c];
+    if constexpr (VARIANT == 1) {
+      for (int c = 0; c < cnt; ++c) {
+        c1c2_iteration(t, r.tile[0][0], t.base, hh ? hh[b0 + c] : r.tab[c].y, lane_n);
+      }
+    } else {
+      if (tid == 0 && b0 == 0) {
+        for (int g = 0; g < min(AHEAD, groups); ++g) {
+          c2_fill(r, seq + g, wr, &r.tab[g * GROUP], min(GROUP, iters - g * GROUP));
+        }
+      }
+      for (int c = 0; c < cnt; c += GROUP) {
+        const int g = (b0 + c) / GROUP;
+        const uint32_t u = seq + g;
+        if (tid == 0 && g + AHEAD < groups) {
+          const int b = (g + AHEAD) * GROUP;
+          c2_fill(r, u + AHEAD, wr, &r.tab[b - b0], min(GROUP, iters - b));
+        }
+        const uint32_t st = u % STAGES;
+        mbar_wait(&r.full[st], (u / STAGES) & 1);
 #pragma unroll
-    for (int q = 0; q < PER_THREAD; ++q) {
-      const int jl = (int)(fmix(h ^ t.lane_j[q]) & (SEG - 1));  // U{0, N_w - 1}
-      const float wj = s_part[jl];                                // a random shared read
-      const float u = bits_to_uniform(fmix(h ^ t.lane_u[q]));
-      if (ftz(__fmul_rn(u, t.wk[q])) <= wj) {  // u <= w[j] / w[k]
-        t.k[q] = t.base + jl;
-        t.wk[q] = wj;
+        for (int e = 0; e < GROUP; ++e) {
+          if (GROUP > 1 && c + e >= cnt) break;
+          const uint2 x = r.tab[c + e];  // Alg. 4: a fresh partition
+          c1c2_iteration(t, r.tile[st][e], (int)x.x * SEG, x.y, lane_n);
+        }
+        __syncwarp();
+        if ((tid & 31) == 0) mbar_arrive(&r.empty[st]);  // this warp is done with the buffer
       }
     }
   }
+  seq += groups;
 }
 
 // The ancestors (the identity unless `keep`) and, with d > 0, the state copy
@@ -158,29 +285,23 @@ __device__ __forceinline__ void c1c2_commit(const C1C2Lanes& t, int* __restrict_
   }
 }
 
-// Grid (T, S): block (t, s) sweeps own tile t of row s.  The iteration
-// prefixes go to shared memory in chunks of CHUNK.
+// Grid (T, S): block (t, s) sweeps own tile t of row s.  C2 needs w on a
+// 16-byte boundary (the wrappers check it).
 template <int VARIANT, bool GATHER>
 __global__ void __launch_bounds__(NT) metropolis_c1c2_rows_kernel(
     const float* __restrict__ w, const float* __restrict__ state,
     const int* __restrict__ parts, const uint32_t* __restrict__ seeds, int* __restrict__ anc,
     float* __restrict__ out, int n, int d, int iters) {
-  __shared__ float s_part[SEG];
-  __shared__ uint32_t s_hh[CHUNK];
+  __shared__ C1C2RowsSmem<VARIANT> sm;
+  c1c2_init(sm);
   const int s = blockIdx.y;
   const int tile = blockIdx.x;
   const float* wr = w + (size_t)s * n;
   const int* part = parts + (size_t)s * (n / SEG) * (VARIANT == 1 ? 1 : iters);
-  const uint32_t seed = seeds[s];
   C1C2Lanes t;
-  c1c2_start<VARIANT>(t, wr, part, s_part, tile, n);
-  for (int b0 = 0; b0 < iters; b0 += CHUNK) {
-    const int cnt = min(CHUNK, iters - b0);
-    __syncthreads();  // the previous chunk's prefixes and partition are no longer read
-    for (int c = threadIdx.x; c < cnt; c += NT) s_hh[c] = fmix(seed + (uint32_t)(b0 + c) * GOLDEN);
-    __syncthreads();
-    c1c2_sweep<VARIANT>(t, wr, part, s_part, s_hh, tile, iters, b0, cnt);
-  }
+  c1c2_start<VARIANT>(t, sm, wr, part, tile);
+  uint32_t seq = 0;
+  c1c2_sweep<VARIANT>(t, sm, seq, wr, part, nullptr, seeds[s], tile, n, iters);
   c1c2_commit(t, anc, state, out, s, tile, n, GATHER ? d : 0, true);
 }
 
@@ -194,26 +315,36 @@ __global__ void __launch_bounds__(NT) metropolis_c1c2_step_rows_kernel(
   extern __shared__ float row_m[];          // [rows] shift m per row
   int* row_flag = (int*)(row_m + rows);     // [rows] bit 0: degenerate, bit 1: do
   __shared__ float red[NT / 32];
-  __shared__ float s_part[SEG];
-  const StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
+  __shared__ C1C2StepSmem<VARIANT> sm;
+  StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
+  // The bulk copies read wbuf in whole 16-byte words: its start is rounded
+  // up (the wrapper's scratch has the slack).
+  sc.wbuf = (float*)(((uintptr_t)sc.wbuf + 15) & ~(uintptr_t)15);
+  c1c2_init(sm);
   step_prelude(grid, lw, seeds, thr, stats, sc, row_m, row_flag, red, rows, n, iters);
+  // wbuf was written through the generic proxy before the prelude's last
+  // grid.sync(); C2's bulk copies read it through the async proxy.
+  if (VARIANT == 2) asm volatile("fence.proxy.async.global;" ::: "memory");
 
   // The sweep over (row, own tile) pairs, so that a block owns whole tiles
-  // and their partition, then commit (selection or identity) and state
-  // copy.  sc.wbuf and sc.hh were written by every block before the
-  // grid.sync(): plain loads, not the read-only path.
+  // and their partitions, then commit (selection or identity) and state
+  // copy; C2's ring continues from pair to pair.
   const int tiles = n / SEG;
   const size_t pairs = (size_t)rows * tiles;
+  uint32_t seq = 0;
   for (size_t q = blockIdx.x; q < pairs; q += gridDim.x) {
     const int s = (int)(q / tiles);
     const int tile = (int)(q % tiles);
     const float* wr = sc.wbuf + (size_t)s * n;
     const int* part = parts + (size_t)s * tiles * (VARIANT == 1 ? 1 : iters);
     C1C2Lanes t;
-    __syncthreads();  // the previous tile's partition is no longer read
-    c1c2_start<VARIANT>(t, wr, part, s_part, tile, n);
-    __syncthreads();
-    c1c2_sweep<VARIANT>(t, wr, part, s_part, sc.hh + (size_t)s * iters, tile, iters, 0, iters);
+    if (VARIANT == 1) __syncthreads();  // the previous tile's partition is no longer read
+    c1c2_start<VARIANT>(t, sm, wr, part, tile);
+    if (VARIANT == 1) __syncthreads();  // its partition is in shared memory
+    // C1 reads the prelude's hash prefixes; C2, whose loop waits on the
+    // ring's barriers, stages them per chunk as the rows kernel does.
+    const uint32_t* hh = VARIANT == 1 ? sc.hh + (size_t)s * iters : nullptr;
+    c1c2_sweep<VARIANT>(t, sm, seq, wr, part, hh, seeds[s], tile, n, iters);
     c1c2_commit(t, anc, state, out, s, tile, n, d, row_flag[s] & 2);
   }
 }
@@ -244,8 +375,24 @@ static int launch_step(const void* lw, const void* state, const void* parts, con
   void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_parts, (void*)&a_seeds,
                   (void*)&thr, (void*)&a_anc, (void*)&a_out, (void*)&a_stats,
                   (void*)&a_scratch, (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
+  const int err = smem_optin(metropolis_c1c2_step_rows_kernel<VARIANT>, step_smem_bytes(rows));
+  if (err != 0) return err;
   return coop_step_launch(metropolis_c1c2_step_rows_kernel<VARIANT>, blocks, rows, args,
                           stream);
+}
+
+template <int VARIANT>
+static int step_grid(int rows, int n, int* blocks) {
+  const int err = smem_optin(metropolis_c1c2_step_rows_kernel<VARIANT>, step_smem_bytes(rows));
+  if (err != 0) return err;
+  return coop_step_grid(metropolis_c1c2_step_rows_kernel<VARIANT>, rows, n, blocks);
+}
+
+template <int VARIANT>
+static int step_attributes(int dynamic_smem, int* out) {
+  const int err = smem_optin(metropolis_c1c2_step_rows_kernel<VARIANT>, (size_t)dynamic_smem);
+  if (err != 0) return err;
+  return kernel_attributes(metropolis_c1c2_step_rows_kernel<VARIANT>, dynamic_smem, out);
 }
 
 extern "C" {
@@ -268,8 +415,7 @@ int metropolis_c1c2_rows(int variant, const void* w, const void* state, const vo
 }
 
 int metropolis_c1c2_step_grid(int variant, int rows, int n, int* blocks) {
-  return variant == 1 ? coop_step_grid(metropolis_c1c2_step_rows_kernel<1>, rows, n, blocks)
-                      : coop_step_grid(metropolis_c1c2_step_rows_kernel<2>, rows, n, blocks);
+  return variant == 1 ? step_grid<1>(rows, n, blocks) : step_grid<2>(rows, n, blocks);
 }
 
 int metropolis_c1c2_step_rows(int variant, const void* lw, const void* state,
@@ -290,8 +436,8 @@ int c1c2_attributes(int which, int dynamic_smem, int* out) {
     case 1: return kernel_attributes(metropolis_c1c2_rows_kernel<1, true>, dynamic_smem, out);
     case 2: return kernel_attributes(metropolis_c1c2_rows_kernel<2, false>, dynamic_smem, out);
     case 3: return kernel_attributes(metropolis_c1c2_rows_kernel<2, true>, dynamic_smem, out);
-    case 4: return kernel_attributes(metropolis_c1c2_step_rows_kernel<1>, dynamic_smem, out);
-    case 5: return kernel_attributes(metropolis_c1c2_step_rows_kernel<2>, dynamic_smem, out);
+    case 4: return step_attributes<1>(dynamic_smem, out);
+    case 5: return step_attributes<2>(dynamic_smem, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

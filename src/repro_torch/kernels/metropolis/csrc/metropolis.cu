@@ -33,7 +33,11 @@
 //   it.  But every w[j] is a random 4-byte read over the row: each touches
 //   its own 32-byte L2 sector, B·N·32 bytes of sector traffic (1 GiB at
 //   N = 2^20, B = 32).  That is the paper's point, and the design keeps it: the reads
-//   are left uncoalesced, as Alg. 2 makes them.
+//   are left uncoalesced, as Alg. 2 makes them.  The kernel moves about
+//   4.4 TB/s of sectors, more than the 3.86 TB/s one PyTorch gather reaches
+//   (chip_smoke.gather_probe); more reads in flight, a remainder by a 64-bit
+//   constant and a larger L1 each left its time where it is (PERF.md §6).
+//   Whether 4.4 TB/s is the card's limit for random sectors is not known.
 //   What the design does about it: one thread per particle, the B-loop in
 //   registers, w[k] carried by value, and fmix(seed + b·GOLDEN), the
 //   per-iteration half of both hashes, computed once per block into shared

@@ -165,6 +165,22 @@ def test_check_bank_rejects(bad):
                          torch.zeros(2, dtype=torch.int64)) == (2, 4096, 3)
 
 
+@pytest.mark.parametrize("offset", (0, 1, 2, 3, 4))
+def test_check_aligned(offset):
+    """``check_aligned``, which the Megopolis and C1/C2 index-only and fused
+    wrappers run on CUDA weights before a launch (their bulk copies need a
+    16-byte boundary): a view ``offset`` floats into an aligned buffer
+    passes at 0 and 4 and is refused, with no copy, at 1-3."""
+    base = torch.zeros(4 + 2 * 4096)
+    assert base.data_ptr() % 16 == 0
+    w = base[offset:offset + 2 * 4096].view(2, 4096)
+    if offset % 4 == 0:
+        tc.check_aligned("metropolis_c2_batch", w)
+    else:
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            tc.check_aligned("metropolis_c2_batch", w)
+
+
 def test_planes_round_trip():
     p = torch.randn(2, 4096, 3)
     planes = tc.to_planes(p, 2)

@@ -1,8 +1,11 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions (Megopolis, with its rings of segment copies across ring depths,
 bank sizes, boundary offsets and the most rows a step admits, and its refusal
-of misaligned weights;
-Metropolis, Metropolis-C1/C2, rejection, the prefix-sum
+of misaligned weights; Metropolis, at N not a power of two and across
+chunks of its prefixes; Metropolis-C1/C2, with C2's ring of partition
+tiles across its depths, subnormal partition tiles, every product and
+compare of its PTX flushing subnormals and the refusal of misaligned
+weights; rejection, the prefix-sum
 kinds, the contract checks' two fixture kernels), the filter's default
 device, and the contract checks on the card (the resource tables are the
 card's, the census equals the profiler's count, the selftest passes).  They skip without a card
@@ -13,6 +16,7 @@ tests/test_torch_cuda.py``)."""
 import collections
 import contextlib
 import re
+import subprocess
 from pathlib import Path
 
 import pytest
@@ -321,6 +325,187 @@ def test_c1c2_step_kernel_matches_plain_version(card, variant):
     one = getattr(ck, c + "_step")(lw[0], state[0], parts[0], seeds[0], 16, 0.5)
     assert torch.equal(one[0], want_anc[0])
     assert (getattr(ck, c + "_step_rows").launches, getattr(ck, c + "_step").launches) == (2, 1)
+
+
+def _source_define(module, stem: str, pattern: str) -> list:
+    """The values of the ``#define``s matching ``pattern`` in a wrapper
+    module's CUDA source ``csrc/<stem>.cu``."""
+    text = (Path(module.__file__).parent / "csrc" / f"{stem}.cu").read_text()
+    return sorted({int(v) for v in re.findall(rf"#define {pattern} (\d+)", text)})
+
+
+#: Iterations that C2's rings hold (``C2_<kernel>_STAGES`` buffers of
+#: ``C2_<kernel>_GROUP`` tiles): the iteration counts below straddle each,
+#: one chunk of 256 prefixes, and end on whole and on partial groups.
+C2_RING_ITERS = [s * g for s, g in zip(_source_define(ck, "c1c2", r"C2_ROWS_STAGES"),
+                                       _source_define(ck, "c1c2", r"C2_ROWS_GROUP"))]
+C2_RING_ITERS += [s * g for s, g in zip(_source_define(ck, "c1c2", r"C2_STEP_STAGES"),
+                                        _source_define(ck, "c1c2", r"C2_STEP_GROUP"))]
+C1C2_ITERS = sorted({1, 2, 257, 258, *(d + e for d in C2_RING_ITERS for e in (-1, 0, 1))})
+
+
+def _redesign_inputs(dev, n, s, seed):
+    """Weights with zeros, subnormals and a subnormal last tile; log-weights
+    whose last row (of two or more) is degenerate (all -inf) and row 1 (of
+    three or more) all equal, neither firing at 0.5, the others firing;
+    state of two planes; seeds."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.rand(s, n, generator=g) ** 8
+    w[:, ::5] = 0.0
+    w[:, 1::7] = 1e-39
+    w[:, -1024:] = torch.rand(s, 1024, generator=g) * 1e-38  # subnormal
+    lw = -0.5 * (torch.rand(s, n, generator=g) * 12) ** 2
+    if s > 1:
+        lw[-1] = float("-inf")
+    if s > 2:
+        lw[1] = 0.0
+    state = torch.randn(s, 2, n, generator=g)
+    seeds = torch.randint(0, 2**32, (s,), generator=g)
+    return w.to(dev), lw.to(dev), state.to(dev), seeds
+
+
+def _check_rows_and_step(dev, wrappers, plain, plain_step, w, lw, state, args, b):
+    """The bank wrappers (index-only, fused, step) against their plain
+    versions, bit for bit (the step's stats to the sums' tolerance), each
+    launched once; ``args`` go between the state and the iterations."""
+    batch, fused_batch, step_rows = wrappers
+    for fn in wrappers:
+        fn.launches = 0
+    assert torch.equal(batch(w, *args, b), plain(w, None, *args, b))
+    anc, out = fused_batch(w, state, *args, b)
+    want_anc, want_out = plain(w, state, *args, b)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    anc, out, stats = step_rows(lw, state, *args, b, 0.5)
+    want_anc, want_out, want_stats = plain_step(lw, state, *args, b, 0.5)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    s, n = w.shape
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    assert stats[0, 2] == 1.0  # resampled
+    if s > 1:
+        assert stats[-1, 2] == 0.0 and torch.equal(anc[-1], ids)  # degenerate: kept
+    if s > 2:
+        assert stats[1, 2] == 0.0 and torch.equal(anc[1], ids)  # did not fire: kept
+    assert [fn.launches for fn in wrappers] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", (1, 2))
+@pytest.mark.parametrize("s", (1, 3, 16))
+@pytest.mark.parametrize("b", C1C2_ITERS)
+def test_c1c2_ring_kernels_match_plain_version(card, variant, s, b):
+    """C2's ring at iteration counts that straddle its depths and a chunk
+    (C1 beside it), banks of 1, 3 and 16 rows, tables that reach tiles 0 and
+    T - 1 (T = 3), weights with subnormals in the partition tiles."""
+    n = 3072
+    w, lw, state, seeds = _redesign_inputs(card, n, s, 100 * variant + 10 * s + b)
+    parts = _tables(card, variant, s, n, b, seed=b)
+    parts[:, 0], parts[:, -1] = 0, n // 1024 - 1
+    c = f"metropolis_c{variant}"
+    wrappers = tuple(getattr(ck, c + sfx) for sfx in ("_batch", "_fused_batch", "_step_rows"))
+
+    def plain(w_, st, p_, sd, it):
+        return tref.metropolis_c1c2_rows_ref(w_, st, p_, sd, it, variant)
+
+    def plain_step(lw_, st, p_, sd, it, thr):
+        return tref.metropolis_c1c2_step_rows_ref(lw_, st, p_, sd, it, thr, variant)
+
+    _check_rows_and_step(card, wrappers, plain, plain_step, w, lw, state, (parts, seeds), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", (1, 2))
+def test_c1c2_step_kernel_at_the_most_rows(card, variant):
+    # 4096 rows: C2's ring and the per-row shift and flags pass 48 KiB, so
+    # the launch needs the kernel's opt-in.
+    n, s, b = 1024, MAX_STEP_ROWS, 5
+    _, lw, state, seeds = _redesign_inputs(card, n, s, variant)
+    parts = _tables(card, variant, s, n, b, seed=variant)
+    c = f"metropolis_c{variant}"
+    anc, out, stats = getattr(ck, c + "_step_rows")(lw, state, parts, seeds, b, 0.5)
+    want_anc, want_out, want_stats = tref.metropolis_c1c2_step_rows_ref(
+        lw, state, parts, seeds, b, 0.5, variant)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", (1, 2))
+def test_c1c2_kernels_on_subnormal_partition_tiles(card, variant):
+    """Every partition tile mixes subnormal and tiny normal weights around
+    FLT_MIN, so the sweep's products and compares flush in hardware what
+    C2's bulk copies land raw: bit for bit as the plain version's explicit
+    flushes."""
+    n, s, b = 8192, 4, 40
+    g = torch.Generator().manual_seed(variant)
+    w = torch.rand(s, n, generator=g) * 3e-38
+    w[:, ::2] = torch.rand(s, n // 2, generator=g) * 1.1e-38  # subnormal
+    w[:, ::11] = 1.0
+    w = w.to(card)
+    state = torch.randn(s, 1, n, generator=g).to(card)
+    seeds = torch.randint(0, 2**32, (s,), generator=g)
+    parts = _tables(card, variant, s, n, b, seed=variant)
+    c = f"metropolis_c{variant}"
+    want_anc, want_out = tref.metropolis_c1c2_rows_ref(w, state, parts, seeds, b, variant)
+    assert bool((want_anc != torch.arange(n, device=card)).any())  # something moved
+    anc, out = getattr(ck, c + "_fused_batch")(w, state, parts, seeds, b)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    assert torch.equal(getattr(ck, c + "_batch")(w, parts, seeds, b), want_anc)
+
+
+@pytest.mark.cuda
+def test_c1c2_ptx_flushes_every_product_and_compare(card, tmp_path):
+    """The sweep's flush is the hardware's (C2's bulk copies land the weights
+    raw): with ``build.py``'s ``-ftz=true`` every f32 multiply and compare in
+    ``c1c2.cu``'s PTX carries ``.ftz``.  Prints the counts."""
+    from repro_torch.kernels import build as kbuild
+
+    flags = [f for f in kbuild.NVCC_FLAGS if f.startswith(("-std", "-O", "-ftz"))]
+    ptx = tmp_path / "c1c2.ptx"
+    subprocess.run([kbuild._nvcc(), "-arch=compute_90a", *flags, "-ptx", "-o", str(ptx),
+                    str(kbuild.KERNELS_DIR / ck.SOURCE)], capture_output=True, check=True)
+    text = ptx.read_text()
+    counts = {}
+    for op, pat in (("mul", r"\bmul(?:\.rn)?(\.ftz)?\.f32\b"),
+                    ("setp", r"\bsetp\.\w+?(\.ftz)?\.f32\b")):
+        found = re.findall(pat, text)
+        counts[op] = {"ftz": sum(1 for f in found if f), "all": len(found)}
+    print(f"ptx {ck.SOURCE}: {counts}")
+    assert all(c["all"] and c["ftz"] == c["all"] for c in counts.values()), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,b", sorted({
+    *((3072, s, b) for s in (1, 3, 16) for b in (1, 2, 3, 257)),
+    (1024, 3, 257), (1024 * 7, 3, 9), (1 << 20, 1, 257)}))
+def test_metropolis_kernels_at_more_shapes(card, n, s, b):
+    """The Metropolis kernels at N not a power of two (1024·3, 1024·7: the
+    unsigned remainder by N), iteration counts within and past a chunk of
+    256 prefixes, banks of 1, 3 and 16 rows, and Path A's N."""
+    w, lw, state, seeds = _redesign_inputs(card, n, s, n + 10 * s + b)
+    wrappers = (tk.metropolis_batch, tk.metropolis_fused_batch, tk.metropolis_step_rows)
+    _check_rows_and_step(card, wrappers, tref.metropolis_rows_ref, tref.metropolis_step_rows_ref,
+                         w, lw, state, (seeds,), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", (1, 2))
+@pytest.mark.parametrize("entry", ("", "_batch", "_fused", "_fused_batch"))
+def test_c1c2_misaligned_weights_raise(card, variant, entry):
+    n, b = 2048, 4
+    w = torch.rand(2 * n + 1, device=card)[1:]  # 4 bytes past a 16-byte boundary
+    state = torch.zeros(1, n, device=card)
+    parts = _tables(card, variant, 2, n, b)
+    seed = torch.zeros(2, dtype=torch.int64)
+    args = {"": (w[:n], parts[0], seed[0]), "_batch": (w.view(2, n), parts, seed),
+            "_fused": (w[:n], state, parts[0], seed[0]),
+            "_fused_batch": (w[:n].view(1, n), state[None], parts[:1], seed[:1])}[entry]
+    fn = getattr(ck, f"metropolis_c{variant}{entry}")
+    ck.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fn(*args, b)
+    assert fn.launches == 0
 
 
 @pytest.mark.cuda
