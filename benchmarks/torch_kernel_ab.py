@@ -2,26 +2,32 @@
 shapes of ``chip_smoke.py``'s phase 4.
 
     python benchmarks/torch_kernel_ab.py --module megopolis.megopolis \\
-        --source parent=PATH/megopolis.cu [--source LABEL=PATH ...] [--sass DIR]
+        --source parent=TREE/src/repro_torch/kernels/megopolis/csrc/megopolis.cu \\
+        [--source LABEL=PATH ...] [--sass DIR]
 
 ``--module`` names a wrapper module under ``repro_torch.kernels`` (its
 ``SOURCE`` is the source under test: ``megopolis.megopolis``,
 ``metropolis.metropolis``, ``metropolis.c1c2``, ``rejection.rejection``,
 ``prefix_sum.prefix_sum``, ``fixtures.fixtures``).  Every ``--source
-LABEL=PATH`` is a build of that source with the same C interface (an
-earlier commit's, or a variant of the current one), next to its own
-headers; the current source is always built too, as ``new``.  Each is
-compiled with ``kernels/build.py``'s ``nvcc`` flags into
-``kernels/_build/ab/`` (its ``ptxas`` registers, shared memory and spills
-are printed; with ``--sass`` its SASS is written to ``DIR/<label>.sass``)
-and handed to the module in place of its own library.
+LABEL=PATH`` is a build of that source in another tree of the repo (an
+earlier commit's ``src/repro_torch``, unpacked with ``git archive``, or a
+copy of this one with an edit); the current source is always built too, as
+``new``.  All are compiled at once, with ``kernels/build.py``'s ``nvcc``
+flags, into ``kernels/_build/ab/`` (its ``ptxas`` registers, shared memory
+and spills are printed; with ``--sass`` its SASS is written to
+``DIR/<label>.sass``).  Each build runs under its own tree's wrapper
+modules, imported apart from this tree's, so it gets the buffers and the C
+interface its source expects: the module's ``load`` hands it the build,
+and each wrapper takes the leading arguments of a case that it names (a
+later tree's wrapper may add some at the end).
 Phase 4's inputs are captured as phase 4 captures them
-(``chip_smoke.kernel_cases``), and its cases whose kernel comes from that
-source are kept; the fixture kernels' are those of phase 3
+(``chip_smoke.kernel_cases``), for its cases whose kernel comes from that
+source; the fixture kernels' are those of phase 3
 (``chip_smoke.fixture_cases``: the contract checks' inputs and N = 2^23).
 Every build's outputs are held bit for bit to the plain version, and then
 each case's kernel is timed (``chip_smoke.kernel_ms``, the profiler's
-kernel events) with every build in turns: in the order given, then
+events of the port's kernels, whatever a build names them) with every
+build in turns: in the order given, then
 reversed (old, new, new, old for two); the one PyTorch call that computes
 the same function (``chip_smoke.library_call``), where there is one, is
 timed as phase 4 times it (``chip_smoke.time_ms``) before and after the
@@ -34,8 +40,10 @@ summary line.  It needs one card; the launches here count nowhere.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import importlib
+import inspect
 import json
 import subprocess
 import sys
@@ -70,6 +78,38 @@ def build(label: str, source: Path, sass_dir) -> ctypes.CDLL:
     return ctypes.CDLL(str(target))
 
 
+def tree_src(source: Path) -> Path:
+    """The ``src`` directory of the tree a source lies in
+    (``src/repro_torch/kernels/<family>/csrc/<file>.cu``)."""
+    src = source.parents[4]
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        raise SystemExit(f"torch_kernel_ab: {source} is not in a tree's src/repro_torch/kernels")
+    return src
+
+
+def tree_modules(src: Path, names) -> dict:
+    """The modules ``names`` (``repro_torch.…``) of the tree under ``src``,
+    imported apart from this tree's, which stay in ``sys.modules``."""
+    def ours():
+        return [k for k in sys.modules if k.split(".")[0] == "repro_torch"]
+
+    mine = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, str(src))
+    try:
+        return {name: importlib.import_module(name) for name in names}
+    finally:
+        sys.path.remove(str(src))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+
+
+def leading(fn, args: tuple) -> tuple:
+    """The leading arguments of ``args`` that ``fn`` names."""
+    params = inspect.signature(fn).parameters.values()
+    return args[:sum(p.kind == p.POSITIONAL_OR_KEYWORD for p in params)]
+
+
 def same(got, want, kind) -> bool:
     """Ancestors (or the CDF) and state bit for bit; for a step also the same
     triggers (its stats are fixed-order sums, held in ``chip_smoke.py``)."""
@@ -96,9 +136,13 @@ def main(argv=None) -> int:
 
     mod = importlib.import_module(f"repro_torch.kernels.{args.module}")
     print(f"card: {cs.card_line()}", flush=True)
-    sources = [s.split("=", 1) for s in args.source]
-    sources.append(("new", str(ROOT / "src/repro_torch/kernels" / mod.SOURCE)))
-    libs = {label: build(label, Path(path).resolve(), args.sass) for label, path in sources}
+    builds = [(label, Path(path).resolve()) for label, path in
+              (s.split("=", 1) for s in args.source)]
+    builds.append(("new", ROOT / "src/repro_torch/kernels" / mod.SOURCE))
+    srcs = {label: tree_src(source) for label, source in builds}
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(lambda b: build(*b, args.sass), builds))
+    libs = {b[0]: lib for b, lib in zip(builds, built)}
     labels = list(libs)
     probe = mod.SOURCE == cs.SOURCES["metropolis"]
 
@@ -111,23 +155,31 @@ def main(argv=None) -> int:
         run = types.SimpleNamespace(particles=1 << 20, steps=100, bank=16, bank_steps=100,
                                     runs=64, seed=0)
         ctx = cs.setup(run)
-        cases = [c for c in cs.kernel_cases(run, ctx.dev, ctx.families, ctx.model, ctx.fam,
-                                            ctx.obs, ctx.bank_obs, ctx.thetas, ctx.k_run,
-                                            ctx.k_quality)
-                 if cs.SOURCES[c[4]] == mod.SOURCE]
+        cases = cs.kernel_cases(run, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs,
+                                ctx.bank_obs, ctx.thetas, ctx.k_run, ctx.k_quality,
+                                source=mod.SOURCE)
     if not cases:
         raise SystemExit(f"torch_kernel_ab: phase 4 has no case of {mod.SOURCE}")
     if probe:
         cs.gather_probe(0, torch.device("cuda"))
-    # The module loads its library through its own ``load``: hand it a build.
-    real_load = mod.load
+    # Each build's module and wrappers, from its own tree; the module loads
+    # its library through its own ``load``: hand it the build.
+    names = [mod.__name__] + sorted({c[1].__module__ for c in cases})
+    here = {name: sys.modules[name] for name in names}
+    trees = {label: here if src == ROOT / "src" else tree_modules(src, names)
+             for label, src in srcs.items()}
+    loads = {label: t[mod.__name__].load for label, t in trees.items()}
+    for label, t in trees.items():
+        t[mod.__name__].load = lambda source, lib=libs[label]: lib
     summary = {}
     try:
         for name, wrapper, kargs, plain, family, kind, rows, iters in cases:
             want = plain()
-            for label in labels:
-                mod.load = lambda source, lib=libs[label]: lib
-                if not same(wrapper(*kargs), want, kind):
+            calls = {}
+            for label, t in trees.items():
+                fn = getattr(t[wrapper.__module__], wrapper.__name__)
+                calls[label] = lambda fn=fn, a=leading(fn, kargs): fn(*a)
+                if not same(calls[label](), want, kind):
                     raise SystemExit(f"{name}: build {label} differs from the plain version")
             n = kargs[0].shape[-1]
             reps = 20 if rows * n * iters < 2e9 else 4
@@ -136,8 +188,9 @@ def main(argv=None) -> int:
             library_ms = [] if library is None else [cs.time_ms(library, reps)]
             times = {label: [] for label in labels}
             for label in labels + labels[::-1]:
-                mod.load = lambda source, lib=libs[label]: lib
-                times[label].append(cs.kernel_ms(lambda: wrapper(*kargs), kernel, reps))
+                # Every launch of a port kernel: the wrapper launches one, under
+                # whichever name its build gives it.
+                times[label].append(cs.kernel_ms(calls[label], "", reps))
             if library is not None:
                 library_ms.append(cs.time_ms(library, reps))
             mean = {label: sum(t) / len(t) for label, t in times.items()}
@@ -149,7 +202,8 @@ def main(argv=None) -> int:
                                                "library_ms": library_ms or None,
                                                "mean_ms": mean}), flush=True)
     finally:
-        mod.load = real_load
+        for label, t in trees.items():
+            t[mod.__name__].load = loads[label]
     if probe:
         cs.gather_probe(0, torch.device("cuda"))
     print(f"ab summary: {json.dumps(summary)}")

@@ -116,6 +116,8 @@ ITERS = 32
 PATH_B_YS = (0.0, 2.0, 4.0)
 #: Time steps of the short runs whose resampler inputs phase 4 captures.
 CAPTURE_STEPS = 5
+#: The ESS threshold of the conditional runs (Path A's and phase 4's).
+THR = 0.5
 #: 32-bit operations per (particle, iteration) of each family's sweep,
 #: counted from the sources.  Megopolis: index map 6, murmur3 finalizer 8,
 #: lane-hash xor 1, shift, convert and scale 3, the product and the compare
@@ -140,6 +142,8 @@ PATH_A_PREFIX_KINDS = ("multinomial", "improved_systematic", "residual")
 #: Path C (Fig. 8, ``benchmarks/fig8_prefix_sum.py``): its methods and N.
 PATH_C_METHODS = ("megopolis", "multinomial", "improved_systematic")
 PATH_C_NS = (1 << 14, 1 << 18, 1 << 22)
+#: Path C's key: fold_in(k_quality, PATH_C_KEY).
+PATH_C_KEY = 8
 #: 32-bit operations per element of the prefix-sum kernels, counted from the
 #: source: the scan's adds (one in the row of 16, the offsets of the two
 #: levels, the carry); a bisection step (the midpoint's subtract, shift and
@@ -207,7 +211,8 @@ def kernel_instance(event: str):
 
 def is_kernel(event: str, kernel: str) -> bool:
     """True when a profiler event is a launch of ``kernel`` (a name, or the
-    start of one: ``metropolis_c1c2_rows_kernel<1``)."""
+    start of one: ``metropolis_c1c2_rows_kernel<1``; "" for any of the
+    port's kernels, which are plain functions)."""
     inst = kernel_instance(event)
     return inst is not None and inst.startswith(kernel)
 
@@ -364,7 +369,7 @@ def main(argv=None) -> int:
                                                    obs, k_run, dev)
     for family, f in ctx.path_b_families.items():
         path_b(family, f, args, dev, ctx.k_quality, drive, results)
-    path_c(args, dev, ctx.trandom.fold_in(ctx.k_quality, 8), drive, results,
+    path_c(args, dev, ctx.trandom.fold_in(ctx.k_quality, PATH_C_KEY), drive, results,
            {"megopolis": (ctx.mk.megopolis_rows, ctx.mk.megopolis),
             "multinomial": ctx.prefix_index, "improved_systematic": ctx.prefix_index})
     results["small_runs_card_vs_cpu"] = small_runs(families, obs, ctx.truth, k_run,
@@ -700,21 +705,15 @@ def path_c(args, dev, key, drive, results, expected):
     eq. (3), the multinomial and improved systematic kinds), then MSE/N, the
     bias share, and the time of one ``r(key, w)`` (CUDA events, host work
     in).  Fig. 8 runs K = 256; this runs ``--runs``."""
-    from repro_torch import random as trandom
     from repro_torch.core.iterations import gaussian_weight_iterations
     from repro_torch.core.metrics import bias_variance, offspring_counts
     from repro_torch.core.spec import MegopolisSpec, PrefixSumSpec
-    from repro_torch.core.weightgen import gaussian_weights
 
     k = args.runs
     for n in PATH_C_NS:
         for y in PATH_B_YS:
             b = gaussian_weight_iterations(y, 0.01)
-            kw = trandom.fold_in(trandom.fold_in(key, n), int(y * 10))
-            w = gaussian_weights(kw, n, y, device=dev)
-            bank = w[None].expand(k, n).contiguous()
-            keys = trandom.split(trandom.fold_in(kw, 1), k)
-            k_time = trandom.fold_in(kw, 2)
+            w, bank, keys, k_time = path_c_inputs(key, n, y, k, dev)
             for method in PATH_C_METHODS:
                 spec = (MegopolisSpec(num_iters=b) if method == "megopolis"
                         else PrefixSumSpec(kind=method))
@@ -737,6 +736,38 @@ def path_c(args, dev, key, drive, results, expected):
                 results[name].update(B=b if method == "megopolis" else None, K=k,
                                      mse_over_n=total / n, bias_share=bias_sq / total,
                                      single_ms=single_ms)
+
+
+def path_c_inputs(key, n, y, k, dev):
+    """Path C's inputs at one (N, y) from its key: the weights, their bank of
+    K rows, the K per-row keys and the key of the timed single call."""
+    from repro_torch import random as trandom
+    from repro_torch.core.weightgen import gaussian_weights
+
+    kw = trandom.fold_in(trandom.fold_in(key, n), int(y * 10))
+    w = gaussian_weights(kw, n, y, device=dev)
+    bank = w[None].expand(k, n).contiguous()
+    return w, bank, trandom.split(trandom.fold_in(kw, 1), k), trandom.fold_in(kw, 2)
+
+
+def path_c_case(args, dev, k_quality):
+    """``searchsorted_rows`` at Path C's largest bank, as ``kernel_cases``:
+    the multinomial ``batch_rows`` call of ``path_c`` at N = 2^22, y = 4, K
+    = ``--runs``, on its inputs (the row of the most launches x time)."""
+    from repro_torch import random as trandom
+    from repro_torch.core.spec import PrefixSumSpec
+    from repro_torch.kernels.prefix_sum import ops as pops
+    from repro_torch.kernels.prefix_sum import ref as pref
+    from repro_torch.kernels.prefix_sum import search as sk
+
+    _, bank, keys, _ = path_c_inputs(trandom.fold_in(k_quality, PATH_C_KEY), PATH_C_NS[-1],
+                                     PATH_B_YS[-1], args.runs, dev)
+    r = PrefixSumSpec(kind="multinomial").build()
+    c, u, side, rising = capture(pops, "searchsorted_rows", lambda: r.batch_rows(keys, bank))
+    del bank
+    return ("searchsorted_rows/fig8", sk.searchsorted_rows, (c, u, side, rising),
+            lambda: pref.search_rows_ref(c, u, side == "right"), "prefix", "search",
+            c.shape[0], 1)
 
 
 def small_runs(families, obs, truth, k_run, k_quality, dev) -> dict:
@@ -822,10 +853,11 @@ def replay_alg6(spec, obs, k_run, dev) -> int:
 
 
 def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
-                 k_quality) -> list:
+                 k_quality, source=None) -> list:
     """Each wrapper's captured inputs, its plain version on them, and what
     its bound needs: ``(name, wrapper, inputs, plain, family, kind, rows,
-    iters)``."""
+    iters)``; with ``source`` (a ``SOURCES`` value) only the cases of the
+    kernels built from it."""
     from repro_torch import random as trandom
     from repro_torch.core.iterations import gaussian_weight_iterations
     from repro_torch.core.spec import PrefixSumSpec
@@ -872,8 +904,44 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
             return lambda: r.batch(k_time, bank_b)
         return lambda: r(k_time, w_b)
 
+    def keep(family):
+        return source is None or SOURCES[family] == source
+
     cases = []
-    # Megopolis, rows 1-6.
+    if keep("megopolis"):
+        cases += megopolis_cases(mk, mops, mref, fig6, single, bank)
+    if keep("metropolis"):
+        cases += metropolis_cases(tk, tops, tref, fig6, single, bank)
+    # Metropolis-C1/C2, rows 13-18 (and their bank forms on the same kernels).
+    for variant in (1, 2):
+        c = f"metropolis_c{variant}"
+        if keep(c):
+            cases += c1c2_cases(c, variant, tops, fig6(c, "single"), fig6(c, "batch_rows"),
+                                single(c, None), bank(c, None), single(c, THR), bank(c, THR),
+                                THR)
+    if keep("rejection"):
+        # Rejection, rows 19-24: the index-only wrappers on Path A's weights.
+        cases += rejection_cases(families["rejection"]["spec"], single("rejection", None),
+                                 bank("rejection", None), single("rejection", THR),
+                                 bank("rejection", THR), THR, k_run)
+        # Rejection where its cap binds: eq. (12) weights at y = 4.
+        k_cap = trandom.fold_in(k_quality, 400)
+        w_cap = gaussian_weights(k_cap, n, 4.0, device=dev)
+        sd_cap, it_cap = key_to_seed(trandom.fold_in(k_cap, 1)), REJECTION_CAP_CASE_ITERS
+        cases.append(("rejection_cap", rk.rejection, (w_cap, sd_cap, it_cap),
+                      lambda: rref.rejection_rows_ref(w_cap[None], None, sd_cap.reshape(1),
+                                                      it_cap),
+                      "rejection", "index", 1, it_cap))
+    if keep("prefix"):
+        # The prefix-sum kinds, rows 25-29, and Path C's largest bank.
+        cases += prefix_cases(single, bank, THR, k_run)
+        cases.append(path_c_case(args, dev, k_quality))
+    return cases
+
+
+def megopolis_cases(mk, mops, mref, fig6, single, bank) -> list:
+    """Rows 1-6 on captured inputs, as ``kernel_cases``."""
+    cases = []
     w, offs, seed = capture(mops, "megopolis", fig6("megopolis", "single"))
     cases.append(("megopolis", mk.megopolis, (w, offs, seed),
                   lambda: mref.megopolis_rows_ref(w[None], offs[None], seed.reshape(1)),
@@ -896,16 +964,21 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     cases.append(("megopolis_fused_rows", mk.megopolis_fused_rows, (w2, st2, o2, s2),
                   lambda: mref.megopolis_fused_rows_ref(w2, st2, o2, s2),
                   "megopolis", "fused", w2.shape[0], o2.shape[-1]))
-    l3, st3, o3, s3, thr = capture(mops, "megopolis_step", single("megopolis", 0.5))
-    cases.append(("megopolis_step", mk.megopolis_step, (l3, st3, o3, s3, thr),
+    l3, st3, o3, s3, _ = capture(mops, "megopolis_step", single("megopolis", THR))
+    cases.append(("megopolis_step", mk.megopolis_step, (l3, st3, o3, s3, THR),
                   lambda: mref.megopolis_step_rows_ref(l3[None], st3[None], o3[None],
-                                                       s3.reshape(1), thr),
+                                                       s3.reshape(1), THR),
                   "megopolis", "step", 1, o3.shape[-1]))
-    l4, st4, o4, s4, _ = capture(mops, "megopolis_step_rows", bank("megopolis", 0.5))
-    cases.append(("megopolis_step_rows", mk.megopolis_step_rows, (l4, st4, o4, s4, thr),
-                  lambda: mref.megopolis_step_rows_ref(l4, st4, o4, s4, thr),
+    l4, st4, o4, s4, _ = capture(mops, "megopolis_step_rows", bank("megopolis", THR))
+    cases.append(("megopolis_step_rows", mk.megopolis_step_rows, (l4, st4, o4, s4, THR),
+                  lambda: mref.megopolis_step_rows_ref(l4, st4, o4, s4, THR),
                   "megopolis", "step", l4.shape[0], o4.shape[-1]))
-    # Metropolis, rows 7-12.
+    return cases
+
+
+def metropolis_cases(tk, tops, tref, fig6, single, bank) -> list:
+    """Rows 7-12 on captured inputs, as ``kernel_cases``."""
+    cases = []
     v, sd, it = capture(tops, "metropolis", fig6("metropolis", "single"))
     cases.append(("metropolis", tk.metropolis, (v, sd, it),
                   lambda: tref.metropolis_rows_ref(v[None], None, sd.reshape(1), it),
@@ -922,33 +995,15 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     cases.append(("metropolis_fused_batch", tk.metropolis_fused_batch, (v2, t2, sd2, it2),
                   lambda: tref.metropolis_rows_ref(v2, t2, sd2, it2),
                   "metropolis", "fused", v2.shape[0], it2))
-    lv3, t3, sd3, it3, _ = capture(tops, "metropolis_step", single("metropolis", 0.5))
-    cases.append(("metropolis_step", tk.metropolis_step, (lv3, t3, sd3, it3, thr),
+    lv3, t3, sd3, it3, _ = capture(tops, "metropolis_step", single("metropolis", THR))
+    cases.append(("metropolis_step", tk.metropolis_step, (lv3, t3, sd3, it3, THR),
                   lambda: tref.metropolis_step_rows_ref(lv3[None], t3[None], sd3.reshape(1),
-                                                        it3, thr),
+                                                        it3, THR),
                   "metropolis", "step", 1, it3))
-    lv4, t4, sd4, it4, _ = capture(tops, "metropolis_step_rows", bank("metropolis", 0.5))
-    cases.append(("metropolis_step_rows", tk.metropolis_step_rows, (lv4, t4, sd4, it4, thr),
-                  lambda: tref.metropolis_step_rows_ref(lv4, t4, sd4, it4, thr),
+    lv4, t4, sd4, it4, _ = capture(tops, "metropolis_step_rows", bank("metropolis", THR))
+    cases.append(("metropolis_step_rows", tk.metropolis_step_rows, (lv4, t4, sd4, it4, THR),
+                  lambda: tref.metropolis_step_rows_ref(lv4, t4, sd4, it4, THR),
                   "metropolis", "step", lv4.shape[0], it4))
-    # Metropolis-C1/C2, rows 13-18 (and their bank forms on the same kernels).
-    for variant in (1, 2):
-        c = f"metropolis_c{variant}"
-        cases += c1c2_cases(c, variant, tops, fig6(c, "single"), fig6(c, "batch_rows"),
-                            single(c, None), bank(c, None), single(c, 0.5), bank(c, 0.5), thr)
-    # Rejection, rows 19-24: the index-only wrappers on Path A's weights.
-    cases += rejection_cases(families["rejection"]["spec"], single("rejection", None),
-                             bank("rejection", None), single("rejection", 0.5),
-                             bank("rejection", 0.5), thr, k_run)
-    # The prefix-sum kinds, rows 25-29.
-    cases += prefix_cases(single, bank, thr, k_run)
-    # Rejection where its cap binds: eq. (12) weights at y = 4.
-    k_cap = trandom.fold_in(k_quality, 400)
-    w_cap = gaussian_weights(k_cap, n, 4.0, device=dev)
-    sd_cap, it_cap = key_to_seed(trandom.fold_in(k_cap, 1)), REJECTION_CAP_CASE_ITERS
-    cases.append(("rejection_cap", rk.rejection, (w_cap, sd_cap, it_cap),
-                  lambda: rref.rejection_rows_ref(w_cap[None], None, sd_cap.reshape(1), it_cap),
-                  "rejection", "index", 1, it_cap))
     return cases
 
 
@@ -1003,10 +1058,10 @@ def prefix_cases(single, bank, thr, key) -> list:
     step from residual's bank run.  More cases, not in the ``kernels``
     line, hold the wrappers on one population (a bank of one row: the scan
     and the step from multinomial's single run, the search from a
-    systematic ``r(key, w)``, the gather from improved systematic's run,
-    the select and the step from residual's, the step from systematic's
-    and stratified's) and the step's improved systematic, multinomial and
-    stratified instances on a bank."""
+    systematic ``r(key, w)``, the gather from improved systematic's run and
+    from multinomial's, the select and the step from residual's, the step
+    from systematic's and stratified's) and the step's improved systematic,
+    multinomial and stratified instances on a bank."""
     from repro_torch import random as trandom
     from repro_torch.core.spec import PrefixSumSpec
     from repro_torch.kernels.prefix_sum import ops as pops
@@ -1021,14 +1076,14 @@ def prefix_cases(single, bank, thr, key) -> list:
                 "scan", w.shape[0], 1)
 
     def search_case(name, run):
-        c, u, side = capture(pops, "searchsorted_rows", run)
-        return (name, sk.searchsorted_rows, (c, u, side),
+        c, u, side, rising = capture(pops, "searchsorted_rows", run)
+        return (name, sk.searchsorted_rows, (c, u, side, rising),
                 lambda: pref.search_rows_ref(c, u, side == "right"), "prefix", "search",
                 c.shape[0], 1)
 
     def gather_case(name, run):
-        c, u, t, side = capture(pops, "searchsorted_gather_rows", run)
-        return (name, sk.searchsorted_gather_rows, (c, u, t, side),
+        c, u, t, side, rising = capture(pops, "searchsorted_gather_rows", run)
+        return (name, sk.searchsorted_gather_rows, (c, u, t, side, rising),
                 lambda: pref.search_rows_ref(c, u, side == "right", t), "prefix", "gather",
                 c.shape[0], 1)
 
@@ -1062,6 +1117,7 @@ def prefix_cases(single, bank, thr, key) -> list:
         search_case("searchsorted_rows/one",
                     lambda: PrefixSumSpec(kind="systematic").build()(k, w_one[0])),
         gather_case("searchsorted_gather_rows/one", single("improved_systematic", None)),
+        gather_case("searchsorted_gather_rows/one/multinomial", single("multinomial", None)),
         residual_case("residual_select_gather_rows/one", single("residual", None)),
         step_case("prefix_step_rows/one", single("multinomial", 0.5)),
         step_case("prefix_step_rows/one/residual", single("residual", 0.5)),
@@ -1129,9 +1185,7 @@ KERNEL_NAMES = {
     ("rejection", "fused"): "rejection_rows_kernel<true",
     ("rejection", "step"): "rejection_step_rows_kernel",
     ("prefix", "scan"): "prefix_scan_rows_kernel",
-    ("prefix", "search"): "prefix_search_rows_kernel<false, false>",
-    ("prefix", "gather"): "prefix_search_rows_kernel<true, false>",
-    ("prefix", "residual"): "prefix_search_rows_kernel<true, true>",
+    ("prefix", "residual"): "prefix_search_tree_kernel<true, true>",
     ("fixtures", "copy"): "copy_kernel",
     ("fixtures", "iota"): "iota_kernel",
 }
@@ -1180,6 +1234,10 @@ def kernel_name(family, kind, kargs) -> str:
         from repro_torch.kernels.prefix_sum.ref import KIND_CODES
 
         return f"prefix_step_rows_kernel<{KIND_CODES[kargs[-1]]}>"
+    if family == "prefix" and kind in ("search", "gather"):  # by the draws' order
+        g = str(kind == "gather").lower()
+        return (f"prefix_search_rows_kernel<{g}>" if kargs[-1]
+                else f"prefix_search_tree_kernel<{g}, false>")
     return KERNEL_NAMES[(family, kind)]
 
 
@@ -1223,7 +1281,7 @@ def library_call(kind, kargs):
     if kind == "scan":
         return lambda: torch.cumsum(kargs[0], dim=-1)
     if kind in ("search", "gather"):
-        c, u, side = kargs[0], kargs[1], kargs[-1]
+        c, u, side = kargs[0], kargs[1], kargs[-2]
         if kind == "search":
             return lambda: torch.searchsorted(c, u, side=side)
         state = kargs[2]
@@ -1353,6 +1411,11 @@ def check_kernel(case) -> dict:
         entry.update(divergence(rounds, iters), l2_sector_bytes=(work - int((rounds >= 0).sum()))
                      * L2_SECTOR)
     print(f"kernel {name}: {json.dumps(entry)}", flush=True)
+    if rounds is not None and kind == "step":
+        # Not measured: the new schedule's rounds, modelled, on a line of
+        # their own.
+        print(f"model {name}: {json.dumps(refill_rounds(rounds, step_warps(rows, n)))}",
+              flush=True)
     return entry
 
 
@@ -1384,6 +1447,81 @@ def divergence(rounds: torch.Tensor, max_iters: int) -> dict:
     return {"lane_rounds_mean": lane_mean, "warp_rounds_mean": warp_mean,
             "lane_rounds_max": int(lane.max()), "divergence_share": 1 - lane_mean / warp_mean,
             "cap_share": float((ran == max_iters).float().mean())}
+
+
+def step_warps(rows: int, n: int) -> int:
+    """Warps of the rejection step's cooperative grid for a bank of rows x
+    n (``rejection_step_grid``)."""
+    from repro_torch.kernels.rejection import rejection as rk
+
+    blocks = ctypes.c_int(0)
+    if rk._lib().rejection_step_grid(rows, n, ctypes.byref(blocks)) != 0:
+        fail("rejection_step_grid failed")
+    return blocks.value * (256 // WARP)
+
+
+def rejection_defines(*names: str) -> list:
+    """The values of ``#define NAME <int>`` lines of ``rejection.cu``."""
+    text = (ROOT / "src/repro_torch/kernels" / SOURCES["rejection"]).read_text()
+    return [int(re.search(rf"^#define {name} (\d+)$", text, re.M).group(1)) for name in names]
+
+
+def refill_rounds(rounds: torch.Tensor, warps: int) -> dict:
+    """A model of the rejection step's warp chains (``warp_chains`` in
+    ``rejection.cu``, with its ``REJ_CHUNK`` and ``REJ_ROUNDS``) on the
+    rounds of ``rejection_rounds_ref`` (-1: a row that does not resample,
+    which runs no round), not a measurement: the resampling rows' F
+    particles in bank order, in T = F / (W·``REJ_CHUNK``) turns, each split
+    among the grid's W ``warps`` into equal pieces, piece p to warp p mod
+    W; a warp's 32 lanes each take its next particle when free and run
+    ``REJ_ROUNDS`` rounds an iteration (accept round r holds a lane
+    ceil((r + 1) / REJ_ROUNDS) iterations), as if every warp ran at one
+    speed; when its particles run out and at most 16 lanes are busy, the
+    busy ones share the warp, 32 / 2^ceil(log2 busy) lanes each, a round a
+    lane.  Returns the warps' mean iterations (of those with work), the
+    rounds their lanes issue (32·``REJ_ROUNDS`` an iteration of one
+    particle a lane, 32 of a shared one) per particle that ran, and the
+    share of those the chains need (the old kernel's is ``1 -
+    divergence_share``)."""
+    jobs = (rounds[rounds >= 0] + 1).to(torch.int64).cpu()
+    if jobs.numel() == 0:
+        return {}
+    chunk, at_once = rejection_defines("REJ_CHUNK", "REJ_ROUNDS")
+    f = jobs.numel()
+    pieces = warps * max(1, f // (warps * chunk))
+    bounds = torch.arange(pieces + 1, dtype=torch.int64) * f // pieces
+    warp = (torch.searchsorted(bounds, torch.arange(f), right=True) - 1) % warps
+    order = torch.argsort(warp, stable=True)  # each warp's particles, in bank order
+    count = torch.bincount(warp, minlength=warps)
+    start = torch.cumsum(count, 0) - count
+    queue = torch.zeros(warps, int(count.max()), dtype=torch.int64)
+    queue[warp[order], torch.arange(f) - start[warp[order]]] = jobs[order]
+    finish = torch.zeros(warps, WARP, dtype=torch.int64)
+    last = torch.zeros(warps, dtype=torch.int64)
+    rows_ = torch.arange(warps)
+    for k in range(queue.shape[1]):
+        job = -(-queue[:, k] // at_once)
+        t0, lane = finish.min(dim=1)
+        has = job > 0
+        finish[rows_[has], lane[has]] = t0[has] + job[has]
+        last = torch.where(has, t0, last)
+    # The rounds left when the warp's particles run out, then a lane a
+    # particle while more than 16 are busy, shared lanes after.
+    rem = (finish - last.unsqueeze(1)).clamp(min=0) * at_once
+    iters, issued = last.clone(), last * WARP * at_once
+    while bool((rem > 0).any()):
+        nb = (rem > 0).sum(dim=1)
+        shared = nb <= 16
+        step = torch.where(shared, WARP // 2 ** torch.ceil(torch.log2(
+            nb.clamp(min=1).double())).long(), at_once)
+        rem = torch.where(rem > 0, (rem - step.unsqueeze(1)).clamp(min=0), rem)
+        iters += (nb > 0).long()
+        issued += (nb > 0).long() * torch.where(shared, WARP, WARP * at_once)
+    busy = iters > 0
+    return {"refill_warps": warps,
+            "refill_warp_iterations_mean": float(iters[busy].float().mean()),
+            "refill_issued_rounds_per_lane": float(issued.sum()) / f,
+            "refill_lane_share": float(jobs.sum()) / float(issued.sum())}
 
 
 def grid_study(case) -> dict:

@@ -66,8 +66,9 @@ class KernelResources:
     ``rows`` (``ceil(N / NT)`` by S), ``tiles`` (``N / 1024`` by S),
     ``stride`` (``min(ceil(N / NT), 65535)``), ``resident`` (co-resident,
     at most ``ceil(N / (4·NT))``: one 16-byte vector a thread), or
-    cooperative ``coop_step`` (co-resident, at most ``ceil(S·N / NT)``) and
-    ``coop_scan`` (co-resident, at most ``S·N / 1024``).  ``optin``: the kernel raises its dynamic
+    cooperative ``coop_step`` and ``coop_search`` (co-resident, at most
+    ``ceil(S·N / NT)``; a search admits ``MAX_ROWS`` rows) and ``coop_scan``
+    (co-resident, at most ``S·N / 1024``).  ``optin``: the kernel raises its dynamic
     shared memory limit (``cudaFuncAttributeMaxDynamicSharedMemorySize``)
     where a launch needs more than 48 KiB in all, so its budget is the
     opt-in limit."""
@@ -122,15 +123,20 @@ KERNELS = {
     "metropolis_c1c2_step_rows_kernel<2>": _step(_C1C2, 5, 64, 26880, optin=True),
     "rejection_rows_kernel<false>": _rows(_REJ, 0, 30, 1024),
     "rejection_rows_kernel<true>": _rows(_REJ, 1, 32, 1024),
-    "rejection_step_rows_kernel": _step(_REJ, 2, 32, 32),
+    # The rejection step's registers are capped at 48 (5 blocks an SM).
+    "rejection_step_rows_kernel": _step(_REJ, 2, 48, 32),
     "prefix_scan_rows_kernel": _rows(_PREFIX, 0, 32, 4688, "coop_scan"),
-    "prefix_search_rows_kernel<false, false>": _rows(_PREFIX, 1, 16, 0),
-    "prefix_search_rows_kernel<true, false>": _rows(_PREFIX, 2, 31, 0),
-    "prefix_search_rows_kernel<true, true>": _rows(_PREFIX, 3, 32, 0),
-    "prefix_step_rows_kernel<0>": _step(_PREFIX, 4, 63, 4720),
-    "prefix_step_rows_kernel<1>": _step(_PREFIX, 5, 40, 4720),
-    "prefix_step_rows_kernel<2>": _step(_PREFIX, 6, 40, 4720),
-    "prefix_step_rows_kernel<3>": _step(_PREFIX, 7, 48, 4720),
+    # The searches of rising draws, a thread a slot; of the others, one
+    # cooperative launch that writes the rows' trees, then searches.
+    "prefix_search_rows_kernel<false>": _rows(_PREFIX, 1, 16, 0),
+    "prefix_search_rows_kernel<true>": _rows(_PREFIX, 2, 31, 0),
+    "prefix_search_tree_kernel<false, false>": _rows(_PREFIX, 3, 30, 0, "coop_search"),
+    "prefix_search_tree_kernel<true, false>": _rows(_PREFIX, 4, 32, 0, "coop_search"),
+    "prefix_search_tree_kernel<true, true>": _rows(_PREFIX, 5, 32, 0, "coop_search"),
+    "prefix_step_rows_kernel<0>": _step(_PREFIX, 6, 63, 4720),
+    "prefix_step_rows_kernel<1>": _step(_PREFIX, 7, 40, 4720),
+    "prefix_step_rows_kernel<2>": _step(_PREFIX, 8, 40, 4720),
+    "prefix_step_rows_kernel<3>": _step(_PREFIX, 9, 48, 4720),
     "copy_kernel": _rows(_FIX, 0, 32, 0, "resident"),
     "iota_kernel": _rows(_FIX, 1, 24, 0, "stride"),
 }
@@ -189,7 +195,7 @@ def price(kernel: str, rows: int, n: int, resources: KernelResources | None = No
         blocks = min(-(-rows * n // NT), 65535)
     elif res.grid == "resident":
         blocks = max(1, min(co_resident, -(-rows * n // (4 * NT))))
-    elif res.grid == "coop_step":
+    elif res.grid in ("coop_step", "coop_search"):
         blocks = max(1, min(co_resident, -(-rows * n // NT)))
     else:
         blocks = max(1, min(co_resident, rows * (n // 1024)))

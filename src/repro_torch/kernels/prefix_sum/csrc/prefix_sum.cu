@@ -52,24 +52,41 @@
 //   moves 12N (x is read again: from L2 while the bank fits there, from
 //   device memory at S = 16, N = 2^20, 64 MiB).
 //
-// prefix_search_rows_kernel<GATHER, RESIDUAL> replaces searchsorted_pallas
-// (<false, false>), searchsorted_gather_pallas (<true, false>) and
-// residual_select_gather_pallas (<true, true>) (repro/kernels/prefix_sum/
-// search.py): one thread per output slot bisects its row's CDF, read from
-// global memory through the read-only path (4 MiB a row at N = 2^20, so it
-// stays in L2); ceil(log2(N + 1)) steps bound the loop, which stops when
-// lo == hi (nothing changes after that in the TPU's fixed trip).  left: the
-// first c >= u; right: the first c > u; clipped to N - 1.  mid = lo +
-// (hi - lo) / 2 keeps clear of int32 overflow near N = 2^30.  RESIDUAL:
-// slot i < n_det[s] bisects the count CDF at (float)i, other slots the
-// residual CDF at u (only the search a slot keeps is run).
+// prefix_search_rows_kernel<GATHER> and prefix_search_tree_kernel<GATHER,
+// RESIDUAL> replace searchsorted_pallas (GATHER false),
+// searchsorted_gather_pallas (GATHER true) and residual_select_gather_pallas
+// (<true, true>) (repro/kernels/prefix_sum/search.py): the TPU's
+// bisection of each slot's row of the CDF, ceil(log2(N + 1)) steps at
+// most, stopping when lo == hi (nothing changes after that in the TPU's
+// fixed trip).  left: the first c >= u; right: the first c > u; clipped to
+// N - 1.  mid = lo + (hi - lo) / 2 keeps clear of int32 overflow near N =
+// 2^30.  RESIDUAL: slot i < n_det[s] bisects the count CDF at (float)i,
+// other slots the residual CDF at u (only the search a slot keeps is run).
+// The wrapper picks the kernel by the draws (repro_torch/kernels/
+// prefix_sum/search.py): both compute the same function, bit for bit.
 //
 //   What bounds it: per row the CDF (4N) and u (4N) in, ancestors (4N) out,
 //   and with GATHER the state in and out (8DN): 12 MiB at N = 2^20 index
-//   only, 3.8 us.  Each of the ~21 steps is a dependent read; the draws of
-//   the systematic kinds rise with i, so a warp's 32 paths coincide until
-//   the last few steps, while multinomial draws are random and scatter
-//   their last steps over L2 sectors.
+//   only, 3.8 us.  Each of the ~21 steps is a dependent read.  Draws that
+//   rise with i (systematic, stratified, residual's counts) keep a warp's
+//   32 paths together until the last steps, so the CDF's top stays in L1.
+//   Draws in no order (multinomial, residual's residuals) scatter every
+//   step below the ~10th over its own 32-byte L2 sector, about 9 a search
+//   with the state's: at S = 16 the parent's one thread a slot moved about
+//   4 TB/s of sectors (1.31 ms), the rate one PyTorch gather reaches.
+//   What the design does about it: rising draws keep one thread a slot
+//   (prefix_search_rows_kernel).  The others go to one cooperative launch
+//   (prefix_search_tree_kernel) that first writes each row's search tree,
+//   the bisection's nodes in lines of one sector for three steps each (the
+//   tree_* helpers below; 1.2 MB a row at N = 2^20), then, after one grid
+//   barrier, searches one slot a thread with the grid sweeping the bank in
+//   order: six sector reads for the first 18 steps (the top four groups
+//   stay in L1), then bisect's loop on at most 16 elements.  On an NVIDIA
+//   H100 80GB HBM3 (700.00 W) the multinomial gather at S = 16 took 0.913
+//   ms against 1.310, at S = 1 0.056 against 0.092, Path C's bank at N =
+//   2^22 16.4 against 23.5 (PERF.md).  A tree in each block's shared
+//   memory lost: its fills per block, and blocks spread over every row at
+//   once, which put the bank past L2.
 //
 // prefix_step_rows_kernel<KIND> replaces prefix_pallas_step
 // (repro/kernels/prefix_sum/step.py): the fused SMC step of a bank in one
@@ -285,26 +302,171 @@ __device__ __forceinline__ int bisect(const float* __restrict__ c, float u, bool
   return min(lo, n - 1);
 }
 
-template <bool GATHER, bool RESIDUAL>
+// One thread per slot: slot i bisects its row's CDF at u (draws that rise
+// with i, so a warp's 32 paths coincide but for their last steps).
+template <bool GATHER>
 __global__ void __launch_bounds__(NT) prefix_search_rows_kernel(
-    const float* __restrict__ cdf, const float* __restrict__ cc, const float* __restrict__ u,
-    const int* __restrict__ n_det, const float* __restrict__ state, int* __restrict__ anc,
-    float* __restrict__ out, int n, int d, int right) {
+    const float* __restrict__ cdf, const float* __restrict__ u, const float* __restrict__ state,
+    int* __restrict__ anc, float* __restrict__ out, int n, int d, int right) {
   const int s = blockIdx.y;
   const int i = blockIdx.x * NT + threadIdx.x;
   if (i >= n) return;
   const size_t row = (size_t)s * n;
-  int k;
-  if (RESIDUAL && i < n_det[s]) {
-    k = bisect<true>(cc + row, __int2float_rn(i), true, n);
-  } else {
-    k = bisect<true>(cdf + row, u[row + i], RESIDUAL || right, n);
-  }
+  const int k = bisect<true>(cdf + row, u[row + i], right, n);
   anc[row + i] = k;
   if (GATHER) {
     for (int c = 0; c < d; ++c) {
       const size_t plane = ((size_t)s * d + c) * n;
       out[plane + i] = state[plane + k];
+    }
+  }
+}
+
+// A node of the bisection tree over [0, n): the index that bisect reads at
+// step l on the path whose turns (1: right, lo = mid + 1) are v's bits
+// below its leading one, v in [1, 2^levels) in breadth-first order (v = 1
+// the root, 2v and 2v + 1 its children), or -1 where that step's interval
+// is empty (no search reaches it).  For n a power of two the interval of
+// node (l, p = v - 2^l) is (p·n/2^l, (p + 1)·n/2^l], [0, n/2^l) for p = 0,
+// and its midpoint (2p + 1)·n/2^(l+1); any other n replays the midpoints
+// from the root.
+__device__ __forceinline__ int tree_node(int v, int n) {
+  const int l = 31 - __clz(v);
+  if ((n & (n - 1)) == 0) return (2 * (v - (1 << l)) + 1) * (n >> (l + 1));
+  int lo = 0, hi = n;
+  for (int b = l - 1; b >= 0; --b) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if ((v >> b) & 1) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo < hi ? lo + ((hi - lo) >> 1) : -1;
+}
+
+// The search tree of a CDF row: the bisection's nodes (tree_node) of its
+// first 3·groups steps, as lines of 8 floats (one 32-byte sector): line r
+// of group g holds the 7 nodes of levels 3g .. 3g + 2 under node 8^g + r
+// (breadth first: its root, then 2, then 4; the eighth float unused), and
+// group g's 8^g lines follow the (8^g - 1) / 7 of the groups before.  So a
+// search reads one sector for three steps where bisect reads three.
+// groups: as many as leave an interval of at most 16 elements (half a
+// 128-byte line of the CDF) to the last steps: ceil((ceil(log2 n) - 4) /
+// 3), at least 1.
+#define TREE_LINE 8
+__host__ __device__ __forceinline__ int tree_groups(int n) {
+#ifdef __CUDA_ARCH__
+  const int l = 32 - __clz(n - 1);  // ceil(log2 n), n >= 2
+#else
+  const int l = 32 - __builtin_clz((unsigned)(n - 1));
+#endif
+  return l <= 7 ? 1 : (l - 2) / 3;
+}
+__host__ __device__ __forceinline__ long long tree_lines(int groups) {
+  return ((1LL << (3 * groups)) - 1) / 7;
+}
+
+// Three steps of a search from one tree line f (8 floats in registers):
+// each reads the node its path reaches, lo < hi permitting, as bisect does;
+// returns the path's three turns as bits (first turn highest).
+__device__ __forceinline__ int line_steps(const float (&f)[TREE_LINE], float x, bool right,
+                                          int& lo, int& hi) {
+  int path = 0;
+#pragma unroll
+  for (int dl = 0; dl < 3; ++dl) {
+    const int base = (1 << dl) - 1;
+    float cm = f[base];
+#pragma unroll
+    for (int o = 1; o < (1 << dl); ++o) cm = path == o ? f[base + o] : cm;
+    int go = 0;
+    if (lo < hi) {
+      const int mid = lo + ((hi - lo) >> 1);
+      go = right ? (cm <= x) : (cm < x);
+      lo = go ? mid + 1 : lo;
+      hi = go ? hi : mid;
+    }
+    path = 2 * path + go;
+  }
+  return path;
+}
+
+// One slot's search of row c at x: the tree's groups, then bisect's loop
+// on the CDF from the interval they leave.  The tree was written in this
+// launch: plain loads.
+__device__ __forceinline__ int tree_search(const float* tree, int groups,
+                                           const float* __restrict__ c, float x, bool right,
+                                           int n) {
+  int lo = 0, hi = n;
+  long long v = 1;  // the node the path has reached, breadth first
+  for (int g = 0; g < groups && lo < hi; ++g) {
+    const float4* line = reinterpret_cast<const float4*>(
+        tree + TREE_LINE * (tree_lines(g) + v - (1LL << (3 * g))));
+    const float4 a = line[0], b = line[1];
+    const float f[TREE_LINE] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    v = 8 * v + line_steps(f, x, right, lo, hi);
+  }
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (right ? (ftz(__ldg(c + mid)) <= x) : (ftz(__ldg(c + mid)) < x)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return min(lo, n - 1);
+}
+
+// One cooperative launch: first every row's search tree into tree, one
+// float a thread, then one grid barrier, then one slot a thread, the grid
+// sweeping the bank in order (so one or two rows' CDFs, trees and states
+// are the L2 working set).  RESIDUAL: slot i < n_det[s] bisects the count
+// CDF at (float)i as prefix_search_rows_kernel does (those draws rise with
+// i); the tree is the residual CDF's.
+template <bool GATHER, bool RESIDUAL>
+__global__ void __launch_bounds__(NT) prefix_search_tree_kernel(
+    const float* __restrict__ cdf, const float* __restrict__ cc, const float* __restrict__ u,
+    const int* __restrict__ n_det, const float* __restrict__ state, int* __restrict__ anc,
+    float* __restrict__ out, float* tree, int rows, int n, int d, int right) {
+  cg::grid_group grid = cg::this_grid();
+  const int groups = tree_groups(n);
+  const long long per_row = TREE_LINE * tree_lines(groups);
+  const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
+  const size_t gstride = (size_t)gridDim.x * NT;
+  for (size_t q = gtid; q < (size_t)rows * per_row; q += gstride) {  // a float a thread
+    const size_t s = q / per_row;
+    const long long line = (long long)(q - s * per_row) / TREE_LINE;
+    const int k = (int)(q % TREE_LINE);
+    float val = 0.0f;
+    if (k < TREE_LINE - 1) {
+      int g = 0;
+      while (g + 1 < groups && tree_lines(g + 1) <= line) ++g;
+      const int dl = 31 - __clz(k + 1);
+      const int v = (((1 << (3 * g)) + (int)(line - tree_lines(g))) << dl) + (k + 1 - (1 << dl));
+      const int m = tree_node(v, n);
+      if (m >= 0) val = ftz(__ldg(cdf + s * n + m));
+    }
+    tree[q] = val;
+  }
+  grid.sync();
+
+  for (size_t q = gtid; q < (size_t)rows * n; q += gstride) {
+    const int s = (int)(q / n);
+    const int i = (int)(q % n);
+    const size_t row = (size_t)s * n;
+    int k;
+    if (RESIDUAL && i < n_det[s]) {
+      k = bisect<true>(cc + row, __int2float_rn(i), true, n);
+    } else {
+      k = tree_search(tree + s * per_row, groups, cdf + row, ftz(__ldg(u + q)),
+                      RESIDUAL || right, n);
+    }
+    anc[q] = k;
+    if (GATHER) {
+      for (int ch = 0; ch < d; ++ch) {
+        const size_t plane = ((size_t)s * d + ch) * n;
+        out[plane + i] = state[plane + k];
+      }
     }
   }
 }
@@ -425,6 +587,13 @@ static const void* step_kernel(int kind) {
   }
 }
 
+// The tree search kernel of an instance.
+static const void* tree_kernel(bool residual, bool gather) {
+  if (residual) return (const void*)prefix_search_tree_kernel<true, true>;
+  if (gather) return (const void*)prefix_search_tree_kernel<true, false>;
+  return (const void*)prefix_search_tree_kernel<false, false>;
+}
+
 extern "C" {
 
 // Blocks of the cooperative scan grid: as many as can be co-resident, and
@@ -446,12 +615,19 @@ int prefix_scan_rows(const void* x, void* y, void* tot, int rows, int n, int blo
   return (int)cudaGetLastError();
 }
 
-// The search over a bank: with cc (not null) the residual select, with
-// state (not null) the copy of each ancestor's state.
+// Floats of one row's search tree.
+long long prefix_search_tree_floats(int n) { return TREE_LINE * tree_lines(tree_groups(n)); }
+
+// The search over a bank: with state (not null) the copy of each
+// ancestor's state.  With neither tree nor cc, one thread a slot
+// (prefix_search_rows_kernel, for draws that rise with i); else one
+// cooperative launch of prefix_search_tree_kernel on a co-resident grid,
+// with cc (not null) the residual select and tree scratch of tree_floats
+// floats, at least a tree a row (prefix_search_tree_floats).
 int prefix_search_rows(const void* cdf, const void* cc, const void* u, const void* n_det,
-                       const void* state, void* anc, void* out, int rows, int n, int d,
-                       int right, void* stream) {
-  dim3 grid((n + NT - 1) / NT, rows);
+                       const void* state, void* anc, void* out, void* tree,
+                       long long tree_floats, int rows, int n, int d, int right,
+                       void* stream) {
   const float* a_cdf = (const float*)cdf;
   const float* a_cc = (const float*)cc;
   const float* a_u = (const float*)u;
@@ -460,17 +636,29 @@ int prefix_search_rows(const void* cdf, const void* cc, const void* u, const voi
   int* a_anc = (int*)anc;
   float* a_out = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  if (cc != nullptr) {
-    prefix_search_rows_kernel<true, true><<<grid, NT, 0, st>>>(a_cdf, a_cc, a_u, a_nd, a_state,
-                                                                a_anc, a_out, n, d, right);
-  } else if (state != nullptr) {
-    prefix_search_rows_kernel<true, false><<<grid, NT, 0, st>>>(a_cdf, a_cc, a_u, a_nd, a_state,
-                                                                 a_anc, a_out, n, d, right);
-  } else {
-    prefix_search_rows_kernel<false, false><<<grid, NT, 0, st>>>(a_cdf, a_cc, a_u, a_nd,
-                                                                  a_state, a_anc, a_out, n, d,
-                                                                  right);
+  if (tree == nullptr && cc == nullptr) {
+    dim3 grid((n + NT - 1) / NT, rows);
+    if (state != nullptr) {
+      prefix_search_rows_kernel<true><<<grid, NT, 0, st>>>(a_cdf, a_u, a_state, a_anc, a_out, n,
+                                                           d, right);
+    } else {
+      prefix_search_rows_kernel<false><<<grid, NT, 0, st>>>(a_cdf, a_u, a_state, a_anc, a_out,
+                                                            n, d, right);
+    }
+    return (int)cudaGetLastError();
   }
+  if (tree_floats < (long long)rows * prefix_search_tree_floats(n))
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = tree_kernel(cc != nullptr, state != nullptr);
+  int blocks = 0;
+  const int err = resident_blocks(kernel, 0, ((long long)rows * n + NT - 1) / NT, &blocks);
+  if (err != 0) return err;
+  float* a_tree = (float*)tree;
+  void* args[] = {(void*)&a_cdf,   (void*)&a_cc,  (void*)&a_u,   (void*)&a_nd,
+                  (void*)&a_state, (void*)&a_anc, (void*)&a_out, (void*)&a_tree,
+                  (void*)&rows,    (void*)&n,     (void*)&d,     (void*)&right};
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NT), args, 0, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -506,11 +694,12 @@ int prefix_step_rows(int kind, const void* lw, const void* state, const void* ub
 int prefix_sum_attributes(int which, int dynamic_smem, int* out) {
   switch (which) {
     case 0: return kernel_attributes(prefix_scan_rows_kernel, dynamic_smem, out);
-    case 1: return kernel_attributes(prefix_search_rows_kernel<false, false>, dynamic_smem, out);
-    case 2: return kernel_attributes(prefix_search_rows_kernel<true, false>, dynamic_smem, out);
-    case 3: return kernel_attributes(prefix_search_rows_kernel<true, true>, dynamic_smem, out);
-    case 4: case 5: case 6: case 7:
-      return kernel_attributes(step_kernel(which - 4), dynamic_smem, out);
+    case 1: return kernel_attributes(prefix_search_rows_kernel<false>, dynamic_smem, out);
+    case 2: return kernel_attributes(prefix_search_rows_kernel<true>, dynamic_smem, out);
+    case 3: case 4: case 5:
+      return kernel_attributes(tree_kernel(which == 5, which >= 4), dynamic_smem, out);
+    case 6: case 7: case 8: case 9:
+      return kernel_attributes(step_kernel(which - 6), dynamic_smem, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

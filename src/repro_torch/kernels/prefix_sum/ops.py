@@ -37,6 +37,7 @@ from repro_torch.kernels.prefix_sum.prefix_sum import prefix_sum_rows
 from repro_torch.kernels.prefix_sum.ref import (  # noqa: F401  (PREFIX_KINDS re-exported)
     KIND_CODES,
     PREFIX_KINDS,
+    draws_rise,
     residual_parts,
     scaled_draws,
     side_is_right,
@@ -93,8 +94,8 @@ def _residual_cuda(keys, w):
     s, n = w.shape
     cc, c, u, n_det = _residual_scans(keys, w)
     slots = torch.arange(n, device=w.device)
-    det = searchsorted_rows(cc, slots.to(torch.float32).expand(s, n).contiguous(), "right")
-    rnd = searchsorted_rows(c, u, "right")
+    det = searchsorted_rows(cc, slots.to(torch.float32).expand(s, n).contiguous(), "right", True)
+    rnd = searchsorted_rows(c, u, "right", False)
     return torch.where(slots < n_det.unsqueeze(-1), det, rnd)
 
 
@@ -117,8 +118,8 @@ def _resample(keys, w, kind, state=None):
     c = prefix_sum_rows(w)
     u, side = kind_draws(keys, w.shape[-1], c[:, -1], kind)
     if state is None:
-        return searchsorted_rows(c, u, side)
-    return searchsorted_gather_rows(c, u, state, side)
+        return searchsorted_rows(c, u, side, draws_rise(kind))
+    return searchsorted_gather_rows(c, u, state, side, draws_rise(kind))
 
 
 def prefix_resample_cuda(key, weights, kind: str = "systematic"):

@@ -37,7 +37,8 @@ def _lib() -> ctypes.CDLL:
         lib.prefix_scan_grid.restype = _I
         lib.prefix_scan_rows.argtypes = [_P, _P, _P, _I, _I, _I, _P]
         lib.prefix_scan_rows.restype = _I
-        lib.prefix_search_rows.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.prefix_search_rows.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                                           _I, _I, _I, _I, _P]
         lib.prefix_search_rows.restype = _I
         lib.prefix_step_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
         lib.prefix_step_grid.restype = _I

@@ -16,7 +16,9 @@ The search: the TPU kernel's bisection step by step, ``ceil(log2(N + 1))``
 steps from ``[0, N)``, ``left`` the first ``c >= u``, ``right`` the first
 ``c > u``, clipped to N - 1; NaN and unsorted input follow the loop, not
 ``torch.searchsorted``.  ``mid = lo + (hi - lo) // 2``, which is the TPU's
-``(lo + hi) // 2`` without its int32 overflow near N = 2**30.
+``(lo + hi) // 2`` without its int32 overflow near N = 2**30.  The kernels
+read the first steps' midpoints from a copy of the CDF at the tree's nodes
+(``search_tree``): the same values, so the same result.
 
 The draws: the key-derived bases (``uniform(key, (n,))`` or the scalar
 ``uniform(key, ())``) come from the caller; ``scaled_draws`` applies the
@@ -106,10 +108,17 @@ def scan_rows_ref(x: torch.Tensor) -> torch.Tensor:
 def bisect_ref(cdf: torch.Tensor, u: torch.Tensor, right: bool) -> torch.Tensor:
     """The search kernels' bisection of each row of ``cdf f32[S, N]`` at the
     values ``u f32[S, M]``: ``int64[S, M]``."""
+    lo = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
+    return bisect_steps(cdf, u, right, lo, torch.full_like(lo, cdf.shape[-1]))
+
+
+def bisect_steps(cdf: torch.Tensor, u: torch.Tensor, right: bool, lo: torch.Tensor,
+                 hi: torch.Tensor) -> torch.Tensor:
+    """``bisect_ref``'s loop from the intervals ``[lo, hi)`` (``int64[S,
+    M]``) on: ``ceil(log2(N + 1))`` steps, each a no-op once ``lo >= hi``;
+    returns ``lo`` clipped to N - 1."""
     n = cdf.shape[-1]
     cdf, u = flush_to_zero(cdf), flush_to_zero(u)
-    lo = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
-    hi = torch.full(u.shape, n, dtype=torch.int64, device=u.device)
     for _ in range(max(1, math.ceil(math.log2(n + 1)))):
         active = lo < hi
         mid = lo + (hi - lo) // 2
@@ -120,6 +129,60 @@ def bisect_ref(cdf: torch.Tensor, u: torch.Tensor, right: bool) -> torch.Tensor:
     return lo.clamp(max=n - 1)
 
 
+#: Floats of a line of the search kernels' tree: one 32-byte sector, the 7
+#: nodes of three steps under one node and one unused.
+TREE_LINE = 8
+
+
+def search_tree_lines(n: int) -> range:
+    """The lines of the search kernels' tree of a row of N (``tree_groups``
+    and ``tree_lines`` in ``csrc/prefix_sum.cu``): groups of three steps,
+    as many as leave at most 16 elements to the last steps,
+    ``ceil((ceil(log2 N) - 4) / 3)``; group g holds 8**g lines."""
+    steps = (n - 1).bit_length()
+    groups = 1 if steps <= 7 else (steps - 2) // 3
+    return range(((1 << (3 * groups)) - 1) // 7)
+
+
+def search_tree(n: int) -> torch.Tensor:
+    """The search kernels' tree of a row of N as the CDF indices its floats
+    hold (-1: no node there): line r of group g (after the ``(8**g - 1) /
+    7`` lines of the groups before) holds ``tree_nodes``' nodes of steps
+    3g .. 3g + 2 under node ``8**g + r``, breadth first (its root, its two
+    children, their four), then one unused float.  ``int64[TREE_LINE·lines]``."""
+    lines = len(search_tree_lines(n))
+    groups = (lines * 7 + 1).bit_length() // 3
+    nodes = tree_nodes(n, 3 * groups)
+    out = torch.full((lines, TREE_LINE), -1, dtype=torch.int64)
+    for g in range(groups):
+        first = ((1 << (3 * g)) - 1) // 7
+        roots = torch.arange(1 << (3 * g)) + (1 << (3 * g))  # nodes 8**g + r
+        for k in range(TREE_LINE - 1):
+            depth = (k + 1).bit_length() - 1
+            v = (roots << depth) + (k + 1 - (1 << depth))
+            out[first:first + len(roots), k] = nodes[v - 1]
+    return out.reshape(-1)
+
+
+def tree_nodes(n: int, levels: int) -> torch.Tensor:
+    """The search kernels' tree (``tree_node`` in ``csrc/prefix_sum.cu``):
+    the index of the CDF that the bisection over ``[0, N)`` reads at each of
+    its first ``levels`` steps, node ``v = 1 .. 2**levels - 1`` at position
+    ``v - 1`` in breadth-first order (node v's children are 2v, where the
+    step went left, ``hi = mid``, and 2v + 1, right, ``lo = mid + 1``); -1
+    where the node's interval is empty, so that no search reads it.
+    ``int64[2**levels - 1]``."""
+    lo = torch.zeros(1, dtype=torch.int64)
+    hi = torch.full((1,), n, dtype=torch.int64)
+    nodes = []
+    for _ in range(levels):
+        mid = lo + (hi - lo) // 2
+        nodes.append(torch.where(lo < hi, mid, -1))
+        lo = torch.stack([lo, mid + 1], dim=1).reshape(-1)
+        hi = torch.stack([mid, hi], dim=1).reshape(-1)
+    return torch.cat(nodes)
+
+
 def _result(k: torch.Tensor, state: Optional[torch.Tensor]):
     if state is None:
         return k.to(torch.int32)
@@ -128,7 +191,8 @@ def _result(k: torch.Tensor, state: Optional[torch.Tensor]):
 
 def search_rows_ref(cdf: torch.Tensor, u: torch.Tensor, right: bool,
                     state: Optional[torch.Tensor] = None):
-    """Plain version of ``prefix_search_rows_kernel<GATHER, false>``:
+    """Plain version of ``prefix_search_rows_kernel<GATHER>`` and
+    ``prefix_search_tree_kernel<GATHER, false>``:
     ancestors ``int32[S, N]``, and with ``state`` the copy of each
     ancestor's state ``[S, D, N]``."""
     return _result(bisect_ref(cdf, u, right), state)
@@ -148,10 +212,17 @@ def _residual_select(cc, c, u, n_det) -> torch.Tensor:
 
 def residual_select_rows_ref(cc: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
                              n_det: torch.Tensor, state: Optional[torch.Tensor] = None):
-    """Plain version of ``prefix_search_rows_kernel<GATHER, true>``: slot
+    """Plain version of ``prefix_search_tree_kernel<true, true>``: slot
     ``i < n_det[s]`` takes the ``right`` bisection of the count CDF ``cc`` at
     ``i``, every other slot that of the residual CDF ``c`` at ``u``."""
     return _result(_residual_select(cc, c, u, n_det), state)
+
+
+def draws_rise(kind: str) -> bool:
+    """The draws rise with the slot (the systematic and stratified kinds):
+    they go to the one-thread-a-slot search kernel, the others to the tree
+    search (``search.py``)."""
+    return not side_is_right(kind)
 
 
 def side_is_right(kind: str) -> bool:

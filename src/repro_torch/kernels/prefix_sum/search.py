@@ -1,9 +1,11 @@
-"""Launch wrappers of the prefix-sum search kernel, one per TPU kernel (after
+"""Launch wrappers of the prefix-sum search kernels, one per TPU kernel (after
 ``repro.kernels.prefix_sum.search``):
 
-    searchsorted_rows            <- searchsorted_pallas            (kernel: <false, false>)
-    searchsorted_gather_rows     <- searchsorted_gather_pallas     (kernel: <true, false>)
-    residual_select_gather_rows  <- residual_select_gather_pallas  (kernel: <true, true>)
+    searchsorted_rows            <- searchsorted_pallas            (kernels: rows<false>,
+                                                                    tree<false, false>)
+    searchsorted_gather_rows     <- searchsorted_gather_pallas     (kernels: rows<true>,
+                                                                    tree<true, false>)
+    residual_select_gather_rows  <- residual_select_gather_pallas  (kernel: tree<true, true>)
 
 ``side`` follows ``jnp.searchsorted``: ``"left"`` the first index with
 ``c >= u``, ``"right"`` the first with ``c > u``, clipped to N - 1.  Each
@@ -11,6 +13,15 @@ wrapper takes a bank of S rows (one population is a bank of one row);
 state is ``[S, D, N]``.  The wrappers behave as that of ``prefix_sum.py``:
 plain version on CPU tensors, the kernel or an error on CUDA tensors, one
 count per launch.
+
+Two kernels compute the same bisection.  Draws that rise with the slot
+(``rising``: the systematic and stratified kinds, residual's count slots)
+go to ``prefix_search_rows_kernel``, one thread a slot: a warp's 32 paths
+coincide, so the CDF's first steps stay in L1.  Draws in no order
+(multinomial, residual's other slots) go to ``prefix_search_tree_kernel``,
+which first writes each CDF row's search tree (``ref.search_tree``) into a
+scratch buffer the wrapper allocates, then reads one 32-byte line of it for
+every three steps where the bisection reads three scattered sectors.
 """
 
 from __future__ import annotations
@@ -19,14 +30,25 @@ import torch
 
 from repro_torch.kernels.common import check_launch, kernel_wrapper
 from repro_torch.kernels.prefix_sum.prefix_sum import _lib, check_rows, ptr, stream
-from repro_torch.kernels.prefix_sum.ref import residual_select_rows_ref, search_rows_ref
+from repro_torch.kernels.prefix_sum.ref import (
+    TREE_LINE,
+    residual_select_rows_ref,
+    search_rows_ref,
+    search_tree_lines,
+)
 
 SIDES = ("left", "right")
 
 
-def _search(who, cdf, u, side, state=None, cc=None, n_det=None):
-    """One launch of ``prefix_search_rows_kernel`` over a bank (the residual
-    select when ``cc`` is given), or its plain version on CPU tensors."""
+def tree_floats(n: int) -> int:
+    """Floats of one CDF row's search tree (``prefix_search_tree_floats`` in
+    ``csrc/prefix_sum.cu``): ``ref.search_tree``'s length."""
+    return len(search_tree_lines(n)) * TREE_LINE
+
+
+def _search(who, cdf, u, side, rising, state=None, cc=None, n_det=None):
+    """One launch of a search kernel over a bank (the residual select when
+    ``cc`` is given), or its plain version on CPU tensors."""
     if side not in SIDES:
         raise ValueError(f"{who}: side must be one of {SIDES}; got {side!r}")
     s, n, d = check_rows(who, cdf, u, cc, state=state)
@@ -39,39 +61,55 @@ def _search(who, cdf, u, side, state=None, cc=None, n_det=None):
     anc = torch.empty((s, n), dtype=torch.int32, device=cdf.device)
     out = None if state is None else torch.empty_like(state)
     nd = None if cc is None else n_det.to(device=cdf.device, dtype=torch.int32)
+    tree = None if rising else torch.empty(s * tree_floats(n), dtype=torch.float32,
+                                           device=cdf.device)
     check_launch(_lib().prefix_search_rows(
         cdf.data_ptr(), ptr(cc), u.data_ptr(), ptr(nd), ptr(state), anc.data_ptr(), ptr(out),
-        s, n, d, int(side == "right"), stream(cdf)), who)
+        ptr(tree), 0 if tree is None else tree.numel(), s, n, d, int(side == "right"),
+        stream(cdf)), who)
     return anc if state is None else (anc, out)
 
 
-@kernel_wrapper("prefix_search_rows_kernel<false, false>")
-def searchsorted_rows(cdf: torch.Tensor, u: torch.Tensor, side: str = "left"):
+def _kernel(gather: bool):
+    """The census name of a search wrapper's launch, by its ``rising``
+    (positional after ``side``, or by keyword)."""
+    g, at = str(gather).lower(), 4 if gather else 3
+
+    def name(*args, rising=False, **_):
+        if args[at] if len(args) > at else rising:
+            return f"prefix_search_rows_kernel<{g}>"
+        return f"prefix_search_tree_kernel<{g}, false>"
+    return name
+
+
+@kernel_wrapper(_kernel(False))
+def searchsorted_rows(cdf: torch.Tensor, u: torch.Tensor, side: str = "left",
+                      rising: bool = False):
     """Bisect each row of the CDF bank ``cdf f32[S, N]`` at ``u f32[S, N]``:
-    ancestors ``int32[S, N]``."""
-    anc = _search("searchsorted_rows", cdf, u, side)
+    ancestors ``int32[S, N]``.  ``rising``: the draws rise with the slot."""
+    anc = _search("searchsorted_rows", cdf, u, side, rising)
     searchsorted_rows.launches += cdf.is_cuda
     return anc
 
 
-@kernel_wrapper("prefix_search_rows_kernel<true, false>")
+@kernel_wrapper(_kernel(True))
 def searchsorted_gather_rows(cdf: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                             side: str = "left"):
+                             side: str = "left", rising: bool = False):
     """``searchsorted_rows`` plus the copy of each ancestor's state ``[S, D,
     N]``: ``(ancestors int32[S, N], state' [S, D, N])``."""
-    result = _search("searchsorted_gather_rows", cdf, u, side, state)
+    result = _search("searchsorted_gather_rows", cdf, u, side, rising, state)
     searchsorted_gather_rows.launches += cdf.is_cuda
     return result
 
 
-@kernel_wrapper("prefix_search_rows_kernel<true, true>")
+@kernel_wrapper("prefix_search_tree_kernel<true, true>")
 def residual_select_gather_rows(cc: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
                                 n_det: torch.Tensor, state: torch.Tensor):
     """Residual resampling's tail over a bank: slot ``i < n_det[s]`` takes
     the ``right`` bisection of the count CDF ``cc`` at ``i``, the others
     that of the residual CDF ``c`` at ``u``; then the state copy.  Returns
     ``(ancestors int32[S, N], state' [S, D, N])``."""
-    result = _search("residual_select_gather_rows", c, u, "right", state, cc, n_det)
+    result = _search("residual_select_gather_rows", c, u, "right", False, state, cc, n_det)
     residual_select_gather_rows.launches += c.is_cuda
     return result
 

@@ -57,18 +57,32 @@
 // rejection_step_rows_kernel replaces rejection_pallas_step and
 // rejection_pallas_step_rows: the fused SMC step on the cooperative
 // single-launch design of metropolis_step_rows_kernel, on the shared
-// prelude of common.cuh with iters = max_iters + 1, so that its hash
-// prefixes hh cover rounds 0 .. max_iters.  The TPU prelude latches
-// sup w = max(exp(lw - m)); on a row that is not degenerate that is
-// exp(0) = 1.0f exactly (m is the row's max), and on a degenerate row the
-// uniform 1/N.  So the kernel takes sup w = (row_flag & 1) ? 1/N : 1.0f
-// and adds no reduction to the prelude, which stays as the six other step
-// kernels compiled it (common.cuh unchanged).  The plain version takes the
-// literal max; the tests and chip_smoke.py hold the two to each other.  A
-// row whose trigger did not fire runs no round: it keeps the identity.
+// prelude of common.cuh with no hash prefixes (each round hashes
+// fmix(seed + t·GOLDEN) in the thread, the hh of the rows kernel).  The
+// TPU prelude latches sup w = max(exp(lw - m)); on a row that is not
+// degenerate that is exp(0) = 1.0f exactly (m is the row's max), and on a
+// degenerate row the uniform 1/N.  So the kernel takes sup w = (row_flag &
+// 1) ? 1/N : 1.0f and adds no reduction to the prelude, which stays as the
+// other step kernels compiled it.  The plain version takes the literal max;
+// the tests and chip_smoke.py hold the two to each other.  A row whose
+// trigger did not fire runs no round: it keeps the identity.
 //
 //   What bounds it: the bytes of the fused kernel plus one more read of lw,
-//   and the realised rounds of the rows that resample.
+//   and the realised rounds of the rows that resample, each past round 0 a
+//   random L2 sector.  One thread a particle in a grid-stride loop ran each
+//   warp as long as its slowest lane: on Path A's bank (S = 16) the lanes
+//   averaged 15.6 rounds and their warps 61.6.
+//   What the design does about it (warp_chains below): each lane holds a
+//   particle and takes the next one when its own accepts, so no lane waits
+//   for the warp's slowest; a lane runs REJ_ROUNDS = 2 rounds at once, their
+//   loads in flight together; the grid's warps take equal pieces of the
+//   resampling rows' particles in turns, so the grid sweeps the bank in
+//   order and one or two rows' weights are the L2 working set; when a
+//   warp's particles run out, its last ones share its lanes.  A committed
+//   particle's state is stored one round later, its load in flight beside
+//   that round's.  Registers are capped at 48 (5 blocks an SM).  On an
+//   NVIDIA H100 80GB HBM3 (700.00 W): 1.28 ms against the parent's 1.74 at
+//   S = 16, 0.088 against 0.106 at S = 1 (PERF.md).
 //
 // Subnormals: built with -ftz=true, and flushed explicitly (ftz()) on the
 // values selection depends on, as XLA does on the CPU.
@@ -153,7 +167,163 @@ __global__ void __launch_bounds__(NT) rejection_rows_kernel(
   }
 }
 
-__global__ void __launch_bounds__(NT) rejection_step_rows_kernel(
+// Particles a warp takes at a time, at least (the grid's warps take pieces
+// in turn, so that the whole grid sweeps the bank in order); rounds a lane
+// runs at once, their loads in flight together; and blocks a
+// multiprocessor must hold (the register cap: 5 is 48 registers; 6 and 8
+// spilled and lost, PERF.md).
+#define REJ_CHUNK 64
+#define REJ_ROUNDS 2
+#define REJ_MIN_BLOCKS 5
+#define FULL 0xffffffffu
+
+// What the warp chain needs of a row: its weights, its seed (round t's
+// hash prefix is fmix(seed + t·GOLDEN), the hh of the rows kernel) and the
+// scale of u·sup w.
+struct ChainRow {
+  const float* w;
+  uint32_t seed;
+  float scale;
+};
+
+// A store a commit leaves for later: the warp chain writes val to dst one
+// round on, so that the load of val is in flight beside that round's.
+struct Pending {
+  float* dst;
+  float val;
+};
+
+// Round t of particle i's chain: t = 0 proposes i itself, t >= 1 proposes
+// j = hash mod n; accepted when u·sup w <= w[j] (the rounds of
+// rejection_chain and self_accept, term for term).
+__device__ __forceinline__ bool chain_round(const ChainRow& r, int t, int i, int n, int& j) {
+  const uint32_t h = fmix(r.seed + (uint32_t)t * GOLDEN);
+  const uint32_t lane_j = (uint32_t)i * GOLDEN;
+  const uint32_t lane_u = ((uint32_t)i + (uint32_t)n) * GOLDEN;
+  j = t == 0 ? i : (int)(fmix(h ^ lane_j) % (uint32_t)n);
+  return scaled_uniform(fmix(h ^ lane_u), r.scale) <= ftz(r.w[j]);
+}
+
+// The position of the set bit of rank g (from 0) in m, which has more than g.
+__device__ __forceinline__ int nth_set(unsigned m, int g) {
+  int pos = 0;
+#pragma unroll
+  for (int b = 16; b > 0; b >>= 1) {
+    if (__popc(m & ((1u << (pos + b)) - 1)) <= g) pos += b;
+  }
+  return pos;
+}
+
+// The chains of the particles of rows 0 .. rows - 1 of n each (row r is
+// row_id(r) of the bank), in bank order, on warp w of `warps`, every lane
+// of the warp calling it: in each of T = rows·n / (warps·REJ_CHUNK) turns
+// (at least one) the grid's warps split the turn's particles, warp w the
+// w-th piece, so every warp gets as many as any other, give or take T.
+// Each lane holds one particle and its next round; a lane whose particle
+// accepts (or passes the cap, keeping i) commits it and takes the next one,
+// so no lane waits for the warp's slowest.  When the particles run out and
+// at most 16 lanes are busy, their particles are spread over the warp,
+// 32 / 2^ceil(log2 busy) lanes each, one round a lane: the first accepting
+// round of a particle is the lowest set bit of its lanes' ballot, the
+// sequential chain's first accept.  So each ancestor is the chain's,
+// whichever lane and warp run it.  row_of(s) gives row s's ChainRow;
+// commit(s, i, k) records ancestor k of particle i of row s and returns the
+// store it leaves pending (dst null: none).
+template <class RowId, class RowOf, class Commit>
+__device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, int max_iters,
+                                            RowId row_id, RowOf row_of, Commit commit) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  int s = -1, i = 0, t = 0;  // this lane's particle (s < 0: none) and its next round
+  ChainRow row{nullptr, 0u, 0.0f};
+  Pending pend{nullptr, 0.0f};
+  const int total = rows * n;  // rows·n < 2^31
+  const int pieces = warps * max(1, total / (warps * REJ_CHUNK));
+  int piece = w;  // piece p holds ids [total·p / pieces, total·(p + 1) / pieces)
+  int cur = (int)((long long)total * piece / pieces);
+  int end = (int)((long long)total * (piece + 1) / pieces);
+  int cr = cur / n, ci = cur - cr * n;  // cur as row, particle
+  while (true) {
+    unsigned idle = __ballot_sync(FULL, s < 0);
+    while (idle && cur < end) {
+      const int take = min(__popc(idle), end - cur);
+      const int rank = __popc(idle & below);
+      if (((idle >> lane) & 1) && rank < take) {
+        const bool next = ci + rank >= n;  // ci + rank < n + 32: this row or the next
+        s = row_id(cr + next);
+        i = ci + rank - (next ? n : 0);
+        t = 0;
+        row = row_of(s);
+      }
+      cur += take;
+      ci += take;
+      if (ci >= n) {
+        ci -= n;
+        ++cr;
+      }
+      if (cur == end && piece + warps < pieces) {  // the warp's piece of the next turn
+        piece += warps;
+        cur = (int)((long long)total * piece / pieces);
+        end = (int)((long long)total * (piece + 1) / pieces);
+        cr = cur / n;
+        ci = cur - cr * n;
+      }
+      idle = __ballot_sync(FULL, s < 0);
+    }
+    const unsigned busy = __ballot_sync(FULL, s >= 0);
+    if (!busy) break;
+    const int nb = __popc(busy);
+    int k = -1;  // >= 0: this lane's particle is done, with ancestor k
+    if (nb > 16) {  // a lane a particle, REJ_ROUNDS rounds at once
+      if (s >= 0) {
+        int j[REJ_ROUNDS];
+        bool acc[REJ_ROUNDS];
+#pragma unroll
+        for (int r = 0; r < REJ_ROUNDS; ++r) {
+          acc[r] = t + r <= max_iters && chain_round(row, t + r, i, n, j[r]);
+        }
+#pragma unroll
+        for (int r = REJ_ROUNDS - 1; r >= 0; --r) {
+          if (acc[r]) k = j[r];
+        }
+        if (k < 0 && (t += REJ_ROUNDS) > max_iters) k = i;
+      }
+    } else {
+      const int gsz = 32 >> (32 - __clz(nb - 1));  // 32 / 2^ceil(log2 nb)
+      const int g = lane / gsz;
+      const int src = nth_set(busy, g < nb ? g : nb - 1);
+      const int ps = __shfl_sync(FULL, s, src);
+      const int pi = __shfl_sync(FULL, i, src);
+      const int rt = __shfl_sync(FULL, t, src) + lane % gsz;
+      int j = 0;
+      bool acc = false;
+      if (g < nb && rt <= max_iters) acc = chain_round(row_of(ps), rt, pi, n, j);
+      const unsigned hit = __ballot_sync(FULL, acc);
+      // A busy lane of rank r reads its particle's outcome from group r.
+      const int r = __popc(busy & below);
+      const unsigned mine = s >= 0 ? (hit >> (r * gsz)) & (FULL >> (32 - gsz)) : 0u;
+      const int kj = __shfl_sync(FULL, j, mine ? r * gsz + __ffs(mine) - 1 : lane);
+      if (s >= 0) {
+        if (mine) {
+          k = kj;
+        } else if ((t += gsz) > max_iters) {
+          k = i;
+        }
+      }
+    }
+    if (pend.dst != nullptr) {
+      *pend.dst = pend.val;
+      pend.dst = nullptr;
+    }
+    if (k >= 0) {
+      pend = commit(s, i, k);
+      s = -1;
+    }
+  }
+  if (pend.dst != nullptr) *pend.dst = pend.val;
+}
+
+__global__ void __launch_bounds__(NT, REJ_MIN_BLOCKS) rejection_step_rows_kernel(
     const float* __restrict__ lw, const float* __restrict__ state,
     const uint32_t* __restrict__ seeds, float thr, int* __restrict__ anc,
     float* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
@@ -162,37 +332,61 @@ __global__ void __launch_bounds__(NT) rejection_step_rows_kernel(
   extern __shared__ float row_m[];          // [rows] shift m per row
   int* row_flag = (int*)(row_m + rows);     // [rows] bit 0: degenerate, bit 1: do
   __shared__ float red[NT / 32];
-  const int iters = max_iters + 1;          // hh[s·iters + t] for rounds t = 0 .. max_iters
-  const StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
-  step_prelude(grid, lw, seeds, thr, stats, sc, row_m, row_flag, red, rows, n, iters);
+  // No hash prefixes in scratch: each round computes its own (ChainRow).
+  const StepScratch sc = step_scratch(scratch, rows, gridDim.x, 0);
+  step_prelude(grid, lw, seeds, thr, stats, sc, row_m, row_flag, red, rows, n, 0);
 
-  // The chain on the rows that resample, then commit (selection or
-  // identity) and state copy.  sc.wbuf was written in this launch: plain
-  // loads, not the read-only path.
-  const float inv_n = (float)(1.0 / (double)n);
+  // The rows that do not resample: the identity and the state copy.
+  const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
   const size_t gstride = (size_t)gridDim.x * NT;
-  for (size_t q = (size_t)blockIdx.x * NT + threadIdx.x; q < (size_t)rows * n; q += gstride) {
-    const int s = (int)(q / n);
-    const int i = (int)(q % n);
-    const int flag = row_flag[s];
-    int k = i;
-    if (flag & 2) {
-      const float* wr = sc.wbuf + (size_t)s * n;
-      const uint32_t* hh = sc.hh + (size_t)s * iters;
-      // sup w = max(exp(lw - m)), see the note above.
-      const float scale = uniform_scale((flag & 1) ? inv_n : 1.0f);
-      const uint32_t lane_j = (uint32_t)i * GOLDEN;
-      const uint32_t lane_u = ((uint32_t)i + (uint32_t)n) * GOLDEN;
-      if (!self_accept(hh[0], lane_u, scale, wr[i])) {
-        rejection_chain<false>(wr, hh + 1, max_iters, lane_j, lane_u, n, scale, k);
+  for (int s = 0; s < rows; ++s) {
+    if (row_flag[s] & 2) continue;
+    for (size_t i = gtid; i < (size_t)n; i += gstride) {
+      anc[(size_t)s * n + i] = (int)i;
+      for (int c = 0; c < d; ++c) {
+        const size_t plane = ((size_t)s * d + c) * n;
+        out[plane + i] = state[plane + i];
       }
     }
-    anc[q] = k;
-    for (int c = 0; c < d; ++c) {
-      const size_t plane = ((size_t)s * d + c) * n;
-      out[plane + i] = state[plane + k];
-    }
   }
+
+  // The rows that resample, in order, in place of the shifts (no longer
+  // read), and their count in red[0].
+  int* fired = (int*)row_m;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    int cnt = 0;
+    for (int r0 = 0; r0 < rows; r0 += 32) {
+      const bool f = r0 + lane < rows && (row_flag[r0 + lane] & 2);
+      const unsigned m = __ballot_sync(FULL, f);
+      if (f) fired[cnt + __popc(m & ((1u << lane) - 1))] = r0 + lane;
+      cnt += __popc(m);
+    }
+    if (lane == 0) ((int*)red)[0] = cnt;
+  }
+  __syncthreads();
+
+  // Their chains, the F particles in bank order, and each ancestor's state
+  // (plane 0's store one round later).  sc.wbuf was written in this launch:
+  // plain loads, not the read-only path.
+  const float inv_n = (float)(1.0 / (double)n);
+  warp_chains(
+      blockIdx.x * (NT / 32) + (threadIdx.x >> 5), gridDim.x * (NT / 32), ((int*)red)[0], n,
+      max_iters, [&](int r) { return fired[r]; },
+      [&](int s) {
+        // sup w = max(exp(lw - m)), see the note above.
+        return ChainRow{sc.wbuf + (size_t)s * n, __ldg(seeds + s),
+                        uniform_scale((row_flag[s] & 1) ? inv_n : 1.0f)};
+      },
+      [&](int s, int i, int k) {
+        anc[(size_t)s * n + i] = k;
+        for (int c = 1; c < d; ++c) {
+          const size_t plane = ((size_t)s * d + c) * n;
+          out[plane + i] = state[plane + k];
+        }
+        const size_t plane0 = (size_t)s * d * n;
+        return d > 0 ? Pending{out + plane0 + i, state[plane0 + k]} : Pending{nullptr, 0.0f};
+      });
 }
 
 extern "C" {

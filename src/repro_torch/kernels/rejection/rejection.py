@@ -44,9 +44,13 @@ from repro_torch.kernels.common import (
 from repro_torch.kernels.rejection.ref import rejection_rows_ref, rejection_step_rows_ref
 
 SOURCE = "rejection/csrc/rejection.cu"
-#: Largest ``max_iters``: the step kernel's hash prefixes cover rounds 0 ..
-#: max_iters in an int.
+#: Largest ``max_iters`` of the rows wrappers: rounds 0 .. max_iters count
+#: in an int.
 MAX_ITERS = (1 << 31) - 2
+#: Largest ``max_iters`` of the step wrappers: a lane of the step kernel
+#: (``warp_chains``) runs up to 32 rounds past the last, and they count in
+#: an int.
+MAX_STEP_ITERS = (1 << 31) - 33
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -66,11 +70,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(who: str, w, state, seeds, max_iters):
-    """Validate a bank call; returns ``(S, N, D)``."""
+def _check(who: str, w, state, seeds, max_iters, cap=MAX_ITERS):
+    """Validate a bank call with ``max_iters`` at most ``cap``; returns
+    ``(S, N, D)``."""
     if (isinstance(max_iters, bool) or not isinstance(max_iters, int)
-            or not 1 <= max_iters <= MAX_ITERS):
-        raise ValueError(f"{who}: max_iters must be a positive int; got {max_iters!r}")
+            or not 1 <= max_iters <= cap):
+        raise ValueError(f"{who}: max_iters must be an int in [1, {cap}]; got {max_iters!r}")
     return check_bank(who, w, state, seeds)
 
 
@@ -89,11 +94,10 @@ def _launch_rows(w, state, seeds, max_iters, who):
 
 
 def _launch_step(lw, state, seeds, max_iters, thr, who):
-    s, n, d = _check(who, lw, state, seeds, max_iters)
+    s, n, d = _check(who, lw, state, seeds, max_iters, MAX_STEP_ITERS)
     lib = _lib()
-    # The prelude's hash prefixes cover rounds 0 .. max_iters.
-    g, anc, out, stats, scratch = step_buffers(lib.rejection_step_grid, who, lw, state,
-                                               max_iters + 1)
+    # No hash prefixes: the kernel hashes each round in the thread.
+    g, anc, out, stats, scratch = step_buffers(lib.rejection_step_grid, who, lw, state, 0)
     sd = device_seeds(seeds, lw.device)
     stream = torch.cuda.current_stream(lw.device).cuda_stream
     check_launch(lib.rejection_step_rows(
@@ -114,7 +118,7 @@ def _rows(who, w, state, seeds, max_iters):
 
 def _step(who, lw, state, seeds, max_iters, thr):
     if not lw.is_cuda:
-        _check(who, lw, state, seeds, max_iters)
+        _check(who, lw, state, seeds, max_iters, MAX_STEP_ITERS)
         return rejection_step_rows_ref(lw, state, seeds, max_iters, thr)
     return _launch_step(lw, state, seeds, max_iters, thr, who)
 

@@ -15,6 +15,7 @@ tests/test_torch_cuda.py``)."""
 
 import collections
 import contextlib
+import ctypes
 import re
 import subprocess
 from pathlib import Path
@@ -562,6 +563,50 @@ def test_rejection_step_kernel_matches_plain_version(card, max_iters):
     assert (rk.rejection_step_rows.launches, rk.rejection_step.launches) == (2, 1)
 
 
+def _spike_log_weights(dev, n):
+    """Six rows of log-weights for the rejection step: flat at -5 with one
+    warp's lanes 0-30 at 0 (they accept their own proposal at once, lane 31
+    needs about 1/(e^-5 + 31/N) rounds, hundreds, as does every lane
+    elsewhere); flat (ESS 1: the row does not resample); UNGM-like; one
+    spike at 0 over -7 (about 1000 rounds a lane, so the default cap binds
+    too); dead (-inf: uniform, ESS 1); and flat again."""
+    g = torch.Generator().manual_seed(11)
+    lw = torch.full((6, n), -5.0)
+    lw[0, 64:95] = 0.0
+    lw[1] = 0.0
+    lw[2] = -0.5 * (torch.rand(n, generator=g) * 12) ** 2
+    lw[3] = -7.0
+    lw[3, n // 3] = 0.0
+    lw[4] = float("-inf")
+    lw[5] = 0.0
+    state = torch.randn(6, 1, n, generator=g)
+    seeds = torch.randint(0, 2**32, (6,), generator=g)
+    return lw.to(dev), state.to(dev), seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (8192, 3 << 12))
+@pytest.mark.parametrize("max_iters", (64, 1024))
+def test_rejection_step_kernel_on_a_spike(card, n, max_iters):
+    """Row 24 where lanes of one warp differ by hundreds of rounds, with
+    rows that resample and rows that do not, the cap binding (64) and the
+    default (1024, still reached by a few lanes): the ancestors and states
+    bit for bit, and the rounds the plain version counts show the spread."""
+    lw, state, seeds = _spike_log_weights(card, n)
+    rounds = rref.rejection_rounds_ref(lw, seeds, max_iters, log_weights=True, thr=0.5)
+    assert (rounds[0, 64:95] == 0).all() and rounds[0].max() >= min(max_iters, 500)
+    assert (rounds[[1, 4, 5]] == -1).all()  # rows that do not resample (ESS 1)
+    assert (rounds[3] == max_iters).any()
+    anc, out, stats = rk.rejection_step_rows(lw, state, seeds, max_iters, 0.5)
+    want_anc, want_out, want_stats = rref.rejection_step_rows_ref(lw, state, seeds, max_iters,
+                                                                  0.5)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    for r in (0, 1, 4):
+        one = rk.rejection_step(lw[r], state[r], seeds[r], max_iters, 0.5)
+        assert torch.equal(one[0], want_anc[r]) and torch.equal(one[1], want_out[r])
+
+
 @pytest.mark.cuda
 def test_run_filter_with_rejection_on_the_card(card):
     key = trandom.PRNGKey(0)
@@ -666,6 +711,84 @@ def test_prefix_search_kernels_match_plain_version(card, n):
     one = sk.residual_select_gather_rows(cc[:1], cr[:1], u[:1], n_det[:1], state[:1])
     assert torch.equal(one[0][0], want[0])
     assert [fn.launches for fn in sk.WRAPPERS] == [6, 6, 2]
+
+
+def _tree_search_inputs(dev, s, n, seed):
+    """Rows of every shape the bisection must follow step by step: a CDF,
+    values that are not monotone, a CDF holding NaN (one at the root's
+    midpoint), a row of NaN; draws at random over the values' range, on the
+    values themselves and rising with i; a state of two planes; and
+    residual's count CDF and n_det."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(s, n, generator=g)
+    c = torch.cumsum(x.abs(), dim=1)
+    c[1] = x[1]
+    c[2, n // 2] = float("nan")
+    c[2, torch.randint(0, n, (n // 64,), generator=g)] = float("nan")
+    c[3] = float("nan")
+    top = float(c[0, -1])
+    u = torch.rand(s, n, generator=g) * 1.2 * top - 0.1 * top
+    u[:, ::5] = c[0, torch.randint(0, n, (n // 5 + 1,), generator=g)][: u[:, ::5].shape[1]]
+    u[0] = torch.linspace(-1.0, top + 1.0, n)
+    state = torch.randn(s, 2, n, generator=g)
+    cc = torch.cumsum(torch.randint(0, 3, (s, n), generator=g).float(), dim=1)
+    n_det = torch.tensor([n // 3, 0, n, n // 2])[:s]
+    return [t.to(dev) for t in (c, u, state, cc)] + [n_det]
+
+
+def _search_all(c, u, state, cc, n_det):
+    """The three search wrappers on both sides, on either kernel of the
+    first two (``rising``), against their plain versions, bit for bit."""
+    for side in ("left", "right"):
+        want, want_out = pref.search_rows_ref(c, u, side == "right", state)
+        for rising in (False, True):
+            assert torch.equal(sk.searchsorted_rows(c, u, side, rising), want), side
+            anc, out = sk.searchsorted_gather_rows(c, u, state, side, rising)
+            assert torch.equal(anc, want) and torch.equal(out, want_out), side
+    want, want_out = pref.residual_select_rows_ref(cc, c, u, n_det, state)
+    anc, out = sk.residual_select_gather_rows(cc, c, u, n_det, state)
+    assert torch.equal(anc, want) and torch.equal(out, want_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1024, 3 << 12, 1 << 14, 1 << 18))
+def test_prefix_search_tree_kernels(card, n):
+    """Rows 26-28 on trees of 2, 4, 4 and 5 groups of lines (N = 3·2^12
+    fills its nodes by replaying the midpoints), and on the kernel of rising
+    draws: bit for bit the plain
+    version's bisection on a CDF, on values that are not monotone, on a CDF
+    holding NaN and on a row of NaN, both sides, index only, with the state
+    copy and the residual select.  The library's tree size is
+    ``search.tree_floats``, and a smaller scratch is refused."""
+    c, u, state, cc, n_det = _tree_search_inputs(card, 4, n, seed=n)
+    sk.reset_launch_counts()
+    _search_all(c, u, state, cc, n_det)
+    assert [fn.launches for fn in sk.WRAPPERS] == [4, 4, 1]
+    lib = pk._lib()
+    lib.prefix_search_tree_floats.argtypes = [ctypes.c_int]
+    lib.prefix_search_tree_floats.restype = ctypes.c_longlong
+    assert lib.prefix_search_tree_floats(n) == sk.tree_floats(n)
+    anc = torch.empty(4, n, dtype=torch.int32, device=card)
+    tree = torch.empty(4 * sk.tree_floats(n), device=card)
+    def search(cc_ptr, nd_ptr, tree_ptr, floats, right):
+        return lib.prefix_search_rows(c.data_ptr(), cc_ptr, u.data_ptr(), nd_ptr, None,
+                                      anc.data_ptr(), None, tree_ptr, floats, 4, n, 1, right,
+                                      pk.stream(c))
+
+    assert search(None, None, tree.data_ptr(), tree.numel() - 1, 0) != 0
+    assert search(None, None, tree.data_ptr(), tree.numel(), 0) == 0
+    assert torch.equal(anc, pref.search_rows_ref(c, u, False))
+    nd = n_det.to(device=card, dtype=torch.int32)
+    # The residual select runs only on the tree kernel: no tree, no launch.
+    assert search(cc.data_ptr(), nd.data_ptr(), None, 0, 1) != 0
+
+
+@pytest.mark.cuda
+def test_prefix_search_tree_at_the_largest_row(card):
+    """N = 2^22, Path C's largest: a tree of 6 groups, the wrappers bit for
+    bit."""
+    c, u, state, cc, n_det = _tree_search_inputs(card, 4, 1 << 22, seed=7)
+    _search_all(c, u, state, cc, n_det)
 
 
 @pytest.mark.cuda

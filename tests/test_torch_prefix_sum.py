@@ -44,6 +44,7 @@ from repro.pf import models as jm
 from repro_torch import convert
 from repro_torch import random as trandom
 from repro_torch.core.spec import PrefixSumSpec
+from repro_torch.kernels.common import flush_to_zero
 from repro_torch.kernels.prefix_sum import ops as pops
 from repro_torch.kernels.prefix_sum import prefix_sum as pk
 from repro_torch.kernels.prefix_sum import ref
@@ -292,6 +293,132 @@ def test_search_bank_forms_are_rows():
         assert torch.equal(anc[r], sk.searchsorted_rows(c[one], u[one], "right")[0])
         assert torch.equal(out[r],
                            sk.searchsorted_gather_rows(c[one], u[one], st[one], "right")[1][0])
+
+
+def _tree_rows(rkind: str, n: int) -> torch.Tensor:
+    """Four rows of N for the tree's transcript: a CDF (``sorted``), random
+    values (``unsorted``), or a CDF with NaN in its rows, one at the root's
+    midpoint (``nan``)."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(4, n)).astype(np.float32)
+    if rkind != "unsorted":
+        x = np.cumsum(np.abs(x), axis=1, dtype=np.float32)
+    if rkind == "nan":
+        x[0, n // 2] = np.nan
+        x[1, rng.integers(0, n, size=n // 64)] = np.nan
+        x[2, :] = np.nan
+    return torch.from_numpy(x)
+
+
+def _walk_tree(cdf: torch.Tensor, u: torch.Tensor, right: bool, levels: int):
+    """The search kernels' first ``levels`` steps, written out in torch: each
+    row's values at ``ref.tree_nodes`` (the tree in shared memory), walked
+    from the root; each step's node is its midpoint.  Returns the
+    intervals ``(lo, hi)`` the walk leaves for the loop on global memory."""
+    s, n = cdf.shape
+    nodes = ref.tree_nodes(n, levels)
+    tree = torch.where(nodes >= 0, flush_to_zero(cdf)[:, nodes.clamp(min=0)], 0.0)
+    u = flush_to_zero(u)
+    lo = torch.zeros(u.shape, dtype=torch.int64)
+    hi = torch.full_like(lo, n)
+    v = torch.ones_like(lo)
+    for _ in range(levels):
+        active = lo < hi
+        mid = lo + (hi - lo) // 2
+        assert torch.equal(nodes[v - 1][active], mid[active])
+        cm = torch.gather(tree, 1, v - 1)
+        pred = cm <= u if right else cm < u
+        lo = torch.where(active & pred, mid + 1, lo)
+        hi = torch.where(active & ~pred, mid, hi)
+        v = torch.where(active, 2 * v + pred.long(), v)
+    return lo, hi
+
+
+@pytest.mark.parametrize("levels", (1, 9, 14))
+@pytest.mark.parametrize("n", (1024, 3 << 12, 1 << 16))
+@pytest.mark.parametrize("rkind", ("sorted", "unsorted", "nan"))
+def test_search_tree_walk_is_bisect(rkind, n, levels):
+    """The bisection's tree in breadth-first order (``ref.tree_nodes``, of
+    which the kernels' ``search_tree`` is laid out): walking its nodes for
+    some levels, then ``bisect_ref``'s loop from the intervals the walk
+    leaves, gives ``bisect_ref`` on both sides, on rows that are not
+    monotone and rows holding NaN, for any N (levels past log2 N reach empty
+    nodes, which no search reads)."""
+    cdf = _tree_rows(rkind, n)
+    rng = np.random.default_rng(levels)
+    hi = float(np.nanmax(cdf.numpy())) if not torch.isnan(cdf).all() else 1.0
+    u = torch.from_numpy((rng.uniform(-0.1, 1.1, size=(4, n)) * hi).astype(np.float32))
+    u[:, ::5] = cdf[:, rng.integers(0, n, size=u[:, ::5].shape[1])]  # draws on the values
+    for right in (False, True):
+        lo, hi_ = _walk_tree(cdf, u, right, levels)
+        got = ref.bisect_steps(cdf, u, right, lo, hi_)
+        assert torch.equal(got, ref.bisect_ref(cdf, u, right))
+
+
+def _walk_search_tree(cdf: torch.Tensor, u: torch.Tensor, right: bool):
+    """The search kernel's walk of its tree (``tree_search``), written out in
+    torch: each row's values at ``ref.search_tree``, read a line (8 floats)
+    at a time for three steps, from the root's line; each step's float is
+    its midpoint.  Returns the intervals ``(lo, hi)`` left to the loop on
+    the CDF."""
+    s, n = cdf.shape
+    layout = ref.search_tree(n)
+    tree = torch.where(layout >= 0, flush_to_zero(cdf)[:, layout.clamp(min=0)], 0.0)
+    u = flush_to_zero(u)
+    lo = torch.zeros(u.shape, dtype=torch.int64)
+    hi = torch.full_like(lo, n)
+    v = torch.ones_like(lo)
+    groups = (len(ref.search_tree_lines(n)) * 7 + 1).bit_length() // 3
+    for g in range(groups):
+        line = ref.TREE_LINE * (((1 << (3 * g)) - 1) // 7 + v - (1 << (3 * g)))
+        path = torch.zeros_like(lo)
+        for dl in range(3):
+            at = line + (1 << dl) - 1 + path
+            active = lo < hi
+            mid = lo + (hi - lo) // 2
+            assert torch.equal(layout[at][active], mid[active])
+            cm = torch.gather(tree, 1, at)
+            go = active & (cm <= u if right else cm < u)
+            lo = torch.where(go, mid + 1, lo)
+            hi = torch.where(active & ~go, mid, hi)
+            path = 2 * path + go.long()
+        v = 8 * v + path
+    assert bool((hi - lo <= 16).all())  # at most 16 elements of the CDF left
+    return lo, hi
+
+
+@pytest.mark.parametrize("n", (1024, 3 << 12, 1 << 16))
+@pytest.mark.parametrize("rkind", ("sorted", "unsorted", "nan"))
+def test_search_tree_lines_walk_is_bisect(rkind, n):
+    """Rows 26-28's tree as the kernel lays it out, as a transcript
+    (``test_prefix_search_tree_kernels`` in ``tests/test_torch_cuda.py``
+    runs the kernel): a line of 8 floats for every three steps, then
+    ``bisect_ref``'s loop on at most 16 elements, gives ``bisect_ref`` on
+    both sides, on rows that are not monotone and rows holding NaN."""
+    cdf = _tree_rows(rkind, n)
+    rng = np.random.default_rng(n + 1)
+    top = float(np.nanmax(cdf.numpy())) if not torch.isnan(cdf).all() else 1.0
+    u = torch.from_numpy((rng.uniform(-0.1, 1.1, size=(4, n)) * top).astype(np.float32))
+    u[:, ::5] = cdf[:, rng.integers(0, n, size=u[:, ::5].shape[1])]
+    for right in (False, True):
+        lo, hi = _walk_search_tree(cdf, u, right)
+        assert torch.equal(ref.bisect_steps(cdf, u, right, lo, hi), ref.bisect_ref(cdf, u, right))
+
+
+@pytest.mark.parametrize("n", (1024, 1 << 16, 1 << 20))
+def test_search_tree_nodes_of_a_power_of_two(n):
+    """For N a power of two the kernel fills its tree in closed form: node
+    ``(l, p)``, ``v = 2**l + p``, is ``(2p + 1)·N / 2**(l + 1)``
+    (``tree_node``); ``ref.tree_nodes`` replays the midpoints.  The tree
+    fills its lines but for one float each."""
+    levels = min(14, n.bit_length() - 1)
+    v = torch.arange(1, 1 << levels)
+    lvl = torch.floor(torch.log2(v.double())).long()
+    closed = (2 * (v - (1 << lvl)) + 1) * (n >> (lvl + 1))
+    assert torch.equal(ref.tree_nodes(n, levels), closed)
+    layout = ref.search_tree(n).view(-1, ref.TREE_LINE)
+    assert (layout[:, :-1] >= 0).all() and (layout[:, -1] == -1).all()
+    assert sk.tree_floats(n) == layout.numel()
 
 
 @pytest.mark.parametrize("n", (2048, 8192))

@@ -283,6 +283,30 @@ def test_wrappers_validate(bad):
         rk.rejection_step_rows(w, w[:, None], seeds, max_iters, 0.5)
 
 
+@pytest.mark.parametrize("step", (False, True))
+def test_max_iters_caps(step):
+    """The rows wrappers take ``max_iters`` up to 2^31 - 2 (rounds 0 ..
+    max_iters count in an int), the step wrappers up to 2^31 - 33 (a lane
+    of the step kernel runs up to 32 rounds past the last); one more is
+    refused.  Flat weights accept at round 0, so the cap costs no round."""
+    w = torch.ones(2, 1024)
+    seeds = torch.tensor([1, 2])
+    if step:
+        cap, want = rk.MAX_STEP_ITERS, (1 << 31) - 33
+
+        def call(m):
+            return rk.rejection_step_rows(w.log(), w[:, None], seeds, m, 2.0)
+    else:
+        cap, want = rk.MAX_ITERS, (1 << 31) - 2
+
+        def call(m):
+            return rk.rejection_fused_batch(w, w[:, None], seeds, m)
+    assert cap == want
+    assert torch.equal(call(cap)[0], torch.arange(1024, dtype=torch.int32).expand(2, 1024))
+    with pytest.raises(ValueError, match=f"max_iters must be an int in \\[1, {cap}\\]"):
+        call(cap + 1)
+
+
 # ----------------------------------------------------------------- entry level
 def _resamplers(max_iters):
     jr = JaxSpec(max_iters=max_iters, backend="pallas_interpret").build()
