@@ -3,7 +3,7 @@ shapes of ``chip_smoke.py``'s phase 4.
 
     python benchmarks/torch_kernel_ab.py --module megopolis.megopolis \\
         --source parent=TREE/src/repro_torch/kernels/megopolis/csrc/megopolis.cu \\
-        [--source LABEL=PATH ...] [--sass DIR]
+        [--source LABEL=PATH ...] [--unchecked LABEL=PATH ...] [--sass DIR]
 
 ``--module`` names a wrapper module under ``repro_torch.kernels`` (its
 ``SOURCE`` is the source under test: ``megopolis.megopolis``,
@@ -24,7 +24,9 @@ Phase 4's inputs are captured as phase 4 captures them
 (``chip_smoke.kernel_cases``), for its cases whose kernel comes from that
 source; the fixture kernels' are those of phase 3
 (``chip_smoke.fixture_cases``: the contract checks' inputs and N = 2^23).
-Every build's outputs are held bit for bit to the plain version, and then
+Every build's outputs are held bit for bit to the plain version (but an
+``--unchecked`` build's: a copy cut short to time its phases, which returns
+before its outputs are written), and then
 each case's kernel is timed (``chip_smoke.kernel_ms``, the profiler's
 events of the port's kernels, whatever a build names them) with every
 build in turns: in the order given, then
@@ -126,6 +128,8 @@ def main(argv=None) -> int:
     ap.add_argument("--module", required=True,
                     help="wrapper module under repro_torch.kernels, e.g. megopolis.megopolis")
     ap.add_argument("--source", action="append", default=[], metavar="LABEL=PATH")
+    ap.add_argument("--unchecked", action="append", default=[], metavar="LABEL=PATH",
+                    help="a build timed but not held to the plain version")
     ap.add_argument("--sass", help="write each build's SASS here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -137,7 +141,8 @@ def main(argv=None) -> int:
     mod = importlib.import_module(f"repro_torch.kernels.{args.module}")
     print(f"card: {cs.card_line()}", flush=True)
     builds = [(label, Path(path).resolve()) for label, path in
-              (s.split("=", 1) for s in args.source)]
+              (s.split("=", 1) for s in args.source + args.unchecked)]
+    unchecked = {s.split("=", 1)[0] for s in args.unchecked}
     builds.append(("new", ROOT / "src/repro_torch/kernels" / mod.SOURCE))
     srcs = {label: tree_src(source) for label, source in builds}
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
@@ -179,7 +184,7 @@ def main(argv=None) -> int:
             for label, t in trees.items():
                 fn = getattr(t[wrapper.__module__], wrapper.__name__)
                 calls[label] = lambda fn=fn, a=leading(fn, kargs): fn(*a)
-                if not same(calls[label](), want, kind):
+                if label not in unchecked and not same(calls[label](), want, kind):
                     raise SystemExit(f"{name}: build {label} differs from the plain version")
             n = kargs[0].shape[-1]
             reps = 20 if rows * n * iters < 2e9 else 4

@@ -121,7 +121,7 @@ KERNELS = {
     "metropolis_c1c2_rows_kernel<2, true>": _rows(_C1C2, 3, 48, 43136, "tiles"),
     "metropolis_c1c2_step_rows_kernel<1>": _step(_C1C2, 4, 57, 6400),
     "metropolis_c1c2_step_rows_kernel<2>": _step(_C1C2, 5, 64, 26880, optin=True),
-    "rejection_rows_kernel<false>": _rows(_REJ, 0, 30, 1024),
+    "rejection_rows_kernel<false>": _rows(_REJ, 0, 31, 1024),
     "rejection_rows_kernel<true>": _rows(_REJ, 1, 32, 1024),
     # The rejection step's registers are capped at 48 (5 blocks an SM).
     "rejection_step_rows_kernel": _step(_REJ, 2, 48, 32),
@@ -130,7 +130,7 @@ KERNELS = {
     # cooperative launch that writes the rows' trees, then searches.
     "prefix_search_rows_kernel<false>": _rows(_PREFIX, 1, 16, 0),
     "prefix_search_rows_kernel<true>": _rows(_PREFIX, 2, 31, 0),
-    "prefix_search_tree_kernel<false, false>": _rows(_PREFIX, 3, 30, 0, "coop_search"),
+    "prefix_search_tree_kernel<false, false>": _rows(_PREFIX, 3, 32, 0, "coop_search"),
     "prefix_search_tree_kernel<true, false>": _rows(_PREFIX, 4, 32, 0, "coop_search"),
     "prefix_search_tree_kernel<true, true>": _rows(_PREFIX, 5, 32, 0, "coop_search"),
     "prefix_step_rows_kernel<0>": _step(_PREFIX, 6, 63, 4720),

@@ -86,7 +86,9 @@
 //   ms against 1.310, at S = 1 0.056 against 0.092, Path C's bank at N =
 //   2^22 16.4 against 23.5 (PERF.md).  A tree in each block's shared
 //   memory lost: its fills per block, and blocks spread over every row at
-//   once, which put the bank past L2.
+//   once, which put the bank past L2.  The build (build_trees, shared with
+//   the step) takes 32-bit indices and finds a line's group in closed
+//   form: the gather 3-5% and the residual select 10-11% faster (PERF.md).
 //
 // prefix_step_rows_kernel<KIND> replaces prefix_pallas_step
 // (repro/kernels/prefix_sum/step.py): the fused SMC step of a bank in one
@@ -104,7 +106,20 @@
 //
 //   What bounds it: the bytes of lw and the state in, ancestors and state
 //   out (16N per row), and the prelude's operations; the design adds the
-//   scan's traffic and three more grid barriers (residual: seven).
+//   scan's traffic and three more grid barriers (residual: seven).  On an
+//   NVIDIA H100 80GB HBM3 (700.00 W), at S = 16 with 7 rows fired, the
+//   prelude took 0.19 ms, the scan 0.06-0.08 and the search and copy the
+//   rest (0.26 of 0.50 for the rising draws, 0.59 of 0.86 for multinomial's
+//   random ones, each bisection step below the ~10th a scattered sector).
+//   What the design does about it: on the rows that fired, the random
+//   draws (KIND 0, and KIND 3's residual slots) search through the search
+//   kernels' per-row tree: build_trees writes it to the front of work after
+//   the scans, one more grid barrier, then tree_search; the CDF and the
+//   tree are written in the launch, so both are read with plain loads.
+//   Rising draws keep bisect (the tree lost on them).  Multinomial
+//   took 0.639 ms against 0.858 at S = 16 and 0.075 against 0.103 at S = 1;
+//   residual stayed within 1% (its random slots are few, and the tree's
+//   build costs about what their search saves) (PERF.md).
 
 #include "../../common.cuh"
 
@@ -285,9 +300,10 @@ __global__ void __launch_bounds__(NT, 8) prefix_scan_rows_kernel(const float* x,
 
 // The TPU's bisection: the first index with c > u (right) or c >= u
 // (left), clipped to n - 1.  RO reads through the read-only path (c not
-// written by the launch).
+// written by the launch); else plain loads, and no __restrict__ that would
+// let the compiler take that path.
 template <bool RO>
-__device__ __forceinline__ int bisect(const float* __restrict__ c, float u, bool right, int n) {
+__device__ __forceinline__ int bisect(const float* c, float u, bool right, int n) {
   u = ftz(u);
   int lo = 0, hi = n;
   while (lo < hi) {
@@ -392,11 +408,11 @@ __device__ __forceinline__ int line_steps(const float (&f)[TREE_LINE], float x, 
 }
 
 // One slot's search of row c at x: the tree's groups, then bisect's loop
-// on the CDF from the interval they leave.  The tree was written in this
-// launch: plain loads.
-__device__ __forceinline__ int tree_search(const float* tree, int groups,
-                                           const float* __restrict__ c, float x, bool right,
-                                           int n) {
+// on the CDF from the interval they leave.  The tree was written in the
+// launch: plain loads; RO reads c through the read-only path.
+template <bool RO>
+__device__ __forceinline__ int tree_search(const float* tree, int groups, const float* c,
+                                           float x, bool right, int n) {
   int lo = 0, hi = n;
   long long v = 1;  // the node the path has reached, breadth first
   for (int g = 0; g < groups && lo < hi; ++g) {
@@ -408,13 +424,48 @@ __device__ __forceinline__ int tree_search(const float* tree, int groups,
   }
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    if (right ? (ftz(__ldg(c + mid)) <= x) : (ftz(__ldg(c + mid)) < x)) {
+    const float cm = ftz(RO ? __ldg(c + mid) : c[mid]);
+    if (right ? (cm <= x) : (cm < x)) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
   return min(lo, n - 1);
+}
+
+// Floats of one row's search tree.
+__host__ __device__ __forceinline__ long long tree_row_floats(int n) {
+  return TREE_LINE * tree_lines(tree_groups(n));
+}
+
+// The search trees of the CDF rows c [rows, n] into tree, of `groups`
+// groups (tree_groups(n), which the caller searches with too) and so
+// TREE_LINE·tree_lines(groups) floats a row, a float a thread over the
+// grid; rows for which skip(s) holds are left alone.  The indices are
+// 32-bit (a bank's trees hold fewer floats than its rows·n < 2^31
+// elements) and a line's group is found in closed form.  RO reads c
+// through the read-only path (c not written by the launch).
+template <bool RO, class Skip>
+__device__ __forceinline__ void build_trees(const float* c, float* tree, int rows, int n,
+                                            int groups, Skip skip) {
+  const int per_row = TREE_LINE * (int)tree_lines(groups);
+  const unsigned total = (unsigned)rows * per_row;
+  for (unsigned q = blockIdx.x * NT + threadIdx.x; q < total; q += gridDim.x * NT) {
+    const int s = (int)(q / per_row);
+    if (skip(s)) continue;
+    const int line = (int)(q - s * per_row) / TREE_LINE;
+    const int k = (int)(q % TREE_LINE);
+    float val = 0.0f;
+    if (k < TREE_LINE - 1) {
+      const int g = (31 - __clz(7 * line + 1)) / 3;  // 8^g <= 7·line + 1 < 8^(g + 1)
+      const int dl = 31 - __clz(k + 1);
+      const int v = (((1 << (3 * g)) + line - (int)tree_lines(g)) << dl) + (k + 1 - (1 << dl));
+      const int m = tree_node(v, n);
+      if (m >= 0) val = ftz(RO ? __ldg(c + (size_t)s * n + m) : c[(size_t)s * n + m]);
+    }
+    tree[q] = val;
+  }
 }
 
 // One cooperative launch: first every row's search tree into tree, one
@@ -430,26 +481,12 @@ __global__ void __launch_bounds__(NT) prefix_search_tree_kernel(
     float* __restrict__ out, float* tree, int rows, int n, int d, int right) {
   cg::grid_group grid = cg::this_grid();
   const int groups = tree_groups(n);
-  const long long per_row = TREE_LINE * tree_lines(groups);
-  const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
-  const size_t gstride = (size_t)gridDim.x * NT;
-  for (size_t q = gtid; q < (size_t)rows * per_row; q += gstride) {  // a float a thread
-    const size_t s = q / per_row;
-    const long long line = (long long)(q - s * per_row) / TREE_LINE;
-    const int k = (int)(q % TREE_LINE);
-    float val = 0.0f;
-    if (k < TREE_LINE - 1) {
-      int g = 0;
-      while (g + 1 < groups && tree_lines(g + 1) <= line) ++g;
-      const int dl = 31 - __clz(k + 1);
-      const int v = (((1 << (3 * g)) + (int)(line - tree_lines(g))) << dl) + (k + 1 - (1 << dl));
-      const int m = tree_node(v, n);
-      if (m >= 0) val = ftz(__ldg(cdf + s * n + m));
-    }
-    tree[q] = val;
-  }
+  build_trees<true>(cdf, tree, rows, n, groups, [](int) { return false; });
   grid.sync();
 
+  const long long per_row = tree_row_floats(n);
+  const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
+  const size_t gstride = (size_t)gridDim.x * NT;
   for (size_t q = gtid; q < (size_t)rows * n; q += gstride) {
     const int s = (int)(q / n);
     const int i = (int)(q % n);
@@ -458,8 +495,8 @@ __global__ void __launch_bounds__(NT) prefix_search_tree_kernel(
     if (RESIDUAL && i < n_det[s]) {
       k = bisect<true>(cc + row, __int2float_rn(i), true, n);
     } else {
-      k = tree_search(tree + s * per_row, groups, cdf + row, ftz(__ldg(u + q)),
-                      RESIDUAL || right, n);
+      k = tree_search<true>(tree + s * per_row, groups, cdf + row, ftz(__ldg(u + q)),
+                            RESIDUAL || right, n);
     }
     anc[q] = k;
     if (GATHER) {
@@ -472,12 +509,13 @@ __global__ void __launch_bounds__(NT) prefix_search_tree_kernel(
 }
 
 // Registers by KIND, from A/Bs on the card at Path A's shapes: multinomial
-// free (63, 4 blocks per SM); systematic and stratified capped at 40 (6
+// capped at 64 (4 blocks per SM; free, the tree took it to 71 and 3 blocks,
+// 12% slower at S = 16); systematic and stratified capped at 40 (6
 // blocks per SM, 8 bytes spilled), faster on a bank of 16 than 48 or free
 // by 8-21% and slower on one row by 5-7%; residual keeps its 48 (5), the
 // count it had before the scan held four elements a thread in registers.
 template <int KIND>
-__global__ void __launch_bounds__(NT, KIND == 0 ? 1 : (KIND == 3 ? 5 : 6))
+__global__ void __launch_bounds__(NT, KIND == 0 ? 4 : (KIND == 3 ? 5 : 6))
     prefix_step_rows_kernel(
     const float* __restrict__ lw, const float* __restrict__ state,
     const float* __restrict__ ubase, const float* __restrict__ u0, float thr,
@@ -492,12 +530,15 @@ __global__ void __launch_bounds__(NT, KIND == 0 ? 1 : (KIND == 3 ? 5 : 6))
   step_prelude(grid, lw, nullptr, thr, stats, sc, row_m, row_flag, red, rows, n, 0);
 
   // The indices below are formed after the scan, so that none is held in a
-  // register across it.
+  // register across it.  work: the random draws' search trees first (KIND
+  // 0 and 3, tree_row_floats(n) floats a row), then the scans' space.
+  constexpr bool TREE = KIND == 0 || KIND == 3;
+  float* scan_work = TREE ? work + rows * tree_row_floats(n) : work;
   float* w = sc.wbuf;  // exp(lw - m), 1/N on a degenerate row
   float* cdf;          // the CDF the draws are scaled from and searched
   float* cc = nullptr;
   if (KIND != 3) {
-    scan_rows(grid, w, w, work, rows, n, sm, [&](int r) { return !(row_flag[r] & 2); });
+    scan_rows(grid, w, w, scan_work, rows, n, sm, [&](int r) { return !(row_flag[r] & 2); });
     cdf = w;
   } else {
     const int T = n / TILE;
@@ -505,7 +546,7 @@ __global__ void __launch_bounds__(NT, KIND == 0 ? 1 : (KIND == 3 ? 5 : 6))
     const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
     const size_t gstride = (size_t)gridDim.x * NT;
     const float nf = (float)n;
-    float* cw = work;
+    float* cw = scan_work;
     cc = cw + sn;                  // counts, then their CDF
     cdf = cc + sn;                 // residuals, then their CDF
     float* tot = cdf + sn;         // [2·rows, T]
@@ -540,6 +581,13 @@ __global__ void __launch_bounds__(NT, KIND == 0 ? 1 : (KIND == 3 ? 5 : 6))
     }
   }
   grid.sync();
+  // The trees of the CDFs that random draws search (the weights', or the
+  // residuals'), on the rows that resample; written here, so plain loads.
+  const int groups = tree_groups(n);
+  if (TREE) {
+    build_trees<false>(cdf, work, rows, n, groups, [&](int r) { return !(row_flag[r] & 2); });
+    grid.sync();
+  }
 
   const size_t sn = (size_t)rows * n;
   const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
@@ -553,14 +601,11 @@ __global__ void __launch_bounds__(NT, KIND == 0 ? 1 : (KIND == 3 ? 5 : 6))
     if (row_flag[s] & 2) {
       const float* c = cdf + (size_t)s * n;
       const float total = c[n - 1];
-      if (KIND == 3) {
-        if (i < __float2int_rz(row_m[s])) {  // NaN gives 0, as XLA's conversion
-          k = bisect<false>(cc + (size_t)s * n, __int2float_rn(i), true, n);
-        } else {
-          k = bisect<false>(c, ftz(__fmul_rn(__ldg(ubase + q), total)), true, n);
-        }
-      } else if (KIND == 0) {
-        k = bisect<false>(c, ftz(__fmul_rn(__ldg(ubase + q), total)), true, n);
+      if (KIND == 3 && i < __float2int_rz(row_m[s])) {  // NaN gives 0, as XLA's conversion
+        k = bisect<false>(cc + (size_t)s * n, __int2float_rn(i), true, n);
+      } else if (TREE) {
+        k = tree_search<false>(work + s * TREE_LINE * tree_lines(groups), groups, c,
+                               ftz(__fmul_rn(__ldg(ubase + q), total)), true, n);
       } else {
         const float scale = ftz(__fmul_rn(total, inv_n));
         const float base = KIND == 1 ? __ldg(u0 + s) : __ldg(ubase + q);
@@ -616,7 +661,7 @@ int prefix_scan_rows(const void* x, void* y, void* tot, int rows, int n, int blo
 }
 
 // Floats of one row's search tree.
-long long prefix_search_tree_floats(int n) { return TREE_LINE * tree_lines(tree_groups(n)); }
+long long prefix_search_tree_floats(int n) { return tree_row_floats(n); }
 
 // The search over a bank: with state (not null) the copy of each
 // ancestor's state.  With neither tree nor cc, one thread a slot

@@ -24,8 +24,10 @@ from repro_torch.kernels.prefix_sum.prefix_sum import _lib, check_rows, ptr, str
 from repro_torch.kernels.prefix_sum.ref import (
     KIND_CODES,
     RESIDUAL_MAX_PARTICLES,
+    draws_rise,
     prefix_step_rows_ref,
 )
+from repro_torch.kernels.prefix_sum.search import tree_floats
 
 
 def check_kind(who: str, kind: str, n: int):
@@ -54,9 +56,12 @@ def _step(who, lw, state, ubase, u0, thr, kind):
     g, anc, out, stats, scratch = step_buffers(functools.partial(lib.prefix_step_grid, code),
                                                who, lw, state, 0)
     t = n // TILE
-    # The kernel's work space: the tile carries, and for residual the CDF of
-    # the weights, the counts and residuals, their carries and n_det's sums.
-    size = s * t if code != 3 else 3 * s * n + 2 * s * t + s * g
+    # The kernel's work space: for the draws in no order (multinomial,
+    # residual's residuals) a search tree a row first; then the tile
+    # carries, and for residual the CDF of the weights, the counts and
+    # residuals, their carries and n_det's sums.
+    size = s * tree_floats(n) if not draws_rise(kind) else 0
+    size += s * t if code != 3 else 3 * s * n + 2 * s * t + s * g
     work = torch.empty(size, dtype=torch.float32, device=lw.device)
     check_launch(lib.prefix_step_rows(
         code, lw.data_ptr(), state.data_ptr(), ptr(ubase), ptr(u0), float(thr), anc.data_ptr(),

@@ -52,7 +52,20 @@
 //   lets the block stop.  Computing it in each thread instead (8 more
 //   operations a round, no barrier) measured 6-14% faster at S = 1 (2 us
 //   at most) and 0.5-7% slower at S = 16 (up to 60 us) on Path A's
-//   weights (PERF.md); the chunks stay.
+//   weights (PERF.md); the chunks stay.  At S = 16 the kernel moved 2.1 GB
+//   of random sectors at 2.7 TB/s, and the issue of each round's
+//   instructions, not the sectors, set that rate: a proposal's j = hash
+//   mod N takes a mask where N is a power of two (the path's N) in place of
+//   the remainder's instruction sequence, and that alone made rows 19-22
+//   6-8% faster on an NVIDIA H100 80GB HBM3 at 700.00 W (2.7-2.9 TB/s at
+//   S = 16; PERF.md).  Also tried on the card and kept out: the step's
+//   warp chains (refilled lanes) took the S = 16 index bank from 0.80 to
+//   0.76 ms but the fused one from 0.83 to 1.01 and one row from
+//   0.016-0.018 to 0.021-0.025, at 4 to 8 blocks an SM and 2 or 4 rounds a
+//   lane; 2, 4 or 8 rounds in flight a thread in this loop were 8-80%
+//   slower (the rounds past an accept read sectors and issue instructions
+//   too); blocks of 32, 64 or 128 threads, and a remainder by a 64-bit
+//   reciprocal, were no faster.
 //
 // rejection_step_rows_kernel replaces rejection_pallas_step and
 // rejection_pallas_step_rows: the fused SMC step on the cooperative
@@ -115,7 +128,8 @@ __device__ __forceinline__ bool rejection_chain(const float* __restrict__ w,
                                                 uint32_t lane_u, int n, float scale, int& k) {
   for (int t = 0; t < cnt; ++t) {
     const uint32_t h = hh[t];
-    const int j = (int)(fmix(h ^ lane_j) % (uint32_t)n);
+    const uint32_t x = fmix(h ^ lane_j);  // mod n, as a mask where n is a power of two
+    const int j = (int)((n & (n - 1)) == 0 ? x & (uint32_t)(n - 1) : x % (uint32_t)n);
     // u <= w[j] / sup w
     if (scaled_uniform(fmix(h ^ lane_u), scale) <= ftz(load_w<RO>(w, j))) {
       k = j;
@@ -147,7 +161,9 @@ __global__ void __launch_bounds__(NT) rejection_rows_kernel(
   const uint32_t lane_u = ((uint32_t)i + (uint32_t)n) * GOLDEN;
   int k = i;
   bool done = !live || self_accept(fmix(seed), lane_u, scale, wr[i]);
-  for (int t0 = 1; t0 <= max_iters; t0 += CHUNK) {
+  // Chunks of rounds t0 .. t0 + cnt - 1: the rounds left, max_iters - t0 +
+  // 1, are counted down, so no sum passes max_iters < 2^31 - 1.
+  for (int t0 = 1;; t0 += CHUNK) {
     // A barrier too: no thread still reads the previous chunk's prefixes.
     if (!__syncthreads_or(!done)) break;
     const int cnt = min(CHUNK, max_iters - t0 + 1);
@@ -156,6 +172,7 @@ __global__ void __launch_bounds__(NT) rejection_rows_kernel(
     }
     __syncthreads();
     if (!done) done = rejection_chain<true>(wr, s_hh, cnt, lane_j, lane_u, n, scale, k);
+    if (cnt < CHUNK) break;
   }
   if (!live) return;
   anc[(size_t)s * n + i] = k;
@@ -221,14 +238,17 @@ __device__ __forceinline__ int nth_set(unsigned m, int g) {
 // w-th piece, so every warp gets as many as any other, give or take T.
 // Each lane holds one particle and its next round; a lane whose particle
 // accepts (or passes the cap, keeping i) commits it and takes the next one,
-// so no lane waits for the warp's slowest.  When the particles run out and
-// at most 16 lanes are busy, their particles are spread over the warp,
-// 32 / 2^ceil(log2 busy) lanes each, one round a lane: the first accepting
-// round of a particle is the lowest set bit of its lanes' ballot, the
-// sequential chain's first accept.  So each ancestor is the chain's,
-// whichever lane and warp run it.  row_of(s) gives row s's ChainRow;
-// commit(s, i, k) records ancestor k of particle i of row s and returns the
-// store it leaves pending (dst null: none).
+// so no lane waits for the warp's slowest.  While more than 16 lanes are
+// busy, a lane runs REJ_ROUNDS rounds of its particle at once; when the
+// particles run out and at most 16 are busy, their particles are spread
+// over the warp, 32 / 2^ceil(log2 busy) lanes each, one round a lane: the
+// first accepting round of a particle is the lowest set bit of its lanes'
+// ballot, the sequential chain's first accept.  So each ancestor is the
+// chain's, whichever lane and warp run it.  The rounds left to a particle
+// at round t are max_iters - t >= 0, so no sum passes max_iters and the
+// caller may take any max_iters < 2^31 - 1.  row_of(s) gives row s's
+// ChainRow; commit(s, i, k) records ancestor k of particle i of row s and
+// returns the store it leaves pending (dst null: none).
 template <class RowId, class RowOf, class Commit>
 __device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, int max_iters,
                                             RowId row_id, RowOf row_of, Commit commit) {
@@ -276,17 +296,24 @@ __device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, i
     int k = -1;  // >= 0: this lane's particle is done, with ancestor k
     if (nb > 16) {  // a lane a particle, REJ_ROUNDS rounds at once
       if (s >= 0) {
+        const int left = max_iters - t;
         int j[REJ_ROUNDS];
         bool acc[REJ_ROUNDS];
 #pragma unroll
         for (int r = 0; r < REJ_ROUNDS; ++r) {
-          acc[r] = t + r <= max_iters && chain_round(row, t + r, i, n, j[r]);
+          acc[r] = r <= left && chain_round(row, t + r, i, n, j[r]);
         }
 #pragma unroll
         for (int r = REJ_ROUNDS - 1; r >= 0; --r) {
           if (acc[r]) k = j[r];
         }
-        if (k < 0 && (t += REJ_ROUNDS) > max_iters) k = i;
+        if (k < 0) {
+          if (left < REJ_ROUNDS) {
+            k = i;
+          } else {
+            t += REJ_ROUNDS;
+          }
+        }
       }
     } else {
       const int gsz = 32 >> (32 - __clz(nb - 1));  // 32 / 2^ceil(log2 nb)
@@ -294,10 +321,11 @@ __device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, i
       const int src = nth_set(busy, g < nb ? g : nb - 1);
       const int ps = __shfl_sync(FULL, s, src);
       const int pi = __shfl_sync(FULL, i, src);
-      const int rt = __shfl_sync(FULL, t, src) + lane % gsz;
+      const int pt = __shfl_sync(FULL, t, src);
+      const int o = lane % gsz;
       int j = 0;
       bool acc = false;
-      if (g < nb && rt <= max_iters) acc = chain_round(row_of(ps), rt, pi, n, j);
+      if (g < nb && o <= max_iters - pt) acc = chain_round(row_of(ps), pt + o, pi, n, j);
       const unsigned hit = __ballot_sync(FULL, acc);
       // A busy lane of rank r reads its particle's outcome from group r.
       const int r = __popc(busy & below);
@@ -306,8 +334,10 @@ __device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, i
       if (s >= 0) {
         if (mine) {
           k = kj;
-        } else if ((t += gsz) > max_iters) {
+        } else if (max_iters - t < gsz) {
           k = i;
+        } else {
+          t += gsz;
         }
       }
     }

@@ -44,13 +44,9 @@ from repro_torch.kernels.common import (
 from repro_torch.kernels.rejection.ref import rejection_rows_ref, rejection_step_rows_ref
 
 SOURCE = "rejection/csrc/rejection.cu"
-#: Largest ``max_iters`` of the rows wrappers: rounds 0 .. max_iters count
-#: in an int.
+#: Largest ``max_iters`` of every wrapper, as the JAX loop takes: rounds 0 ..
+#: max_iters count in an int (the kernels count the rounds left down).
 MAX_ITERS = (1 << 31) - 2
-#: Largest ``max_iters`` of the step wrappers: a lane of the step kernel
-#: (``warp_chains``) runs up to 32 rounds past the last, and they count in
-#: an int.
-MAX_STEP_ITERS = (1 << 31) - 33
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -70,12 +66,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(who: str, w, state, seeds, max_iters, cap=MAX_ITERS):
-    """Validate a bank call with ``max_iters`` at most ``cap``; returns
-    ``(S, N, D)``."""
+def _check(who: str, w, state, seeds, max_iters):
+    """Validate a bank call with ``max_iters`` at most ``MAX_ITERS``;
+    returns ``(S, N, D)``."""
     if (isinstance(max_iters, bool) or not isinstance(max_iters, int)
-            or not 1 <= max_iters <= cap):
-        raise ValueError(f"{who}: max_iters must be an int in [1, {cap}]; got {max_iters!r}")
+            or not 1 <= max_iters <= MAX_ITERS):
+        raise ValueError(
+            f"{who}: max_iters must be an int in [1, {MAX_ITERS}]; got {max_iters!r}")
     return check_bank(who, w, state, seeds)
 
 
@@ -94,7 +91,7 @@ def _launch_rows(w, state, seeds, max_iters, who):
 
 
 def _launch_step(lw, state, seeds, max_iters, thr, who):
-    s, n, d = _check(who, lw, state, seeds, max_iters, MAX_STEP_ITERS)
+    s, n, d = _check(who, lw, state, seeds, max_iters)
     lib = _lib()
     # No hash prefixes: the kernel hashes each round in the thread.
     g, anc, out, stats, scratch = step_buffers(lib.rejection_step_grid, who, lw, state, 0)
@@ -118,7 +115,7 @@ def _rows(who, w, state, seeds, max_iters):
 
 def _step(who, lw, state, seeds, max_iters, thr):
     if not lw.is_cuda:
-        _check(who, lw, state, seeds, max_iters, MAX_STEP_ITERS)
+        _check(who, lw, state, seeds, max_iters)
         return rejection_step_rows_ref(lw, state, seeds, max_iters, thr)
     return _launch_step(lw, state, seeds, max_iters, thr, who)
 

@@ -526,27 +526,46 @@ def test_run_filter_with_c1c2_on_the_card(card, cls):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,max_iters", ((8192, 1), (3072, 24), (8192, 1024)))
-def test_rejection_rows_kernel_matches_plain_version(card, n, max_iters):
-    """max_iters = 1 (the cap binds for most lanes, which keep their own
-    index), 24, and 1024 (more rounds than one chunk of prefixes); subnormal
-    weights and a NaN row (no lane accepts)."""
-    w, _, state, _, seeds = _inputs(card, n=n)
-    w[3, 5] = float("nan")
+@pytest.mark.parametrize("s,n,max_iters", ((4, 8192, 1), (4, 3072, 24), (4, 8192, 1024),
+                                           (3, 3072, 24), (3, 3072, rk.MAX_ITERS),
+                                           (16, 1 << 20, 1024), (16, 1 << 20, rk.MAX_ITERS)))
+def test_rejection_rows_kernel_matches_plain_version(card, s, n, max_iters):
+    """Rows 19-22 on warp chains, bit for bit: max_iters = 1 (the cap binds
+    for most lanes, which keep their own index), 24, 1024 (the path's) and
+    the wrappers' cap 2^31 - 2 (no lane reaches it; the rounds left are
+    counted down, so nothing overflows); subnormal weights; S·N that splits
+    unevenly over the grid's warps x REJ_CHUNK (S = 3, N = 3072); at N = 2^20
+    a heavy-tailed bank, w = u^20 (21 rounds a lane on average, hundreds
+    at most); an all-zero row (sup w = 0: every lane accepts itself at
+    round 0) and, where max_iters is finite in practice, a NaN row (no lane
+    accepts; each keeps its index)."""
+    w, _, state, _, seeds = _inputs(card, s=s, n=n)
+    if n == 1 << 20:
+        w = w ** 2.5
+    w[1] = 0.0
+    nan_row = max_iters <= 1024
+    if nan_row:
+        w[s - 1, 5] = float("nan")
     rk.reset_launch_counts()
     want_anc, want_out = rref.rejection_rows_ref(w, state, seeds, max_iters)
     anc, out = rk.rejection_fused_batch(w, state, seeds, max_iters)
     assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
-    assert torch.equal(anc[3].cpu(), torch.arange(n, dtype=torch.int32))
+    ids = torch.arange(n, dtype=torch.int32, device=card)
+    assert torch.equal(anc[1], ids)
+    if nan_row:
+        assert torch.equal(anc[s - 1], ids)
     assert torch.equal(rk.rejection_batch(w, seeds, max_iters), want_anc)
-    assert torch.equal(rk.rejection(w[2], seeds[2], max_iters), want_anc[2])
-    assert torch.equal(rk.rejection_fused(w[2], state[2], seeds[2], max_iters)[1], want_out[2])
+    assert torch.equal(rk.rejection(w[0], seeds[0], max_iters), want_anc[0])
+    assert torch.equal(rk.rejection_fused(w[0], state[0], seeds[0], max_iters)[1], want_out[0])
     assert [fn.launches for fn in rk.WRAPPERS[:4]] == [1, 1, 1, 1]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("max_iters", (1, 64))
+@pytest.mark.parametrize("max_iters", (1, 64, rk.MAX_ITERS))
 def test_rejection_step_kernel_matches_plain_version(card, max_iters):
+    """Rows 23-24, bit for bit, with the cap binding (1), not (64), and at
+    the wrappers' cap 2^31 - 2 (no lane reaches it; the rounds left are
+    counted down, so nothing overflows)."""
     _, lw, state, _, seeds = _inputs(card)
     rk.reset_launch_counts()
     anc, out, stats = rk.rejection_step_rows(lw, state, seeds, max_iters, 0.5)
@@ -791,28 +810,62 @@ def test_prefix_search_tree_at_the_largest_row(card):
     _search_all(c, u, state, cc, n_det)
 
 
+def _prefix_step_inputs(dev, kind, s, n):
+    """``_inputs``' log-weights (UNGM-like rows, the last dead) with row 1
+    holding a NaN (a degenerate row, as the dead one), its state, and the
+    draw bases of ``kind``."""
+    _, lw, state, _, _ = _inputs(dev, s=s, n=n)
+    lw[1, 7] = float("nan")
+    g = torch.Generator().manual_seed(4)
+    ubase = None if kind == "systematic" else torch.rand(s, n, generator=g).to(dev)
+    u0 = torch.rand(s, generator=g).to(dev) if kind == "systematic" else None
+    return lw, state, ubase, u0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ("multinomial", "systematic", "stratified", "residual"))
 @pytest.mark.parametrize("n", (1024, 1 << 14, 1 << 20))
 def test_prefix_step_kernel_matches_plain_version(card, kind, n):
     """Row 29: the stats as the other step kernels, the ancestors and
     states bit for bit (the same weights, the same scan, run in place on
-    the step's weights; residual's counts and residuals as one bank)."""
-    _, lw, state, _, _ = _inputs(card, n=n)
-    g = torch.Generator().manual_seed(4)
-    ubase = None if kind == "systematic" else torch.rand(4, n, generator=g).to(card)
-    u0 = torch.rand(4, generator=g).to(card) if kind == "systematic" else None
+    the step's weights; residual's counts and residuals as one bank; the
+    random draws through each fired row's tree), on a dead row and a row
+    holding NaN (both degenerate), at thresholds 0.5 (those two do not
+    fire) and 2 (every row fires, the degenerate ones on the uniform
+    CDF)."""
+    lw, state, ubase, u0 = _prefix_step_inputs(card, kind, 4, n)
     stk.reset_launch_counts()
-    anc, out, stats = stk.prefix_step_rows(lw, state, ubase, u0, 0.5, kind)
-    want_anc, want_out, want_stats = pref.prefix_step_rows_ref(lw, state, ubase, u0, 0.5, kind)
-    assert torch.equal(stats[:, 2], want_stats[:, 2])  # the same triggers
-    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
-    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
-    assert torch.equal(stk.prefix_step_rows(lw, state, ubase, u0, 0.5, kind)[2], stats)
+    for thr in (0.5, 2.0):
+        anc, out, stats = stk.prefix_step_rows(lw, state, ubase, u0, thr, kind)
+        want_anc, want_out, want_stats = pref.prefix_step_rows_ref(lw, state, ubase, u0, thr,
+                                                                   kind)
+        assert torch.equal(stats[:, 2], want_stats[:, 2])  # the same triggers
+        torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
+        assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+        assert bool(stats[:, 2].all()) == (thr > 1)
+    again = stk.prefix_step_rows(lw, state, ubase, u0, 2.0, kind)[2]
+    assert torch.equal(again.view(torch.int32), stats.view(torch.int32))  # NaN's bits too
     one_args = (lw[:1], state[:1], None if ubase is None else ubase[:1],
                 None if u0 is None else u0[:1], 1.0, kind)
     assert torch.equal(stk.prefix_step_rows(*one_args)[0], pref.prefix_step_rows_ref(*one_args)[0])
-    assert stk.prefix_step_rows.launches == 3
+    assert stk.prefix_step_rows.launches == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("multinomial", "residual"))
+@pytest.mark.parametrize("s,n", ((MAX_STEP_ROWS, 1024), (MAX_STEP_ROWS, 1 << 14), (256, 1 << 20)))
+def test_prefix_step_kernel_at_the_largest_banks(card, kind, s, n):
+    """Row 29 with a search tree a row in its work space: the most rows a
+    step admits (4096, trees of 2 and 4 groups), and a bank of 2^20-particle
+    rows with 1.2 MB of tree each (300 MB in all), every row fired: the
+    ancestors and states bit for bit with the plain version, row by row."""
+    lw, state, ubase, u0 = _prefix_step_inputs(card, kind, s, n)
+    anc, out, stats = stk.prefix_step_rows(lw, state, ubase, u0, 2.0, kind)
+    assert bool(stats[:, 2].all())
+    for rows in (slice(0, 4), slice(s // 2, s // 2 + 1), slice(s - 4, s)):
+        want_anc, want_out, _ = pref.prefix_step_rows_ref(lw[rows], state[rows], ubase[rows],
+                                                          None, 2.0, kind)
+        assert torch.equal(anc[rows], want_anc) and torch.equal(out[rows], want_out)
 
 
 @pytest.mark.cuda

@@ -405,6 +405,31 @@ def test_search_tree_lines_walk_is_bisect(rkind, n):
         assert torch.equal(ref.bisect_steps(cdf, u, right, lo, hi), ref.bisect_ref(cdf, u, right))
 
 
+@pytest.mark.parametrize("n", (3072, 4096))
+@pytest.mark.parametrize("kind", ("multinomial", "residual"))
+def test_step_tree_walk_is_bisect(kind, n):
+    """Row 29's search of random draws as a transcript: on the step's own
+    CDF rows (``step_weights``, the scan; for residual the residuals'
+    CDF) with its scaled draws, the walk of ``ref.search_tree`` over each
+    fired row's tree, then the loop on at most 16 elements, gives
+    ``bisect_ref``: on UNGM and normal rows, a dead row and a row holding
+    NaN (both degenerate: the uniform 1/N, whose CDF steps are equal), with
+    every row fired, for N a power of two and not."""
+    lw = np.stack([_log_weights("ungm", n, seed=1), _log_weights("normal", n, seed=2),
+                   _log_weights("dead", n), _log_weights("normal", n, seed=3)])
+    lw[3, 17] = np.nan
+    w, do, _ = ref.step_weights(torch.from_numpy(lw), 2.0)
+    assert bool(do.all()) and bool((w[2:] == 1.0 / n).all())
+    c = ref.scan_rows_ref(w)
+    if kind == "residual":
+        _, resid, _ = ref.residual_parts(w, c[:, -1])
+        c = ref.scan_rows_ref(resid)
+    ubase = torch.from_numpy(np.random.default_rng(n).uniform(size=(4, n)).astype(np.float32))
+    u = ref.scaled_draws(kind, c[:, -1], n, ubase)
+    lo, hi = _walk_search_tree(c, u, True)
+    assert torch.equal(ref.bisect_steps(c, u, True, lo, hi), ref.bisect_ref(c, u, True))
+
+
 @pytest.mark.parametrize("n", (1024, 1 << 16, 1 << 20))
 def test_search_tree_nodes_of_a_power_of_two(n):
     """For N a power of two the kernel fills its tree in closed form: node

@@ -257,6 +257,128 @@ def test_rounds_explain_the_ancestors(kind, max_iters):
         assert pending.any()
 
 
+#: Particles a warp takes at a time, at least (``REJ_CHUNK`` in
+#: ``csrc/rejection.cu``).
+REJ_CHUNK = 64
+
+
+def _warp_pieces(rows: int, n: int, warps: int, w: int, rng) -> list:
+    """``warp_chains``' hand-out of particles to warp ``w`` of ``warps``
+    (``csrc/rejection.cu``), as a transcript: the turn's pieces, the rows
+    and particles the idle lanes take (``take`` at a time, a number of idle
+    lanes drawn from ``rng``), and the move to the warp's piece of the next
+    turn.  Returns the ids ``s·N + i`` in the order the warp takes them."""
+    total = rows * n
+    pieces = warps * max(1, total // (warps * REJ_CHUNK))
+    piece = w
+    cur, end = total * piece // pieces, total * (piece + 1) // pieces
+    cr, ci = divmod(cur, n)
+    ids = []
+    while cur < end:
+        take = min(int(rng.integers(1, 33)), end - cur)
+        for rank in range(take):
+            nxt = ci + rank >= n
+            assert ci + rank < n + 32  # this row or the next
+            s, i = cr + nxt, ci + rank - (n if nxt else 0)
+            assert s * n + i == cur + rank
+            ids.append(s * n + i)
+        cur += take
+        ci += take
+        if ci >= n:
+            ci -= n
+            cr += 1
+        if cur == end and piece + warps < pieces:
+            piece += warps
+            cur, end = total * piece // pieces, total * (piece + 1) // pieces
+            cr, ci = divmod(cur, n)
+    return ids
+
+
+@pytest.mark.parametrize("rows,n,warps", ((1, 1024, 3), (3, 3072, 5), (16, 1024, 7),
+                                          (2, 2048, 40), (1, 1024, 2000)))
+def test_warp_chains_hand_out_every_particle_once(rows, n, warps):
+    """The rejection kernels' warps (``warp_chains``) take pieces of the
+    bank in turns: over all warps every particle id is taken once, whatever
+    the idle lanes, on banks whose particles split unevenly over warps x
+    ``REJ_CHUNK`` and on grids with more warps than particles (empty
+    pieces); each warp's ids rise, so the grid sweeps the bank in order."""
+    rng = np.random.default_rng(rows * n + warps)
+    taken = []
+    for w in range(warps):
+        ids = _warp_pieces(rows, n, warps, w, rng)
+        assert ids == sorted(ids)
+        taken += ids
+    assert sorted(taken) == list(range(rows * n))
+
+
+def _nth_set(m: int, g: int) -> int:
+    """``nth_set`` of ``csrc/rejection.cu``: the position of the set bit of
+    rank g in m, by its binary search."""
+    pos = 0
+    for b in (16, 8, 4, 2, 1):
+        if bin(m & ((1 << (pos + b)) - 1)).count("1") <= g:
+            pos += b
+    return pos
+
+
+@pytest.mark.parametrize("busy", (16, 11, 5, 3, 1))
+@pytest.mark.parametrize("max_iters", (24, 1024))
+def test_warp_chains_spread_finds_the_first_accept(busy, max_iters):
+    """``warp_chains``' last phase as a transcript: at most 16 particles
+    left, each spread over 32 / 2^ceil(log2 busy) lanes, one round a lane
+    (the rounds left to it, ``max_iters - t``, bound the lanes that run);
+    the lowest set bit of a particle's lanes in the ballot is its first
+    accept, so the rounds and ancestors are those of the sequential chain
+    (``rejection_rounds_ref``, ``rejection_rows_ref``) as the group sizes
+    change with the particles left."""
+    n = 1024
+    w = torch.from_numpy(_weights("heavy", (1, n), seed=busy))
+    seeds = torch.tensor([2**31 + busy])
+    rounds = ref.rejection_rounds_ref(w, seeds, max_iters)[0]
+    anc = ref.rejection_rows_ref(w, None, seeds, max_iters)[0].long()
+    # The particles with the longest chains, each from round 0, on lanes
+    # drawn at random; each round's proposal and accept test.
+    parts = torch.argsort(rounds, descending=True, stable=True)[:busy]
+    scale = flush_to_zero(w.amax() * (1.0 / (1 << 24)))
+    props, accs = [], []
+    for b in range(max_iters + 1):
+        j = parts if b == 0 else proposal_index(seeds, parts, n, b)
+        props.append(j)
+        accs.append(ref.scaled_uniform(seeds, parts, n, b, scale) <= flush_to_zero(w[0, j]))
+    props, accs = torch.stack(props, 1).tolist(), torch.stack(accs, 1).tolist()
+    lanes = sorted(np.random.default_rng(busy).choice(32, busy, replace=False).tolist())
+    t = dict.fromkeys(range(busy), 0)  # particle (by its lane's index) -> next round
+    got = {}
+    while t:
+        live = sorted(t)
+        busy_mask = sum(1 << lanes[q] for q in live)
+        nb = len(live)
+        gsz = 32 >> (nb - 1).bit_length()
+        hit = 0
+        for lane in range(32):
+            g = lane // gsz
+            src = lanes.index(_nth_set(busy_mask, min(g, nb - 1)))
+            o = lane % gsz
+            if g < nb and o <= max_iters - t[src] and accs[src][t[src] + o]:
+                hit |= 1 << lane
+        for q in live:
+            r = bin(busy_mask & ((1 << lanes[q]) - 1)).count("1")
+            mine = (hit >> (r * gsz)) & ((1 << gsz) - 1)
+            if mine:
+                b = t[q] + (mine & -mine).bit_length() - 1
+                got[q] = (b, props[q][b])
+            elif max_iters - t[q] < gsz:
+                got[q] = (max_iters, int(parts[q]))
+            else:
+                t[q] += gsz
+                continue
+            del t[q]
+    for q, p in enumerate(parts.tolist()):
+        assert got[q] == (int(rounds[p]), int(anc[p]))
+    if max_iters == 1024:
+        assert int(rounds[parts[0]]) > 32  # the spread runs more than one turn
+
+
 def test_wrappers_on_cpu_count_no_launch():
     rk.reset_launch_counts()
     n = 4096
@@ -285,23 +407,20 @@ def test_wrappers_validate(bad):
 
 @pytest.mark.parametrize("step", (False, True))
 def test_max_iters_caps(step):
-    """The rows wrappers take ``max_iters`` up to 2^31 - 2 (rounds 0 ..
-    max_iters count in an int), the step wrappers up to 2^31 - 33 (a lane
-    of the step kernel runs up to 32 rounds past the last); one more is
+    """Every wrapper, rows and step, takes ``max_iters`` up to 2^31 - 2, as
+    the JAX loop does (rounds 0 .. max_iters count in an int; the kernels
+    count the rounds left down, so no sum passes the cap); one more is
     refused.  Flat weights accept at round 0, so the cap costs no round."""
     w = torch.ones(2, 1024)
     seeds = torch.tensor([1, 2])
     if step:
-        cap, want = rk.MAX_STEP_ITERS, (1 << 31) - 33
-
         def call(m):
             return rk.rejection_step_rows(w.log(), w[:, None], seeds, m, 2.0)
     else:
-        cap, want = rk.MAX_ITERS, (1 << 31) - 2
-
         def call(m):
             return rk.rejection_fused_batch(w, w[:, None], seeds, m)
-    assert cap == want
+    cap = rk.MAX_ITERS
+    assert cap == (1 << 31) - 2
     assert torch.equal(call(cap)[0], torch.arange(1024, dtype=torch.int32).expand(2, 1024))
     with pytest.raises(ValueError, match=f"max_iters must be an int in \\[1, {cap}\\]"):
         call(cap + 1)
