@@ -17,17 +17,23 @@ over, and there is no CPU fallback):
    against the card's own attributes and limits; the 80 matrix cells, the
    filter's consumers and pass 6 for all ten families (``--check``), each
    recorded run's census, both sides of a step cell's flag, held to the
-   profiler's count of the port's kernels in it; every kernel within the
+   profiler's count of the port's kernels in it, the Megopolis and
+   Metropolis cells also at bfloat16 and float16 planes, each launching
+   what its float32 cell launches; every kernel within the
    card's shared memory and registers at its largest admitted shapes, and
    the oversized fixture refused with no launch; ``--selftest``; then the
    two fixture kernels (rows 30-31) against their plain versions on their
-   inputs in ``--selftest`` and at 2^23, timed and bounded as in phase 4;
+   inputs in ``--selftest`` and at 2^23 (and each into a view one element
+   into its tensor), timed and bounded as in phase 4;
 4. in a process of its own (``--phase kernels``), for each kernel wrapper,
    on its inputs captured from a short full-width run of the entry point
    that calls it (for a step, the last captured call that resampled),
    compare the kernel with its plain version on the card, time both, and
    compute the kernel's bound (for rejection from the rounds this run's
-   data needs, with the rounds of the lanes and of their warps); time each
+   data needs, with the rounds of the lanes and of their warps); hold the
+   Megopolis and Metropolis wrappers also on those inputs narrowed to
+   bfloat16 and to float16 planes (their kernels' 2-byte instances; names
+   ending ``@bfloat16``, ``@float16``); time each
    bank step kernel at capped cooperative grids (blocks per SM); hold
    ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
@@ -51,7 +57,11 @@ over, and there is no CPU fallback):
      ``simulate``'s truth, steps/s, the resample ratio and a ``StepStats``
      summary, the families side by side, and the census of each run held
      to the entry's launch budget x steps, beside all CUDA launches of a
-     conditional step; for rejection and residual also
+     conditional step; Megopolis and Metropolis also at bfloat16 and
+     float16 planes (``MegopolisSpec(plane_dtype="bfloat16")``, the same
+     for Metropolis, families ``megopolis@bfloat16`` ...
+     ``metropolis@float16``, their launches counted under
+     ``<wrapper>@<dtype>``); for rejection and residual also
      ``r(key, w)``, ``r.batch(key, w_bank)`` and ``r.batch_rows(keys,
      w_bank)`` on weights captured from their Alg. 6 runs (no step calls
      them), and the spread of rejection's kernel time and of sup w /
@@ -61,7 +71,8 @@ over, and there is no CPU fallback):
      closed form, K Monte Carlo resamples in one ``batch_rows`` launch,
      then MSE/N and the bias share (eq. 21), and the time of one
      ``r(key, w)`` and one ``r.batch(key, w_bank)``, for every family of
-     Fig. 6's method set (rejection is not in it);
+     Fig. 6's method set (rejection is not in it), and Megopolis and
+     Metropolis at bfloat16 and float16 planes;
    * Path C, Fig. 8's study (paper §6.5): for N of 2^14, 2^18 and 2^22
      and each y of 0, 2 and 4, Megopolis (B from eq. (3)) against the
      multinomial and improved systematic kinds: K Monte Carlo resamples in
@@ -112,6 +123,9 @@ PROBE_INDICES = 1 << 26
 PROBE_N = 1 << 20
 #: Iterations on Path A, the middle of the paper's B sweep (§7).
 ITERS = 32
+#: The compressed plane dtypes of Paths A and B (DESIGN.md §14), beside
+#: float32.
+PATH_PLANES = ("bfloat16", "float16")
 #: Path B's weight sequences: y of eq. (12), a third of GAUSSIAN_Y_GRID.
 PATH_B_YS = (0.0, 2.0, 4.0)
 #: Time steps of the short runs whose resampler inputs phase 4 captures.
@@ -478,6 +492,15 @@ def setup(args) -> types.SimpleNamespace:
                        "batch": getattr(ck, f"{c}_batch")}
     for f in families.values():
         f.update(path_b=True, small=f["cls"](num_iters=16))
+    # Compressed planes on Paths A and B: the Megopolis and Metropolis
+    # filters and Fig. 6 at each of PATH_PLANES, through the same wrappers
+    # (their runs' launches are counted under ``<wrapper>@<dtype>``).
+    for plane in PATH_PLANES:
+        for base in ("megopolis", "metropolis"):
+            cls = families[base]["cls"]
+            families[f"{base}@{plane}"] = dict(
+                families[base], spec=cls(num_iters=ITERS, plane_dtype=plane),
+                small=cls(num_iters=16, plane_dtype=plane), plane=plane)
     families["rejection"] = {
         "spec": RejectionSpec(max_iters=REJECTION_MAX_ITERS), "cls": RejectionSpec,
         "alg6": rk.rejection_fused, "conditional": rk.rejection_step,
@@ -510,6 +533,9 @@ def setup(args) -> types.SimpleNamespace:
     path_launches, results = {}, {}
 
     def drive(name, fn, expected, n_steps=None):
+        # A compressed family's run (its name ends in "@<dtype>") counts its
+        # launches under "<wrapper>@<dtype>".
+        plane = "@" + name.rsplit("@", 1)[1] if "@" in name else ""
         for module in modules:
             module.reset_launch_counts()
         torch.cuda.synchronize()
@@ -523,7 +549,7 @@ def setup(args) -> types.SimpleNamespace:
             if counts.get(wrapper.__name__, 0) < 1:
                 fail(f"{name}: {wrapper.__name__} was launched no time ({counts})")
         for wname, c in counts.items():
-            path_launches[wname] = path_launches.get(wname, 0) + c
+            path_launches[wname + plane] = path_launches.get(wname + plane, 0) + c
         results[name] = {"seconds": secs, "launches": counts}
         if n_steps:
             results[name]["steps_per_s"] = n_steps / secs
@@ -560,7 +586,7 @@ def kernels_phase(ctx) -> list:
     for case in kernel_cases(a, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs,
                              ctx.bank_obs, ctx.thetas, ctx.k_run, ctx.k_quality):
         entry = check_kernel(case)
-        if case[0] in TPU_KERNELS:  # not the extra case where the cap binds
+        if case[0].split("@")[0] in TPU_KERNELS:  # not the extra case where the cap binds
             kernels.append(entry)
         if case[0].endswith("_step_rows"):
             print(f"grid {case[0]}: {json.dumps(grid_study(case))}", flush=True)
@@ -672,7 +698,7 @@ def path_b(family, f, args, dev, k_quality, drive, results):
     n, k = args.particles, args.runs
     for y in PATH_B_YS:
         b = gaussian_weight_iterations(y, 0.01)
-        r = f["cls"](num_iters=b).build()
+        r = f["cls"](num_iters=b, plane_dtype=f.get("plane", "float32")).build()
         kw = trandom.fold_in(k_quality, int(y * 100))
         w = gaussian_weights(kw, n, y, device=dev)
         bank = w[None].expand(k, n).contiguous()
@@ -939,71 +965,102 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     return cases
 
 
+#: The plane dtypes phase 4 holds the Megopolis and Metropolis kernels at:
+#: the suffix of a case's name and the dtype its captured weights, log-weights
+#: and state are narrowed to, as a compressed spec narrows them.
+PLANES = (("", torch.float32), ("@bfloat16", torch.bfloat16), ("@float16", torch.float16))
+
+
+def narrow(dt, *xs) -> tuple:
+    """The float tensors of ``xs`` in the plane dtype ``dt``, others as they are."""
+    return tuple(x.to(dt) if torch.is_tensor(x) and x.is_floating_point() else x for x in xs)
+
+
 def megopolis_cases(mk, mops, mref, fig6, single, bank) -> list:
-    """Rows 1-6 on captured inputs, as ``kernel_cases``."""
+    """Rows 1-6 on captured inputs, as ``kernel_cases``, at each plane dtype
+    of ``PLANES``."""
     cases = []
-    w, offs, seed = capture(mops, "megopolis", fig6("megopolis", "single"))
-    cases.append(("megopolis", mk.megopolis, (w, offs, seed),
-                  lambda: mref.megopolis_rows_ref(w[None], offs[None], seed.reshape(1)),
-                  "megopolis", "index", 1, offs.shape[-1]))
-    wb, offs_b, seeds_b = capture(mops, "megopolis_batch", fig6("megopolis", "batch"))
-    cases.append(("megopolis_batch", mk.megopolis_batch, (wb, offs_b, seeds_b),
-                  lambda: mref.megopolis_rows_ref(wb, offs_b[None].expand(wb.shape[0], -1),
-                                                  seeds_b),
-                  "megopolis", "index", wb.shape[0], offs_b.shape[-1]))
-    wr, offs_r, seeds_r = capture(mops, "megopolis_rows", fig6("megopolis", "batch_rows"))
-    cases.append(("megopolis_rows", mk.megopolis_rows, (wr, offs_r, seeds_r),
-                  lambda: mref.megopolis_rows_ref(wr, offs_r, seeds_r),
-                  "megopolis", "index", wr.shape[0], offs_r.shape[-1]))
-    w1, st1, o1, s1 = capture(mops, "megopolis_fused", single("megopolis", None))
-    cases.append(("megopolis_fused", mk.megopolis_fused, (w1, st1, o1, s1),
-                  lambda: mref.megopolis_fused_rows_ref(w1[None], st1[None], o1[None],
-                                                        s1.reshape(1)),
-                  "megopolis", "fused", 1, o1.shape[-1]))
-    w2, st2, o2, s2 = capture(mops, "megopolis_fused_rows", bank("megopolis", None))
-    cases.append(("megopolis_fused_rows", mk.megopolis_fused_rows, (w2, st2, o2, s2),
-                  lambda: mref.megopolis_fused_rows_ref(w2, st2, o2, s2),
-                  "megopolis", "fused", w2.shape[0], o2.shape[-1]))
-    l3, st3, o3, s3, _ = capture(mops, "megopolis_step", single("megopolis", THR))
-    cases.append(("megopolis_step", mk.megopolis_step, (l3, st3, o3, s3, THR),
-                  lambda: mref.megopolis_step_rows_ref(l3[None], st3[None], o3[None],
-                                                       s3.reshape(1), THR),
-                  "megopolis", "step", 1, o3.shape[-1]))
-    l4, st4, o4, s4, _ = capture(mops, "megopolis_step_rows", bank("megopolis", THR))
-    cases.append(("megopolis_step_rows", mk.megopolis_step_rows, (l4, st4, o4, s4, THR),
-                  lambda: mref.megopolis_step_rows_ref(l4, st4, o4, s4, THR),
-                  "megopolis", "step", l4.shape[0], o4.shape[-1]))
+    captured = (capture(mops, "megopolis", fig6("megopolis", "single")),
+                capture(mops, "megopolis_batch", fig6("megopolis", "batch")),
+                capture(mops, "megopolis_rows", fig6("megopolis", "batch_rows")),
+                capture(mops, "megopolis_fused", single("megopolis", None)),
+                capture(mops, "megopolis_fused_rows", bank("megopolis", None)),
+                capture(mops, "megopolis_step", single("megopolis", THR)),
+                capture(mops, "megopolis_step_rows", bank("megopolis", THR)))
+    for sfx, dt in PLANES:
+        (w, offs, seed), (wb, offs_b, seeds_b), (wr, offs_r, seeds_r), (w1, st1, o1, s1), \
+            (w2, st2, o2, s2), (l3, st3, o3, s3, _), (l4, st4, o4, s4, _) = (
+                narrow(dt, *args) for args in captured)
+        cases += [
+            (f"megopolis{sfx}", mk.megopolis, (w, offs, seed),
+             lambda w=w, offs=offs, seed=seed: mref.megopolis_rows_ref(
+                 w[None], offs[None], seed.reshape(1)),
+             "megopolis", "index", 1, offs.shape[-1]),
+            (f"megopolis_batch{sfx}", mk.megopolis_batch, (wb, offs_b, seeds_b),
+             lambda wb=wb, offs_b=offs_b, seeds_b=seeds_b: mref.megopolis_rows_ref(
+                 wb, offs_b[None].expand(wb.shape[0], -1), seeds_b),
+             "megopolis", "index", wb.shape[0], offs_b.shape[-1]),
+            (f"megopolis_rows{sfx}", mk.megopolis_rows, (wr, offs_r, seeds_r),
+             lambda wr=wr, offs_r=offs_r, seeds_r=seeds_r: mref.megopolis_rows_ref(
+                 wr, offs_r, seeds_r),
+             "megopolis", "index", wr.shape[0], offs_r.shape[-1]),
+            (f"megopolis_fused{sfx}", mk.megopolis_fused, (w1, st1, o1, s1),
+             lambda w1=w1, st1=st1, o1=o1, s1=s1: mref.megopolis_fused_rows_ref(
+                 w1[None], st1[None], o1[None], s1.reshape(1)),
+             "megopolis", "fused", 1, o1.shape[-1]),
+            (f"megopolis_fused_rows{sfx}", mk.megopolis_fused_rows, (w2, st2, o2, s2),
+             lambda w2=w2, st2=st2, o2=o2, s2=s2: mref.megopolis_fused_rows_ref(
+                 w2, st2, o2, s2),
+             "megopolis", "fused", w2.shape[0], o2.shape[-1]),
+            (f"megopolis_step{sfx}", mk.megopolis_step, (l3, st3, o3, s3, THR),
+             lambda l3=l3, st3=st3, o3=o3, s3=s3: mref.megopolis_step_rows_ref(
+                 l3[None], st3[None], o3[None], s3.reshape(1), THR),
+             "megopolis", "step", 1, o3.shape[-1]),
+            (f"megopolis_step_rows{sfx}", mk.megopolis_step_rows, (l4, st4, o4, s4, THR),
+             lambda l4=l4, st4=st4, o4=o4, s4=s4: mref.megopolis_step_rows_ref(
+                 l4, st4, o4, s4, THR),
+             "megopolis", "step", l4.shape[0], o4.shape[-1]),
+        ]
     return cases
 
 
 def metropolis_cases(tk, tops, tref, fig6, single, bank) -> list:
-    """Rows 7-12 on captured inputs, as ``kernel_cases``."""
+    """Rows 7-12 on captured inputs, as ``kernel_cases``, at each plane dtype
+    of ``PLANES``."""
     cases = []
-    v, sd, it = capture(tops, "metropolis", fig6("metropolis", "single"))
-    cases.append(("metropolis", tk.metropolis, (v, sd, it),
-                  lambda: tref.metropolis_rows_ref(v[None], None, sd.reshape(1), it),
-                  "metropolis", "index", 1, it))
-    vb, sdb, itb = capture(tops, "metropolis_batch", fig6("metropolis", "batch_rows"))
-    cases.append(("metropolis_batch", tk.metropolis_batch, (vb, sdb, itb),
-                  lambda: tref.metropolis_rows_ref(vb, None, sdb, itb),
-                  "metropolis", "index", vb.shape[0], itb))
-    v1, t1, sd1, it1 = capture(tops, "metropolis_fused", single("metropolis", None))
-    cases.append(("metropolis_fused", tk.metropolis_fused, (v1, t1, sd1, it1),
-                  lambda: tref.metropolis_rows_ref(v1[None], t1[None], sd1.reshape(1), it1),
-                  "metropolis", "fused", 1, it1))
-    v2, t2, sd2, it2 = capture(tops, "metropolis_fused_batch", bank("metropolis", None))
-    cases.append(("metropolis_fused_batch", tk.metropolis_fused_batch, (v2, t2, sd2, it2),
-                  lambda: tref.metropolis_rows_ref(v2, t2, sd2, it2),
-                  "metropolis", "fused", v2.shape[0], it2))
-    lv3, t3, sd3, it3, _ = capture(tops, "metropolis_step", single("metropolis", THR))
-    cases.append(("metropolis_step", tk.metropolis_step, (lv3, t3, sd3, it3, THR),
-                  lambda: tref.metropolis_step_rows_ref(lv3[None], t3[None], sd3.reshape(1),
-                                                        it3, THR),
-                  "metropolis", "step", 1, it3))
-    lv4, t4, sd4, it4, _ = capture(tops, "metropolis_step_rows", bank("metropolis", THR))
-    cases.append(("metropolis_step_rows", tk.metropolis_step_rows, (lv4, t4, sd4, it4, THR),
-                  lambda: tref.metropolis_step_rows_ref(lv4, t4, sd4, it4, THR),
-                  "metropolis", "step", lv4.shape[0], it4))
+    captured = (capture(tops, "metropolis", fig6("metropolis", "single")),
+                capture(tops, "metropolis_batch", fig6("metropolis", "batch_rows")),
+                capture(tops, "metropolis_fused", single("metropolis", None)),
+                capture(tops, "metropolis_fused_batch", bank("metropolis", None)),
+                capture(tops, "metropolis_step", single("metropolis", THR)),
+                capture(tops, "metropolis_step_rows", bank("metropolis", THR)))
+    for sfx, dt in PLANES:
+        (v, sd, it), (vb, sdb, itb), (v1, t1, sd1, it1), (v2, t2, sd2, it2), \
+            (lv3, t3, sd3, it3, _), (lv4, t4, sd4, it4, _) = (
+                narrow(dt, *args) for args in captured)
+        cases += [
+            (f"metropolis{sfx}", tk.metropolis, (v, sd, it),
+             lambda v=v, sd=sd, it=it: tref.metropolis_rows_ref(v[None], None, sd.reshape(1), it),
+             "metropolis", "index", 1, it),
+            (f"metropolis_batch{sfx}", tk.metropolis_batch, (vb, sdb, itb),
+             lambda vb=vb, sdb=sdb, itb=itb: tref.metropolis_rows_ref(vb, None, sdb, itb),
+             "metropolis", "index", vb.shape[0], itb),
+            (f"metropolis_fused{sfx}", tk.metropolis_fused, (v1, t1, sd1, it1),
+             lambda v1=v1, t1=t1, sd1=sd1, it1=it1: tref.metropolis_rows_ref(
+                 v1[None], t1[None], sd1.reshape(1), it1),
+             "metropolis", "fused", 1, it1),
+            (f"metropolis_fused_batch{sfx}", tk.metropolis_fused_batch, (v2, t2, sd2, it2),
+             lambda v2=v2, t2=t2, sd2=sd2, it2=it2: tref.metropolis_rows_ref(v2, t2, sd2, it2),
+             "metropolis", "fused", v2.shape[0], it2),
+            (f"metropolis_step{sfx}", tk.metropolis_step, (lv3, t3, sd3, it3, THR),
+             lambda lv3=lv3, t3=t3, sd3=sd3, it3=it3: tref.metropolis_step_rows_ref(
+                 lv3[None], t3[None], sd3.reshape(1), it3, THR),
+             "metropolis", "step", 1, it3),
+            (f"metropolis_step_rows{sfx}", tk.metropolis_step_rows, (lv4, t4, sd4, it4, THR),
+             lambda lv4=lv4, t4=t4, sd4=sd4, it4=it4: tref.metropolis_step_rows_ref(
+                 lv4, t4, sd4, it4, THR),
+             "metropolis", "step", lv4.shape[0], it4),
+        ]
     return cases
 
 
@@ -1228,8 +1285,20 @@ for _c in ("metropolis_c1", "metropolis_c2"):
                         f"{_c}_step": f"{_c}_pallas_step", f"{_c}_step_rows": f"{_c}_pallas_step"})
 
 
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """The bits of a float tensor, as integers of its width."""
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
 def kernel_name(family, kind, kargs) -> str:
-    """The name the profiler gives the kernel a wrapper launches."""
+    """The name the profiler gives the kernel a wrapper launches (for the
+    Megopolis and Metropolis kernels, the instance of the weights' plane
+    word: ``megopolis_step_rows_kernel<__nv_bfloat16>``)."""
+    if family in ("megopolis", "metropolis"):
+        from repro_torch.kernels.common import plane_instance
+
+        gather = {"index": False, "fused": True, "step": None}[kind]
+        return plane_instance(KERNEL_NAMES[(family, kind)], gather)(kargs[0])
     if (family, kind) == ("prefix", "step"):
         from repro_torch.kernels.prefix_sum.ref import KIND_CODES
 
@@ -1325,8 +1394,15 @@ def check_kernel(case) -> dict:
     name, wrapper, kargs, plain, family, kind, rows, iters = case
     n = kargs[0].shape[-1]
     got = wrapper(*kargs)
-    want = plain()
     torch.cuda.synchronize()
+    # The comparison's own plain call is timed: where one cold call is all
+    # the timing makes (the largest cases), it is the plain version's time.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
+    torch.cuda.synchronize()
+    first_plain_ms = start.elapsed_time(end)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     got = tuple(g.reshape(wnt.shape) for g, wnt in zip(got, want))
@@ -1339,8 +1415,7 @@ def check_kernel(case) -> dict:
              "source": f"src/repro_torch/kernels/{SOURCES[family]}",
              "replaces": f"{tpu_file}:{tpu_line}"}
     if kind != "step":
-        same_state = len(got) == 1 or torch.equal(got[1].view(torch.int32),
-                                                  want[1].view(torch.int32))
+        same_state = len(got) == 1 or torch.equal(bits(got[1]), bits(want[1]))
         if anc_mismatch or not same_state:
             fail(f"{name}: kernel and plain version differ ({anc_mismatch} ancestors, "
                  f"state max |err| {state_err}); bit equality is required")
@@ -1369,7 +1444,8 @@ def check_kernel(case) -> dict:
     reps = 20 if work < 2e9 else 4
     ms = kernel_ms(lambda: wrapper(*kargs), kernel_name(family, kind, kargs), reps)
     call_ms = time_ms(lambda: wrapper(*kargs), reps)
-    plain_ms = time_ms(plain, max(1, min(5, int(2e9 // work))), warmup=0)
+    plain_reps = max(1, min(5, int(2e9 // work)))
+    plain_ms = first_plain_ms if plain_reps == 1 else time_ms(plain, plain_reps, warmup=0)
     library = library_call(kind, kargs) if family in ("prefix", "fixtures") else None
     library_ms = None if library is None else time_ms(library, reps)
     if family == "prefix":
@@ -1379,11 +1455,12 @@ def check_kernel(case) -> dict:
         n_bytes, n_ops = (8 if kind == "copy" else 4) * rows * n, 0
     else:
         # Weights (or log-weights) in and ancestors out; the state in and
-        # out (D = 1 on the path) for the fused and step kernels; C1/C2's
-        # partition table, read once; rejection's sup w pass before a rows
-        # launch.
+        # out (D = 1 on the path) for the fused and step kernels, in plane
+        # words (4 or 2 bytes); C1/C2's partition table, read once;
+        # rejection's sup w pass before a rows launch.
         table = kargs[-4 if kind == "step" else -3] if family.startswith("metropolis_c") else None
-        n_bytes = rows * n * (8 if kind == "index" else 16)
+        word = kargs[0].element_size()
+        n_bytes = rows * n * (word + 4 + (0 if kind == "index" else 2 * word))
         n_bytes += 0 if table is None else 4 * table.numel()
         n_bytes += 4 * rows * n if family == "rejection" and kind != "step" else 0
         n_ops = work * SWEEP_OPS[family] + rows * n * (PRELUDE_OPS if kind == "step" else 0)
@@ -1399,8 +1476,8 @@ def check_kernel(case) -> dict:
         # Every random w[j] read moves one L2 sector; one row's weights are
         # the working set the kernel's block order keeps live.
         entry.update(l2_sector_bytes=rows * n * iters * L2_SECTOR,
-                     row_weights_fit_l2=4 * n <= L2_BYTES,
-                     bank_weights_fit_l2=4 * n * rows <= L2_BYTES)
+                     row_weights_fit_l2=word * n <= L2_BYTES,
+                     bank_weights_fit_l2=word * n * rows <= L2_BYTES)
     elif family.startswith("metropolis_c"):
         # Every partition tile a block loads is 4 KiB of weights re-read from
         # L2: once per own tile for C1, once per iteration for C2.
@@ -1533,6 +1610,7 @@ def grid_study(case) -> dict:
     the build allows: the step's time against its grid, with its code held
     fixed.  The cap wraps the library's ``<family>_step_grid`` for the
     duration of each timing; launches here do not count."""
+    from repro_torch.kernels.common import PLANE_CODES
     from repro_torch.kernels.megopolis import megopolis as mk
     from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import metropolis as tk
@@ -1549,10 +1627,12 @@ def grid_study(case) -> dict:
     else:
         module = {"megopolis": mk, "metropolis": tk, "rejection": rk}[family]
         lib, attr, lead = module._lib(), f"{family}_step_grid", ()
+    # The Megopolis and Metropolis grids take the plane word's code after N.
+    word = (PLANE_CODES[kargs[0].dtype],) if family in ("megopolis", "metropolis") else ()
     real = getattr(lib, attr)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(kargs[0].device):
-        if real(*lead, rows, kargs[0].shape[-1], ctypes.byref(blocks)) != 0:
+        if real(*lead, rows, kargs[0].shape[-1], *word, ctypes.byref(blocks)) != 0:
             fail(f"{name}: {attr} failed")
     sms = torch.cuda.get_device_properties(kargs[0].device).multi_processor_count
     out = {"blocks": blocks.value, "sms": sms, "ms_by_blocks_per_sm": {}}
@@ -1592,7 +1672,7 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
               "metropolis_c1": lambda k: c1c2_tables(1, k, n, b, dev),
               "metropolis_c2": lambda k: c1c2_tables(2, k, n, b, dev),
               "rejection": key_to_seed}.get(
-                  family, lambda k: draw_bases(k[None], n, family, dev))
+                  family.split("@")[0], lambda k: draw_bases(k[None], n, family, dev))
     reps = 200
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1631,6 +1711,9 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
     }
 
 
+#: The plane dtypes of phase 3's matrix: at the 2-byte ones, the cells of
+#: the families that take them (Megopolis, Metropolis).
+CHECK_PLANES = ("float32", "bfloat16", "float16")
 #: The entry a Path A run goes through, by mode: its launch budget per step.
 PATH_A_ENTRIES = {"run_filter/alg6": "apply", "run_filter/conditional": "step",
                   "run_filter_bank/alg6": "apply_rows",
@@ -1715,14 +1798,25 @@ def contract_checks(dev, wrappers, fk, drive):
         witnessed.append((dict(rec.census), dict(seen)))
 
     port = [w for w in wrappers if w not in fk.WRAPPERS]
-    report = drive("analysis/check", lambda: build_report(device=dev, around=witness), port)
+    report = drive("analysis/check", lambda: build_report(device=dev, around=witness,
+                                                          plane_dtypes=CHECK_PLANES), port)
     print(summarise(report))
     census = collections.defaultdict(dict)
     for cell in report["matrix"]:
         family, _, entry = cell["cell"].split("/")
         census[family][entry] = cell["launches"]
     print(f"census by entry: {json.dumps(census)}")
-    witness_census(witnessed, lambda: build_report(device=dev, around=witness))
+    # The compression axis narrows words and never adds a launch: each
+    # compressed cell launches what its float32 cell does.
+    launches = {cell["cell"]: cell["launches"] for cell in report["matrix"]}
+    axis = {c: (k, launches[c.split("@")[0]]) for c, k in launches.items() if "@" in c}
+    moved = {c: v for c, v in axis.items() if v[0] != v[1]}
+    print(f"census plane axis: {len(axis)} cells at {CHECK_PLANES[1:]}, {len(moved)} launch "
+          f"other than their float32 cell")
+    if not axis or moved:
+        fail(f"compressed cells' launches differ from float32's: {moved}")
+    witness_census(witnessed, lambda: build_report(device=dev, around=witness,
+                                                   plane_dtypes=CHECK_PLANES))
     if not report["ok"]:
         fail("the contract checks failed on the card (see the VIOLATION lines above)")
 
@@ -1747,10 +1841,10 @@ def path_a_census(args, families, results):
         steps = args.bank_steps if mode.startswith("run_filter_bank") else args.steps
         for family in families:
             got = sum(results[f"{mode}/{family}"]["launches"].values())
-            want = launch_budget(family, entry) * steps
+            want = launch_budget(family.split("@")[0], entry) * steps
             if got != want:
                 fail(f"{mode}/{family}: {got} port kernel launches, budget x steps {want}")
-    split = {family: {"port_per_step": launch_budget(family, "step"),
+    split = {family: {"port_per_step": launch_budget(family.split("@")[0], "step"),
                       "all_cuda_per_step": results["host_and_device_per_step"][family][
                           "launches_per_step"]} for family in families}
     print(f"census path_a: every run at budget x steps; conditional step {json.dumps(split)}")
@@ -1760,7 +1854,8 @@ def fixture_cases(dev, fk, afix) -> list:
     """The fixture kernels on their inputs in the contract checks (the
     weights ``leaky_telemetry`` copies, the weights ``hbm_roundtrip``
     takes), then at 2^23, and the copy of a view one element into its
-    tensor at 2^23 + 3 (its head and tail; not in the ``kernels`` line)."""
+    tensor at 2^23 + 3 and the iota into such a view (their heads and
+    tails; not in the ``kernels`` line)."""
     from repro_torch.kernels.fixtures import ref as fref
 
     (x,) = capture(afix, "copy_launch", lambda: afix.leaky_telemetry(dev))
@@ -1777,6 +1872,9 @@ def fixture_cases(dev, fk, afix) -> list:
     view = torch.rand(FIXTURE_NS[1] + 4, generator=torch.Generator().manual_seed(1)).to(dev)[1:]
     cases.append((f"copy_launch/n={view.shape[0]}/offset=1", fk.copy_launch, (view,),
                   lambda: fref.copy_ref(view), "fixtures", "copy", 1, 1))
+    out = torch.empty(FIXTURE_NS[1] + 4, dtype=torch.int32, device=dev)[1:].view(1, -1)
+    cases.append((f"iota_launch/n={view.shape[0]}/offset=1", fk.iota_launch, (view, out),
+                  lambda: fref.iota_ref(view.shape[0], dev), "fixtures", "iota", 1, 1))
     return cases
 
 

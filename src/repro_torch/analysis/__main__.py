@@ -2,6 +2,7 @@
 
     python -m repro_torch.analysis --check [--device cuda|cpu] [--json PATH]
                                    [--families megopolis,...] [--entries call,...]
+                                   [--plane-dtypes float32,bfloat16,float16]
                                    [--no-consumers] [--no-large-n]
                                    [--no-transactions] [--no-telemetry]
     python -m repro_torch.analysis --selftest [--device cuda|cpu]
@@ -27,9 +28,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="Audit the resampler matrix against its contracts.",
-        epilog="Not ported yet: --backends (ROADMAP Queue A item 4, the reference backend), "
-               "--plane-dtypes (item 2, compressed planes) and --no-resilience (item 3, "
-               "the guard and its pass 7).",
+        epilog="Not ported yet: --backends (ROADMAP Queue A item 4, the reference backend) "
+               "and --no-resilience (item 3, the guard and its pass 7).",
     )
     ap.add_argument("--check", action="store_true",
                     help="run the full audit; non-zero exit on violation")
@@ -44,6 +44,10 @@ def main(argv=None) -> int:
                     help="comma-separated family names (default: all)")
     ap.add_argument("--entries", type=_csv, default=None,
                     help="comma-separated entry points (default: all)")
+    ap.add_argument("--plane-dtypes", type=_csv, default=None,
+                    help="comma-separated plane dtypes of the §14 compression axis (default: "
+                         "float32; at bfloat16 and float16 the cells of the families that "
+                         "take them, Megopolis and Metropolis)")
     ap.add_argument("--no-consumers", action="store_true",
                     help="skip the consumer-program audits")
     ap.add_argument("--no-large-n", action="store_true",
@@ -78,6 +82,7 @@ def main(argv=None) -> int:
             families=args.families, entries=args.entries, device=device,
             consumers=not args.no_consumers, large_n=not args.no_large_n,
             transactions=not args.no_transactions, telemetry=not args.no_telemetry,
+            plane_dtypes=args.plane_dtypes or ("float32",),
         )
         if args.json:
             with open(args.json, "w") as fh:

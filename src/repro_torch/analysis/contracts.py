@@ -32,7 +32,13 @@ from repro_torch import resolve_device
 from repro_torch.analysis import rng, smem, walker
 from repro_torch.analysis.walker import Finding
 from repro_torch.core.resamplers.batched import split_batch_keys
-from repro_torch.core.spec import ENTRY_POINTS, contract_cells, family_spec, launch_budget
+from repro_torch.core.spec import (
+    ENTRY_POINTS,
+    compressed_families,
+    contract_cells,
+    family_spec,
+    launch_budget,
+)
 from repro_torch.kernels.common import observe_launches
 
 # Audit geometry, the JAX auditor's: two tiles of particles, a 3-row bank, a
@@ -232,35 +238,46 @@ def entry_callable(resampler, entry: str, args: dict, fire: bool = False) -> Cal
     return table[entry]
 
 
-def cell_resampler(name: str):
-    """The built resampler of one family at the audit's iteration counts."""
-    return family_spec(name, num_iters=AUDIT_NUM_ITERS, max_iters=AUDIT_MAX_ITERS).build()
+def cell_resampler(name: str, plane_dtype: str = "float32"):
+    """The built resampler of one family at the audit's iteration counts and
+    plane dtype."""
+    return family_spec(name, num_iters=AUDIT_NUM_ITERS, max_iters=AUDIT_MAX_ITERS,
+                       plane_dtype=plane_dtype).build()
 
 
 def cell_contract(name: str, entry: str) -> Contract:
     return Contract(max_launches=launch_budget(name, entry))
 
 
-def audit_cell(name: str, entry: str, args: dict, around=None) -> CellReport:
+def audit_cell(name: str, entry: str, args: dict, around=None,
+               plane_dtype: str = "float32") -> CellReport:
     """Run and audit one matrix cell.  A step cell runs on log-weights that
     resample, and again on ones that do not: the key must be consumed alike
-    (the §12 rule)."""
-    r = cell_resampler(name)
+    (the §12 rule).  A compressed cell (``plane_dtype`` not float32) is
+    named ``family/cuda/entry@dtype`` and held to the same contract."""
+    r = cell_resampler(name, plane_dtype)
     steps = entry in ("step", "step_rows")
+    suffix = "" if plane_dtype == "float32" else f"@{plane_dtype}"
     return audit_program(
-        f"{name}/cuda/{entry}", entry_callable(r, entry, args, fire=steps),
+        f"{name}/cuda/{entry}{suffix}", entry_callable(r, entry, args, fire=steps),
         cell_contract(name, entry),
         other_side=entry_callable(r, entry, args) if steps else None, around=around)
 
 
-def audit_matrix(families=None, entries=None, device="cuda", around=None):
+def audit_matrix(families=None, entries=None, device="cuda", around=None,
+                 plane_dtypes=None):
     """Run and audit every requested matrix cell; returns a generator of
     CellReports.  One shared args dict, made before the first cell (so a
     device without a card raises here); cells are independent, so a
-    failure in one family still reports every other cell."""
+    failure in one family still reports every other cell.  ``plane_dtypes``
+    (default float32 alone) adds the DESIGN.md §14 compression axis: at a
+    2-byte dtype, the cells of the families whose kernels take it
+    (``compressed_families``), against the same launch budgets:
+    compression narrows words, it never adds a launch."""
     args = audit_args(device=device)
-    return (audit_cell(name, entry, args, around)
-            for name, entry in contract_cells(families, entries))
+    return (audit_cell(name, entry, args, around, dtype)
+            for dtype in (plane_dtypes or ("float32",))
+            for name, entry in contract_cells(compressed_families(families, dtype), entries))
 
 
 def audit_large_n():

@@ -14,6 +14,7 @@ from repro_torch.analysis import consumers as consumers_mod
 from repro_torch.analysis import contracts as contracts_mod
 from repro_torch.analysis import telemetry as telemetry_mod
 from repro_torch.core.transactions import MEGOPOLIS_EXACT, measured_transaction_stats
+from repro_torch.kernels.common import plane_itemsize
 
 #: Families priced by the §2.4 transaction model (the iterate-and-compare
 #: families the paper counts; prefix-sum and rejection have no
@@ -40,7 +41,7 @@ def transaction_report(*, n: int = 4096, num_iters: int = 32, word_bytes: int = 
 
 def build_report(*, families=None, entries=None, device="cuda", consumers: bool = True,
                  large_n: bool = True, transactions: bool = True, telemetry: bool = True,
-                 around=None) -> dict:
+                 around=None, plane_dtypes=("float32",)) -> dict:
     """Run every audit and return one JSON-serialisable report.
 
     ``report["ok"]`` is the single bit the CLI exits on: every cell within
@@ -49,10 +50,14 @@ def build_report(*, families=None, entries=None, device="cuda", consumers: bool 
     at its largest admitted shapes, telemetry free (pass 6), and every
     measured transaction count within its declared §2.4 bound.
     ``around(recording)`` is entered around each recorded run.  ``device``
-    follows the package's device rule: ``cuda`` needs a card."""
+    follows the package's device rule: ``cuda`` needs a card.
+    ``plane_dtypes`` spans the DESIGN.md §14 compression axis: compressed
+    cells (``contracts.audit_matrix``) against the same launch budgets, and
+    the transaction table re-priced at 2-byte words
+    (``transactions@bfloat16``)."""
     device = resolve_device(device)
     matrix = [rep.as_dict() for rep in contracts_mod.audit_matrix(families, entries, device,
-                                                                   around)]
+                                                                   around, plane_dtypes)]
     report: dict = {
         "device": str(device),
         "matrix": matrix,
@@ -76,6 +81,13 @@ def build_report(*, families=None, entries=None, device="cuda", consumers: bool 
         tx = transaction_report()
         report["transactions"] = tx
         report["transaction_violations"] = {k: v for k, v in tx.items() if not v["ok"]}
+        for dtype in plane_dtypes:
+            if dtype == "float32":
+                continue
+            txc = transaction_report(word_bytes=plane_itemsize(dtype))
+            report[f"transactions@{dtype}"] = txc
+            report["transaction_violations"].update(
+                {f"{k}@{dtype}": v for k, v in txc.items() if not v["ok"]})
     report["ok"] = not (
         report["matrix_violations"]
         or report.get("large_n_violations")
@@ -102,10 +114,10 @@ def summarise(report: dict) -> str:
     if "telemetry" in report:
         lines.append(f"telemetry neutrality: {len(report['telemetry'])} cells, "
                      f"{len(report['telemetry_violations'])} violation(s)")
-    if "transactions" in report:
+    for section in [k for k in report if k.startswith("transactions")]:
         parts = ", ".join(f"{k}: max {v['max']}/bound {v['bound']}"
-                          for k, v in report["transactions"].items())
-        lines.append(f"transactions per warp-iteration: {parts}")
+                          for k, v in report[section].items())
+        lines.append(f"{section} per warp-iteration: {parts}")
     for section in ("matrix_violations", "large_n_violations", "consumer_violations",
                     "telemetry_violations"):
         for cell in report.get(section, []):

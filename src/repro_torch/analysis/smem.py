@@ -64,8 +64,8 @@ class KernelResources:
     the source's ``<stem>_attributes``, registers per thread, static shared
     memory, dynamic shared memory per row of a launch, and its grid:
     ``rows`` (``ceil(N / NT)`` by S), ``tiles`` (``N / 1024`` by S),
-    ``stride`` (``min(ceil(N / NT), 65535)``), ``resident`` (co-resident,
-    at most ``ceil(N / (4·NT))``: one 16-byte vector a thread), or
+    ``resident`` (co-resident, at most ``ceil(N / (4·NT))``: one 16-byte
+    vector a thread), or
     cooperative ``coop_step`` and ``coop_search`` (co-resident, at most
     ``ceil(S·N / NT)``; a search admits ``MAX_ROWS`` rows) and ``coop_scan``
     (co-resident, at most ``S·N / 1024``).  ``optin``: the kernel raises its dynamic
@@ -102,15 +102,29 @@ _REJ, _PREFIX, _FIX = ("rejection/csrc/rejection.cu", "prefix_sum/csrc/prefix_su
 #: Every kernel instance of the port, by the name the profiler gives it.
 KERNELS = {
     # The Megopolis kernels' static shared memory is their ring of
-    # comparison segments (4 KiB and 16 bytes each; three for the bank
-    # kernel, four for the step) and the per-chunk table; the bank kernel
-    # runs a block per 1024 particles ("tiles").
-    "megopolis_fused_rows_kernel<false>": _rows(_MEGO, 0, 32, 14464, "tiles"),
-    "megopolis_fused_rows_kernel<true>": _rows(_MEGO, 1, 32, 14464, "tiles"),
-    "megopolis_step_rows_kernel": _step(_MEGO, 2, 32, 18816, optin=True),
-    "metropolis_rows_kernel<false>": _rows(_METRO, 0, 32, 1024),
-    "metropolis_rows_kernel<true>": _rows(_METRO, 1, 40, 1024),
-    "metropolis_step_rows_kernel": _step(_METRO, 2, 32, 32),
+    # comparison segments (4 KiB and 16 bytes each at float32 words, 2 KiB
+    # and 16 bytes at 2-byte words; three for the bank kernel, four for the
+    # step) and the per-chunk table; the bank kernel runs a block per 1024
+    # particles ("tiles").  The Megopolis and Metropolis kernels have an
+    # instance per plane word (float, __nv_bfloat16, __half).
+    "megopolis_fused_rows_kernel<false, float>": _rows(_MEGO, 0, 32, 14464, "tiles"),
+    "megopolis_fused_rows_kernel<true, float>": _rows(_MEGO, 1, 32, 14464, "tiles"),
+    "megopolis_step_rows_kernel<float>": _step(_MEGO, 2, 32, 18816, optin=True),
+    "megopolis_fused_rows_kernel<false, __nv_bfloat16>": _rows(_MEGO, 3, 32, 8320, "tiles"),
+    "megopolis_fused_rows_kernel<true, __nv_bfloat16>": _rows(_MEGO, 4, 32, 8320, "tiles"),
+    "megopolis_step_rows_kernel<__nv_bfloat16>": _step(_MEGO, 5, 32, 10624, optin=True),
+    "megopolis_fused_rows_kernel<false, __half>": _rows(_MEGO, 6, 32, 8320, "tiles"),
+    "megopolis_fused_rows_kernel<true, __half>": _rows(_MEGO, 7, 32, 8320, "tiles"),
+    "megopolis_step_rows_kernel<__half>": _step(_MEGO, 8, 32, 10624, optin=True),
+    "metropolis_rows_kernel<false, float>": _rows(_METRO, 0, 32, 1024),
+    "metropolis_rows_kernel<true, float>": _rows(_METRO, 1, 40, 1024),
+    "metropolis_step_rows_kernel<float>": _step(_METRO, 2, 32, 32),
+    "metropolis_rows_kernel<false, __nv_bfloat16>": _rows(_METRO, 3, 32, 1024),
+    "metropolis_rows_kernel<true, __nv_bfloat16>": _rows(_METRO, 4, 34, 1024),
+    "metropolis_step_rows_kernel<__nv_bfloat16>": _step(_METRO, 5, 32, 32),
+    "metropolis_rows_kernel<false, __half>": _rows(_METRO, 6, 32, 1024),
+    "metropolis_rows_kernel<true, __half>": _rows(_METRO, 7, 34, 1024),
+    "metropolis_step_rows_kernel<__half>": _step(_METRO, 8, 32, 32),
     # The C1/C2 kernels' static shared memory is their partition tiles (one
     # for C1; C2's ring of five buffers of two in the bank kernel, three of
     # two in the step, 4 KiB a tile) with the per-chunk table of hash
@@ -138,7 +152,7 @@ KERNELS = {
     "prefix_step_rows_kernel<2>": _step(_PREFIX, 8, 40, 4720),
     "prefix_step_rows_kernel<3>": _step(_PREFIX, 9, 48, 4720),
     "copy_kernel": _rows(_FIX, 0, 32, 0, "resident"),
-    "iota_kernel": _rows(_FIX, 1, 24, 0, "stride"),
+    "iota_kernel": _rows(_FIX, 1, 32, 0, "resident"),
 }
 
 
@@ -191,8 +205,6 @@ def price(kernel: str, rows: int, n: int, resources: KernelResources | None = No
         blocks, grid_y = -(-n // NT), rows
     elif res.grid == "tiles":
         blocks, grid_y = n // 1024, rows
-    elif res.grid == "stride":
-        blocks = min(-(-rows * n // NT), 65535)
     elif res.grid == "resident":
         blocks = max(1, min(co_resident, -(-rows * n // (4 * NT))))
     elif res.grid in ("coop_step", "coop_search"):
@@ -240,7 +252,7 @@ def largest_shapes(kernel: str) -> list:
     of ``MAX_PARTICLES``, and the most rows of a launch (``MAX_STEP_ROWS``
     for a step, ``MAX_ROWS`` for a bank) at the largest N, a multiple of
     1024, with ``S·N < 2**31``."""
-    if KERNELS[kernel].grid in ("stride", "resident"):
+    if KERNELS[kernel].grid == "resident":
         return [(1, MAX_PARTICLES)]
     rows = MAX_STEP_ROWS if KERNELS[kernel].grid == "coop_step" else MAX_ROWS
     return [(1, MAX_PARTICLES), (rows, MAX_ELEMENTS // rows // 1024 * 1024)]

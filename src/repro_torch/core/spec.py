@@ -5,6 +5,7 @@ rejection and the five prefix-sum kinds: every family of the JAX package).
     spec = MegopolisSpec(num_iters=32)          # backend="cuda"
     spec = RejectionSpec(max_iters=1024)        # no num_iters: a capped loop
     spec = PrefixSumSpec(kind="multinomial")    # no num_iters: one scan, one search
+    spec = MegopolisSpec(plane_dtype="bfloat16")  # 2-byte planes (Megopolis, Metropolis)
     r = spec.build()
     ancestors = r(key, weights)
     particles2, ancestors = r.apply(key, weights, particles)
@@ -33,6 +34,7 @@ from repro_torch.core.metrics import (
     unique_ancestor_count,
 )
 from repro_torch.core.resamplers.batched import split_batch_keys
+from repro_torch.kernels.common import PLANE_DTYPES, compress_plane, quantise_plane
 from repro_torch.kernels.megopolis import ops as mops
 from repro_torch.kernels.metropolis import ops as tops
 from repro_torch.kernels.prefix_sum import ops as pops
@@ -61,7 +63,7 @@ def _step_iters(num_iters, log_weights: torch.Tensor) -> int:
     composed path hands to ``apply``, computed only under 'auto'."""
     if num_iters != AUTO:
         return num_iters
-    return select_iterations(normalise_log_weights(log_weights))
+    return select_iterations(normalise_log_weights(log_weights.to(torch.float32)))
 
 
 def _row_by_row(fn: Callable, split_key: bool) -> Callable:
@@ -123,6 +125,15 @@ class Resampler:
     launch; its resample branch equals ``apply(key, exp(lw - max lw),
     particles)``, its no-op branch returns the particles with identity
     ancestors and ``incr = 0``.  The key is consumed either way.
+
+    Compressed planes (DESIGN.md §14, the spec's ``plane_dtype``): every
+    entry narrows its float inputs, weights (or log-weights) and particles,
+    once to the plane dtype (``compress_plane``: the values ``quantise``
+    gives, in the word the kernels move), and the particles it returns have
+    the caller's dtype again.  So ``r_bf16(key, w)`` equals ``r_f32(key,
+    r_bf16.quantise(w))``; the step's sweep runs on its normalised weights
+    requantised to the plane dtype, inside the kernel.  At float32 nothing
+    is narrowed.
     """
 
     def __init__(self, spec: "ResamplerSpec", *, single: Callable, batch: Callable,
@@ -130,6 +141,7 @@ class Resampler:
                  apply_rows: Callable, step: Callable, step_rows: Callable):
         self.spec = spec
         self.name = spec.name
+        self.plane_dtype = spec.plane_dtype
         self._single = single
         self._batch = batch
         self._batch_rows = batch_rows
@@ -157,53 +169,73 @@ class Resampler:
                 f"got {tuple(keys.shape)}"
             )
 
+    def quantise(self, x: torch.Tensor) -> torch.Tensor:
+        """Round a float tensor onto the spec's plane-dtype grid, keeping
+        its dtype (``quantise_plane``): the value the compressed planes
+        carry.  ``x`` itself at float32 and for non-float tensors."""
+        return quantise_plane(x, self.plane_dtype)
+
+    def _narrow(self, x: torch.Tensor) -> torch.Tensor:
+        """An entry's float input in the plane dtype (none at float32)."""
+        return x if self.plane_dtype == "float32" else compress_plane(x, self.plane_dtype)
+
+    @staticmethod
+    def _widen(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """Particles out in the caller's dtype."""
+        return out if out.dtype == like.dtype else out.to(like.dtype)
+
     def __call__(self, key, weights):
         """Index-only resample of one population: ancestors ``int32[N]``."""
         self._check("__call__", weights, 1)
-        return self._single(key, weights)
+        return self._single(key, self._narrow(weights))
 
     def batch(self, key, weights):
         """Index-only resample of a bank ``[S, N]`` under one key."""
         self._check("batch", weights, 2)
-        return self._batch(key, weights)
+        return self._batch(key, self._narrow(weights))
 
     def batch_rows(self, keys, weights):
         """Index-only resample of a bank over explicit per-row keys."""
         self._check("batch_rows", weights, 2, keys=keys)
-        return self._batch_rows(keys, weights)
+        return self._batch_rows(keys, self._narrow(weights))
+
+    def _applied(self, fn, key, weights, particles):
+        p_out, anc = fn(key, self._narrow(weights), self._narrow(particles))
+        return self._widen(p_out, particles), anc
 
     def apply(self, key, weights, particles):
         """Fused resample + gather of one population."""
         self._check("apply", weights, 1, particles)
-        return self._apply(key, weights, particles)
+        return self._applied(self._apply, key, weights, particles)
 
     def apply_batch(self, key, weights, particles):
         """Bank form of ``apply`` under one key."""
         self._check("apply_batch", weights, 2, particles)
-        return self._apply_batch(key, weights, particles)
+        return self._applied(self._apply_batch, key, weights, particles)
 
     def apply_rows(self, keys, weights, particles):
         """``apply`` over explicit per-row keys."""
         self._check("apply_rows", weights, 2, particles, keys)
-        return self._apply_rows(keys, weights, particles)
+        return self._applied(self._apply_rows, keys, weights, particles)
+
+    def _stepped(self, fn, key, log_weights, particles, ess_threshold):
+        lw = self._narrow(log_weights)
+        p_out, anc, stats4 = fn(key, lw, self._narrow(particles), ess_threshold)
+        stats = stats_from_vector(stats4, unique_ancestor_count(anc),
+                                  degenerate_log_weights(lw))
+        return self._widen(p_out, particles), anc, stats
 
     def step(self, key, log_weights, particles, ess_threshold: float):
         """Fused SMC step of one population: ``(particles', ancestors,
         StepStats)``."""
         self._check("step", log_weights, 1, particles)
-        p_out, anc, stats4 = self._step(key, log_weights, particles, ess_threshold)
-        stats = stats_from_vector(stats4, unique_ancestor_count(anc),
-                                  degenerate_log_weights(log_weights))
-        return p_out, anc, stats
+        return self._stepped(self._step, key, log_weights, particles, ess_threshold)
 
     def step_rows(self, keys, log_weights, particles, ess_threshold: float):
         """``step`` over explicit per-row keys, each row with its own
         decision; the ``StepStats`` fields are ``[S]``."""
         self._check("step_rows", log_weights, 2, particles, keys)
-        p_out, anc, stats4 = self._step_rows(keys, log_weights, particles, ess_threshold)
-        stats = stats_from_vector(stats4, unique_ancestor_count(anc),
-                                  degenerate_log_weights(log_weights))
-        return p_out, anc, stats
+        return self._stepped(self._step_rows, keys, log_weights, particles, ess_threshold)
 
     def __repr__(self):
         return f"Resampler({self.spec!r})"
@@ -215,6 +247,9 @@ class ResamplerSpec:
     ``cuda`` backend.  Subclasses add their fields and ``build``."""
 
     name: ClassVar[str] = ""
+    #: Whether the family's kernels take 2-byte planes (``plane_dtype``
+    #: bfloat16 or float16); the others raise ``NotImplementedError``.
+    compressed: ClassVar[bool] = False
 
     def _validate_num_iters(self):
         """The check of the families with an iteration count B."""
@@ -236,13 +271,15 @@ class ResamplerSpec:
             )
         if self.backend not in BACKENDS:
             raise ValueError(f"{cls}.backend must be one of {BACKENDS}; got {self.backend!r}")
-        if self.plane_dtype in ("bfloat16", "float16"):
+        if self.plane_dtype not in PLANE_DTYPES:
+            raise ValueError(f"{cls}.plane_dtype must be one of {PLANE_DTYPES}; got "
+                             f"{self.plane_dtype!r}")
+        if self.plane_dtype != "float32" and not self.compressed:
             raise NotImplementedError(
                 f"{cls}.plane_dtype={self.plane_dtype!r} is not ported yet "
-                "(ROADMAP Queue A, item 2: compressed planes)"
+                "(ROADMAP Queue A, item 2: compressed planes; the Megopolis and Metropolis "
+                "kernels take them)"
             )
-        if self.plane_dtype != "float32":
-            raise ValueError(f"{cls}.plane_dtype must be 'float32'; got {self.plane_dtype!r}")
         if self.guard in ("flag", "recover"):
             raise NotImplementedError(
                 f"{cls}.guard={self.guard!r} is not ported yet "
@@ -276,6 +313,7 @@ class MegopolisSpec(ResamplerSpec):
     guard: str = "off"
 
     name: ClassVar[str] = "megopolis"
+    compressed: ClassVar[bool] = True
 
     def __post_init__(self):
         self._validate_num_iters()
@@ -373,6 +411,7 @@ class MetropolisSpec(ResamplerSpec):
     guard: str = "off"
 
     name: ClassVar[str] = "metropolis"
+    compressed: ClassVar[bool] = True
 
     def __post_init__(self):
         self._validate_num_iters()
@@ -589,6 +628,18 @@ def family_spec(name: str, **fields) -> ResamplerSpec:
     cls, fixed = _family(name)
     own = {f.name for f in dataclasses.fields(cls)}
     return cls(**fixed, **{k: v for k, v in fields.items() if k in own})
+
+
+def compressed_families(families=None, plane_dtype: str = "bfloat16") -> list:
+    """Of ``families`` (default every family), sorted, those whose spec
+    takes ``plane_dtype``: all at float32, Megopolis and Metropolis at the
+    2-byte dtypes (ROADMAP Queue A item 2 carries the rest)."""
+    names = family_names() if families is None else list(families)
+    for name in names:
+        _family(name)
+    if plane_dtype == "float32":
+        return sorted(names)
+    return sorted(name for name in names if FAMILIES[name][0].compressed)
 
 
 def launch_budget(name: str, entry: str) -> int:

@@ -9,6 +9,8 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,6 +23,52 @@ namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float ftz(float x) {
   return fabsf(x) < FLT_MIN_NORMAL ? copysignf(0.0f, x) : x;
+}
+
+// Plane words (DESIGN.md §14): the weight and state planes move as float,
+// __nv_bfloat16 or __half; every value the arithmetic reads is upcast to
+// f32 first, so selection, the hash, the uniforms and the step's statistics
+// stay f32.  plane_f32 is the exact upcast (a bf16 subnormal stays an f32
+// subnormal, which the -ftz=true products and compares of a sweep flush);
+// load_plane, the load helper, upcasts and flushes; to_plane rounds an f32
+// to the nearest plane word, ties to even, as torch's .to(dtype) does.
+__device__ __forceinline__ float plane_f32(float x) { return x; }
+__device__ __forceinline__ float plane_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float plane_f32(__half x) { return __half2float(x); }
+
+template <class T>
+__device__ __forceinline__ float load_plane(T x) {
+  return ftz(plane_f32(x));
+}
+
+template <class T>
+__device__ __forceinline__ T to_plane(float x);
+template <>
+__device__ __forceinline__ float to_plane<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_plane<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half to_plane<__half>(float x) { return __float2half_rn(x); }
+
+// The plane dtypes by the code the C entry points take (0 float32, 1
+// bfloat16, 2 float16; repro_torch/kernels/common.py's PLANE_DTYPES order).
+#define PLANE_F32 0
+#define PLANE_BF16 1
+#define PLANE_F16 2
+
+// Call f with a value of the plane word that `plane` names (f(float{}),
+// f(__nv_bfloat16{}) or f(__half{})), on the host: the C entry points'
+// dispatch to a kernel's instance.  An unknown code is cudaErrorInvalidValue.
+template <class F>
+static int by_plane(int plane, F f) {
+  switch (plane) {
+    case PLANE_F32: return f(float{});
+    case PLANE_BF16: return f(__nv_bfloat16{});
+    case PLANE_F16: return f(__half{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 __device__ __forceinline__ uint32_t fmix(uint32_t x) {
@@ -99,7 +147,7 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
 
 // One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
 // aligned) from device memory into shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
@@ -124,7 +172,8 @@ __device__ __forceinline__ void ring_barriers_init(uint64_t (&full)[STAGES],
 }
 
 // Scratch of a cooperative step launch (floats):
-// pmax[S·G] | psum[S·G·4] | hh[S·B] | wbuf[S·n].
+// pmax[S·G] | psum[S·G·4] | hh[S·B] | wbuf[S·n] (plane words of the
+// step's log-weights; a kernel reads it through reinterpret_cast).
 struct StepScratch {
   float* pmax;
   float* psum;
@@ -143,16 +192,22 @@ __device__ __forceinline__ StepScratch step_scratch(float* scratch, int rows, in
 }
 
 // The fused step's prelude, shared by every step kernel: step_stats per row
-// (repro_torch/kernels/common.py), the trigger ess_norm < thr, the weights
-// exp(lw - m) (1/N on a degenerate row) written once to sc.wbuf, and the
-// per-iteration hash prefix hh[s·B + b] = fmix(seeds[s] + b·GOLDEN).  It
-// holds two grid.sync() barriers: one after the per-block maxima, one after
-// the per-block sums.  Per-block partials go to scratch and every block
-// reduces them in the same fixed order, so the stats repeat bit for bit (no
-// float atomics).  On return, row_m[s] holds the shift and row_flag[s] bit 0
-// the degenerate flag, bit 1 the trigger; block 0 has written stats[S, 4] =
-// (ess_norm, incr if fired else 0, fired, max_weight).
-__device__ __forceinline__ void step_prelude(cg::grid_group& grid, const float* __restrict__ lw,
+// (repro_torch/kernels/common.py) over log-weights lw of plane words T, each
+// upcast and flushed (load_plane), the trigger ess_norm < thr, the weights
+// exp(lw - m) (1/N on a degenerate row) rounded to T and written once to
+// sc.wbuf as T (the sweep reads what JAX's w.astype(lw.dtype).astype(f32)
+// gives, in half the bytes at 2-byte words; the stats are of the f32
+// weights, as step_stats(lw.astype(f32))), and the per-iteration hash
+// prefix hh[s·B + b] = fmix(seeds[s] + b·GOLDEN).  It holds two
+// grid.sync() barriers: one after the per-block maxima, one after the
+// per-block sums.  Per-block partials go to scratch and every block reduces
+// them in the same fixed order, so the stats repeat bit for bit (no float
+// atomics).  On return, row_m[s] holds the shift and row_flag[s] bit 0 the
+// degenerate flag, bit 1 the trigger; block 0 has written stats[S, 4] =
+// (ess_norm, incr if fired else 0, fired, max_weight).  At T = float it is
+// the f32 prelude every other step kernel instantiates.
+template <class T>
+__device__ __forceinline__ void step_prelude(cg::grid_group& grid, const T* __restrict__ lw,
                                              const uint32_t* __restrict__ seeds, float thr,
                                              float* __restrict__ stats, const StepScratch& sc,
                                              float* row_m, int* row_flag, float* red,
@@ -165,9 +220,9 @@ __device__ __forceinline__ void step_prelude(cg::grid_group& grid, const float* 
 
   // Phase 1: per-block maxima (nan propagates, as jnp.max).
   for (int s = 0; s < rows; ++s) {
-    const float* l = lw + (size_t)s * n;
+    const T* l = lw + (size_t)s * n;
     float mx = -INFINITY;
-    for (size_t i = gtid; i < (size_t)n; i += gstride) mx = nanmax(mx, ftz(l[i]));
+    for (size_t i = gtid; i < (size_t)n; i += gstride) mx = nanmax(mx, load_plane(l[i]));
     mx = block_reduce<true>(mx, red);
     if (tid == 0) sc.pmax[(size_t)s * nblk + blockIdx.x] = mx;
   }
@@ -190,15 +245,15 @@ __device__ __forceinline__ void step_prelude(cg::grid_group& grid, const float* 
 
   // Phase 2: weights and per-block sums.
   for (int s = 0; s < rows; ++s) {
-    const float* l = lw + (size_t)s * n;
-    float* wr = sc.wbuf + (size_t)s * n;
+    const T* l = lw + (size_t)s * n;
+    T* wr = reinterpret_cast<T*>(sc.wbuf) + (size_t)s * n;
     const float m = row_m[s];
     const bool deg = row_flag[s] & 1;
     float sraw = 0.0f, s1 = 0.0f, s2 = 0.0f, mx = -INFINITY;
     for (size_t i = gtid; i < (size_t)n; i += gstride) {
-      const float e = ftz(expf(ftz(ftz(l[i]) - m)));
+      const float e = ftz(expf(ftz(load_plane(l[i]) - m)));
       const float wv = deg ? inv_n : e;
-      wr[i] = wv;
+      wr[i] = to_plane<T>(wv);
       sraw += e;
       s1 += wv;
       s2 += ftz(__fmul_rn(wv, wv));

@@ -7,8 +7,9 @@ PyTorch.  The plain versions of the CUDA kernels call them, and the CUDA
 sources spell out the same arithmetic in ``common.cuh``, which both
 ``megopolis/csrc/megopolis.cu`` and ``metropolis/csrc/metropolis.cu``
 include.  The checks every bank wrapper makes before a launch
-(``check_bank``, ``check_launch``) live here too, and the launch census
-hook every wrapper carries (``kernel_wrapper``).
+(``check_bank``, ``check_launch``) live here too, the launch census
+hook every wrapper carries (``kernel_wrapper``), and the plane-dtype axis
+(``PLANE_DTYPES``, ``quantise_plane``, ``compress_plane``: DESIGN.md §14).
 
 uint32 arithmetic runs in ``int64`` masked to 32 bits (torch's ``uint32``
 has no ``+``, ``>>`` or ``%`` on the CPU); products are split into 16-bit
@@ -50,7 +51,10 @@ MAX_PARTICLES = 1 << 30
 MAX_ROWS = 65535
 #: Rows of one step launch: the per-row shift and flags sit in shared memory.
 MAX_STEP_ROWS = 4096
-PLANE_DTYPES = ("float32",)
+#: The plane-compression axis (DESIGN.md §14): the word the weight and
+#: state planes move in.  The kernels upcast every load, so selection, the
+#: hash, the uniforms and the step's statistics stay float32.
+PLANE_DTYPES = ("float32", "bfloat16", "float16")
 _FLT_MIN = torch.finfo(torch.float32).tiny
 
 
@@ -120,15 +124,57 @@ def flush_to_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
 
 
-def quantise_plane(x: torch.Tensor, plane_dtype: str = "float32") -> torch.Tensor:
-    """Round onto the plane-dtype grid: the identity at float32, the only
-    plane dtype this slice ports."""
-    if plane_dtype not in PLANE_DTYPES:
-        raise NotImplementedError(
-            f"plane_dtype={plane_dtype!r} is not ported yet (ROADMAP Queue A, "
-            "item 2: compressed planes)"
-        )
-    return x
+#: The CUDA type of each plane dtype's word, as the profiler prints a
+#: kernel's template argument, and its code at the C entry points
+#: (``PLANE_F32``, ``PLANE_BF16``, ``PLANE_F16`` in ``common.cuh``).
+PLANE_WORDS = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16", torch.float16: "__half"}
+PLANE_CODES = {dt: code for code, dt in enumerate(PLANE_WORDS)}
+
+
+def canonical_plane_dtype(plane_dtype) -> torch.dtype:
+    """Validate a ``plane_dtype`` spec value (a name of ``PLANE_DTYPES``, a
+    ``torch.dtype``, or None for float32) and return its dtype."""
+    if plane_dtype is None:
+        return torch.float32
+    name = str(plane_dtype).removeprefix("torch.")
+    if name not in PLANE_DTYPES:
+        raise ValueError(f"plane_dtype must be one of {PLANE_DTYPES}; got {plane_dtype!r}")
+    return getattr(torch, name)
+
+
+def plane_itemsize(plane_dtype) -> int:
+    """Bytes per plane word: 4, 2, 2."""
+    return canonical_plane_dtype(plane_dtype).itemsize
+
+
+def quantise_plane(x: torch.Tensor, plane_dtype="float32") -> torch.Tensor:
+    """Round ``x`` onto the ``plane_dtype`` grid, keeping its own dtype:
+    ``x.to(plane).to(x.dtype)``.  The same tensor, with no work, where ``x``
+    already has the plane dtype (float32 at float32) and for non-float
+    tensors (int states pass through).  Idempotent, so narrowing a quantised
+    tensor (``compress_plane``) loses nothing."""
+    if not x.is_floating_point():
+        return x
+    dt = canonical_plane_dtype(plane_dtype)
+    return x if x.dtype == dt else x.to(dt).to(x.dtype)
+
+
+def compress_plane(x: torch.Tensor, plane_dtype="float32") -> torch.Tensor:
+    """Narrow a float plane to the word the kernels move (``x`` itself
+    when it has it); non-float planes keep their dtype.  Of any float
+    ``x``, the values of ``quantise_plane(x)``."""
+    if not x.is_floating_point():
+        return x
+    return x.to(canonical_plane_dtype(plane_dtype))
+
+
+def state_itemsize(particles: torch.Tensor, plane_dtype) -> int:
+    """Bytes per state word under the compression axis: the plane word for
+    a float state, the state's own width otherwise (int states never
+    compress)."""
+    if particles.is_floating_point():
+        return plane_itemsize(plane_dtype)
+    return particles.element_size()
 
 
 def step_stats(lw: torch.Tensor):
@@ -164,15 +210,20 @@ def step_select(do: torch.Tensor, k_new: torch.Tensor) -> torch.Tensor:
 
 
 def step_weights(lw: torch.Tensor, thr: float):
-    """The plain step kernels' prelude over log-weights ``[S, N]``:
-    ``(w, do, stats)`` with the sweep's weights ``exp(lw - m)`` (uniform
-    ``1/N`` on a degenerate row), the trigger ``ess_norm < thr`` and
+    """The plain step kernels' prelude over log-weights ``[S, N]`` of a plane
+    dtype: ``(w, do, stats)`` with the sweep's weights ``exp(lw - m)``
+    (uniform ``1/N`` on a degenerate row) requantised to that dtype, the
+    trigger ``ess_norm < thr`` and
     ``stats f32[S, 4] = (ess_norm, incr if do else 0, do, max_weight)``."""
     n = lw.shape[-1]
-    m, ess_norm, incr, maxw, deg = step_stats(lw)
+    lw32 = lw.to(torch.float32)
+    m, ess_norm, incr, maxw, deg = step_stats(lw32)
     do = ess_norm < torch.tensor(thr, dtype=torch.float32)
-    w = flush_to_zero(torch.exp(flush_to_zero(flush_to_zero(lw) - m.unsqueeze(-1))))
+    w = flush_to_zero(torch.exp(flush_to_zero(flush_to_zero(lw32) - m.unsqueeze(-1))))
     w = torch.where(deg.unsqueeze(-1), torch.full_like(w, 1.0 / n), w)
+    # The sweep's weights land on the log-weights' plane grid (JAX's
+    # ``w.astype(lw.dtype).astype(f32)``); the stats above are of the f32 w.
+    w = quantise_plane(w, lw.dtype)
     stats = torch.stack(
         [ess_norm, torch.where(do, incr, torch.zeros_like(incr)), do.to(torch.float32), maxw],
         dim=-1,
@@ -201,13 +252,16 @@ def gather_state(state: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.gather(state, 2, k.unsqueeze(1).expand(-1, state.shape[1], -1))
 
 
-def check_bank(who: str, w: torch.Tensor, state, seeds):
-    """Validate the arguments every bank kernel takes: weights ``f32[S, N]``,
-    state ``[S, D, N]`` (or None for an index-only kernel) and ``seeds
-    [S]`` (None for the prefix-sum kernels, which take no seed).  Returns
-    ``(S, N, D)`` (D = 0 without state)."""
-    if w.dtype != torch.float32 or w.ndim != 2:
-        raise ValueError(f"{who}: weights must be float32[S, N]; got {w.dtype}{list(w.shape)}")
+def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",)):
+    """Validate the arguments every bank kernel takes: weights ``[S, N]`` of
+    a dtype of ``planes`` (the plane dtypes the kernel is built for), state
+    ``[S, D, N]`` (or None for an index-only kernel; on the card of the
+    weights' dtype) and ``seeds [S]`` (None for the prefix-sum kernels,
+    which take no seed).  Returns ``(S, N, D)`` (D = 0 without state)."""
+    dtypes = tuple(canonical_plane_dtype(p) for p in planes)
+    if w.dtype not in dtypes or w.ndim != 2:
+        names = "/".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{who}: weights must be {names}[S, N]; got {w.dtype}{list(w.shape)}")
     s, n = w.shape
     if n % TILE != 0 or not 0 < n <= MAX_PARTICLES:
         raise ValueError(f"{who} requires 0 < N <= 2**30 and N % {TILE} == 0; got N={n}")
@@ -225,8 +279,9 @@ def check_bank(who: str, w: torch.Tensor, state, seeds):
         if state is not None:
             if state.device != w.device:
                 raise ValueError(f"{who}: state on {state.device}, weights on {w.device}")
-            if state.dtype != torch.float32:
-                raise ValueError(f"{who}: the CUDA kernel copies float32 state; got {state.dtype}")
+            if state.dtype != w.dtype:
+                raise ValueError(f"{who}: the CUDA kernel copies state of the weights' plane "
+                                 f"dtype {w.dtype}; got {state.dtype}")
             if not state.is_contiguous():
                 raise ValueError(f"{who}: state must be contiguous")
     elif state is not None and state.is_cuda:
@@ -235,14 +290,17 @@ def check_bank(who: str, w: torch.Tensor, state, seeds):
 
 
 def check_aligned(who: str, w: torch.Tensor):
-    """The Megopolis and C1/C2 kernels copy whole 4 KiB tiles of ``w`` into
-    shared memory by bulk copies, which need 16-byte aligned addresses: a
-    contiguous ``[S, N]`` tensor from the allocator is, a view with an odd
-    storage offset may not be (no silent copy)."""
+    """The Megopolis and C1/C2 kernels copy whole segments of 1024 plane
+    words (4 KiB of float32, 2 KiB of a 2-byte word) of ``w`` into shared
+    memory by bulk copies, whose addresses and sizes come in 16-byte
+    grains: a contiguous ``[S, N]`` tensor from the allocator starts on
+    one, a view with an odd storage offset may not (no silent copy).  The
+    check is of bytes, whatever the word."""
     if w.data_ptr() % 16:
         raise ValueError(f"{who}: the weights must start on a 16-byte boundary for the "
                          f"kernel's bulk copies; got address {w.data_ptr():#x} (a view "
-                         f"with a storage offset of {w.storage_offset()}): pass a copy")
+                         f"with a storage offset of {w.storage_offset()} words of "
+                         f"{w.element_size()} bytes): pass a copy")
 
 
 def device_seeds(seeds: torch.Tensor, device) -> torch.Tensor:
@@ -261,8 +319,9 @@ def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_i
     """The grid and buffers of one cooperative step launch over ``lw [S,
     N]``: the co-resident block count from the library's ``grid_fn(S, N,
     &blocks)`` on the weights' device, then the outputs and the scratch of
-    ``common.cuh``'s ``StepScratch`` layout, with 16 bytes of slack so that
-    a kernel may start its weights buffer on a 16-byte boundary.  Returns
+    ``common.cuh``'s ``StepScratch`` layout (its weights buffer of ``S·N``
+    words of ``lw``'s plane dtype), with 16 bytes of slack so that a kernel
+    may start its weights buffer on a 16-byte boundary.  Returns
     ``(blocks, ancestors, state', stats, scratch)``."""
     s, n = lw.shape
     if s > MAX_STEP_ROWS:
@@ -273,7 +332,8 @@ def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_i
     g = blocks.value
     anc = torch.empty((s, n), dtype=torch.int32, device=lw.device)
     stats = torch.empty((s, 4), dtype=torch.float32, device=lw.device)
-    scratch = torch.empty(s * g * 5 + s * num_iters + s * n + 4, dtype=torch.float32,
+    wbuf = -(-s * n * lw.element_size() // 4)
+    scratch = torch.empty(s * g * 5 + s * num_iters + wbuf + 4, dtype=torch.float32,
                           device=lw.device)
     return g, anc, torch.empty_like(state), stats, scratch
 
@@ -317,6 +377,15 @@ def kernel_wrapper(kernel):
         return wrapper
 
     return decorate
+
+
+def plane_instance(kernel: str, gather=None):
+    """``kernel_wrapper``'s name of a kernel templated on the plane word, as
+    a function of the call: ``kernel<GATHER, word>`` (``kernel<word>``
+    without ``gather``) for the word of the call's first tensor, the
+    weights (``megopolis_fused_rows_kernel<false, __nv_bfloat16>``)."""
+    lead = "" if gather is None else f"{str(gather).lower()}, "
+    return lambda w, *args, **kwargs: f"{kernel}<{lead}{PLANE_WORDS.get(w.dtype, w.dtype)}>"
 
 
 def inside_kernel_wrapper() -> bool:

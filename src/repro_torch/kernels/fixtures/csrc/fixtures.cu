@@ -32,17 +32,24 @@
 // outside any kernel, the round trip of ancestors through device memory
 // that the fused apply and step remove.
 //
-//   What bounds it: the 4N bytes written.
-//   What the design does about it: a grid-stride loop of coalesced 4-byte
-//   stores, one element per thread up to 65535 blocks (stride_grid).
+//   What bounds it: the 4N bytes written: 32 MiB at N = 2^23, 0.010 ms at
+//   3.35 TB/s.
+//   What the design does about it: copy_kernel's shape without the loads.
+//   16-byte int4 stores of four consecutive values, IOTA_UNROLL of them a
+//   thread a turn of its loop, on a grid of the blocks that can be
+//   co-resident, no more than one vector a thread needs (the grid-stride
+//   loop of 4-byte stores on up to 65535 blocks it replaces reached 39% of
+//   the bound).  An output view may start at any 4-byte offset and N need
+//   not be a multiple of 4: the up to 3 elements before its first 16-byte
+//   boundary (the head) and after the last whole vector (the tail) are
+//   written one by one.
 
 #include "../../common.cuh"
 
-// Most blocks of a grid-stride launch; past 65535·NT elements a thread
-// takes more than one.
-#define MAX_STRIDE_BLOCKS 65535
 // 16-byte vectors a thread of copy_kernel loads before it stores them.
 #define COPY_UNROLL 4
+// 16-byte vectors a thread of iota_kernel stores a turn of its loop.
+#define IOTA_UNROLL 4
 
 __global__ void __launch_bounds__(NT) copy_kernel(const float* __restrict__ x,
                                                   float* __restrict__ o, long long n) {
@@ -72,15 +79,25 @@ __global__ void __launch_bounds__(NT) copy_kernel(const float* __restrict__ x,
   if (tid < n - tail) o[tail + tid] = x[tail + tid];
 }
 
-__global__ void __launch_bounds__(NT) iota_kernel(int* o, long long n) {
+__global__ void __launch_bounds__(NT) iota_kernel(int* __restrict__ o, long long n) {
+  const long long tid = (long long)blockIdx.x * NT + threadIdx.x;
   const long long stride = (long long)gridDim.x * NT;
-  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n; i += stride) o[i] = (int)i;
-}
-
-static dim3 stride_grid(long long n) {
-  long long g = (n + NT - 1) / NT;
-  if (g > MAX_STRIDE_BLOCKS) g = MAX_STRIDE_BLOCKS;
-  return dim3((unsigned)(g < 1 ? 1 : g));
+  const long long head = min(n, (long long)(((16 - ((uintptr_t)o & 15)) & 15) >> 2));
+  const long long nvec = (n - head) >> 2;
+  const long long tail = head + 4 * nvec;
+  int4* o4 = reinterpret_cast<int4*>(o + head);
+  for (long long j = tid; j < nvec; j += IOTA_UNROLL * stride) {
+#pragma unroll
+    for (int k = 0; k < IOTA_UNROLL; ++k) {
+      const long long v = j + k * stride;
+      if (v < nvec) {
+        const int i = (int)(head + 4 * v);
+        o4[v] = make_int4(i, i + 1, i + 2, i + 3);
+      }
+    }
+  }
+  if (tid < head) o[tid] = (int)tid;
+  if (tid < n - tail) o[tail + tid] = (int)(tail + tid);
 }
 
 extern "C" {
@@ -97,8 +114,13 @@ int fixture_copy(const void* x, void* o, long long n, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// o[i] = i for i < n, o at any 4-byte offset.  The grid is the blocks
+// co-resident on the current device, no more than one vector a thread needs.
 int fixture_iota(void* o, long long n, void* stream) {
-  iota_kernel<<<stride_grid(n), NT, 0, (cudaStream_t)stream>>>((int*)o, n);
+  int blocks = 1;
+  const int err = resident_blocks(iota_kernel, 0, (n + 4LL * NT - 1) / (4LL * NT), &blocks);
+  if (err != 0) return err;
+  iota_kernel<<<blocks, NT, 0, (cudaStream_t)stream>>>((int*)o, n);
   return (int)cudaGetLastError();
 }
 

@@ -69,14 +69,21 @@ def copy_launch(x: torch.Tensor) -> torch.Tensor:
 
 
 @kernel_wrapper("iota_kernel")
-def iota_launch(w: torch.Tensor) -> torch.Tensor:
-    """``int32[1, N] = 0..N-1`` on the device of ``w [N]``, in one launch."""
+def iota_launch(w: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """``int32[1, N] = 0..N-1`` on the device of ``w [N]``, in one launch;
+    into ``out`` where given (a contiguous ``int32[1, N]`` on that device,
+    which may be a view at any 4-byte offset), else into a new tensor."""
     if w.ndim != 1 or not 0 < w.shape[0] < 1 << 31:
         raise ValueError(f"iota_launch: w must be [N] with 0 < N < 2**31; got {list(w.shape)}")
     n = w.shape[0]
+    if out is not None and (out.shape != (1, n) or out.dtype != torch.int32
+                            or out.device != w.device or not out.is_contiguous()):
+        raise ValueError(f"iota_launch: out must be a contiguous int32[1, {n}] on {w.device}; "
+                         f"got {out.dtype}{list(out.shape)} on {out.device}")
     if not w.is_cuda:
-        return iota_ref(n, w.device)
-    out = torch.empty((1, n), dtype=torch.int32, device=w.device)
+        return iota_ref(n, w.device) if out is None else out.copy_(iota_ref(n, w.device))
+    if out is None:
+        out = torch.empty((1, n), dtype=torch.int32, device=w.device)
     check_launch(_lib().fixture_iota(out.data_ptr(), n, _stream(w)), "iota_launch")
     iota_launch.launches += 1
     return out

@@ -37,9 +37,10 @@
 //   whole into a ring of shared-memory buffers, by bulk TMA copies
 //   (cp.async.bulk ... mbarrier::complete_tx) that one thread starts AHEAD
 //   iterations before the sweep reaches it.  The copies roll it as they land:
-//   words a .. 1023 then 0 .. a + 3 of the segment, a = (o_b mod 1024)
-//   rounded down to the copies' 16-byte grain, so lane i reads word (i mod
-//   1024) + (o_b mod 4), with no index arithmetic and no bank conflict
+//   words a .. 1023 then 0 .. a + 3 of the segment (a + 7 at 2-byte words),
+//   a = (o_b mod 1024) rounded down to the copies' 16-byte grain, so lane i
+//   reads word (i mod 1024) + (o_b mod 4) (mod 8), with no index arithmetic
+//   and no bank conflict
 //   (consecutive lanes, consecutive words).  Each stage has a full mbarrier
 //   (the copies' bytes) and an empty one (one arrival per warp); there is
 //   no __syncthreads() per iteration.  No lane gathers w[j] from device
@@ -78,6 +79,18 @@
 //   most rows a step admits the block passes 48 KiB, so the kernel opts in
 //   to more dynamic shared memory (smem_optin in ../../common.cuh).
 //
+// Plane words (DESIGN.md §14): every kernel is a template on the word T of
+// its weight and state planes, float, __nv_bfloat16 or __half, one instance
+// each, picked by the C entry points' `plane` code.  At 2-byte words each
+// plane's bytes halve: a comparison segment is 2 KiB, 8 words to a 16-byte
+// grain, so the ring's rotation, its buffer length (1032 words) and the byte
+// count each full barrier expects follow the word (MegoRing, ring_fill); a
+// wrong count would hang the block on its barrier.  Each load is upcast to
+// f32 (plane_f32, load_plane in ../../common.cuh): the sweep's arithmetic,
+// the hash and the uniforms are the float32 kernel's.  The state is copied
+// as plane words.  The step's prelude rounds exp(lw - m) to T and writes it
+// to scratch as T (step_prelude), so the sweep moves 2-byte words there too.
+//
 // Subnormals: every value selection depends on is flushed, as XLA does on
 // the CPU: built with -ftz=true, the sweep's product and comparison flush
 // their operands and results in hardware; the loaded w[k] and the step
@@ -88,29 +101,45 @@
 
 #define SEG 1024
 #define PER_THREAD (SEG / NT)
-// A ring buffer holds one comparison segment rotated by its offset, rounded
-// down to 4 words (16 bytes, the bulk copies' grain), and 4 more words, so
-// that lane i reads word (i mod 1024) + (o_b mod 4) with no wrap.
-#define RING_WORDS (SEG + 4)
-// Buffers of each kernel's ring (MegoRing's STAGES).  Six are the most that
-// keep 8 blocks on an SM.  Chosen by measurement on the H100
-// (benchmarks/torch_kernel_ab.py, three and four in turns): three were 1-4%
-// faster than four on both instances of the bank kernel, four 1-3% faster
-// on the step, whose ring then needs the opt-in below at the most rows.
-#define ROWS_STAGES 3  // megopolis_fused_rows_kernel<false/true>
-#define STEP_STAGES 4  // megopolis_step_rows_kernel
+// Buffers of each kernel's ring (MegoRing's STAGES), at float32 words and at
+// 2-byte words.  At float32 six are the most that keep 8 blocks on an SM.
+// Chosen by measurement on the H100 (benchmarks/torch_kernel_ab.py, three
+// and four in turns): three were 1-4% faster than four on both instances of
+// the bank kernel, four 1-3% faster on the step, whose ring then needs the
+// opt-in below at the most rows.  A 2-byte ring takes half the shared
+// memory, so up to twelve buffers keep 8 blocks an SM by the occupancy
+// rule (analysis/smem.py); six and eight (for both rings) were 3-8% slower
+// than three and four on the bank kernels and within 1% on the step
+// (PERF.md §6), so the 2-byte rings keep the same depths.
+#define ROWS_STAGES 3     // megopolis_fused_rows_kernel<*, float>
+#define STEP_STAGES 4     // megopolis_step_rows_kernel<float>
+#define ROWS_STAGES_2B 3  // megopolis_fused_rows_kernel<*, __nv_bfloat16 / __half>
+#define STEP_STAGES_2B 4  // megopolis_step_rows_kernel<__nv_bfloat16 / __half>
 
-// The ring of STAGES comparison segments and the per-chunk table of a
-// block: tab[t] = {(segment << 10) | (o_b & 1023), fmix(seed + b·GOLDEN)}
-// for b = b0 + t; its first words run AHEAD entries past the chunk for the
-// copies started ahead.  A segment is requested AHEAD iterations before the
-// sweep reaches it, so a buffer is refilled when every warp is done with
-// the iteration two before: the one thread that starts the copies waits for
-// the slowest warp with one iteration of slack.
-template <int STAGES>
+// The two rings' depths at plane word T.
+template <class T>
+struct Stages {
+  static constexpr int ROWS = sizeof(T) == 4 ? ROWS_STAGES : ROWS_STAGES_2B;
+  static constexpr int STEP = sizeof(T) == 4 ? STEP_STAGES : STEP_STAGES_2B;
+};
+
+// The ring of STAGES comparison segments of plane words T and the per-chunk
+// table of a block: tab[t] = {(segment << 10) | (o_b & 1023), fmix(seed +
+// b·GOLDEN)} for b = b0 + t; its first words run AHEAD entries past the
+// chunk for the copies started ahead.  A buffer holds one comparison
+// segment rotated by its offset, rounded down to the bulk copies' 16-byte
+// grain (GRAIN words: 4 floats, 8 2-byte words), and GRAIN more words, so
+// that lane i reads word (i mod 1024) + (o_b mod GRAIN) with no wrap.  A
+// segment is requested AHEAD iterations before the sweep reaches it, so a
+// buffer is refilled when every warp is done with the iteration two
+// before: the one thread that starts the copies waits for the slowest warp
+// with one iteration of slack.
+template <class T, int STAGES>
 struct MegoRing {
   static constexpr int AHEAD = STAGES - 2;
-  __align__(128) float seg[STAGES][RING_WORDS];
+  static constexpr int GRAIN = 16 / (int)sizeof(T);
+  static constexpr int WORDS = SEG + GRAIN;
+  __align__(128) T seg[STAGES][WORDS];
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
   uint2 tab[CHUNK + AHEAD];
@@ -119,19 +148,21 @@ struct MegoRing {
 // Request the comparison segment of the block's u-th iteration (counted over
 // every segment the block sweeps) into buffer u mod STAGES, once every warp
 // is done with that buffer's previous use, iteration u - STAGES: two bulk
-// copies lay out words a .. 1023, then 0 .. a + 3 of the segment, a = (o_b
-// mod 1024) rounded down to 4.  One thread.
-template <int STAGES>
-__device__ __forceinline__ void ring_fill(MegoRing<STAGES>& r, uint32_t u, const float* wr,
+// copies lay out words a .. 1023, then 0 .. a + GRAIN - 1 of the segment,
+// a = (o_b mod 1024) rounded down to GRAIN, WORDS words in all (the byte
+// count the full barrier expects).  One thread.
+template <class T, int STAGES>
+__device__ __forceinline__ void ring_fill(MegoRing<T, STAGES>& r, uint32_t u, const T* wr,
                                           int cmp) {
+  using Ring = MegoRing<T, STAGES>;
   const uint32_t st = u % STAGES;
   if (u >= STAGES) mbar_wait(&r.empty[st], (u / STAGES - 1) & 1);
-  const int a = cmp & (SEG - 4);
-  const float* g = wr + (cmp & ~(SEG - 1));
-  float* dst = r.seg[st];
-  mbar_expect(&r.full[st], RING_WORDS * 4);
-  bulk_load(dst, g + a, (SEG - a) * 4, &r.full[st]);
-  bulk_load(dst + SEG - a, g, (a + 4) * 4, &r.full[st]);
+  const int a = cmp & (SEG - Ring::GRAIN);
+  const T* g = wr + (cmp & ~(SEG - 1));
+  T* dst = r.seg[st];
+  mbar_expect(&r.full[st], Ring::WORDS * sizeof(T));
+  bulk_load(dst, g + a, (SEG - a) * sizeof(T), &r.full[st]);
+  bulk_load(dst + SEG - a, g, (a + Ring::GRAIN) * sizeof(T), &r.full[st]);
 }
 
 // The comparison index of particle i at offset o (Alg. 5 lines 7-11) in the
@@ -143,27 +174,28 @@ __device__ __forceinline__ int cmp_index(int i, int o, int tiles) {
   return (c << 10) | ((i + o) & (SEG - 1));
 }
 
-// The Alg. 5 sweep of segment `seg` of a row of n weights `wr` (tiles = n /
-// 1024 segments, 16-byte aligned) over `iters` iterations with the row's
-// offsets and seed: each thread's PER_THREAD particles i = seg·1024 + q·NT +
-// tid end with their ancestors k[q].  A particle keeps the iteration of its
-// last accept, and its ancestor is formed from that iteration's offset at
-// the end.  `seq` counts the block's iterations over every segment it
-// sweeps, so the ring's phases carry on from one segment to the next.
-// Every thread of the block calls it.
-template <int STAGES>
-__device__ __forceinline__ void mego_sweep(MegoRing<STAGES>& r, uint32_t& seq, const float* wr,
+// The Alg. 5 sweep of segment `seg` of a row of n plane words `wr` (tiles =
+// n / 1024 segments, 16-byte aligned) over `iters` iterations with the
+// row's offsets and seed: each thread's PER_THREAD particles i = seg·1024 +
+// q·NT + tid end with their ancestors k[q].  A particle keeps the iteration
+// of its last accept, and its ancestor is formed from that iteration's
+// offset at the end.  `seq` counts the block's iterations over every
+// segment it sweeps, so the ring's phases carry on from one segment to the
+// next.  Every thread of the block calls it.
+template <class T, int STAGES>
+__device__ __forceinline__ void mego_sweep(MegoRing<T, STAGES>& r, uint32_t& seq, const T* wr,
                                            const int* __restrict__ offs, uint32_t seed,
                                            int seg, int tiles, int iters,
                                            int (&k)[PER_THREAD]) {
-  constexpr int AHEAD = MegoRing<STAGES>::AHEAD;
+  using Ring = MegoRing<T, STAGES>;
+  constexpr int AHEAD = Ring::AHEAD;
   const int tid = threadIdx.x;
   const uint32_t lane0 = (uint32_t)(seg * SEG + tid) * GOLDEN;
   float wk[PER_THREAD];
   int tk[PER_THREAD];  // iteration of the last accept, -1 for none
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
-    wk[q] = ftz(wr[seg * SEG + q * NT + tid]);
+    wk[q] = load_plane(wr[seg * SEG + q * NT + tid]);
     tk[q] = -1;
   }
   for (int b0 = 0; b0 < iters; b0 += CHUNK) {
@@ -186,15 +218,16 @@ __device__ __forceinline__ void mego_sweep(MegoRing<STAGES>& r, uint32_t& seq, c
       const uint32_t st = u % STAGES;
       mbar_wait(&r.full[st], (u / STAGES) & 1);
       const uint2 e = r.tab[t];
-      const float* x = r.seg[st] + tid + (e.x & 3);  // word (i + o_b) mod 1024, rotated
+      // word (i + o_b) mod 1024, rotated
+      const T* x = r.seg[st] + tid + (e.x & (Ring::GRAIN - 1));
       // u <= w[j] / w[k] (Alg. 5 line 13) as ftz(u·w[k]) <= ftz(w[j]): built
       // with -ftz=true, the product flushes its operands and its result and
-      // the comparison its operands, so w[j] and the product need no
-      // separate flush (a kept w[j] is flushed by its next product), and
-      // every accept is the plain version's.
+      // the comparison its operands, so w[j] (upcast exactly, plane_f32)
+      // and the product need no separate flush (a kept w[j] is flushed by
+      // its next product), and every accept is the plain version's.
 #pragma unroll
       for (int q = 0; q < PER_THREAD; ++q) {
-        const float wj = x[q * NT];
+        const float wj = plane_f32(x[q * NT]);
         const float u01 = bits_to_uniform(fmix(e.y ^ (lane0 + (uint32_t)(q * NT) * GOLDEN)));
         if (__fmul_rn(u01, wk[q]) <= wj) {
           tk[q] = b0 + t;
@@ -214,11 +247,11 @@ __device__ __forceinline__ void mego_sweep(MegoRing<STAGES>& r, uint32_t& seq, c
 }
 
 // The ancestors (the identity unless `keep`) and, with d > 0, the state copy
-// of the thread's particles of segment seg of row s.
+// (plane words, bit moves) of the thread's particles of segment seg of row s.
+template <class T>
 __device__ __forceinline__ void mego_commit(const int (&k)[PER_THREAD], int* __restrict__ anc,
-                                            const float* __restrict__ state,
-                                            float* __restrict__ out, int s, int seg, int n,
-                                            int d, bool keep) {
+                                            const T* __restrict__ state, T* __restrict__ out,
+                                            int s, int seg, int n, int d, bool keep) {
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
     const int i = seg * SEG + q * NT + threadIdx.x;
@@ -232,12 +265,12 @@ __device__ __forceinline__ void mego_commit(const int (&k)[PER_THREAD], int* __r
 }
 
 // Grid (N / 1024, S): block (seg, s) sweeps segment seg of row s.
-template <bool GATHER>
+template <bool GATHER, class T>
 __global__ void __launch_bounds__(NT, 8) megopolis_fused_rows_kernel(
-    const float* __restrict__ w, const float* __restrict__ state,
+    const T* __restrict__ w, const T* __restrict__ state,
     const int* __restrict__ offsets, const uint32_t* __restrict__ seeds,
-    int* __restrict__ anc, float* __restrict__ out, int n, int d, int iters) {
-  __shared__ MegoRing<ROWS_STAGES> ring;
+    int* __restrict__ anc, T* __restrict__ out, int n, int d, int iters) {
+  __shared__ MegoRing<T, Stages<T>::ROWS> ring;
   ring_barriers_init(ring.full, ring.empty);
   const int s = blockIdx.y;
   const int seg = blockIdx.x;
@@ -248,16 +281,17 @@ __global__ void __launch_bounds__(NT, 8) megopolis_fused_rows_kernel(
   mego_commit(k, anc, state, out, s, seg, n, GATHER ? d : 0, true);
 }
 
+template <class T>
 __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
-    const float* __restrict__ lw, const float* __restrict__ state,
+    const T* __restrict__ lw, const T* __restrict__ state,
     const int* __restrict__ offsets, const uint32_t* __restrict__ seeds, float thr,
-    int* __restrict__ anc, float* __restrict__ out, float* __restrict__ stats,
+    int* __restrict__ anc, T* __restrict__ out, float* __restrict__ stats,
     float* __restrict__ scratch, int rows, int n, int d, int iters) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m per row
   int* row_flag = (int*)(row_m + rows);     // [rows] bit 0: degenerate, bit 1: do
   __shared__ float red[NT / 32];
-  __shared__ MegoRing<STEP_STAGES> ring;
+  __shared__ MegoRing<T, Stages<T>::STEP> ring;
   StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
   // The bulk copies read wbuf in whole 16-byte words: its start is rounded
   // up (the wrapper's scratch has the slack).
@@ -271,8 +305,9 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
   // grid.sync(); the bulk copies read it through the async proxy.
   asm volatile("fence.proxy.async.global;" ::: "memory");
 
-  // The sweep over (row, segment) pairs, then commit (selection or
-  // identity) and state copy.
+  // The sweep over (row, segment) pairs on the requantised weights, then
+  // commit (selection or identity) and state copy.
+  const T* wbuf = reinterpret_cast<const T*>(sc.wbuf);
   const int tiles = n / SEG;
   const size_t pairs = (size_t)rows * tiles;
   uint32_t seq = 0;
@@ -280,7 +315,7 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
     const int s = (int)(p / tiles);
     const int seg = (int)(p % tiles);
     int k[PER_THREAD];
-    mego_sweep(ring, seq, sc.wbuf + (size_t)s * n, offsets + (size_t)s * iters, seeds[s], seg,
+    mego_sweep(ring, seq, wbuf + (size_t)s * n, offsets + (size_t)s * iters, seeds[s], seg,
                tiles, iters, k);
     mego_commit(k, anc, state, out, s, seg, n, d, row_flag[s] & 2);
   }
@@ -288,65 +323,84 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
 
 extern "C" {
 
+// Each entry point takes `plane`, the code of the weights' and the state's
+// plane word (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh), and
+// launches that instance.
 int megopolis_fused_rows(const void* w, const void* state, const void* offsets,
                          const void* seeds, void* anc, void* out, int rows, int n,
-                         int d, int iters, void* stream) {
-  dim3 grid(n / SEG, rows);
-  megopolis_fused_rows_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (const float*)state, (const int*)offsets,
-      (const uint32_t*)seeds, (int*)anc, (float*)out, n, d, iters);
-  return (int)cudaGetLastError();
+                         int d, int iters, int plane, void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    dim3 grid(n / SEG, rows);
+    megopolis_fused_rows_kernel<true, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const T*)w, (const T*)state, (const int*)offsets, (const uint32_t*)seeds, (int*)anc,
+        (T*)out, n, d, iters);
+    return (int)cudaGetLastError();
+  });
 }
 
 // The index-only sweep: ancestors of a bank, no state.
 int megopolis_rows(const void* w, const void* offsets, const void* seeds, void* anc,
-                   int rows, int n, int iters, void* stream) {
-  dim3 grid(n / SEG, rows);
-  megopolis_fused_rows_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)w, nullptr, (const int*)offsets, (const uint32_t*)seeds, (int*)anc,
-      nullptr, n, 0, iters);
-  return (int)cudaGetLastError();
+                   int rows, int n, int iters, int plane, void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    dim3 grid(n / SEG, rows);
+    megopolis_fused_rows_kernel<false, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const T*)w, nullptr, (const int*)offsets, (const uint32_t*)seeds, (int*)anc,
+        nullptr, n, 0, iters);
+    return (int)cudaGetLastError();
+  });
 }
 
-int megopolis_step_grid(int rows, int n, int* blocks) {
-  const int err = smem_optin(megopolis_step_rows_kernel, step_smem_bytes(rows));
-  if (err != 0) return err;
-  return coop_step_grid(megopolis_step_rows_kernel, rows, n, blocks);
+int megopolis_step_grid(int rows, int n, int plane, int* blocks) {
+  return by_plane(plane, [&](auto word) {
+    const auto kernel = megopolis_step_rows_kernel<decltype(word)>;
+    const int err = smem_optin(kernel, step_smem_bytes(rows));
+    if (err != 0) return err;
+    return coop_step_grid(kernel, rows, n, blocks);
+  });
 }
 
 int megopolis_step_rows(const void* lw, const void* state, const void* offsets,
                         const void* seeds, float thr, void* anc, void* out,
                         void* stats, void* scratch, int rows, int n, int d, int iters,
-                        int blocks, void* stream) {
-  const float* a_lw = (const float*)lw;
-  const float* a_state = (const float*)state;
-  const int* a_off = (const int*)offsets;
-  const uint32_t* a_seeds = (const uint32_t*)seeds;
-  int* a_anc = (int*)anc;
-  float* a_out = (float*)out;
-  float* a_stats = (float*)stats;
-  float* a_scratch = (float*)scratch;
-  void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_off, (void*)&a_seeds,
-                  (void*)&thr, (void*)&a_anc, (void*)&a_out, (void*)&a_stats,
-                  (void*)&a_scratch, (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
-  const int err = smem_optin(megopolis_step_rows_kernel, step_smem_bytes(rows));
-  if (err != 0) return err;
-  return coop_step_launch(megopolis_step_rows_kernel, blocks, rows, args, stream);
+                        int blocks, int plane, void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    const auto kernel = megopolis_step_rows_kernel<T>;
+    const T* a_lw = (const T*)lw;
+    const T* a_state = (const T*)state;
+    const int* a_off = (const int*)offsets;
+    const uint32_t* a_seeds = (const uint32_t*)seeds;
+    int* a_anc = (int*)anc;
+    T* a_out = (T*)out;
+    float* a_stats = (float*)stats;
+    float* a_scratch = (float*)scratch;
+    void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_off, (void*)&a_seeds,
+                    (void*)&thr, (void*)&a_anc, (void*)&a_out, (void*)&a_stats,
+                    (void*)&a_scratch, (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
+    const int err = smem_optin(kernel, step_smem_bytes(rows));
+    if (err != 0) return err;
+    return coop_step_launch(kernel, blocks, rows, args, stream);
+  });
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py (3·plane + 0: the index-only bank kernel,
+// + 1: the fused one, + 2: the step): kernel_attributes' four numbers.
 int megopolis_attributes(int which, int dynamic_smem, int* out) {
-  switch (which) {
-    case 0: return kernel_attributes(megopolis_fused_rows_kernel<false>, dynamic_smem, out);
-    case 1: return kernel_attributes(megopolis_fused_rows_kernel<true>, dynamic_smem, out);
-    case 2: {
-      const int err = smem_optin(megopolis_step_rows_kernel, (size_t)dynamic_smem);
-      if (err != 0) return err;
-      return kernel_attributes(megopolis_step_rows_kernel, dynamic_smem, out);
+  return by_plane(which / 3, [&](auto word) {
+    using T = decltype(word);
+    switch (which % 3) {
+      case 0: return kernel_attributes(megopolis_fused_rows_kernel<false, T>, dynamic_smem, out);
+      case 1: return kernel_attributes(megopolis_fused_rows_kernel<true, T>, dynamic_smem, out);
+      default: {
+        const int err = smem_optin(megopolis_step_rows_kernel<T>, (size_t)dynamic_smem);
+        if (err != 0) return err;
+        return kernel_attributes(megopolis_step_rows_kernel<T>, dynamic_smem, out);
+      }
     }
-    default: return (int)cudaErrorInvalidValue;
-  }
+  });
 }
 
 }  // extern "C"

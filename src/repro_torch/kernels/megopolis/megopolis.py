@@ -9,9 +9,12 @@
     megopolis_step        <- megopolis_pallas_step        (kernel: step_rows, S = 1)
     megopolis_step_rows   <- megopolis_pallas_step_rows   (kernel: step_rows)
 
-Each wrapper checks device, dtype, shape and contiguity (and, for the
-index-only and fused kernels, that the weights start on a 16-byte boundary,
-as their bulk copies need), allocates its
+Each wrapper takes weights (or log-weights) and state of one plane dtype,
+float32, bfloat16 or float16 (``common.PLANE_DTYPES``), and launches the
+kernel's instance for that word; the ancestors are int32 and the stats
+float32 at every dtype.  It checks device, dtype, shape and contiguity (and,
+for the index-only and fused kernels, that the weights start on a 16-byte
+boundary, as their bulk copies need), allocates its
 outputs (and the step kernel's scratch) with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and adds one to its ``launches`` count where
 it launches.  On CPU tensors it runs the plain version (``ref.py``) and
@@ -30,11 +33,14 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.common import (
+    PLANE_CODES,
+    PLANE_DTYPES,
     check_aligned,
     check_bank,
     check_launch,
     device_seeds,
     kernel_wrapper,
+    plane_instance,
     step_buffers,
 )
 from repro_torch.kernels.megopolis.ref import (
@@ -51,14 +57,14 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if not getattr(lib, "_bound", False):
-        lib.megopolis_rows.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+        lib.megopolis_rows.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.megopolis_rows.restype = _I
-        lib.megopolis_fused_rows.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.megopolis_fused_rows.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.megopolis_fused_rows.restype = _I
-        lib.megopolis_step_grid.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        lib.megopolis_step_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
         lib.megopolis_step_grid.restype = _I
         lib.megopolis_step_rows.argtypes = [
-            _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
         ]
         lib.megopolis_step_rows.restype = _I
         lib._bound = True
@@ -68,7 +74,7 @@ def _lib() -> ctypes.CDLL:
 def _check_bank(who: str, w, state, offsets, seeds):
     """Validate a bank call (``state`` None for the index-only kernel);
     returns ``(S, N, D, B)``."""
-    s, n, d = check_bank(who, w, state, seeds)
+    s, n, d = check_bank(who, w, state, seeds, PLANE_DTYPES)
     if offsets.ndim != 2 or offsets.shape[0] != s or offsets.shape[1] < 1:
         raise ValueError(f"{who}: offsets must be int32[S, B>=1]; got {list(offsets.shape)}")
     if not offsets.is_cuda and offsets.numel() and (offsets.min() < 0 or offsets.max() >= n):
@@ -87,7 +93,8 @@ def _launch_rows(w, offsets, seeds, who):
     anc = torch.empty((s, n), dtype=torch.int32, device=w.device)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     check_launch(_lib().megopolis_rows(
-        w.data_ptr(), offs.data_ptr(), sd.data_ptr(), anc.data_ptr(), s, n, b, stream), who)
+        w.data_ptr(), offs.data_ptr(), sd.data_ptr(), anc.data_ptr(), s, n, b,
+        PLANE_CODES[w.dtype], stream), who)
     return anc
 
 
@@ -100,26 +107,29 @@ def _launch_fused(w, state, offsets, seeds, who):
     stream = torch.cuda.current_stream(w.device).cuda_stream
     check_launch(_lib().megopolis_fused_rows(
         w.data_ptr(), state.data_ptr(), offs.data_ptr(), sd.data_ptr(),
-        anc.data_ptr(), out.data_ptr(), s, n, d, b, stream), who)
+        anc.data_ptr(), out.data_ptr(), s, n, d, b, PLANE_CODES[w.dtype], stream), who)
     return anc, out
 
 
 def _launch_step(lw, state, offsets, seeds, thr, who):
     s, n, d, b = _check_bank(who, lw, state, offsets, seeds)
     lib = _lib()
-    g, anc, out, stats, scratch = step_buffers(lib.megopolis_step_grid, who, lw, state, b)
+    code = PLANE_CODES[lw.dtype]
+    g, anc, out, stats, scratch = step_buffers(
+        lambda rows, n_, blocks: lib.megopolis_step_grid(rows, n_, code, blocks),
+        who, lw, state, b)
     offs, sd = _device_offsets(lw, offsets), device_seeds(seeds, lw.device)
     stream = torch.cuda.current_stream(lw.device).cuda_stream
     check_launch(lib.megopolis_step_rows(
         lw.data_ptr(), state.data_ptr(), offs.data_ptr(), sd.data_ptr(), float(thr),
         anc.data_ptr(), out.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
-        s, n, d, b, g, stream), who)
+        s, n, d, b, g, code, stream), who)
     return anc, out, stats
 
 
-@kernel_wrapper("megopolis_fused_rows_kernel<false>")
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False))
 def megopolis_rows(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
-    """Index-only resample of a bank: ``w f32[S, N]``, per-row ``offsets
+    """Index-only resample of a bank: ``w [S, N]`` (a plane dtype), per-row ``offsets
     int32[S, B]`` and ``seeds [S]``.  Returns ``ancestors int32[S, N]``;
     row ``s`` equals ``megopolis(w[s], offsets[s], seeds[s])``."""
     if not w.is_cuda:
@@ -130,7 +140,7 @@ def megopolis_rows(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
     return anc
 
 
-@kernel_wrapper("megopolis_fused_rows_kernel<false>")
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False))
 def megopolis_batch(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
     """Index-only resample of a bank under ONE offset table ``int32[B]``
     shared by every row, with per-row ``seeds [S]``.  Returns
@@ -144,9 +154,9 @@ def megopolis_batch(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor)
     return anc
 
 
-@kernel_wrapper("megopolis_fused_rows_kernel<false>")
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False))
 def megopolis(w: torch.Tensor, offsets: torch.Tensor, seed: torch.Tensor):
-    """Index-only resample of one population: ``w f32[N]``, ``offsets
+    """Index-only resample of one population: ``w [N]``, ``offsets
     int32[B]``, a scalar ``seed``.  Returns ``ancestors int32[N]``."""
     args = (w.unsqueeze(0), offsets.reshape(1, -1), seed.reshape(1))
     if not w.is_cuda:
@@ -157,11 +167,11 @@ def megopolis(w: torch.Tensor, offsets: torch.Tensor, seed: torch.Tensor):
     return anc[0]
 
 
-@kernel_wrapper("megopolis_fused_rows_kernel<true>")
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", True))
 def megopolis_fused_rows(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                          seeds: torch.Tensor):
-    """Fused resample + state copy over a bank: ``w f32[S, N]``, ``state
-    [S, D, N]``, per-row ``offsets int32[S, B]`` and ``seeds [S]``.  Returns
+    """Fused resample + state copy over a bank: ``w [S, N]``, ``state
+    [S, D, N]`` of the same plane dtype, per-row ``offsets int32[S, B]`` and ``seeds [S]``.  Returns
     ``(ancestors int32[S, N], state' [S, D, N])``; row ``s`` equals the
     single-row call with ``offsets[s]``, ``seeds[s]``."""
     if not w.is_cuda:
@@ -172,10 +182,10 @@ def megopolis_fused_rows(w: torch.Tensor, state: torch.Tensor, offsets: torch.Te
     return result
 
 
-@kernel_wrapper("megopolis_fused_rows_kernel<true>")
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", True))
 def megopolis_fused(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                     seed: torch.Tensor):
-    """Fused resample + state copy of one population: ``w f32[N]``, ``state
+    """Fused resample + state copy of one population: ``w [N]``, ``state
     [D, N]``, ``offsets int32[B]``, a scalar ``seed``.  Returns
     ``(ancestors int32[N], state' [D, N])``."""
     args = (w.unsqueeze(0), state.unsqueeze(0), offsets.reshape(1, -1), seed.reshape(1))
@@ -188,10 +198,11 @@ def megopolis_fused(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
     return anc[0], out[0]
 
 
-@kernel_wrapper("megopolis_step_rows_kernel")
+@kernel_wrapper(plane_instance("megopolis_step_rows_kernel"))
 def megopolis_step_rows(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                         seeds: torch.Tensor, thr: float):
-    """Fused SMC step over a bank of log-weights ``f32[S, N]``: each row takes
+    """Fused SMC step over a bank of log-weights ``[S, N]`` (a plane dtype;
+    the sweep runs on ``exp(lw - m)`` requantised to it): each row takes
     its own resample decision ``ess_norm < thr``.  Returns ``(ancestors
     int32[S, N], state' [S, D, N], stats f32[S, 4])``."""
     if not lw.is_cuda:
@@ -202,10 +213,10 @@ def megopolis_step_rows(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Te
     return result
 
 
-@kernel_wrapper("megopolis_step_rows_kernel")
+@kernel_wrapper(plane_instance("megopolis_step_rows_kernel"))
 def megopolis_step(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                    seed: torch.Tensor, thr: float):
-    """Fused SMC step of one population: ``lw f32[N]``, ``state [D, N]``.
+    """Fused SMC step of one population: ``lw [N]``, ``state [D, N]``.
     Returns ``(ancestors int32[N], state' [D, N], stats f32[4])``."""
     args = (lw.unsqueeze(0), state.unsqueeze(0), offsets.reshape(1, -1), seed.reshape(1))
     if not lw.is_cuda:

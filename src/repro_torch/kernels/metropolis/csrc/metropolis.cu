@@ -61,15 +61,24 @@
 //   What bounds it: the bytes of the fused kernel plus one more read of lw,
 //   and the same integer work and L2 sector traffic.
 //
+// Plane words (DESIGN.md §14): each kernel is a template on the word T of
+// its weight and state planes, float, __nv_bfloat16 or __half, one instance
+// each, picked by the C entry points' `plane` code.  Each weight read is
+// upcast to f32 and flushed (load_plane in ../../common.cuh): the random
+// read w[j] becomes a 2-byte load and still moves one 32-byte sector, and
+// the sweep's arithmetic is the float32 kernel's.  The state is copied as
+// plane words; the step's prelude writes exp(lw - m) rounded to T, as T.
+//
 // Subnormals: built with -ftz=true, and flushed explicitly (ftz()) on the
 // values selection depends on, as XLA does on the CPU.
 
 #include "../../common.cuh"
 
-// cnt iterations of the Alg. 2 sweep for particle i of a row of n; hh[t] =
-// fmix(seed + b·GOLDEN) for iteration b = b0 + t.  (uint32)(i + n) is the
-// accept lane; i + n < 2^31 for n <= 2^30.
-__device__ __forceinline__ void metropolis_sweep(const float* __restrict__ w,
+// cnt iterations of the Alg. 2 sweep for particle i of a row of n plane
+// words; hh[t] = fmix(seed + b·GOLDEN) for iteration b = b0 + t.
+// (uint32)(i + n) is the accept lane; i + n < 2^31 for n <= 2^30.
+template <class T>
+__device__ __forceinline__ void metropolis_sweep(const T* __restrict__ w,
                                                  const uint32_t* hh, int cnt, int i, int n,
                                                  int& k, float& wk) {
   const uint32_t lane_j = (uint32_t)i * GOLDEN;
@@ -77,7 +86,7 @@ __device__ __forceinline__ void metropolis_sweep(const float* __restrict__ w,
   for (int t = 0; t < cnt; ++t) {
     const uint32_t h = hh[t];
     const int j = (int)(fmix(h ^ lane_j) % (uint32_t)n);  // Alg. 2 line 5
-    const float wj = ftz(__ldg(w + j));                    // a random read
+    const float wj = load_plane(__ldg(w + j));             // a random read
     const float u = bits_to_uniform(fmix(h ^ lane_u));
     if (ftz(__fmul_rn(u, wk)) <= wj) {  // u <= w[j] / w[k]
       k = j;
@@ -86,19 +95,19 @@ __device__ __forceinline__ void metropolis_sweep(const float* __restrict__ w,
   }
 }
 
-template <bool GATHER>
+template <bool GATHER, class T>
 __global__ void __launch_bounds__(NT) metropolis_rows_kernel(
-    const float* __restrict__ w, const float* __restrict__ state,
-    const uint32_t* __restrict__ seeds, int* __restrict__ anc, float* __restrict__ out,
+    const T* __restrict__ w, const T* __restrict__ state,
+    const uint32_t* __restrict__ seeds, int* __restrict__ anc, T* __restrict__ out,
     int n, int d, int iters) {
   __shared__ uint32_t s_hh[CHUNK];
   const int s = blockIdx.y;
   const int i = blockIdx.x * NT + threadIdx.x;
   const bool live = i < n;
-  const float* wr = w + (size_t)s * n;
+  const T* wr = w + (size_t)s * n;
   const uint32_t seed = seeds[s];
   int k = i;
-  float wk = live ? ftz(wr[i]) : 0.0f;
+  float wk = live ? load_plane(wr[i]) : 0.0f;
   for (int b0 = 0; b0 < iters; b0 += CHUNK) {
     const int cnt = min(CHUNK, iters - b0);
     for (int t = threadIdx.x; t < cnt; t += NT) {
@@ -118,10 +127,14 @@ __global__ void __launch_bounds__(NT) metropolis_rows_kernel(
   }
 }
 
-__global__ void __launch_bounds__(NT) metropolis_step_rows_kernel(
-    const float* __restrict__ lw, const float* __restrict__ state,
+// Eight blocks an SM (32 registers), as the float32 instance takes them
+// unasked: free, the 2-byte instances took 40 registers and six blocks, and
+// were 3-4% slower than float32 at S = 1 (PERF.md §6).
+template <class T>
+__global__ void __launch_bounds__(NT, 8) metropolis_step_rows_kernel(
+    const T* __restrict__ lw, const T* __restrict__ state,
     const uint32_t* __restrict__ seeds, float thr, int* __restrict__ anc,
-    float* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
+    T* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
     int rows, int n, int d, int iters) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m per row
@@ -130,14 +143,15 @@ __global__ void __launch_bounds__(NT) metropolis_step_rows_kernel(
   const StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
   step_prelude(grid, lw, seeds, thr, stats, sc, row_m, row_flag, red, rows, n, iters);
 
-  // The sweep, then commit (selection or identity) and state copy.
+  // The sweep on the requantised weights, then commit (selection or
+  // identity) and state copy.
   const size_t gstride = (size_t)gridDim.x * NT;
   for (size_t q = (size_t)blockIdx.x * NT + threadIdx.x; q < (size_t)rows * n; q += gstride) {
     const int s = (int)(q / n);
     const int i = (int)(q % n);
-    const float* wr = sc.wbuf + (size_t)s * n;
+    const T* wr = reinterpret_cast<const T*>(sc.wbuf) + (size_t)s * n;
     int k = i;
-    float wk = wr[i];
+    float wk = plane_f32(wr[i]);
     metropolis_sweep(wr, sc.hh + (size_t)s * iters, iters, i, n, k, wk);
     if (!(row_flag[s] & 2)) k = i;
     anc[q] = k;
@@ -150,53 +164,72 @@ __global__ void __launch_bounds__(NT) metropolis_step_rows_kernel(
 
 extern "C" {
 
+// Each entry point takes `plane`, the code of the weights' and the state's
+// plane word (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh), and
+// launches that instance.
+
 // The index-only sweep: ancestors of a bank, no state.
 int metropolis_rows(const void* w, const void* seeds, void* anc, int rows, int n, int iters,
-                    void* stream) {
-  dim3 grid((n + NT - 1) / NT, rows);
-  metropolis_rows_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)w, nullptr, (const uint32_t*)seeds, (int*)anc, nullptr, n, 0, iters);
-  return (int)cudaGetLastError();
+                    int plane, void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    dim3 grid((n + NT - 1) / NT, rows);
+    metropolis_rows_kernel<false, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const T*)w, nullptr, (const uint32_t*)seeds, (int*)anc, nullptr, n, 0, iters);
+    return (int)cudaGetLastError();
+  });
 }
 
 int metropolis_fused_rows(const void* w, const void* state, const void* seeds, void* anc,
-                          void* out, int rows, int n, int d, int iters, void* stream) {
-  dim3 grid((n + NT - 1) / NT, rows);
-  metropolis_rows_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (const float*)state, (const uint32_t*)seeds, (int*)anc, (float*)out,
-      n, d, iters);
-  return (int)cudaGetLastError();
+                          void* out, int rows, int n, int d, int iters, int plane,
+                          void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    dim3 grid((n + NT - 1) / NT, rows);
+    metropolis_rows_kernel<true, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const T*)w, (const T*)state, (const uint32_t*)seeds, (int*)anc, (T*)out, n, d,
+        iters);
+    return (int)cudaGetLastError();
+  });
 }
 
-int metropolis_step_grid(int rows, int n, int* blocks) {
-  return coop_step_grid(metropolis_step_rows_kernel, rows, n, blocks);
+int metropolis_step_grid(int rows, int n, int plane, int* blocks) {
+  return by_plane(plane, [&](auto word) {
+    return coop_step_grid(metropolis_step_rows_kernel<decltype(word)>, rows, n, blocks);
+  });
 }
 
 int metropolis_step_rows(const void* lw, const void* state, const void* seeds, float thr,
                          void* anc, void* out, void* stats, void* scratch, int rows, int n,
-                         int d, int iters, int blocks, void* stream) {
-  const float* a_lw = (const float*)lw;
-  const float* a_state = (const float*)state;
-  const uint32_t* a_seeds = (const uint32_t*)seeds;
-  int* a_anc = (int*)anc;
-  float* a_out = (float*)out;
-  float* a_stats = (float*)stats;
-  float* a_scratch = (float*)scratch;
-  void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_seeds, (void*)&thr,
-                  (void*)&a_anc, (void*)&a_out, (void*)&a_stats, (void*)&a_scratch,
-                  (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
-  return coop_step_launch(metropolis_step_rows_kernel, blocks, rows, args, stream);
+                         int d, int iters, int blocks, int plane, void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    const T* a_lw = (const T*)lw;
+    const T* a_state = (const T*)state;
+    const uint32_t* a_seeds = (const uint32_t*)seeds;
+    int* a_anc = (int*)anc;
+    T* a_out = (T*)out;
+    float* a_stats = (float*)stats;
+    float* a_scratch = (float*)scratch;
+    void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_seeds, (void*)&thr,
+                    (void*)&a_anc, (void*)&a_out, (void*)&a_stats, (void*)&a_scratch,
+                    (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
+    return coop_step_launch(metropolis_step_rows_kernel<T>, blocks, rows, args, stream);
+  });
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py (3·plane + 0: the index-only kernel, + 1:
+// the fused one, + 2: the step): kernel_attributes' four numbers.
 int metropolis_attributes(int which, int dynamic_smem, int* out) {
-  switch (which) {
-    case 0: return kernel_attributes(metropolis_rows_kernel<false>, dynamic_smem, out);
-    case 1: return kernel_attributes(metropolis_rows_kernel<true>, dynamic_smem, out);
-    case 2: return kernel_attributes(metropolis_step_rows_kernel, dynamic_smem, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_plane(which / 3, [&](auto word) {
+    using T = decltype(word);
+    switch (which % 3) {
+      case 0: return kernel_attributes(metropolis_rows_kernel<false, T>, dynamic_smem, out);
+      case 1: return kernel_attributes(metropolis_rows_kernel<true, T>, dynamic_smem, out);
+      default: return kernel_attributes(metropolis_step_rows_kernel<T>, dynamic_smem, out);
+    }
+  });
 }
 
 }  // extern "C"

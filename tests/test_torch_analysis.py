@@ -275,7 +275,7 @@ def test_largest_shapes_within_the_cards_limits():
     reps = list(contracts.audit_large_n())
     assert len(reps) == sum(len(smem.largest_shapes(k)) for k in smem.KERNELS)
     assert all(r.ok for r in reps), [r.violations for r in reps if not r.ok]
-    step = smem.price("megopolis_step_rows_kernel", 4096, 1 << 19)
+    step = smem.price("megopolis_step_rows_kernel<float>", 4096, 1 << 19)
     assert step.dynamic_smem == 8 * 4096 and step.blocks <= step.per_sm * 132
 
 

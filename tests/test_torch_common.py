@@ -89,8 +89,10 @@ def test_flush_to_zero():
 def test_quantise_plane_identity_at_f32():
     x = torch.randn(16)
     assert tc.quantise_plane(x, "float32") is x
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.quantise_plane(x, "bfloat16")
+    q = tc.quantise_plane(x, "bfloat16")
+    assert q.dtype == torch.float32 and torch.equal(q, x.to(torch.bfloat16).float())
+    with pytest.raises(ValueError, match="plane_dtype"):
+        tc.quantise_plane(x, "float64")
 
 
 def _banks():

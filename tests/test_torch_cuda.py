@@ -6,8 +6,9 @@ chunks of its prefixes; Metropolis-C1/C2, with C2's ring of partition
 tiles across its depths, subnormal partition tiles, every product and
 compare of its PTX flushing subnormals and the refusal of misaligned
 weights; rejection, the prefix-sum
-kinds, the contract checks' two fixture kernels), the filter's default
-device, and the contract checks on the card (the resource tables are the
+kinds, the contract checks' two fixture kernels, the iota's offset views;
+the Megopolis and Metropolis kernels' bfloat16 and float16 instances),
+the filter's default device, and the contract checks on the card (the resource tables are the
 card's, the census equals the profiler's count, the selftest passes).  They skip without a card
 (this file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch: ``python -m pytest -q --noconftest -m cuda
@@ -127,7 +128,7 @@ def test_megopolis_index_only_kernel_matches_plain_version(card, n):
 #: Buffers of the Megopolis kernels' rings of comparison segments (the
 #: ``*_STAGES`` defines of their source): the iteration counts below
 #: straddle each depth.
-RING_STAGES = sorted({int(d) for d in re.findall(r"#define \w+_STAGES (\d+)", (
+RING_STAGES = sorted({int(d) for d in re.findall(r"#define \w+_STAGES(?:_2B)? (\d+)", (
     Path(mk.__file__).parent / "csrc" / "megopolis.cu").read_text())})
 #: (N, S, B) of the ring cases: one segment and Path A's width; B = 1, each
 #: ring's depth less one, itself and one more, and Path B's y = 4 (354, past
@@ -953,3 +954,118 @@ def test_census_matches_the_profiler(card, name, entry):
 @pytest.mark.cuda
 def test_selftest_on_the_card(card):
     assert afix.selftest(card) == []
+
+
+# ------------------------------------------------- compressed planes (§14)
+PLANES = (torch.bfloat16, torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", PLANES, ids=str)
+@pytest.mark.parametrize("n,s,b", RING_CASES)
+def test_megopolis_plane_kernels_match_plain_version(card, dtype, n, s, b):
+    """The bfloat16 and float16 instances, with their 2 KiB segments and
+    8-word grain, across the ring depths: bit for bit (the step's stats to
+    the sums' tolerance), the single-population wrappers too."""
+    w, lw, state, offsets, seeds = (x.to(dtype) if x.is_floating_point() else x
+                                    for x in _ring_inputs(card, n, s, b))
+    mk.reset_launch_counts()
+    want = ref.megopolis_rows_ref(w, offsets, seeds)
+    assert torch.equal(mk.megopolis_rows(w, offsets, seeds), want)
+    assert torch.equal(mk.megopolis(w[0], offsets[0], seeds[0]), want[0])
+    anc, out = mk.megopolis_fused_rows(w, state, offsets, seeds)
+    want_anc, want_out = ref.megopolis_fused_rows_ref(w, state, offsets, seeds)
+    assert torch.equal(anc, want_anc) and torch.equal(out.view(torch.int16),
+                                                      want_out.view(torch.int16))
+    assert out.dtype == dtype and torch.equal(anc, want)
+    anc, out, stats = mk.megopolis_step_rows(lw, state, offsets, seeds, 0.5)
+    want_anc, want_out, want_stats = ref.megopolis_step_rows_ref(lw, state, offsets, seeds, 0.5)
+    assert torch.equal(stats[:, 2], want_stats[:, 2])
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-5, equal_nan=True)
+    assert torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    one = mk.megopolis_step(lw[-1], state[-1], offsets[-1], seeds[-1], 0.5)
+    assert torch.equal(one[0], want_anc[-1])
+    assert (mk.megopolis_rows.launches, mk.megopolis.launches, mk.megopolis_fused_rows.launches,
+            mk.megopolis_step_rows.launches, mk.megopolis_step.launches) == (1, 1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", PLANES, ids=str)
+@pytest.mark.parametrize("n,s,b", ((3072, 3, 257), (1024 * 7, 16, 9), (1 << 20, 1, 33),
+                                   (1 << 20, 16, 32)))
+def test_metropolis_plane_kernels_match_plain_version(card, dtype, n, s, b):
+    """The bfloat16 and float16 instances (2-byte random reads, weights
+    below float16's normal range, a subnormal last tile) against their
+    plain versions, bit for bit."""
+    w, lw, state, seeds = (x.to(dtype) if x.is_floating_point() else x
+                           for x in _redesign_inputs(card, n, s, n + 10 * s + b))
+    wrappers = (tk.metropolis_batch, tk.metropolis_fused_batch, tk.metropolis_step_rows)
+    _check_rows_and_step(card, wrappers, tref.metropolis_rows_ref, tref.metropolis_step_rows_ref,
+                         w, lw, state, (seeds,), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", (MegopolisSpec, MetropolisSpec))
+@pytest.mark.parametrize("dtype", ("bfloat16", "float16"))
+def test_compressed_specs_on_the_card(card, cls, dtype):
+    """A compressed spec's bank entries on the card: the index-only and
+    fused ones equal the float32 spec on the quantised inputs, the step
+    takes the triggers the CPU takes and gathers its own ancestors'
+    quantised particles; particles come back in the caller's dtype."""
+    r, r32 = cls(num_iters=16, plane_dtype=dtype).build(), cls(num_iters=16).build()
+    w, lw, state, _, _ = _inputs(card, s=3, n=4096)
+    p = state.transpose(1, 2).contiguous()
+    keys = trandom.split(trandom.PRNGKey(3), 3)
+    assert torch.equal(r.batch_rows(keys, w), r32.batch_rows(keys, r.quantise(w)))
+    got_p, got_a = r.apply_rows(keys, w, p)
+    want_p, want_a = r32.apply_rows(keys, r.quantise(w), r.quantise(p))
+    assert got_p.dtype == torch.float32 and torch.equal(got_p, want_p)
+    assert torch.equal(got_a, want_a)
+    got_p, got_a, stats = r.step_rows(keys, lw, p, 0.5)
+    cpu_stats = r.step_rows(keys, lw.cpu(), p.cpu(), 0.5)[2]
+    assert torch.equal(stats.resampled.cpu(), cpu_stats.resampled)
+    assert got_p.dtype == torch.float32
+    assert torch.equal(got_p, torch.gather(r.quantise(p), 1,
+                                           got_a.long()[..., None].expand_as(p)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 5, 2048, (1 << 23) + 3))
+def test_iota_kernel_on_offset_views(card, n):
+    """Row 31 into views 0-3 elements into their tensor: its head, its
+    16-byte stores and its tail, bit for bit with the plain version."""
+    base = torch.full((n + 3,), -1, dtype=torch.int32, device=card)
+    fk.reset_launch_counts()
+    for off in (0, 1, 2, 3):
+        out = base[off:off + n].view(1, n)
+        got = fk.iota_launch(base[:n], out=out)
+        assert got.data_ptr() == out.data_ptr() and torch.equal(got, fref.iota_ref(n, card))
+    assert fk.iota_launch.launches == 4
+    assert int(base[-1]) == n - 1  # the last view's tail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("megopolis", "metropolis"))
+@pytest.mark.parametrize("dtype", ("bfloat16", "float16"))
+def test_plane_census_matches_the_profiler(card, name, dtype):
+    """A compressed cell launches its float32 budget, and the profiler
+    names each launch as the census does (``kernel<..., __nv_bfloat16>``)."""
+    args = contracts.audit_args(device=card)
+    for entry in ("apply_rows", "step"):
+        seen = collections.Counter()
+
+        @contextlib.contextmanager
+        def profiled(rec):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                yield
+                torch.cuda.synchronize()
+            seen.update(k for k in (_kernel_instance(e.name) for e in prof.events()
+                                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                        if k in smem.KERNELS)
+
+        rep = contracts.audit_cell(name, entry, args, around=profiled, plane_dtype=dtype)
+        assert rep.ok and rep.launches == 1, rep.violations
+        word = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
+        assert set(seen) == set(rep.census) and all(word in k for k in seen), (seen, rep.census)

@@ -23,6 +23,12 @@ COPY_UNROLL = int(re.search(
     (Path(fk.__file__).parent / "csrc" / "fixtures.cu").read_text()).group(1))
 
 
+#: ``IOTA_UNROLL`` in ``fixtures.cu``.
+IOTA_UNROLL = int(re.search(
+    r"#define IOTA_UNROLL (\d+)",
+    (Path(fk.__file__).parent / "csrc" / "fixtures.cu").read_text()).group(1))
+
+
 def _partition(offset: int, n: int):
     """What ``copy_kernel``'s threads copy of ``n`` elements of a view
     ``offset`` elements past a 16-byte boundary (``o`` at the same offset,
@@ -98,3 +104,39 @@ def test_copy_launch_of_a_view_on_the_cpu(offset):
     got = fk.copy_launch(x)
     assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
     assert fk.copy_launch.launches == 0
+
+
+def _iota_written(offset: int, n: int) -> np.ndarray:
+    """``iota_kernel`` transcribed: what its threads write into each element
+    of an output view ``offset`` elements past a 16-byte boundary (-1 where
+    nothing is written, -2 where an element is written twice)."""
+    blocks = smem.price("iota_kernel", 1, n).blocks
+    stride = blocks * NT
+    tid = np.arange(stride, dtype=np.int64)
+    head = min(n, (4 - offset) % 4)
+    nvec = (n - head) // 4
+    tail = head + 4 * nvec
+    out = np.full(n, -1, dtype=np.int64)
+
+    def write(idx, val):
+        out[idx] = np.where(out[idx] == -1, val, -2)
+
+    for j0 in range(0, nvec, IOTA_UNROLL * stride):
+        for k in range(IOTA_UNROLL):
+            v = j0 + tid + k * stride
+            v = v[v < nvec]
+            for c in range(4):
+                write(head + 4 * v + c, head + 4 * v + c)
+    heads, tails = tid[tid < head], tail + tid[tid < n - tail]
+    write(heads, heads)
+    write(tails, tails)
+    return out
+
+
+@pytest.mark.parametrize("n", (1, 3, 5, 2048, 3000, (1 << 23) + 3))
+@pytest.mark.parametrize("offset", (0, 1, 2, 3))
+def test_iota_partition_writes_each_element_its_index(offset, n):
+    """Row 31's 16-byte stores, head and tail: every element of any view
+    written once, with its index (2^23 + 3: past one vector a thread, on
+    the co-resident grid)."""
+    assert np.array_equal(_iota_written(offset, n), np.arange(n))

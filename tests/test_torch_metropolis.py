@@ -379,12 +379,17 @@ def test_auto_per_family(family):
 @pytest.mark.parametrize("field,value,err", (
     ("backend", "reference", NotImplementedError),
     ("backend", "tpu", ValueError),
-    ("plane_dtype", "bfloat16", NotImplementedError),
+    ("plane_dtype", "bfloat16", None),
+    ("plane_dtype", "float16", None),
+    ("plane_dtype", "float64", ValueError),
     ("guard", "recover", NotImplementedError),
     ("num_iters", 0, ValueError),
     ("num_iters", True, ValueError),
 ))
 def test_spec_validates(field, value, err):
+    if err is None:  # compressed planes build
+        assert MetropolisSpec(num_iters=4, **{field: value}).build().plane_dtype == value
+        return
     with pytest.raises(err):
         MetropolisSpec(**{field: value})
 
