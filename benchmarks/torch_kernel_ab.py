@@ -4,6 +4,7 @@ shapes of ``chip_smoke.py``'s phase 4.
     python benchmarks/torch_kernel_ab.py --module megopolis.megopolis \\
         --source parent=TREE/src/repro_torch/kernels/megopolis/csrc/megopolis.cu \\
         [--source LABEL=PATH ...] [--unchecked LABEL=PATH ...] [--sass DIR]
+        [--planes float32]
 
 ``--module`` names a wrapper module under ``repro_torch.kernels`` (its
 ``SOURCE`` is the source under test: ``megopolis.megopolis``,
@@ -22,7 +23,8 @@ and each wrapper takes the leading arguments of a case that it names (a
 later tree's wrapper may add some at the end).
 Phase 4's inputs are captured as phase 4 captures them
 (``chip_smoke.kernel_cases``), for its cases whose kernel comes from that
-source; the fixture kernels' are those of phase 3
+source (with ``--planes``, those of the plane dtypes named: an older tree
+may take a 2-byte plane into its float32 instance); the fixture kernels' are those of phase 3
 (``chip_smoke.fixture_cases``: the contract checks' inputs and N = 2^23).
 Every build's outputs are held bit for bit to the plain version (but an
 ``--unchecked`` build's: a copy cut short to time its phases, which returns
@@ -134,6 +136,9 @@ def main(argv=None) -> int:
     ap.add_argument("--unchecked", action="append", default=[], metavar="LABEL=PATH",
                     help="a build timed but not held to the plain version")
     ap.add_argument("--sass", help="write each build's SASS here")
+    ap.add_argument("--planes", default=None, metavar="DTYPE[,DTYPE]",
+                    help="keep the cases of these plane dtypes (a case named '<name>@bfloat16' "
+                         "is of bfloat16, the others of float32); default every case")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no card (torch.cuda.is_available() is False)")
@@ -166,6 +171,9 @@ def main(argv=None) -> int:
         cases = cs.kernel_cases(run, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs,
                                 ctx.bank_obs, ctx.thetas, ctx.k_run, ctx.k_quality,
                                 source=mod.SOURCE)
+    if args.planes is not None:
+        keep = set(args.planes.split(","))
+        cases = [c for c in cases if (c[0].split("@")[1] if "@" in c[0] else "float32") in keep]
     if not cases:
         raise SystemExit(f"torch_kernel_ab: phase 4 has no case of {mod.SOURCE}")
     if probe:
@@ -197,7 +205,7 @@ def main(argv=None) -> int:
                     raise SystemExit(f"{name}: build {label} differs from the plain version")
             n = kargs[0].shape[-1]
             reps = 20 if rows * n * iters < 2e9 else 4
-            kernel = cs.kernel_name(family, kind, kargs)
+            kernel = wrapper.kernel_name(*kargs)
             library = cs.library_call(kind, kargs)
             library_ms = [] if library is None else [cs.time_ms(library, reps)]
             took = [label for label in labels if label in calls]

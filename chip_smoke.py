@@ -17,9 +17,9 @@ over, and there is no CPU fallback):
    against the card's own attributes and limits; the 80 matrix cells, the
    filter's consumers and pass 6 for all ten families (``--check``), each
    recorded run's census, both sides of a step cell's flag, held to the
-   profiler's count of the port's kernels in it, the Megopolis and
-   Metropolis cells also at bfloat16 and float16 planes, each launching
-   what its float32 cell launches; every kernel within the
+   profiler's count of the port's kernels in it, every cell also at
+   bfloat16 and at float16 planes (each dtype's cells in a run of their
+   own), each launching what its float32 cell launches; every kernel within the
    card's shared memory and registers at its largest admitted shapes, and
    the oversized fixture refused with no launch; ``--selftest``; then the
    two fixture kernels (rows 30-31) against their plain versions on their
@@ -31,9 +31,10 @@ over, and there is no CPU fallback):
    compare the kernel with its plain version on the card, time both, and
    compute the kernel's bound (for rejection from the rounds this run's
    data needs, with the rounds of the lanes and of their warps); hold the
-   Megopolis and Metropolis wrappers also on those inputs narrowed to
-   bfloat16 and to float16 planes (their kernels' 2-byte instances; names
-   ending ``@bfloat16``, ``@float16``); time each
+   wrappers of rows 1-29 also on those inputs narrowed to bfloat16 and to
+   float16 planes as a compressed spec narrows them (their kernels' 2-byte
+   instances; names ending ``@bfloat16``, ``@float16``; the prefix-sum
+   CDFs and draws stay float32); time each
    bank step kernel at capped cooperative grids (blocks per SM); hold
    ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
@@ -53,15 +54,17 @@ over, and there is no CPU fallback):
      ``multinomial`` and ``improved_systematic`` (Table 2's unbiased
      columns) and ``residual``: ``run_filter`` in Alg. 6 and in
      conditional mode (ESS threshold 0.5), ``run_filter_bank`` (S
-     scenarios) in both modes, and ``run_filter_timed``; RMSE against
-     ``simulate``'s truth, steps/s, the resample ratio and a ``StepStats``
-     summary, the families side by side, and the census of each run held
+     scenarios) in both modes (the float32 families at 50 of the T bank
+     steps, a cut printed on its own line), and ``run_filter_timed``; RMSE
+     against ``simulate``'s truth, steps/s, the resample ratio and a
+     ``StepStats`` summary, the families side by side, and the census of
+     each run held
      to the entry's launch budget x steps, beside all CUDA launches of a
-     conditional step; Megopolis and Metropolis also at bfloat16 and
-     float16 planes (``MegopolisSpec(plane_dtype="bfloat16")``, the same
-     for Metropolis, families ``megopolis@bfloat16`` ...
+     conditional step; every family also at bfloat16 planes and Megopolis
+     and Metropolis at float16 (``MegopolisSpec(plane_dtype="bfloat16")``
+     and so on, families ``megopolis@bfloat16`` ... ``residual@bfloat16``,
      ``metropolis@float16``, their launches counted under
-     ``<wrapper>@<dtype>``); for rejection and residual also
+     ``<wrapper>@<dtype>``; ``PATH_PLANES``); for rejection and residual also
      ``r(key, w)``, ``r.batch(key, w_bank)`` and ``r.batch_rows(keys,
      w_bank)`` on weights captured from their Alg. 6 runs (no step calls
      them), and the spread of rejection's kernel time and of sup w /
@@ -71,18 +74,20 @@ over, and there is no CPU fallback):
      closed form, K Monte Carlo resamples in one ``batch_rows`` launch,
      then MSE/N and the bias share (eq. 21), and the time of one
      ``r(key, w)`` and one ``r.batch(key, w_bank)``, for every family of
-     Fig. 6's method set (rejection is not in it), and Megopolis and
-     Metropolis at bfloat16 and float16 planes;
+     Fig. 6's method set (rejection is not in it), and each at bfloat16
+     planes, Megopolis and Metropolis at float16 too;
    * Path C, Fig. 8's study (paper §6.5): for N of 2^14, 2^18 and 2^22
      and each y of 0, 2 and 4, Megopolis (B from eq. (3)) against the
-     multinomial and improved systematic kinds: K Monte Carlo resamples in
+     multinomial and improved systematic kinds, each also at bfloat16
+     planes: K Monte Carlo resamples in
      one ``batch_rows`` launch per stage, MSE/N, the bias share, and the
      time of one ``r(key, w)``;
    * small runs of both paths on the card against the same runs on the CPU,
      and for the prefix-sum kinds each step of an Alg. 6 run on the CPU
      replayed on the card bit for bit;
-6. print the card line, one JSON line of kernels (all 31 rows), then a
-   last JSON line naming the device.
+6. print the card line, one JSON line of kernels (all 31 rows, rows 1-29
+   also at each 2-byte plane word), then a last JSON line naming the
+   device.
 
 Run it from the root of a checkout; it needs one card.
 """
@@ -124,12 +129,21 @@ PROBE_N = 1 << 20
 #: Iterations on Path A, the middle of the paper's B sweep (§7).
 ITERS = 32
 #: The compressed plane dtypes of Paths A and B (DESIGN.md §14), beside
-#: float32.
-PATH_PLANES = ("bfloat16", "float16")
+#: float32, and the families run at each (Path B: those of Fig. 6's set;
+#: float16 of the other families is held in phases 3 and 4).
+PATH_PLANES = {
+    "bfloat16": ("megopolis", "metropolis", "metropolis_c1", "metropolis_c2", "rejection",
+                 "multinomial", "improved_systematic", "residual"),
+    "float16": ("megopolis", "metropolis"),
+}
 #: Path B's weight sequences: y of eq. (12), a third of GAUSSIAN_Y_GRID.
 PATH_B_YS = (0.0, 2.0, 4.0)
 #: Time steps of the short runs whose resampler inputs phase 4 captures.
 CAPTURE_STEPS = 5
+#: Bank steps of the float32 families' Path A bank runs: cut from T = 100
+#: to keep the whole run within 600 s (the cut is printed; their compressed
+#: twins run all T and also report the RMSE over these first steps).
+PATH_A_F32_BANK_STEPS = 50
 #: The ESS threshold of the conditional runs (Path A's and phase 4's).
 THR = 0.5
 #: 32-bit operations per (particle, iteration) of each family's sweep,
@@ -153,8 +167,10 @@ REJECTION_CAP_CASE_ITERS = 64
 #: (``benchmarks/table2_e2e_pf.py``), and residual, the one kind that reaches
 #: the residual select and the residual step.
 PATH_A_PREFIX_KINDS = ("multinomial", "improved_systematic", "residual")
-#: Path C (Fig. 8, ``benchmarks/fig8_prefix_sum.py``): its methods and N.
-PATH_C_METHODS = ("megopolis", "multinomial", "improved_systematic")
+#: Path C (Fig. 8, ``benchmarks/fig8_prefix_sum.py``): its methods (the
+#: prefix-sum kinds also at bfloat16 planes) and N.
+PATH_C_METHODS = ("megopolis", "multinomial", "improved_systematic", "multinomial@bfloat16",
+                  "improved_systematic@bfloat16")
 PATH_C_NS = (1 << 14, 1 << 18, 1 << 22)
 #: Path C's key: fold_in(k_quality, PATH_C_KEY).
 PATH_C_KEY = 8
@@ -177,6 +193,9 @@ PRELUDE_OPS = 20
 #: well below 1e-5.  incr = m + log(Σw) - log N, absolute.
 STATS_RTOL = 1e-5
 INCR_ATOL = 1e-5
+#: Card time phase 4 gives each plain version's timing after its comparison
+#: call, in ms.
+PLAIN_BUDGET_MS = 250.0
 #: Whole-run agreement of a small filter on the card and on the CPU: the
 #: noise differs by a few ULP (log1p, sqrt), which flips a rare accept; each
 #: flip moves an estimate by at most the particle range over N.
@@ -373,9 +392,17 @@ def main(argv=None) -> int:
         ctx.results.update(out["results"])
     families, results, dev, n = ctx.families, ctx.results, ctx.dev, ctx.n
     model, fam, obs, k_run, drive = ctx.model, ctx.fam, ctx.obs, ctx.k_run, ctx.drive
+    lap = time.perf_counter()
+
+    def took(what):
+        nonlocal lap
+        print(f"time {what}: {time.perf_counter() - lap:.1f} s", flush=True)
+        lap = time.perf_counter()
+
     for family, f in families.items():
         path_a(family, f, args, dev, model, fam, obs, ctx.truth, ctx.bank_obs, ctx.bank_truth,
                ctx.thetas, k_run, drive, results)
+    took("path A")
     for family in ("rejection", "residual"):
         path_a_index(family, families[family], args, dev, model, fam, obs, ctx.bank_obs,
                      ctx.thetas, k_run, drive, results)
@@ -383,21 +410,27 @@ def main(argv=None) -> int:
                                                    obs, k_run, dev)
     for family, f in ctx.path_b_families.items():
         path_b(family, f, args, dev, ctx.k_quality, drive, results)
+    took("path A's index entries, rejection's spread, path B")
     path_c(args, dev, ctx.trandom.fold_in(ctx.k_quality, PATH_C_KEY), drive, results,
            {"megopolis": (ctx.mk.megopolis_rows, ctx.mk.megopolis),
             "multinomial": ctx.prefix_index, "improved_systematic": ctx.prefix_index})
+    took("path C")
     results["small_runs_card_vs_cpu"] = small_runs(families, obs, ctx.truth, k_run,
                                                    ctx.k_quality, dev)
+    took("small runs")
+    # The float32 families' (a compressed twin's host work is theirs).
     results["host_and_device_per_step"] = {
         family: step_costs(family, k_run, n, ITERS, dev, model, f["spec"], obs)
-        for family, f in families.items()}
+        for family, f in families.items() if "plane" not in f}
+    took("step costs")
     for name, r in results.items():
         print(f"path {name}: {json.dumps(r, default=float)}", flush=True)
     path_a_census(args, families, results)
     for mode in ("run_filter/alg6", "run_filter/conditional", "run_filter_bank/alg6",
                  "run_filter_bank/conditional", "run_filter_timed/alg6"):
         side = {family: {k: results[f"{mode}/{family}"].get(k) for k in
-                         ("steps_per_s", "rmse", "rmse_mean", "resample_ratio")}
+                         ("steps_per_s", "rmse", "rmse_mean",
+                          f"rmse_mean_first_{PATH_A_F32_BANK_STEPS}", "resample_ratio")}
                 for family in families}
         print(f"compare {mode}: {json.dumps(side)}")
     for y in PATH_B_YS:
@@ -492,15 +525,6 @@ def setup(args) -> types.SimpleNamespace:
                        "batch": getattr(ck, f"{c}_batch")}
     for f in families.values():
         f.update(path_b=True, small=f["cls"](num_iters=16))
-    # Compressed planes on Paths A and B: the Megopolis and Metropolis
-    # filters and Fig. 6 at each of PATH_PLANES, through the same wrappers
-    # (their runs' launches are counted under ``<wrapper>@<dtype>``).
-    for plane in PATH_PLANES:
-        for base in ("megopolis", "metropolis"):
-            cls = families[base]["cls"]
-            families[f"{base}@{plane}"] = dict(
-                families[base], spec=cls(num_iters=ITERS, plane_dtype=plane),
-                small=cls(num_iters=16, plane_dtype=plane), plane=plane)
     families["rejection"] = {
         "spec": RejectionSpec(max_iters=REJECTION_MAX_ITERS), "cls": RejectionSpec,
         "alg6": rk.rejection_fused, "conditional": rk.rejection_step,
@@ -519,6 +543,15 @@ def setup(args) -> types.SimpleNamespace:
             "bank_conditional": stk.prefix_step_rows, "batch_rows": prefix_index,
             "single": prefix_index, "batch": prefix_index,
             "path_b": False, "small": PrefixSumSpec(kind=kind)}
+    # Compressed planes on Paths A and B: the families of PATH_PLANES at
+    # each of its dtypes, through the same wrappers (their runs' launches
+    # are counted under ``<wrapper>@<dtype>``).
+    for plane, bases in PATH_PLANES.items():
+        for base in bases:
+            f = families[base]
+            families[f"{base}@{plane}"] = dict(
+                f, spec=f["spec"].replace(plane_dtype=plane),
+                small=f["small"].replace(plane_dtype=plane), plane=plane)
     modules = (mk, tk, ck, rk, pk, sk, stk, fk)
     wrappers = sum((m.WRAPPERS for m in modules), ())
     key = trandom.PRNGKey(args.seed)
@@ -583,13 +616,20 @@ def kernels_phase(ctx) -> list:
     a = ctx.args
     kernels = []
     gather_probe(a.seed, ctx.dev)
-    for case in kernel_cases(a, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs,
-                             ctx.bank_obs, ctx.thetas, ctx.k_run, ctx.k_quality):
+    t0 = time.perf_counter()
+    cases = kernel_cases(a, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs, ctx.bank_obs,
+                         ctx.thetas, ctx.k_run, ctx.k_quality)
+    took = collections.Counter(capture=time.perf_counter() - t0)
+    for case in cases:
+        t0 = time.perf_counter()
         entry = check_kernel(case)
         if case[0].split("@")[0] in TPU_KERNELS:  # not the extra case where the cap binds
             kernels.append(entry)
         if case[0].endswith("_step_rows"):
             print(f"grid {case[0]}: {json.dumps(grid_study(case))}", flush=True)
+        took[case[4] + ("@" + case[0].split("@")[1] if "@" in case[0] else "")] += (
+            time.perf_counter() - t0)
+    print(f"time phase 4 (s): {json.dumps({k: round(v, 1) for k, v in took.items()})}")
     return kernels
 
 
@@ -615,17 +655,27 @@ def path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, t
             fail(f"{name}: estimates not finite of shape ({args.steps},)")
         results[name].update(rmse=rmse(ests.cpu().numpy(), truth.cpu().numpy()),
                              stats=summary(tel.steps))
+    steps = args.bank_steps if "plane" in f else min(args.bank_steps, PATH_A_F32_BANK_STEPS)
+    if steps < args.bank_steps:
+        print(f"cut run_filter_bank/*/{family}: {steps} of {args.bank_steps} bank steps "
+              "(float32 families, to keep the run within 600 s)", flush=True)
+    first = min(steps, PATH_A_F32_BANK_STEPS)
+
+    def rmse_mean(ests, t):
+        return sum(rmse(ests[i, :t].cpu().numpy(), bank_truth[i, :t].cpu().numpy())
+                   for i in range(s_bank)) / s_bank
+
     for mode, thr in (("alg6", None), ("conditional", 0.5)):
         pf = ParticleFilter(fam, n, resampler=spec, ess_threshold=thr)
         name = f"run_filter_bank/{mode}/{family}"
         ests, tel = drive(
-            name, lambda: run_filter_bank(k_run, pf, bank_obs, thetas, telemetry=True, device=dev),
-            [f[f"bank_{mode}"]], args.bank_steps)
-        if ests.shape != (s_bank, args.bank_steps) or not torch.isfinite(ests).all():
-            fail(f"{name}: estimates not finite of shape ({s_bank}, {args.bank_steps})")
-        per_row = [rmse(ests[i].cpu().numpy(), bank_truth[i].cpu().numpy())
-                   for i in range(s_bank)]
-        results[name].update(rmse_mean=sum(per_row) / s_bank, stats=summary(tel.steps))
+            name, lambda: run_filter_bank(k_run, pf, bank_obs[:, :steps], thetas,
+                                          telemetry=True, device=dev),
+            [f[f"bank_{mode}"]], steps)
+        if ests.shape != (s_bank, steps) or not torch.isfinite(ests).all():
+            fail(f"{name}: estimates not finite of shape ({s_bank}, {steps})")
+        results[name].update(rmse_mean=rmse_mean(ests, steps), stats=summary(tel.steps),
+                             steps=steps, **{f"rmse_mean_first_{first}": rmse_mean(ests, first)})
     pf = ParticleFilter(model, n, resampler=spec)
     name = f"run_filter_timed/alg6/{family}"
     _, times = drive(name, lambda: run_filter_timed(k_run, pf, obs, device=dev), [f["alg6"]],
@@ -728,7 +778,8 @@ def path_c(args, dev, key, drive, results, expected):
     """Path C, Fig. 8's study (``benchmarks/fig8_prefix_sum.py``): at each
     N of ``PATH_C_NS`` and y of ``PATH_B_YS``, Gaussian weights, K Monte
     Carlo resamples in one ``batch_rows`` call per method (Megopolis at B of
-    eq. (3), the multinomial and improved systematic kinds), then MSE/N, the
+    eq. (3), the multinomial and improved systematic kinds, each of those
+    also at bfloat16 planes), then MSE/N, the
     bias share, and the time of one ``r(key, w)`` (CUDA events, host work
     in).  Fig. 8 runs K = 256; this runs ``--runs``."""
     from repro_torch.core.iterations import gaussian_weight_iterations
@@ -741,8 +792,9 @@ def path_c(args, dev, key, drive, results, expected):
             b = gaussian_weight_iterations(y, 0.01)
             w, bank, keys, k_time = path_c_inputs(key, n, y, k, dev)
             for method in PATH_C_METHODS:
+                kind, _, plane = method.partition("@")
                 spec = (MegopolisSpec(num_iters=b) if method == "megopolis"
-                        else PrefixSumSpec(kind=method))
+                        else PrefixSumSpec(kind=kind, plane_dtype=plane or "float32"))
                 r = spec.build()
                 r.batch_rows(keys[:2], bank[:2])  # warm up
                 name = f"fig8/n={n}/y={y}/{method}"
@@ -753,7 +805,7 @@ def path_c(args, dev, key, drive, results, expected):
                     return off, float(bias_sq), float(total), time_ms(lambda: r(k_time, w), 10,
                                                                        warmup=1)
 
-                off, bias_sq, total, single_ms = drive(name, run, [expected[method]])
+                off, bias_sq, total, single_ms = drive(name, run, [expected[kind]])
                 if off.shape != (k, n) or not bool((off.sum(dim=1) == n).all()):
                     fail(f"{name}: offspring counts of shape {tuple(off.shape)} do not sum to N")
                 if not (torch.isfinite(torch.tensor([bias_sq, total])).all()
@@ -965,9 +1017,10 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     return cases
 
 
-#: The plane dtypes phase 4 holds the Megopolis and Metropolis kernels at:
-#: the suffix of a case's name and the dtype its captured weights, log-weights
-#: and state are narrowed to, as a compressed spec narrows them.
+#: The plane dtypes phase 4 holds the kernels of rows 1-29 at: the suffix of
+#: a case's name and the dtype its captured weights, log-weights and state
+#: are narrowed to, as a compressed spec narrows them (the prefix-sum
+#: kernels' CDFs and draws stay float32: ``PREFIX_NARROWED``).
 PLANES = (("", torch.float32), ("@bfloat16", torch.bfloat16), ("@float16", torch.float16))
 
 
@@ -1065,45 +1118,54 @@ def metropolis_cases(tk, tops, tref, fig6, single, bank) -> list:
 
 
 def rejection_cases(spec, alg6, bank_alg6, cond, bank_cond, thr, key) -> list:
-    """The six rejection wrappers on captured inputs, as ``kernel_cases``:
-    the fused and step wrappers from Path A's runs, the index-only ones from
-    ``r(key, w)``, ``r.batch_rows(keys, w_bank)`` on the weights those runs
-    captured; the plain version of each is the bank form on the same
-    arguments."""
+    """The six rejection wrappers on captured inputs, as ``kernel_cases``,
+    at each plane dtype of ``PLANES``: the fused and step wrappers from Path
+    A's runs, the index-only ones from ``r(key, w)``, ``r.batch_rows(keys,
+    w_bank)`` on the weights those runs captured; the plain version of each
+    is the bank form on the same arguments."""
     from repro_torch import random as trandom
     from repro_torch.kernels.rejection import ops as rops
     from repro_torch.kernels.rejection import ref as rref
     from repro_torch.kernels.rejection import rejection as rk
 
-    cases = []
-    w1, t1, sd1, it1 = capture(rops, "rejection_fused", alg6)
-    w2, t2, sd2, it2 = capture(rops, "rejection_fused_batch", bank_alg6)
+    fused = capture(rops, "rejection_fused", alg6)
+    fused_b = capture(rops, "rejection_fused_batch", bank_alg6)
     r = spec.build()
     k = trandom.fold_in(key, 7)
-    w, sd, it = capture(rops, "rejection", lambda: r(k, w1))
-    cases.append(("rejection", rk.rejection, (w, sd, it),
-                  lambda: rref.rejection_rows_ref(w[None], None, sd.reshape(1), it),
-                  "rejection", "index", 1, it))
-    keys = trandom.split(k, w2.shape[0])
-    wb, sdb, itb = capture(rops, "rejection_batch", lambda: r.batch_rows(keys, w2))
-    cases.append(("rejection_batch", rk.rejection_batch, (wb, sdb, itb),
-                  lambda: rref.rejection_rows_ref(wb, None, sdb, itb),
-                  "rejection", "index", wb.shape[0], itb))
-    cases.append(("rejection_fused", rk.rejection_fused, (w1, t1, sd1, it1),
-                  lambda: rref.rejection_rows_ref(w1[None], t1[None], sd1.reshape(1), it1),
-                  "rejection", "fused", 1, it1))
-    cases.append(("rejection_fused_batch", rk.rejection_fused_batch, (w2, t2, sd2, it2),
-                  lambda: rref.rejection_rows_ref(w2, t2, sd2, it2),
-                  "rejection", "fused", w2.shape[0], it2))
-    l3, t3, sd3, it3, _ = capture(rops, "rejection_step", cond)
-    cases.append(("rejection_step", rk.rejection_step, (l3, t3, sd3, it3, thr),
-                  lambda: rref.rejection_step_rows_ref(l3[None], t3[None], sd3.reshape(1), it3,
-                                                       thr),
-                  "rejection", "step", 1, it3))
-    l4, t4, sd4, it4, _ = capture(rops, "rejection_step_rows", bank_cond)
-    cases.append(("rejection_step_rows", rk.rejection_step_rows, (l4, t4, sd4, it4, thr),
-                  lambda: rref.rejection_step_rows_ref(l4, t4, sd4, it4, thr),
-                  "rejection", "step", l4.shape[0], it4))
+    keys = trandom.split(k, fused_b[0].shape[0])
+    captured = (capture(rops, "rejection", lambda: r(k, fused[0])),
+                capture(rops, "rejection_batch", lambda: r.batch_rows(keys, fused_b[0])),
+                fused, fused_b, capture(rops, "rejection_step", cond),
+                capture(rops, "rejection_step_rows", bank_cond))
+    cases = []
+    for sfx, dt in PLANES:
+        (w, sd, it), (wb, sdb, itb), (w1, t1, sd1, it1), (w2, t2, sd2, it2), \
+            (l3, t3, sd3, it3, _), (l4, t4, sd4, it4, _) = (
+                narrow(dt, *args) for args in captured)
+        cases += [
+            (f"rejection{sfx}", rk.rejection, (w, sd, it),
+             lambda w=w, sd=sd, it=it: rref.rejection_rows_ref(w[None], None, sd.reshape(1),
+                                                                it),
+             "rejection", "index", 1, it),
+            (f"rejection_batch{sfx}", rk.rejection_batch, (wb, sdb, itb),
+             lambda wb=wb, sdb=sdb, itb=itb: rref.rejection_rows_ref(wb, None, sdb, itb),
+             "rejection", "index", wb.shape[0], itb),
+            (f"rejection_fused{sfx}", rk.rejection_fused, (w1, t1, sd1, it1),
+             lambda w1=w1, t1=t1, sd1=sd1, it1=it1: rref.rejection_rows_ref(
+                 w1[None], t1[None], sd1.reshape(1), it1),
+             "rejection", "fused", 1, it1),
+            (f"rejection_fused_batch{sfx}", rk.rejection_fused_batch, (w2, t2, sd2, it2),
+             lambda w2=w2, t2=t2, sd2=sd2, it2=it2: rref.rejection_rows_ref(w2, t2, sd2, it2),
+             "rejection", "fused", w2.shape[0], it2),
+            (f"rejection_step{sfx}", rk.rejection_step, (l3, t3, sd3, it3, thr),
+             lambda l3=l3, t3=t3, sd3=sd3, it3=it3: rref.rejection_step_rows_ref(
+                 l3[None], t3[None], sd3.reshape(1), it3, thr),
+             "rejection", "step", 1, it3),
+            (f"rejection_step_rows{sfx}", rk.rejection_step_rows, (l4, t4, sd4, it4, thr),
+             lambda l4=l4, t4=t4, sd4=sd4, it4=it4: rref.rejection_step_rows_ref(
+                 l4, t4, sd4, it4, thr),
+             "rejection", "step", l4.shape[0], it4),
+        ]
     return cases
 
 
@@ -1118,7 +1180,12 @@ def prefix_cases(single, bank, thr, key) -> list:
     systematic ``r(key, w)``, the gather from improved systematic's run and
     from multinomial's, the select and the step from residual's, the step
     from systematic's and stratified's) and the step's improved systematic,
-    multinomial and stratified instances on a bank."""
+    multinomial and stratified instances on a bank.  At each 2-byte dtype
+    of ``PLANES``, the bank cases again with what the compressed path
+    narrows narrowed (``PREFIX_NARROWED``: the scan's input, the searches'
+    state, the step's log-weights and state; the CDFs and draws stay
+    float32), the index-only search on the CDF and draws of a compressed
+    spec's ``batch_rows``."""
     from repro_torch import random as trandom
     from repro_torch.core.spec import PrefixSumSpec
     from repro_torch.kernels.prefix_sum import ops as pops
@@ -1127,70 +1194,83 @@ def prefix_cases(single, bank, thr, key) -> list:
     from repro_torch.kernels.prefix_sum import search as sk
     from repro_torch.kernels.prefix_sum import step as stk
 
-    def scan_case(name, run):
-        (w,) = capture(pops, "prefix_sum_rows", run)
-        return (name, pk.prefix_sum_rows, (w,), lambda: pref.scan_rows_ref(w), "prefix",
-                "scan", w.shape[0], 1)
+    # Each case kind's wrapper and plain version on its arguments.
+    wrappers = {
+        "scan": (pk.prefix_sum_rows, pref.scan_rows_ref),
+        "search": (sk.searchsorted_rows,
+                   lambda c, u, side, rising: pref.search_rows_ref(c, u, side == "right")),
+        "gather": (sk.searchsorted_gather_rows,
+                   lambda c, u, t, side, rising: pref.search_rows_ref(c, u, side == "right", t)),
+        "residual": (sk.residual_select_gather_rows, pref.residual_select_rows_ref),
+        "step": (stk.prefix_step_rows, pref.prefix_step_rows_ref),
+    }
 
-    def search_case(name, run):
-        c, u, side, rising = capture(pops, "searchsorted_rows", run)
-        return (name, sk.searchsorted_rows, (c, u, side, rising),
-                lambda: pref.search_rows_ref(c, u, side == "right"), "prefix", "search",
-                c.shape[0], 1)
+    def case(name, kind, kargs):
+        wrapper, plain = wrappers[kind]
+        return (name, wrapper, kargs, lambda: plain(*kargs), "prefix", kind, kargs[0].shape[0],
+                1)
 
-    def gather_case(name, run):
-        c, u, t, side, rising = capture(pops, "searchsorted_gather_rows", run)
-        return (name, sk.searchsorted_gather_rows, (c, u, t, side, rising),
-                lambda: pref.search_rows_ref(c, u, side == "right", t), "prefix", "gather",
-                c.shape[0], 1)
-
-    def residual_case(name, run):
-        r = capture(pops, "residual_select_gather_rows", run)
-        return (name, sk.residual_select_gather_rows, r,
-                lambda: pref.residual_select_rows_ref(*r), "prefix", "residual",
-                r[0].shape[0], 1)
-
-    def step_case(name, run):
-        lw, st, ub, u0, _, kind = capture(pops, "prefix_step_rows", run)
-        kargs = (lw, st, ub, u0, thr, kind)
-        return (name, stk.prefix_step_rows, kargs, lambda: pref.prefix_step_rows_ref(*kargs),
-                "prefix", "step", lw.shape[0], 1)
+    def captured(name, kind, run):
+        return case(name, kind, capture(pops, wrappers[kind][0].__name__, run))
 
     # The scans' inputs are the weights of the last multinomial steps: the
     # searches run on them.
-    scan_bank = scan_case("prefix_sum_rows", bank("multinomial", None))
-    scan_one = scan_case("prefix_sum_rows/one", single("multinomial", None))
+    scan_bank = captured("prefix_sum_rows", "scan", bank("multinomial", None))
+    scan_one = captured("prefix_sum_rows/one", "scan", single("multinomial", None))
     w_bank, w_one = scan_bank[2][0], scan_one[2][0]
     k = trandom.fold_in(key, 9)
     keys = trandom.split(k, w_bank.shape[0])
-    return [
+
+    def stratified(dt="float32"):
+        return lambda: PrefixSumSpec(kind="stratified", plane_dtype=dt).build().batch_rows(
+            keys, w_bank)
+
+    banks = [
         scan_bank,
-        search_case("searchsorted_rows",
-                    lambda: PrefixSumSpec(kind="stratified").build().batch_rows(keys, w_bank)),
-        gather_case("searchsorted_gather_rows", bank("multinomial", None)),
-        residual_case("residual_select_gather_rows", bank("residual", None)),
-        step_case("prefix_step_rows", bank("residual", 0.5)),
-        scan_one,
-        search_case("searchsorted_rows/one",
-                    lambda: PrefixSumSpec(kind="systematic").build()(k, w_one[0])),
-        gather_case("searchsorted_gather_rows/one", single("improved_systematic", None)),
-        gather_case("searchsorted_gather_rows/one/multinomial", single("multinomial", None)),
-        residual_case("residual_select_gather_rows/one", single("residual", None)),
-        step_case("prefix_step_rows/one", single("multinomial", 0.5)),
-        step_case("prefix_step_rows/one/residual", single("residual", 0.5)),
-        step_case("prefix_step_rows/one/systematic", single("systematic", 0.5)),
-        step_case("prefix_step_rows/one/stratified", single("stratified", 0.5)),
-        step_case("prefix_step_rows/improved_systematic", bank("improved_systematic", 0.5)),
-        step_case("prefix_step_rows/multinomial", bank("multinomial", 0.5)),
-        step_case("prefix_step_rows/stratified", bank("stratified", 0.5)),
+        captured("searchsorted_rows", "search", stratified()),
+        captured("searchsorted_gather_rows", "gather", bank("multinomial", None)),
+        captured("residual_select_gather_rows", "residual", bank("residual", None)),
+        captured("prefix_step_rows", "step", bank("residual", 0.5)),
+        captured("prefix_step_rows/improved_systematic", "step", bank("improved_systematic", 0.5)),
+        captured("prefix_step_rows/multinomial", "step", bank("multinomial", 0.5)),
+        captured("prefix_step_rows/stratified", "step", bank("stratified", 0.5)),
     ]
+    cases = banks[:5] + [
+        scan_one,
+        captured("searchsorted_rows/one", "search",
+                 lambda: PrefixSumSpec(kind="systematic").build()(k, w_one[0])),
+        captured("searchsorted_gather_rows/one", "gather", single("improved_systematic", None)),
+        captured("searchsorted_gather_rows/one/multinomial", "gather",
+                 single("multinomial", None)),
+        captured("residual_select_gather_rows/one", "residual", single("residual", None)),
+        captured("prefix_step_rows/one", "step", single("multinomial", 0.5)),
+        captured("prefix_step_rows/one/residual", "step", single("residual", 0.5)),
+        captured("prefix_step_rows/one/systematic", "step", single("systematic", 0.5)),
+        captured("prefix_step_rows/one/stratified", "step", single("stratified", 0.5)),
+    ] + banks[5:]
+    for sfx, dt in PLANES[1:]:
+        for name, _, kargs, _, _, kind, _, _ in banks:
+            if kind == "search":
+                cases.append(captured(name + sfx, kind, stratified(sfx[1:])))
+                continue
+            kargs = tuple(x.to(dt) if i in PREFIX_NARROWED[kind] else x
+                          for i, x in enumerate(kargs))
+            cases.append(case(name + sfx, kind, kargs))
+    return cases
+
+
+#: The arguments of each prefix-sum case kind a compressed spec narrows:
+#: the scan's input, the gather's and the select's state, the step's
+#: log-weights and state.
+PREFIX_NARROWED = {"scan": (0,), "search": (), "gather": (2,), "residual": (4,),
+                   "step": (0, 1)}
 
 
 def c1c2_cases(c, variant, tops, fig6_single, fig6_rows, alg6, bank_alg6, cond, bank_cond,
                thr) -> list:
     """The six wrappers of one C1/C2 variant on captured inputs, as
-    ``kernel_cases``: the plain version of each is the variant's bank form on
-    the same arguments."""
+    ``kernel_cases``, at each plane dtype of ``PLANES``: the plain version
+    of each is the variant's bank form on the same arguments."""
     from repro_torch.kernels.metropolis import c1c2 as ck
     from repro_torch.kernels.metropolis import ref as tref
 
@@ -1201,51 +1281,31 @@ def c1c2_cases(c, variant, tops, fig6_single, fig6_rows, alg6, bank_alg6, cond, 
         return lambda: tref.metropolis_c1c2_step_rows_ref(lw, st, parts, seeds, it, thr,
                                                           variant)
 
+    captured = (capture(tops, c, fig6_single), capture(tops, f"{c}_batch", fig6_rows),
+                capture(tops, f"{c}_fused", alg6), capture(tops, f"{c}_fused_batch", bank_alg6),
+                capture(tops, f"{c}_step", cond), capture(tops, f"{c}_step_rows", bank_cond))
     cases = []
-    w, p, sd, it = capture(tops, c, fig6_single)
-    cases.append((c, getattr(ck, c), (w, p, sd, it), rows(w[None], None, p[None],
-                                                          sd.reshape(1), it),
-                  c, "index", 1, it))
-    wb, pb, sdb, itb = capture(tops, f"{c}_batch", fig6_rows)
-    cases.append((f"{c}_batch", getattr(ck, f"{c}_batch"), (wb, pb, sdb, itb),
-                  rows(wb, None, pb, sdb, itb), c, "index", wb.shape[0], itb))
-    w1, t1, p1, sd1, it1 = capture(tops, f"{c}_fused", alg6)
-    cases.append((f"{c}_fused", getattr(ck, f"{c}_fused"), (w1, t1, p1, sd1, it1),
-                  rows(w1[None], t1[None], p1[None], sd1.reshape(1), it1), c, "fused", 1, it1))
-    w2, t2, p2, sd2, it2 = capture(tops, f"{c}_fused_batch", bank_alg6)
-    cases.append((f"{c}_fused_batch", getattr(ck, f"{c}_fused_batch"), (w2, t2, p2, sd2, it2),
-                  rows(w2, t2, p2, sd2, it2), c, "fused", w2.shape[0], it2))
-    l3, t3, p3, sd3, it3, _ = capture(tops, f"{c}_step", cond)
-    cases.append((f"{c}_step", getattr(ck, f"{c}_step"), (l3, t3, p3, sd3, it3, thr),
-                  steps(l3[None], t3[None], p3[None], sd3.reshape(1), it3), c, "step", 1, it3))
-    l4, t4, p4, sd4, it4, _ = capture(tops, f"{c}_step_rows", bank_cond)
-    cases.append((f"{c}_step_rows", getattr(ck, f"{c}_step_rows"), (l4, t4, p4, sd4, it4, thr),
-                  steps(l4, t4, p4, sd4, it4), c, "step", l4.shape[0], it4))
+    for sfx, dt in PLANES:
+        (w, p, sd, it), (wb, pb, sdb, itb), (w1, t1, p1, sd1, it1), (w2, t2, p2, sd2, it2), \
+            (l3, t3, p3, sd3, it3, _), (l4, t4, p4, sd4, it4, _) = (
+                narrow(dt, *args) for args in captured)
+        cases += [
+            (c + sfx, getattr(ck, c), (w, p, sd, it),
+             rows(w[None], None, p[None], sd.reshape(1), it), c, "index", 1, it),
+            (f"{c}_batch{sfx}", getattr(ck, f"{c}_batch"), (wb, pb, sdb, itb),
+             rows(wb, None, pb, sdb, itb), c, "index", wb.shape[0], itb),
+            (f"{c}_fused{sfx}", getattr(ck, f"{c}_fused"), (w1, t1, p1, sd1, it1),
+             rows(w1[None], t1[None], p1[None], sd1.reshape(1), it1), c, "fused", 1, it1),
+            (f"{c}_fused_batch{sfx}", getattr(ck, f"{c}_fused_batch"), (w2, t2, p2, sd2, it2),
+             rows(w2, t2, p2, sd2, it2), c, "fused", w2.shape[0], it2),
+            (f"{c}_step{sfx}", getattr(ck, f"{c}_step"), (l3, t3, p3, sd3, it3, thr),
+             steps(l3[None], t3[None], p3[None], sd3.reshape(1), it3), c, "step", 1, it3),
+            (f"{c}_step_rows{sfx}", getattr(ck, f"{c}_step_rows"), (l4, t4, p4, sd4, it4, thr),
+             steps(l4, t4, p4, sd4, it4), c, "step", l4.shape[0], it4),
+        ]
     return cases
 
 
-#: The CUDA kernel each wrapper launches, by family and kind.
-KERNEL_NAMES = {
-    ("megopolis", "index"): "megopolis_fused_rows_kernel",
-    ("megopolis", "fused"): "megopolis_fused_rows_kernel",
-    ("megopolis", "step"): "megopolis_step_rows_kernel",
-    ("metropolis", "index"): "metropolis_rows_kernel",
-    ("metropolis", "fused"): "metropolis_rows_kernel",
-    ("metropolis", "step"): "metropolis_step_rows_kernel",
-    ("metropolis_c1", "index"): "metropolis_c1c2_rows_kernel<1",
-    ("metropolis_c1", "fused"): "metropolis_c1c2_rows_kernel<1",
-    ("metropolis_c1", "step"): "metropolis_c1c2_step_rows_kernel<1",
-    ("metropolis_c2", "index"): "metropolis_c1c2_rows_kernel<2",
-    ("metropolis_c2", "fused"): "metropolis_c1c2_rows_kernel<2",
-    ("metropolis_c2", "step"): "metropolis_c1c2_step_rows_kernel<2",
-    ("rejection", "index"): "rejection_rows_kernel<false",
-    ("rejection", "fused"): "rejection_rows_kernel<true",
-    ("rejection", "step"): "rejection_step_rows_kernel",
-    ("prefix", "scan"): "prefix_scan_rows_kernel",
-    ("prefix", "residual"): "prefix_search_tree_kernel<true, true>",
-    ("fixtures", "copy"): "copy_kernel",
-    ("fixtures", "iota"): "iota_kernel",
-}
 #: The CUDA source of each family's kernels.
 SOURCES = {"megopolis": "megopolis/csrc/megopolis.cu",
            "metropolis": "metropolis/csrc/metropolis.cu",
@@ -1290,41 +1350,23 @@ def bits(x: torch.Tensor) -> torch.Tensor:
     return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
 
 
-def kernel_name(family, kind, kargs) -> str:
-    """The name the profiler gives the kernel a wrapper launches (for the
-    Megopolis and Metropolis kernels, the instance of the weights' plane
-    word: ``megopolis_step_rows_kernel<__nv_bfloat16>``)."""
-    if family in ("megopolis", "metropolis"):
-        from repro_torch.kernels.common import plane_instance
-
-        gather = {"index": False, "fused": True, "step": None}[kind]
-        return plane_instance(KERNEL_NAMES[(family, kind)], gather)(kargs[0])
-    if (family, kind) == ("prefix", "step"):
-        from repro_torch.kernels.prefix_sum.ref import KIND_CODES
-
-        return f"prefix_step_rows_kernel<{KIND_CODES[kargs[-1]]}>"
-    if family == "prefix" and kind in ("search", "gather"):  # by the draws' order
-        g = str(kind == "gather").lower()
-        return (f"prefix_search_rows_kernel<{g}>" if kargs[-1]
-                else f"prefix_search_tree_kernel<{g}, false>")
-    return KERNEL_NAMES[(family, kind)]
-
-
 def prefix_work(kind, kargs, rows, n, fired) -> tuple:
     """Bytes a prefix-sum wrapper must move (each input read once, each
-    output written once) and its 32-bit operations, on its captured
+    output written once; the plane words at their width, the CDFs, draws
+    and ancestors at 4 bytes) and its 32-bit operations, on its captured
     inputs, of which ``fired`` rows resample (a step's others keep their
     particles): ``(bytes, operations)``."""
     steps = max(1, math.ceil(math.log2(n + 1)))  # every lane bisects this or one less
     elems = rows * n
-    if kind == "scan":
-        return 8 * elems, SCAN_OPS * elems
+    if kind == "scan":  # the input words in, the CDF out
+        return (kargs[0].element_size() + 4) * elems, SCAN_OPS * elems
     if kind == "search":  # CDF and draws in, ancestors out
         return 12 * elems, BISECT_OPS * steps * elems
+    word = kargs[PREFIX_NARROWED[kind][-1]].element_size()  # the state's
     if kind == "gather":  # plus the state (D = 1) in and out
-        return 20 * elems, BISECT_OPS * steps * elems
+        return (12 + 2 * word) * elems, BISECT_OPS * steps * elems
     if kind == "residual":  # two CDFs, the draws, the state; ancestors and state out
-        return 24 * elems, BISECT_OPS * steps * elems
+        return (16 + 2 * word) * elems, BISECT_OPS * steps * elems
     # The step: every row's log-weights and state in, ancestors and state
     # out, and its prelude; a row that resamples also reads its draw bases
     # and runs the scans, the draws and the bisection.
@@ -1332,7 +1374,7 @@ def prefix_work(kind, kargs, rows, n, fired) -> tuple:
     drawn = fired * n
     base = 0 if kargs[2] is None else 4 * drawn
     scans = SCAN_OPS * (3 if residual else 1) + (RESIDUAL_SPLIT_OPS if residual else 0)
-    return (16 * elems + base,
+    return ((4 + 3 * word) * elems + base,
             PRELUDE_OPS * elems + (scans + DRAW_OPS + BISECT_OPS * steps) * drawn)
 
 
@@ -1442,9 +1484,11 @@ def check_kernel(case) -> dict:
     rounds = rejection_rounds(kargs, kind, iters) if family == "rejection" else None
     work = rows * n * iters if rounds is None else int((rounds + 1).sum())
     reps = 20 if work < 2e9 else 4
-    ms = kernel_ms(lambda: wrapper(*kargs), kernel_name(family, kind, kargs), reps)
+    ms = kernel_ms(lambda: wrapper(*kargs), wrapper.kernel_name(*kargs), reps)
     call_ms = time_ms(lambda: wrapper(*kargs), reps)
-    plain_reps = max(1, min(5, int(2e9 // work)))
+    # The plain version warm, in as many calls as fit PLAIN_BUDGET_MS (at
+    # most 5); where its comparison call alone took that long, that call.
+    plain_reps = max(1, min(5, int(PLAIN_BUDGET_MS // max(first_plain_ms, 1e-3))))
     plain_ms = first_plain_ms if plain_reps == 1 else time_ms(plain, plain_reps, warmup=0)
     library = library_call(kind, kargs) if family in ("prefix", "fixtures") else None
     library_ms = None if library is None else time_ms(library, reps)
@@ -1457,12 +1501,12 @@ def check_kernel(case) -> dict:
         # Weights (or log-weights) in and ancestors out; the state in and
         # out (D = 1 on the path) for the fused and step kernels, in plane
         # words (4 or 2 bytes); C1/C2's partition table, read once;
-        # rejection's sup w pass before a rows launch.
+        # rejection's sup w pass (plane words) before a rows launch.
         table = kargs[-4 if kind == "step" else -3] if family.startswith("metropolis_c") else None
         word = kargs[0].element_size()
         n_bytes = rows * n * (word + 4 + (0 if kind == "index" else 2 * word))
         n_bytes += 0 if table is None else 4 * table.numel()
-        n_bytes += 4 * rows * n if family == "rejection" and kind != "step" else 0
+        n_bytes += word * rows * n if family == "rejection" and kind != "step" else 0
         n_ops = work * SWEEP_OPS[family] + rows * n * (PRELUDE_OPS if kind == "step" else 0)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     entry.update(max_abs_err=max_abs_err,
@@ -1479,11 +1523,13 @@ def check_kernel(case) -> dict:
                      row_weights_fit_l2=word * n <= L2_BYTES,
                      bank_weights_fit_l2=word * n * rows <= L2_BYTES)
     elif family.startswith("metropolis_c"):
-        # Every partition tile a block loads is 4 KiB of weights re-read from
-        # L2: once per own tile for C1, once per iteration for C2.
+        # Every partition tile a block loads is 1024 plane words of weights
+        # re-read from L2 (4 KiB, 2 KiB at 2-byte words): once per own tile
+        # for C1, once per iteration for C2.
         table = kargs[-4 if kind == "step" else -3]
         loads = rows * (n // 1024) * (1 if family == "metropolis_c1" else iters)
-        entry.update(partition_l2_bytes=loads * 4096, table_entries=table.numel())
+        entry.update(partition_l2_bytes=loads * 1024 * kargs[0].element_size(),
+                     table_entries=table.numel())
     elif rounds is not None:
         # One sector a round past round 0 that the chains need; the rate is
         # those bytes over the kernel's time.
@@ -1494,8 +1540,8 @@ def check_kernel(case) -> dict:
     if rounds is not None and kind == "step":
         # Not measured: the new schedule's rounds, modelled, on a line of
         # their own.
-        print(f"model {name}: {json.dumps(refill_rounds(rounds, step_warps(rows, n)))}",
-              flush=True)
+        warps = step_warps(rows, n, kargs[0].dtype)
+        print(f"model {name}: {json.dumps(refill_rounds(rounds, warps))}", flush=True)
     return entry
 
 
@@ -1529,13 +1575,14 @@ def divergence(rounds: torch.Tensor, max_iters: int) -> dict:
             "cap_share": float((ran == max_iters).float().mean())}
 
 
-def step_warps(rows: int, n: int) -> int:
+def step_warps(rows: int, n: int, dtype) -> int:
     """Warps of the rejection step's cooperative grid for a bank of rows x
-    n (``rejection_step_grid``)."""
+    n of plane dtype ``dtype`` (``rejection_step_grid``)."""
+    from repro_torch.kernels.common import PLANE_CODES
     from repro_torch.kernels.rejection import rejection as rk
 
     blocks = ctypes.c_int(0)
-    if rk._lib().rejection_step_grid(rows, n, ctypes.byref(blocks)) != 0:
+    if rk._lib().rejection_step_grid(rows, n, PLANE_CODES[dtype], ctypes.byref(blocks)) != 0:
         fail("rejection_step_grid failed")
     return blocks.value * (256 // WARP)
 
@@ -1627,12 +1674,12 @@ def grid_study(case) -> dict:
     else:
         module = {"megopolis": mk, "metropolis": tk, "rejection": rk}[family]
         lib, attr, lead = module._lib(), f"{family}_step_grid", ()
-    # The Megopolis and Metropolis grids take the plane word's code after N.
-    word = (PLANE_CODES[kargs[0].dtype],) if family in ("megopolis", "metropolis") else ()
+    # Every step grid takes the plane word's code after N.
+    word = PLANE_CODES[kargs[0].dtype]
     real = getattr(lib, attr)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(kargs[0].device):
-        if real(*lead, rows, kargs[0].shape[-1], *word, ctypes.byref(blocks)) != 0:
+        if real(*lead, rows, kargs[0].shape[-1], word, ctypes.byref(blocks)) != 0:
             fail(f"{name}: {attr} failed")
     sms = torch.cuda.get_device_properties(kargs[0].device).multi_processor_count
     out = {"blocks": blocks.value, "sms": sms, "ms_by_blocks_per_sm": {}}
@@ -1644,7 +1691,7 @@ def grid_study(case) -> dict:
             return err
         setattr(lib, attr, capped)
         try:
-            ms = kernel_ms(lambda: wrapper(*kargs), kernel_name(family, kind, kargs), 10)
+            ms = kernel_ms(lambda: wrapper(*kargs), wrapper.kernel_name(*kargs), 10)
         finally:
             setattr(lib, attr, real)
         out["ms_by_blocks_per_sm"][per_sm] = ms
@@ -1668,14 +1715,15 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
     from repro_torch.kernels.prefix_sum.ops import draw_bases
     from repro_torch.pf.filter import ParticleFilter, run_filter
 
+    base = family.split("@")[0]
     tables = {"megopolis": lambda k: key_tables(k, n, b), "metropolis": key_to_seed,
               "metropolis_c1": lambda k: c1c2_tables(1, k, n, b, dev),
               "metropolis_c2": lambda k: c1c2_tables(2, k, n, b, dev),
               "rejection": key_to_seed}.get(
-                  family.split("@")[0], lambda k: draw_bases(k[None], n, family, dev))
-    reps = 200
+                  base, lambda k: draw_bases(k[None], n, base, dev))
+    reps = 50
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t_family = t0 = time.perf_counter()
     k = key
     for _ in range(reps):
         k, ks = trandom.split(k)
@@ -1708,11 +1756,11 @@ def step_costs(family, key, n, b, dev, model, spec, obs) -> dict:
         "device_busy_share": device_ms / (wall * 1e3),
         "top_device_ms_per_step": {name[:80]: us / 1e3 / steps for name, us in top},
         "launches_per_step": sum(1 for _ in device_kernels(prof)) / steps,
+        "seconds": time.perf_counter() - t_family,
     }
 
 
-#: The plane dtypes of phase 3's matrix: at the 2-byte ones, the cells of
-#: the families that take them (Megopolis, Metropolis).
+#: The plane dtypes of phase 3's matrix: every cell at each of them.
 CHECK_PLANES = ("float32", "bfloat16", "float16")
 #: The entry a Path A run goes through, by mode: its launch budget per step.
 PATH_A_ENTRIES = {"run_filter/alg6": "apply", "run_filter/conditional": "step",
@@ -1764,8 +1812,11 @@ def contract_checks(dev, wrappers, fk, drive):
     The resource tables (``smem.KERNELS``, ``smem.CARD_LIMITS``) must be the
     card's.  ``--check`` runs with every recorded run profiled: its census
     must equal the count of the port's kernels among the profiler's device
-    events (``witness_census``).  ``--selftest`` must pass, the oversized fixture with no
-    launch."""
+    events (``witness_census``).  The matrix runs once at each dtype of
+    ``CHECK_PLANES``, the 2-byte ones in runs of their own whose launches
+    count under ``<wrapper>@<dtype>``; each compressed cell must launch what
+    its float32 cell does.  ``--selftest`` must pass, the oversized fixture
+    with no launch."""
     from repro_torch.analysis import fixtures as afix
     from repro_torch.analysis import smem
     from repro_torch.analysis.report import build_report, summarise
@@ -1798,26 +1849,35 @@ def contract_checks(dev, wrappers, fk, drive):
         witnessed.append((dict(rec.census), dict(seen)))
 
     port = [w for w in wrappers if w not in fk.WRAPPERS]
-    report = drive("analysis/check", lambda: build_report(device=dev, around=witness,
-                                                          plane_dtypes=CHECK_PLANES), port)
-    print(summarise(report))
+
+    def report_at(dtype):
+        # The float32 report holds every audit; a 2-byte one, the matrix at
+        # that dtype and the transactions repriced at its words.
+        more = dtype == "float32"
+        return build_report(device=dev, around=witness, plane_dtypes=(dtype,), consumers=more,
+                            large_n=more, telemetry=more)
+
+    reports = [drive("analysis/check" + ("" if dt == "float32" else f"@{dt}"),
+                     lambda dt=dt: report_at(dt), port) for dt in CHECK_PLANES]
+    for report in reports:
+        print(summarise(report))
+    matrix = [cell for report in reports for cell in report["matrix"]]
     census = collections.defaultdict(dict)
-    for cell in report["matrix"]:
+    for cell in matrix:
         family, _, entry = cell["cell"].split("/")
         census[family][entry] = cell["launches"]
     print(f"census by entry: {json.dumps(census)}")
     # The compression axis narrows words and never adds a launch: each
     # compressed cell launches what its float32 cell does.
-    launches = {cell["cell"]: cell["launches"] for cell in report["matrix"]}
+    launches = {cell["cell"]: cell["launches"] for cell in matrix}
     axis = {c: (k, launches[c.split("@")[0]]) for c, k in launches.items() if "@" in c}
     moved = {c: v for c, v in axis.items() if v[0] != v[1]}
     print(f"census plane axis: {len(axis)} cells at {CHECK_PLANES[1:]}, {len(moved)} launch "
           f"other than their float32 cell")
-    if not axis or moved:
-        fail(f"compressed cells' launches differ from float32's: {moved}")
-    witness_census(witnessed, lambda: build_report(device=dev, around=witness,
-                                                   plane_dtypes=CHECK_PLANES))
-    if not report["ok"]:
+    if len(axis) != len(launches) * (len(CHECK_PLANES) - 1) // len(CHECK_PLANES) or moved:
+        fail(f"compressed cells missing, or their launches differ from float32's: {moved}")
+    witness_census(witnessed, lambda: [report_at(dt) for dt in CHECK_PLANES])
+    if not all(report["ok"] for report in reports):
         fail("the contract checks failed on the card (see the VIOLATION lines above)")
 
     before = fk.copy_launch.launches
@@ -1838,15 +1898,15 @@ def path_a_census(args, families, results):
     from repro_torch.core.spec import launch_budget
 
     for mode, entry in PATH_A_ENTRIES.items():
-        steps = args.bank_steps if mode.startswith("run_filter_bank") else args.steps
         for family in families:
+            steps = results[f"{mode}/{family}"].get("steps", args.steps)
             got = sum(results[f"{mode}/{family}"]["launches"].values())
             want = launch_budget(family.split("@")[0], entry) * steps
             if got != want:
                 fail(f"{mode}/{family}: {got} port kernel launches, budget x steps {want}")
-    split = {family: {"port_per_step": launch_budget(family.split("@")[0], "step"),
-                      "all_cuda_per_step": results["host_and_device_per_step"][family][
-                          "launches_per_step"]} for family in families}
+    split = {family: {"port_per_step": launch_budget(family, "step"), "all_cuda_per_step":
+                      results["host_and_device_per_step"][family]["launches_per_step"]}
+             for family in results["host_and_device_per_step"]}
     print(f"census path_a: every run at budget x steps; conditional step {json.dumps(split)}")
 
 

@@ -46,8 +46,7 @@ def main(argv=None) -> int:
                     help="comma-separated entry points (default: all)")
     ap.add_argument("--plane-dtypes", type=_csv, default=None,
                     help="comma-separated plane dtypes of the §14 compression axis (default: "
-                         "float32; at bfloat16 and float16 the cells of the families that "
-                         "take them, Megopolis and Metropolis)")
+                         "float32; at bfloat16 and float16 every cell again)")
     ap.add_argument("--no-consumers", action="store_true",
                     help="skip the consumer-program audits")
     ap.add_argument("--no-large-n", action="store_true",

@@ -34,7 +34,6 @@ from repro_torch.analysis.walker import Finding
 from repro_torch.core.resamplers.batched import split_batch_keys
 from repro_torch.core.spec import (
     ENTRY_POINTS,
-    compressed_families,
     contract_cells,
     family_spec,
     launch_budget,
@@ -270,14 +269,13 @@ def audit_matrix(families=None, entries=None, device="cuda", around=None,
     CellReports.  One shared args dict, made before the first cell (so a
     device without a card raises here); cells are independent, so a
     failure in one family still reports every other cell.  ``plane_dtypes``
-    (default float32 alone) adds the DESIGN.md §14 compression axis: at a
-    2-byte dtype, the cells of the families whose kernels take it
-    (``compressed_families``), against the same launch budgets:
+    (default float32 alone) adds the DESIGN.md §14 compression axis: every
+    cell again at each 2-byte dtype, against the same launch budgets:
     compression narrows words, it never adds a launch."""
     args = audit_args(device=device)
     return (audit_cell(name, entry, args, around, dtype)
             for dtype in (plane_dtypes or ("float32",))
-            for name, entry in contract_cells(compressed_families(families, dtype), entries))
+            for name, entry in contract_cells(families, entries))
 
 
 def audit_large_n():

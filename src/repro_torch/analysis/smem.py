@@ -127,30 +127,73 @@ KERNELS = {
     "metropolis_step_rows_kernel<__half>": _step(_METRO, 8, 32, 32),
     # The C1/C2 kernels' static shared memory is their partition tiles (one
     # for C1; C2's ring of five buffers of two in the bank kernel, three of
-    # two in the step, 4 KiB a tile) with the per-chunk table of hash
-    # prefixes and C2's tiles; C2's step opts in above 48 KiB.
-    "metropolis_c1c2_rows_kernel<1, false>": _rows(_C1C2, 0, 32, 6272, "tiles"),
-    "metropolis_c1c2_rows_kernel<1, true>": _rows(_C1C2, 1, 40, 6272, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, false>": _rows(_C1C2, 2, 47, 43136, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, true>": _rows(_C1C2, 3, 48, 43136, "tiles"),
-    "metropolis_c1c2_step_rows_kernel<1>": _step(_C1C2, 4, 57, 6400),
-    "metropolis_c1c2_step_rows_kernel<2>": _step(_C1C2, 5, 64, 26880, optin=True),
-    "rejection_rows_kernel<false>": _rows(_REJ, 0, 31, 1024),
-    "rejection_rows_kernel<true>": _rows(_REJ, 1, 32, 1024),
+    # two in the step; 4 KiB a tile at float32 words, 2 KiB at 2-byte
+    # words) with the per-chunk table of hash prefixes and C2's tiles; C2's
+    # step opts in above 48 KiB.  From here on every kernel has an instance
+    # per plane word too (rejection's and the prefix-sum kernels': the
+    # index-only searches read no plane, and have the float one alone).
+    "metropolis_c1c2_rows_kernel<1, false, float>": _rows(_C1C2, 0, 32, 6272, "tiles"),
+    "metropolis_c1c2_rows_kernel<1, true, float>": _rows(_C1C2, 1, 40, 6272, "tiles"),
+    "metropolis_c1c2_rows_kernel<2, false, float>": _rows(_C1C2, 2, 47, 43136, "tiles"),
+    "metropolis_c1c2_rows_kernel<2, true, float>": _rows(_C1C2, 3, 48, 43136, "tiles"),
+    "metropolis_c1c2_step_rows_kernel<1, float>": _step(_C1C2, 4, 57, 6400),
+    "metropolis_c1c2_step_rows_kernel<2, float>": _step(_C1C2, 5, 64, 26880, optin=True),
+    "metropolis_c1c2_rows_kernel<1, false, __nv_bfloat16>": _rows(_C1C2, 6, 32, 4224, "tiles"),
+    "metropolis_c1c2_rows_kernel<1, true, __nv_bfloat16>": _rows(_C1C2, 7, 40, 4224, "tiles"),
+    "metropolis_c1c2_rows_kernel<2, false, __nv_bfloat16>": _rows(_C1C2, 8, 42, 22656, "tiles"),
+    "metropolis_c1c2_rows_kernel<2, true, __nv_bfloat16>": _rows(_C1C2, 9, 48, 22656, "tiles"),
+    "metropolis_c1c2_step_rows_kernel<1, __nv_bfloat16>": _step(_C1C2, 10, 62, 4352),
+    "metropolis_c1c2_step_rows_kernel<2, __nv_bfloat16>": _step(_C1C2, 11, 64, 14592,
+                                                               optin=True),
+    "metropolis_c1c2_rows_kernel<1, false, __half>": _rows(_C1C2, 12, 32, 4224, "tiles"),
+    "metropolis_c1c2_rows_kernel<1, true, __half>": _rows(_C1C2, 13, 40, 4224, "tiles"),
+    "metropolis_c1c2_rows_kernel<2, false, __half>": _rows(_C1C2, 14, 42, 22656, "tiles"),
+    "metropolis_c1c2_rows_kernel<2, true, __half>": _rows(_C1C2, 15, 48, 22656, "tiles"),
+    "metropolis_c1c2_step_rows_kernel<1, __half>": _step(_C1C2, 16, 62, 4352),
+    "metropolis_c1c2_step_rows_kernel<2, __half>": _step(_C1C2, 17, 64, 14592, optin=True),
     # The rejection step's registers are capped at 48 (5 blocks an SM).
-    "rejection_step_rows_kernel": _step(_REJ, 2, 48, 32),
-    "prefix_scan_rows_kernel": _rows(_PREFIX, 0, 32, 4688, "coop_scan"),
-    # The searches of rising draws, a thread a slot; of the others, one
-    # cooperative launch that writes the rows' trees, then searches.
-    "prefix_search_rows_kernel<false>": _rows(_PREFIX, 1, 16, 0),
-    "prefix_search_rows_kernel<true>": _rows(_PREFIX, 2, 31, 0),
-    "prefix_search_tree_kernel<false, false>": _rows(_PREFIX, 3, 32, 0, "coop_search"),
-    "prefix_search_tree_kernel<true, false>": _rows(_PREFIX, 4, 32, 0, "coop_search"),
-    "prefix_search_tree_kernel<true, true>": _rows(_PREFIX, 5, 32, 0, "coop_search"),
-    "prefix_step_rows_kernel<0>": _step(_PREFIX, 6, 63, 4720),
-    "prefix_step_rows_kernel<1>": _step(_PREFIX, 7, 40, 4720),
-    "prefix_step_rows_kernel<2>": _step(_PREFIX, 8, 40, 4720),
-    "prefix_step_rows_kernel<3>": _step(_PREFIX, 9, 48, 4720),
+    "rejection_rows_kernel<false, float>": _rows(_REJ, 0, 31, 1024),
+    "rejection_rows_kernel<true, float>": _rows(_REJ, 1, 32, 1024),
+    "rejection_step_rows_kernel<float>": _step(_REJ, 2, 48, 32),
+    "rejection_rows_kernel<false, __nv_bfloat16>": _rows(_REJ, 3, 32, 1024),
+    "rejection_rows_kernel<true, __nv_bfloat16>": _rows(_REJ, 4, 32, 1024),
+    "rejection_step_rows_kernel<__nv_bfloat16>": _step(_REJ, 5, 48, 32),
+    "rejection_rows_kernel<false, __half>": _rows(_REJ, 6, 32, 1024),
+    "rejection_rows_kernel<true, __half>": _rows(_REJ, 7, 32, 1024),
+    "rejection_step_rows_kernel<__half>": _step(_REJ, 8, 48, 32),
+    # The prefix-sum scan of an input word; the searches of rising draws, a
+    # thread a slot; of the others, one cooperative launch that writes the
+    # rows' trees, then searches; each copying state words.
+    "prefix_scan_rows_kernel<float>": _rows(_PREFIX, 0, 32, 4688, "coop_scan"),
+    "prefix_search_rows_kernel<false, float>": _rows(_PREFIX, 1, 16, 0),
+    "prefix_search_rows_kernel<true, float>": _rows(_PREFIX, 2, 31, 0),
+    "prefix_search_tree_kernel<false, false, float>": _rows(_PREFIX, 3, 32, 0, "coop_search"),
+    "prefix_search_tree_kernel<true, false, float>": _rows(_PREFIX, 4, 32, 0, "coop_search"),
+    "prefix_search_tree_kernel<true, true, float>": _rows(_PREFIX, 5, 32, 0, "coop_search"),
+    "prefix_step_rows_kernel<0, float>": _step(_PREFIX, 6, 63, 4720),
+    "prefix_step_rows_kernel<1, float>": _step(_PREFIX, 7, 40, 4720),
+    "prefix_step_rows_kernel<2, float>": _step(_PREFIX, 8, 40, 4720),
+    "prefix_step_rows_kernel<3, float>": _step(_PREFIX, 9, 48, 4720),
+    "prefix_scan_rows_kernel<__nv_bfloat16>": _rows(_PREFIX, 10, 32, 4688, "coop_scan"),
+    "prefix_search_rows_kernel<true, __nv_bfloat16>": _rows(_PREFIX, 11, 31, 0),
+    "prefix_search_tree_kernel<true, false, __nv_bfloat16>": _rows(_PREFIX, 12, 32, 0,
+                                                                   "coop_search"),
+    "prefix_search_tree_kernel<true, true, __nv_bfloat16>": _rows(_PREFIX, 13, 32, 0,
+                                                                  "coop_search"),
+    "prefix_step_rows_kernel<0, __nv_bfloat16>": _step(_PREFIX, 14, 63, 4720),
+    "prefix_step_rows_kernel<1, __nv_bfloat16>": _step(_PREFIX, 15, 48, 4720),
+    "prefix_step_rows_kernel<2, __nv_bfloat16>": _step(_PREFIX, 16, 48, 4720),
+    "prefix_step_rows_kernel<3, __nv_bfloat16>": _step(_PREFIX, 17, 48, 4720),
+    "prefix_scan_rows_kernel<__half>": _rows(_PREFIX, 18, 32, 4688, "coop_scan"),
+    "prefix_search_rows_kernel<true, __half>": _rows(_PREFIX, 19, 31, 0),
+    "prefix_search_tree_kernel<true, false, __half>": _rows(_PREFIX, 20, 32, 0,
+                                                            "coop_search"),
+    "prefix_search_tree_kernel<true, true, __half>": _rows(_PREFIX, 21, 32, 0,
+                                                           "coop_search"),
+    "prefix_step_rows_kernel<0, __half>": _step(_PREFIX, 22, 63, 4720),
+    "prefix_step_rows_kernel<1, __half>": _step(_PREFIX, 23, 48, 4720),
+    "prefix_step_rows_kernel<2, __half>": _step(_PREFIX, 24, 48, 4720),
+    "prefix_step_rows_kernel<3, __half>": _step(_PREFIX, 25, 48, 4720),
     "copy_kernel": _rows(_FIX, 0, 32, 0, "resident"),
     "iota_kernel": _rows(_FIX, 1, 32, 0, "resident"),
 }

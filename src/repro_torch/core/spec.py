@@ -5,7 +5,7 @@ rejection and the five prefix-sum kinds: every family of the JAX package).
     spec = MegopolisSpec(num_iters=32)          # backend="cuda"
     spec = RejectionSpec(max_iters=1024)        # no num_iters: a capped loop
     spec = PrefixSumSpec(kind="multinomial")    # no num_iters: one scan, one search
-    spec = MegopolisSpec(plane_dtype="bfloat16")  # 2-byte planes (Megopolis, Metropolis)
+    spec = MegopolisSpec(plane_dtype="bfloat16")  # 2-byte planes (every family)
     r = spec.build()
     ancestors = r(key, weights)
     particles2, ancestors = r.apply(key, weights, particles)
@@ -247,9 +247,6 @@ class ResamplerSpec:
     ``cuda`` backend.  Subclasses add their fields and ``build``."""
 
     name: ClassVar[str] = ""
-    #: Whether the family's kernels take 2-byte planes (``plane_dtype``
-    #: bfloat16 or float16); the others raise ``NotImplementedError``.
-    compressed: ClassVar[bool] = False
 
     def _validate_num_iters(self):
         """The check of the families with an iteration count B."""
@@ -274,12 +271,6 @@ class ResamplerSpec:
         if self.plane_dtype not in PLANE_DTYPES:
             raise ValueError(f"{cls}.plane_dtype must be one of {PLANE_DTYPES}; got "
                              f"{self.plane_dtype!r}")
-        if self.plane_dtype != "float32" and not self.compressed:
-            raise NotImplementedError(
-                f"{cls}.plane_dtype={self.plane_dtype!r} is not ported yet "
-                "(ROADMAP Queue A, item 2: compressed planes; the Megopolis and Metropolis "
-                "kernels take them)"
-            )
         if self.guard in ("flag", "recover"):
             raise NotImplementedError(
                 f"{cls}.guard={self.guard!r} is not ported yet "
@@ -313,7 +304,6 @@ class MegopolisSpec(ResamplerSpec):
     guard: str = "off"
 
     name: ClassVar[str] = "megopolis"
-    compressed: ClassVar[bool] = True
 
     def __post_init__(self):
         self._validate_num_iters()
@@ -411,7 +401,6 @@ class MetropolisSpec(ResamplerSpec):
     guard: str = "off"
 
     name: ClassVar[str] = "metropolis"
-    compressed: ClassVar[bool] = True
 
     def __post_init__(self):
         self._validate_num_iters()
@@ -425,10 +414,10 @@ class MetropolisSpec(ResamplerSpec):
 class _PartitionedSpec(ResamplerSpec):
     """Base of the segment-local variants (Algs. 3-4): each proposal is a
     random lane of one partition tile shared by a tile of 1024 particles.
-    On ``cuda`` the partition is that tile, 1024 f32 = 4096 bytes, as on
-    the TPU; ``warp`` (the threads that share a partition in the paper's
-    cost model) is kept for parity and, as in the JAX package's kernels,
-    not read by them."""
+    On ``cuda`` the partition is that tile, ``partition_size_bytes`` =
+    4096 (1024 f32) at every ``plane_dtype``, as on the TPU; ``warp`` (the
+    threads that share a partition in the paper's cost model) is kept for
+    parity and, as in the JAX package's kernels, not read by them."""
 
     num_iters: Union[int, str] = AUTO
     partition_size_bytes: int = KERNEL_PARTITION_BYTES
@@ -628,18 +617,6 @@ def family_spec(name: str, **fields) -> ResamplerSpec:
     cls, fixed = _family(name)
     own = {f.name for f in dataclasses.fields(cls)}
     return cls(**fixed, **{k: v for k, v in fields.items() if k in own})
-
-
-def compressed_families(families=None, plane_dtype: str = "bfloat16") -> list:
-    """Of ``families`` (default every family), sorted, those whose spec
-    takes ``plane_dtype``: all at float32, Megopolis and Metropolis at the
-    2-byte dtypes (ROADMAP Queue A item 2 carries the rest)."""
-    names = family_names() if families is None else list(families)
-    for name in names:
-        _family(name)
-    if plane_dtype == "float32":
-        return sorted(names)
-    return sorted(name for name in names if FAMILIES[name][0].compressed)
 
 
 def launch_budget(name: str, entry: str) -> int:

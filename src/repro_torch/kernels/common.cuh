@@ -191,13 +191,28 @@ __device__ __forceinline__ StepScratch step_scratch(float* scratch, int rows, in
   return sc;
 }
 
+// A plane word t stored as the word W of a step's weights buffer: t itself,
+// or (W = float) its exact f32 value.
+template <class W>
+struct StoredWord {
+  template <class T>
+  __device__ __forceinline__ static W of(T t) { return t; }
+};
+template <>
+struct StoredWord<float> {
+  template <class T>
+  __device__ __forceinline__ static float of(T t) { return plane_f32(t); }
+};
+
 // The fused step's prelude, shared by every step kernel: step_stats per row
 // (repro_torch/kernels/common.py) over log-weights lw of plane words T, each
 // upcast and flushed (load_plane), the trigger ess_norm < thr, the weights
 // exp(lw - m) (1/N on a degenerate row) rounded to T and written once to
-// sc.wbuf as T (the sweep reads what JAX's w.astype(lw.dtype).astype(f32)
-// gives, in half the bytes at 2-byte words; the stats are of the f32
-// weights, as step_stats(lw.astype(f32))), and the per-iteration hash
+// sc.wbuf as words W (by default T: the sweep reads what JAX's
+// w.astype(lw.dtype).astype(f32) gives, in half the bytes at 2-byte words;
+// W = float stores those values as f32, for a kernel that scans them in
+// place; the stats are of the f32 weights, as step_stats(lw.astype(f32))),
+// and the per-iteration hash
 // prefix hh[s·B + b] = fmix(seeds[s] + b·GOLDEN).  It holds two
 // grid.sync() barriers: one after the per-block maxima, one after the
 // per-block sums.  Per-block partials go to scratch and every block reduces
@@ -206,7 +221,7 @@ __device__ __forceinline__ StepScratch step_scratch(float* scratch, int rows, in
 // degenerate flag, bit 1 the trigger; block 0 has written stats[S, 4] =
 // (ess_norm, incr if fired else 0, fired, max_weight).  At T = float it is
 // the f32 prelude every other step kernel instantiates.
-template <class T>
+template <class T, class W = T>
 __device__ __forceinline__ void step_prelude(cg::grid_group& grid, const T* __restrict__ lw,
                                              const uint32_t* __restrict__ seeds, float thr,
                                              float* __restrict__ stats, const StepScratch& sc,
@@ -246,14 +261,14 @@ __device__ __forceinline__ void step_prelude(cg::grid_group& grid, const T* __re
   // Phase 2: weights and per-block sums.
   for (int s = 0; s < rows; ++s) {
     const T* l = lw + (size_t)s * n;
-    T* wr = reinterpret_cast<T*>(sc.wbuf) + (size_t)s * n;
+    W* wr = reinterpret_cast<W*>(sc.wbuf) + (size_t)s * n;
     const float m = row_m[s];
     const bool deg = row_flag[s] & 1;
     float sraw = 0.0f, s1 = 0.0f, s2 = 0.0f, mx = -INFINITY;
     for (size_t i = gtid; i < (size_t)n; i += gstride) {
       const float e = ftz(expf(ftz(load_plane(l[i]) - m)));
       const float wv = deg ? inv_n : e;
-      wr[i] = to_plane<T>(wv);
+      wr[i] = StoredWord<W>::of(to_plane<T>(wv));
       sraw += e;
       s1 += wv;
       s2 += ftz(__fmul_rn(wv, wv));

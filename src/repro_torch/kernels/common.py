@@ -252,12 +252,15 @@ def gather_state(state: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.gather(state, 2, k.unsqueeze(1).expand(-1, state.shape[1], -1))
 
 
-def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",)):
+def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",),
+               state_planes=None):
     """Validate the arguments every bank kernel takes: weights ``[S, N]`` of
     a dtype of ``planes`` (the plane dtypes the kernel is built for), state
     ``[S, D, N]`` (or None for an index-only kernel; on the card of the
-    weights' dtype) and ``seeds [S]`` (None for the prefix-sum kernels,
-    which take no seed).  Returns ``(S, N, D)`` (D = 0 without state)."""
+    weights' dtype, or with ``state_planes`` of any of those dtypes: the
+    prefix-sum searches take a float32 CDF and copy 2-byte state) and
+    ``seeds [S]`` (None for the prefix-sum kernels, which take no seed).
+    Returns ``(S, N, D)`` (D = 0 without state)."""
     dtypes = tuple(canonical_plane_dtype(p) for p in planes)
     if w.dtype not in dtypes or w.ndim != 2:
         names = "/".join(str(d).removeprefix("torch.") for d in dtypes)
@@ -279,9 +282,13 @@ def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",)):
         if state is not None:
             if state.device != w.device:
                 raise ValueError(f"{who}: state on {state.device}, weights on {w.device}")
-            if state.dtype != w.dtype:
+            if state_planes is None and state.dtype != w.dtype:
                 raise ValueError(f"{who}: the CUDA kernel copies state of the weights' plane "
                                  f"dtype {w.dtype}; got {state.dtype}")
+            if state_planes is not None and state.dtype not in tuple(
+                    canonical_plane_dtype(p) for p in state_planes):
+                raise ValueError(f"{who}: the CUDA kernel copies state of a plane dtype of "
+                                 f"{tuple(state_planes)}; got {state.dtype}")
             if not state.is_contiguous():
                 raise ValueError(f"{who}: state must be contiguous")
     elif state is not None and state.is_cuda:
@@ -315,12 +322,14 @@ def check_launch(err: int, who: str):
         raise KernelLaunchError(f"{who}: CUDA error {err} at launch")
 
 
-def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_iters: int):
+def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_iters: int,
+                 wbuf_word=None):
     """The grid and buffers of one cooperative step launch over ``lw [S,
     N]``: the co-resident block count from the library's ``grid_fn(S, N,
     &blocks)`` on the weights' device, then the outputs and the scratch of
     ``common.cuh``'s ``StepScratch`` layout (its weights buffer of ``S·N``
-    words of ``lw``'s plane dtype), with 16 bytes of slack so that a kernel
+    words of ``lw``'s plane dtype, or of ``wbuf_word`` bytes: the prefix-sum
+    step keeps them as float32), with 16 bytes of slack so that a kernel
     may start its weights buffer on a 16-byte boundary.  Returns
     ``(blocks, ancestors, state', stats, scratch)``."""
     s, n = lw.shape
@@ -332,7 +341,7 @@ def step_buffers(grid_fn, who: str, lw: torch.Tensor, state: torch.Tensor, num_i
     g = blocks.value
     anc = torch.empty((s, n), dtype=torch.int32, device=lw.device)
     stats = torch.empty((s, 4), dtype=torch.float32, device=lw.device)
-    wbuf = -(-s * n * lw.element_size() // 4)
+    wbuf = -(-s * n * (wbuf_word or lw.element_size()) // 4)
     scratch = torch.empty(s * g * 5 + s * num_iters + wbuf + 4, dtype=torch.float32,
                           device=lw.device)
     return g, anc, torch.empty_like(state), stats, scratch
@@ -349,7 +358,7 @@ _DEPTH = [0]
 def kernel_wrapper(kernel):
     """Decorator of a kernel's launch wrapper, the launch census hook.
     ``kernel`` names the CUDA kernel the wrapper launches as the profiler
-    prints it (``megopolis_fused_rows_kernel<true>``), or is a function of
+    prints it (``copy_kernel``), or is a function of
     the call's arguments that gives the name.
 
     While an observer is installed, each call reports one launch to it, on
@@ -357,7 +366,8 @@ def kernel_wrapper(kernel):
     as interpret mode stands for a ``pallas_call``), with the call's
     arguments and outputs; a wrapper called inside another reports nothing.
     While the call runs, ``inside_kernel_wrapper()`` is True.  The
-    wrapper's own ``launches`` count is untouched."""
+    wrapper's own ``launches`` count is untouched.  ``wrapper.kernel_name(
+    *args)`` gives the name a call's launch reports."""
 
     def decorate(fn):
         @functools.wraps(fn)
@@ -369,23 +379,31 @@ def kernel_wrapper(kernel):
                 out = fn(*args, **kwargs)
             finally:
                 _DEPTH[0] -= 1
-            name = kernel(*args, **kwargs) if callable(kernel) else kernel
+            name = wrapper.kernel_name(*args, **kwargs)
             for observer in tuple(_LAUNCH_OBSERVERS):
                 observer.launched(name, wrapper.__name__, args, out)
             return out
 
+        wrapper.kernel_name = kernel if callable(kernel) else lambda *args, **kwargs: kernel
         return wrapper
 
     return decorate
 
 
-def plane_instance(kernel: str, gather=None):
+def plane_word(x: torch.Tensor) -> str:
+    """The CUDA type of a plane tensor's word, as the profiler prints it."""
+    return PLANE_WORDS.get(x.dtype, str(x.dtype))
+
+
+def plane_instance(kernel: str, *lead, of: int = 0):
     """``kernel_wrapper``'s name of a kernel templated on the plane word, as
-    a function of the call: ``kernel<GATHER, word>`` (``kernel<word>``
-    without ``gather``) for the word of the call's first tensor, the
-    weights (``megopolis_fused_rows_kernel<false, __nv_bfloat16>``)."""
-    lead = "" if gather is None else f"{str(gather).lower()}, "
-    return lambda w, *args, **kwargs: f"{kernel}<{lead}{PLANE_WORDS.get(w.dtype, w.dtype)}>"
+    a function of the call: ``kernel<lead..., word>`` for the word of the
+    call's positional argument ``of`` (the weights by default), each
+    template argument of ``lead`` as the profiler prints it (a bool as
+    ``false``/``true``): ``megopolis_fused_rows_kernel<false, __nv_bfloat16>``,
+    ``metropolis_c1c2_rows_kernel<2, true, __half>``."""
+    head = "".join(f"{str(a).lower() if isinstance(a, bool) else a}, " for a in lead)
+    return lambda *args, **kwargs: f"{kernel}<{head}{plane_word(args[of])}>"
 
 
 def inside_kernel_wrapper() -> bool:

@@ -28,11 +28,12 @@
 // bank of S rows, one seed and one table row per row (a single population is
 // a bank of one row).
 //
-//   What bounds it: per row it must move w (4N bytes), the ancestors (4N)
-//   and, with GATHER, the state in and out (8DN); the partition tiles add
-//   4N bytes for C1 and 4·B·N bytes for C2 of reads that hit L2 (C2: 128 MiB
-//   at N = 2^20, B = 32).  The sweep does B·N proposals of about 24 32-bit
-//   operations each (two murmur3 finalizers 16, two lane xors 2, the mask
+//   What bounds it: per row it must move w (4N bytes; 2N at 2-byte plane
+//   words), the ancestors (4N) and, with GATHER, the state in and out (8DN;
+//   4DN); the partition tiles add 4N bytes for C1 and 4·B·N bytes for C2 of
+//   reads that hit L2 (C2: 128 MiB at N = 2^20, B = 32; half at 2 bytes).
+//   The sweep does B·N proposals of about 24 32-bit operations each (two
+//   murmur3 finalizers 16, two lane xors 2, the mask
 //   and the index add 2, shift, conversion and scale 3, product and compare
 //   2, less the modulo Alg. 2 needs): at B = 32, N = 2^20 some 8·10^8
 //   operations, 12 us at 67 T/s, so the operations bound it.
@@ -72,6 +73,19 @@
 //   What bounds it: the bytes of the fused kernel plus one more read of lw,
 //   the same integer work and partition traffic, and the prelude.
 //
+// Plane words (DESIGN.md §14): both kernels are templates on the word T of
+// their weight and state planes, float, __nv_bfloat16 or __half, one
+// instance each, picked by the C entry points' `plane` code (by_plane in
+// ../../common.cuh).  The partition stays one tile of 1024 particles at
+// every word (partition_size_bytes 4096, as in the JAX package): at 2-byte
+// words a tile is 2 KiB, and C2's copies and the byte count each full
+// barrier expects follow sizeof(T) (c2_fill); a wrong count would hang the
+// block on its barrier.  Every weight a sweep reads, its own and the random
+// shared read, is upcast exactly (plane_f32), so the sweep's arithmetic,
+// the hash and the uniforms are the float32 kernel's.  The state is copied
+// as plane words; the step's prelude rounds exp(lw - m) to T and writes it
+// to scratch as T (step_prelude), so C2's ring moves 2-byte tiles there too.
+//
 // Subnormals: every value selection depends on is flushed, as XLA does on
 // the CPU: built with -ftz=true, the sweep's product and comparison flush
 // their operands and results in hardware, so the weights are copied raw
@@ -98,7 +112,8 @@
 #define C2_STEP_STAGES 3  // metropolis_c1c2_step_rows_kernel<2>
 #define C2_STEP_GROUP 2
 
-// A block's shared memory: STAGES buffers of GROUP partition tiles, with a
+// A block's shared memory: STAGES buffers of GROUP partition tiles of plane
+// words T (4 KiB a tile at float32, 2 KiB at 2-byte words), with a
 // full and an empty mbarrier each (C2's ring; C1 keeps its one tile in
 // tile[0][0] and uses no barrier), and the per-chunk table tab[t] =
 // {partition tile of iteration b0 + t (C2), fmix(seed + (b0 + t)·GOLDEN)},
@@ -107,24 +122,24 @@
 // reaches them, so a buffer is refilled when every warp is done with the
 // group two before: the one thread that starts the copies waits for the
 // slowest warp with one group of slack.
-template <int STAGES, int GROUP>
+template <class T, int STAGES, int GROUP>
 struct C1C2Smem {
   static constexpr int AHEAD = STAGES > 1 ? STAGES - 2 : 0;  // in groups
-  __align__(128) float tile[STAGES][GROUP][SEG];
+  __align__(128) T tile[STAGES][GROUP][SEG];
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
   uint2 tab[CHUNK + AHEAD * GROUP];
 };
 
-template <int VARIANT>
+template <int VARIANT, class T>
 using C1C2RowsSmem =
-    C1C2Smem<VARIANT == 1 ? 1 : C2_ROWS_STAGES, VARIANT == 1 ? 1 : C2_ROWS_GROUP>;
-template <int VARIANT>
+    C1C2Smem<T, VARIANT == 1 ? 1 : C2_ROWS_STAGES, VARIANT == 1 ? 1 : C2_ROWS_GROUP>;
+template <int VARIANT, class T>
 using C1C2StepSmem =
-    C1C2Smem<VARIANT == 1 ? 1 : C2_STEP_STAGES, VARIANT == 1 ? 1 : C2_STEP_GROUP>;
+    C1C2Smem<T, VARIANT == 1 ? 1 : C2_STEP_STAGES, VARIANT == 1 ? 1 : C2_STEP_GROUP>;
 
-template <int STAGES, int GROUP>
-__device__ __forceinline__ void c1c2_init(C1C2Smem<STAGES, GROUP>& r) {
+template <class T, int STAGES, int GROUP>
+__device__ __forceinline__ void c1c2_init(C1C2Smem<T, STAGES, GROUP>& r) {
   if constexpr (STAGES > 1) ring_barriers_init(r.full, r.empty);
 }
 
@@ -132,15 +147,17 @@ __device__ __forceinline__ void c1c2_init(C1C2Smem<STAGES, GROUP>& r) {
 // iterations (counted over every own tile it sweeps), tab[0 .. cnt) their
 // table entries, from row wr (16-byte aligned) into buffer u mod STAGES,
 // once every warp is done with that buffer's previous use, group u -
-// STAGES: one bulk copy of 4 KiB a tile.  One thread.
-template <int STAGES, int GROUP>
-__device__ __forceinline__ void c2_fill(C1C2Smem<STAGES, GROUP>& r, uint32_t u, const float* wr,
+// STAGES: one bulk copy of a tile, 1024 words (4 KiB of float32, 2 KiB of a
+// 2-byte word: the byte count the full barrier expects).  One thread.
+template <class T, int STAGES, int GROUP>
+__device__ __forceinline__ void c2_fill(C1C2Smem<T, STAGES, GROUP>& r, uint32_t u, const T* wr,
                                         const uint2* tab, int cnt) {
   const uint32_t st = u % STAGES;
   if (u >= STAGES) mbar_wait(&r.empty[st], (u / STAGES - 1) & 1);
-  mbar_expect(&r.full[st], cnt * SEG * 4);
+  mbar_expect(&r.full[st], cnt * SEG * (uint32_t)sizeof(T));
   for (int g = 0; g < cnt; ++g) {
-    bulk_load(r.tile[st][g], wr + (size_t)tab[g].x * SEG, SEG * 4, &r.full[st]);
+    bulk_load(r.tile[st][g], wr + (size_t)tab[g].x * SEG, SEG * (uint32_t)sizeof(T),
+              &r.full[st]);
   }
 }
 
@@ -155,18 +172,19 @@ struct C1C2Lanes {
   int base;
 };
 
-// Start the sweep of own tile `tile` of a row of n weights `wr` with the
+// Start the sweep of own tile `tile` of a row of n plane words `wr` with the
 // row's partition table `part`; C1 copies its one partition into r.tile[0]
-// here (visible after the sweep's first __syncthreads()).  Raw bits: with
-// -ftz=true the sweep's product and compare flush what they read.
-template <int VARIANT, int STAGES, int GROUP>
-__device__ __forceinline__ void c1c2_start(C1C2Lanes& t, C1C2Smem<STAGES, GROUP>& r,
-                                           const float* wr,
+// here (visible after the sweep's first __syncthreads()).  Raw bits, upcast
+// exactly: with -ftz=true the sweep's product and compare flush what they
+// read.
+template <int VARIANT, class T, int STAGES, int GROUP>
+__device__ __forceinline__ void c1c2_start(C1C2Lanes& t, C1C2Smem<T, STAGES, GROUP>& r,
+                                           const T* wr,
                                            const int* __restrict__ part, int tile) {
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
     t.k[q] = tile * SEG + q * NT + threadIdx.x;
-    t.wk[q] = wr[t.k[q]];
+    t.wk[q] = plane_f32(wr[t.k[q]]);
   }
   t.lane0 = (uint32_t)(tile * SEG + threadIdx.x) * GOLDEN;
   t.base = 0;
@@ -185,13 +203,14 @@ __device__ __forceinline__ void c1c2_start(C1C2Lanes& t, C1C2Smem<STAGES, GROUP>
 // product flushes its operands and result and the compare its operands: no
 // w value needs a separate flush (a kept w[j] is flushed by its next
 // product), and every accept is the plain version's.
-__device__ __forceinline__ void c1c2_iteration(C1C2Lanes& t, const float* x, int base,
+template <class T>
+__device__ __forceinline__ void c1c2_iteration(C1C2Lanes& t, const T* x, int base,
                                                uint32_t h, uint32_t lane_n) {
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
     const uint32_t lane = t.lane0 + (uint32_t)(q * NT) * GOLDEN;
     const int jl = (int)(fmix(h ^ lane) & (SEG - 1));  // U{0, N_w - 1}
-    const float wj = x[jl];                            // a random shared read
+    const float wj = plane_f32(x[jl]);                 // a random shared read
     const float u = bits_to_uniform(fmix(h ^ (lane + lane_n)));
     if (__fmul_rn(u, t.wk[q]) <= wj) {  // u <= w[j] / w[k]
       t.k[q] = base + jl;
@@ -212,12 +231,12 @@ __device__ __forceinline__ void c1c2_iteration(C1C2Lanes& t, const float* x, int
 // __syncthreads() per iteration.  `seq` counts the block's groups over
 // every own tile it sweeps, so the ring's phases carry on from one tile to
 // the next.  Every thread of the block calls it.
-template <int VARIANT, int STAGES, int GROUP>
-__device__ __forceinline__ void c1c2_sweep(C1C2Lanes& t, C1C2Smem<STAGES, GROUP>& r,
-                                           uint32_t& seq, const float* wr,
+template <int VARIANT, class T, int STAGES, int GROUP>
+__device__ __forceinline__ void c1c2_sweep(C1C2Lanes& t, C1C2Smem<T, STAGES, GROUP>& r,
+                                           uint32_t& seq, const T* wr,
                                            const int* __restrict__ part, const uint32_t* hh,
                                            uint32_t seed, int tile, int n, int iters) {
-  constexpr int AHEAD = C1C2Smem<STAGES, GROUP>::AHEAD;
+  constexpr int AHEAD = C1C2Smem<T, STAGES, GROUP>::AHEAD;
   const int tid = threadIdx.x;
   const uint32_t lane_n = (uint32_t)n * GOLDEN;
   const int groups = (iters + GROUP - 1) / GROUP;
@@ -268,10 +287,11 @@ __device__ __forceinline__ void c1c2_sweep(C1C2Lanes& t, C1C2Smem<STAGES, GROUP>
 }
 
 // The ancestors (the identity unless `keep`) and, with d > 0, the state copy
-// of the thread's particles of one own tile of row s.
+// (plane words, bit moves) of the thread's particles of one own tile of row s.
+template <class T>
 __device__ __forceinline__ void c1c2_commit(const C1C2Lanes& t, int* __restrict__ anc,
-                                            const float* __restrict__ state,
-                                            float* __restrict__ out, int s, int tile, int n,
+                                            const T* __restrict__ state,
+                                            T* __restrict__ out, int s, int tile, int n,
                                             int d, bool keep) {
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
@@ -287,16 +307,16 @@ __device__ __forceinline__ void c1c2_commit(const C1C2Lanes& t, int* __restrict_
 
 // Grid (T, S): block (t, s) sweeps own tile t of row s.  C2 needs w on a
 // 16-byte boundary (the wrappers check it).
-template <int VARIANT, bool GATHER>
+template <int VARIANT, bool GATHER, class T>
 __global__ void __launch_bounds__(NT) metropolis_c1c2_rows_kernel(
-    const float* __restrict__ w, const float* __restrict__ state,
+    const T* __restrict__ w, const T* __restrict__ state,
     const int* __restrict__ parts, const uint32_t* __restrict__ seeds, int* __restrict__ anc,
-    float* __restrict__ out, int n, int d, int iters) {
-  __shared__ C1C2RowsSmem<VARIANT> sm;
+    T* __restrict__ out, int n, int d, int iters) {
+  __shared__ C1C2RowsSmem<VARIANT, T> sm;
   c1c2_init(sm);
   const int s = blockIdx.y;
   const int tile = blockIdx.x;
-  const float* wr = w + (size_t)s * n;
+  const T* wr = w + (size_t)s * n;
   const int* part = parts + (size_t)s * (n / SEG) * (VARIANT == 1 ? 1 : iters);
   C1C2Lanes t;
   c1c2_start<VARIANT>(t, sm, wr, part, tile);
@@ -305,17 +325,17 @@ __global__ void __launch_bounds__(NT) metropolis_c1c2_rows_kernel(
   c1c2_commit(t, anc, state, out, s, tile, n, GATHER ? d : 0, true);
 }
 
-template <int VARIANT>
+template <int VARIANT, class T>
 __global__ void __launch_bounds__(NT) metropolis_c1c2_step_rows_kernel(
-    const float* __restrict__ lw, const float* __restrict__ state,
+    const T* __restrict__ lw, const T* __restrict__ state,
     const int* __restrict__ parts, const uint32_t* __restrict__ seeds, float thr,
-    int* __restrict__ anc, float* __restrict__ out, float* __restrict__ stats,
+    int* __restrict__ anc, T* __restrict__ out, float* __restrict__ stats,
     float* __restrict__ scratch, int rows, int n, int d, int iters) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m per row
   int* row_flag = (int*)(row_m + rows);     // [rows] bit 0: degenerate, bit 1: do
   __shared__ float red[NT / 32];
-  __shared__ C1C2StepSmem<VARIANT> sm;
+  __shared__ C1C2StepSmem<VARIANT, T> sm;
   StepScratch sc = step_scratch(scratch, rows, gridDim.x, iters);
   // The bulk copies read wbuf in whole 16-byte words: its start is rounded
   // up (the wrapper's scratch has the slack).
@@ -328,14 +348,16 @@ __global__ void __launch_bounds__(NT) metropolis_c1c2_step_rows_kernel(
 
   // The sweep over (row, own tile) pairs, so that a block owns whole tiles
   // and their partitions, then commit (selection or identity) and state
-  // copy; C2's ring continues from pair to pair.
+  // copy; C2's ring continues from pair to pair.  The sweep reads the
+  // requantised weights as T.
+  const T* wbuf = reinterpret_cast<const T*>(sc.wbuf);
   const int tiles = n / SEG;
   const size_t pairs = (size_t)rows * tiles;
   uint32_t seq = 0;
   for (size_t q = blockIdx.x; q < pairs; q += gridDim.x) {
     const int s = (int)(q / tiles);
     const int tile = (int)(q % tiles);
-    const float* wr = sc.wbuf + (size_t)s * n;
+    const T* wr = wbuf + (size_t)s * n;
     const int* part = parts + (size_t)s * tiles * (VARIANT == 1 ? 1 : iters);
     C1C2Lanes t;
     if (VARIANT == 1) __syncthreads();  // the previous tile's partition is no longer read
@@ -349,97 +371,117 @@ __global__ void __launch_bounds__(NT) metropolis_c1c2_step_rows_kernel(
   }
 }
 
-template <int VARIANT, bool GATHER>
+template <int VARIANT, bool GATHER, class T>
 static int launch_rows(const void* w, const void* state, const void* parts,
                        const void* seeds, void* anc, void* out, int rows, int n, int d,
                        int iters, void* stream) {
   dim3 grid(n / SEG, rows);
-  metropolis_c1c2_rows_kernel<VARIANT, GATHER><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (const float*)state, (const int*)parts, (const uint32_t*)seeds,
-      (int*)anc, (float*)out, n, d, iters);
+  metropolis_c1c2_rows_kernel<VARIANT, GATHER, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const T*)w, (const T*)state, (const int*)parts, (const uint32_t*)seeds, (int*)anc,
+      (T*)out, n, d, iters);
   return (int)cudaGetLastError();
 }
 
-template <int VARIANT>
+template <int VARIANT, class T>
 static int launch_step(const void* lw, const void* state, const void* parts, const void* seeds,
                        float thr, void* anc, void* out, void* stats, void* scratch, int rows,
                        int n, int d, int iters, int blocks, void* stream) {
-  const float* a_lw = (const float*)lw;
-  const float* a_state = (const float*)state;
+  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T>;
+  const T* a_lw = (const T*)lw;
+  const T* a_state = (const T*)state;
   const int* a_parts = (const int*)parts;
   const uint32_t* a_seeds = (const uint32_t*)seeds;
   int* a_anc = (int*)anc;
-  float* a_out = (float*)out;
+  T* a_out = (T*)out;
   float* a_stats = (float*)stats;
   float* a_scratch = (float*)scratch;
   void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_parts, (void*)&a_seeds,
                   (void*)&thr, (void*)&a_anc, (void*)&a_out, (void*)&a_stats,
                   (void*)&a_scratch, (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
-  const int err = smem_optin(metropolis_c1c2_step_rows_kernel<VARIANT>, step_smem_bytes(rows));
+  const int err = smem_optin(kernel, step_smem_bytes(rows));
   if (err != 0) return err;
-  return coop_step_launch(metropolis_c1c2_step_rows_kernel<VARIANT>, blocks, rows, args,
-                          stream);
+  return coop_step_launch(kernel, blocks, rows, args, stream);
 }
 
-template <int VARIANT>
+template <int VARIANT, class T>
 static int step_grid(int rows, int n, int* blocks) {
-  const int err = smem_optin(metropolis_c1c2_step_rows_kernel<VARIANT>, step_smem_bytes(rows));
+  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T>;
+  const int err = smem_optin(kernel, step_smem_bytes(rows));
   if (err != 0) return err;
-  return coop_step_grid(metropolis_c1c2_step_rows_kernel<VARIANT>, rows, n, blocks);
+  return coop_step_grid(kernel, rows, n, blocks);
 }
 
-template <int VARIANT>
+template <int VARIANT, class T>
 static int step_attributes(int dynamic_smem, int* out) {
-  const int err = smem_optin(metropolis_c1c2_step_rows_kernel<VARIANT>, (size_t)dynamic_smem);
+  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T>;
+  const int err = smem_optin(kernel, (size_t)dynamic_smem);
   if (err != 0) return err;
-  return kernel_attributes(metropolis_c1c2_step_rows_kernel<VARIANT>, dynamic_smem, out);
+  return kernel_attributes(kernel, dynamic_smem, out);
 }
 
 extern "C" {
+
+// Each entry point takes `plane`, the code of the weights' and the state's
+// plane word (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh), and
+// launches that instance.
 
 // The sweep of a bank: ancestors, and the state copy when state is not null.
 // variant 1 (C1) or 2 (C2); n % 1024 == 0.
 int metropolis_c1c2_rows(int variant, const void* w, const void* state, const void* parts,
                          const void* seeds, void* anc, void* out, int rows, int n, int d,
-                         int iters, void* stream) {
-  if (variant == 1) {
-    return state ? launch_rows<1, true>(w, state, parts, seeds, anc, out, rows, n, d, iters,
-                                        stream)
-                 : launch_rows<1, false>(w, state, parts, seeds, anc, out, rows, n, 0, iters,
-                                         stream);
-  }
-  return state ? launch_rows<2, true>(w, state, parts, seeds, anc, out, rows, n, d, iters,
-                                      stream)
-               : launch_rows<2, false>(w, state, parts, seeds, anc, out, rows, n, 0, iters,
-                                       stream);
+                         int iters, int plane, void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    if (variant == 1) {
+      return state ? launch_rows<1, true, T>(w, state, parts, seeds, anc, out, rows, n, d,
+                                             iters, stream)
+                   : launch_rows<1, false, T>(w, state, parts, seeds, anc, out, rows, n, 0,
+                                              iters, stream);
+    }
+    return state ? launch_rows<2, true, T>(w, state, parts, seeds, anc, out, rows, n, d, iters,
+                                           stream)
+                 : launch_rows<2, false, T>(w, state, parts, seeds, anc, out, rows, n, 0,
+                                            iters, stream);
+  });
 }
 
-int metropolis_c1c2_step_grid(int variant, int rows, int n, int* blocks) {
-  return variant == 1 ? step_grid<1>(rows, n, blocks) : step_grid<2>(rows, n, blocks);
+int metropolis_c1c2_step_grid(int variant, int rows, int n, int plane, int* blocks) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    return variant == 1 ? step_grid<1, T>(rows, n, blocks) : step_grid<2, T>(rows, n, blocks);
+  });
 }
 
 int metropolis_c1c2_step_rows(int variant, const void* lw, const void* state,
                               const void* parts, const void* seeds, float thr, void* anc,
                               void* out, void* stats, void* scratch, int rows, int n, int d,
-                              int iters, int blocks, void* stream) {
-  return variant == 1 ? launch_step<1>(lw, state, parts, seeds, thr, anc, out, stats, scratch,
-                                       rows, n, d, iters, blocks, stream)
-                      : launch_step<2>(lw, state, parts, seeds, thr, anc, out, stats, scratch,
-                                       rows, n, d, iters, blocks, stream);
+                              int iters, int blocks, int plane, void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    return variant == 1 ? launch_step<1, T>(lw, state, parts, seeds, thr, anc, out, stats,
+                                            scratch, rows, n, d, iters, blocks, stream)
+                        : launch_step<2, T>(lw, state, parts, seeds, thr, anc, out, stats,
+                                            scratch, rows, n, d, iters, blocks, stream);
+  });
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py (6·plane + 0-3: the bank kernels <1, false>,
+// <1, true>, <2, false>, <2, true>; + 4, + 5: the steps <1>, <2>):
+// kernel_attributes' four numbers.
 int c1c2_attributes(int which, int dynamic_smem, int* out) {
-  switch (which) {
-    case 0: return kernel_attributes(metropolis_c1c2_rows_kernel<1, false>, dynamic_smem, out);
-    case 1: return kernel_attributes(metropolis_c1c2_rows_kernel<1, true>, dynamic_smem, out);
-    case 2: return kernel_attributes(metropolis_c1c2_rows_kernel<2, false>, dynamic_smem, out);
-    case 3: return kernel_attributes(metropolis_c1c2_rows_kernel<2, true>, dynamic_smem, out);
-    case 4: return step_attributes<1>(dynamic_smem, out);
-    case 5: return step_attributes<2>(dynamic_smem, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_plane(which / 6, [&](auto word) {
+    using T = decltype(word);
+    const int d = dynamic_smem;
+    switch (which % 6) {
+      case 0: return kernel_attributes(metropolis_c1c2_rows_kernel<1, false, T>, d, out);
+      case 1: return kernel_attributes(metropolis_c1c2_rows_kernel<1, true, T>, d, out);
+      case 2: return kernel_attributes(metropolis_c1c2_rows_kernel<2, false, T>, d, out);
+      case 3: return kernel_attributes(metropolis_c1c2_rows_kernel<2, true, T>, d, out);
+      case 4: return step_attributes<1, T>(dynamic_smem, out);
+      default: return step_attributes<2, T>(dynamic_smem, out);
+    }
+  });
 }
 
 }  // extern "C"

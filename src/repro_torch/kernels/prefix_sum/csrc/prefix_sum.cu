@@ -120,6 +120,21 @@
 //   took 0.639 ms against 0.858 at S = 16 and 0.075 against 0.103 at S = 1;
 //   residual stayed within 1% (its random slots are few, and the tree's
 //   build costs about what their search saves) (PERF.md).
+//
+// Plane words (DESIGN.md §14): only the scan's input travels compressed, as
+// in the JAX package; the CDF it emits, the draws, the bisection bounds and
+// residual's counts and residuals stay f32, so every bisection boundary is
+// the float32 kernels' on the same (quantised) weights.  Each kernel is a
+// template on a plane word T, float, __nv_bfloat16 or __half, picked by the
+// C entry points' `plane` code (by_plane in ../../common.cuh):
+// prefix_scan_rows_kernel<T> on its input (upcast exactly on load;
+// residual's count and residual scans take the float instance), the search
+// kernels on the state they copy (a copy does no arithmetic; the index-only
+// searches have the float instance alone), prefix_step_rows_kernel<KIND, T>
+// on its log-weights and state: the prelude writes exp(lw - m) rounded to T
+// as exact f32 values (step_prelude<T, float>), so the rest of the step, the
+// scan in place among it, is the float32 instance's code; a buffer of T
+// words would need the CDF beside it and took more registers (PERF.md §6).
 
 #include "../../common.cuh"
 
@@ -153,6 +168,27 @@ __device__ __forceinline__ float4 add4(float4 a, float c) {
 __device__ __forceinline__ float4 load4(const float* p, bool vec) {
   if (vec) return *reinterpret_cast<const float4*>(p);
   return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// The 2-byte plane word in the low 16 bits of b.
+__device__ __forceinline__ __nv_bfloat16 word_bits(uint32_t b, __nv_bfloat16) {
+  return __ushort_as_bfloat16((unsigned short)b);
+}
+__device__ __forceinline__ __half word_bits(uint32_t b, __half) {
+  return __ushort_as_half((unsigned short)b);
+}
+
+// Four 2-byte plane words upcast exactly, as one 8-byte access when vec
+// (the words split from its two halves in registers).
+template <class T>
+__device__ __forceinline__ float4 load4(const T* p, bool vec) {
+  static_assert(sizeof(T) == 2, "a 2-byte plane word");
+  if (vec) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    return make_float4(plane_f32(word_bits(r.x, T{})), plane_f32(word_bits(r.x >> 16, T{})),
+                       plane_f32(word_bits(r.y, T{})), plane_f32(word_bits(r.y >> 16, T{})));
+  }
+  return make_float4(plane_f32(p[0]), plane_f32(p[1]), plane_f32(p[2]), plane_f32(p[3]));
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
@@ -229,22 +265,25 @@ __device__ __forceinline__ float fold(const float* buf, int cnt, float c) {
   return c;
 }
 
-// The tiled scan of rows [rows, n] from x into y (y may be x), with the tile
-// totals in tot [rows, n / TILE]; rows for which skip(r) holds are left
-// alone.  Every block of the grid calls it (one grid.sync()).  Block b owns
+// The tiled scan of rows [rows, n] of plane words X from x into f32 y (y
+// may be x at X = float), with the tile totals in tot [rows, n / TILE]; rows
+// for which skip(r) holds are left alone.  Every block of the grid calls it
+// (one grid.sync()).  Block b owns
 // tiles [Q·b / G, Q·(b + 1) / G) of the Q in the bank (Q < 2^21: S·N <
 // 2^31); it reads x and writes y only there, so the scan may run in place.
 // The span's last tile stays in registers across the barrier.  On return a
 // block has finished its own tiles; the caller syncs the grid before reading
 // another block's.
-template <class Skip>
-__device__ void scan_rows(cg::grid_group& grid, const float* x, float* y, float* tot, int rows,
+template <class X, class Skip>
+__device__ void scan_rows(cg::grid_group& grid, const X* x, float* y, float* tot, int rows,
                           int n, ScanSmem& sm, Skip skip) {
   const int T = n / TILE;
   const int tiles = rows * T;
   const int q0 = (int)((long long)tiles * blockIdx.x / gridDim.x);
   const int q1 = (int)((long long)tiles * (blockIdx.x + 1) / gridDim.x);
-  const bool vec = (((uintptr_t)x | (uintptr_t)y) & 15) == 0;
+  // A thread's four input words are 4·sizeof(X) bytes, its four outputs 16.
+  const bool vec = sizeof(X) == 4 ? (((uintptr_t)x | (uintptr_t)y) & 15) == 0
+                                  : (((uintptr_t)x & 7) | ((uintptr_t)y & 15)) == 0;
   const int e4 = 4 * threadIdx.x;
   float4 kept = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int q = q0; q < q1; ++q) {
@@ -291,7 +330,8 @@ __device__ void scan_rows(cg::grid_group& grid, const float* x, float* y, float*
 
 // 8 blocks per SM (at most 32 registers): 1056 co-resident blocks, so at S =
 // 1, N = 2^20 each of the 1024 tiles has a block of its own.
-__global__ void __launch_bounds__(NT, 8) prefix_scan_rows_kernel(const float* x, float* y,
+template <class T>
+__global__ void __launch_bounds__(NT, 8) prefix_scan_rows_kernel(const T* x, float* y,
                                                                  float* tot, int rows, int n) {
   cg::grid_group grid = cg::this_grid();
   __shared__ ScanSmem sm;
@@ -319,11 +359,12 @@ __device__ __forceinline__ int bisect(const float* c, float u, bool right, int n
 }
 
 // One thread per slot: slot i bisects its row's CDF at u (draws that rise
-// with i, so a warp's 32 paths coincide but for their last steps).
-template <bool GATHER>
+// with i, so a warp's 32 paths coincide but for their last steps); T is the
+// word of the state it copies.
+template <bool GATHER, class T>
 __global__ void __launch_bounds__(NT) prefix_search_rows_kernel(
-    const float* __restrict__ cdf, const float* __restrict__ u, const float* __restrict__ state,
-    int* __restrict__ anc, float* __restrict__ out, int n, int d, int right) {
+    const float* __restrict__ cdf, const float* __restrict__ u, const T* __restrict__ state,
+    int* __restrict__ anc, T* __restrict__ out, int n, int d, int right) {
   const int s = blockIdx.y;
   const int i = blockIdx.x * NT + threadIdx.x;
   if (i >= n) return;
@@ -473,12 +514,12 @@ __device__ __forceinline__ void build_trees(const float* c, float* tree, int row
 // sweeping the bank in order (so one or two rows' CDFs, trees and states
 // are the L2 working set).  RESIDUAL: slot i < n_det[s] bisects the count
 // CDF at (float)i as prefix_search_rows_kernel does (those draws rise with
-// i); the tree is the residual CDF's.
-template <bool GATHER, bool RESIDUAL>
+// i); the tree is the residual CDF's.  T is the word of the state it copies.
+template <bool GATHER, bool RESIDUAL, class T>
 __global__ void __launch_bounds__(NT) prefix_search_tree_kernel(
     const float* __restrict__ cdf, const float* __restrict__ cc, const float* __restrict__ u,
-    const int* __restrict__ n_det, const float* __restrict__ state, int* __restrict__ anc,
-    float* __restrict__ out, float* tree, int rows, int n, int d, int right) {
+    const int* __restrict__ n_det, const T* __restrict__ state, int* __restrict__ anc,
+    T* __restrict__ out, float* tree, int rows, int n, int d, int right) {
   cg::grid_group grid = cg::this_grid();
   const int groups = tree_groups(n);
   build_trees<true>(cdf, tree, rows, n, groups, [](int) { return false; });
@@ -514,12 +555,23 @@ __global__ void __launch_bounds__(NT) prefix_search_tree_kernel(
 // blocks per SM, 8 bytes spilled), faster on a bank of 16 than 48 or free
 // by 8-21% and slower on one row by 5-7%; residual keeps its 48 (5), the
 // count it had before the scan held four elements a thread in registers.
-template <int KIND>
-__global__ void __launch_bounds__(NT, KIND == 0 ? 4 : (KIND == 3 ? 5 : 6))
+// The 2-byte instances (T, the word of lw and the state) take their own
+// (StepBlocks): capped at 40 as float32's, systematic and stratified spilled
+// 28 bytes, so they keep 48 (5 blocks an SM, no spill; PERF.md §6).
+#define STEP_BLOCKS_1_2 6     // prefix_step_rows_kernel<1 or 2, float>
+#define STEP_BLOCKS_1_2_2B 5  // prefix_step_rows_kernel<1 or 2, __nv_bfloat16 / __half>
+template <int KIND, class T>
+struct StepBlocks {
+  static constexpr int value =
+      KIND == 0 ? 4 : (KIND == 3 ? 5 : (sizeof(T) == 4 ? STEP_BLOCKS_1_2 : STEP_BLOCKS_1_2_2B));
+};
+
+template <int KIND, class T>
+__global__ void __launch_bounds__(NT, StepBlocks<KIND, T>::value)
     prefix_step_rows_kernel(
-    const float* __restrict__ lw, const float* __restrict__ state,
+    const T* __restrict__ lw, const T* __restrict__ state,
     const float* __restrict__ ubase, const float* __restrict__ u0, float thr,
-    int* __restrict__ anc, float* __restrict__ out, float* __restrict__ stats,
+    int* __restrict__ anc, T* __restrict__ out, float* __restrict__ stats,
     float* __restrict__ scratch, float* work, int rows, int n, int d) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m; residual: then n_det
@@ -527,21 +579,21 @@ __global__ void __launch_bounds__(NT, KIND == 0 ? 4 : (KIND == 3 ? 5 : 6))
   __shared__ float red[NT / 32];
   __shared__ ScanSmem sm;
   const StepScratch sc = step_scratch(scratch, rows, gridDim.x, 0);
-  step_prelude(grid, lw, nullptr, thr, stats, sc, row_m, row_flag, red, rows, n, 0);
+  step_prelude<T, float>(grid, lw, nullptr, thr, stats, sc, row_m, row_flag, red, rows, n, 0);
 
   // The indices below are formed after the scan, so that none is held in a
   // register across it.  work: the random draws' search trees first (KIND
   // 0 and 3, tree_row_floats(n) floats a row), then the scans' space.
   constexpr bool TREE = KIND == 0 || KIND == 3;
   float* scan_work = TREE ? work + rows * tree_row_floats(n) : work;
-  float* w = sc.wbuf;  // exp(lw - m), 1/N on a degenerate row
+  float* w = sc.wbuf;  // exp(lw - m) on T's grid, 1/N on a degenerate row
   float* cdf;          // the CDF the draws are scaled from and searched
   float* cc = nullptr;
   if (KIND != 3) {
     scan_rows(grid, w, w, scan_work, rows, n, sm, [&](int r) { return !(row_flag[r] & 2); });
     cdf = w;
   } else {
-    const int T = n / TILE;
+    const int nt = n / TILE;  // tiles a row
     const size_t sn = (size_t)rows * n;
     const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
     const size_t gstride = (size_t)gridDim.x * NT;
@@ -549,8 +601,8 @@ __global__ void __launch_bounds__(NT, KIND == 0 ? 4 : (KIND == 3 ? 5 : 6))
     float* cw = scan_work;
     cc = cw + sn;                  // counts, then their CDF
     cdf = cc + sn;                 // residuals, then their CDF
-    float* tot = cdf + sn;         // [2·rows, T]
-    float* part = tot + 2 * (size_t)rows * T;  // [rows, gridDim.x]
+    float* tot = cdf + sn;         // [2·rows, nt]
+    float* part = tot + 2 * (size_t)rows * nt;  // [rows, gridDim.x]
     scan_rows(grid, w, cw, tot, rows, n, sm, [&](int r) { return !(row_flag[r] & 2); });
     grid.sync();
     for (int s = 0; s < rows; ++s) {
@@ -621,132 +673,174 @@ __global__ void __launch_bounds__(NT, KIND == 0 ? 4 : (KIND == 3 ? 5 : 6))
   }
 }
 
-// The step kernel of each KIND.
+// The step kernel of each KIND at plane word T.
+template <class T>
 static const void* step_kernel(int kind) {
   switch (kind) {
-    case 0: return (const void*)prefix_step_rows_kernel<0>;
-    case 1: return (const void*)prefix_step_rows_kernel<1>;
-    case 2: return (const void*)prefix_step_rows_kernel<2>;
-    case 3: return (const void*)prefix_step_rows_kernel<3>;
+    case 0: return (const void*)prefix_step_rows_kernel<0, T>;
+    case 1: return (const void*)prefix_step_rows_kernel<1, T>;
+    case 2: return (const void*)prefix_step_rows_kernel<2, T>;
+    case 3: return (const void*)prefix_step_rows_kernel<3, T>;
     default: return nullptr;
   }
 }
 
-// The tree search kernel of an instance.
+// The tree search kernel of an instance (the index-only one at float alone).
+template <class T>
 static const void* tree_kernel(bool residual, bool gather) {
-  if (residual) return (const void*)prefix_search_tree_kernel<true, true>;
-  if (gather) return (const void*)prefix_search_tree_kernel<true, false>;
-  return (const void*)prefix_search_tree_kernel<false, false>;
+  if (residual) return (const void*)prefix_search_tree_kernel<true, true, T>;
+  if (gather) return (const void*)prefix_search_tree_kernel<true, false, T>;
+  return (const void*)prefix_search_tree_kernel<false, false, float>;
+}
+
+// The scan kernel reading plane words T.
+template <class T>
+static const void* scan_kernel() {
+  return (const void*)prefix_scan_rows_kernel<T>;
 }
 
 extern "C" {
 
+// Each entry point takes `plane`, the code of a plane word (PLANE_F32,
+// PLANE_BF16, PLANE_F16 in ../../common.cuh): the scan's input, the
+// searches' state, the step's log-weights and state.
+
 // Blocks of the cooperative scan grid: as many as can be co-resident, and
 // no more than the bank has tiles.
-int prefix_scan_grid(int rows, int n, int* blocks) {
-  return resident_blocks(prefix_scan_rows_kernel, 0, (long long)rows * (n / TILE), blocks);
+int prefix_scan_grid(int rows, int n, int plane, int* blocks) {
+  return by_plane(plane, [&](auto word) {
+    return resident_blocks(scan_kernel<decltype(word)>(), 0, (long long)rows * (n / TILE),
+                           blocks);
+  });
 }
 
-int prefix_scan_rows(const void* x, void* y, void* tot, int rows, int n, int blocks,
+int prefix_scan_rows(const void* x, void* y, void* tot, int rows, int n, int blocks, int plane,
                      void* stream) {
-  const float* a_x = (const float*)x;
-  float* a_y = (float*)y;
-  float* a_tot = (float*)tot;
-  void* args[] = {(void*)&a_x, (void*)&a_y, (void*)&a_tot, (void*)&rows, (void*)&n};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)prefix_scan_rows_kernel,
-                                                dim3(blocks), dim3(NT), args, 0,
-                                                (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return by_plane(plane, [&](auto word) {
+    float* a_y = (float*)y;
+    float* a_tot = (float*)tot;
+    void* args[] = {(void*)&x, (void*)&a_y, (void*)&a_tot, (void*)&rows, (void*)&n};
+    cudaError_t err = cudaLaunchCooperativeKernel(scan_kernel<decltype(word)>(), dim3(blocks),
+                                                  dim3(NT), args, 0, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  });
 }
 
 // Floats of one row's search tree.
 long long prefix_search_tree_floats(int n) { return tree_row_floats(n); }
 
 // The search over a bank: with state (not null) the copy of each
-// ancestor's state.  With neither tree nor cc, one thread a slot
-// (prefix_search_rows_kernel, for draws that rise with i); else one
-// cooperative launch of prefix_search_tree_kernel on a co-resident grid,
-// with cc (not null) the residual select and tree scratch of tree_floats
-// floats, at least a tree a row (prefix_search_tree_floats).
+// ancestor's state, of plane word `plane`.  With neither tree nor cc, one
+// thread a slot (prefix_search_rows_kernel, for draws that rise with i);
+// else one cooperative launch of prefix_search_tree_kernel on a co-resident
+// grid, with cc (not null) the residual select and tree scratch of
+// tree_floats floats, at least a tree a row (prefix_search_tree_floats).
 int prefix_search_rows(const void* cdf, const void* cc, const void* u, const void* n_det,
                        const void* state, void* anc, void* out, void* tree,
-                       long long tree_floats, int rows, int n, int d, int right,
+                       long long tree_floats, int rows, int n, int d, int right, int plane,
                        void* stream) {
-  const float* a_cdf = (const float*)cdf;
-  const float* a_cc = (const float*)cc;
-  const float* a_u = (const float*)u;
-  const int* a_nd = (const int*)n_det;
-  const float* a_state = (const float*)state;
-  int* a_anc = (int*)anc;
-  float* a_out = (float*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (tree == nullptr && cc == nullptr) {
-    dim3 grid((n + NT - 1) / NT, rows);
-    if (state != nullptr) {
-      prefix_search_rows_kernel<true><<<grid, NT, 0, st>>>(a_cdf, a_u, a_state, a_anc, a_out, n,
-                                                           d, right);
-    } else {
-      prefix_search_rows_kernel<false><<<grid, NT, 0, st>>>(a_cdf, a_u, a_state, a_anc, a_out,
-                                                            n, d, right);
+  return by_plane(state == nullptr ? PLANE_F32 : plane, [&](auto word) {
+    using T = decltype(word);
+    const float* a_cdf = (const float*)cdf;
+    const float* a_cc = (const float*)cc;
+    const float* a_u = (const float*)u;
+    const int* a_nd = (const int*)n_det;
+    const T* a_state = (const T*)state;
+    int* a_anc = (int*)anc;
+    T* a_out = (T*)out;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (tree == nullptr && cc == nullptr) {
+      dim3 grid((n + NT - 1) / NT, rows);
+      if (state != nullptr) {
+        prefix_search_rows_kernel<true, T><<<grid, NT, 0, st>>>(a_cdf, a_u, a_state, a_anc,
+                                                                a_out, n, d, right);
+      } else {
+        prefix_search_rows_kernel<false, float><<<grid, NT, 0, st>>>(
+            a_cdf, a_u, nullptr, a_anc, nullptr, n, d, right);
+      }
+      return (int)cudaGetLastError();
     }
+    if (tree_floats < (long long)rows * prefix_search_tree_floats(n))
+      return (int)cudaErrorInvalidValue;
+    const void* kernel = tree_kernel<T>(cc != nullptr, state != nullptr);
+    int blocks = 0;
+    const int err = resident_blocks(kernel, 0, ((long long)rows * n + NT - 1) / NT, &blocks);
+    if (err != 0) return err;
+    float* a_tree = (float*)tree;
+    void* args[] = {(void*)&a_cdf,   (void*)&a_cc,  (void*)&a_u,   (void*)&a_nd,
+                    (void*)&a_state, (void*)&a_anc, (void*)&a_out, (void*)&a_tree,
+                    (void*)&rows,    (void*)&n,     (void*)&d,     (void*)&right};
+    const cudaError_t e =
+        cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NT), args, 0, st);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
-  }
-  if (tree_floats < (long long)rows * prefix_search_tree_floats(n))
-    return (int)cudaErrorInvalidValue;
-  const void* kernel = tree_kernel(cc != nullptr, state != nullptr);
-  int blocks = 0;
-  const int err = resident_blocks(kernel, 0, ((long long)rows * n + NT - 1) / NT, &blocks);
-  if (err != 0) return err;
-  float* a_tree = (float*)tree;
-  void* args[] = {(void*)&a_cdf,   (void*)&a_cc,  (void*)&a_u,   (void*)&a_nd,
-                  (void*)&a_state, (void*)&a_anc, (void*)&a_out, (void*)&a_tree,
-                  (void*)&rows,    (void*)&n,     (void*)&d,     (void*)&right};
-  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NT), args, 0, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  });
 }
 
-int prefix_step_grid(int kind, int rows, int n, int* blocks) {
-  const void* kernel = step_kernel(kind);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  return coop_step_grid(kernel, rows, n, blocks);
+int prefix_step_grid(int kind, int rows, int n, int plane, int* blocks) {
+  return by_plane(plane, [&](auto word) {
+    const void* kernel = step_kernel<decltype(word)>(kind);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    return coop_step_grid(kernel, rows, n, blocks);
+  });
 }
 
 int prefix_step_rows(int kind, const void* lw, const void* state, const void* ubase,
                      const void* u0, float thr, void* anc, void* out, void* stats,
-                     void* scratch, void* work, int rows, int n, int d, int blocks,
+                     void* scratch, void* work, int rows, int n, int d, int blocks, int plane,
                      void* stream) {
-  const void* kernel = step_kernel(kind);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const float* a_lw = (const float*)lw;
-  const float* a_state = (const float*)state;
-  const float* a_ubase = (const float*)ubase;
-  const float* a_u0 = (const float*)u0;
-  int* a_anc = (int*)anc;
-  float* a_out = (float*)out;
-  float* a_stats = (float*)stats;
-  float* a_scratch = (float*)scratch;
-  float* a_work = (float*)work;
-  void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_ubase, (void*)&a_u0, (void*)&thr,
-                  (void*)&a_anc, (void*)&a_out, (void*)&a_stats, (void*)&a_scratch,
-                  (void*)&a_work, (void*)&rows, (void*)&n, (void*)&d};
-  return coop_step_launch(kernel, blocks, rows, args, stream);
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    const void* kernel = step_kernel<T>(kind);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    const T* a_lw = (const T*)lw;
+    const T* a_state = (const T*)state;
+    const float* a_ubase = (const float*)ubase;
+    const float* a_u0 = (const float*)u0;
+    int* a_anc = (int*)anc;
+    T* a_out = (T*)out;
+    float* a_stats = (float*)stats;
+    float* a_scratch = (float*)scratch;
+    float* a_work = (float*)work;
+    void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_ubase, (void*)&a_u0,
+                    (void*)&thr, (void*)&a_anc, (void*)&a_out, (void*)&a_stats,
+                    (void*)&a_scratch, (void*)&a_work, (void*)&rows, (void*)&n, (void*)&d};
+    return coop_step_launch(kernel, blocks, rows, args, stream);
+  });
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py: 0 the scan, 1-2 the rows searches <false>,
+// <true>, 3-5 the tree searches <false, false>, <true, false>, <true,
+// true>, 6-9 the steps of KIND 0-3, all at float; then per 2-byte word
+// (10 + 8·(plane - 1)): + 0 the scan, + 1 the rows search <true>, + 2-3
+// the tree searches <true, false>, <true, true>, + 4-7 the steps.
 int prefix_sum_attributes(int which, int dynamic_smem, int* out) {
-  switch (which) {
-    case 0: return kernel_attributes(prefix_scan_rows_kernel, dynamic_smem, out);
-    case 1: return kernel_attributes(prefix_search_rows_kernel<false>, dynamic_smem, out);
-    case 2: return kernel_attributes(prefix_search_rows_kernel<true>, dynamic_smem, out);
-    case 3: case 4: case 5:
-      return kernel_attributes(tree_kernel(which == 5, which >= 4), dynamic_smem, out);
-    case 6: case 7: case 8: case 9:
-      return kernel_attributes(step_kernel(which - 6), dynamic_smem, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int plane = which < 10 ? PLANE_F32 : 1 + (which - 10) / 8;
+  const int k = which < 10 ? which : (which - 10) % 8;
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    const void* kernel = nullptr;
+    if (plane == PLANE_F32) {
+      switch (k) {
+        case 0: kernel = scan_kernel<T>(); break;
+        case 1: kernel = (const void*)prefix_search_rows_kernel<false, float>; break;
+        case 2: kernel = (const void*)prefix_search_rows_kernel<true, T>; break;
+        case 3: case 4: case 5: kernel = tree_kernel<T>(k == 5, k >= 4); break;
+        default: kernel = step_kernel<T>(k - 6);
+      }
+    } else {
+      switch (k) {
+        case 0: kernel = scan_kernel<T>(); break;
+        case 1: kernel = (const void*)prefix_search_rows_kernel<true, T>; break;
+        case 2: case 3: kernel = tree_kernel<T>(k == 3, true); break;
+        default: kernel = step_kernel<T>(k - 4);
+      }
+    }
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    return kernel_attributes(kernel, dynamic_smem, out);
+  });
 }
 
 }  // extern "C"

@@ -24,6 +24,13 @@ index only, a scan and a search (residual: three scans and two searches);
 ``apply``, a scan and a search with the state copy (residual: three scans
 and the select); ``step``, one launch.  Particles
 are ``[N]`` or ``[N, ...]`` (``[S, N, ...]`` for the bank forms).
+
+Compressed planes (DESIGN.md §14): weights, log-weights and particles may
+come in a 2-byte plane dtype (the spec narrows them).  Only the first scan's
+input travels compressed; the draws are float32 (``repro_torch.random``
+draws nothing else), and the host's arithmetic on the weights, residual's
+``w / total``, runs on them upcast to float32, as the JAX package's runs on
+its float32 quantised weights.
 """
 
 from __future__ import annotations
@@ -82,7 +89,7 @@ def _residual_scans(keys, w):
     """Residual's three scans and its draws: ``(cc, c, u, n_det)``."""
     n = w.shape[-1]
     total = prefix_sum_rows(w)[:, -1]
-    counts, resid, n_det = residual_parts(flush_to_zero(w), total)
+    counts, resid, n_det = residual_parts(flush_to_zero(w.to(torch.float32)), total)
     cc, c = prefix_sum_rows(counts), prefix_sum_rows(resid)
     u = scaled_draws("residual", c[:, -1], n, draw_bases(keys, n, "residual", w.device)[0])
     return cc, c, u, n_det

@@ -2,10 +2,15 @@
 ``repro.kernels.prefix_sum.prefix_sum``), and the library binding and checks
 that ``search.py`` and ``step.py`` share:
 
-    prefix_sum_rows  <- prefix_sum_pallas  (kernel: prefix_scan_rows_kernel, a bank of S
+    prefix_sum_rows  <- prefix_sum_pallas  (kernel: prefix_scan_rows_kernel<T>, a bank of S
                                             rows; the JAX package scans one row per call)
 
 The family's wrappers take banks only: one population is a bank of one row.
+Compressed planes (DESIGN.md §14): only the scan's input travels in a plane
+dtype (float32, bfloat16 or float16, ``common.PLANE_DTYPES``; the kernel's
+instance of that word T); the CDF it emits is float32, and so are the
+searches' CDFs and draws.  The searches copy state of any plane dtype, the
+step takes log-weights and state of one.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and adds one to its ``launches`` count where
@@ -22,7 +27,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.common import TILE, check_bank, check_launch, kernel_wrapper
+from repro_torch.kernels.common import (
+    PLANE_CODES,
+    PLANE_DTYPES,
+    TILE,
+    check_bank,
+    check_launch,
+    kernel_wrapper,
+    plane_instance,
+)
 from repro_torch.kernels.prefix_sum.ref import scan_rows_ref
 
 SOURCE = "prefix_sum/csrc/prefix_sum.cu"
@@ -33,28 +46,30 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if not getattr(lib, "_bound", False):
-        lib.prefix_scan_grid.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        lib.prefix_scan_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
         lib.prefix_scan_grid.restype = _I
-        lib.prefix_scan_rows.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        lib.prefix_scan_rows.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
         lib.prefix_scan_rows.restype = _I
         lib.prefix_search_rows.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                                           _I, _I, _I, _I, _P]
+                                           _I, _I, _I, _I, _I, _P]
         lib.prefix_search_rows.restype = _I
-        lib.prefix_step_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.prefix_step_grid.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
         lib.prefix_step_grid.restype = _I
         lib.prefix_step_rows.argtypes = [
-            _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+            _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
         ]
         lib.prefix_step_rows.restype = _I
         lib._bound = True
     return lib
 
 
-def check_rows(who: str, x: torch.Tensor, *like, state=None):
-    """Validate a bank call: ``x f32[S, N]``, each tensor of ``like`` (None
-    skipped) ``f32[S, N]`` on ``x``'s device, and ``state [S, D, N]`` or
-    None.  Returns ``(S, N, D)``."""
-    s, n, d = check_bank(who, x, state, None)
+def check_rows(who: str, x: torch.Tensor, *like, state=None, planes=("float32",),
+               state_planes=None):
+    """Validate a bank call: ``x [S, N]`` of a dtype of ``planes``, each
+    tensor of ``like`` (None skipped) ``f32[S, N]`` on ``x``'s device, and
+    ``state [S, D, N]`` or None (on the card of ``x``'s dtype, or of one of
+    ``state_planes``: ``common.check_bank``).  Returns ``(S, N, D)``."""
+    s, n, d = check_bank(who, x, state, None, planes, state_planes)
     for y in like:
         if y is None:
             continue
@@ -75,22 +90,23 @@ def ptr(x):
     return None if x is None else x.data_ptr()
 
 
-@kernel_wrapper("prefix_scan_rows_kernel")
+@kernel_wrapper(plane_instance("prefix_scan_rows_kernel"))
 def prefix_sum_rows(x: torch.Tensor) -> torch.Tensor:
-    """The tiled inclusive scan of each row of ``x f32[S, N]``, in one
-    launch: ``f32[S, N]``."""
+    """The tiled inclusive scan of each row of ``x [S, N]`` (a plane dtype,
+    each word upcast exactly), in one launch: ``f32[S, N]``."""
     who = "prefix_sum_rows"
-    s, n, _ = check_rows(who, x)
+    s, n, _ = check_rows(who, x, planes=PLANE_DTYPES)
     if not x.is_cuda:
         return scan_rows_ref(x)
     lib = _lib()
+    code = PLANE_CODES[x.dtype]
     blocks = ctypes.c_int(0)
     with torch.cuda.device(x.device):
-        check_launch(lib.prefix_scan_grid(s, n, ctypes.byref(blocks)), who)
-    y = torch.empty_like(x)
+        check_launch(lib.prefix_scan_grid(s, n, code, ctypes.byref(blocks)), who)
+    y = torch.empty((s, n), dtype=torch.float32, device=x.device)
     tot = torch.empty(s * (n // TILE), dtype=torch.float32, device=x.device)
     check_launch(lib.prefix_scan_rows(x.data_ptr(), y.data_ptr(), tot.data_ptr(), s, n,
-                                      blocks.value, stream(x)), who)
+                                      blocks.value, code, stream(x)), who)
     prefix_sum_rows.launches += 1
     return y
 

@@ -1,18 +1,19 @@
 """Launch wrappers of the prefix-sum search kernels, one per TPU kernel (after
 ``repro.kernels.prefix_sum.search``):
 
-    searchsorted_rows            <- searchsorted_pallas            (kernels: rows<false>,
-                                                                    tree<false, false>)
-    searchsorted_gather_rows     <- searchsorted_gather_pallas     (kernels: rows<true>,
-                                                                    tree<true, false>)
-    residual_select_gather_rows  <- residual_select_gather_pallas  (kernel: tree<true, true>)
+    searchsorted_rows            <- searchsorted_pallas            (kernels: rows<false, float>,
+                                                                    tree<false, false, float>)
+    searchsorted_gather_rows     <- searchsorted_gather_pallas     (kernels: rows<true, T>,
+                                                                    tree<true, false, T>)
+    residual_select_gather_rows  <- residual_select_gather_pallas  (kernel: tree<true, true, T>)
 
 ``side`` follows ``jnp.searchsorted``: ``"left"`` the first index with
 ``c >= u``, ``"right"`` the first with ``c > u``, clipped to N - 1.  Each
 wrapper takes a bank of S rows (one population is a bank of one row);
-state is ``[S, D, N]``.  The wrappers behave as that of ``prefix_sum.py``:
-plain version on CPU tensors, the kernel or an error on CUDA tensors, one
-count per launch.
+state is ``[S, D, N]`` of any plane dtype (the kernels' instance of its word
+T: a copy does no arithmetic); the CDFs and the draws are float32.  The
+wrappers behave as that of ``prefix_sum.py``: plain version on CPU tensors,
+the kernel or an error on CUDA tensors, one count per launch.
 
 Two kernels compute the same bisection.  Draws that rise with the slot
 (``rising``: the systematic and stratified kinds, residual's count slots)
@@ -28,7 +29,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import check_launch, kernel_wrapper
+from repro_torch.kernels.common import (
+    PLANE_CODES,
+    PLANE_DTYPES,
+    check_launch,
+    kernel_wrapper,
+    plane_instance,
+    plane_word,
+)
 from repro_torch.kernels.prefix_sum.prefix_sum import _lib, check_rows, ptr, stream
 from repro_torch.kernels.prefix_sum.ref import (
     TREE_LINE,
@@ -51,7 +59,7 @@ def _search(who, cdf, u, side, rising, state=None, cc=None, n_det=None):
     ``cc`` is given), or its plain version on CPU tensors."""
     if side not in SIDES:
         raise ValueError(f"{who}: side must be one of {SIDES}; got {side!r}")
-    s, n, d = check_rows(who, cdf, u, cc, state=state)
+    s, n, d = check_rows(who, cdf, u, cc, state=state, state_planes=PLANE_DTYPES)
     if cc is not None and tuple(n_det.shape) != (s,):
         raise ValueError(f"{who}: n_det must be [S] = [{s}]; got {list(n_det.shape)}")
     if not cdf.is_cuda:
@@ -66,19 +74,21 @@ def _search(who, cdf, u, side, rising, state=None, cc=None, n_det=None):
     check_launch(_lib().prefix_search_rows(
         cdf.data_ptr(), ptr(cc), u.data_ptr(), ptr(nd), ptr(state), anc.data_ptr(), ptr(out),
         ptr(tree), 0 if tree is None else tree.numel(), s, n, d, int(side == "right"),
-        stream(cdf)), who)
+        PLANE_CODES[torch.float32 if state is None else state.dtype], stream(cdf)), who)
     return anc if state is None else (anc, out)
 
 
 def _kernel(gather: bool):
     """The census name of a search wrapper's launch, by its ``rising``
-    (positional after ``side``, or by keyword)."""
+    (positional after ``side``, or by keyword) and the word of its state
+    (``float`` for the index-only search)."""
     g, at = str(gather).lower(), 4 if gather else 3
 
     def name(*args, rising=False, **_):
+        word = plane_word(args[2]) if gather else "float"
         if args[at] if len(args) > at else rising:
-            return f"prefix_search_rows_kernel<{g}>"
-        return f"prefix_search_tree_kernel<{g}, false>"
+            return f"prefix_search_rows_kernel<{g}, {word}>"
+        return f"prefix_search_tree_kernel<{g}, false, {word}>"
     return name
 
 
@@ -96,13 +106,13 @@ def searchsorted_rows(cdf: torch.Tensor, u: torch.Tensor, side: str = "left",
 def searchsorted_gather_rows(cdf: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
                              side: str = "left", rising: bool = False):
     """``searchsorted_rows`` plus the copy of each ancestor's state ``[S, D,
-    N]``: ``(ancestors int32[S, N], state' [S, D, N])``."""
+    N]`` (a plane dtype): ``(ancestors int32[S, N], state' [S, D, N])``."""
     result = _search("searchsorted_gather_rows", cdf, u, side, rising, state)
     searchsorted_gather_rows.launches += cdf.is_cuda
     return result
 
 
-@kernel_wrapper("prefix_search_tree_kernel<true, true>")
+@kernel_wrapper(plane_instance("prefix_search_tree_kernel", True, True, of=4))
 def residual_select_gather_rows(cc: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
                                 n_det: torch.Tensor, state: torch.Tensor):
     """Residual resampling's tail over a bank: slot ``i < n_det[s]`` takes

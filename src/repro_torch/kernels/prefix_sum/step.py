@@ -1,10 +1,14 @@
 """Launch wrappers of the prefix-sum step kernel (after
 ``repro.kernels.prefix_sum.step``):
 
-    prefix_step_rows  <- prefix_pallas_step  (kernel: prefix_step_rows_kernel<KIND>, a bank;
-                                              the JAX package maps the single step)
+    prefix_step_rows  <- prefix_pallas_step  (kernel: prefix_step_rows_kernel<KIND, T>, a
+                                              bank; the JAX package maps the single step)
 
-One population is a bank of one row.  The draw bases come from the caller,
+One population is a bank of one row.  The log-weights and the state share
+one plane dtype, float32, bfloat16 or float16 (the kernel's instance of that
+word T); the kernel rounds its weights to that word's grid and scans them
+into a float32 CDF, as the JAX step does (it keeps them as float32 values,
+so its weights buffer is ``S·N`` floats at every word).  The draw bases come from the caller,
 as the JAX wrapper draws them from the key: ``ubase f32[S, N] =
 uniform(key, (N,))`` for multinomial, stratified and residual (None for
 the systematic kinds) and ``u0 f32[S] = uniform(key, ())`` for the
@@ -15,11 +19,17 @@ that of ``prefix_sum.py``.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from repro_torch.kernels.common import TILE, check_launch, kernel_wrapper, step_buffers
+from repro_torch.kernels.common import (
+    PLANE_CODES,
+    PLANE_DTYPES,
+    TILE,
+    check_launch,
+    kernel_wrapper,
+    plane_word,
+    step_buffers,
+)
 from repro_torch.kernels.prefix_sum.prefix_sum import _lib, check_rows, ptr, stream
 from repro_torch.kernels.prefix_sum.ref import (
     KIND_CODES,
@@ -41,7 +51,7 @@ def check_kind(who: str, kind: str, n: int):
 
 
 def _step(who, lw, state, ubase, u0, thr, kind):
-    s, n, d = check_rows(who, lw, ubase, state=state)
+    s, n, d = check_rows(who, lw, ubase, state=state, planes=PLANE_DTYPES)
     check_kind(who, kind, n)
     code = KIND_CODES[kind]
     if (ubase is None) != (code == 1) or (u0 is None) != (code != 1):
@@ -53,8 +63,10 @@ def _step(who, lw, state, ubase, u0, thr, kind):
     if not lw.is_cuda:
         return prefix_step_rows_ref(lw, state, ubase, u0, thr, kind)
     lib = _lib()
-    g, anc, out, stats, scratch = step_buffers(functools.partial(lib.prefix_step_grid, code),
-                                               who, lw, state, 0)
+    plane = PLANE_CODES[lw.dtype]
+    g, anc, out, stats, scratch = step_buffers(
+        lambda rows, n_, blocks: lib.prefix_step_grid(code, rows, n_, plane, blocks), who, lw,
+        state, 0, wbuf_word=4)
     t = n // TILE
     # The kernel's work space: for the draws in no order (multinomial,
     # residual's residuals) a search tree a row first; then the tile
@@ -66,19 +78,20 @@ def _step(who, lw, state, ubase, u0, thr, kind):
     check_launch(lib.prefix_step_rows(
         code, lw.data_ptr(), state.data_ptr(), ptr(ubase), ptr(u0), float(thr), anc.data_ptr(),
         out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), work.data_ptr(), s, n, d, g,
-        stream(lw)), who)
+        plane, stream(lw)), who)
     return anc, out, stats
 
 
 def _step_kernel(lw, state, ubase, u0, thr, kind):
     """The instance of the step kernel a call launches."""
-    return f"prefix_step_rows_kernel<{KIND_CODES[kind]}>"
+    return f"prefix_step_rows_kernel<{KIND_CODES[kind]}, {plane_word(lw)}>"
 
 
 @kernel_wrapper(_step_kernel)
 def prefix_step_rows(lw: torch.Tensor, state: torch.Tensor, ubase, u0, thr: float, kind: str):
-    """Fused SMC step over a bank of log-weights ``f32[S, N]``, each row with
-    its own decision ``ess_norm < thr``.  Returns ``(ancestors int32[S, N],
+    """Fused SMC step over a bank of log-weights ``[S, N]`` (a plane dtype;
+    the state of the same), each row with its own decision ``ess_norm <
+    thr``.  Returns ``(ancestors int32[S, N],
     state' [S, D, N], stats f32[S, 4])``."""
     result = _step("prefix_step_rows", lw, state, ubase, u0, thr, kind)
     prefix_step_rows.launches += lw.is_cuda

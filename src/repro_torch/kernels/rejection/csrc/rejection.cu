@@ -31,10 +31,11 @@
 // sup w is reduced by the wrapper (torch.amax), as the JAX wrappers reduce
 // it outside their kernels.
 //
-//   What bounds it: per row it must move w (4N bytes), the ancestors (4N)
-//   and, with GATHER, the state in and out (8DN), plus the 4N of the
-//   wrapper's sup w pass: 12 MiB at N = 2^20 without state, 3.8 us at
-//   3.35 TB/s.  The operations are the realised rounds, not max_iters:
+//   What bounds it: per row it must move w (4N bytes; 2N at 2-byte plane
+//   words), the ancestors (4N) and, with GATHER, the state in and out (8DN;
+//   4DN), plus the wrapper's sup w pass over w: 12 MiB at N = 2^20 without
+//   state, 3.8 us at 3.35 TB/s.  The operations are the realised rounds,
+//   not max_iters:
 //   about 24 32-bit operations a round (the Metropolis count), summed over
 //   the lanes' (accept round + 1).  Each round past 0 also reads one random
 //   w[j], its own 32-byte L2 sector.  Neither is what sets the time: a
@@ -97,14 +98,27 @@
 //   NVIDIA H100 80GB HBM3 (700.00 W): 1.28 ms against the parent's 1.74 at
 //   S = 16, 0.088 against 0.106 at S = 1 (PERF.md).
 //
+// Plane words (DESIGN.md §14): both kernels are templates on the word T of
+// their weight and state planes, float, __nv_bfloat16 or __half, one
+// instance each, picked by the C entry points' `plane` code (by_plane in
+// ../../common.cuh).  Each weight read is upcast to f32 and flushed
+// (load_plane): a random read w[j] becomes a 2-byte load and still moves one
+// 32-byte sector, and the chain's arithmetic, the hash, the uniforms and
+// sup w stay f32 (the wrapper upcasts its torch.amax before the launch).
+// The state is copied as plane words.  The step's prelude rounds exp(lw -
+// m) to T and writes it to scratch as T (step_prelude); its sup w, the max
+// of those words, is 1.0f on a row that is not degenerate and 1/N rounded
+// to T on a degenerate one.
+//
 // Subnormals: built with -ftz=true, and flushed explicitly (ftz()) on the
 // values selection depends on, as XLA does on the CPU.
 
 #include "../../common.cuh"
 
-template <bool RO>
-__device__ __forceinline__ float load_w(const float* w, int j) {
-  return RO ? __ldg(w + j) : w[j];
+// w[j] upcast and flushed; RO reads through the read-only path.
+template <bool RO, class T>
+__device__ __forceinline__ float load_w(const T* w, int j) {
+  return load_plane(RO ? __ldg(w + j) : w[j]);
 }
 
 // sup w·2^-24, the scale of u·sup w = (bits >> 8)·scale.
@@ -122,8 +136,8 @@ __device__ __forceinline__ float scaled_uniform(uint32_t bits, float scale) {
 // there was one.  lane_j = i·GOLDEN proposes, lane_u = (i + n)·GOLDEN
 // accepts.  RO reads w through the read-only path (w is not written by the
 // launch).
-template <bool RO>
-__device__ __forceinline__ bool rejection_chain(const float* __restrict__ w,
+template <bool RO, class T>
+__device__ __forceinline__ bool rejection_chain(const T* __restrict__ w,
                                                 const uint32_t* hh, int cnt, uint32_t lane_j,
                                                 uint32_t lane_u, int n, float scale, int& k) {
   for (int t = 0; t < cnt; ++t) {
@@ -131,7 +145,7 @@ __device__ __forceinline__ bool rejection_chain(const float* __restrict__ w,
     const uint32_t x = fmix(h ^ lane_j);  // mod n, as a mask where n is a power of two
     const int j = (int)((n & (n - 1)) == 0 ? x & (uint32_t)(n - 1) : x % (uint32_t)n);
     // u <= w[j] / sup w
-    if (scaled_uniform(fmix(h ^ lane_u), scale) <= ftz(load_w<RO>(w, j))) {
+    if (scaled_uniform(fmix(h ^ lane_u), scale) <= load_w<RO>(w, j)) {
       k = j;
       return true;
     }
@@ -144,23 +158,23 @@ __device__ __forceinline__ bool self_accept(uint32_t h0, uint32_t lane_u, float 
   return scaled_uniform(fmix(h0 ^ lane_u), scale) <= ftz(wi);
 }
 
-template <bool GATHER>
+template <bool GATHER, class T>
 __global__ void __launch_bounds__(NT) rejection_rows_kernel(
-    const float* __restrict__ w, const float* __restrict__ wmax,
-    const uint32_t* __restrict__ seeds, const float* __restrict__ state,
-    int* __restrict__ anc, float* __restrict__ out, int n, int d, int max_iters) {
+    const T* __restrict__ w, const float* __restrict__ wmax,
+    const uint32_t* __restrict__ seeds, const T* __restrict__ state,
+    int* __restrict__ anc, T* __restrict__ out, int n, int d, int max_iters) {
   __shared__ uint32_t s_hh[CHUNK];
   const int s = blockIdx.y;
   const int i = blockIdx.x * NT + threadIdx.x;
   const bool live = i < n;
-  const float* wr = w + (size_t)s * n;
+  const T* wr = w + (size_t)s * n;
   const uint32_t seed = seeds[s];
   const float scale = uniform_scale(wmax[s]);
   // (uint32)(i + n) is the accept lane; i + n < 2^31 for n <= 2^30.
   const uint32_t lane_j = (uint32_t)i * GOLDEN;
   const uint32_t lane_u = ((uint32_t)i + (uint32_t)n) * GOLDEN;
   int k = i;
-  bool done = !live || self_accept(fmix(seed), lane_u, scale, wr[i]);
+  bool done = !live || self_accept(fmix(seed), lane_u, scale, plane_f32(wr[i]));
   // Chunks of rounds t0 .. t0 + cnt - 1: the rounds left, max_iters - t0 +
   // 1, are counted down, so no sum passes max_iters < 2^31 - 1.
   for (int t0 = 1;; t0 += CHUNK) {
@@ -194,31 +208,35 @@ __global__ void __launch_bounds__(NT) rejection_rows_kernel(
 #define REJ_MIN_BLOCKS 5
 #define FULL 0xffffffffu
 
-// What the warp chain needs of a row: its weights, its seed (round t's
-// hash prefix is fmix(seed + t·GOLDEN), the hh of the rows kernel) and the
-// scale of u·sup w.
+// What the warp chain needs of a row: its weights (plane words), its seed
+// (round t's hash prefix is fmix(seed + t·GOLDEN), the hh of the rows
+// kernel) and the scale of u·sup w.
+template <class T>
 struct ChainRow {
-  const float* w;
+  const T* w;
   uint32_t seed;
   float scale;
 };
 
-// A store a commit leaves for later: the warp chain writes val to dst one
-// round on, so that the load of val is in flight beside that round's.
+// A store a commit leaves for later: the warp chain writes the state word
+// val to dst one round on, so that the load of val is in flight beside that
+// round's.
+template <class T>
 struct Pending {
-  float* dst;
-  float val;
+  T* dst;
+  T val;
 };
 
 // Round t of particle i's chain: t = 0 proposes i itself, t >= 1 proposes
 // j = hash mod n; accepted when u·sup w <= w[j] (the rounds of
 // rejection_chain and self_accept, term for term).
-__device__ __forceinline__ bool chain_round(const ChainRow& r, int t, int i, int n, int& j) {
+template <class T>
+__device__ __forceinline__ bool chain_round(const ChainRow<T>& r, int t, int i, int n, int& j) {
   const uint32_t h = fmix(r.seed + (uint32_t)t * GOLDEN);
   const uint32_t lane_j = (uint32_t)i * GOLDEN;
   const uint32_t lane_u = ((uint32_t)i + (uint32_t)n) * GOLDEN;
   j = t == 0 ? i : (int)(fmix(h ^ lane_j) % (uint32_t)n);
-  return scaled_uniform(fmix(h ^ lane_u), r.scale) <= ftz(r.w[j]);
+  return scaled_uniform(fmix(h ^ lane_u), r.scale) <= load_plane(r.w[j]);
 }
 
 // The position of the set bit of rank g (from 0) in m, which has more than g.
@@ -247,16 +265,16 @@ __device__ __forceinline__ int nth_set(unsigned m, int g) {
 // chain's, whichever lane and warp run it.  The rounds left to a particle
 // at round t are max_iters - t >= 0, so no sum passes max_iters and the
 // caller may take any max_iters < 2^31 - 1.  row_of(s) gives row s's
-// ChainRow; commit(s, i, k) records ancestor k of particle i of row s and
+// ChainRow<T>; commit(s, i, k) records ancestor k of particle i of row s and
 // returns the store it leaves pending (dst null: none).
-template <class RowId, class RowOf, class Commit>
+template <class T, class RowId, class RowOf, class Commit>
 __device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, int max_iters,
                                             RowId row_id, RowOf row_of, Commit commit) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1;
   int s = -1, i = 0, t = 0;  // this lane's particle (s < 0: none) and its next round
-  ChainRow row{nullptr, 0u, 0.0f};
-  Pending pend{nullptr, 0.0f};
+  ChainRow<T> row{nullptr, 0u, 0.0f};
+  Pending<T> pend{nullptr, T{}};
   const int total = rows * n;  // rows·n < 2^31
   const int pieces = warps * max(1, total / (warps * REJ_CHUNK));
   int piece = w;  // piece p holds ids [total·p / pieces, total·(p + 1) / pieces)
@@ -353,10 +371,11 @@ __device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, i
   if (pend.dst != nullptr) *pend.dst = pend.val;
 }
 
+template <class T>
 __global__ void __launch_bounds__(NT, REJ_MIN_BLOCKS) rejection_step_rows_kernel(
-    const float* __restrict__ lw, const float* __restrict__ state,
+    const T* __restrict__ lw, const T* __restrict__ state,
     const uint32_t* __restrict__ seeds, float thr, int* __restrict__ anc,
-    float* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
+    T* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
     int rows, int n, int d, int max_iters) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m per row
@@ -398,15 +417,17 @@ __global__ void __launch_bounds__(NT, REJ_MIN_BLOCKS) rejection_step_rows_kernel
 
   // Their chains, the F particles in bank order, and each ancestor's state
   // (plane 0's store one round later).  sc.wbuf was written in this launch:
-  // plain loads, not the read-only path.
-  const float inv_n = (float)(1.0 / (double)n);
-  warp_chains(
+  // plain loads, not the read-only path.  A degenerate row's sup w is its
+  // weight 1/N as the prelude wrote it, rounded to T.
+  const float inv_n = plane_f32(to_plane<T>((float)(1.0 / (double)n)));
+  const T* wbuf = reinterpret_cast<const T*>(sc.wbuf);
+  warp_chains<T>(
       blockIdx.x * (NT / 32) + (threadIdx.x >> 5), gridDim.x * (NT / 32), ((int*)red)[0], n,
       max_iters, [&](int r) { return fired[r]; },
       [&](int s) {
         // sup w = max(exp(lw - m)), see the note above.
-        return ChainRow{sc.wbuf + (size_t)s * n, __ldg(seeds + s),
-                        uniform_scale((row_flag[s] & 1) ? inv_n : 1.0f)};
+        return ChainRow<T>{wbuf + (size_t)s * n, __ldg(seeds + s),
+                           uniform_scale((row_flag[s] & 1) ? inv_n : 1.0f)};
       },
       [&](int s, int i, int k) {
         anc[(size_t)s * n + i] = k;
@@ -415,61 +436,77 @@ __global__ void __launch_bounds__(NT, REJ_MIN_BLOCKS) rejection_step_rows_kernel
           out[plane + i] = state[plane + k];
         }
         const size_t plane0 = (size_t)s * d * n;
-        return d > 0 ? Pending{out + plane0 + i, state[plane0 + k]} : Pending{nullptr, 0.0f};
+        return d > 0 ? Pending<T>{out + plane0 + i, state[plane0 + k]} : Pending<T>{nullptr, T{}};
       });
 }
 
 extern "C" {
 
+// Each entry point takes `plane`, the code of the weights' and the state's
+// plane word (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh), and
+// launches that instance; sup w (wmax) is f32 at every word.
+
 // The chain over a bank: ancestors, and with state (not null) the copy of
 // each ancestor's state.
 int rejection_rows(const void* w, const void* wmax, const void* seeds, const void* state,
-                   void* anc, void* out, int rows, int n, int d, int max_iters, void* stream) {
-  dim3 grid((n + NT - 1) / NT, rows);
-  const float* a_w = (const float*)w;
-  const float* a_wmax = (const float*)wmax;
-  const uint32_t* a_seeds = (const uint32_t*)seeds;
-  const float* a_state = (const float*)state;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (state == nullptr) {
-    rejection_rows_kernel<false><<<grid, NT, 0, st>>>(a_w, a_wmax, a_seeds, a_state, (int*)anc,
-                                                       (float*)out, n, d, max_iters);
-  } else {
-    rejection_rows_kernel<true><<<grid, NT, 0, st>>>(a_w, a_wmax, a_seeds, a_state, (int*)anc,
-                                                      (float*)out, n, d, max_iters);
-  }
-  return (int)cudaGetLastError();
+                   void* anc, void* out, int rows, int n, int d, int max_iters, int plane,
+                   void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    dim3 grid((n + NT - 1) / NT, rows);
+    const T* a_w = (const T*)w;
+    const float* a_wmax = (const float*)wmax;
+    const uint32_t* a_seeds = (const uint32_t*)seeds;
+    const T* a_state = (const T*)state;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (state == nullptr) {
+      rejection_rows_kernel<false, T><<<grid, NT, 0, st>>>(a_w, a_wmax, a_seeds, a_state,
+                                                           (int*)anc, (T*)out, n, d, max_iters);
+    } else {
+      rejection_rows_kernel<true, T><<<grid, NT, 0, st>>>(a_w, a_wmax, a_seeds, a_state,
+                                                          (int*)anc, (T*)out, n, d, max_iters);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
-int rejection_step_grid(int rows, int n, int* blocks) {
-  return coop_step_grid(rejection_step_rows_kernel, rows, n, blocks);
+int rejection_step_grid(int rows, int n, int plane, int* blocks) {
+  return by_plane(plane, [&](auto word) {
+    return coop_step_grid(rejection_step_rows_kernel<decltype(word)>, rows, n, blocks);
+  });
 }
 
 int rejection_step_rows(const void* lw, const void* state, const void* seeds, float thr,
                         void* anc, void* out, void* stats, void* scratch, int rows, int n,
-                        int d, int max_iters, int blocks, void* stream) {
-  const float* a_lw = (const float*)lw;
-  const float* a_state = (const float*)state;
-  const uint32_t* a_seeds = (const uint32_t*)seeds;
-  int* a_anc = (int*)anc;
-  float* a_out = (float*)out;
-  float* a_stats = (float*)stats;
-  float* a_scratch = (float*)scratch;
-  void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_seeds, (void*)&thr,
-                  (void*)&a_anc, (void*)&a_out, (void*)&a_stats, (void*)&a_scratch,
-                  (void*)&rows, (void*)&n, (void*)&d, (void*)&max_iters};
-  return coop_step_launch(rejection_step_rows_kernel, blocks, rows, args, stream);
+                        int d, int max_iters, int blocks, int plane, void* stream) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    const T* a_lw = (const T*)lw;
+    const T* a_state = (const T*)state;
+    const uint32_t* a_seeds = (const uint32_t*)seeds;
+    int* a_anc = (int*)anc;
+    T* a_out = (T*)out;
+    float* a_stats = (float*)stats;
+    float* a_scratch = (float*)scratch;
+    void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_seeds, (void*)&thr,
+                    (void*)&a_anc, (void*)&a_out, (void*)&a_stats, (void*)&a_scratch,
+                    (void*)&rows, (void*)&n, (void*)&d, (void*)&max_iters};
+    return coop_step_launch(rejection_step_rows_kernel<T>, blocks, rows, args, stream);
+  });
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py: kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py (3·plane + 0: the index-only kernel, + 1:
+// the fused one, + 2: the step): kernel_attributes' four numbers.
 int rejection_attributes(int which, int dynamic_smem, int* out) {
-  switch (which) {
-    case 0: return kernel_attributes(rejection_rows_kernel<false>, dynamic_smem, out);
-    case 1: return kernel_attributes(rejection_rows_kernel<true>, dynamic_smem, out);
-    case 2: return kernel_attributes(rejection_step_rows_kernel, dynamic_smem, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_plane(which / 3, [&](auto word) {
+    using T = decltype(word);
+    switch (which % 3) {
+      case 0: return kernel_attributes(rejection_rows_kernel<false, T>, dynamic_smem, out);
+      case 1: return kernel_attributes(rejection_rows_kernel<true, T>, dynamic_smem, out);
+      default: return kernel_attributes(rejection_step_rows_kernel<T>, dynamic_smem, out);
+    }
+  });
 }
 
 }  // extern "C"

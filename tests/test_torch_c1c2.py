@@ -386,7 +386,7 @@ def test_auto_per_row(variant):
     ("backend", "reference", NotImplementedError),
     ("backend", "pallas", NotImplementedError),
     ("backend", "tpu", ValueError),
-    ("plane_dtype", "bfloat16", NotImplementedError),
+    ("plane_dtype", "float64", ValueError),
     ("guard", "flag", NotImplementedError),
     ("num_iters", 0, ValueError),
 ))

@@ -4,9 +4,10 @@ against the Pallas kernels in interpret mode).
 
 * ``quantise_plane`` / ``compress_plane`` give JAX's bits at both 2-byte
   dtypes, and pass int tensors through.
-* The spec surface: Megopolis and Metropolis take bfloat16 and float16;
-  C1, C2, rejection and the prefix-sum kinds raise ``NotImplementedError``
-  naming ROADMAP Queue A item 2.
+* The spec surface: every family takes bfloat16 and float16 and refuses
+  float64 (C1, C2, rejection and the prefix-sum kinds against the JAX
+  package: ``test_torch_plane_dtype_c1c2_rejection.py``,
+  ``test_torch_plane_dtype_prefix.py``).
 * Every entry of both families at both dtypes: the ancestors equal JAX's
   bit for bit, so do the particles of ``apply``; the step's stats are held
   to ``STATS_RTOL``/``INCR_ATOL`` (ROADMAP Queue C item 3: the sums run in
@@ -124,8 +125,14 @@ def test_compressed_families_build(cls, dtype):
 ))
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_other_families_name_item_2(make, dtype):
-    with pytest.raises(NotImplementedError, match="Queue A, item 2"):
-        make(dtype)
+    """C1, C2, rejection and the prefix-sum family take both 2-byte dtypes
+    (ROADMAP Queue A item 2 is done) and refuse float64."""
+    r = make(dtype).build()
+    assert r.plane_dtype == dtype
+    x = torch.randn(8)
+    assert torch.equal(r.quantise(x), tc.quantise_plane(x, dtype))
+    with pytest.raises(ValueError, match="plane_dtype"):
+        make("float64")
 
 
 # ------------------------------------------------------------ against JAX
@@ -247,10 +254,18 @@ def test_wrappers_take_planes_on_cpu(dtype):
 
 
 def test_other_kernels_refuse_planes():
+    """The rejection wrapper takes 2-byte weights (its plain version on the
+    CPU, the values of the float32 call on the quantised weights) and
+    refuses a dtype that is no plane dtype."""
     from repro_torch.kernels.rejection import rejection as rk
 
-    with pytest.raises(ValueError, match="float32"):
-        rk.rejection(torch.rand(N).to(torch.bfloat16), torch.tensor(1), 8)
+    w = torch.rand(N)
+    for dt in (torch.bfloat16, torch.float16):
+        got = rk.rejection(w.to(dt), torch.tensor(1), 8)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, rk.rejection(w.to(dt).float(), torch.tensor(1), 8))
+    with pytest.raises(ValueError, match="bfloat16"):
+        rk.rejection(w.to(torch.float64), torch.tensor(1), 8)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -258,7 +273,7 @@ def test_contract_cells_launch_their_f32_budget(dtype):
     cells = list(audit_matrix(families=("megopolis", "metropolis", "rejection"),
                               device="cpu", plane_dtypes=("float32", dtype)))
     compressed = [c for c in cells if c.cell.endswith(f"@{dtype}")]
-    assert len(compressed) == 16  # rejection has no compressed cells
+    assert len(compressed) == 24  # every family has its compressed cells
     budgets = {c.cell: c.launches for c in cells}
     for c in compressed:
         assert c.ok, c.violations

@@ -240,7 +240,8 @@ def test_scan_span_carries(s, n, blocks):
     enough that spans hold several tiles and cross row ends."""
     from repro_torch.analysis import smem
 
-    kernel = {"scan": "prefix_scan_rows_kernel", "step": "prefix_step_rows_kernel<0>"}
+    kernel = {"scan": "prefix_scan_rows_kernel<float>",
+              "step": "prefix_step_rows_kernel<0, float>"}
     g = smem.price(kernel[blocks], s, n).blocks if blocks in kernel else blocks
     x = _scan_kernel_rows(s, n)[np.arange(s) % 7]
     y = ref.scan_rows_ref(x)
@@ -780,7 +781,7 @@ def test_bank_contracts():
     ("backend", "reference", NotImplementedError),
     ("backend", "pallas", NotImplementedError),
     ("backend", "tpu", ValueError),
-    ("plane_dtype", "bfloat16", NotImplementedError),
+    ("plane_dtype", "float8_e4m3fn", ValueError),
     ("plane_dtype", "float64", ValueError),
     ("guard", "flag", NotImplementedError),
     ("guard", "loud", ValueError),

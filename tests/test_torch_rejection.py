@@ -550,8 +550,8 @@ def test_bank_contracts():
     ("backend", "pallas", NotImplementedError),
     ("backend", "xla", NotImplementedError),
     ("backend", "tpu", ValueError),
-    ("plane_dtype", "bfloat16", NotImplementedError),
-    ("plane_dtype", "float16", NotImplementedError),
+    ("plane_dtype", "int8", ValueError),
+    ("plane_dtype", "half", ValueError),
     ("plane_dtype", "float64", ValueError),
     ("guard", "flag", NotImplementedError),
     ("guard", "recover", NotImplementedError),
