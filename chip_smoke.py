@@ -14,12 +14,16 @@ over, and there is no CPU fallback):
    kernel records in a process that has run for minutes, and on an H100
    lost none in a new one), the contract checks
    (``python -m repro_torch.analysis``) on the card: the resource tables
-   against the card's own attributes and limits; the 80 matrix cells, the
-   filter's consumers and pass 6 for all ten families (``--check``), each
-   recorded run's census, both sides of a step cell's flag, held to the
-   profiler's count of the port's kernels in it, every cell also at
-   bfloat16 and at float16 planes (each dtype's cells in a run of their
-   own), each launching what its float32 cell launches; every kernel within the
+   against the card's own attributes and limits; the 80 matrix cells of
+   the ``cuda`` backend, the filter's consumers,
+   the 'auto' reference paths' RNG, pass 6 and pass 7 (the guards) for all
+   ten families (``--check``; the ``reference`` cells, which launch no
+   port kernel, run in the CPU tests: a cut, printed), each recorded run's
+   census, both sides of a step cell's flag, held to the profiler's count
+   of the port's kernels in it, every ``cuda`` cell also at bfloat16 and at
+   float16 planes (each
+   dtype's cells in a run of their own), each launching what its float32
+   cell launches; every kernel within the
    card's shared memory and registers at its largest admitted shapes, and
    the oversized fixture refused with no launch; ``--selftest``; then the
    two fixture kernels (rows 30-31) against their plain versions on their
@@ -44,7 +48,24 @@ over, and there is no CPU fallback):
    one PyTorch call that computes it (``library_ms``); beside the
    Metropolis cases, the rate of random 4-byte reads from one row in L2
    that one plain PyTorch gather reaches (``gather_probe``);
-5. drive the paths through the user's entry points, each run with every
+5. in a process of its own (``--phase guard``, young for the profiler),
+   started beside phase 3 (which waits for it to end before it times the
+   fixture kernels; phase 4 runs after both, alone), drive Path D and the
+   reference backend, each run with every kernel's launch count set to 0
+   just before and read just after:
+   * Path D, the degeneracy guard (DESIGN.md §16): UNGM log-weights of a
+     bank of S filters' first step at N particles, row 3 all -inf and row
+     11 with one NaN, through every Path A family's ``step_rows`` at
+     float32 and bfloat16 planes at ``guard`` 'off', 'recover' and 'flag':
+     the recovered rows' stats and finite state, the clean rows bit for
+     bit with 'off', the port-kernel census of 'off' held to the profiler,
+     'flag' bit for bit with 'off' and one event, and the CUDA launches
+     'recover' adds;
+   * the reference backend (``backend="reference"``) of every family name:
+     ``r(key, w)`` and ``r.batch(key, w_bank)`` at N = 2^18 on the card,
+     bit for bit with the same calls on the CPU, timed beside the ``cuda``
+     backend's;
+6. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
      each family: ``MegopolisSpec``, ``MetropolisSpec`` (Table 2's baseline
@@ -75,7 +96,11 @@ over, and there is no CPU fallback):
      then MSE/N and the bias share (eq. 21), and the time of one
      ``r(key, w)`` and one ``r.batch(key, w_bank)``, for every family of
      Fig. 6's method set (rejection is not in it), and each at bfloat16
-     planes, Megopolis and Metropolis at float16 too;
+     planes, Megopolis and Metropolis at float16 too; and Method 2 (paper
+     eq. 13): for each alpha of 0.5, 2, 3, 10 and 50, Gamma(alpha, 1)
+     weights drawn on the card by ``gamma_weights`` (the share of samples
+     bit-equal to the same draw on the CPU printed), B from eq. (3), the
+     same K resamples and figures for the four float32 families;
    * Path C, Fig. 8's study (paper §6.5): for N of 2^14, 2^18 and 2^22
      and each y of 0, 2 and 4, Megopolis (B from eq. (3)) against the
      multinomial and improved systematic kinds, each also at bfloat16
@@ -85,7 +110,7 @@ over, and there is no CPU fallback):
    * small runs of both paths on the card against the same runs on the CPU,
      and for the prefix-sum kinds each step of an Alg. 6 run on the CPU
      replayed on the card bit for bit;
-6. print the card line, one JSON line of kernels (all 31 rows, rows 1-29
+7. print the card line, one JSON line of kernels (all 31 rows, rows 1-29
    also at each 2-byte plane word), then a last JSON line naming the
    device.
 
@@ -100,9 +125,12 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -140,10 +168,10 @@ PATH_PLANES = {
 PATH_B_YS = (0.0, 2.0, 4.0)
 #: Time steps of the short runs whose resampler inputs phase 4 captures.
 CAPTURE_STEPS = 5
-#: Bank steps of the float32 families' Path A bank runs: cut from T = 100
-#: to keep the whole run within 600 s (the cut is printed; their compressed
-#: twins run all T and also report the RMSE over these first steps).
-PATH_A_F32_BANK_STEPS = 50
+#: Bank steps of every family's Path A bank runs: cut from T = 100 to keep
+#: the whole run, Path D and Method 2 included, within 600 s (the cut is
+#: printed).
+PATH_A_BANK_STEPS = 50
 #: The ESS threshold of the conditional runs (Path A's and phase 4's).
 THR = 0.5
 #: 32-bit operations per (particle, iteration) of each family's sweep,
@@ -196,6 +224,19 @@ INCR_ATOL = 1e-5
 #: Card time phase 4 gives each plain version's timing after its comparison
 #: call, in ms.
 PLAIN_BUDGET_MS = 250.0
+#: Path D (the degeneracy guard, DESIGN.md §16): the bank's rows made
+#: degenerate (row 3 all -inf, row 11 one NaN; taken modulo a smaller bank)
+#: and the plane dtypes its families run at.
+PATH_D_ROWS = (3, 11)
+PATH_D_PLANES = ("float32", "bfloat16")
+#: The reference backend on the card: its particle count, bank rows, the
+#: eq. (12) y of its weights and its iteration counts (B, rejection's cap:
+#: the CPU half of the comparison, plain torch ops at 2^18, sets the time).
+REFERENCE_N = 1 << 18
+REFERENCE_ROWS = 2
+REFERENCE_Y = 2.0
+REFERENCE_ITERS = 8
+REFERENCE_MAX_ITERS = 32
 #: Whole-run agreement of a small filter on the card and on the CPU: the
 #: noise differs by a few ULP (log1p, sqrt), which flips a rare accept; each
 #: flip moves an estimate by at most the particle range over N.
@@ -339,7 +380,7 @@ def summary(stats) -> dict:
 #: The phases that run in a process of their own, before the paths: each
 #: relies on ``torch.profiler``'s kernel records, which a process that has
 #: run for minutes loses (``kernel_ms``).
-PHASES = ("checks", "kernels")
+PHASES = ("checks", "kernels", "guard")
 PHASE_TIMEOUT_S = 600
 
 
@@ -362,7 +403,8 @@ def main(argv=None) -> int:
 
     if args.phase is not None:
         ctx = setup(args)
-        kernels = {"checks": checks_phase, "kernels": kernels_phase}[args.phase](ctx)
+        kernels = {"checks": checks_phase, "kernels": kernels_phase,
+                   "guard": guard_phase}[args.phase](ctx)
         print(json.dumps({"phase": args.phase, "path_launches": ctx.path_launches,
                           "results": ctx.results, "kernels": kernels}, default=float))
         return 0
@@ -381,8 +423,8 @@ def main(argv=None) -> int:
             if any(s in line for s in ("entry function", "registers", "spill")):
                 print(f"  {src}: {line.strip()}")
 
-    # -- 3-4. the contract checks; kernels against their plain versions ------
-    phases = {name: run_phase(name, argv) for name in PHASES}
+    # -- 3-5. the contract checks beside the guard; the kernels alone ---------
+    phases = run_phases(argv)
 
     # -- 5. the paths ----------------------------------------------------------
     ctx = setup(args)
@@ -411,6 +453,9 @@ def main(argv=None) -> int:
     for family, f in ctx.path_b_families.items():
         path_b(family, f, args, dev, ctx.k_quality, drive, results)
     took("path A's index entries, rejection's spread, path B")
+    path_b_gamma(args, dev, ctx.k_quality, drive, results,
+                 {name: f for name, f in ctx.path_b_families.items() if "plane" not in f})
+    took("path B, Method 2")
     path_c(args, dev, ctx.trandom.fold_in(ctx.k_quality, PATH_C_KEY), drive, results,
            {"megopolis": (ctx.mk.megopolis_rows, ctx.mk.megopolis),
             "multinomial": ctx.prefix_index, "improved_systematic": ctx.prefix_index})
@@ -430,7 +475,7 @@ def main(argv=None) -> int:
                  "run_filter_bank/conditional", "run_filter_timed/alg6"):
         side = {family: {k: results[f"{mode}/{family}"].get(k) for k in
                          ("steps_per_s", "rmse", "rmse_mean",
-                          f"rmse_mean_first_{PATH_A_F32_BANK_STEPS}", "resample_ratio")}
+                          f"rmse_mean_first_{PATH_A_BANK_STEPS}", "resample_ratio")}
                 for family in families}
         print(f"compare {mode}: {json.dumps(side)}")
     for y in PATH_B_YS:
@@ -438,6 +483,14 @@ def main(argv=None) -> int:
                          ("B", "mse_over_n", "bias_share", "single_ms", "batch_ms")}
                 for family in ctx.path_b_families}
         print(f"compare fig6/y={y}: {json.dumps(side)}")
+    from repro_torch.core.weightgen import GAMMA_ALPHA_GRID
+
+    for alpha in GAMMA_ALPHA_GRID:
+        side = {family: {k: results[f"fig6_gamma/alpha={alpha}/{family}"][k] for k in
+                         ("B", "mse_over_n", "bias_share", "single_ms", "batch_ms")}
+                for family in ctx.path_b_families if "@" not in family}
+        side["weights"] = results[f"fig6_gamma/alpha={alpha}/weights"]
+        print(f"compare fig6_gamma/alpha={alpha}: {json.dumps(side)}")
     for n_c in PATH_C_NS:
         for y in PATH_B_YS:
             side = {m: {k: results[f"fig8/n={n_c}/y={y}/{m}"][k] for k in
@@ -457,21 +510,79 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_phase(name: str, argv) -> dict:
-    """Run one phase of ``PHASES`` in a new process (``--phase``), young, as
-    the profiler needs it: its output passes through, and its last line, a
-    JSON object with the counts of its ``drive`` runs and its ``kernels``
-    entries, is returned.  Any failure there fails here."""
-    cmd = [sys.executable, str(Path(__file__).resolve()),
-           *(sys.argv[1:] if argv is None else argv), "--phase", name]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=PHASE_TIMEOUT_S)
-    lines = proc.stdout.splitlines()
-    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
-    if proc.returncode != 0 or not lines:
-        fail(f"phase {name} exited {proc.returncode}")
+#: The environment variable naming the file whose existence tells the
+#: checks phase that the guard phase, run beside it, has ended.
+GUARD_DONE_ENV = "CHIP_SMOKE_GUARD_DONE"
+
+
+def phase_cmd(name: str, argv) -> list:
+    return [sys.executable, str(Path(__file__).resolve()),
+            *(sys.argv[1:] if argv is None else argv), "--phase", name]
+
+
+def phase_result(name: str, returncode: int, stdout: str, t0: float) -> dict:
+    """A phase's output passed through and its last line, a JSON object with
+    the counts of its ``drive`` runs and its ``kernels`` entries, returned.
+    Any failure there fails here."""
+    lines = stdout.splitlines()
+    print("\n".join(lines[:-1] if returncode == 0 else lines), flush=True)
+    if returncode != 0 or not lines:
+        fail(f"phase {name} exited {returncode}")
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s in its own process", flush=True)
     return json.loads(lines[-1])
+
+
+def run_phases(argv) -> dict:
+    """Run the phases of ``PHASES``, each in a new process (``--phase``),
+    young, as the profiler needs it.  The guard phase runs beside the checks
+    phase, which waits for it to end before it times the fixture kernels;
+    the kernels phase, which times every kernel, runs alone after both.
+    Every process started here is waited for, or killed at its time limit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        done = Path(tmp) / "guard.done"
+        t_guard = time.perf_counter()
+        with open(Path(tmp) / "guard.out", "w+") as out:
+            guard = subprocess.Popen(phase_cmd("guard", argv), stdout=out, text=True)
+
+            def reap():
+                try:
+                    guard.wait(timeout=PHASE_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    guard.kill()
+                    guard.wait()
+                done.touch()
+
+            waiter = threading.Thread(target=reap)
+            waiter.start()
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(phase_cmd("checks", argv), stdout=subprocess.PIPE,
+                                      text=True, timeout=PHASE_TIMEOUT_S,
+                                      env=dict(os.environ, **{GUARD_DONE_ENV: str(done)}))
+            finally:
+                waiter.join()
+            phases = {"checks": phase_result("checks", proc.returncode, proc.stdout, t0)}
+            out.seek(0)
+            phases["guard"] = phase_result("guard", guard.returncode, out.read(), t_guard)
+    t0 = time.perf_counter()
+    proc = subprocess.run(phase_cmd("kernels", argv), stdout=subprocess.PIPE, text=True,
+                          timeout=PHASE_TIMEOUT_S)
+    phases["kernels"] = phase_result("kernels", proc.returncode, proc.stdout, t0)
+    return phases
+
+
+def wait_for_guard():
+    """In the checks phase: wait until the guard phase beside it has ended
+    (the file named by ``GUARD_DONE_ENV`` exists), so that nothing else runs
+    on the card while the fixture kernels are timed."""
+    path = os.environ.get(GUARD_DONE_ENV)
+    t0 = time.perf_counter()
+    while path and not Path(path).exists():
+        if time.perf_counter() - t0 > PHASE_TIMEOUT_S:
+            fail("the guard phase did not end")
+        time.sleep(0.2)
+    if path:
+        print(f"checks: waited {time.perf_counter() - t0:.1f} s for the guard phase", flush=True)
 
 
 def setup(args) -> types.SimpleNamespace:
@@ -604,6 +715,7 @@ def checks_phase(ctx) -> list:
     from repro_torch.analysis import fixtures as afix
 
     contract_checks(ctx.dev, ctx.wrappers, ctx.fk, ctx.drive)
+    wait_for_guard()
     entries = [check_kernel(case) for case in fixture_cases(ctx.dev, ctx.fk, afix)]
     return [e for e in entries if e["name"] in TPU_KERNELS]
 
@@ -633,6 +745,203 @@ def kernels_phase(ctx) -> list:
     return kernels
 
 
+def guard_phase(ctx) -> list:
+    """Phase ``guard``, young for the profiler: Path D, the degeneracy guard
+    at full width (``path_d``), then the reference backend on the card
+    (``reference_on_card``).  No kernel is new here, so it lists no
+    ``kernels`` entry; its runs' launches count with the paths'."""
+    import concurrent.futures
+
+    a = ctx.args
+    key = ctx.trandom.fold_in(ctx.k_quality, 14)
+    t0 = time.perf_counter()
+    # The reference backend's CPU half runs in a thread beside Path D (torch
+    # releases the GIL in its ops; Path D waits on the card).
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        on_cpu = pool.submit(reference_on_cpu, key)
+        path_d(a, ctx.dev, ctx.fam, ctx.bank_obs, ctx.thetas, ctx.k_run, ctx.families,
+               ctx.drive, ctx.results)
+        t1 = time.perf_counter()
+        reference_on_card(ctx.dev, key, on_cpu.result(), ctx.drive, ctx.results)
+    print(f"time phase guard (s): path D {t1 - t0:.1f}, reference "
+          f"{time.perf_counter() - t1:.1f} after it", flush=True)
+    return []
+
+
+def profiled_run(fn):
+    """``fn()`` under ``contracts.record`` and the profiler: its result, its
+    port-kernel census, the port's kernels among the profiler's events and
+    the count of all its CUDA kernel events."""
+    from repro_torch.analysis import contracts, smem
+
+    prof_box = []
+
+    @contextlib.contextmanager
+    def profiled(rec):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            yield
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        prof_box.append(prof)
+
+    out, rec = contracts.record(fn, taint=False, around=profiled)
+    names = [kernel_instance(name) for name, _ in device_kernels(prof_box[0])]
+    seen = collections.Counter(k for k in names if k in smem.KERNELS)
+    return out, dict(rec.census), dict(seen), len(names)
+
+
+def path_d(args, dev, fam, bank_obs, thetas, k_run, families, drive, results):
+    """Path D, the degeneracy guard (DESIGN.md §16) at full width: UNGM
+    log-weights of a bank of S filters' first step at N particles, with row
+    3 all -inf and row 11 holding one NaN, through each Path A family's
+    ``step_rows`` at float32 and bfloat16 planes, at ``guard`` 'off',
+    'recover' and 'flag' on the same keys and particles (threshold 0.5).
+    'recover': the collapsed rows report ``degenerate``, ``ess_norm`` 1,
+    ``log_evidence_incr`` 0 and finite state, the clean rows equal 'off''s
+    bit for bit, and the port kernels launched equal 'off''s, held to the
+    profiler; 'flag': 'off''s outputs bit for bit and exactly one
+    ``guard_degenerate`` event naming the collapsed rows inside
+    ``record_resilience_events``.  Prints the CUDA launches beyond the
+    port's that 'recover' adds per step."""
+    from repro_torch import random as trandom
+    from repro_torch.core.metrics import log_weights_from_linear
+    from repro_torch.resilience import record_resilience_events
+
+    n, s = args.particles, args.bank
+    rows = sorted({r % s for r in PATH_D_ROWS})
+    clean = [i for i in range(s) if i not in rows]
+    halves = trandom.split(trandom.split(trandom.fold_in(k_run, 11), s))
+    th = {name: v.reshape(s, 1).to(dev) for name, v in thetas.items()}
+    t = torch.tensor(1.0, device=dev)
+    x = fam.transition(halves[:, 1], fam.init(halves[:, 0], n, dev), t, th)
+    lw = log_weights_from_linear(fam.likelihood(bank_obs[:, :1].to(dev), x, t, th))
+    lw[rows[0]] = float("-inf")
+    if len(rows) > 1:
+        lw[rows[1], 5] = float("nan")
+    keys = trandom.split(trandom.fold_in(k_run, 12), s)
+
+    def bits(out):
+        p_out, anc, stats = out
+        return [p_out.float().view(torch.int32), anc, *(f.float().view(torch.int32)
+                                                        if f.dtype.is_floating_point else f
+                                                        for f in stats)]
+
+    for family, f in families.items():
+        if f.get("plane", "float32") not in PATH_D_PLANES:
+            continue
+        t_family = time.perf_counter()
+        base = f["spec"]
+        runs = {}
+        for guard in ("off", "recover"):
+            r = base.replace(guard=guard).build()
+            r.step_rows(keys, lw, x, THR)  # warm up
+            name = f"path_d/{guard}/{family}"
+            for attempt in (0, 1):
+                out, census, seen, all_cuda = drive(
+                    name, lambda: profiled_run(lambda: r.step_rows(keys, lw, x, THR)),
+                    [f["bank_conditional"]])
+                if census == seen:
+                    break
+                print(f"path_d {name}: the profiler saw {seen} for the census {census}; "
+                      "driven again", flush=True)
+            if any(seen.get(k, 0) != c for k, c in census.items()) or set(seen) - set(census):
+                fail(f"{name}: census {census} and profiler {seen} differ")
+            runs[guard] = (out, census, all_cuda)
+            results[name].update(census=census, cuda_launches=all_cuda)
+        (off, c_off, cuda_off), (rec, c_rec, cuda_rec) = runs["off"], runs["recover"]
+        name = f"path_d/{family}"
+        if c_rec != c_off:
+            fail(f"{name}: 'recover' launched {c_rec}, 'off' {c_off}")
+        p_rec, _, st = rec
+        if not (st.degenerate[rows].all() and not st.degenerate[clean].any()
+                and (st.ess_norm[rows] == 1.0).all() and (st.log_evidence_incr[rows] == 0).all()
+                and bool(torch.isfinite(p_rec).all())):
+            fail(f"{name}: the collapsed rows {rows} were not recovered: "
+                 f"{summary(st)}, ess_norm {st.ess_norm[rows].tolist()}")
+        for a, b in zip(bits(off), bits(rec)):
+            if not torch.equal(a[clean], b[clean]):
+                fail(f"{name}: 'recover' moved a clean row")
+        r = base.replace(guard="flag").build()
+        events = []
+        with record_resilience_events(events):
+            flag = drive(f"path_d/flag/{family}", lambda: r.step_rows(keys, lw, x, THR),
+                         [f["bank_conditional"]])
+        if not all(torch.equal(a, b) for a, b in zip(bits(off), bits(flag))):
+            fail(f"{name}: 'flag' differs from 'off'")
+        if [(e["kind"], e["degenerate_rows"], e["bank_rows"]) for e in events] != \
+                [("guard_degenerate", len(rows), s)]:
+            fail(f"{name}: 'flag' emitted {events}, not one event of {len(rows)} rows")
+        results[name] = {"seconds": time.perf_counter() - t_family, "rows": rows,
+                         "port_launches": sum(c_off.values()),
+                         "recover_extra_cuda_launches_per_step": cuda_rec - cuda_off,
+                         "degenerate": st.degenerate.tolist(), "flag_events": len(events),
+                         "recovered": summary(st)}
+
+
+def reference_inputs(key):
+    """The reference comparison's weights on the CPU, one row and a bank."""
+    from repro_torch.core.weightgen import gaussian_weights
+
+    w = gaussian_weights(key, REFERENCE_N, REFERENCE_Y, device="cpu")
+    return w, torch.stack([w, w.flip(0)])[:REFERENCE_ROWS].contiguous()
+
+
+def reference_spec(name: str, backend: str):
+    from repro_torch.core.spec import spec_for_backend
+
+    return spec_for_backend(name, backend, num_iters=REFERENCE_ITERS,
+                            max_iters=REFERENCE_MAX_ITERS)
+
+
+def reference_on_cpu(key) -> dict:
+    """Every family's reference ``r(key, w)`` and ``r.batch(key, w_bank)`` on
+    the CPU: name -> (ancestors, bank ancestors, seconds)."""
+    from repro_torch import random as trandom
+    from repro_torch.core.spec import list_resamplers
+
+    w, bank = reference_inputs(key)
+    k_call = trandom.fold_in(key, 1)
+    out = {}
+    for name in list_resamplers():
+        ref = reference_spec(name, "reference").build()
+        t0 = time.perf_counter()
+        out[name] = (ref(k_call, w), ref.batch(k_call, bank), time.perf_counter() - t0)
+    return out
+
+
+def reference_on_card(dev, key, on_cpu, drive, results):
+    """The reference backend on the card: every family's ``r(key, w)`` and
+    ``r.batch(key, w_bank)`` at ``REFERENCE_N`` particles on CUDA tensors,
+    bit for bit with the same calls on the CPU (``on_cpu``:
+    ``reference_on_cpu``'s), timed beside the ``cuda`` backend's same calls
+    (``spec_for_backend``'s geometry at B = ``REFERENCE_ITERS``; eq. (12)
+    weights at y = ``REFERENCE_Y``)."""
+    from repro_torch import random as trandom
+    from repro_torch.core.spec import list_resamplers
+
+    w_cpu, bank_cpu = reference_inputs(key)
+    w, bank = w_cpu.to(dev), bank_cpu.to(dev)
+    k_call = trandom.fold_in(key, 1)
+    for name in list_resamplers():
+        ref, cuda = reference_spec(name, "reference").build(), reference_spec(name, "cuda").build()
+        got, got_b = drive(f"reference/{name}", lambda: (ref(k_call, w), ref.batch(k_call, bank)),
+                           [])
+        if results[f"reference/{name}"]["launches"]:
+            fail(f"reference/{name}: the reference backend launched port kernels")
+        want, want_b, cpu_s = on_cpu[name]
+        if not (torch.equal(got.cpu(), want) and torch.equal(got_b.cpu(), want_b)):
+            fail(f"reference/{name}: the card's ancestors differ from the CPU's "
+                 f"({int((got.cpu() != want).sum())} of {REFERENCE_N})")
+        results[f"reference/{name}"].update(
+            n=REFERENCE_N, rows=REFERENCE_ROWS, bit_equal_with_cpu=True, cpu_s=cpu_s,
+            reference_ms=time_ms(lambda: ref(k_call, w), 3, warmup=1),
+            cuda_ms=time_ms(lambda: cuda(k_call, w), 10, warmup=2),
+            reference_batch_ms=time_ms(lambda: ref.batch(k_call, bank), 2, warmup=1),
+            cuda_batch_ms=time_ms(lambda: cuda.batch(k_call, bank), 10, warmup=2))
+
+
 def path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, thetas, k_run,
            drive, results):
     """Path A for one family: the filter runs of Table 2 at full width."""
@@ -655,11 +964,11 @@ def path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, t
             fail(f"{name}: estimates not finite of shape ({args.steps},)")
         results[name].update(rmse=rmse(ests.cpu().numpy(), truth.cpu().numpy()),
                              stats=summary(tel.steps))
-    steps = args.bank_steps if "plane" in f else min(args.bank_steps, PATH_A_F32_BANK_STEPS)
+    steps = min(args.bank_steps, PATH_A_BANK_STEPS)
     if steps < args.bank_steps:
         print(f"cut run_filter_bank/*/{family}: {steps} of {args.bank_steps} bank steps "
-              "(float32 families, to keep the run within 600 s)", flush=True)
-    first = min(steps, PATH_A_F32_BANK_STEPS)
+              "(to keep the run within 600 s)", flush=True)
+    first = steps
 
     def rmse_mean(ests, t):
         return sum(rmse(ests[i, :t].cpu().numpy(), bank_truth[i, :t].cpu().numpy())
@@ -772,6 +1081,72 @@ def path_b(family, f, args, dev, k_quality, drive, results):
             fail(f"{name}: bias² {bias_sq} and MSE {total} not finite with bias² <= MSE")
         results[name].update(B=b, K=k, mse_over_n=total / n, bias_share=bias_sq / total,
                              single_ms=single_ms, batch_ms=batch_ms)
+
+
+def path_b_gamma(args, dev, k_quality, drive, results, families):
+    """Path B's Method 2 (paper eq. 13, Fig. 6's second weight family and
+    Fig. 10's protocol): for each alpha, Gamma(alpha, 1) weights drawn on the
+    card by ``gamma_weights`` (and the same draw on the CPU: the share of
+    bit-equal samples), B from eq. (3) on them, and Path B's K Monte Carlo
+    resamples, MSE/N, bias share and times for each family of Fig. 6's
+    set."""
+    from repro_torch import random as trandom
+    from repro_torch.core.iterations import select_iterations
+    from repro_torch.core.metrics import bias_variance, offspring_counts
+    from repro_torch.core.weightgen import GAMMA_ALPHA_GRID, gamma_weights
+
+    import concurrent.futures
+
+    n, k = args.particles, args.runs
+    keys_w = {alpha: trandom.fold_in(trandom.fold_in(k_quality, 13), int(alpha * 10))
+              for alpha in GAMMA_ALPHA_GRID}
+
+    def on_cpu(alpha):
+        t0 = time.perf_counter()
+        return gamma_weights(keys_w[alpha], n, alpha, device="cpu"), time.perf_counter() - t0
+
+    # The CPU's draws run in a thread beside the card's work.
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_draws = {alpha: pool.submit(on_cpu, alpha) for alpha in GAMMA_ALPHA_GRID}
+    for alpha in GAMMA_ALPHA_GRID:
+        kw = keys_w[alpha]
+        t0 = time.perf_counter()
+        w = drive(f"fig6_gamma/alpha={alpha}/weights",
+                  lambda: gamma_weights(kw, n, alpha, device=dev), [])
+        card_s = time.perf_counter() - t0
+        w_cpu, cpu_s = cpu_draws[alpha].result()
+        if not (bool(torch.isfinite(w).all()) and bool((w >= 0).all())):
+            fail(f"fig6_gamma/alpha={alpha}: weights not finite and non-negative")
+        same = (w.cpu().view(torch.int32) == w_cpu.view(torch.int32)).double().mean().item()
+        rel = ((w.cpu().double() - w_cpu.double()).abs() / w_cpu.double()).max().item()
+        results[f"fig6_gamma/alpha={alpha}/weights"].update(
+            card_vs_cpu_bit_equal_share=same, card_vs_cpu_max_rel=rel, card_s=card_s,
+            cpu_s=cpu_s, mean=float(w.mean()), max=float(w.max()))
+        b = select_iterations(w)
+        bank = w[None].expand(k, n).contiguous()
+        keys = trandom.split(trandom.fold_in(kw, 1), k)
+        k_time = trandom.fold_in(kw, 2)
+        for family, f in families.items():
+            r = f["cls"](num_iters=b).build()
+            r.batch_rows(keys[:2], bank[:2])  # warm up
+            name = f"fig6_gamma/alpha={alpha}/{family}"
+
+            def run():
+                off = offspring_counts(r.batch_rows(keys, bank), n)
+                _, bias_sq, total = bias_variance(off, w)
+                return (off, float(bias_sq), float(total),
+                        time_ms(lambda: r(k_time, w), 10, warmup=1),
+                        time_ms(lambda: r.batch(k_time, bank), 3, warmup=1))
+
+            off, bias_sq, total, single_ms, batch_ms = drive(
+                name, run, [f["batch_rows"], f["single"], f["batch"]])
+            if off.shape != (k, n) or not bool((off.sum(dim=1) == n).all()):
+                fail(f"{name}: offspring counts of shape {tuple(off.shape)} do not sum to N")
+            if not (math.isfinite(total) and 0 <= bias_sq <= total):
+                fail(f"{name}: bias² {bias_sq} and MSE {total} not finite with bias² <= MSE")
+            results[name].update(B=b, K=k, mse_over_n=total / n, bias_share=bias_sq / total,
+                                 single_ms=single_ms, batch_ms=batch_ms)
+    pool.shutdown()
 
 
 def path_c(args, dev, key, drive, results, expected):
@@ -1851,30 +2226,38 @@ def contract_checks(dev, wrappers, fk, drive):
     port = [w for w in wrappers if w not in fk.WRAPPERS]
 
     def report_at(dtype):
-        # The float32 report holds every audit; a 2-byte one, the matrix at
+        # The cuda backend's cells, each recorded run profiled: the float32
+        # report holds every audit; a 2-byte one, the matrix and pass 7 at
         # that dtype and the transactions repriced at its words.
         more = dtype == "float32"
         return build_report(device=dev, around=witness, plane_dtypes=(dtype,), consumers=more,
-                            large_n=more, telemetry=more)
+                            large_n=more, telemetry=more, backends=("cuda",))
 
     reports = [drive("analysis/check" + ("" if dt == "float32" else f"@{dt}"),
                      lambda dt=dt: report_at(dt), port) for dt in CHECK_PLANES]
+    # The reference backend's cells launch no port kernel; their thousands of
+    # small torch launches took 182 s on the card, a third of the run, so
+    # they run in the CPU tests, and the card holds the reference backend in
+    # the guard phase (``reference_on_card``).
+    print("cut analysis/check: the reference backend's 80 cells and pass 7 run in the CPU "
+          "tests, not here (182 s on the card)", flush=True)
     for report in reports:
         print(summarise(report))
     matrix = [cell for report in reports for cell in report["matrix"]]
     census = collections.defaultdict(dict)
     for cell in matrix:
-        family, _, entry = cell["cell"].split("/")
-        census[family][entry] = cell["launches"]
+        family, backend, entry = cell["cell"].split("/")
+        census[f"{family}/{backend}"][entry] = cell["launches"]
     print(f"census by entry: {json.dumps(census)}")
     # The compression axis narrows words and never adds a launch: each
     # compressed cell launches what its float32 cell does.
     launches = {cell["cell"]: cell["launches"] for cell in matrix}
     axis = {c: (k, launches[c.split("@")[0]]) for c, k in launches.items() if "@" in c}
     moved = {c: v for c, v in axis.items() if v[0] != v[1]}
-    print(f"census plane axis: {len(axis)} cells at {CHECK_PLANES[1:]}, {len(moved)} launch "
-          f"other than their float32 cell")
-    if len(axis) != len(launches) * (len(CHECK_PLANES) - 1) // len(CHECK_PLANES) or moved:
+    print(f"census plane axis: {len(axis)} cuda cells at {CHECK_PLANES[1:]}, {len(moved)} "
+          f"launch other than their float32 cell")
+    cuda_cells = sum(1 for c in launches if "/cuda/" in c and "@" not in c)
+    if len(axis) != cuda_cells * (len(CHECK_PLANES) - 1) or moved:
         fail(f"compressed cells missing, or their launches differ from float32's: {moved}")
     witness_census(witnessed, lambda: [report_at(dt) for dt in CHECK_PLANES])
     if not all(report["ok"] for report in reports):
@@ -1901,10 +2284,10 @@ def path_a_census(args, families, results):
         for family in families:
             steps = results[f"{mode}/{family}"].get("steps", args.steps)
             got = sum(results[f"{mode}/{family}"]["launches"].values())
-            want = launch_budget(family.split("@")[0], entry) * steps
+            want = launch_budget(family.split("@")[0], "cuda", entry) * steps
             if got != want:
                 fail(f"{mode}/{family}: {got} port kernel launches, budget x steps {want}")
-    split = {family: {"port_per_step": launch_budget(family, "step"), "all_cuda_per_step":
+    split = {family: {"port_per_step": launch_budget(family, "cuda", "step"), "all_cuda_per_step":
                       results["host_and_device_per_step"][family]["launches_per_step"]}
              for family in results["host_and_device_per_step"]}
     print(f"census path_a: every run at budget x steps; conditional step {json.dumps(split)}")

@@ -5,11 +5,12 @@ them, once at the JAX auditor's geometry under recorders, and checks the
 counted invariants the port's speed argument rests on: launch budgets by
 kernel name, no ancestor round trip through device memory, RNG discipline,
 each launch's shared memory and registers on the card, the
-paper's §2.4 transaction counts and telemetry neutrality.  CLI:
+paper's §2.4 transaction counts, telemetry neutrality (pass 6) and guard
+neutrality (pass 7), on both backends.  CLI:
 ``python -m repro_torch.analysis --check``.
 """
 
-from repro_torch.analysis.consumers import audit_consumers
+from repro_torch.analysis.consumers import audit_consumers, auto_reference_rng
 from repro_torch.analysis.contracts import (
     CellReport,
     Contract,
@@ -19,6 +20,7 @@ from repro_torch.analysis.contracts import (
     entry_callable,
     record,
 )
+from repro_torch.analysis.guards import audit_guards, compare_guard_runs
 from repro_torch.analysis.report import build_report, summarise, transaction_report
 from repro_torch.analysis.rng import branch_findings, rng_findings
 from repro_torch.analysis.smem import large_n_footprints, price, smem_findings
@@ -31,11 +33,14 @@ __all__ = [
     "Finding",
     "Waiver",
     "audit_consumers",
+    "audit_guards",
     "audit_matrix",
     "audit_program",
     "audit_telemetry",
+    "auto_reference_rng",
     "branch_findings",
     "build_report",
+    "compare_guard_runs",
     "count_launches",
     "entry_callable",
     "large_n_footprints",

@@ -2,9 +2,11 @@
 
     python -m repro_torch.analysis --check [--device cuda|cpu] [--json PATH]
                                    [--families megopolis,...] [--entries call,...]
+                                   [--backends cuda,reference]
                                    [--plane-dtypes float32,bfloat16,float16]
                                    [--no-consumers] [--no-large-n]
                                    [--no-transactions] [--no-telemetry]
+                                   [--no-resilience]
     python -m repro_torch.analysis --selftest [--device cuda|cpu]
 
 ``--check`` exits non-zero on any unwaived violation; ``--selftest``
@@ -28,8 +30,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="Audit the resampler matrix against its contracts.",
-        epilog="Not ported yet: --backends (ROADMAP Queue A item 4, the reference backend) "
-               "and --no-resilience (item 3, the guard and its pass 7).",
     )
     ap.add_argument("--check", action="store_true",
                     help="run the full audit; non-zero exit on violation")
@@ -44,6 +44,9 @@ def main(argv=None) -> int:
                     help="comma-separated family names (default: all)")
     ap.add_argument("--entries", type=_csv, default=None,
                     help="comma-separated entry points (default: all)")
+    ap.add_argument("--backends", type=_csv, default=None,
+                    help="comma-separated backends of the matrix and pass 7 (default: "
+                         "cuda,reference)")
     ap.add_argument("--plane-dtypes", type=_csv, default=None,
                     help="comma-separated plane dtypes of the §14 compression axis (default: "
                          "float32; at bfloat16 and float16 every cell again)")
@@ -55,6 +58,8 @@ def main(argv=None) -> int:
                     help="skip the §2.4 transaction pricing")
     ap.add_argument("--no-telemetry", action="store_true",
                     help="skip the §15 telemetry-neutrality pass")
+    ap.add_argument("--no-resilience", action="store_true",
+                    help="skip the §16 guard-neutrality pass (pass 7)")
     args = ap.parse_args(argv)
 
     if not (args.check or args.selftest):
@@ -81,6 +86,7 @@ def main(argv=None) -> int:
             families=args.families, entries=args.entries, device=device,
             consumers=not args.no_consumers, large_n=not args.no_large_n,
             transactions=not args.no_transactions, telemetry=not args.no_telemetry,
+            resilience=not args.no_resilience, backends=args.backends,
             plane_dtypes=args.plane_dtypes or ("float32",),
         )
         if args.json:

@@ -10,7 +10,13 @@ finding), re-derived from runs of ``ParticleFilter.step`` and
 geometry.  JAX's scan counts its body once; the port runs eagerly, so T
 observations launch T kernels: the budget is one launch per step.  The AIS
 and decode consumers come with their ports (ROADMAP Queue A items 8 and
-11), and so does the adaptive-iteration reference sweep (item 4).
+11).
+
+``auto_reference_rng`` sweeps the adaptive-``num_iters`` reference paths
+through the RNG pass.  Megopolis's documented deliberate deviation, the
+spec and ``megopolis()`` deriving the SAME offsets split so that injected
+offsets reproduce the 'auto' stream, is waived, not hidden: the waiver's
+reason lands in the report.
 """
 
 from __future__ import annotations
@@ -24,12 +30,30 @@ from repro_torch.analysis.contracts import (
     AUDIT_N,
     AUDIT_NUM_ITERS,
     Contract,
+    Waiver,
     audit_program,
+    record,
 )
-from repro_torch.core.spec import MegopolisSpec
+from repro_torch.analysis.rng import rng_findings
+from repro_torch.core.spec import MegopolisSpec, spec_for_backend
 
 #: Observations of the driver runs.
 AUDIT_STEPS = 5
+
+#: Direct (iterate-and-compare) families whose reference path takes the
+#: adaptive iteration rule; swept by ``auto_reference_rng``.
+AUTO_FAMILIES = ("megopolis", "metropolis", "metropolis_c1", "metropolis_c2")
+
+MEGOPOLIS_AUTO_WAIVER = Waiver(
+    code="key-reuse",
+    match="split, split",
+    reason=(
+        "megopolis 'auto' reference: the spec splits the key for the offsets draw and "
+        "megopolis() re-splits identically BY DESIGN, so injecting the drawn offsets "
+        "reproduces the same derivation (core/resamplers/megopolis.py, the JAX "
+        "package's streams)"
+    ),
+)
 
 
 def _pf(conditional: bool):
@@ -68,3 +92,20 @@ def audit_consumers(names=None, device="cuda", around=None):
     programs = _programs(device)
     return (audit_program(name, programs[name][0], Contract(max_launches=programs[name][1]),
                           around=around) for name in names or programs)
+
+
+def auto_reference_rng(families=AUTO_FAMILIES, device="cuda"):
+    """RNG-check the adaptive-iteration reference paths, one call each on
+    uniform weights; yields ``(cell, kept findings, waived)`` triples."""
+    dev = resolve_device(device)
+    key = trandom.PRNGKey(0)
+    w = torch.full((AUDIT_N,), 1.0 / AUDIT_N, device=dev)
+    for name in families:
+        resampler = spec_for_backend(name, "reference", num_iters="auto").build()
+        kept, waived = [], []
+        for f in rng_findings(record(lambda: resampler(key, w), taint=False)[1].keys):
+            if name == "megopolis" and MEGOPOLIS_AUTO_WAIVER.covers(f):
+                waived.append({"finding": f.as_dict(), "reason": MEGOPOLIS_AUTO_WAIVER.reason})
+            else:
+                kept.append(f)
+        yield f"{name}/reference/auto", kept, waived

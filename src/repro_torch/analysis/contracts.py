@@ -1,11 +1,12 @@
 """Per-cell contracts and the run-and-audit driver (DESIGN.md §13), after
 ``repro.analysis.contracts``.
 
-A *cell* is one ``(family, entry)`` pair of ``core.spec.contract_cells``;
-its contract bundles the declared invariants:
+A *cell* is one ``(family, backend, entry)`` triple of
+``core.spec.contract_cells``; its contract bundles the declared invariants:
 
   * ``max_launches``: ``core.spec.launch_budget`` (the §12 fused step is 1
-    for EVERY family);
+    for EVERY family on ``cuda``; the ``reference`` backend launches no
+    kernel of the port);
   * ``allow_tainted_gather``: the ancestors-through-device-memory round
     trip is forbidden everywhere in the resampler matrix (the §11 rule);
   * RNG discipline, always on; a deliberate deviation carries an explicit
@@ -35,8 +36,8 @@ from repro_torch.core.resamplers.batched import split_batch_keys
 from repro_torch.core.spec import (
     ENTRY_POINTS,
     contract_cells,
-    family_spec,
     launch_budget,
+    spec_for_backend,
 )
 from repro_torch.kernels.common import observe_launches
 
@@ -237,45 +238,63 @@ def entry_callable(resampler, entry: str, args: dict, fire: bool = False) -> Cal
     return table[entry]
 
 
-def cell_resampler(name: str, plane_dtype: str = "float32"):
-    """The built resampler of one family at the audit's iteration counts and
-    plane dtype."""
-    return family_spec(name, num_iters=AUDIT_NUM_ITERS, max_iters=AUDIT_MAX_ITERS,
-                       plane_dtype=plane_dtype).build()
+def cell_resampler(name: str, plane_dtype: str = "float32", backend: str = "cuda",
+                   guard: str = "off"):
+    """The built resampler of one family at the audit's iteration counts,
+    plane dtype, backend and guard (``spec_for_backend``'s geometry)."""
+    return spec_for_backend(name, backend, num_iters=AUDIT_NUM_ITERS,
+                            max_iters=AUDIT_MAX_ITERS, plane_dtype=plane_dtype,
+                            guard=guard).build()
 
 
-def cell_contract(name: str, entry: str) -> Contract:
-    return Contract(max_launches=launch_budget(name, entry))
+#: Rejection's reference loop runs until every particle is done: how many
+#: rounds it draws, and so which keys its rounds consume, follows the
+#: weights, which differ between the step's two sides.  The step's own key
+#: is consumed on both.
+REJECTION_ROUNDS_WAIVER = Waiver(
+    code="branch-drop", match="core/resamplers/rejection.py",
+    reason=("rejection reference: the round loop ends when every particle is done "
+            "(the JAX while_loop's cond), so the per-round keys fold_in(key_loop, t) "
+            "follow the weights; the step's key is consumed on both sides"))
+
+
+def cell_contract(name: str, entry: str, backend: str = "cuda") -> Contract:
+    waivers = ((REJECTION_ROUNDS_WAIVER,) if (name, backend) == ("rejection", "reference")
+               and entry in ("step", "step_rows") else ())
+    return Contract(max_launches=launch_budget(name, backend, entry), waivers=waivers)
 
 
 def audit_cell(name: str, entry: str, args: dict, around=None,
-               plane_dtype: str = "float32") -> CellReport:
+               plane_dtype: str = "float32", backend: str = "cuda") -> CellReport:
     """Run and audit one matrix cell.  A step cell runs on log-weights that
     resample, and again on ones that do not: the key must be consumed alike
-    (the §12 rule).  A compressed cell (``plane_dtype`` not float32) is
-    named ``family/cuda/entry@dtype`` and held to the same contract."""
-    r = cell_resampler(name, plane_dtype)
+    (the §12 rule).  The cell is named ``family/backend/entry``; a
+    compressed cell (``plane_dtype`` not float32) ``family/backend/entry@dtype``,
+    held to the same contract."""
+    r = cell_resampler(name, plane_dtype, backend)
     steps = entry in ("step", "step_rows")
     suffix = "" if plane_dtype == "float32" else f"@{plane_dtype}"
     return audit_program(
-        f"{name}/cuda/{entry}{suffix}", entry_callable(r, entry, args, fire=steps),
-        cell_contract(name, entry),
+        f"{name}/{backend}/{entry}{suffix}", entry_callable(r, entry, args, fire=steps),
+        cell_contract(name, entry, backend),
         other_side=entry_callable(r, entry, args) if steps else None, around=around)
 
 
 def audit_matrix(families=None, entries=None, device="cuda", around=None,
-                 plane_dtypes=None):
+                 plane_dtypes=None, backends=None):
     """Run and audit every requested matrix cell; returns a generator of
     CellReports.  One shared args dict, made before the first cell (so a
     device without a card raises here); cells are independent, so a
-    failure in one family still reports every other cell.  ``plane_dtypes``
-    (default float32 alone) adds the DESIGN.md §14 compression axis: every
-    cell again at each 2-byte dtype, against the same launch budgets:
-    compression narrows words, it never adds a launch."""
+    failure in one family still reports every other cell.  ``backends``
+    (default both, ``cuda`` and ``reference``) is the backend axis.
+    ``plane_dtypes`` (default float32 alone) adds the DESIGN.md §14
+    compression axis: every cell again at each 2-byte dtype, against the
+    same launch budgets: compression narrows words, it never adds a
+    launch."""
     args = audit_args(device=device)
-    return (audit_cell(name, entry, args, around, dtype)
+    return (audit_cell(name, entry, args, around, dtype, backend)
             for dtype in (plane_dtypes or ("float32",))
-            for name, entry in contract_cells(families, entries))
+            for name, backend, entry in contract_cells(families, backends, entries))
 
 
 def audit_large_n():

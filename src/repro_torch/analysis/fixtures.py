@@ -10,8 +10,8 @@ the JAX package's ``FIXTURES``, and ``--selftest`` re-runs it.
 The programs use the port's two fixture kernels (``kernels/fixtures``), which
 are right in themselves: ``copy_launch`` (``o = x``) and ``iota_launch``
 (``int32[1, N] = 0..N-1``).  ``oversized_vmem`` is priced and never
-launched.  The JAX package's ``leaky_guard`` and pass 7 come with the
-port's ``guard`` (ROADMAP Queue A item 3).
+launched.  ``leaky_guard`` is pass 7's (``analysis/guards.py``): a step
+whose guard axis is not neutral in all three of its ways.
 """
 
 from __future__ import annotations
@@ -128,6 +128,63 @@ def leaky_telemetry(device="cuda"):
     return record(lambda: run(False)), record(lambda: run(True))
 
 
+def leaky_guard():
+    """The pass-7 anti-fixture: a 'resampler' whose guard axis is NOT
+    neutral: ``'flag'`` adds a torch call to the step, and ``'recover'``
+    stages the state through an extra launch (``copy_launch``) AND emits
+    NaN state on a degenerate bank, so all three §16 checks (flag identity,
+    recover launch parity, degenerate recovery) must fire.  Returns the
+    ``(off, flag, recover)`` objects, each with a ``step``."""
+    from types import SimpleNamespace
+
+    from repro_torch.obs.stats import StepStats
+
+    def make(mode):
+        def step(key, lw, p, thr):
+            n = lw.shape[0]
+            deg = ~torch.isfinite(lw.amax())
+            ancestors = torch.arange(n, dtype=torch.int32, device=lw.device)
+            p_out = p
+            if mode == "flag_leak":
+                p_out = p + 0.0  # a visible extra op
+            if mode == "recover_leak":
+                p_out = copy_launch(p)  # an extra launch just to recover
+                p_out = torch.where(deg, torch.full_like(p_out, float("nan")), p_out)
+            one = torch.ones((), device=lw.device)
+            stats = StepStats(ess_norm=one, log_evidence_incr=one * 0.0, resampled=one,
+                              max_weight=one / n,
+                              survivors=torch.tensor(n, dtype=torch.int32),
+                              degenerate=deg)
+            return p_out, ancestors, stats
+
+        return SimpleNamespace(step=step)
+
+    return make("off"), make("flag_leak"), make("recover_leak")
+
+
+def guard_selftest(device="cuda") -> list:
+    """Pass 7 must flag the leaky fixture (all three violations) and pass a
+    real cell; returns problems, empty when healthy."""
+    from repro_torch.analysis.guards import audit_guard_cell, compare_guard_runs
+
+    device = resolve_device(device)
+    problems = []
+    rep = compare_guard_runs("fixture:leaky_guard", *leaky_guard(), device=device)
+    if rep["ok"]:
+        problems.append("leaky_guard: expected §16 violations, got none")
+    else:
+        if rep["flag_program_match"]:
+            problems.append("leaky_guard: expected the flag-identity check to fire")
+        if rep["launches_recover"] == rep["launches_off"]:
+            problems.append("leaky_guard: expected the recover launch-parity check to fire")
+        if rep["degenerate_recovered"]:
+            problems.append("leaky_guard: expected the degenerate-recovery check to fire")
+    good = audit_guard_cell("megopolis", "cuda", device=device)
+    if not good["ok"]:
+        problems.append(f"guard pass flags a healthy cell: {good['violations']}")
+    return problems
+
+
 def telemetry_selftest(device="cuda") -> list:
     """Pass 6 must flag the leaky fixture (both violations) and pass a real
     cell; returns problems, empty when healthy."""
@@ -177,4 +234,5 @@ def selftest(device="cuda") -> list:
         if others:
             problems.append(f"{name}: unexpected extra findings from {others}")
     problems.extend(telemetry_selftest(device))
+    problems.extend(guard_selftest(device))
     return problems

@@ -23,7 +23,7 @@ import torch
 from repro_torch import random as trandom
 from repro_torch import resolve_device
 from repro_torch.analysis.contracts import record
-from repro_torch.core.spec import family_names, family_spec
+from repro_torch.core.spec import list_resamplers, spec_for_backend
 
 #: Probe geometry, the JAX pass's: N is two tiles.
 NEUTRALITY_N = 2048
@@ -36,7 +36,8 @@ def _probe_filter(name: str):
     from repro_torch.pf.filter import ParticleFilter
     from repro_torch.pf.models import ungm
 
-    spec = family_spec(name, num_iters=NEUTRALITY_NUM_ITERS, max_iters=NEUTRALITY_MAX_ITERS)
+    spec = spec_for_backend(name, "cuda", num_iters=NEUTRALITY_NUM_ITERS,
+                            max_iters=NEUTRALITY_MAX_ITERS)
     return ParticleFilter(model=ungm(), num_particles=NEUTRALITY_N, resampler=spec,
                           ess_threshold=0.5)
 
@@ -95,4 +96,4 @@ def audit_telemetry(families=None, device="cuda", around=None):
     dicts (``cuda`` without a card raises here, before the first)."""
     device = resolve_device(device)
     return (audit_telemetry_cell(name, device, around)
-            for name in (families if families is not None else family_names()))
+            for name in (families if families is not None else list_resamplers()))

@@ -21,19 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.spec import (
-    MegopolisSpec,
-    MetropolisC1Spec,
-    MetropolisC2Spec,
-    MetropolisSpec,
-    PrefixSumSpec,
-    RejectionSpec,
-    ResamplerSpec,
-)
-from repro_torch.kernels.prefix_sum.ops import PREFIX_KINDS
-
-#: JAX backends whose kernels the port's ``cuda`` backend replaces.
-_KERNEL_BACKENDS = ("pallas", "pallas_interpret")
+from repro_torch.core.spec import JAX_BACKENDS, ResamplerSpec, spec_from_name
 
 
 def key_from_jax(key_data) -> torch.Tensor:
@@ -75,30 +63,24 @@ def theta_to_jax(theta: dict) -> dict:
     return {name: array_to_jax(v) for name, v in theta.items()}
 
 
-#: The port's spec class of each JAX family, by the spec's name (a
-#: prefix-sum spec is named by its kind).
-_FAMILIES = {cls.name: cls for cls in (MegopolisSpec, MetropolisSpec, MetropolisC1Spec,
-                                        MetropolisC2Spec, RejectionSpec)}
-_FAMILIES.update(dict.fromkeys(PREFIX_KINDS, PrefixSumSpec))
-
-
 def spec_from_jax(spec) -> ResamplerSpec:
     """A JAX spec -> the port's spec of the same family, field by field (C1/C2
     with ``partition_size_bytes`` and ``warp``, rejection with
-    ``max_iters``, the prefix-sum family with ``kind``); the pallas backends
-    map to ``cuda``, the others raise in the port's spec as not yet
-    ported.  A spec of no known family raises ``ValueError``."""
-    cls = _FAMILIES.get(spec.name)
-    if cls is None:
-        raise ValueError(f"spec_from_jax: no resampler family is named {spec.name!r}")
-    fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(cls)}
-    if fields["backend"] in _KERNEL_BACKENDS:
-        fields["backend"] = "cuda"
-    return cls(**fields)
+    ``max_iters``, the prefix-sum family with ``kind``), through the port's
+    one registry (``core.spec.spec_from_name``); the JAX backends map to
+    their counterparts (``JAX_BACKENDS``: the pallas pair to ``cuda``,
+    ``xla`` to ``reference``; ``reference`` stays).  A spec of no known
+    family raises ``KeyError``."""
+    fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+    fields["backend"] = JAX_BACKENDS.get(fields["backend"], fields["backend"])
+    fields.pop("kind", None)
+    return spec_from_name(spec.name, **fields)
 
 
 def spec_to_jax(spec: ResamplerSpec) -> dict:
-    """A port spec -> the fields of the JAX spec of the same family whose
-    kernels it runs (``backend="pallas"``); the JAX class of the same name
-    rebuilds it from them (``MetropolisC1Spec(**fields)``)."""
-    return dict(dataclasses.asdict(spec), backend="pallas")
+    """A port spec -> the fields of the JAX spec of the same family that runs
+    the same thing (``backend="pallas"`` for ``cuda``, ``"reference"`` for
+    ``reference``); the JAX class of the same name rebuilds it from them
+    (``MetropolisC1Spec(**fields)``)."""
+    return dict(dataclasses.asdict(spec),
+                backend="pallas" if spec.backend == "cuda" else spec.backend)

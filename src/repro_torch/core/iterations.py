@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from repro_torch import random as trandom
+
 
 def select_iterations(weights: torch.Tensor, epsilon: float = 0.01) -> int:
     """Exact eq. (3) over ``weights[N]``; returns a Python int >= 1."""
@@ -22,6 +24,15 @@ def select_iterations(weights: torch.Tensor, epsilon: float = 0.01) -> int:
     eps = torch.tensor(epsilon, dtype=torch.float32, device=w.device)
     b = torch.ceil(torch.log(eps) / torch.log1p(-ratio))
     return max(int(b.item()), 1)
+
+
+def select_iterations_subsample(key: torch.Tensor, weights: torch.Tensor, epsilon: float = 0.01,
+                                sample: int = 4096) -> int:
+    """Eq. (3) from a uniform subsample of ``sample`` weights (with
+    replacement, ``randint`` on the key), the production-mode estimator."""
+    n = weights.shape[0]
+    idx = trandom.randint(key, (min(sample, n),), 0, n, device=weights.device)
+    return select_iterations(weights[idx.long()], epsilon)
 
 
 def gaussian_weight_iterations(y: float, epsilon: float = 0.01) -> int:

@@ -1,56 +1,96 @@
-"""Typed resampler specs and the built resampler, after ``repro.core.spec``
-(the Megopolis and Metropolis families, Metropolis-C1 and -C2, Murray's
-rejection and the five prefix-sum kinds: every family of the JAX package).
+"""Typed resampler specs, the built resampler and the name registry, after
+``repro.core.spec`` (the Megopolis and Metropolis families, Metropolis-C1
+and -C2, Murray's rejection and the five prefix-sum kinds: every family of
+the JAX package).
 
     spec = MegopolisSpec(num_iters=32)          # backend="cuda"
     spec = RejectionSpec(max_iters=1024)        # no num_iters: a capped loop
     spec = PrefixSumSpec(kind="multinomial")    # no num_iters: one scan, one search
     spec = MegopolisSpec(plane_dtype="bfloat16")  # 2-byte planes (every family)
+    spec = MegopolisSpec(segment=32, backend="reference")  # the algorithm oracle
+    spec = MetropolisSpec(guard="recover")      # degenerate rows resample uniformly
+    spec = spec_from_name("metropolis_c1", num_iters=16)
     r = spec.build()
     ancestors = r(key, weights)
     particles2, ancestors = r.apply(key, weights, particles)
     particles2, ancestors, stats = r.step(key, log_w, particles, 0.5)
 
-The entries follow their inputs' device: CUDA tensors launch the
-hand-written kernels, CPU tensors run the kernels' plain versions.  Keys
-are ``int64[2]`` (banks ``[S, 2]``) threefry key data (``repro_torch.random``).
+Backends: ``"cuda"`` (the default) runs the hand-written kernels, ``"reference"``
+the reference algorithms of ``core/resamplers`` in plain torch ops, on JAX's
+random streams, bit for bit with the JAX package's ``backend="reference"``
+(the oracle the kernels are not: Megopolis at any ``segment``, C1/C2 at any
+``partition_size_bytes``).  The JAX package's other backends are its ways of
+compiling: ``"xla"`` (the reference, jitted) raises naming ``"reference"``,
+``"pallas_interpret"`` and ``"pallas"`` raise naming ``"cuda"``.
 
-What is not ported raises ``NotImplementedError`` naming its ROADMAP item;
-nothing is computed another way.
+The entries follow their inputs' device: CUDA tensors launch the
+hand-written kernels (``cuda``) or run the reference's torch ops on the card
+(``reference``), CPU tensors run the kernels' plain versions or the
+reference on the CPU.  Keys are ``int64[2]`` (banks ``[S, 2]``) threefry key
+data (``repro_torch.random``).
+
+The registry (``spec_from_name``, ``spec_for_backend``, ``coerce_spec``,
+``list_resamplers``, ``get_resampler``, ``get_resampler_batch``) maps the ten
+family names onto specs and reference functions, with the JAX package's
+semantics; ``launch_budget`` and ``contract_cells`` are the contract
+checks' view of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import difflib
-from typing import Callable, ClassVar, Union
+from typing import Any, Callable, ClassVar, Tuple, Union
 
 import torch
 
+from repro_torch import random as trandom
 from repro_torch.core.iterations import select_iterations
 from repro_torch.core.metrics import (
     degenerate_log_weights,
+    degenerate_weights,
+    effective_sample_size,
+    log_mean_weight,
+    max_normalised_weight,
     normalise_log_weights,
     unique_ancestor_count,
 )
+from repro_torch.core.resamplers import prefix_sum as _prefix_sum_module
 from repro_torch.core.resamplers.batched import split_batch_keys
+from repro_torch.core.resamplers.megopolis import DEFAULT_SEGMENT, megopolis, megopolis_batch
+from repro_torch.core.resamplers.metropolis import (
+    WARP,
+    metropolis,
+    metropolis_batch,
+    metropolis_c1,
+    metropolis_c1_batch,
+    metropolis_c2,
+    metropolis_c2_batch,
+)
+from repro_torch.core.resamplers.rejection import rejection, rejection_batch
 from repro_torch.kernels.common import PLANE_DTYPES, compress_plane, quantise_plane
 from repro_torch.kernels.megopolis import ops as mops
 from repro_torch.kernels.metropolis import ops as tops
 from repro_torch.kernels.prefix_sum import ops as pops
 from repro_torch.kernels.rejection import ops as rops
 from repro_torch.obs.stats import stats_from_vector
+from repro_torch.resilience.guards import check_guard_policy, maybe_emit_guard_event
 
 AUTO = "auto"
-BACKENDS = ("cuda",)
-#: The JAX package's backends that have no port yet.
-_UNPORTED_BACKENDS = ("reference", "xla", "pallas_interpret", "pallas")
+#: The port's backends: the hand-written kernels and the reference algorithms.
+BACKENDS = ("cuda", "reference")
+#: The JAX package's ways of compiling, by the port's counterpart.
+JAX_BACKENDS = {"xla": "reference", "pallas_interpret": "cuda", "pallas": "cuda"}
 #: Kernel coalescing segment (the TPU's (8, 128) f32 tile, kept for parity).
 KERNEL_SEGMENT = 1024
 #: The C1/C2 kernels' partition: one segment of f32 weights.
 KERNEL_PARTITION_BYTES = KERNEL_SEGMENT * 4
-#: Threads per warp in the paper's cost model of C1/C2 (``warp`` field).
-WARP = 32
+#: The reference backend's partition (the JAX package's default).
+REFERENCE_PARTITION_BYTES = 128
+#: The cap of eq. (3)'s B on the reference backend under 'auto'; Megopolis
+#: draws its offset table at this size then, a stream of its own (the JAX
+#: package's ``AUTO_MAX_ITERS``).
+AUTO_MAX_ITERS = 4096
 
 
 def _resolve_iters(num_iters, weights: torch.Tensor) -> int:
@@ -67,8 +107,8 @@ def _step_iters(num_iters, log_weights: torch.Tensor) -> int:
 
 
 def _row_by_row(fn: Callable, split_key: bool) -> Callable:
-    """A bank form that launches ``fn`` once per row, so that eq. (3) sees
-    each row's weights under 'auto' (``_per_row_auto_*`` of the JAX spec).
+    """A bank form that runs ``fn`` once per row (the JAX package's
+    ``_per_row_auto_*``, and its ``vmap`` of the reference single call).
     The keys are ``split(key, S)`` when ``split_key``, else the given
     per-row keys; tensor arguments after the weights are taken row by row,
     others (the ESS threshold) passed as they are."""
@@ -85,9 +125,10 @@ def _row_by_row(fn: Callable, split_key: bool) -> Callable:
 
 
 def _auto_batch_rows(name: str) -> Callable:
-    """``batch_rows`` under 'auto': the JAX package maps the single call
-    over the rows (``jax.vmap``), which hands it traced weights, and its
-    kernel path raises ``TypeError`` there; so does the port."""
+    """``batch_rows`` under 'auto' on ``cuda``: the JAX package maps the
+    single kernel call over the rows (``jax.vmap``), which hands it traced
+    weights, and its kernel path raises ``TypeError`` there; so does the
+    port."""
 
     def batch_rows(keys, w):
         raise TypeError(
@@ -97,6 +138,37 @@ def _auto_batch_rows(name: str) -> Callable:
         )
 
     return batch_rows
+
+
+def _reference_resampler(spec: "ResamplerSpec", single: Callable) -> "Resampler":
+    """The reference backend's ``Resampler``: every entry composed from the
+    single call, as the JAX base class composes its non-kernel backends
+    (``batch`` and ``batch_rows`` over the rows' keys, ``apply`` the index
+    call then the gather, ``step`` the normalise, ESS, branch and apply)."""
+    plane_dtype = spec.plane_dtype
+
+    def apply(key, w, p):
+        anc = single(key, w)
+        return p[anc.long()], anc
+
+    def step(key, lw, p, thr):
+        n = lw.shape[-1]
+        ess_n = effective_sample_size(lw) / float(n)
+        do = ess_n < torch.tensor(thr, dtype=torch.float32)
+        # The normalised weights land on the plane grid (a no-op at f32).
+        w = quantise_plane(normalise_log_weights(lw), plane_dtype)
+        p_res, a_res = apply(key, w, p)
+        ancestors = torch.where(do, a_res, torch.arange(n, dtype=torch.int32, device=lw.device))
+        p_out = torch.where(do, p_res, p)
+        incr = torch.where(do, log_mean_weight(lw), torch.zeros((), device=lw.device))
+        stats4 = torch.stack([ess_n, incr, do.to(torch.float32), max_normalised_weight(lw)])
+        return p_out, ancestors, stats4
+
+    return Resampler(spec, single=single, batch=_row_by_row(single, True),
+                     batch_rows=_row_by_row(single, False), apply=apply,
+                     apply_batch=_row_by_row(apply, True),
+                     apply_rows=_row_by_row(apply, False), step=step,
+                     step_rows=_row_by_row(step, False))
 
 
 class Resampler:
@@ -133,7 +205,18 @@ class Resampler:
     the caller's dtype again.  So ``r_bf16(key, w)`` equals ``r_f32(key,
     r_bf16.quantise(w))``; the step's sweep runs on its normalised weights
     requantised to the plane dtype, inside the kernel.  At float32 nothing
-    is narrowed.
+    is narrowed.  The reference backend quantises (float32 values on the
+    plane grid, as the JAX package's reference does) and never narrows.
+
+    The degeneracy guard (DESIGN.md §16, the spec's ``guard``) acts on the
+    weights each entry dispatches, after the plane dtype: ``'recover'``
+    replaces a degenerate row (total mass not a positive finite number; for
+    the step, a non-finite max log-weight) by the uniform bank, ``1/N``
+    weights or all-zero log-weights, with ``torch.where`` before the launch,
+    so the kernels and their count of launches are those of ``'off'``;
+    ``'flag'`` runs ``'off'``'s program and, while a recorder is active
+    (``resilience.guards.record_resilience_events``), emits one
+    ``guard_degenerate`` event per call that saw a collapsed row.
     """
 
     def __init__(self, spec: "ResamplerSpec", *, single: Callable, batch: Callable,
@@ -142,6 +225,8 @@ class Resampler:
         self.spec = spec
         self.name = spec.name
         self.plane_dtype = spec.plane_dtype
+        self.backend = spec.backend
+        self.guard = spec.guard
         self._single = single
         self._batch = batch
         self._batch_rows = batch_rows
@@ -176,66 +261,103 @@ class Resampler:
         return quantise_plane(x, self.plane_dtype)
 
     def _narrow(self, x: torch.Tensor) -> torch.Tensor:
-        """An entry's float input in the plane dtype (none at float32)."""
-        return x if self.plane_dtype == "float32" else compress_plane(x, self.plane_dtype)
+        """An entry's float input in the plane dtype (none at float32); on
+        the reference backend its values on the plane grid instead."""
+        if self.plane_dtype == "float32":
+            return x
+        if self.backend == "reference":
+            return self.quantise(x)
+        return compress_plane(x, self.plane_dtype)
 
     @staticmethod
     def _widen(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         """Particles out in the caller's dtype."""
         return out if out.dtype == like.dtype else out.to(like.dtype)
 
+    def _guard_weights(self, w: torch.Tensor, entry: str) -> torch.Tensor:
+        """The guard of the linear-weight entries: at ``'recover'`` each
+        degenerate row (``metrics.degenerate_weights``) becomes ``1/N``
+        (bit for bit on clean rows); at ``'flag'`` ``w`` itself and, while a
+        recorder is active, the event; at ``'off'`` ``w`` with no op."""
+        if self.guard == "off":
+            return w
+        if self.guard == "recover":
+            deg = degenerate_weights(w)
+            w = torch.where(deg.unsqueeze(-1), torch.full_like(w, 1.0 / w.shape[-1]), w)
+            maybe_emit_guard_event(self.name, self.backend, entry, self.guard, deg)
+        else:
+            maybe_emit_guard_event(self.name, self.backend, entry, self.guard,
+                                   lambda: degenerate_weights(w))
+        return w
+
+    def _guard_log_weights(self, lw: torch.Tensor, entry: str):
+        """The step's guard: ``(lw_run, degenerate)``.  ``degenerate``
+        (``metrics.degenerate_log_weights``) goes into ``StepStats`` under
+        every policy; at ``'recover'`` degenerate rows become all-zero
+        log-weights (the uniform bank) before the launch, so the kernel
+        runs a clean program with the same key and every output is finite."""
+        deg = degenerate_log_weights(lw)
+        if self.guard == "recover":
+            lw = torch.where(deg.unsqueeze(-1), torch.zeros_like(lw), lw)
+        if self.guard != "off":
+            maybe_emit_guard_event(self.name, self.backend, entry, self.guard, deg)
+        return lw, deg
+
+    def _weights(self, weights: torch.Tensor, entry: str) -> torch.Tensor:
+        return self._guard_weights(self._narrow(weights), entry)
+
     def __call__(self, key, weights):
         """Index-only resample of one population: ancestors ``int32[N]``."""
         self._check("__call__", weights, 1)
-        return self._single(key, self._narrow(weights))
+        return self._single(key, self._weights(weights, "single"))
 
     def batch(self, key, weights):
         """Index-only resample of a bank ``[S, N]`` under one key."""
         self._check("batch", weights, 2)
-        return self._batch(key, self._narrow(weights))
+        return self._batch(key, self._weights(weights, "batch"))
 
     def batch_rows(self, keys, weights):
         """Index-only resample of a bank over explicit per-row keys."""
         self._check("batch_rows", weights, 2, keys=keys)
-        return self._batch_rows(keys, self._narrow(weights))
+        return self._batch_rows(keys, self._weights(weights, "batch_rows"))
 
-    def _applied(self, fn, key, weights, particles):
-        p_out, anc = fn(key, self._narrow(weights), self._narrow(particles))
+    def _applied(self, fn, entry, key, weights, particles):
+        p_out, anc = fn(key, self._weights(weights, entry), self._narrow(particles))
         return self._widen(p_out, particles), anc
 
     def apply(self, key, weights, particles):
         """Fused resample + gather of one population."""
         self._check("apply", weights, 1, particles)
-        return self._applied(self._apply, key, weights, particles)
+        return self._applied(self._apply, "apply", key, weights, particles)
 
     def apply_batch(self, key, weights, particles):
         """Bank form of ``apply`` under one key."""
         self._check("apply_batch", weights, 2, particles)
-        return self._applied(self._apply_batch, key, weights, particles)
+        return self._applied(self._apply_batch, "apply_batch", key, weights, particles)
 
     def apply_rows(self, keys, weights, particles):
         """``apply`` over explicit per-row keys."""
         self._check("apply_rows", weights, 2, particles, keys)
-        return self._applied(self._apply_rows, keys, weights, particles)
+        return self._applied(self._apply_rows, "apply_rows", keys, weights, particles)
 
-    def _stepped(self, fn, key, log_weights, particles, ess_threshold):
-        lw = self._narrow(log_weights)
+    def _stepped(self, fn, entry, key, log_weights, particles, ess_threshold):
+        lw, deg = self._guard_log_weights(self._narrow(log_weights), entry)
         p_out, anc, stats4 = fn(key, lw, self._narrow(particles), ess_threshold)
-        stats = stats_from_vector(stats4, unique_ancestor_count(anc),
-                                  degenerate_log_weights(lw))
+        stats = stats_from_vector(stats4, unique_ancestor_count(anc), deg)
         return self._widen(p_out, particles), anc, stats
 
     def step(self, key, log_weights, particles, ess_threshold: float):
         """Fused SMC step of one population: ``(particles', ancestors,
         StepStats)``."""
         self._check("step", log_weights, 1, particles)
-        return self._stepped(self._step, key, log_weights, particles, ess_threshold)
+        return self._stepped(self._step, "step", key, log_weights, particles, ess_threshold)
 
     def step_rows(self, keys, log_weights, particles, ess_threshold: float):
         """``step`` over explicit per-row keys, each row with its own
         decision; the ``StepStats`` fields are ``[S]``."""
         self._check("step_rows", log_weights, 2, particles, keys)
-        return self._stepped(self._step_rows, keys, log_weights, particles, ess_threshold)
+        return self._stepped(self._step_rows, "step_rows", keys, log_weights, particles,
+                             ess_threshold)
 
     def __repr__(self):
         return f"Resampler({self.spec!r})"
@@ -243,8 +365,8 @@ class Resampler:
 
 @dataclasses.dataclass(frozen=True)
 class ResamplerSpec:
-    """Base class: a frozen spec of one resampler family on the port's
-    ``cuda`` backend.  Subclasses add their fields and ``build``."""
+    """Base class: a frozen spec of one resampler family on one of the
+    port's backends.  Subclasses add their fields and ``build``."""
 
     name: ClassVar[str] = ""
 
@@ -258,26 +380,19 @@ class ResamplerSpec:
 
     def _validate(self):
         """The checks every family shares: ``backend``, ``plane_dtype`` and
-        ``guard``; values the port does not have yet raise
-        ``NotImplementedError`` naming their ROADMAP item."""
+        ``guard``.  A JAX backend raises naming the port's counterpart."""
         cls = type(self).__name__
-        if self.backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"{cls}.backend={self.backend!r} is not ported yet; the port "
-                "runs backend='cuda' (ROADMAP Queue A, item 4: the reference backend)"
+        if self.backend in JAX_BACKENDS:
+            raise ValueError(
+                f"{cls}.backend={self.backend!r} is a JAX way of compiling; the port's "
+                f"counterpart is backend={JAX_BACKENDS[self.backend]!r} (one of {BACKENDS})"
             )
         if self.backend not in BACKENDS:
             raise ValueError(f"{cls}.backend must be one of {BACKENDS}; got {self.backend!r}")
         if self.plane_dtype not in PLANE_DTYPES:
             raise ValueError(f"{cls}.plane_dtype must be one of {PLANE_DTYPES}; got "
                              f"{self.plane_dtype!r}")
-        if self.guard in ("flag", "recover"):
-            raise NotImplementedError(
-                f"{cls}.guard={self.guard!r} is not ported yet "
-                "(ROADMAP Queue A, item 3: degeneracy guards)"
-            )
-        if self.guard != "off":
-            raise ValueError(f"{cls}.guard must be 'off'; got {self.guard!r}")
+        check_guard_policy(self.guard, cls)
 
     def replace(self, **changes) -> "ResamplerSpec":
         """A validated copy with ``changes`` applied."""
@@ -287,15 +402,30 @@ class ResamplerSpec:
         raise NotImplementedError
 
 
+def _auto_single(it, fn):
+    """The reference single call of the Metropolis family: B from eq. (3)
+    capped at ``AUTO_MAX_ITERS`` under 'auto' (bit for bit with the same
+    fixed B: B is only a loop bound and a ``fold_in`` counter)."""
+
+    def single(key, w):
+        b = min(select_iterations(w), AUTO_MAX_ITERS) if it == AUTO else it
+        return fn(key, w, b)
+
+    return single
+
+
 @dataclasses.dataclass(frozen=True)
 class MegopolisSpec(ResamplerSpec):
-    """The paper's Megopolis resampler (Alg. 5) on the hand-written CUDA
-    kernels.  ``segment`` is the kernels' coalescing segment, fixed at 1024
-    as on the TPU so that the two agree bit for bit.
+    """The paper's Megopolis resampler (Alg. 5).  On ``cuda`` the
+    hand-written kernels, whose coalescing ``segment`` is fixed at 1024 as
+    on the TPU, so that the two agree bit for bit; on ``reference`` the
+    algorithm at any ``segment`` (the paper's warp is 32).
 
-    'auto' resolves eq. (3) per call; ``batch``/``apply_batch`` resolve one
-    B for the whole bank (one shared offset table), ``apply_rows`` and
-    ``step_rows`` launch row by row."""
+    'auto' resolves eq. (3) per call.  On ``cuda`` ``batch``/``apply_batch``
+    resolve one B for the whole bank (one shared offset table), ``apply_rows``
+    and ``step_rows`` launch row by row; on ``reference`` every bank row is
+    its own single call, whose offsets are drawn at ``AUTO_MAX_ITERS``
+    (a stream of its own, as in the JAX package)."""
 
     num_iters: Union[int, str] = AUTO
     segment: int = KERNEL_SEGMENT
@@ -308,13 +438,32 @@ class MegopolisSpec(ResamplerSpec):
     def __post_init__(self):
         self._validate_num_iters()
         self._validate()
-        if self.segment != KERNEL_SEGMENT:
+        seg = self.segment
+        if isinstance(seg, bool) or not isinstance(seg, int) or seg < 1:
+            raise ValueError(f"MegopolisSpec.segment must be a positive int; got {seg!r}")
+        if self.backend == "cuda" and seg != KERNEL_SEGMENT:
             raise ValueError(
                 f"MegopolisSpec: the cuda kernels coalesce at segment={KERNEL_SEGMENT}; "
-                f"got segment={self.segment!r}"
+                f"got segment={seg!r}. Set segment={KERNEL_SEGMENT} or use "
+                "backend='reference'."
             )
 
+    def _reference(self) -> Resampler:
+        it, seg = self.num_iters, self.segment
+
+        def single(key, w):
+            if it != AUTO:
+                return megopolis(key, w, it, segment=seg)
+            b = min(select_iterations(w), AUTO_MAX_ITERS)
+            key_off, _ = trandom.split(key)
+            offsets = trandom.randint(key_off, (AUTO_MAX_ITERS,), 0, w.shape[0])
+            return megopolis(key, w, b, segment=seg, offsets=offsets)
+
+        return _reference_resampler(self, single)
+
     def build(self) -> Resampler:
+        if self.backend == "reference":
+            return self._reference()
         it = self.num_iters
 
         def single(key, w):
@@ -388,12 +537,12 @@ def _split_key_build(spec: "ResamplerSpec", prefix: str) -> Resampler:
 
 @dataclasses.dataclass(frozen=True)
 class MetropolisSpec(ResamplerSpec):
-    """The paper's random-access Metropolis baseline (Alg. 2) on the
-    hand-written CUDA kernels.
+    """The paper's random-access Metropolis baseline (Alg. 2), on the
+    hand-written CUDA kernels or the reference algorithm.
 
-    'auto' resolves eq. (3) per call, and every bank form launches row by
-    row so that each row gets its own B (``batch``/``apply_batch`` still
-    under the split-key contract)."""
+    'auto' resolves eq. (3) per call, and every bank form runs row by row
+    so that each row gets its own B (``batch``/``apply_batch`` still under
+    the split-key contract)."""
 
     num_iters: Union[int, str] = AUTO
     backend: str = "cuda"
@@ -407,17 +556,20 @@ class MetropolisSpec(ResamplerSpec):
         self._validate()
 
     def build(self) -> Resampler:
+        if self.backend == "reference":
+            return _reference_resampler(self, _auto_single(self.num_iters, metropolis))
         return _split_key_build(self, "metropolis_cuda")
 
 
 @dataclasses.dataclass(frozen=True)
 class _PartitionedSpec(ResamplerSpec):
     """Base of the segment-local variants (Algs. 3-4): each proposal is a
-    random lane of one partition tile shared by a tile of 1024 particles.
-    On ``cuda`` the partition is that tile, ``partition_size_bytes`` =
-    4096 (1024 f32) at every ``plane_dtype``, as on the TPU; ``warp`` (the
-    threads that share a partition in the paper's cost model) is kept for
-    parity and, as in the JAX package's kernels, not read by them."""
+    random lane of one partition shared by a warp of particles.  On
+    ``cuda`` the partition is one tile of 1024 f32 shared by a tile of 1024
+    particles, ``partition_size_bytes`` = 4096 at every ``plane_dtype``, as
+    on the TPU, and ``warp`` is kept for parity and, as in the JAX
+    package's kernels, not read by them; on ``reference`` any partition
+    size and warp (the paper's: 128 bytes, 32 threads)."""
 
     num_iters: Union[int, str] = AUTO
     partition_size_bytes: int = KERNEL_PARTITION_BYTES
@@ -434,47 +586,57 @@ class _PartitionedSpec(ResamplerSpec):
             value = getattr(self, field)
             if isinstance(value, bool) or not isinstance(value, int) or value < 1:
                 raise ValueError(f"{cls}.{field} must be a positive int; got {value!r}")
-        if self.partition_size_bytes != KERNEL_PARTITION_BYTES:
+        if self.backend == "cuda" and self.partition_size_bytes != KERNEL_PARTITION_BYTES:
             raise ValueError(
                 f"{cls}: the cuda kernels' partition is one tile of {KERNEL_SEGMENT} f32 = "
                 f"{KERNEL_PARTITION_BYTES} bytes; got partition_size_bytes="
                 f"{self.partition_size_bytes}. Set partition_size_bytes="
-                f"{KERNEL_PARTITION_BYTES}; the paper's warp-granular partitions belong to "
-                "backend='reference' (ROADMAP Queue A, item 4)."
+                f"{KERNEL_PARTITION_BYTES}, or use backend='reference' for the paper's "
+                "warp-granular partitions."
             )
+
+    def _reference(self, fn) -> Resampler:
+        psb, warp = self.partition_size_bytes, self.warp
+        return _reference_resampler(self, _auto_single(
+            self.num_iters,
+            lambda key, w, b: fn(key, w, b, partition_size_bytes=psb, warp=warp)))
 
 
 @dataclasses.dataclass(frozen=True)
 class MetropolisC1Spec(_PartitionedSpec):
     """Paper Alg. 3 (Dülger's C1): one partition tile per tile of particles,
-    kept for all B iterations, on the hand-written CUDA kernels."""
+    kept for all B iterations."""
 
     name: ClassVar[str] = "metropolis_c1"
 
     def build(self) -> Resampler:
+        if self.backend == "reference":
+            return self._reference(metropolis_c1)
         return _split_key_build(self, "metropolis_c1_cuda")
 
 
 @dataclasses.dataclass(frozen=True)
 class MetropolisC2Spec(_PartitionedSpec):
     """Paper Alg. 4 (Dülger's C2): a fresh partition tile per tile of
-    particles at every iteration, on the hand-written CUDA kernels."""
+    particles at every iteration."""
 
     name: ClassVar[str] = "metropolis_c2"
 
     def build(self) -> Resampler:
+        if self.backend == "reference":
+            return self._reference(metropolis_c2)
         return _split_key_build(self, "metropolis_c2_cuda")
 
 
 @dataclasses.dataclass(frozen=True)
 class RejectionSpec(ResamplerSpec):
-    """Murray's rejection resampler (paper §1's unbiased baseline) on the
-    hand-written CUDA kernels: each particle proposes until its first
+    """Murray's rejection resampler (paper §1's unbiased baseline): each
+    particle proposes until its first
     accept, at most ``max_iters`` rounds after its self-proposal; a
     particle that never accepts keeps its own index.  It has no iteration
     count B and so no 'auto'; ``step`` computes nothing on the host before
-    its launch.  Every bank form is one launch, ``batch``/``apply_batch``
-    under the split-key contract."""
+    its launch.  On ``cuda`` every bank form is one launch,
+    ``batch``/``apply_batch`` under the split-key contract."""
 
     max_iters: int = 1024
     backend: str = "cuda"
@@ -491,6 +653,9 @@ class RejectionSpec(ResamplerSpec):
 
     def build(self) -> Resampler:
         m = self.max_iters
+        if self.backend == "reference":
+            return _reference_resampler(
+                self, lambda key, w: rejection(key, w, max_iters=m))
         return Resampler(
             self,
             single=lambda key, w: rops.rejection_cuda(key, w, m),
@@ -510,11 +675,11 @@ class PrefixSumSpec(ResamplerSpec):
     """The prefix-sum family (paper §6.5): ``kind`` one of multinomial (Alg.
     7), systematic and improved systematic (Alg. 8), stratified and
     residual, on the hand-written CUDA kernels (a block scan, a bisection,
-    and the fused step).  None takes an iteration count, so there is no
-    'auto'; the spec's ``name`` is its kind, as in the JAX package.  Every
-    bank form launches each stage once over the bank, ``batch``/
-    ``apply_batch`` under the split-key contract; ``residual`` takes N <=
-    2**24."""
+    and the fused step) or the reference algorithms.  None takes an
+    iteration count, so there is no 'auto'; the spec's ``name`` is its kind,
+    as in the JAX package.  On ``cuda`` every bank form launches each stage
+    once over the bank, ``batch``/``apply_batch`` under the split-key
+    contract; ``residual`` takes N <= 2**24."""
 
     kind: str = "systematic"
     backend: str = "cuda"
@@ -537,6 +702,8 @@ class PrefixSumSpec(ResamplerSpec):
 
     def build(self) -> Resampler:
         kind = self.kind
+        if self.backend == "reference":
+            return _reference_resampler(self, getattr(_prefix_sum_module, kind))
         return Resampler(
             self,
             single=lambda key, w: pops.prefix_resample_cuda(key, w, kind),
@@ -552,27 +719,134 @@ class PrefixSumSpec(ResamplerSpec):
 
 
 # ---------------------------------------------------------------------------
-# Static contracts (DESIGN.md §13), after ``repro.core.spec``: the families
-# by name and the launch budget of each (family, entry) cell, which the
-# contract checks (``python -m repro_torch.analysis``) hold every cell to.
-# The port's one backend, ``cuda``, takes the JAX package's ``pallas``
-# budgets.
+# The name registry, after ``repro.core.spec``: one family table, from which
+# everything name-keyed derives (``spec_from_name``, ``spec_for_backend``,
+# ``coerce_spec``, ``list_resamplers``, ``get_resampler(_batch)``) and the
+# contract checks' cells (``launch_budget``, ``contract_cells``).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Family:
+    spec_cls: type
+    spec_fixed: Tuple[Tuple[str, Any], ...]  # fields frozen into the name
+    legacy_single: Callable
+    legacy_batch: Callable
+
+
+_FAMILIES = {
+    "megopolis": _Family(MegopolisSpec, (), megopolis, megopolis_batch),
+    "metropolis": _Family(MetropolisSpec, (), metropolis, metropolis_batch),
+    "metropolis_c1": _Family(MetropolisC1Spec, (), metropolis_c1,
+                             metropolis_c1_batch),
+    "metropolis_c2": _Family(MetropolisC2Spec, (), metropolis_c2,
+                             metropolis_c2_batch),
+    "rejection": _Family(RejectionSpec, (), rejection, rejection_batch),
+    **{kind: _Family(PrefixSumSpec, (("kind", kind),), getattr(_prefix_sum_module, kind),
+                     getattr(_prefix_sum_module, f"{kind}_batch"))
+       for kind in pops.PREFIX_KINDS},
+}
+
+
+def _unknown_name_error(name: str) -> KeyError:
+    choices = sorted(_FAMILIES)
+    hint = difflib.get_close_matches(str(name), choices, n=1)
+    did_you_mean = f" — did you mean {hint[0]!r}?" if hint else ""
+    return KeyError(f"unknown resampler {name!r}{did_you_mean}; choices: {choices}")
+
+
+def _family(name: str) -> _Family:
+    try:
+        return _FAMILIES[name]
+    except KeyError:
+        raise _unknown_name_error(name) from None
+
+
+def spec_from_name(name: str, **kwargs) -> ResamplerSpec:
+    """The typed spec of a registry name: ``spec_from_name('megopolis',
+    num_iters=24) == MegopolisSpec(num_iters=24)``.  A ``num_iters`` kwarg is
+    tolerated (and dropped) on the families without one (rejection and the
+    prefix-sum kinds); any other unknown kwarg raises ``TypeError``."""
+    fam = _family(name)
+    fields = {f.name for f in dataclasses.fields(fam.spec_cls)}
+    if "num_iters" not in fields:
+        kwargs.pop("num_iters", None)
+    unknown = sorted(set(kwargs) - fields)
+    if unknown:
+        raise TypeError(
+            f"{name}: unknown spec argument(s) {unknown}; "
+            f"{fam.spec_cls.__name__} fields are {sorted(fields)}"
+        )
+    return fam.spec_cls(**dict(fam.spec_fixed), **kwargs)
+
+
+def spec_for_backend(name: str, backend: str, *, num_iters: Union[int, str] = 16,
+                     max_iters: int = 64, plane_dtype: str = "float32",
+                     guard: str = "off") -> ResamplerSpec:
+    """A legal spec of any (family, backend) cell: the kernels' tile-fixed
+    geometry on ``cuda`` (``segment=1024``, ``partition_size_bytes=4096``),
+    the paper's on ``reference`` (``segment=32``, 128-byte partitions), so
+    that sweeps over family x backend need not re-encode the table."""
+    fam = _family(name)
+    cuda = backend == "cuda"
+    common = {"backend": backend, "plane_dtype": plane_dtype, "guard": guard}
+    if fam.spec_cls is MegopolisSpec:
+        return MegopolisSpec(num_iters=num_iters,
+                             segment=KERNEL_SEGMENT if cuda else DEFAULT_SEGMENT, **common)
+    if fam.spec_cls in (MetropolisC1Spec, MetropolisC2Spec):
+        return fam.spec_cls(
+            num_iters=num_iters,
+            partition_size_bytes=KERNEL_PARTITION_BYTES if cuda else REFERENCE_PARTITION_BYTES,
+            **common)
+    if fam.spec_cls is RejectionSpec:
+        return RejectionSpec(max_iters=max_iters, **common)
+    if fam.spec_cls is MetropolisSpec:
+        return MetropolisSpec(num_iters=num_iters, **common)
+    return PrefixSumSpec(kind=name, **common)
+
+
+def coerce_spec(resampler: Union[str, ResamplerSpec], /, **defaults) -> ResamplerSpec:
+    """``str | ResamplerSpec`` -> a spec, with ``defaults`` applied only
+    where the family has the field (``coerce_spec(name_or_spec,
+    num_iters=b, segment=s)`` configures the Metropolis family and leaves
+    the prefix-sum kinds as they are)."""
+    spec = spec_from_name(resampler) if isinstance(resampler, str) else resampler
+    if not isinstance(spec, ResamplerSpec):
+        raise TypeError(
+            f"expected a registry name or ResamplerSpec; got {type(resampler).__name__}"
+        )
+    fields = {f.name for f in dataclasses.fields(spec)}
+    applicable = {k: v for k, v in defaults.items() if k in fields}
+    return spec.replace(**applicable) if applicable else spec
+
+
+def list_resamplers() -> list:
+    """The ten registry names, sorted."""
+    return sorted(_FAMILIES)
+
+
+def get_resampler(name: str) -> Callable:
+    """Legacy lookup: the reference function ``fn(key, weights, num_iters,
+    **kw) -> int32[N]`` (prefer ``spec_from_name(name, **kw).build()``)."""
+    return _family(name).legacy_single
+
+
+def get_resampler_batch(name: str) -> Callable:
+    """Legacy bank lookup: ``fn(key, weights[B, N], num_iters, **kw) ->
+    int32[B, N]``, rows under ``split(key, B)`` (prefer ``.build().batch``)."""
+    return _family(name).legacy_batch
+
+
+# ---------------------------------------------------------------------------
+# Static contracts (DESIGN.md §13), after ``repro.core.spec``: the launch
+# budget of each (family, backend, entry) cell, which the contract checks
+# (``python -m repro_torch.analysis``) hold every cell to.  ``cuda`` takes
+# the JAX package's ``pallas`` budgets; ``reference`` launches no kernel of
+# the port.
 # ---------------------------------------------------------------------------
 
 #: Every entry point of a built ``Resampler``, audited per cell.
 ENTRY_POINTS = ("call", "batch", "batch_rows", "apply", "apply_batch", "apply_rows", "step",
                 "step_rows")
-
-#: The ten families by name: ``(spec class, fixed fields)``.  The name
-#: registry of ROADMAP Queue A item 4 (``spec_from_name``) takes it over.
-FAMILIES = {
-    "megopolis": (MegopolisSpec, {}),
-    "metropolis": (MetropolisSpec, {}),
-    "metropolis_c1": (MetropolisC1Spec, {}),
-    "metropolis_c2": (MetropolisC2Spec, {}),
-    "rejection": (RejectionSpec, {}),
-    **{kind: (PrefixSumSpec, {"kind": kind}) for kind in pops.PREFIX_KINDS},
-}
 
 # Direct families (Megopolis, Metropolis, C1/C2, rejection) launch once per
 # entry.  The prefix-sum kinds pay a scan before the search, except the
@@ -596,43 +870,34 @@ LAUNCH_BUDGETS = {
 }
 
 
-def family_names() -> list:
-    """The family names, sorted."""
-    return sorted(FAMILIES)
-
-
-def _family(name: str):
-    try:
-        return FAMILIES[name]
-    except KeyError:
-        hint = difflib.get_close_matches(str(name), FAMILIES, n=1)
-        did_you_mean = f" — did you mean {hint[0]!r}?" if hint else ""
-        raise KeyError(f"unknown resampler family {name!r}{did_you_mean}; choices: "
-                       f"{family_names()}") from None
-
-
-def family_spec(name: str, **fields) -> ResamplerSpec:
-    """The spec of family ``name`` with those of ``fields`` it has (so
-    ``num_iters`` and ``max_iters`` may both be given for any family)."""
-    cls, fixed = _family(name)
-    own = {f.name for f in dataclasses.fields(cls)}
-    return cls(**fixed, **{k: v for k, v in fields.items() if k in own})
-
-
-def launch_budget(name: str, entry: str) -> int:
-    """Declared most kernel launches of one (family, entry) cell."""
+def _check_entry(entry: str):
     if entry not in ENTRY_POINTS:
         raise KeyError(f"unknown entry point {entry!r}; choices: {ENTRY_POINTS}")
+
+
+def _check_backend(backend: str):
+    if backend not in BACKENDS:
+        raise KeyError(f"unknown backend {backend!r}; choices: {BACKENDS}")
+
+
+def launch_budget(name: str, backend: str, entry: str) -> int:
+    """Declared most port kernel launches of one (family, backend, entry)
+    cell: the JAX package's ``pallas`` budget on ``cuda``, 0 on
+    ``reference``."""
+    _check_entry(entry)
+    _check_backend(backend)
     _family(name)
-    return LAUNCH_BUDGETS[name][entry]
+    return LAUNCH_BUDGETS[name][entry] if backend == "cuda" else 0
 
 
-def contract_cells(families=None, entries=None):
-    """The audited (family, entry) cells: every family of ``FAMILIES`` (or
-    ``families``) by every entry point (or ``entries``)."""
-    for name in families if families is not None else family_names():
+def contract_cells(families=None, backends=None, entries=None):
+    """The audited (family, backend, entry) cells: every registered family
+    (or ``families``) by every backend (or ``backends``) by every entry
+    point (or ``entries``)."""
+    for name in families if families is not None else list_resamplers():
         _family(name)
-        for entry in entries if entries is not None else ENTRY_POINTS:
-            if entry not in ENTRY_POINTS:
-                raise KeyError(f"unknown entry point {entry!r}; choices: {ENTRY_POINTS}")
-            yield name, entry
+        for backend in backends if backends is not None else BACKENDS:
+            _check_backend(backend)
+            for entry in entries if entries is not None else ENTRY_POINTS:
+                _check_entry(entry)
+                yield name, backend, entry

@@ -8,8 +8,10 @@ comes from ``repro_torch.random.normal``, within 3 ULP of
 ``jax.random.normal``, so the weights agree with JAX's to a few ULP, not
 bit for bit.
 
-Method 2 (Dülger et al., paper eq. 13): Gamma(alpha, beta=1) samples; not
-ported yet.
+Method 2 (Dülger et al., paper eq. 13): Gamma(alpha, beta=1) samples from
+``repro_torch.random.gamma``, the twin of ``jax.random.gamma``; a sample is
+bit for bit with JAX's where its normal draws, ``log`` and ``pow`` round
+alike (``tests/test_torch_gamma.py`` states the share and bound per alpha).
 """
 
 from __future__ import annotations
@@ -33,10 +35,8 @@ def gaussian_weights(key: torch.Tensor, n: int, y: float, device="cuda") -> torc
     return torch.exp(-0.5 * (x - y) ** 2) / scale
 
 
-def gamma_weights(key, n: int, alpha: float, beta: float = 1.0, device="cuda"):
-    """Eq. (13) weights: not ported yet."""
-    resolve_device(device)
-    raise NotImplementedError(
-        "gamma_weights needs a twin of jax.random.gamma, which is not ported yet "
-        "(ROADMAP Queue A, item 12: the gamma sampler)"
-    )
+def gamma_weights(key: torch.Tensor, n: int, alpha: float, beta: float = 1.0,
+                  device="cuda") -> torch.Tensor:
+    """Eq. (13) weights ``f32[N] = Gamma(alpha) / beta`` on ``device`` (the
+    device rule of ``repro_torch``: ``cuda`` needs a card)."""
+    return trandom.gamma(key, alpha, (n,), device=resolve_device(device)) / beta

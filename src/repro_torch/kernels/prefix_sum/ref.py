@@ -7,7 +7,7 @@ added strictly in tile order, ``y_t = local_t + C_t`` with ``C_0 = 0`` and
 ``C_{t+1} = C_t + local_t[-1]``.  The order of the adds is the contract, so
 nothing here calls ``torch.cumsum`` (on the CPU it accumulates in a wider
 type).  In a tile the adds follow XLA's CPU ``cumsum``, a recursive scan
-with base 16 (``_scan16``): at most 16 values are added one after the
+with base 16 (``xla_scan``): at most 16 values are added one after the
 other; more are viewed as rows of 16, each row scanned, the rows' totals
 scanned the same way, and each row after the first offset by the total of
 the rows before it.
@@ -69,7 +69,7 @@ def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return flush_to_zero(a + b)
 
 
-def _sequential(v: torch.Tensor) -> torch.Tensor:
+def sequential_scan(v: torch.Tensor) -> torch.Tensor:
     """Inclusive scan along the last axis, one add after the other."""
     out = torch.empty_like(v)
     acc = v[..., 0]
@@ -80,23 +80,27 @@ def _sequential(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _scan16(v: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan along the last axis in XLA-CPU's order (base 16)."""
+def xla_scan(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan along the last axis in XLA-CPU's order (base 16); a
+    length that is no multiple of 16 is padded with zeros at the end, as
+    XLA's reduce-window rewrite pads it (the adds of zero change nothing)."""
     n = v.shape[-1]
     if n <= SCAN_BASE:
-        return _sequential(v)
-    loc = _sequential(v.reshape(v.shape[:-1] + (n // SCAN_BASE, SCAN_BASE)))
-    tot = _scan16(loc[..., -1])
+        return sequential_scan(v)
+    m = -(-n // SCAN_BASE) * SCAN_BASE
+    p = torch.nn.functional.pad(v, (0, m - n)) if m > n else v
+    loc = sequential_scan(p.reshape(p.shape[:-1] + (m // SCAN_BASE, SCAN_BASE)))
+    tot = xla_scan(loc[..., -1])
     out = loc.clone()
     out[..., 1:, :] = _add(loc[..., 1:, :], tot[..., :-1, None])
-    return out.reshape(v.shape)
+    return out.reshape(p.shape)[..., :n]
 
 
 def scan_rows_ref(x: torch.Tensor) -> torch.Tensor:
     """Plain version of ``prefix_scan_rows_kernel``: the tiled inclusive
     scan of each row of ``x f32[S, N]``."""
     s, n = x.shape
-    local = _scan16(flush_to_zero(x.to(torch.float32)).reshape(s, n // TILE, TILE))
+    local = xla_scan(flush_to_zero(x.to(torch.float32)).reshape(s, n // TILE, TILE))
     carry = torch.empty(s, n // TILE, dtype=torch.float32, device=x.device)
     c = torch.zeros(s, dtype=torch.float32, device=x.device)
     for t in range(n // TILE):

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -42,21 +42,13 @@ from repro_torch.core.metrics import (
     unique_ancestor_count,
 )
 from repro_torch.core.resamplers.batched import split_batch_keys
-from repro_torch.core.spec import (
-    MegopolisSpec,
-    MetropolisC1Spec,
-    MetropolisC2Spec,
-    MetropolisSpec,
-    PrefixSumSpec,
-    RejectionSpec,
-    ResamplerSpec,
-)
+from repro_torch.core.spec import MegopolisSpec, ResamplerSpec, coerce_spec
 from repro_torch.obs.stats import StepStats, stack_stats
 from repro_torch.obs.telemetry import Telemetry
 
-#: The resampler families the filter takes.
-_PORTED_SPECS = (MegopolisSpec, MetropolisSpec, MetropolisC1Spec, MetropolisC2Spec,
-                 RejectionSpec, PrefixSumSpec)
+#: B of a resampler given by name, the fixed application prior of paper §7
+#: (the JAX filter's default ``num_iters``).
+NAMED_NUM_ITERS = 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,16 +62,18 @@ class StateSpaceModel:
 
 @dataclasses.dataclass(frozen=True)
 class ParticleFilter:
-    """SIR filter config.  ``resampler`` is a ``MegopolisSpec`` (default:
-    30 iterations, the fixed prior of paper §7), a ``MetropolisSpec`` (the
-    paper's Alg. 2 baseline, Table 2), a ``MetropolisC1Spec`` /
-    ``MetropolisC2Spec`` (Algs. 3-4, Fig. 9), a ``RejectionSpec``
-    (Murray's rejection, paper §1) or a ``PrefixSumSpec`` (the prefix-sum
-    kinds of paper §6.5, Table 2's unbiased columns)."""
+    """SIR filter config.  ``resampler`` is a spec of any family on either
+    backend (default ``MegopolisSpec(num_iters=30)``, the fixed prior of
+    paper §7): a ``MegopolisSpec``, a ``MetropolisSpec`` (the paper's Alg. 2
+    baseline, Table 2), a ``MetropolisC1Spec`` / ``MetropolisC2Spec``
+    (Algs. 3-4, Fig. 9), a ``RejectionSpec`` (Murray's rejection, paper §1)
+    or a ``PrefixSumSpec`` (the prefix-sum kinds of paper §6.5); or a
+    registry name, resolved through ``coerce_spec(name, num_iters=30)``
+    (``"megopolis"``, ``"residual"``, ...)."""
 
     model: StateSpaceModel
     num_particles: int
-    resampler: ResamplerSpec = MegopolisSpec(num_iters=30)
+    resampler: Union[str, ResamplerSpec] = MegopolisSpec(num_iters=NAMED_NUM_ITERS)
     # None keeps Alg. 6's unconditional resample; a float in [0, 1] runs
     # conditional SIR with one fused step launch per time step.
     ess_threshold: Optional[float] = None
@@ -90,12 +84,14 @@ class ParticleFilter:
                 "ParticleFilter.ess_threshold must be in [0, 1] (a normalised "
                 f"ESS fraction) or None for Alg. 6; got {self.ess_threshold}"
             )
-        if not isinstance(self.resampler, _PORTED_SPECS):
-            raise NotImplementedError(
-                f"ParticleFilter: resampler {self.resampler!r} is not ported yet; pass a "
-                "spec (every family has one); names are ROADMAP Queue A, item 4"
-            )
-        object.__setattr__(self, "_built", self.resampler.build())
+        spec = self.resampler
+        if isinstance(spec, str):
+            spec = coerce_spec(spec, num_iters=NAMED_NUM_ITERS)
+        elif not isinstance(spec, ResamplerSpec):
+            raise TypeError(
+                f"ParticleFilter: resampler must be a registry name or a ResamplerSpec; "
+                f"got {type(spec).__name__}")
+        object.__setattr__(self, "_built", spec.build())
 
     @property
     def spec(self) -> ResamplerSpec:

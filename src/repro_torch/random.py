@@ -14,7 +14,12 @@ this module re-implements the threefry2x32 PRNG in the partitionable mode
   (Giles), written out here; it matches ``jax.random.normal`` to within
   3 ULP on the CPU against jax 0.9.0 (``tests/test_torch_random.py``
   holds the bound over 5·10^5 draws); the differences come from
-  ``log1p``'s rounding.
+  ``log1p``'s rounding;
+* ``gamma`` follows jax 0.9.0's ``_gamma_impl`` (Marsaglia-Tsang, one key
+  per element and its own rejection loop); it calls ``normal``, ``log``
+  and ``pow``, so a lane is bit for bit with ``jax.random.gamma`` only where
+  those agree (``tests/test_torch_gamma.py`` states the share and the ULP
+  bound of the rest).
 
 A key is an ``int64`` tensor ``[..., 2]`` holding the two uint32 words of
 JAX's raw key data.  All integer arithmetic runs in ``int64`` masked with
@@ -212,3 +217,69 @@ def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
     u = uniform(key, shape, lo, 1.0, device=device)
     return erfinv_xla(u) * math.sqrt(2.0)
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _gamma_lanes(keys: torch.Tensor, alpha: float, device) -> torch.Tensor:
+    """``_gamma_one`` of jax 0.9.0 for one scalar ``alpha`` over a bank of
+    lane keys ``[M, 2]``, as its batched while loops run it: each lane
+    keeps its own key chain and draws again only while its own condition
+    holds.  Returns ``f32[M]`` on ``device``."""
+    m = keys.shape[0]
+    a_orig = torch.full((m,), alpha, dtype=torch.float32, device=device)
+    one, zero = _f32(1.0, a_orig), _f32(0.0, a_orig)
+    boost_mask = a_orig >= one
+    a = torch.where(boost_mask, a_orig, a_orig + one)
+    d = a - _f32(1.0 / 3.0, a)
+    c = _f32(1.0 / 3.0, a) / torch.sqrt(d)
+    halves = split(keys)
+    key, subkey = halves[:, 0], halves[:, 1]  # the lanes' key chains, on the CPU
+    x_sq = torch.zeros(m, dtype=torch.float32, device=device)
+    v_cube = torch.ones(m, dtype=torch.float32, device=device)
+    u = torch.full((m,), 2.0, dtype=torch.float32, device=device)
+    while True:
+        # _cond_fn, with X = x²: draw again while U >= 1 - 0.0331·X² and
+        # log U >= X/2 + d·(1 - V + log V) (the squeeze and the full test).
+        squeeze = u >= one - _f32(0.0331, u) * (x_sq * x_sq)
+        full = torch.log(u) >= x_sq * _f32(0.5, u) + d * ((one - v_cube) + torch.log(v_cube))
+        live = torch.nonzero(squeeze & full).squeeze(-1)
+        if live.numel() == 0:
+            break
+        three = split(key[live.cpu()], 3)
+        key[live.cpu()] = three[:, 0]
+        # The inner loop: normal draws until v = 1 + x·c > 0.
+        kk = three[:, 1]
+        v = torch.full((live.numel(),), -1.0, dtype=torch.float32, device=device)
+        x = torch.zeros_like(v)
+        c_live = c[live]
+        pending = torch.arange(live.numel(), device=device)
+        while pending.numel():
+            pair = split(kk[pending.cpu()])
+            kk[pending.cpu()] = pair[:, 0]
+            xp = normal(pair[:, 1], (), device=device)
+            x[pending], v[pending] = xp, one + xp * c_live[pending]
+            pending = pending[v[pending] <= zero]
+        x_sq[live] = x * x
+        v_cube[live] = (v * v) * v
+        u[live] = uniform(three[:, 2], (), device=device)
+    samples = one - uniform(subkey, (), device=device)
+    boost = torch.where(boost_mask, one, torch.pow(samples, one / a_orig))
+    return (d * v_cube) * boost
+
+
+def gamma(key: torch.Tensor, alpha: float, shape, device=None) -> torch.Tensor:
+    """``jax.random.gamma(key, alpha, shape, float32)`` for one scalar
+    ``alpha > 0``: the key splits into one key per element (``split(key,
+    prod(shape))``), and each element runs Marsaglia-Tsang's rejection loop
+    on its own key (alpha < 1 boosted to alpha + 1, times ``(1 - u)^(1 /
+    alpha)``).  Lanes match JAX bit for bit where ``normal``, ``log`` and
+    ``pow`` round as XLA's do (``tests/test_torch_gamma.py``)."""
+    if not alpha > 0:
+        raise ValueError(f"gamma: alpha must be positive; got {alpha}")
+    shape = tuple(shape)
+    device = key.device if device is None else torch.device(device)
+    keys = split(key, math.prod(shape))
+    return _gamma_lanes(keys, float(alpha), device).reshape(shape)

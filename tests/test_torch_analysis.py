@@ -4,18 +4,23 @@ CPU) against the JAX package's analyzer.
 * Rows 30-31: the fixture kernels' plain versions equal the JAX fixtures'
   Pallas kernels in interpret mode (``_copy_launch``, ``hbm_roundtrip``),
   bit for bit, on seeded numpy inputs.
-* The matrix: each of the 80 (family, entry) cells runs the launches the JAX
-  package declares (``launch_budget``) and that JAX's own census counts in
-  its ``pallas_interpret`` trace, with no ancestor round trip and no RNG
-  finding.  The JAX analyzer's taint and RNG passes are blind under jax
+* The matrix: each of the 80 (family, entry) cells on ``cuda`` runs the
+  launches the JAX package declares (``launch_budget``) and that JAX's own
+  census counts in its ``pallas_interpret`` trace, with no ancestor round
+  trip and no RNG finding; each of the 80 on ``reference`` launches no port
+  kernel (rejection's data-dependent rounds waived), and the 'auto'
+  reference paths are free of RNG findings but Megopolis's waived one.  The JAX analyzer's taint and RNG passes are blind under jax
   0.9.0 (ROADMAP Queue C item 6), so those two are held to the contract,
   not to JAX's output; its census of the matrix does work.
 * Each fixture is caught by exactly the pass of the "expected pass" column
   of JAX's ``FIXTURES`` (``vmem`` there, ``smem`` here) and by no other;
-  pass 6 is quiet on real cells and fires both halves on ``leaky_telemetry``.
+  pass 6 is quiet on real cells and fires both halves on ``leaky_telemetry``;
+  pass 7 (guard neutrality) is quiet on every (family, backend) step cell
+  and fires all three checks on ``leaky_guard``.
 * The §2.4 transaction table equals JAX's on the same seed.
 * ``python -m repro_torch.analysis --selftest`` and ``--check --device cpu``
-  exit 0.
+  exit 0; ``--backends`` and ``--no-resilience`` select the backend axis and
+  pass 7.
 """
 
 import os
@@ -37,9 +42,15 @@ from repro.analysis.fixtures import hbm_roundtrip as jax_hbm_roundtrip
 from repro.analysis.report import transaction_report as jax_transaction_report
 from repro.core import spec as jspec
 from repro_torch import random as trandom
-from repro_torch.analysis import contracts, fixtures, report, rng, smem, telemetry
+from repro_torch.analysis import contracts, fixtures, guards, report, rng, smem, telemetry
 from repro_torch.analysis.__main__ import main
-from repro_torch.analysis.consumers import AUDIT_STEPS, audit_consumers
+from repro_torch.analysis.consumers import (
+    AUDIT_STEPS,
+    AUTO_FAMILIES,
+    MEGOPOLIS_AUTO_WAIVER,
+    audit_consumers,
+    auto_reference_rng,
+)
 from repro_torch.analysis.walker import count_launches, launch_census
 from repro_torch.core import spec
 from repro_torch.kernels.common import kernel_wrapper, observe_launches
@@ -55,7 +66,7 @@ from repro_torch.kernels.rejection import rejection as rk
 
 REPO = Path(__file__).resolve().parent.parent
 N = contracts.AUDIT_N
-CELLS = list(spec.contract_cells())
+CELLS = [(name, entry) for name, _, entry in spec.contract_cells(backends=("cuda",))]
 MODULES = (mk, tk, ck, rk, pk, sk, stk, fk)
 
 
@@ -97,17 +108,17 @@ def test_fixture_wrappers_count_no_launch_on_cpu():
 # ---------------------------------------------------------- the matrix
 def test_budgets_and_families_are_the_jax_packages():
     assert spec.ENTRY_POINTS == jspec.ENTRY_POINTS
-    assert spec.family_names() == list(jspec.list_resamplers())
+    assert spec.list_resamplers() == list(jspec.list_resamplers())
     assert spec.LAUNCH_BUDGETS == jspec.LAUNCH_BUDGETS
     with pytest.raises(KeyError, match="did you mean 'megopolis'"):
-        spec.launch_budget("megopolys", "call")
+        spec.launch_budget("megopolys", "cuda", "call")
 
 
 @pytest.mark.parametrize("name,entry", CELLS, ids=[f"{f}/{e}" for f, e in CELLS])
 def test_matrix_cell_census_and_contract(name, entry, args):
     rep = contracts.audit_cell(name, entry, args)
     jax_count = jwalker.count_pallas_calls(trace_cell(name, "pallas_interpret", entry))
-    budget = spec.launch_budget(name, entry)
+    budget = spec.launch_budget(name, "cuda", entry)
     assert budget == jspec.launch_budget(name, "pallas", entry) == jax_count
     assert rep.launches == budget, rep.census
     assert rep.tainted_gathers == 0 and not rep.rng_findings and not rep.smem_over
@@ -232,7 +243,7 @@ def test_rng_sees_the_kernel_seed():
 def test_step_cells_consume_the_key_alike_on_both_sides(args):
     """The §12 rule: each family's step consumes its key whether or not the
     row resamples."""
-    for name in spec.family_names():
+    for name in spec.list_resamplers():
         r = contracts.cell_resampler(name)
         sides = []
         for fire in (True, False):
@@ -284,12 +295,12 @@ def test_fixture_selftest_clean():
 
 
 # ---------------------------------------------------------- pass 6
-@pytest.mark.parametrize("name", spec.family_names())
+@pytest.mark.parametrize("name", spec.list_resamplers())
 def test_telemetry_neutral(name):
     rep = telemetry.audit_telemetry_cell(name, "cpu")
     assert rep["ok"], rep["violations"]
     assert rep["launches_on"] == rep["launches_off"] == telemetry.NEUTRALITY_STEPS * \
-        spec.launch_budget(name, "step")
+        spec.launch_budget(name, "cuda", "step")
 
 
 def test_leaky_telemetry_fires_both_halves():
@@ -330,7 +341,8 @@ def test_cli_check_cpu_exits_zero(tmp_path, capsys):
     path = tmp_path / "report.json"
     assert main(["--check", "--device", "cpu", "--json", str(path)]) == 0
     text = capsys.readouterr().out
-    assert "matrix on cpu: 80 cells, 0 violation(s)" in text and text.rstrip().endswith("OK")
+    # 80 (family, entry) cells on each backend, cuda and reference
+    assert "matrix on cpu: 160 cells, 0 violation(s)" in text and text.rstrip().endswith("OK")
     assert path.stat().st_size > 0
 
 
@@ -368,3 +380,77 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 
 def test_partitionable_threefry():
     assert jax.config.jax_threefry_partitionable
+
+
+# ---------------------------------------------------------- backends
+REF_CELLS = [(name, entry) for name, _, entry in spec.contract_cells(backends=("reference",))]
+
+
+@pytest.mark.parametrize("name", spec.list_resamplers())
+def test_reference_cells_launch_no_port_kernel(name, args):
+    """The reference backend's cells: no port kernel, no round trip, no
+    unwaived RNG finding (rejection's data-dependent rounds are waived)."""
+    for entry in spec.ENTRY_POINTS:
+        rep = contracts.audit_cell(name, entry, args, backend="reference")
+        assert rep.cell == f"{name}/reference/{entry}"
+        assert rep.launches == rep.max_launches == 0 and not rep.census
+        assert rep.ok, rep.violations
+        waived = {w["reason"] for w in rep.waived}
+        assert waived <= {contracts.REJECTION_ROUNDS_WAIVER.reason}
+        assert bool(waived) == (name == "rejection" and entry.startswith("step"))
+    assert len(REF_CELLS) == 80
+
+
+def test_auto_reference_rng_waives_megopolis_only():
+    got = {cell: (kept, waived) for cell, kept, waived in auto_reference_rng(device="cpu")}
+    assert set(got) == {f"{n}/reference/auto" for n in AUTO_FAMILIES}
+    assert all(not kept for kept, _ in got.values())
+    assert [len(w) for _, w in got.values()] == [1, 0, 0, 0]
+    assert got["megopolis/reference/auto"][1][0]["reason"] == MEGOPOLIS_AUTO_WAIVER.reason
+
+
+# ---------------------------------------------------------- pass 7
+@pytest.mark.parametrize("backend", spec.BACKENDS)
+@pytest.mark.parametrize("name", spec.list_resamplers())
+def test_guard_pass_clean(name, backend):
+    rep = guards.audit_guard_cell(name, backend, device="cpu")
+    assert rep["ok"], rep["violations"]
+    assert rep["flag_program_match"] and rep["clean_bit_identical"]
+    assert rep["degenerate_recovered"]
+    assert rep["launches_off"] == rep["launches_recover"] == \
+        spec.launch_budget(name, backend, "step")
+
+
+@pytest.mark.parametrize("dtype", ("bfloat16", "float16"))
+def test_guard_pass_clean_compressed(dtype):
+    reps = list(guards.audit_guards(("megopolis", "residual"), plane_dtypes=(dtype,),
+                                    device="cpu"))
+    assert [r["cell"] for r in reps] == [f"{n}/{b}/step@{dtype}" for n in ("megopolis",
+                                                                             "residual")
+                                         for b in spec.BACKENDS]
+    assert all(r["ok"] for r in reps), [r["violations"] for r in reps]
+
+
+def test_leaky_guard_fires_all_three():
+    rep = guards.compare_guard_runs("fixture:leaky_guard", *fixtures.leaky_guard(), device="cpu")
+    assert not rep["ok"] and len(rep["violations"]) == 3
+    assert not rep["flag_program_match"]
+    assert (rep["launches_off"], rep["launches_recover"]) == (0, 1)
+    assert not rep["degenerate_recovered"]
+    assert fixtures.guard_selftest("cpu") == []
+
+
+def test_cli_backends_and_pass_7(capsys):
+    assert main(["--check", "--selftest", "--device", "cpu", "--backends", "reference",
+                 "--families", "megopolis,systematic", "--no-large-n",
+                 "--no-transactions"]) == 0
+    text = capsys.readouterr().out
+    assert "selftest: OK" in text
+    assert "matrix on cpu: 16 cells, 0 violation(s)" in text
+    assert "guard neutrality: 2 cells, 0 violation(s)" in text
+    assert "auto-reference rng: 0 violation(s)" in text
+    assert main(["--check", "--device", "cpu", "--families", "megopolis", "--no-consumers",
+                 "--no-large-n", "--no-transactions", "--no-telemetry",
+                 "--no-resilience"]) == 0
+    text = capsys.readouterr().out
+    assert "matrix on cpu: 16 cells" in text and "guard neutrality" not in text

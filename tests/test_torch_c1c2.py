@@ -383,16 +383,27 @@ def test_auto_per_row(variant):
     ("partition_size_bytes", 2048, ValueError),
     ("partition_size_bytes", 0, ValueError),
     ("warp", 0, ValueError),
-    ("backend", "reference", NotImplementedError),
-    ("backend", "pallas", NotImplementedError),
+    ("backend", "reference", None),
+    ("backend", "pallas", ValueError),
     ("backend", "tpu", ValueError),
     ("plane_dtype", "float64", ValueError),
-    ("guard", "flag", NotImplementedError),
+    ("guard", "flag", None),
     ("num_iters", 0, ValueError),
 ))
 def test_spec_validates(variant, field, value, err):
+    if err is None:  # the reference backend and the guard build
+        _builds_and_runs(PORT_SPECS[variant](num_iters=4, **{field: value}), field, value)
+        return
     with pytest.raises(err):
         PORT_SPECS[variant](**{field: value})
+
+
+def _builds_and_runs(spec, field, value):
+    """A spec that validates builds, and its entry runs on the CPU."""
+    r = spec.build()
+    assert getattr(r.spec, field) == value
+    anc = r(torch.zeros(2, dtype=torch.int64), torch.full((2048,), 1.0 / 2048))
+    assert anc.shape == (2048,) and anc.dtype == torch.int32
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -412,8 +423,9 @@ def test_convert_spec_round_trip(variant):
     assert convert.spec_from_jax(jcls(**convert.spec_to_jax(spec))) == spec
     assert convert.spec_from_jax(jcls(partition_size_bytes=4096,
                                       backend="pallas_interpret")) == tcls()
-    with pytest.raises(NotImplementedError):
-        convert.spec_from_jax(jcls(num_iters=8))  # backend="reference", 128-byte partitions
+    # backend="reference" with the paper's 128-byte partitions: the port's reference
+    assert convert.spec_from_jax(jcls(num_iters=8)) == \
+        tcls(num_iters=8, partition_size_bytes=128, backend="reference")
 
 
 # -------------------------------------------------------------- the repairs

@@ -1073,7 +1073,7 @@ def test_plane_census_matches_the_profiler(card, name, dtype):
                             if k in smem.KERNELS)
 
             rep = contracts.audit_cell(name, entry, args, around=profiled, plane_dtype=dtype)
-            assert rep.ok and rep.launches == launch_budget(name, entry), rep.violations
+            assert rep.ok and rep.launches == launch_budget(name, "cuda", entry), rep.violations
             # A step cell runs on both sides of its flag, each run profiled.
             runs = 2 if entry == "step" else 1
             assert all(seen[k] <= c * runs for k, c in rep.census.items()), (seen, rep.census)
@@ -1271,3 +1271,89 @@ def test_compressed_specs_of_every_family_on_the_card(card, make, dtype):
     assert got_p.dtype == torch.float32
     assert torch.equal(got_p, torch.gather(r.quantise(p), 1,
                                            got_a.long()[..., None].expand_as(p)))
+
+
+# ---------------------------------------------------------- slice 14
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane_dtype", ("float32", "bfloat16"))
+def test_reference_backend_on_the_card_matches_the_cpu(card, plane_dtype):
+    """The reference backend's torch ops on CUDA tensors: every family's
+    ``__call__`` and ``batch`` bit for bit with the same calls on the CPU."""
+    from repro_torch.core.spec import list_resamplers, spec_for_backend
+
+    g = torch.Generator().manual_seed(1)
+    w = torch.rand(2, 1 << 14, generator=g) ** 4
+    key = trandom.PRNGKey(5)
+    for name in list_resamplers():
+        r = spec_for_backend(name, "reference", num_iters=8, plane_dtype=plane_dtype).build()
+        assert torch.equal(r(key, w[0].to(card)).cpu(), r(key, w[0])), name
+        assert torch.equal(r.batch(key, w.to(card)).cpu(), r.batch(key, w)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane_dtype", ("float32", "bfloat16", "float16"))
+@pytest.mark.parametrize("name", ("megopolis", "metropolis", "metropolis_c1", "metropolis_c2",
+                                  "rejection", "multinomial", "improved_systematic",
+                                  "residual"))
+def test_guard_recover_on_the_card(card, name, plane_dtype):
+    """``guard='recover'`` on a bank with collapsed rows: the recovered rows
+    equal the plain versions' bit for bit, the clean rows to the step's
+    mismatch bound (the card's ``exp`` against the CPU's, ROADMAP Queue C
+    item 19), clean rows equal ``'off'``'s on the card bit for bit, and the
+    port kernels launched are ``'off'``'s."""
+    from repro_torch.core.spec import spec_for_backend
+    from repro_torch.kernels.common import observe_launches
+
+    g = torch.Generator().manual_seed(2)
+    s, n = 4, 1 << 14
+    lw = torch.randn(s, n, generator=g) * 3.0
+    lw[1] = float("-inf")
+    lw[2, 3] = float("nan")
+    p = torch.randn(s, n, generator=g)
+    keys = trandom.split(trandom.PRNGKey(6), s)
+    outs, census = {}, {}
+    for guard in ("off", "recover"):
+        r = spec_for_backend(name, "cuda", num_iters=16, max_iters=64, plane_dtype=plane_dtype,
+                             guard=guard).build()
+        log = []
+
+        class Obs:
+            def launched(self, kernel, wrapper, args, out):
+                log.append(kernel)
+
+        with observe_launches(Obs()):
+            outs[guard] = r.step_rows(keys, lw.to(card), p.to(card), 2.0)
+        census[guard] = collections.Counter(log)
+        want = r.step_rows(keys, lw, p, 2.0)
+        got = outs[guard]
+        if guard == "recover":
+            rows = [1, 2]
+            assert torch.equal(got[1][rows].cpu(), want[1][rows])
+            assert torch.equal(got[0][rows].cpu().float().view(torch.int32),
+                               want[0][rows].float().view(torch.int32))
+            share = (got[1].cpu() != want[1]).double().mean().item()
+            print(f"{name}@{plane_dtype}: card vs plain ancestor mismatch share {share}")
+            assert share <= 1e-3
+            assert bool(torch.isfinite(got[0]).all())
+            assert got[2].degenerate.cpu().tolist() == [False, True, True, False]
+    assert census["off"] == census["recover"]
+    clean = [0, 3]
+    for a, b in zip(outs["off"][:2], outs["recover"][:2]):
+        assert torch.equal(a[clean], b[clean])
+
+
+@pytest.mark.cuda
+def test_gamma_weights_on_the_card(card):
+    from repro_torch.core.weightgen import GAMMA_ALPHA_GRID, gamma_weights
+
+    for alpha in GAMMA_ALPHA_GRID:
+        got = gamma_weights(trandom.PRNGKey(0), 1 << 16, alpha, device=card)
+        want = gamma_weights(trandom.PRNGKey(0), 1 << 16, alpha, device="cpu")
+        assert got.device.type == "cuda" and bool((got > 0).all())
+        rel = ((got.cpu().double() - want.double()).abs() / want.double()).max().item()
+        share = (got.cpu() == want).double().mean().item()
+        print(f"alpha {alpha}: card vs CPU bit-equal share {share:.4f}, max rel {rel:.2e}")
+        assert share > 0.5
+        scipy_stats = pytest.importorskip("scipy.stats")
+        p = scipy_stats.kstest(got.cpu().double().numpy(), scipy_stats.gamma(alpha).cdf).pvalue
+        assert p > 1e-3, p

@@ -405,24 +405,32 @@ def test_index_only_entries_are_next_slice(entry):
 
 
 @pytest.mark.parametrize("field,value,err", (
-    ("backend", "reference", NotImplementedError),
-    ("backend", "pallas", NotImplementedError),
+    ("backend", "reference", None),
+    ("backend", "pallas", ValueError),
     ("backend", "tpu", ValueError),
     ("plane_dtype", "bfloat16", None),
     ("plane_dtype", "float16", None),
     ("plane_dtype", "float64", ValueError),
-    ("guard", "flag", NotImplementedError),
-    ("guard", "recover", NotImplementedError),
+    ("guard", "flag", None),
+    ("guard", "recover", None),
     ("guard", "loud", ValueError),
     ("segment", 32, ValueError),
     ("num_iters", 0, ValueError),
 ))
 def test_spec_validates(field, value, err):
-    if err is None:  # compressed planes build
-        assert MegopolisSpec(num_iters=4, **{field: value}).build().plane_dtype == value
+    if err is None:  # compressed planes, the reference backend and the guards build
+        _builds_and_runs(MegopolisSpec(num_iters=4, **{field: value}), field, value)
         return
     with pytest.raises(err):
         MegopolisSpec(**{field: value})
+
+
+def _builds_and_runs(spec, field, value):
+    """A spec that validates builds, and its entry runs on the CPU."""
+    r = spec.build()
+    assert getattr(r.spec, field) == value
+    anc = r(torch.zeros(2, dtype=torch.int64), torch.full((2048,), 1.0 / 2048))
+    assert anc.shape == (2048,) and anc.dtype == torch.int32
 
 
 def test_entries_check_shapes():

@@ -377,21 +377,29 @@ def test_auto_per_family(family):
 
 
 @pytest.mark.parametrize("field,value,err", (
-    ("backend", "reference", NotImplementedError),
+    ("backend", "reference", None),
     ("backend", "tpu", ValueError),
     ("plane_dtype", "bfloat16", None),
     ("plane_dtype", "float16", None),
     ("plane_dtype", "float64", ValueError),
-    ("guard", "recover", NotImplementedError),
+    ("guard", "recover", None),
     ("num_iters", 0, ValueError),
     ("num_iters", True, ValueError),
 ))
 def test_spec_validates(field, value, err):
-    if err is None:  # compressed planes build
-        assert MetropolisSpec(num_iters=4, **{field: value}).build().plane_dtype == value
+    if err is None:  # compressed planes, the reference backend and the guard build
+        _builds_and_runs(MetropolisSpec(num_iters=4, **{field: value}), field, value)
         return
     with pytest.raises(err):
         MetropolisSpec(**{field: value})
+
+
+def _builds_and_runs(spec, field, value):
+    """A spec that validates builds, and its entry runs on the CPU."""
+    r = spec.build()
+    assert getattr(r.spec, field) == value
+    anc = r(torch.zeros(2, dtype=torch.int64), torch.full((2048,), 1.0 / 2048))
+    assert anc.shape == (2048,) and anc.dtype == torch.int32
 
 
 def test_convert_spec_round_trip():
@@ -399,5 +407,6 @@ def test_convert_spec_round_trip():
     assert spec == MetropolisSpec(num_iters=32)
     assert convert.spec_from_jax(JaxSpec(**convert.spec_to_jax(spec))) == spec
     assert convert.spec_from_jax(JaxSpec(backend="pallas_interpret")) == MetropolisSpec()
-    with pytest.raises(NotImplementedError):
-        convert.spec_from_jax(JaxSpec(num_iters=8, backend="xla"))
+    # xla is the JAX reference, jitted: the port's counterpart is the reference
+    assert convert.spec_from_jax(JaxSpec(num_iters=8, backend="xla")) == \
+        MetropolisSpec(num_iters=8, backend="reference")

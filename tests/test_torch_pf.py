@@ -245,8 +245,11 @@ def test_unported_run_filter_options_raise(sim, kwargs):
 
 
 def test_particle_filter_validates():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.ParticleFilter(tm.ungm(), N, resampler="metropolis")
+    # a registry name resolves through coerce_spec with the JAX filter's B of 30
+    assert tf.ParticleFilter(tm.ungm(), N, resampler="metropolis").spec == \
+        MetropolisSpec(num_iters=30)
+    with pytest.raises(TypeError):
+        tf.ParticleFilter(tm.ungm(), N, resampler=object())
     assert tf.ParticleFilter(tm.ungm(), N, resampler=MetropolisSpec(num_iters=4)).spec == \
         MetropolisSpec(num_iters=4)
     with pytest.raises(ValueError):
@@ -304,5 +307,5 @@ def test_convert_spec_round_trip():
     spec = convert.spec_from_jax(_jax_spec(32))
     assert spec == MegopolisSpec(num_iters=32)
     assert convert.spec_from_jax(JaxSpec(**convert.spec_to_jax(spec))) == spec
-    with pytest.raises(NotImplementedError):
-        convert.spec_from_jax(JaxSpec(num_iters=8, backend="reference"))
+    assert convert.spec_from_jax(JaxSpec(num_iters=8, backend="reference")) == \
+        MegopolisSpec(num_iters=8, segment=32, backend="reference")

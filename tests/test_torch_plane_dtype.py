@@ -271,7 +271,8 @@ def test_other_kernels_refuse_planes():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_contract_cells_launch_their_f32_budget(dtype):
     cells = list(audit_matrix(families=("megopolis", "metropolis", "rejection"),
-                              device="cpu", plane_dtypes=("float32", dtype)))
+                              device="cpu", plane_dtypes=("float32", dtype),
+                              backends=("cuda",)))
     compressed = [c for c in cells if c.cell.endswith(f"@{dtype}")]
     assert len(compressed) == 24  # every family has its compressed cells
     budgets = {c.cell: c.launches for c in cells}

@@ -161,9 +161,9 @@ def _tile_totals(x: torch.Tensor, association: str) -> torch.Tensor:
     rows 0-2); ``"reduction"``: the same three terms added the other way
     round, ``L2[2] + (g3[14] + r63)``, as a plain reduction would."""
     s, n = x.shape
-    rows = ref._sequential(ref.flush_to_zero(x).reshape(s, n // 1024, 64, 16))
+    rows = ref.sequential_scan(ref.flush_to_zero(x).reshape(s, n // 1024, 64, 16))
     r = rows[..., 15]                                   # the 64 row totals
-    g = ref._sequential(r.reshape(s, n // 1024, 4, 16))  # level 1
+    g = ref.sequential_scan(r.reshape(s, n // 1024, 4, 16))  # level 1
     l2 = ref._add(ref._add(g[..., 0, 15], g[..., 1, 15]), g[..., 2, 15])
     if association == "scan":
         return ref._add(r[..., 63], ref._add(g[..., 3, 14], l2))
@@ -192,7 +192,7 @@ def test_scan_tile_total_association(n):
     want = ref.scan_rows_ref(x)[:, 1023::1024]
     got = _fold(_tile_totals(x, "scan"))
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    local = ref._scan16(ref.flush_to_zero(x).reshape(x.shape[0], -1, 1024))[..., -1]
+    local = ref.xla_scan(ref.flush_to_zero(x).reshape(x.shape[0], -1, 1024))[..., -1]
     assert torch.equal(_tile_totals(x, "scan").view(torch.int32), local.view(torch.int32))
     differs = [seed for seed in range(8) if not torch.equal(
         _tile_totals(_scan_kernel_rows(seed, n), "scan"),
@@ -778,17 +778,28 @@ def test_bank_contracts():
 @pytest.mark.parametrize("field,value,err", (
     ("kind", "multinomal", ValueError),
     ("kind", "bogus", ValueError),
-    ("backend", "reference", NotImplementedError),
-    ("backend", "pallas", NotImplementedError),
+    ("backend", "reference", None),
+    ("backend", "pallas", ValueError),
     ("backend", "tpu", ValueError),
     ("plane_dtype", "float8_e4m3fn", ValueError),
     ("plane_dtype", "float64", ValueError),
-    ("guard", "flag", NotImplementedError),
+    ("guard", "flag", None),
     ("guard", "loud", ValueError),
 ))
 def test_spec_validates(field, value, err):
+    if err is None:  # the reference backend and the guard build
+        _builds_and_runs(PrefixSumSpec(**{field: value}), field, value)
+        return
     with pytest.raises(err):
         PrefixSumSpec(**{field: value})
+
+
+def _builds_and_runs(spec, field, value):
+    """A spec that validates builds, and its entry runs on the CPU."""
+    r = spec.build()
+    assert getattr(r.spec, field) == value
+    anc = r(torch.zeros(2, dtype=torch.int64), torch.full((2048,), 1.0 / 2048))
+    assert anc.shape == (2048,) and anc.dtype == torch.int32
 
 
 def test_spec_names_its_kind():
@@ -808,8 +819,8 @@ def test_convert_spec_round_trip(kind):
     back = JaxSpec(**convert.spec_to_jax(spec))
     assert back == JaxSpec(kind=kind, backend="pallas")
     assert convert.spec_from_jax(back) == spec
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.spec_from_jax(JaxSpec(kind=kind))  # backend="reference": not ported yet
+    assert convert.spec_from_jax(JaxSpec(kind=kind)) == \
+        PrefixSumSpec(kind=kind, backend="reference")
 
 
 # ---------------------------------------------------------------- the filter

@@ -120,8 +120,12 @@ def test_grids_and_iterations():
 
 
 def test_gamma_weights_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gamma_weights(trandom.PRNGKey(0), 4096, 0.5, device="cpu")
+    """Once a raise of the unported sampler; now Method 2's weights run on the
+    CPU: positive, finite, of the asked shape (the twin's bounds against
+    ``jax.random.gamma`` are ``tests/test_torch_gamma.py``'s)."""
+    w = gamma_weights(trandom.PRNGKey(0), 4096, 0.5, device="cpu")
+    assert w.dtype == torch.float32 and w.shape == (4096,)
+    assert bool(torch.isfinite(w).all()) and bool((w >= 0).all())
 
 
 def test_weight_generators_need_a_card_unless_cpu_is_asked():

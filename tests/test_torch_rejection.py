@@ -546,20 +546,31 @@ def test_bank_contracts():
     ("max_iters", True, ValueError),
     ("max_iters", 8.0, ValueError),
     ("max_iters", "auto", ValueError),
-    ("backend", "reference", NotImplementedError),
-    ("backend", "pallas", NotImplementedError),
-    ("backend", "xla", NotImplementedError),
+    ("backend", "reference", None),
+    ("backend", "pallas", ValueError),
+    ("backend", "xla", ValueError),
     ("backend", "tpu", ValueError),
     ("plane_dtype", "int8", ValueError),
     ("plane_dtype", "half", ValueError),
     ("plane_dtype", "float64", ValueError),
-    ("guard", "flag", NotImplementedError),
-    ("guard", "recover", NotImplementedError),
+    ("guard", "flag", None),
+    ("guard", "recover", None),
     ("guard", "loud", ValueError),
 ))
 def test_spec_validates(field, value, err):
+    if err is None:  # the reference backend and the guards build
+        _builds_and_runs(RejectionSpec(max_iters=8, **{field: value}), field, value)
+        return
     with pytest.raises(err):
         RejectionSpec(**{field: value})
+
+
+def _builds_and_runs(spec, field, value):
+    """A spec that validates builds, and its entry runs on the CPU."""
+    r = spec.build()
+    assert getattr(r.spec, field) == value
+    anc = r(torch.zeros(2, dtype=torch.int64), torch.full((2048,), 1.0 / 2048))
+    assert anc.shape == (2048,) and anc.dtype == torch.int32
 
 
 def test_spec_defaults():
@@ -575,8 +586,7 @@ def test_convert_spec_round_trip():
     assert spec == RejectionSpec(max_iters=64)
     assert convert.spec_from_jax(JaxSpec(**convert.spec_to_jax(spec))) == spec
     assert convert.spec_from_jax(JaxSpec(backend="pallas_interpret")) == RejectionSpec()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.spec_from_jax(JaxSpec())  # backend="reference": not ported yet
+    assert convert.spec_from_jax(JaxSpec()) == RejectionSpec(backend="reference")
 
 
 def test_step_computes_nothing_on_the_host(monkeypatch):
