@@ -65,7 +65,22 @@ over, and there is no CPU fallback):
      ``r(key, w)`` and ``r.batch(key, w_bank)`` at N = 2^18 on the card,
      bit for bit with the same calls on the CPU, timed beside the ``cuda``
      backend's;
-6. drive the paths through the user's entry points, each run with every
+6. in a process of its own (``--phase ais``), alone after phase 4 (its runs
+   are timed), Path E, the AIS sampler (DESIGN.md §10, ``path_e``): banks of
+   8 i.i.d. ``run_smc_sampler_bank`` rows (16 in the protocol: a cut,
+   printed) at N particles, d = 2, T = 24,
+   the geometric ladder and RWM, on ``isotropic_gaussian`` and
+   ``gaussian_mixture``, for Megopolis, Metropolis, rejection and
+   systematic: logZ against the analytic truth (every row inside
+   ``tests/test_ais.py``'s gate), resamples, seconds (each run warmed up by
+   a profiled run of its own, then timed without the profiler), the census
+   and, from the profiled run, all CUDA launches and the device's busy
+   share; each family's step wrapper held against its plain version on the
+   [S, D, N] inputs of one call of its run; one row against its single call
+   bit for bit; the adaptive ladder with MALA (and a bank of 4 against its
+   single call, counted); Megopolis and systematic at bfloat16 planes; a
+   small run on the card against the CPU and telemetry on and off;
+7. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
      each family: ``MegopolisSpec``, ``MetropolisSpec`` (Table 2's baseline
@@ -110,7 +125,7 @@ over, and there is no CPU fallback):
    * small runs of both paths on the card against the same runs on the CPU,
      and for the prefix-sum kinds each step of an Alg. 6 run on the CPU
      replayed on the card bit for bit;
-7. print the card line, one JSON line of kernels (all 31 rows, rows 1-29
+8. print the card line, one JSON line of kernels (all 31 rows, rows 1-29
    also at each 2-byte plane word), then a last JSON line naming the
    device.
 
@@ -241,6 +256,29 @@ REFERENCE_MAX_ITERS = 32
 #: noise differs by a few ULP (log1p, sqrt), which flips a rare accept; each
 #: flip moves an estimate by at most the particle range over N.
 SMALL_RUN_ATOL = 0.05
+#: Path E, the AIS sampler (DESIGN.md §10), in ``benchmarks/ais_bench.py
+#: --full``'s protocol (T = 24 temperatures, the geometric ladder, RWM with 2
+#: move steps, B = 16, the four families of ``tests/test_ais.py``) at Path
+#: A's N = 2^20, d = 2; rejection at Path A's ``max_iters``.
+AIS_FAMILIES = ("megopolis", "metropolis", "rejection", "systematic")
+AIS_TEMPS = 24
+AIS_ITERS = 16
+#: E1's bank, the Monte Carlo repeats (16 in the protocol), cut to 8 rows to
+#: keep the whole run near 600 s (printed); E3's bank; the rows E2 and E3
+#: hold to their single calls.
+AIS_BANK_FULL = 16
+AIS_BANK = 8
+AIS_E3_BANK = 4
+AIS_E2_ROW = 5
+AIS_E3_ROW = 1
+#: E5, the card against the CPU: N particles and temperatures.
+AIS_SMALL_N = 4096
+AIS_SMALL_TEMPS = 8
+#: The plane dtype and families of E4 (``test_ais.py``'s bfloat16 gate).
+AIS_PLANE = "bfloat16"
+AIS_PLANE_FAMILIES = ("megopolis", "systematic")
+#: Path E's key: ``fold_in(k_quality, AIS_KEY)``.
+AIS_KEY = 25
 
 
 def fail(msg: str):
@@ -269,10 +307,22 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_events(prof) -> list:
+    """The kernel events of a ``torch.profiler`` run in the order they
+    started: ``(start ns, name, µs)``, read from its raw records
+    (``prof.events()`` first builds every event's tree in Python, about 1 s
+    per 10^4 events).  Path E holds the two readers equal on one profile
+    each run (``ais_readers``)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted((e.start_ns(), e.name(), e.duration_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda
+                  and not getattr(e, "is_hidden_event", lambda: False)())
+
+
 def device_kernels(prof) -> list:
     """The kernel events of a ``torch.profiler`` run: ``(name, µs)``."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name, e.device_time_total) for e in prof.events() if e.device_type == cuda]
+    return [(name, us) for _, name, us in device_events(prof)]
 
 
 def kernel_instance(event: str):
@@ -380,7 +430,7 @@ def summary(stats) -> dict:
 #: The phases that run in a process of their own, before the paths: each
 #: relies on ``torch.profiler``'s kernel records, which a process that has
 #: run for minutes loses (``kernel_ms``).
-PHASES = ("checks", "kernels", "guard")
+PHASES = ("checks", "kernels", "guard", "ais")
 PHASE_TIMEOUT_S = 600
 
 
@@ -404,7 +454,7 @@ def main(argv=None) -> int:
     if args.phase is not None:
         ctx = setup(args)
         kernels = {"checks": checks_phase, "kernels": kernels_phase,
-                   "guard": guard_phase}[args.phase](ctx)
+                   "guard": guard_phase, "ais": ais_phase}[args.phase](ctx)
         print(json.dumps({"phase": args.phase, "path_launches": ctx.path_launches,
                           "results": ctx.results, "kernels": kernels}, default=float))
         return 0
@@ -423,10 +473,10 @@ def main(argv=None) -> int:
             if any(s in line for s in ("entry function", "registers", "spill")):
                 print(f"  {src}: {line.strip()}")
 
-    # -- 3-5. the contract checks beside the guard; the kernels alone ---------
+    # -- 3-6. the contract checks beside the guard; the kernels, then AIS ------
     phases = run_phases(argv)
 
-    # -- 5. the paths ----------------------------------------------------------
+    # -- 7. the paths ----------------------------------------------------------
     ctx = setup(args)
     for out in phases.values():
         for wname, c in out["path_launches"].items():
@@ -536,7 +586,8 @@ def run_phases(argv) -> dict:
     """Run the phases of ``PHASES``, each in a new process (``--phase``),
     young, as the profiler needs it.  The guard phase runs beside the checks
     phase, which waits for it to end before it times the fixture kernels;
-    the kernels phase, which times every kernel, runs alone after both.
+    the kernels phase, which times every kernel, runs alone after both, and
+    the AIS phase (Path E, timed) alone after it.
     Every process started here is waited for, or killed at its time limit."""
     with tempfile.TemporaryDirectory() as tmp:
         done = Path(tmp) / "guard.done"
@@ -564,10 +615,11 @@ def run_phases(argv) -> dict:
             phases = {"checks": phase_result("checks", proc.returncode, proc.stdout, t0)}
             out.seek(0)
             phases["guard"] = phase_result("guard", guard.returncode, out.read(), t_guard)
-    t0 = time.perf_counter()
-    proc = subprocess.run(phase_cmd("kernels", argv), stdout=subprocess.PIPE, text=True,
-                          timeout=PHASE_TIMEOUT_S)
-    phases["kernels"] = phase_result("kernels", proc.returncode, proc.stdout, t0)
+    for name in ("kernels", "ais"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(phase_cmd(name, argv), stdout=subprocess.PIPE, text=True,
+                              timeout=PHASE_TIMEOUT_S)
+        phases[name] = phase_result(name, proc.returncode, proc.stdout, t0)
     return phases
 
 
@@ -587,7 +639,8 @@ def wait_for_guard():
 
 def setup(args) -> types.SimpleNamespace:
     """What every phase shares: the families and their wrappers, the keys,
-    the simulated observations of Path A and ``drive``, which runs one
+    the simulated observations of Path A (not made for the AIS phase, which
+    runs no filter) and ``drive``, which runs one
     main-path call with every kernel's count set to 0 just before, reads
     the counts just after (into ``path_launches`` and ``results``) and
     fails if an expected wrapper was launched no time."""
@@ -668,12 +721,17 @@ def setup(args) -> types.SimpleNamespace:
     key = trandom.PRNGKey(args.seed)
     k_sim, k_run, k_bank, k_quality = trandom.split(key, 4)
     model, fam = ungm(), ungm_family()
-    truth, obs = simulate(k_sim, model, args.steps, device=dev)
     thetas = {"amp": torch.linspace(6.0, 10.0, args.bank),
               "obs_var": torch.linspace(0.5, 2.0, args.bank)}
-    sims = [simulate(k, fam, args.bank_steps, theta={"amp": thetas["amp"][i],
-                                                     "obs_var": thetas["obs_var"][i]}, device=dev)
-            for i, k in enumerate(trandom.split(k_bank, args.bank))]
+    truth = obs = bank_truth = bank_obs = None
+    if args.phase != "ais":
+        truth, obs = simulate(k_sim, model, args.steps, device=dev)
+        sims = [simulate(k, fam, args.bank_steps, theta={"amp": thetas["amp"][i],
+                                                         "obs_var": thetas["obs_var"][i]},
+                         device=dev)
+                for i, k in enumerate(trandom.split(k_bank, args.bank))]
+        bank_truth = torch.stack([x for x, _ in sims])
+        bank_obs = torch.stack([z for _, z in sims])
     path_launches, results = {}, {}
 
     def drive(name, fn, expected, n_steps=None):
@@ -704,7 +762,7 @@ def setup(args) -> types.SimpleNamespace:
         path_b_families={name: f for name, f in families.items() if f["path_b"]},
         wrappers=wrappers, trandom=trandom, mk=mk, fk=fk, k_run=k_run, k_quality=k_quality,
         model=model, fam=fam, truth=truth, obs=obs, thetas=thetas,
-        bank_truth=torch.stack([x for x, _ in sims]), bank_obs=torch.stack([z for _, z in sims]),
+        bank_truth=bank_truth, bank_obs=bank_obs,
         path_launches=path_launches, results=results, drive=drive)
 
 
@@ -766,6 +824,363 @@ def guard_phase(ctx) -> list:
     print(f"time phase guard (s): path D {t1 - t0:.1f}, reference "
           f"{time.perf_counter() - t1:.1f} after it", flush=True)
     return []
+
+
+def ais_phase(ctx) -> list:
+    """Phase ``ais``, Path E, young for the profiler and alone on the card
+    (its runs are timed): ``path_e``.  No kernel is new here, so it lists no
+    ``kernels`` entry; its runs' launches count with the paths'."""
+    t0 = time.perf_counter()
+    print(f"cut path E: E1's and E4's banks take {AIS_BANK} rows, not {AIS_BANK_FULL} (the "
+          "whole run's 600 s)", flush=True)
+    path_e(ctx, ctx.trandom.fold_in(ctx.k_quality, AIS_KEY))
+    print(f"time path E: {time.perf_counter() - t0:.1f} s", flush=True)
+    return []
+
+
+def ais_steps(families: dict) -> dict:
+    """Each AIS family's step wrappers, read from ``setup``'s table, with
+    the plain version of each on the wrapper's own arguments and the
+    ``ops`` module that calls them (where ``capture`` finds them):
+    ``{"single": (wrapper, plain), "bank": (wrapper, plain), "ops": module}``.
+    Systematic's one population is a bank of one row; only Megopolis's
+    single-population step is held (E3)."""
+    from repro_torch.kernels.megopolis import ops as mops
+    from repro_torch.kernels.megopolis import ref as mref
+    from repro_torch.kernels.metropolis import ops as tops
+    from repro_torch.kernels.metropolis import ref as tref
+    from repro_torch.kernels.prefix_sum import ops as pops
+    from repro_torch.kernels.prefix_sum import ref as pref
+    from repro_torch.kernels.prefix_sum import step as stk
+    from repro_torch.kernels.rejection import ops as rops
+    from repro_torch.kernels.rejection import ref as rref
+
+    def megopolis_one(lw, st, offs, seed, thr):
+        return mref.megopolis_step_rows_ref(lw[None], st[None], offs[None], seed.reshape(1), thr)
+
+    plain = {"megopolis": (mops, megopolis_one, mref.megopolis_step_rows_ref),
+             "metropolis": (tops, None, tref.metropolis_step_rows_ref),
+             "rejection": (rops, None, rref.rejection_step_rows_ref),
+             "systematic": (pops, pref.prefix_step_rows_ref, pref.prefix_step_rows_ref)}
+    out = {}
+    for f, (ops, one, rows) in plain.items():
+        single, bank = ((stk.prefix_step_rows,) * 2 if f == "systematic" else
+                        (families[f]["conditional"], families[f]["bank_conditional"]))
+        out[f] = {"single": (single, one), "bank": (bank, rows), "ops": ops}
+    return out
+
+
+def ais_quality(name: str, out: dict, truth: float) -> dict:
+    """logZ over a run's rows against the analytic truth, held to
+    ``test_ais.py``'s gate (|logZ - truth| <= 0.1 + 0.1·|truth| on every
+    row); fails on a non-finite particle or a β ladder that does not end at
+    exactly 1.0."""
+    if not bool(torch.isfinite(out["particles"]).all()):
+        fail(f"{name}: non-finite particles")
+    log_z = out["log_z"].reshape(-1).double().cpu()
+    err = (log_z - truth).abs()
+    gate = 0.1 + 0.1 * abs(truth)
+    if not bool((err <= gate).all()):
+        fail(f"{name}: logZ {log_z.tolist()} outside {truth} ± {gate}")
+    betas = out["betas"].reshape(-1, out["betas"].shape[-1]).cpu()
+    if not bool((betas[:, -1] == 1.0).all()):
+        fail(f"{name}: the β ladder ends at {betas[:, -1].tolist()}, not 1.0")
+    res = out["num_resamples"].reshape(-1).double().cpu()
+    return {"rows": log_z.numel(), "truth": truth, "gate": gate,
+            "log_z_mean": float(log_z.mean()), "bias": float(log_z.mean() - truth),
+            "std": float(log_z.std()) if log_z.numel() > 1 else 0.0,
+            "rmse": float(((log_z - truth) ** 2).mean().sqrt()), "max_abs_err": float(err.max()),
+            "resamples_per_row": float(res.mean()),
+            "temps_used": int((betas < 1.0).sum(dim=1).max()) + 1}
+
+
+def ais_hold(name: str, step: tuple, ops, run) -> tuple:
+    """``run()`` with the arguments of one call of the step wrapper of
+    ``step = (wrapper, plain)`` captured (``capture``: the last call after
+    which a row resampled), then the wrapper held against its plain version
+    on those card inputs (``hold_step``).  Returns the run's output and the
+    hold's record.  Its launches are not the main path's: ``drive`` sets
+    the counts to 0 before each of its runs."""
+    wrapper, plain = step
+    box = []
+    kargs = capture(ops, wrapper.__name__, lambda: box.append(run()))
+    want = plain(*kargs)
+    err = hold_step(f"{name}: {wrapper.__name__}", wrapper(*kargs), want)
+    return box[0], {"held": wrapper.__name__, "held_planes": list(kargs[1].shape),
+                    "held_dtype": str(kargs[1].dtype).removeprefix("torch."),
+                    "held_rows_resampled": int(want[2].reshape(-1, 4)[:, 2].sum()),
+                    "held_max_abs_err": err}
+
+
+#: The separator between the profiled runs of Path E: ``torch.cuda._sleep``
+#: launches PyTorch's ``spin_kernel`` (in a namespace: ``at::cuda::...``),
+#: which no run launches.
+AIS_SEPARATOR = "spin_kernel"
+AIS_SEPARATOR_CYCLES = 1000
+
+
+def ais_run_profiles(prof, walls: list, temps: int) -> list:
+    """One profile of consecutive runs, each launched after a separator
+    kernel (``AIS_SEPARATOR``), split at the separators: per run, all CUDA
+    kernel launches and the port's among them per temperature, the device
+    time, the run's wall time under the profiler and the device's busy
+    share of that wall time.  One session for all runs: starting and
+    stopping the profiler around each run took about 3 s a run on the H100.
+    None per run if the profiler dropped a separator."""
+    from repro_torch.analysis import smem
+
+    events = device_events(prof)
+    groups = []
+    for _, name, us in events:
+        if AIS_SEPARATOR in name:
+            groups.append([])
+        elif groups:
+            groups[-1].append((name, us))
+    if len(groups) != len(walls):
+        names = sorted({name[:60] for _, name, _ in events})
+        print(f"path E: the profile holds {len(groups)} separators for {len(walls)} runs; "
+              f"its launches and busy shares are not measured (kernels seen: {names})",
+              flush=True)
+        return [None] * len(walls)
+    out = []
+    for group, wall in zip(groups, walls):
+        device_ms = sum(us for _, us in group) / 1e3
+        out.append({"cuda_launches_per_temp": len(group) / temps,
+                    "port_launches_seen_per_temp": sum(
+                        1 for name, _ in group if kernel_instance(name) in smem.KERNELS) / temps,
+                    "device_ms": device_ms, "seconds_profiled": wall,
+                    "device_busy_share_profiled": device_ms / (wall * 1e3)})
+    return out
+
+
+def ais_differing(a: dict, b: dict) -> dict:
+    """Per leaf, how many values of ``a`` differ from ``b``'s."""
+    return {name: int((a[name].reshape(-1) != b[name].reshape(-1)).sum()) for name in b}
+
+
+def ais_same(name: str, out: dict, held: dict):
+    """Fail unless a timed run repeats its held run (same key, same inputs)
+    bit for bit, so the inputs held are the timed run's."""
+    differ = ais_differing(out, held)
+    if any(differ.values()):
+        fail(f"{name}: the timed run differs from its held run: {differ}")
+
+
+def path_e(ctx, key):
+    """Path E, the AIS sampler (DESIGN.md §10) on the card, each timed run
+    with every kernel's launch count set to 0 just before and read just
+    after (``drive``):
+
+    * E1, quality: ``run_smc_sampler_bank`` of AIS_BANK i.i.d. rows at N
+      particles, d = 2, on ``isotropic_gaussian`` and ``gaussian_mixture``,
+      for each family of AIS_FAMILIES (``cuda``, float32): logZ mean, bias,
+      std and RMSE over the rows, resamples per row, seconds, the port's
+      launches per temperature (the census); every row inside the gate.
+      First one profile of every E1-E2 run, split at separator kernels,
+      which also warms each run up: all CUDA launches per temperature and
+      the device time.  Then each run timed alone, without the profiler;
+      the device's busy share is the profile's device time over that wall
+      time.  Before each family's isotropic run, the same run once more with
+      one call of its step wrapper captured and held against the plain
+      version on those [S, D, N] inputs (``ais_hold``);
+    * E2, the §4 contract: ``run_smc_sampler(split(key, S)[AIS_E2_ROW])``,
+      Megopolis, equal to E1's bank row bit for bit on every leaf;
+    * E3, the adaptive ladder with MALA: ``run_smc_sampler`` at N on both
+      targets (gate, β reaching exactly 1.0, temperatures used, seconds),
+      the first after a held run of the same call (its warm-up), then a
+      bank of AIS_E3_BANK rows on the mixture, its row AIS_E3_ROW against
+      the single call leaf by leaf (a measurement: the CESS reductions over
+      [S, N] may round otherwise than over [N] on the card);
+    * E4, compressed planes: E1's isotropic bank at ``plane_dtype`` AIS_PLANE
+      for AIS_PLANE_FAMILIES, inside the gate, each after a held run;
+    * E5, the card against the CPU: N = AIS_SMALL_N, T = AIS_SMALL_TEMPS,
+      Megopolis, one key: β within 1 ULP (the card's ``pow``), logZ within
+      ``SMALL_RUN_ATOL``; telemetry on and off on the card: the same
+      census and a bit-identical result; and one profile of that run read
+      both through ``prof.events()`` and raw (``ais_readers``)."""
+    from repro_torch import random as trandom
+    from repro_torch.ais import (
+        SMCSamplerConfig,
+        gaussian_mixture,
+        isotropic_gaussian,
+        run_smc_sampler,
+        run_smc_sampler_bank,
+    )
+    from repro_torch.analysis.contracts import record
+    from repro_torch.core.spec import spec_for_backend
+
+    dev, drive, results = ctx.dev, ctx.drive, ctx.results
+    n, temps = ctx.args.particles, AIS_TEMPS
+    steps = ais_steps(ctx.families)
+    specs = {f: spec_for_backend(f, "cuda", num_iters=AIS_ITERS, max_iters=REJECTION_MAX_ITERS)
+             for f in AIS_FAMILIES}
+    targets = {"isotropic_gaussian": isotropic_gaussian(dim=2, device=dev),
+               "gaussian_mixture": gaussian_mixture(device=dev)}
+    lap = time.perf_counter()
+
+    def took(what):
+        nonlocal lap
+        print(f"time path E {what}: {time.perf_counter() - lap:.1f} s", flush=True)
+        lap = time.perf_counter()
+
+    def bank_call(spec, target):
+        cfg = SMCSamplerConfig(num_particles=n, num_temps=temps, resampler=spec)
+        return lambda: run_smc_sampler_bank(key, target, cfg, num_scenarios=AIS_BANK, device=dev)
+
+    def bank_quality(name, out, target):
+        rec = results[name]
+        rec.update(ais_quality(name, out, target.log_z), seconds_per_row=rec["seconds"] / AIS_BANK,
+                   port_launches_per_temp=sum(rec["launches"].values()) / temps)
+
+    # -- E1 and E2: one profile of every run, then each run timed alone -----------
+    runs = {f"ais/e1/{family}/{tname}": (family, tname, "bank",
+                                         bank_call(specs[family], target))
+            for family in AIS_FAMILIES for tname, target in targets.items()}
+    e2 = "ais/e2/megopolis/isotropic_gaussian"
+    e2_key = trandom.split(key, AIS_BANK)[AIS_E2_ROW]
+    e2_cfg = SMCSamplerConfig(num_particles=n, num_temps=temps, resampler=specs["megopolis"])
+    runs[e2] = ("megopolis", "isotropic_gaussian", "single", lambda: run_smc_sampler(
+        e2_key, targets["isotropic_gaussian"], e2_cfg, device=dev))
+    walls = []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _, _, _, run in runs.values():
+            torch.cuda._sleep(AIS_SEPARATOR_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    profiles = dict(zip(runs, ais_run_profiles(prof, walls, temps)))
+    del prof
+    took("E1-E2 profile")
+    e2_want = None
+    for name, (family, tname, entry, run) in runs.items():
+        held = None
+        if entry == "bank" and tname == "isotropic_gaussian":
+            held, hold = ais_hold(name, steps[family]["bank"], steps[family]["ops"], run)
+        out = drive(name, run, [steps[family][entry][0]])
+        rec = results[name]
+        rec.update(profiles[name] or {})
+        if profiles[name]:
+            rec["device_busy_share"] = rec["device_ms"] / (rec["seconds"] * 1e3)
+        if held is not None:
+            ais_same(name, out, held)
+            rec.update(hold)
+        del held
+        if entry == "bank":
+            bank_quality(name, out, targets[tname])
+            if family == "megopolis" and tname == "isotropic_gaussian":
+                e2_want = {k: v[AIS_E2_ROW].clone() for k, v in out.items()}
+        else:
+            differ = ais_differing(e2_want, out)
+            rec.update(row=AIS_E2_ROW, values_differing=differ)
+            if any(differ.values()):
+                fail(f"E2: bank row {AIS_E2_ROW} differs from its single call: {differ}")
+        del out
+    compare = collections.defaultdict(dict)
+    for name in (name for name in runs if name.startswith("ais/e1/")):
+        family, tname = name.split("/")[2:]
+        compare[tname][family] = {k: results[name].get(k) for k in (
+            "log_z_mean", "bias", "std", "rmse", "resamples_per_row", "seconds",
+            "seconds_profiled", "port_launches_per_temp", "cuda_launches_per_temp",
+            "device_ms", "device_busy_share", "device_busy_share_profiled",
+            "held_max_abs_err")}
+    for tname, side in compare.items():
+        print(f"compare ais/e1/{tname}: {json.dumps(side)}", flush=True)
+    took("E1-E2 timed and held")
+
+    # -- E3 -----------------------------------------------------------------------
+    k3 = trandom.fold_in(key, 3)
+    cfg3 = SMCSamplerConfig(num_particles=n, num_temps=temps, resampler=specs["megopolis"],
+                            schedule="adaptive", move="mala")
+    singles = {}
+    for tname, target in targets.items():
+        name = f"ais/e3/megopolis/{tname}"
+        run = (lambda target=target: run_smc_sampler(
+            trandom.split(k3, AIS_E3_BANK)[AIS_E3_ROW], target, cfg3, device=dev))
+        held = None
+        if not singles:
+            held, hold = ais_hold(name, steps["megopolis"]["single"], steps["megopolis"]["ops"],
+                                  run)
+        singles[tname] = drive(name, run, [steps["megopolis"]["single"][0]])
+        results[name].update(ais_quality(name, singles[tname], target.log_z),
+                             betas=singles[tname]["betas"].tolist())
+        if held is not None:
+            ais_same(name, singles[tname], held)
+            results[name].update(hold)
+        del held
+    name = "ais/e3_bank/megopolis/gaussian_mixture"
+    bank = drive(name, lambda: run_smc_sampler_bank(k3, targets["gaussian_mixture"], cfg3,
+                                                    num_scenarios=AIS_E3_BANK, device=dev),
+                 [steps["megopolis"]["bank"][0]])
+    results[name].update(ais_quality(name, bank, targets["gaussian_mixture"].log_z),
+                         row=AIS_E3_ROW, values_differing=ais_differing(
+                             {k: v[AIS_E3_ROW] for k, v in bank.items()},
+                             singles["gaussian_mixture"]))
+    print(f"compare ais/e3: {json.dumps({k: results[k] for k in results if '/e3' in k})}",
+          flush=True)
+    del bank, singles
+    took("E3")
+
+    # -- E4 -----------------------------------------------------------------------
+    for family in AIS_PLANE_FAMILIES:
+        name = f"ais/e4/{family}@{AIS_PLANE}"
+        run = bank_call(specs[family].replace(plane_dtype=AIS_PLANE), targets["isotropic_gaussian"])
+        held, hold = ais_hold(name, steps[family]["bank"], steps[family]["ops"], run)
+        out = drive(name, run, [steps[family]["bank"][0]])
+        ais_same(name, out, held)
+        results[name].update(hold)
+        bank_quality(name, out, targets["isotropic_gaussian"])
+        del held, out
+    took("E4")
+
+    # -- E5 -----------------------------------------------------------------------
+    k5 = trandom.fold_in(key, 5)
+    cfg5 = SMCSamplerConfig(num_particles=AIS_SMALL_N, num_temps=AIS_SMALL_TEMPS,
+                            resampler=specs["megopolis"])
+    small = isotropic_gaussian(dim=2, device=dev)
+    on_card = drive("ais/e5/megopolis/card", lambda: run_smc_sampler(k5, small, cfg5, device=dev),
+                    [steps["megopolis"]["single"][0]])
+    on_cpu = run_smc_sampler(k5, isotropic_gaussian(dim=2, device="cpu"), cfg5, device="cpu")
+    beta_ulp = int((on_card["betas"].cpu().view(torch.int32).long()
+                    - on_cpu["betas"].view(torch.int32).long()).abs().max())
+    logz_gap = abs(float(on_card["log_z"]) - float(on_cpu["log_z"]))
+    if beta_ulp > 1 or not logz_gap <= SMALL_RUN_ATOL:
+        fail(f"E5: card against CPU, β {beta_ulp} ULP apart, logZ {logz_gap} apart")
+    off, rec_off = record(lambda: run_smc_sampler(k5, small, cfg5, device=dev), taint=False)
+    (on, tel), rec_on = record(
+        lambda: run_smc_sampler(k5, small, cfg5, telemetry=True, device=dev), taint=False)
+    differ = ais_differing(on, off)
+    if dict(rec_on.census) != dict(rec_off.census) or any(differ.values()):
+        fail(f"E5: telemetry moved the census ({dict(rec_off.census)} -> "
+             f"{dict(rec_on.census)}) or the result ({differ})")
+    results["ais/e5/megopolis/card"].update(
+        beta_ulp=beta_ulp, logz_card=float(on_card["log_z"]), logz_cpu=float(on_cpu["log_z"]),
+        logz_gap=logz_gap, telemetry_census=dict(rec_on.census),
+        telemetry_values_differing=differ, telemetry_fields=list(tel.steps._fields),
+        profile_readers=ais_readers(lambda: run_smc_sampler(k5, small, cfg5, device=dev)))
+    took("E5")
+
+
+def ais_readers(run) -> dict:
+    """One profile of ``run()`` read both ways: through ``prof.events()``
+    and from the raw records (``device_events``, every phase's reader).
+    Fails unless both see the same kernel events, name for name, with the
+    same durations."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    cooked = sorted((e.name, e.device_time_total) for e in prof.events()
+                    if e.device_type == cuda)
+    raw = sorted((name, us) for _, name, us in device_events(prof))
+    same_names = [name for name, _ in cooked] == [name for name, _ in raw]
+    worst = max((abs(a - b) for (_, a), (_, b) in zip(cooked, raw)), default=0.0)
+    if not (same_names and worst <= 1e-3):
+        fail(f"E5: the profile's readers disagree: {len(cooked)} events through prof.events(), "
+             f"{len(raw)} raw, names equal {same_names}, durations up to {worst} µs apart")
+    return {"events": len(raw), "device_ms": sum(us for _, us in raw) / 1e3,
+            "max_abs_us_apart": worst}
 
 
 def profiled_run(fn):
@@ -1805,6 +2220,29 @@ def gather_probe(seed: int, dev) -> dict:
     return probe
 
 
+def hold_step(name: str, got: tuple, want: tuple) -> float:
+    """Fail unless a step wrapper's ``(ancestors, state, stats)`` agree with
+    its plain version's on the same inputs: the same rows resample, the ESS
+    and the largest weight within STATS_RTOL, the evidence increment within
+    INCR_ATOL, and then every ancestor and state value equal.  Returns the
+    largest |error| of the stats."""
+    got = tuple(g.reshape(w.shape) for g, w in zip(got, want))
+    gs, ws = got[2], want[2]
+    fired_same = torch.equal(gs[:, 2], ws[:, 2])
+    rel = ((gs[:, [0, 3]] - ws[:, [0, 3]]).abs() / ws[:, [0, 3]].abs()).max()
+    incr_err = (gs[:, 1] - ws[:, 1]).abs().max()
+    if not (fired_same and rel <= STATS_RTOL and incr_err <= INCR_ATOL):
+        fail(f"{name}: stats differ (fired same {fired_same}, rel {float(rel)}, "
+             f"incr {float(incr_err)})\n{gs}\n{ws}")
+    # The weights are bit-identical on the card (expf = torch.exp), so with
+    # the same trigger the ancestors and the state must agree exactly.
+    anc_mismatch = int((got[0] != want[0]).sum())
+    if anc_mismatch or not torch.equal(got[1], want[1]):
+        fail(f"{name}: {anc_mismatch} ancestors differ with the same trigger, or the state "
+             f"(max |err| {float((got[1] - want[1]).abs().max())})")
+    return max(float(incr_err), float((gs - ws).abs().max()))
+
+
 def check_kernel(case) -> dict:
     """Hold one wrapper's kernel against its plain version on its captured
     inputs, time both, and compute its bound; fails on any disagreement."""
@@ -1838,18 +2276,8 @@ def check_kernel(case) -> dict:
                  f"state max |err| {state_err}); bit equality is required")
         max_abs_err = state_err
     else:
+        max_abs_err = hold_step(name, got, want)
         gs, ws = got[2], want[2]
-        fired_same = torch.equal(gs[:, 2], ws[:, 2])
-        rel = ((gs[:, [0, 3]] - ws[:, [0, 3]]).abs() / ws[:, [0, 3]].abs()).max()
-        incr_err = (gs[:, 1] - ws[:, 1]).abs().max()
-        if not (fired_same and rel <= STATS_RTOL and incr_err <= INCR_ATOL):
-            fail(f"{name}: stats differ (fired same {fired_same}, rel {float(rel)}, "
-                 f"incr {float(incr_err)})\n{gs}\n{ws}")
-        # The weights are bit-identical on the card (expf = torch.exp), so
-        # with the same trigger the ancestors must agree exactly.
-        if anc_mismatch or state_err:
-            fail(f"{name}: {anc_mismatch} ancestors differ with the same trigger")
-        max_abs_err = max(float(incr_err), float((gs - ws).abs().max()))
         entry["rows_resampled"] = int(ws[:, 2].sum())
         # Fixed-order block sums: the stats repeat bit for bit.
         if not torch.equal(wrapper(*kargs)[2].reshape(gs.shape), gs):

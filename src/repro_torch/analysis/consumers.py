@@ -1,16 +1,17 @@
 """Contracts of the stack's resampler consumers (DESIGN.md §13), after
-``repro.analysis.consumers``: the particle filter's part.
+``repro.analysis.consumers``: the particle filter's and the AIS sampler's.
 
 The matrix audit proves each entry point honest alone; this module proves
-the filter kept its promises after composition ("one fused launch per
-filter step", "ancestors never round-trip through device memory", no RNG
+the consumers kept their promises after composition ("one fused launch per
+step", "ancestors never round-trip through device memory", no RNG
 finding), re-derived from runs of ``ParticleFilter.step`` and
-``step_conditional`` and of the drivers ``run_filter`` and
-``run_filter_bank`` (conditional SIR) on a Megopolis spec at the audit's
-geometry.  JAX's scan counts its body once; the port runs eagerly, so T
-observations launch T kernels: the budget is one launch per step.  The AIS
-and decode consumers come with their ports (ROADMAP Queue A items 8 and
-11).
+``step_conditional``, of the drivers ``run_filter`` and ``run_filter_bank``
+(conditional SIR), and of ``run_smc_sampler`` (geometric, and adaptive
+with MALA) and ``run_smc_sampler_bank`` on ``gaussian_mixture``, all on a
+Megopolis spec at the audit's geometry.  JAX's scan counts its body once;
+the port runs eagerly, so T steps (observations, temperatures) launch T
+kernels: the budget is one launch per step.  The decode consumer comes
+with its port (ROADMAP Queue A item 11).
 
 ``auto_reference_rng`` sweeps the adaptive-``num_iters`` reference paths
 through the RNG pass.  Megopolis's documented deliberate deviation, the
@@ -39,6 +40,8 @@ from repro_torch.core.spec import MegopolisSpec, spec_for_backend
 
 #: Observations of the driver runs.
 AUDIT_STEPS = 5
+#: Temperatures of the AIS runs (the JAX auditor's).
+AUDIT_TEMPS = 4
 
 #: Direct (iterate-and-compare) families whose reference path takes the
 #: adaptive iteration rule; swept by ``auto_reference_rng``.
@@ -65,6 +68,25 @@ def _pf(conditional: bool):
                           ess_threshold=0.5 if conditional else None)
 
 
+def _ais(dev, bank: bool = False, **overrides):
+    """An AIS run on ``gaussian_mixture`` at ``AUDIT_N`` particles and
+    ``AUDIT_TEMPS`` temperatures (a bank of ``AUDIT_BATCH`` rows)."""
+    from repro_torch.ais import (
+        SMCSamplerConfig,
+        gaussian_mixture,
+        run_smc_sampler,
+        run_smc_sampler_bank,
+    )
+
+    cfg = SMCSamplerConfig(num_particles=AUDIT_N, num_temps=AUDIT_TEMPS,
+                           resampler=MegopolisSpec(num_iters=AUDIT_NUM_ITERS), **overrides)
+    target, key = gaussian_mixture(device=dev), trandom.PRNGKey(0)
+    if bank:
+        return lambda: run_smc_sampler_bank(key, target, cfg, num_scenarios=AUDIT_BATCH,
+                                            device=dev)
+    return lambda: run_smc_sampler(key, target, cfg, device=dev)
+
+
 def _programs(device):
     """name -> (program, steps)."""
     from repro_torch.pf.filter import run_filter, run_filter_bank
@@ -82,13 +104,16 @@ def _programs(device):
         "pf.run_filter_bank": (
             lambda: run_filter_bank(key, _pf(True), torch.zeros(AUDIT_BATCH, AUDIT_STEPS),
                                     device=dev), AUDIT_STEPS),
+        "ais.run_smc_sampler": (_ais(dev), AUDIT_TEMPS),
+        "ais.run_smc_sampler_bank": (_ais(dev, bank=True), AUDIT_TEMPS),
+        "ais.adaptive_mala": (_ais(dev, schedule="adaptive", move="mala"), AUDIT_TEMPS),
     }
 
 
 def audit_consumers(names=None, device="cuda", around=None):
-    """Run and audit each consumer program, one launch per step; returns a
-    generator of CellReports (``cuda`` without a card raises here, before
-    the first)."""
+    """Run and audit each consumer program, one launch per step (per
+    temperature for AIS); returns a generator of CellReports (``cuda``
+    without a card raises here, before the first)."""
     programs = _programs(device)
     return (audit_program(name, programs[name][0], Contract(max_launches=programs[name][1]),
                           around=around) for name in names or programs)

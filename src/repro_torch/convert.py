@@ -7,10 +7,12 @@ module needs neither package's import of the other:
 * JAX key data (``jax.random.key_data(key)``: ``uint32[..., 2]``) <-> port
   keys (``int64[..., 2]``, the same words);
 * particle, weight and log-weight arrays <-> tensors, bit for bit;
-* UNGM ``theta`` dicts <-> dicts of float32 tensors;
+* scenario ``theta`` dicts (UNGM's, ``ais.gaussian_family``'s) <-> dicts
+  of float32 tensors;
 * the fields of a JAX ``MegopolisSpec``, ``MetropolisSpec``,
   ``MetropolisC1Spec``, ``MetropolisC2Spec``, ``RejectionSpec`` or
-  ``PrefixSumSpec`` -> the port's spec of the same family, and back.
+  ``PrefixSumSpec`` -> the port's spec of the same family, and back;
+* a JAX ``SMCSamplerConfig`` -> the port's, field by field.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.ais.sampler import SMCSamplerConfig
 from repro_torch.core.spec import JAX_BACKENDS, ResamplerSpec, spec_from_name
 
 
@@ -54,8 +57,9 @@ def array_to_jax(x: torch.Tensor) -> np.ndarray:
 
 
 def theta_from_jax(theta: dict, device="cuda") -> dict:
-    """UNGM scenario parameters (``{"amp", "obs_var"}``, scalars or ``[S]``)
-    -> float32 tensors."""
+    """Scenario parameters -> float32 tensors, leaf for leaf: UNGM's
+    (``{"amp", "obs_var"}``, scalars or ``[S]``) and ``gaussian_family``'s
+    (``{"mean": [d] or [S, d], "sigma": [] or [S]}``)."""
     return {name: array_from_jax(np.asarray(v, np.float32), device) for name, v in theta.items()}
 
 
@@ -75,6 +79,15 @@ def spec_from_jax(spec) -> ResamplerSpec:
     fields["backend"] = JAX_BACKENDS.get(fields["backend"], fields["backend"])
     fields.pop("kind", None)
     return spec_from_name(spec.name, **fields)
+
+
+def sampler_config_from_jax(cfg):
+    """A JAX ``SMCSamplerConfig`` -> the port's, field by field; a spec in
+    ``resampler`` goes through ``spec_from_jax``, a registry name stays."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    if not isinstance(fields["resampler"], str):
+        fields["resampler"] = spec_from_jax(fields["resampler"])
+    return SMCSamplerConfig(**fields)
 
 
 def spec_to_jax(spec: ResamplerSpec) -> dict:

@@ -46,6 +46,7 @@ from repro_torch.analysis import contracts, fixtures, guards, report, rng, smem,
 from repro_torch.analysis.__main__ import main
 from repro_torch.analysis.consumers import (
     AUDIT_STEPS,
+    AUDIT_TEMPS,
     AUTO_FAMILIES,
     MEGOPOLIS_AUTO_WAIVER,
     audit_consumers,
@@ -314,10 +315,15 @@ def test_leaky_telemetry_fires_both_halves():
 def test_consumers_one_launch_per_step():
     reps = {r.cell: r for r in audit_consumers(device="cpu")}
     assert set(reps) == {"pf.step", "pf.step_conditional", "pf.run_filter",
-                         "pf.run_filter_bank"}
+                         "pf.run_filter_bank", "ais.run_smc_sampler",
+                         "ais.run_smc_sampler_bank", "ais.adaptive_mala"}
     for name, r in reps.items():
         assert r.ok, r.violations
-        assert r.launches == (AUDIT_STEPS if name.startswith("pf.run") else 1)
+        assert not r.rng_findings and not r.tainted_gathers
+        if name.startswith("ais."):
+            assert r.launches == AUDIT_TEMPS
+        else:
+            assert r.launches == (AUDIT_STEPS if name.startswith("pf.run") else 1)
 
 
 # ---------------------------------------------------------- transactions

@@ -35,7 +35,7 @@ def test_importing_the_port_loads_no_jax():
     mods = ["repro_torch.pf.filter", "repro_torch.pf.models", "repro_torch.convert",
             "repro_torch.kernels.megopolis.ops", "repro_torch.kernels.metropolis.ops",
             "repro_torch.kernels.rejection.ops", "repro_torch.kernels.prefix_sum.ops",
-            "repro_torch.kernels.build", "repro_torch.analysis"]
+            "repro_torch.kernels.build", "repro_torch.analysis", "repro_torch.ais"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
