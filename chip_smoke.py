@@ -28,7 +28,8 @@ over, and there is no CPU fallback):
    the oversized fixture refused with no launch; ``--selftest``; then the
    two fixture kernels (rows 30-31) against their plain versions on their
    inputs in ``--selftest`` and at 2^23 (and each into a view one element
-   into its tensor), timed and bounded as in phase 4;
+   into its tensor), timed and bounded as in phase 4, once the guard and
+   resilience phases (5 and 5b), started beside it, have ended;
 4. in a process of its own (``--phase kernels``), for each kernel wrapper,
    on its inputs captured from a short full-width run of the entry point
    that calls it (for a step, the last captured call that resampled),
@@ -38,7 +39,10 @@ over, and there is no CPU fallback):
    wrappers of rows 1-29 also on those inputs narrowed to bfloat16 and to
    float16 planes as a compressed spec narrows them (their kernels' 2-byte
    instances; names ending ``@bfloat16``, ``@float16``; the prefix-sum
-   CDFs and draws stay float32); time each
+   CDFs and draws stay float32; the float16 ones held and not timed, a cut,
+   printed); hold ``logsumexp_rows`` (the adaptive AIS schedule's row
+   reduction, no TPU counterpart) on E3's ``[S, N]`` and ``[2·S, N]``
+   inputs bit for bit and time it beside ``torch.logsumexp``; time each
    bank step kernel at capped cooperative grids (blocks per SM); hold
    ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
@@ -52,7 +56,12 @@ over, and there is no CPU fallback):
    started beside phase 3 (which waits for it to end before it times the
    fixture kernels; phase 4 runs after both, alone), drive Path D and the
    reference backend, each run with every kernel's launch count set to 0
-   just before and read just after:
+   just before and read just after (and 5b, Path F, the same way beside
+   them: ``--phase resilience``, ``path_f``: dispatch spans around the step
+   kernel with the census unchanged, the fallback ladder, the chaos bank
+   through every family at ``guard="recover"``, kill-and-resume of the
+   filter and of AIS at full width, the distributed resampler on NCCL at
+   world size 1):
    * Path D, the degeneracy guard (DESIGN.md §16): UNGM log-weights of a
      bank of S filters' first step at N particles, row 3 all -inf and row
      11 with one NaN, through every Path A family's ``step_rows`` at
@@ -77,8 +86,8 @@ over, and there is no CPU fallback):
    and, from the profiled run, all CUDA launches and the device's busy
    share; each family's step wrapper held against its plain version on the
    [S, D, N] inputs of one call of its run; one row against its single call
-   bit for bit; the adaptive ladder with MALA (and a bank of 4 against its
-   single call, counted); Megopolis and systematic at bfloat16 planes; a
+   bit for bit; the adaptive ladder with MALA (and a bank of 4 whose row
+   equals its single call bit for bit); Megopolis and systematic at bfloat16 planes; a
    small run on the card against the CPU and telemetry on and off;
 7. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
@@ -90,7 +99,7 @@ over, and there is no CPU fallback):
      ``multinomial`` and ``improved_systematic`` (Table 2's unbiased
      columns) and ``residual``: ``run_filter`` in Alg. 6 and in
      conditional mode (ESS threshold 0.5), ``run_filter_bank`` (S
-     scenarios) in both modes (the float32 families at 50 of the T bank
+     scenarios) in both modes (every family at 25 of the T bank
      steps, a cut printed on its own line), and ``run_filter_timed``; RMSE
      against ``simulate``'s truth, steps/s, the resample ratio and a
      ``StepStats`` summary, the families side by side, and the census of
@@ -184,9 +193,9 @@ PATH_B_YS = (0.0, 2.0, 4.0)
 #: Time steps of the short runs whose resampler inputs phase 4 captures.
 CAPTURE_STEPS = 5
 #: Bank steps of every family's Path A bank runs: cut from T = 100 to keep
-#: the whole run, Path D and Method 2 included, within 600 s (the cut is
-#: printed).
-PATH_A_BANK_STEPS = 50
+#: the whole run, Paths D, E and F and Method 2 included, near 600 s (the
+#: cut is printed; a whole run took 605-689 s at 50 steps).
+PATH_A_BANK_STEPS = 25
 #: The ESS threshold of the conditional runs (Path A's and phase 4's).
 THR = 0.5
 #: 32-bit operations per (particle, iteration) of each family's sweep,
@@ -225,6 +234,9 @@ PATH_C_KEY = 8
 SCAN_OPS = 3
 BISECT_OPS = 6
 DRAW_OPS = 3
+#: 32-bit operations per element of the row reduction: its max, the
+#: subtract, the exp (counted as one) and the add.
+LSE_OPS = 4
 RESIDUAL_SPLIT_OPS = 5
 #: Lanes of a warp: a warp runs as many rounds as its slowest lane.
 WARP = 32
@@ -430,7 +442,7 @@ def summary(stats) -> dict:
 #: The phases that run in a process of their own, before the paths: each
 #: relies on ``torch.profiler``'s kernel records, which a process that has
 #: run for minutes loses (``kernel_ms``).
-PHASES = ("checks", "kernels", "guard", "ais")
+PHASES = ("checks", "kernels", "guard", "ais", "resilience")
 PHASE_TIMEOUT_S = 600
 
 
@@ -453,8 +465,8 @@ def main(argv=None) -> int:
 
     if args.phase is not None:
         ctx = setup(args)
-        kernels = {"checks": checks_phase, "kernels": kernels_phase,
-                   "guard": guard_phase, "ais": ais_phase}[args.phase](ctx)
+        kernels = {"checks": checks_phase, "kernels": kernels_phase, "guard": guard_phase,
+                   "ais": ais_phase, "resilience": resilience_phase}[args.phase](ctx)
         print(json.dumps({"phase": args.phase, "path_launches": ctx.path_launches,
                           "results": ctx.results, "kernels": kernels}, default=float))
         return 0
@@ -560,9 +572,11 @@ def main(argv=None) -> int:
     return 0
 
 
-#: The environment variable naming the file whose existence tells the
-#: checks phase that the guard phase, run beside it, has ended.
-GUARD_DONE_ENV = "CHIP_SMOKE_GUARD_DONE"
+#: The environment variable naming the files (joined by ``os.pathsep``) whose
+#: existence tells the checks phase that the phases run beside it have ended.
+BESIDE_DONE_ENV = "CHIP_SMOKE_BESIDE_DONE"
+#: The phases that run beside the checks phase, each in its own process.
+BESIDE_CHECKS = ("guard", "resilience")
 
 
 def phase_cmd(name: str, argv) -> list:
@@ -570,7 +584,7 @@ def phase_cmd(name: str, argv) -> list:
             *(sys.argv[1:] if argv is None else argv), "--phase", name]
 
 
-def phase_result(name: str, returncode: int, stdout: str, t0: float) -> dict:
+def phase_result(name: str, returncode: int, stdout: str, seconds: float) -> dict:
     """A phase's output passed through and its last line, a JSON object with
     the counts of its ``drive`` runs and its ``kernels`` entries, returned.
     Any failure there fails here."""
@@ -578,63 +592,71 @@ def phase_result(name: str, returncode: int, stdout: str, t0: float) -> dict:
     print("\n".join(lines[:-1] if returncode == 0 else lines), flush=True)
     if returncode != 0 or not lines:
         fail(f"phase {name} exited {returncode}")
-    print(f"phase {name}: {time.perf_counter() - t0:.1f} s in its own process", flush=True)
+    print(f"phase {name}: {seconds:.1f} s in its own process", flush=True)
     return json.loads(lines[-1])
 
 
 def run_phases(argv) -> dict:
     """Run the phases of ``PHASES``, each in a new process (``--phase``),
-    young, as the profiler needs it.  The guard phase runs beside the checks
-    phase, which waits for it to end before it times the fixture kernels;
-    the kernels phase, which times every kernel, runs alone after both, and
-    the AIS phase (Path E, timed) alone after it.
+    young, as the profiler needs it.  The guard and resilience phases run
+    beside the checks phase, which waits for both to end before it times
+    the fixture kernels; the kernels phase, which times every kernel, runs
+    alone after them, and the AIS phase (Path E, timed) alone after it.
     Every process started here is waited for, or killed at its time limit."""
     with tempfile.TemporaryDirectory() as tmp:
-        done = Path(tmp) / "guard.done"
-        t_guard = time.perf_counter()
-        with open(Path(tmp) / "guard.out", "w+") as out:
-            guard = subprocess.Popen(phase_cmd("guard", argv), stdout=out, text=True)
+        outs, procs, waiters, done, took = {}, {}, [], [], {}
+        for name in BESIDE_CHECKS:
+            outs[name] = open(Path(tmp) / f"{name}.out", "w+")
+            procs[name] = subprocess.Popen(phase_cmd(name, argv), stdout=outs[name], text=True)
+            done.append(Path(tmp) / f"{name}.done")
 
-            def reap():
+            def reap(name=name, flag=done[-1], t0=time.perf_counter()):
                 try:
-                    guard.wait(timeout=PHASE_TIMEOUT_S)
+                    procs[name].wait(timeout=PHASE_TIMEOUT_S)
                 except subprocess.TimeoutExpired:
-                    guard.kill()
-                    guard.wait()
-                done.touch()
+                    procs[name].kill()
+                    procs[name].wait()
+                took[name] = time.perf_counter() - t0
+                flag.touch()
 
-            waiter = threading.Thread(target=reap)
-            waiter.start()
-            t0 = time.perf_counter()
-            try:
-                proc = subprocess.run(phase_cmd("checks", argv), stdout=subprocess.PIPE,
-                                      text=True, timeout=PHASE_TIMEOUT_S,
-                                      env=dict(os.environ, **{GUARD_DONE_ENV: str(done)}))
-            finally:
+            waiters.append(threading.Thread(target=reap))
+            waiters[-1].start()
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(phase_cmd("checks", argv), stdout=subprocess.PIPE,
+                                  text=True, timeout=PHASE_TIMEOUT_S,
+                                  env=dict(os.environ, **{BESIDE_DONE_ENV: os.pathsep.join(
+                                      str(d) for d in done)}))
+        finally:
+            for waiter in waiters:
                 waiter.join()
-            phases = {"checks": phase_result("checks", proc.returncode, proc.stdout, t0)}
-            out.seek(0)
-            phases["guard"] = phase_result("guard", guard.returncode, out.read(), t_guard)
+        phases = {"checks": phase_result("checks", proc.returncode, proc.stdout,
+                                         time.perf_counter() - t0)}
+        for name in BESIDE_CHECKS:
+            with outs[name] as out:
+                out.seek(0)
+                phases[name] = phase_result(name, procs[name].returncode, out.read(), took[name])
     for name in ("kernels", "ais"):
         t0 = time.perf_counter()
         proc = subprocess.run(phase_cmd(name, argv), stdout=subprocess.PIPE, text=True,
                               timeout=PHASE_TIMEOUT_S)
-        phases[name] = phase_result(name, proc.returncode, proc.stdout, t0)
+        phases[name] = phase_result(name, proc.returncode, proc.stdout, time.perf_counter() - t0)
     return phases
 
 
-def wait_for_guard():
-    """In the checks phase: wait until the guard phase beside it has ended
-    (the file named by ``GUARD_DONE_ENV`` exists), so that nothing else runs
-    on the card while the fixture kernels are timed."""
-    path = os.environ.get(GUARD_DONE_ENV)
+def wait_for_beside():
+    """In the checks phase: wait until the phases beside it have ended (the
+    files named by ``BESIDE_DONE_ENV`` exist), so that nothing else runs on
+    the card while the fixture kernels are timed."""
+    paths = [p for p in os.environ.get(BESIDE_DONE_ENV, "").split(os.pathsep) if p]
     t0 = time.perf_counter()
-    while path and not Path(path).exists():
+    while not all(Path(p).exists() for p in paths):
         if time.perf_counter() - t0 > PHASE_TIMEOUT_S:
-            fail("the guard phase did not end")
+            fail(f"the phases beside the checks ({', '.join(BESIDE_CHECKS)}) did not end")
         time.sleep(0.2)
-    if path:
-        print(f"checks: waited {time.perf_counter() - t0:.1f} s for the guard phase", flush=True)
+    if paths:
+        print(f"checks: waited {time.perf_counter() - t0:.1f} s for the phases beside it",
+              flush=True)
 
 
 def setup(args) -> types.SimpleNamespace:
@@ -660,6 +682,7 @@ def setup(args) -> types.SimpleNamespace:
     from repro_torch.kernels.prefix_sum import prefix_sum as pk
     from repro_torch.kernels.prefix_sum import search as sk
     from repro_torch.kernels.prefix_sum import step as stk
+    from repro_torch.kernels.reduce import reduce as lk
     from repro_torch.kernels.rejection import rejection as rk
     from repro_torch.pf.filter import simulate
     from repro_torch.pf.models import ungm, ungm_family
@@ -716,7 +739,7 @@ def setup(args) -> types.SimpleNamespace:
             families[f"{base}@{plane}"] = dict(
                 f, spec=f["spec"].replace(plane_dtype=plane),
                 small=f["small"].replace(plane_dtype=plane), plane=plane)
-    modules = (mk, tk, ck, rk, pk, sk, stk, fk)
+    modules = (mk, tk, ck, rk, pk, sk, stk, fk, lk)
     wrappers = sum((m.WRAPPERS for m in modules), ())
     key = trandom.PRNGKey(args.seed)
     k_sim, k_run, k_bank, k_quality = trandom.split(key, 4)
@@ -760,7 +783,8 @@ def setup(args) -> types.SimpleNamespace:
     return types.SimpleNamespace(
         dev=dev, n=args.particles, args=args, families=families, prefix_index=prefix_index,
         path_b_families={name: f for name, f in families.items() if f["path_b"]},
-        wrappers=wrappers, trandom=trandom, mk=mk, fk=fk, k_run=k_run, k_quality=k_quality,
+        wrappers=wrappers, trandom=trandom, mk=mk, fk=fk, lk=lk, k_run=k_run,
+        k_quality=k_quality,
         model=model, fam=fam, truth=truth, obs=obs, thetas=thetas,
         bank_truth=bank_truth, bank_obs=bank_obs,
         path_launches=path_launches, results=results, drive=drive)
@@ -772,8 +796,8 @@ def checks_phase(ctx) -> list:
     entries (the N = 2^23 cases are printed, not listed)."""
     from repro_torch.analysis import fixtures as afix
 
-    contract_checks(ctx.dev, ctx.wrappers, ctx.fk, ctx.drive)
-    wait_for_guard()
+    contract_checks(ctx.dev, ctx.wrappers, ctx.fk, ctx.lk, ctx.drive)
+    wait_for_beside()
     entries = [check_kernel(case) for case in fixture_cases(ctx.dev, ctx.fk, afix)]
     return [e for e in entries if e["name"] in TPU_KERNELS]
 
@@ -790,10 +814,16 @@ def kernels_phase(ctx) -> list:
     cases = kernel_cases(a, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs, ctx.bank_obs,
                          ctx.thetas, ctx.k_run, ctx.k_quality)
     took = collections.Counter(capture=time.perf_counter() - t0)
+    print("cut phase 4: the kernels of rows 1-29 at float16 planes are held bit for bit and "
+          "not timed (their times were within 1.5% of bfloat16's; the whole run's time)",
+          flush=True)
     for case in cases:
         t0 = time.perf_counter()
-        entry = check_kernel(case)
-        if case[0].split("@")[0] in TPU_KERNELS:  # not the extra case where the cap binds
+        timed = not case[0].endswith("@float16")
+        entry = check_kernel(case, timed)
+        # Not the extra cases (where rejection's cap binds, a CESS round's
+        # reduction), nor the ones held and not timed.
+        if timed and case[0].split("@")[0] in {**TPU_KERNELS, **PORT_KERNELS}:
             kernels.append(entry)
         if case[0].endswith("_step_rows"):
             print(f"grid {case[0]}: {json.dumps(grid_study(case))}", flush=True)
@@ -836,6 +866,311 @@ def ais_phase(ctx) -> list:
     path_e(ctx, ctx.trandom.fold_in(ctx.k_quality, AIS_KEY))
     print(f"time path E: {time.perf_counter() - t0:.1f} s", flush=True)
     return []
+
+
+def resilience_phase(ctx) -> list:
+    """Phase ``resilience``, Path F (DESIGN.md §15-16), beside the checks
+    phase: ``path_f``.  No kernel is new here, so it lists no ``kernels``
+    entry; its runs' launches count with the paths'."""
+    t0 = time.perf_counter()
+    path_f(ctx, ctx.trandom.fold_in(ctx.k_quality, RESILIENCE_KEY))
+    print(f"time path F: {time.perf_counter() - t0:.1f} s", flush=True)
+    return []
+
+
+#: Path F's key: ``fold_in(k_quality, RESILIENCE_KEY)``.
+RESILIENCE_KEY = 26
+#: F3's bank: clean rows and one row of each fault, NaN and inf weights at
+#: FAULT_RATE (the JAX chaos suite's classes).
+FAULT_RATE = 0.1
+#: F4's snapshots: every CKPT_EVERY steps, the crash after CKPT_FAIL_AFTER;
+#: AIS at its own period.
+CKPT_EVERY, CKPT_FAIL_AFTER = 25, 50
+AIS_CKPT_EVERY, AIS_CKPT_FAIL_AFTER = 8, 16
+#: The CUDA error F2's refused rung reports: no kernel image for the device.
+REFUSED_LAUNCH = 209
+
+
+def path_f(ctx, key):
+    """Path F, the resilience layer and the distributed resampler on the
+    card at full width, each run with every kernel's launch count set to 0
+    just before and read just after (``drive``):
+
+    * F1, spans: one Megopolis conditional filter step (``step_conditional``)
+      at N with tracing on, profiled: the ``megopolis/cuda/step/float32``
+      span encloses the step kernel's launch, and the port's launch census
+      is the same with tracing on and off;
+    * F2, fallback: ``build_resilient`` on a healthy ``cuda`` rung emits no
+      event and its probe launches the kernel; with the kernel's launch
+      refused (its C entry made to return CUDA error REFUSED_LAUNCH) it
+      emits exactly one ``backend_demotion`` event and returns a
+      ``reference`` resampler equal to ``backend="reference"`` bit for bit
+      on N weights;
+    * F3, chaos: a bank of clean rows and one of each ``FAULT_CLASSES`` bank,
+      NaN and inf weights at FAULT_RATE, through every float32 Path A
+      family's ``step_rows`` at ``guard="recover"``: the clean rows equal
+      ``guard="off"`` bit for bit, every particle is finite and
+      ``validate_ancestors`` passes; ``poison_ancestors`` makes it raise;
+    * F4, kill and resume: ``run_filter`` (Megopolis, conditional, Path A's
+      N, B and T) with ``CheckpointPolicy(every=CKPT_EVERY,
+      fail_after=CKPT_FAIL_AFTER)`` crashes, resumes and equals the
+      uninterrupted run on every leaf; so does ``run_smc_sampler`` (E3's
+      adaptive MALA, N, T = 24) at AIS_CKPT_EVERY and AIS_CKPT_FAIL_AFTER;
+    * F5, distributed: ``make_distributed_resampler`` over NCCL at world
+      size 1 (static and dynamic), bit for bit with ``megopolis_hier_ref(
+      n_shards=1)`` on the card, and ``gather_ancestors`` and
+      ``effective_sample_size`` over the same group."""
+    from repro_torch.ais import SMCSamplerConfig, gaussian_mixture, run_smc_sampler
+    from repro_torch.analysis.contracts import record
+    from repro_torch.core.spec import MegopolisSpec, spec_for_backend
+    from repro_torch.obs import trace
+    from repro_torch.pf.filter import ParticleFilter, run_filter
+    from repro_torch.resilience import faults
+    from repro_torch.resilience.checkpointing import CheckpointPolicy
+    from repro_torch.resilience.errors import CorruptAncestorsError, InjectedCrash
+
+    dev, drive, results, n, trandom = ctx.dev, ctx.drive, ctx.results, ctx.n, ctx.trandom
+    mk, fams = ctx.mk, ctx.families
+    lap = time.perf_counter()
+
+    def took(what):
+        nonlocal lap
+        print(f"time path F {what}: {time.perf_counter() - lap:.1f} s", flush=True)
+        lap = time.perf_counter()
+
+    # -- F1 -------------------------------------------------------------------------
+    pf = ParticleFilter(ctx.model, n, resampler=fams["megopolis"]["spec"], ess_threshold=THR)
+    k1 = trandom.fold_in(key, 1)
+    x = ctx.model.init(k1, n, dev)
+    lw = torch.zeros(n, device=dev)
+    t1 = torch.tensor(1.0, device=dev)
+
+    def one_step():
+        out = pf.step_conditional(k1, x, lw, ctx.obs[0], t1)
+        torch.cuda.synchronize()
+        return out
+
+    off, rec_off = record(one_step, taint=False)
+    trace.enable_tracing(True)
+    try:
+        on, rec_on = record(one_step, taint=False)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            drive("resilience/f1/spans", one_step, [fams["megopolis"]["conditional"]])
+    finally:
+        trace.enable_tracing(False)
+    # The span is a host range (around the launch call) and, on the device's
+    # timeline, an annotation of the same name (around the kernel).
+    name, cuda = "megopolis/cuda/step/float32", torch.autograd.DeviceType.CUDA
+    events = prof.events()
+
+    def within(e, outer):
+        return outer.time_range.start <= e.time_range.start and \
+            e.time_range.end <= outer.time_range.end
+
+    spans = [e for e in events if e.name == name and e.device_type != cuda]
+    marks = [e for e in events if e.name == name and e.device_type == cuda]
+    kernels = [e for e in events if e.device_type == cuda
+               and is_kernel(e.name, "megopolis_step_rows_kernel")]
+    launches = [e for e in events if "LaunchCooperativeKernel" in e.name]
+    same = all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+               for a, b in zip(on[:3], off[:3]))
+    f1 = {"host_spans": len(spans), "device_spans": len(marks), "step_kernels": len(kernels),
+          "kernel_launch_calls": len(launches),
+          "launch_calls_inside_host_span": sum(within(e, s) for e in launches for s in spans),
+          "kernels_inside_device_span": sum(within(k, m) for k in kernels for m in marks),
+          "census_off": dict(rec_off.census), "census_on": dict(rec_on.census),
+          "outputs_equal": same}
+    results["resilience/f1/spans"].update(f1)
+    print(f"path F1: {json.dumps(f1)}", flush=True)
+    if len(spans) != 1 or len(kernels) != 1 or len(launches) != 1 or \
+            f1["launch_calls_inside_host_span"] != 1 or \
+            (marks and f1["kernels_inside_device_span"] != 1):
+        fail(f"F1: the span {name} does not enclose the step kernel: {f1}")
+    if dict(rec_on.census) != dict(rec_off.census) or not rec_off.census or not same:
+        fail(f"F1: tracing moved the census or the result: {f1}")
+    took("F1")
+
+    # -- F2 -------------------------------------------------------------------------
+    spec = fams["megopolis"]["spec"]
+    events = []
+    mk.reset_launch_counts()
+    healthy = spec.build_resilient(recorder=events, device=dev)
+    probe_launches = mk.megopolis.launches
+    if events or healthy.backend != "cuda" or probe_launches != 1:
+        fail(f"F2: the healthy rung demoted or its probe did not launch the kernel "
+             f"({events}, {healthy.backend}, {probe_launches} launches)")
+    real_lib = mk._lib
+
+    class Refusing:
+        """The Megopolis library with its index-only entry refused."""
+
+        def __getattr__(self, attr):
+            got = getattr(real_lib(), attr)
+            return (lambda *a: REFUSED_LAUNCH) if attr == "megopolis_rows" else got
+
+    mk._lib = Refusing
+    try:
+        demoted = drive("resilience/f2/fallback",
+                        lambda: spec.build_resilient(recorder=events, device=dev), [])
+    finally:
+        mk._lib = real_lib
+    w = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(26), device=dev)
+    k2 = trandom.fold_in(key, 2)
+    got = demoted(k2, w)
+    want = spec.replace(backend="reference").build()(k2, w)
+    f2 = {"healthy_events": 0, "healthy_probe_launches": probe_launches,
+          "events": [{k: e[k] for k in ("kind", "backend", "to_backend", "error_type")}
+                     for e in events], "demoted_backend": demoted.backend,
+          "ancestors_equal": bool(torch.equal(got, want))}
+    results["resilience/f2/fallback"].update(f2)
+    print(f"path F2: {json.dumps(f2)}", flush=True)
+    if [e["kind"] for e in events] != ["backend_demotion"] or demoted.backend != "reference" \
+            or events[0]["to_backend"] != "reference" or not f2["ancestors_equal"]:
+        fail(f"F2: expected one demotion to reference, equal to it bit for bit: {f2}")
+    took("F2")
+
+    # -- F3 -------------------------------------------------------------------------
+    rows = ("clean", *faults.FAULT_CLASSES, "nan_weights", "inf_weights", "clean")
+    g = torch.Generator(device=dev).manual_seed(3)
+    clean = 3.0 * torch.randn(len(rows), n, generator=g, device=dev)
+    k3 = trandom.fold_in(key, 3)
+    bank = []
+    for i, row in enumerate(rows):
+        if row in faults.FAULT_CLASSES:
+            bank.append(faults.FAULT_CLASSES[row](n, device=dev))
+        elif row == "nan_weights":
+            bank.append(faults.inject_nan_weights(trandom.fold_in(k3, i), clean[i], FAULT_RATE))
+        elif row == "inf_weights":
+            bank.append(faults.inject_inf_weights(trandom.fold_in(k3, i), clean[i], FAULT_RATE))
+        else:
+            bank.append(clean[i])
+    lw_bank = torch.stack(bank)
+    parts = torch.randn(len(rows), n, generator=g, device=dev)
+    keys = trandom.split(trandom.fold_in(k3, 99), len(rows))
+    keep = [i for i, row in enumerate(rows) if row == "clean"]
+    f3 = {}
+    for family, f in fams.items():
+        if "plane" in f:
+            continue
+        out = {}
+        for guard in ("off", "recover"):
+            r = f["spec"].replace(guard=guard).build()
+            out[guard] = drive(f"resilience/f3/{family}/{guard}",
+                               lambda r=r: r.step_rows(keys, lw_bank, parts, THR),
+                               [f["bank_conditional"]])
+        (p_rec, a_rec, st), (p_off, a_off, _) = out["recover"], out["off"]
+        faults.validate_ancestors(a_rec, n)
+        try:
+            faults.validate_ancestors(faults.poison_ancestors(trandom.fold_in(k3, 7), a_rec, n),
+                                      n)
+            fail(f"F3 {family}: validate_ancestors passed poisoned ancestors")
+        except CorruptAncestorsError:
+            pass
+        f3[family] = {"clean_equal": bool(torch.equal(a_rec[keep], a_off[keep]) and torch.equal(
+            p_rec[keep].view(torch.int32), p_off[keep].view(torch.int32))),
+            "finite": bool(torch.isfinite(p_rec).all()),
+            "degenerate_rows": st.degenerate.nonzero().reshape(-1).tolist()}
+        if not (f3[family]["clean_equal"] and f3[family]["finite"]):
+            fail(f"F3 {family}: {f3[family]}")
+        del out, p_rec, a_rec, p_off, a_off
+    results["resilience/f3/chaos"] = {"rows": list(rows), "families": f3}
+    print(f"path F3: {json.dumps(results['resilience/f3/chaos'])}", flush=True)
+    took("F3")
+
+    # -- F4 -------------------------------------------------------------------------
+    def bits_of(x):
+        x = x.reshape(-1)
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def crash_then_resume(name, run, policy_kw, leaves, expected):
+        full = drive(f"{name}/uninterrupted", run, expected)
+        with tempfile.TemporaryDirectory() as d:
+            crashed = []
+
+            def crash():
+                try:
+                    run(CheckpointPolicy(d, **policy_kw))
+                except InjectedCrash as err:
+                    crashed.append(str(err))
+            drive(f"{name}/crash", crash, expected)
+            resumed = drive(f"{name}/resumed", lambda: run(CheckpointPolicy(
+                d, every=policy_kw["every"])), expected)
+        names, want = leaves(full)
+        differ = {k: int((bits_of(a) != bits_of(b)).sum())
+                  for k, a, b in zip(names, leaves(resumed)[1], want, strict=True)}
+        rec = {"crash": crashed, "values_differing": differ,
+               "seconds": [results[f"{name}/{p}"]["seconds"] for p in
+                           ("uninterrupted", "crash", "resumed")]}
+        results[name] = rec
+        print(f"path {name}: {json.dumps(rec)}", flush=True)
+        if len(crashed) != 1 or any(differ.values()):
+            fail(f"{name}: the resumed run differs from the uninterrupted one: {rec}")
+
+    def filter_leaves(out):
+        est, tel = out
+        return (("estimates", *tel.steps._fields), (est, *tel.steps))
+
+    crash_then_resume(
+        "resilience/f4/run_filter/megopolis",
+        lambda ck=None: run_filter(ctx.k_run, pf, ctx.obs, telemetry=True, checkpoint=ck,
+                                   device=dev),
+        {"every": CKPT_EVERY, "fail_after": CKPT_FAIL_AFTER}, filter_leaves,
+        [fams["megopolis"]["conditional"]])
+    cfg = SMCSamplerConfig(num_particles=n, num_temps=AIS_TEMPS, schedule="adaptive",
+                           move="mala", resampler=spec_for_backend("megopolis", "cuda",
+                                                                   num_iters=AIS_ITERS))
+    target = gaussian_mixture(device=dev)
+    k4 = trandom.fold_in(key, 4)
+    crash_then_resume(
+        "resilience/f4/run_smc_sampler/megopolis",
+        lambda ck=None: run_smc_sampler(k4, target, cfg, checkpoint=ck, device=dev),
+        {"every": AIS_CKPT_EVERY, "fail_after": AIS_CKPT_FAIL_AFTER},
+        lambda out: (tuple(sorted(out)), tuple(out[k] for k in sorted(out))),
+        [fams["megopolis"]["conditional"], ctx.lk.logsumexp_rows])
+    took("F4")
+
+    # -- F5 -------------------------------------------------------------------------
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as td
+    from repro_torch.kernels.common import key_to_seed
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        k5 = trandom.fold_in(key, 5)
+        dspec = MegopolisSpec(num_iters=ITERS, backend="reference")
+        ks, kl, kh = trandom.split(k5, 3)
+        f5 = {"backend": dist.get_backend(), "world_size": dist.get_world_size()}
+        for schedule in ("static", "dynamic"):
+            r = td.make_distributed_resampler(spec=dspec, schedule=schedule)
+            got = drive(f"resilience/f5/{schedule}", lambda r=r: r(k5, w), [])
+            shards = (td._static_shard_schedule(0xA5A5, ITERS, 1) if schedule == "static"
+                      else trandom.randint(kh, (ITERS,), 0, 1))
+            want = td.megopolis_hier_ref(key_to_seed(ks), trandom.randint(kl, (ITERS,), 0, n),
+                                         shards, w, n_shards=1, num_iters=ITERS)
+            f5[schedule] = {"equal": bool(torch.equal(got, want)),
+                            "moved": float((got != torch.arange(n, device=dev)).float().mean())}
+        xs = torch.randn(n, generator=g, device=dev)
+        f5["gather_equal"] = bool(torch.equal(td.gather_ancestors(xs, got), xs[got]))
+        s1, s2 = w.sum(), (w * w).sum()
+        f5["ess"] = float(td.effective_sample_size(w))
+        f5["ess_one_device"] = float(s1 * s1 / torch.clamp(s2, min=1e-30))
+    finally:
+        dist.destroy_process_group()
+    results["resilience/f5/distributed"] = f5
+    print(f"path F5: {json.dumps(f5)}", flush=True)
+    if not (f5["static"]["equal"] and f5["dynamic"]["equal"] and f5["gather_equal"]
+            and f5["ess"] == f5["ess_one_device"]):
+        fail(f"F5: the distributed resampler differs from its one-device oracle: {f5}")
+    took("F5")
 
 
 def ais_steps(families: dict) -> dict:
@@ -988,9 +1323,9 @@ def path_e(ctx, key):
     * E3, the adaptive ladder with MALA: ``run_smc_sampler`` at N on both
       targets (gate, β reaching exactly 1.0, temperatures used, seconds),
       the first after a held run of the same call (its warm-up), then a
-      bank of AIS_E3_BANK rows on the mixture, its row AIS_E3_ROW against
-      the single call leaf by leaf (a measurement: the CESS reductions over
-      [S, N] may round otherwise than over [N] on the card);
+      bank of AIS_E3_BANK rows on the mixture, its row AIS_E3_ROW equal to
+      the single call on every leaf, bit for bit (the CESS bisection's
+      reductions are ``logsumexp_rows``, whose order follows N, never S);
     * E4, compressed planes: E1's isotropic bank at ``plane_dtype`` AIS_PLANE
       for AIS_PLANE_FAMILIES, inside the gate, each after a held run;
     * E5, the card against the CPU: N = AIS_SMALL_N, T = AIS_SMALL_TEMPS,
@@ -1102,7 +1437,8 @@ def path_e(ctx, key):
         if not singles:
             held, hold = ais_hold(name, steps["megopolis"]["single"], steps["megopolis"]["ops"],
                                   run)
-        singles[tname] = drive(name, run, [steps["megopolis"]["single"][0]])
+        singles[tname] = drive(name, run, [steps["megopolis"]["single"][0],
+                                           ctx.lk.logsumexp_rows])
         results[name].update(ais_quality(name, singles[tname], target.log_z),
                              betas=singles[tname]["betas"].tolist())
         if held is not None:
@@ -1112,11 +1448,13 @@ def path_e(ctx, key):
     name = "ais/e3_bank/megopolis/gaussian_mixture"
     bank = drive(name, lambda: run_smc_sampler_bank(k3, targets["gaussian_mixture"], cfg3,
                                                     num_scenarios=AIS_E3_BANK, device=dev),
-                 [steps["megopolis"]["bank"][0]])
+                 [steps["megopolis"]["bank"][0], ctx.lk.logsumexp_rows])
+    differ = ais_differing({k: v[AIS_E3_ROW] for k, v in bank.items()},
+                           singles["gaussian_mixture"])
     results[name].update(ais_quality(name, bank, targets["gaussian_mixture"].log_z),
-                         row=AIS_E3_ROW, values_differing=ais_differing(
-                             {k: v[AIS_E3_ROW] for k, v in bank.items()},
-                             singles["gaussian_mixture"]))
+                         row=AIS_E3_ROW, values_differing=differ)
+    if any(differ.values()):
+        fail(f"E3: bank row {AIS_E3_ROW} differs from its single call: {differ}")
     print(f"compare ais/e3: {json.dumps({k: results[k] for k in results if '/e3' in k})}",
           flush=True)
     del bank, singles
@@ -1804,7 +2142,45 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
         # The prefix-sum kinds, rows 25-29, and Path C's largest bank.
         cases += prefix_cases(single, bank, THR, k_run)
         cases.append(path_c_case(args, dev, k_quality))
+    if keep("reduce"):
+        cases += reduce_cases(args, dev, k_quality)
     return cases
+
+
+def reduce_cases(args, dev, k_quality) -> list:
+    """``logsumexp_rows`` (no TPU counterpart) on Path E's E3 inputs: a
+    two-temperature run of E3's bank (adaptive MALA, AIS_E3_BANK rows of N
+    particles, E3's key), whose second temperature's first reduction (the
+    normalisation, ``[S, N]``) is the listed case and its second (a CESS
+    round's two sums, ``[2·S, N]``) a case held and printed beside it."""
+    from repro_torch import random as trandom
+    from repro_torch.ais import SMCSamplerConfig, gaussian_mixture, run_smc_sampler_bank
+    from repro_torch.ais.schedule import ADAPTIVE_LAUNCHES
+    from repro_torch.core.spec import spec_for_backend
+    from repro_torch.kernels.reduce import ops as lops
+    from repro_torch.kernels.reduce import ref as lref
+
+    cfg = SMCSamplerConfig(num_particles=args.particles, num_temps=2, schedule="adaptive",
+                           move="mala", resampler=spec_for_backend(
+                               "megopolis", "cuda", num_iters=AIS_ITERS))
+    k3 = trandom.fold_in(trandom.fold_in(k_quality, AIS_KEY), 3)
+    real, seen, calls = lops.logsumexp_rows, [0], {}
+
+    def record(x):
+        if seen[0] in (ADAPTIVE_LAUNCHES, ADAPTIVE_LAUNCHES + 1):
+            calls[seen[0] - ADAPTIVE_LAUNCHES] = x.clone()
+        seen[0] += 1
+        return real(x)
+
+    lops.logsumexp_rows = record
+    try:
+        run_smc_sampler_bank(k3, gaussian_mixture(device=dev), cfg, num_scenarios=AIS_E3_BANK,
+                             device=dev)
+    finally:
+        lops.logsumexp_rows = real
+    return [(name, real, (calls[i],), lambda x=calls[i]: lref.logsumexp_rows_ref(x), "reduce",
+             "lse", calls[i].shape[0], 1)
+            for i, name in enumerate(("logsumexp_rows", "logsumexp_rows/cess"))]
 
 
 #: The plane dtypes phase 4 holds the kernels of rows 1-29 at: the suffix of
@@ -2101,7 +2477,10 @@ SOURCES = {"megopolis": "megopolis/csrc/megopolis.cu",
            "metropolis": "metropolis/csrc/metropolis.cu",
            "metropolis_c1": "metropolis/csrc/c1c2.cu", "metropolis_c2": "metropolis/csrc/c1c2.cu",
            "rejection": "rejection/csrc/rejection.cu", "prefix": "prefix_sum/csrc/prefix_sum.cu",
-           "fixtures": "fixtures/csrc/fixtures.cu"}
+           "fixtures": "fixtures/csrc/fixtures.cu", "reduce": "reduce/csrc/reduce.cu"}
+#: The port's kernels with no TPU counterpart: wrapper -> (the JAX package's
+#: file and the call the kernel stands for, as ``replaces`` names them).
+PORT_KERNELS = {"logsumexp_rows": ("src/repro/ais/schedule.py", "jax.nn.logsumexp(")}
 #: The TPU kernel each wrapper replaces (``megopolis_rows`` is row 1 vmapped).
 TPU_KERNELS = {
     "megopolis": "megopolis_pallas", "megopolis_batch": "megopolis_pallas_batch",
@@ -2170,7 +2549,8 @@ def prefix_work(kind, kargs, rows, n, fired) -> tuple:
 
 def library_call(kind, kargs):
     """One PyTorch call that computes the same function, on the same
-    inputs, or None: ``torch.cumsum`` for the scan, ``torch.searchsorted``
+    inputs, or None: ``torch.logsumexp`` for the row reduction,
+    ``torch.cumsum`` for the scan, ``torch.searchsorted``
     for the search, and with the index of the state for the gather;
     ``Tensor.clone`` for the copy, ``torch.arange`` for the iota (timed
     beside the kernel only; the port never calls them)."""
@@ -2181,6 +2561,8 @@ def library_call(kind, kargs):
         return lambda: torch.arange(n, dtype=torch.int32, device=dev)
     if kind == "scan":
         return lambda: torch.cumsum(kargs[0], dim=-1)
+    if kind == "lse":
+        return lambda: torch.logsumexp(kargs[0], dim=-1)
     if kind in ("search", "gather"):
         c, u, side = kargs[0], kargs[1], kargs[-2]
         if kind == "search":
@@ -2243,9 +2625,10 @@ def hold_step(name: str, got: tuple, want: tuple) -> float:
     return max(float(incr_err), float((gs - ws).abs().max()))
 
 
-def check_kernel(case) -> dict:
+def check_kernel(case, timed: bool = True) -> dict:
     """Hold one wrapper's kernel against its plain version on its captured
-    inputs, time both, and compute its bound; fails on any disagreement."""
+    inputs, time both, and compute its bound; fails on any disagreement.
+    ``timed=False`` holds it and times nothing (a cut)."""
     name, wrapper, kargs, plain, family, kind, rows, iters = case
     n = kargs[0].shape[-1]
     got = wrapper(*kargs)
@@ -2261,14 +2644,18 @@ def check_kernel(case) -> dict:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     got = tuple(g.reshape(wnt.shape) for g, wnt in zip(got, want))
-    if kind in ("scan", "copy"):  # a CDF, a copy: every bit
+    if kind in ("scan", "copy", "lse"):  # a CDF, a copy, a reduction: every bit
         got, want = (got[0].view(torch.int32),), (want[0].view(torch.int32),)
     anc_mismatch = int((got[0] != want[0]).sum())
     state_err = float((got[1] - want[1]).abs().max()) if len(got) > 1 else 0.0
-    tpu_file, tpu_line = _tpu_kernel_lines()[TPU_KERNELS[wrapper.__name__]]
+    tpu_file, tpu_line = _tpu_kernel_lines()[TPU_KERNELS.get(wrapper.__name__,
+                                                             wrapper.__name__)]
     entry = {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/{SOURCES[family]}",
              "replaces": f"{tpu_file}:{tpu_line}"}
+    if wrapper.__name__ in PORT_KERNELS:
+        entry["replaces_note"] = (f"no TPU kernel: the call {PORT_KERNELS[wrapper.__name__][1]}"
+                                  "...) that the kernel stands for")
     if kind != "step":
         same_state = len(got) == 1 or torch.equal(bits(got[1]), bits(want[1]))
         if anc_mismatch or not same_state:
@@ -2282,6 +2669,10 @@ def check_kernel(case) -> dict:
         # Fixed-order block sums: the stats repeat bit for bit.
         if not torch.equal(wrapper(*kargs)[2].reshape(gs.shape), gs):
             fail(f"{name}: stats differ from one launch to the next")
+    if not timed:
+        entry.update(max_abs_err=max_abs_err, ancestor_mismatches=anc_mismatch, timed=False)
+        print(f"held {name}: {json.dumps(entry)}", flush=True)
+        return entry
     # Rejection's work is the rounds this run's data needs (-1: a step row
     # that did not resample runs none).
     rounds = rejection_rounds(kargs, kind, iters) if family == "rejection" else None
@@ -2293,13 +2684,15 @@ def check_kernel(case) -> dict:
     # most 5); where its comparison call alone took that long, that call.
     plain_reps = max(1, min(5, int(PLAIN_BUDGET_MS // max(first_plain_ms, 1e-3))))
     plain_ms = first_plain_ms if plain_reps == 1 else time_ms(plain, plain_reps, warmup=0)
-    library = library_call(kind, kargs) if family in ("prefix", "fixtures") else None
+    library = library_call(kind, kargs) if family in ("prefix", "fixtures", "reduce") else None
     library_ms = None if library is None else time_ms(library, reps)
     if family == "prefix":
         fired = entry.get("rows_resampled", rows)
         n_bytes, n_ops = prefix_work(kind, kargs, rows, n, fired)
     elif family == "fixtures":  # the copy reads and writes N f32, the iota writes N int32
         n_bytes, n_ops = (8 if kind == "copy" else 4) * rows * n, 0
+    elif family == "reduce":  # S·N f32 in, S f32 out; a max, a subtract, an exp, an add each
+        n_bytes, n_ops = 4 * rows * n + 4 * rows, LSE_OPS * rows * n
     else:
         # Weights (or log-weights) in and ancestors out; the state in and
         # out (D = 1 on the path) for the fused and step kernels, in plane
@@ -2609,7 +3002,7 @@ def witness_census(witnessed, again):
         fail(f"census and profiler differ: {(over(second) + bad)[:5]}")
 
 
-def contract_checks(dev, wrappers, fk, drive):
+def contract_checks(dev, wrappers, fk, lk, drive):
     """Phase 3, the contract checks of ``repro_torch.analysis`` on the card.
 
     The resource tables (``smem.KERNELS``, ``smem.CARD_LIMITS``) must be the
@@ -2651,7 +3044,9 @@ def contract_checks(dev, wrappers, fk, drive):
                                                device_kernels(prof)) if k in smem.KERNELS)
         witnessed.append((dict(rec.census), dict(seen)))
 
-    port = [w for w in wrappers if w not in fk.WRAPPERS]
+    # The row reduction runs in the adaptive AIS consumer, which the float32
+    # report alone audits.
+    port = [w for w in wrappers if w not in fk.WRAPPERS and w not in lk.WRAPPERS]
 
     def report_at(dtype):
         # The cuda backend's cells, each recorded run profiled: the float32
@@ -2662,7 +3057,9 @@ def contract_checks(dev, wrappers, fk, drive):
                             large_n=more, telemetry=more, backends=("cuda",))
 
     reports = [drive("analysis/check" + ("" if dt == "float32" else f"@{dt}"),
-                     lambda dt=dt: report_at(dt), port) for dt in CHECK_PLANES]
+                     lambda dt=dt: report_at(dt),
+                     port + (list(lk.WRAPPERS) if dt == "float32" else []))
+               for dt in CHECK_PLANES]
     # The reference backend's cells launch no port kernel; their thousands of
     # small torch launches took 182 s on the card, a third of the run, so
     # they run in the CPU tests, and the card holds the reference backend in
@@ -2753,9 +3150,10 @@ def _tpu_kernel_lines() -> dict:
     """File and line of each ``def megopolis_pallas*``, ``def
     metropolis_pallas*``, ``def metropolis_c{1,2}_pallas*``, ``def
     rejection_pallas*`` and of the prefix-sum kernels' ``def``s in the JAX
-    package's kernel files, and of the analyzer's two fixture kernels
-    (``_copy_launch``, ``hbm_roundtrip``), read as text (nothing of the JAX
-    package is imported)."""
+    package's kernel files, of the analyzer's two fixture kernels
+    (``_copy_launch``, ``hbm_roundtrip``), and of the first call each of
+    ``PORT_KERNELS`` stands for (under the wrapper's name), read as text
+    (nothing of the JAX package is imported)."""
     lines = {}
     for rel in ("megopolis/megopolis.py", "metropolis/metropolis.py", "metropolis/c1c2.py",
                 "rejection/rejection.py", "prefix_sum/prefix_sum.py", "prefix_sum/search.py",
@@ -2770,6 +3168,9 @@ def _tpu_kernel_lines() -> dict:
     for i, line in enumerate((ROOT / rel).read_text().splitlines(), 1):
         if line.startswith(("def _copy_launch(", "def hbm_roundtrip(")):
             lines[line[4:line.index("(")]] = (rel, i)
+    for wrapper, (rel, call) in PORT_KERNELS.items():
+        lines[wrapper] = (rel, next(i for i, line in enumerate(
+            (ROOT / rel).read_text().splitlines(), 1) if call in line))
     return lines
 
 

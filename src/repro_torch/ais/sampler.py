@@ -10,7 +10,8 @@ On the analytic targets of ``ais/targets.py`` the logZ estimate has a
 ground truth, so resampler quality is scored.
 
   * ``run_smc_sampler``: one sampler, a Python loop over temperatures (JAX's
-    ``lax.scan``).
+    ``lax.scan``; ``resilience.checkpointing.scan``, which ``checkpoint=``
+    snapshots).
   * ``run_smc_sampler_bank``: S independent samplers with an explicit
     scenario axis (JAX's ``vmap``); row ``b`` equals the single call with
     ``split(key, S)[b]`` and ``thetas[b]``, leaf for leaf (DESIGN.md §4).
@@ -41,8 +42,9 @@ from repro_torch.ais.targets import Target
 from repro_torch.core.metrics import log_mean_weight
 from repro_torch.core.resamplers.batched import split_batch_keys
 from repro_torch.core.spec import ResamplerSpec, coerce_spec
-from repro_torch.obs.stats import stack_stats
+from repro_torch.obs.stats import StepStats
 from repro_torch.obs.telemetry import Telemetry
+from repro_torch.resilience.checkpointing import check_policy, checkpointed_scan
 
 SCHEDULES = ("geometric", "adaptive")
 
@@ -140,10 +142,12 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
-def _result(x, log_w, log_z, betas, ess, accepts, n_res, records, telemetry, dim: int):
-    """The JAX result dict (per-temperature leaves along ``dim``), and the
-    ``Telemetry`` when asked for."""
-    betas, ess, accepts = (torch.stack(v, dim=dim) for v in (betas, ess, accepts))
+def _result(x, log_w, log_z, ys, n_res, telemetry, dim: int):
+    """The JAX result dict (per-temperature leaves along ``dim``) from the
+    loop's stacked ``ys`` (β, ESS, accept and, with telemetry, the
+    ``StepStats`` fields, each ``[T, ...]``), and the ``Telemetry`` when
+    asked for."""
+    betas, ess, accepts = (v.movedim(0, dim).contiguous() for v in ys[:3])
     result = {
         "particles": x,
         "log_w": log_w,
@@ -154,8 +158,8 @@ def _result(x, log_w, log_z, betas, ess, accepts, n_res, records, telemetry, dim
         "num_resamples": n_res,
     }
     if telemetry:
-        return result, Telemetry(steps=stack_stats(records, dim=dim), accept=accepts,
-                                 betas=betas)
+        steps = StepStats(*(v.movedim(0, dim).contiguous() for v in ys[3:]))
+        return result, Telemetry(steps=steps, accept=accepts, betas=betas)
     return result
 
 
@@ -172,10 +176,7 @@ def _anneal(who: str, keys, target: Target, cfg: SMCSamplerConfig, theta, teleme
     the same ops on every row, so a bank row is its single call; the one
     difference is the resampler entry, ``step`` or ``step_rows``.  The
     checks run before any work."""
-    if checkpoint is not None:
-        raise NotImplementedError(
-            f"{who}(checkpoint=...) is not ported yet (ROADMAP Queue A, item 7)"
-        )
+    check_policy(checkpoint, who)
     dev = resolve_device(device)
     if not _same_device(torch.device(target.device), dev):
         raise ValueError(
@@ -195,51 +196,53 @@ def _anneal(who: str, keys, target: Target, cfg: SMCSamplerConfig, theta, teleme
     target_accept = cfg.resolved_target_accept()
     adaptive = cfg.schedule == "adaptive"
     step = resampler.step_rows if lead else resampler.step
-    betas, ess_hist, accepts, records = [], [], [], []
+
+    def body(carry, beta_in):
+        x, log_w, log_z, beta_prev, step_size, k, n_res = carry
+        k, ks = _halves(k)
+        k_res, k_move = _halves(ks)
+        # 1. reweight: the geometric-path tilt at the current particles;
+        #    under 'adaptive' a bank row's bisection holds once its bracket
+        #    has converged, as JAX's batched while_loop does
+        delta = (_call(target.log_target, x, theta=theta)
+                 - _call(target.log_base, x, theta=theta))
+        if adaptive:
+            beta = next_temperature(log_w, delta, beta_prev, cfg.target_cess)
+        else:
+            beta = beta_in.expand(lead)
+        log_w = log_w + (beta - beta_prev).unsqueeze(-1) * delta
+        # 2. the fused step (one launch; a bank's rows each take their own
+        #    branch): normalise, ESS, branch, resample + gather, increment
+        x, _, stats = step(k_res, log_w, x, cfg.ess_threshold)
+        did = stats.ess_norm < cfg.ess_threshold
+        log_z = log_z + stats.log_evidence_incr
+        log_w = torch.where(did.unsqueeze(-1), torch.zeros_like(log_w), log_w)
+
+        # 3. rejuvenate against π_β, then adapt the step size
+        def log_prob(y, b=beta.unsqueeze(-1)):
+            return ((1.0 - b) * _call(target.log_base, y, theta=theta)
+                    + b * _call(target.log_target, y, theta=theta))
+
+        x, accept = move(k_move, x, log_prob, step_size, cfg.num_move_steps)
+        step_size = adapt_step_size(step_size, accept, target_accept, cfg.adapt_rate)
+        n_res = n_res + did.to(torch.int32)
+        ys = (beta, stats.ess_norm, accept) + (tuple(stats) if telemetry else ())
+        return (x, log_w, log_z, beta, step_size, k, n_res), ys
+
     with torch.no_grad():
         k0, k = _halves(keys)
-        x = _call(target.sample_base, k0, n, theta=theta)
-        log_w = torch.zeros(lead + (n,), dtype=torch.float32, device=dev)
-        log_z = torch.zeros(lead, dtype=torch.float32, device=dev)
-        beta_prev = torch.zeros(lead, dtype=torch.float32, device=dev)
-        step_size = torch.full(lead, cfg.step_size, dtype=torch.float32, device=dev)
-        n_res = torch.zeros(lead, dtype=torch.int32, device=dev)
-        for beta_in in betas_in:
-            k, ks = _halves(k)
-            k_res, k_move = _halves(ks)
-            # 1. reweight: the geometric-path tilt at the current particles;
-            #    under 'adaptive' a bank row's bisection holds once its bracket
-            #    has converged, as JAX's batched while_loop does
-            delta = (_call(target.log_target, x, theta=theta)
-                     - _call(target.log_base, x, theta=theta))
-            if adaptive:
-                beta = next_temperature(log_w, delta, beta_prev, cfg.target_cess)
-            else:
-                beta = beta_in.expand(lead)
-            log_w = log_w + (beta - beta_prev).unsqueeze(-1) * delta
-            # 2. the fused step (one launch; a bank's rows each take their own
-            #    branch): normalise, ESS, branch, resample + gather, increment
-            x, _, stats = step(k_res, log_w, x, cfg.ess_threshold)
-            did = stats.ess_norm < cfg.ess_threshold
-            log_z = log_z + stats.log_evidence_incr
-            log_w = torch.where(did.unsqueeze(-1), torch.zeros_like(log_w), log_w)
-
-            # 3. rejuvenate against π_β, then adapt the step size
-            def log_prob(y, b=beta.unsqueeze(-1)):
-                return ((1.0 - b) * _call(target.log_base, y, theta=theta)
-                        + b * _call(target.log_target, y, theta=theta))
-
-            x, accept = move(k_move, x, log_prob, step_size, cfg.num_move_steps)
-            step_size = adapt_step_size(step_size, accept, target_accept, cfg.adapt_rate)
-            n_res = n_res + did.to(torch.int32)
-            beta_prev = beta
-            betas.append(beta)
-            ess_hist.append(stats.ess_norm)
-            accepts.append(accept)
-            if telemetry:
-                records.append(stats)
-        return _result(x, log_w, log_z, betas, ess_hist, accepts, n_res, records,
-                       telemetry, dim=len(lead))
+        carry = (
+            _call(target.sample_base, k0, n, theta=theta),
+            torch.zeros(lead + (n,), dtype=torch.float32, device=dev),
+            torch.zeros(lead, dtype=torch.float32, device=dev),
+            torch.zeros(lead, dtype=torch.float32, device=dev),
+            torch.full(lead, cfg.step_size, dtype=torch.float32, device=dev),
+            k,
+            torch.zeros(lead, dtype=torch.int32, device=dev),
+        )
+        carry, ys = checkpointed_scan(body, carry, betas_in, checkpoint)
+        x, log_w, log_z, _, _, _, n_res = carry
+        return _result(x, log_w, log_z, ys, n_res, telemetry, dim=len(lead))
 
 
 def run_smc_sampler(key, target: Target, cfg: SMCSamplerConfig, theta=None,
@@ -258,7 +261,11 @@ def run_smc_sampler(key, target: Target, cfg: SMCSamplerConfig, theta=None,
     ``[T]``), ``accept`` and ``betas`` the dict's; the values are the ones
     the loop computes anyway, so the flag adds no launch and leaves the
     result bit-identical.  ``theta`` selects a scenario of a theta-family
-    target.  ``checkpoint=`` is not ported (ROADMAP Queue A, item 7)."""
+    target.  ``checkpoint`` (a ``resilience.CheckpointPolicy``) runs the
+    temperature loop in chunks of its period with a durable snapshot of the
+    whole carry (particles, log-weights, logZ, β, step sizes, key, resample
+    count) after each: a killed and resumed run returns the uninterrupted
+    run's result bit for bit (DESIGN.md §16)."""
     return _anneal("run_smc_sampler", key, target, cfg, theta, telemetry, device, (),
                    checkpoint)
 
@@ -276,7 +283,7 @@ def _bank_thetas(thetas, num_s: int, dev):
 
 def run_smc_sampler_bank(key, target: Target, cfg: SMCSamplerConfig, thetas=None,
                          num_scenarios: Optional[int] = None, telemetry: bool = False,
-                         device="cuda"):
+                         checkpoint=None, device="cuda"):
     """S independent samplers with one bank launch per temperature (the §4
     scenario axis).
 
@@ -288,7 +295,8 @@ def run_smc_sampler_bank(key, target: Target, cfg: SMCSamplerConfig, thetas=None
     equals ``run_smc_sampler(split(key, S)[b], target, cfg,
     theta=thetas[b])``.  Returns the ``run_smc_sampler`` dict with a leading
     [S] axis on every leaf; ``telemetry=True`` returns ``(result,
-    Telemetry)`` with every trajectory field laid out ``[S, T]``."""
+    Telemetry)`` with every trajectory field laid out ``[S, T]``;
+    ``checkpoint`` as in ``run_smc_sampler``."""
     if thetas is None and num_scenarios is None:
         raise ValueError(
             "run_smc_sampler_bank: pass per-scenario `thetas` (leading [S] "
@@ -304,4 +312,4 @@ def run_smc_sampler_bank(key, target: Target, cfg: SMCSamplerConfig, thetas=None
     else:
         num_s = num_scenarios
     return _anneal("run_smc_sampler_bank", split_batch_keys(key, num_s), target, cfg, thetas,
-                   telemetry, device, (num_s,))
+                   telemetry, device, (num_s,), checkpoint)

@@ -19,6 +19,12 @@ already narrower than ``tol`` holds it: the bracket a row ends with is the
 one JAX's loop stops at, and the loop never waits on the card.  Both
 ``next_temperature`` and ``conditional_ess`` take one row ``[N]`` or a
 bank ``[S, N]`` (``beta_prev`` then ``[S]``).
+
+Every reduction over the particles is ``kernels.reduce.ops.logsumexp``, the
+``logsumexp_rows`` kernel on the card, whose adds follow the row's length
+alone: a bank row rounds as its single call, so it bisects to the same β
+(``torch.logsumexp`` splits a reduction by its number of outputs on the
+card).  A temperature makes ``ADAPTIVE_LAUNCHES`` of them.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.reduce.ops import logsumexp
 
 
 def geometric_schedule(num_temps: int, beta_min: float = 1e-2, device="cuda") -> torch.Tensor:
@@ -45,15 +52,23 @@ def geometric_schedule(num_temps: int, beta_min: float = 1e-2, device="cuda") ->
 
 
 def _cess(log_norm_w: torch.Tensor, log_u: torch.Tensor) -> torch.Tensor:
-    """``N·(Σ W·u)² / Σ W·u²`` from the normalised log-weights."""
+    """``N·(Σ W·u)² / Σ W·u²`` from the normalised log-weights; both sums in
+    one launch of ``logsumexp_rows``."""
     n = log_norm_w.shape[-1]
-    a = torch.logsumexp(log_norm_w + log_u, dim=-1)  # log Σ W u
-    b = torch.logsumexp(log_norm_w + 2.0 * log_u, dim=-1)  # log Σ W u²
+    a, b = logsumexp(torch.stack([log_norm_w + log_u,  # log Σ W u
+                                  log_norm_w + 2.0 * log_u]))  # log Σ W u²
     return n * torch.exp(2.0 * a - b)
 
 
 def _normalised(log_w: torch.Tensor) -> torch.Tensor:
-    return log_w - torch.logsumexp(log_w, dim=-1, keepdim=True)
+    return log_w - logsumexp(log_w, keepdim=True)
+
+
+#: ``logsumexp_rows`` launches of one ``next_temperature`` at its default
+#: ``max_iters``: the normalisation, one a bisection round (both sums of the
+#: CESS in one), and the full step's check.
+BISECTION_ROUNDS = 60
+ADAPTIVE_LAUNCHES = 1 + BISECTION_ROUNDS + 1
 
 
 def conditional_ess(log_w: torch.Tensor, log_u: torch.Tensor) -> torch.Tensor:
@@ -66,7 +81,7 @@ def conditional_ess(log_w: torch.Tensor, log_u: torch.Tensor) -> torch.Tensor:
 
 
 def next_temperature(log_w: torch.Tensor, delta: torch.Tensor, beta_prev, target_cess: float,
-                     *, tol: float = 1e-6, max_iters: int = 60) -> torch.Tensor:
+                     *, tol: float = 1e-6, max_iters: int = BISECTION_ROUNDS) -> torch.Tensor:
     """Largest β ∈ (beta_prev, 1] keeping CESS/N at ``target_cess``.
 
     ``delta[..., i] = log γ(x_i) − log π0(x_i)`` is the geometric-path

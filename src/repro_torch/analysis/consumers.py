@@ -10,7 +10,10 @@ finding), re-derived from runs of ``ParticleFilter.step`` and
 with MALA) and ``run_smc_sampler_bank`` on ``gaussian_mixture``, all on a
 Megopolis spec at the audit's geometry.  JAX's scan counts its body once;
 the port runs eagerly, so T steps (observations, temperatures) launch T
-kernels: the budget is one launch per step.  The decode consumer comes
+kernels: the budget is one launch per step, and under the adaptive ladder
+``ais.schedule.ADAPTIVE_LAUNCHES`` more a temperature (the CESS bisection's
+``logsumexp_rows``, whose order a bank row shares with its single call).
+The decode consumer comes
 with its port (ROADMAP Queue A item 11).
 
 ``auto_reference_rng`` sweeps the adaptive-``num_iters`` reference paths
@@ -35,6 +38,7 @@ from repro_torch.analysis.contracts import (
     audit_program,
     record,
 )
+from repro_torch.ais.schedule import ADAPTIVE_LAUNCHES
 from repro_torch.analysis.rng import rng_findings
 from repro_torch.core.spec import MegopolisSpec, spec_for_backend
 
@@ -106,13 +110,14 @@ def _programs(device):
                                     device=dev), AUDIT_STEPS),
         "ais.run_smc_sampler": (_ais(dev), AUDIT_TEMPS),
         "ais.run_smc_sampler_bank": (_ais(dev, bank=True), AUDIT_TEMPS),
-        "ais.adaptive_mala": (_ais(dev, schedule="adaptive", move="mala"), AUDIT_TEMPS),
+        "ais.adaptive_mala": (_ais(dev, schedule="adaptive", move="mala"),
+                              AUDIT_TEMPS * (1 + ADAPTIVE_LAUNCHES)),
     }
 
 
 def audit_consumers(names=None, device="cuda", around=None):
     """Run and audit each consumer program, one launch per step (per
-    temperature for AIS); returns a generator of CellReports (``cuda``
+    temperature for AIS, plus the adaptive schedule's); returns a generator of CellReports (``cuda``
     without a card raises here, before the first)."""
     programs = _programs(device)
     return (audit_program(name, programs[name][0], Contract(max_launches=programs[name][1]),

@@ -65,13 +65,14 @@ class KernelResources:
     memory, dynamic shared memory per row of a launch, and its grid:
     ``rows`` (``ceil(N / NT)`` by S), ``tiles`` (``N / 1024`` by S),
     ``resident`` (co-resident, at most ``ceil(N / (4·NT))``: one 16-byte
-    vector a thread), or
+    vector a thread), ``row`` (one block a row, of ``threads``), or
     cooperative ``coop_step`` and ``coop_search`` (co-resident, at most
     ``ceil(S·N / NT)``; a search admits ``MAX_ROWS`` rows) and ``coop_scan``
     (co-resident, at most ``S·N / 1024``).  ``optin``: the kernel raises its dynamic
     shared memory limit (``cudaFuncAttributeMaxDynamicSharedMemorySize``)
     where a launch needs more than 48 KiB in all, so its budget is the
-    opt-in limit."""
+    opt-in limit.  ``threads``: threads a block (``NT`` but for the row
+    reduction's)."""
 
     source: str
     index: int
@@ -81,6 +82,7 @@ class KernelResources:
     smem_per_row: int = 0
     smem_per_element: int = 0
     optin: bool = False
+    threads: int = NT
 
     @property
     def cooperative(self) -> bool:
@@ -99,6 +101,7 @@ _MEGO, _METRO, _C1C2 = ("megopolis/csrc/megopolis.cu", "metropolis/csrc/metropol
                         "metropolis/csrc/c1c2.cu")
 _REJ, _PREFIX, _FIX = ("rejection/csrc/rejection.cu", "prefix_sum/csrc/prefix_sum.cu",
                        "fixtures/csrc/fixtures.cu")
+_REDUCE = "reduce/csrc/reduce.cu"
 #: Every kernel instance of the port, by the name the profiler gives it.
 KERNELS = {
     # The Megopolis kernels' static shared memory is their ring of
@@ -196,6 +199,9 @@ KERNELS = {
     "prefix_step_rows_kernel<3, __half>": _step(_PREFIX, 25, 48, 4720),
     "copy_kernel": _rows(_FIX, 0, 32, 0, "resident"),
     "iota_kernel": _rows(_FIX, 1, 32, 0, "resident"),
+    # The AIS schedule's row reduction: a block of 1024 threads a row, its
+    # warps' 32 values in static shared memory.
+    "logsumexp_rows_kernel": KernelResources(_REDUCE, 0, 39, 128, "row", threads=1024),
 }
 
 
@@ -241,10 +247,12 @@ def price(kernel: str, rows: int, n: int, resources: KernelResources | None = No
     launching it."""
     res = KERNELS[kernel] if resources is None else resources
     dynamic = rows * res.smem_per_row + rows * n * res.smem_per_element
-    per_sm = blocks_per_sm(res.registers, res.static_smem + dynamic)
+    per_sm = blocks_per_sm(res.registers, res.static_smem + dynamic, res.threads)
     co_resident = per_sm * CARD_LIMITS["sms"]
     grid_y = 1
-    if res.grid == "rows":
+    if res.grid == "row":
+        blocks = rows
+    elif res.grid == "rows":
         blocks, grid_y = -(-n // NT), rows
     elif res.grid == "tiles":
         blocks, grid_y = n // 1024, rows
@@ -254,7 +262,7 @@ def price(kernel: str, rows: int, n: int, resources: KernelResources | None = No
         blocks = max(1, min(co_resident, -(-rows * n // NT)))
     else:
         blocks = max(1, min(co_resident, rows * (n // 1024)))
-    return Footprint(kernel, rows, n, NT, res.registers, res.static_smem, dynamic,
+    return Footprint(kernel, rows, n, res.threads, res.registers, res.static_smem, dynamic,
                      blocks * grid_y, grid_y, per_sm, res.cooperative, res.optin)
 
 
@@ -366,12 +374,12 @@ def card_drift() -> list:
              for k, v in card_limits().items() if v != CARD_LIMITS[k]]
     for kernel, (regs, smem, most, per_sm) in card_attributes().items():
         res = KERNELS[kernel]
-        if (regs, smem) != (res.registers, res.static_smem) or most < NT:
+        if (regs, smem) != (res.registers, res.static_smem) or most < res.threads:
             drift.append(f"{kernel}: card {regs} registers, {smem} bytes static smem, blocks "
                          f"up to {most}; table {res.registers}, {res.static_smem}")
         for rows in ((1, MAX_STEP_ROWS) if res.cooperative else (1,)):
             dyn = rows * res.smem_per_row
-            want = blocks_per_sm(res.registers, res.static_smem + dyn)
+            want = blocks_per_sm(res.registers, res.static_smem + dyn, res.threads)
             got = per_sm if dyn == 0 else card_per_sm(kernel, dyn)
             if got != want:
                 drift.append(f"{kernel}: {got} blocks per SM on the card at {dyn} bytes of "

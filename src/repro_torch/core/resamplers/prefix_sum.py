@@ -18,9 +18,9 @@ Each follows the JAX reference op for op on the CPU:
 * ``searchsorted`` is ``jnp.searchsorted``'s default method, a bisection
   of ``ceil(log2(N + 1))`` steps under the sort order (NaN last, -0 = 0),
   so NaN and unsorted input follow JAX too;
-* ``xla_sum`` (residual's normaliser) adds in windows of 32, as XLA-CPU's
-  tree reduction rewrite does; it matches ``jnp.sum`` on most lengths but
-  not all (``tests/test_torch_reference.py`` states the share);
+* ``xla_sum`` (residual's normaliser) adds in windows of 32 over zero
+  padding split in front and behind, as XLA-CPU's tree reduction rewrite
+  does; it is ``jnp.sum`` bit for bit (ROADMAP Queue C item 22);
 * subnormals are flushed, as XLA on the CPU runs.
 """
 
@@ -45,14 +45,23 @@ def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
     return xla_scan(flush_to_zero(x))
 
 
+def _window_sums(v: torch.Tensor) -> torch.Tensor:
+    """Each row's values added one after the other, starting from zero."""
+    return sequential_scan(torch.cat([v.new_zeros(v.shape[:-1] + (1,)), v], dim=-1))[..., -1]
+
+
 def xla_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``f32[N]`` in windows of 32, each added one after the
-    other from zero, until 32 or fewer remain (XLA-CPU's tree reduction)."""
+    """The sum of ``f32[N]`` in XLA-CPU's order for ``jnp.sum``: while more
+    than 32 values remain, pad them with zeros to a multiple of 32, half the
+    pad in front (``pad // 2``) and the rest behind, and sum each window of
+    32 (``TreeReductionRewriter``'s reduce-window, e.g. ``pad=15_16`` at
+    N = 33, ``12_12`` at 1000); then sum the last 32 or fewer."""
     v = flush_to_zero(x.reshape(-1))
     while v.shape[0] > SUM_WINDOW:
-        rows = torch.nn.functional.pad(v, (0, -v.shape[0] % SUM_WINDOW))
-        v = sequential_scan(rows.reshape(-1, SUM_WINDOW))[:, -1]
-    return sequential_scan(torch.cat([v.new_zeros(1), v]))[-1]
+        pad = -v.shape[0] % SUM_WINDOW
+        rows = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        v = _window_sums(rows.reshape(-1, SUM_WINDOW))
+    return _window_sums(v)
 
 
 def _sort_key(x: torch.Tensor) -> torch.Tensor:

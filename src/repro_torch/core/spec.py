@@ -74,6 +74,8 @@ from repro_torch.kernels.metropolis import ops as tops
 from repro_torch.kernels.prefix_sum import ops as pops
 from repro_torch.kernels.rejection import ops as rops
 from repro_torch.obs.stats import stats_from_vector
+from repro_torch.obs.trace import dispatch_span
+from repro_torch.resilience.fallback import build_with_fallback
 from repro_torch.resilience.guards import check_guard_policy, maybe_emit_guard_event
 
 AUTO = "auto"
@@ -260,6 +262,13 @@ class Resampler:
         carry.  ``x`` itself at float32 and for non-float tensors."""
         return quantise_plane(x, self.plane_dtype)
 
+    def _span(self, entry: str):
+        """The dispatch trace span (DESIGN.md §15,
+        ``obs.trace.dispatch_span``): ``family/backend/entry/plane_dtype``,
+        e.g. ``megopolis/cuda/step/float32``.  Identity unless tracing is
+        enabled; it launches nothing either way."""
+        return dispatch_span(self.name, self.backend, entry, self.plane_dtype)
+
     def _narrow(self, x: torch.Tensor) -> torch.Tensor:
         """An entry's float input in the plane dtype (none at float32); on
         the reference backend its values on the plane grid instead."""
@@ -309,21 +318,25 @@ class Resampler:
     def __call__(self, key, weights):
         """Index-only resample of one population: ancestors ``int32[N]``."""
         self._check("__call__", weights, 1)
-        return self._single(key, self._weights(weights, "single"))
+        with self._span("single"):
+            return self._single(key, self._weights(weights, "single"))
 
     def batch(self, key, weights):
         """Index-only resample of a bank ``[S, N]`` under one key."""
         self._check("batch", weights, 2)
-        return self._batch(key, self._weights(weights, "batch"))
+        with self._span("batch"):
+            return self._batch(key, self._weights(weights, "batch"))
 
     def batch_rows(self, keys, weights):
         """Index-only resample of a bank over explicit per-row keys."""
         self._check("batch_rows", weights, 2, keys=keys)
-        return self._batch_rows(keys, self._weights(weights, "batch_rows"))
+        with self._span("batch_rows"):
+            return self._batch_rows(keys, self._weights(weights, "batch_rows"))
 
     def _applied(self, fn, entry, key, weights, particles):
-        p_out, anc = fn(key, self._weights(weights, entry), self._narrow(particles))
-        return self._widen(p_out, particles), anc
+        with self._span(entry):
+            p_out, anc = fn(key, self._weights(weights, entry), self._narrow(particles))
+            return self._widen(p_out, particles), anc
 
     def apply(self, key, weights, particles):
         """Fused resample + gather of one population."""
@@ -341,10 +354,11 @@ class Resampler:
         return self._applied(self._apply_rows, "apply_rows", keys, weights, particles)
 
     def _stepped(self, fn, entry, key, log_weights, particles, ess_threshold):
-        lw, deg = self._guard_log_weights(self._narrow(log_weights), entry)
-        p_out, anc, stats4 = fn(key, lw, self._narrow(particles), ess_threshold)
-        stats = stats_from_vector(stats4, unique_ancestor_count(anc), deg)
-        return self._widen(p_out, particles), anc, stats
+        with self._span(entry):
+            lw, deg = self._guard_log_weights(self._narrow(log_weights), entry)
+            p_out, anc, stats4 = fn(key, lw, self._narrow(particles), ess_threshold)
+            stats = stats_from_vector(stats4, unique_ancestor_count(anc), deg)
+            return self._widen(p_out, particles), anc, stats
 
     def step(self, key, log_weights, particles, ess_threshold: float):
         """Fused SMC step of one population: ``(particles', ancestors,
@@ -400,6 +414,19 @@ class ResamplerSpec:
 
     def build(self) -> Resampler:
         raise NotImplementedError
+
+    def build_resilient(self, *, ladder=None, recorder=None, probe: bool = True,
+                        device="cuda") -> Resampler:
+        """Build with the backend fallback ladder (DESIGN.md §16): this
+        spec's backend first, then each rung below it (``cuda`` →
+        ``reference``) on a typed build or probe failure, one
+        ``backend_demotion`` event per failed rung into ``recorder`` (and
+        any active ``record_resilience_events``).  The probe resamples on
+        ``device``.  Raises ``BackendUnavailable`` (with each rung's cause)
+        only when every rung fails.  The one way to demote a backend:
+        ``build()`` never does."""
+        return build_with_fallback(self, ladder=ladder, recorder=recorder, probe=probe,
+                                   device=device)
 
 
 def _auto_single(it, fn):

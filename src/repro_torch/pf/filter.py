@@ -8,7 +8,8 @@ it runs classic conditional SIR: log-weights accumulate and the fused
 threshold.
 
   * ``run_filter``: one filter, a Python loop over time steps (JAX's
-    ``lax.scan``); one fused kernel launch per step.
+    ``lax.scan``; ``resilience.checkpointing.scan``); one fused kernel
+    launch per step; ``checkpoint=`` snapshots it.
   * ``run_filter_bank``: S independent filters with an explicit scenario
     axis (JAX's ``vmap``); one bank launch per step.
   * ``run_filter_timed``: per-stage timing for the Resample-Ratio metric
@@ -45,6 +46,7 @@ from repro_torch.core.resamplers.batched import split_batch_keys
 from repro_torch.core.spec import MegopolisSpec, ResamplerSpec, coerce_spec
 from repro_torch.obs.stats import StepStats, stack_stats
 from repro_torch.obs.telemetry import Telemetry
+from repro_torch.resilience.checkpointing import check_policy, checkpointed_scan
 
 #: B of a resampler given by name, the fixed application prior of paper §7
 #: (the JAX filter's default ``num_iters``).
@@ -161,24 +163,26 @@ def _alg6_step_stats(w: torch.Tensor, ancestors: torch.Tensor) -> StepStats:
 def run_filter(key, pf: ParticleFilter, observations, theta=None, telemetry: bool = False,
                with_ess: bool = False, checkpoint=None, device="cuda"):
     """Filter one observation stream; returns estimates ``f32[T]`` (and a
-    ``Telemetry`` with ``[T]`` fields when ``telemetry=True``)."""
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "run_filter(checkpoint=...) is not ported yet (ROADMAP Queue A, item 7)"
-        )
+    ``Telemetry`` with ``[T]`` fields when ``telemetry=True``).
+
+    ``checkpoint`` (a ``resilience.CheckpointPolicy``) makes the run
+    crash-consistent: the time loop runs in chunks of the policy's period,
+    persisting its carry (particles, log-weights, key) and the estimates so
+    far after each, and resumes from the latest snapshot; estimates and
+    telemetry equal the uninterrupted run's bit for bit (DESIGN.md §16)."""
     if with_ess:
         raise NotImplementedError(
             "run_filter(with_ess=True) is deprecated in the JAX package and not "
             "ported; use telemetry=True and read Telemetry.steps.ess_norm"
         )
+    check_policy(checkpoint, "run_filter")
     dev = resolve_device(device)
     observations = torch.as_tensor(observations, dtype=torch.float32).to(dev)
     conditional = pf.ess_threshold is not None
-    k0, k = trandom.split(key)
-    particles = pf.model.init(k0, pf.num_particles, dev)
-    log_w = torch.zeros(pf.num_particles, dtype=torch.float32, device=dev)
-    ests, records = [], []
-    for t, z in zip(_times(observations.shape[0], dev), observations):
+
+    def body(carry, inp):
+        particles, log_w, k = carry
+        t, z = inp
         k, ks = trandom.split(k)
         if conditional:
             particles, log_w, est, stats = pf.step_conditional(ks, particles, log_w, z, t,
@@ -186,12 +190,16 @@ def run_filter(key, pf: ParticleFilter, observations, theta=None, telemetry: boo
         else:
             particles, est, w, ancestors = pf.step(ks, particles, z, t, theta=theta)
             stats = _alg6_step_stats(w, ancestors) if telemetry else None
-        ests.append(est)
-        records.append(stats)
-    ests = torch.stack(ests)
+        return (particles, log_w, k), (est,) + (tuple(stats) if telemetry else ())
+
+    k0, k = trandom.split(key)
+    particles = pf.model.init(k0, pf.num_particles, dev)
+    log_w = torch.zeros(pf.num_particles, dtype=torch.float32, device=dev)
+    _, ys = checkpointed_scan(body, (particles, log_w, k),
+                              (_times(observations.shape[0], dev), observations), checkpoint)
     if not telemetry:
-        return ests
-    return ests, Telemetry(steps=stack_stats(records, dim=0))
+        return ys[0]
+    return ys[0], Telemetry(steps=StepStats(*ys[1:]))
 
 
 def run_filter_bank(key, pf: ParticleFilter, observations, thetas=None,

@@ -187,6 +187,13 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def bernoulli(key: torch.Tensor, p: float, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
+    ``uniform(key, shape) < float32(p)``, a bool tensor."""
+    u = uniform(key, shape, device=device)
+    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+
+
 # XLA's single-precision erf_inv (Giles, "Approximating the erfinv function"):
 # degree-9 polynomials in w = -log1p(-x^2), split at w = 5.
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,

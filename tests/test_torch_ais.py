@@ -32,6 +32,7 @@ from repro_torch.ais import (
     run_smc_sampler,
     run_smc_sampler_bank,
 )
+from repro_torch.ais.schedule import ADAPTIVE_LAUNCHES
 from repro_torch.analysis.contracts import record
 from repro_torch.core.spec import MegopolisSpec, MetropolisSpec, spec_for_backend
 
@@ -196,7 +197,7 @@ def test_checkpoint_and_foreign_target_raise_before_any_work(bank):
     cfg = SMCSamplerConfig(num_particles=N, num_temps=2)
     key = trandom.PRNGKey(0)
     if not bank:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 7"):
+        with pytest.raises(TypeError, match="CheckpointPolicy"):
             run_smc_sampler(key, isotropic_gaussian(device=CPU), cfg, checkpoint=object(),
                             device=CPU)
 
@@ -368,7 +369,9 @@ def test_telemetry_is_neutral(bank):
     off, rec_off = record(lambda: run(False), taint=False)
     (on, tel), rec_on = record(lambda: run(True), taint=False)
     assert rec_on.census == rec_off.census
-    assert sum(rec_off.census.values()) == 4
+    # One step a temperature, and the adaptive ladder's row reductions.
+    assert rec_off.census["logsumexp_rows_kernel"] == 4 * ADAPTIVE_LAUNCHES
+    assert sum(rec_off.census.values()) == 4 * (1 + ADAPTIVE_LAUNCHES)
     _assert_same(on, off, "telemetry on")
     layout = (2, 4) if bank else (4,)
     assert torch.equal(tel.betas, off["betas"]) and torch.equal(tel.accept, off["accept"])

@@ -44,6 +44,7 @@ from repro.core import spec as jspec
 from repro_torch import random as trandom
 from repro_torch.analysis import contracts, fixtures, guards, report, rng, smem, telemetry
 from repro_torch.analysis.__main__ import main
+from repro_torch.ais.schedule import ADAPTIVE_LAUNCHES
 from repro_torch.analysis.consumers import (
     AUDIT_STEPS,
     AUDIT_TEMPS,
@@ -320,7 +321,10 @@ def test_consumers_one_launch_per_step():
     for name, r in reps.items():
         assert r.ok, r.violations
         assert not r.rng_findings and not r.tainted_gathers
-        if name.startswith("ais."):
+        if name == "ais.adaptive_mala":  # the step, and the CESS bisection's reductions
+            assert r.launches == AUDIT_TEMPS * (1 + ADAPTIVE_LAUNCHES)
+            assert r.census["logsumexp_rows_kernel"] == AUDIT_TEMPS * ADAPTIVE_LAUNCHES
+        elif name.startswith("ais."):
             assert r.launches == AUDIT_TEMPS
         else:
             assert r.launches == (AUDIT_STEPS if name.startswith("pf.run") else 1)

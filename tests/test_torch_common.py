@@ -144,7 +144,7 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
     assert build.sources() == ["fixtures/csrc/fixtures.cu", "megopolis/csrc/megopolis.cu",
                                "metropolis/csrc/c1c2.cu",
                                "metropolis/csrc/metropolis.cu", "prefix_sum/csrc/prefix_sum.cu",
-                               "rejection/csrc/rejection.cu"]
+                               "reduce/csrc/reduce.cu", "rejection/csrc/rejection.cu"]
     before = {src: build._target(src) for src in build.sources()}
     (kernels / "common.py").write_text("# not included by any source\n")
     assert {src: build._target(src) for src in build.sources()} == before

@@ -1357,3 +1357,40 @@ def test_gamma_weights_on_the_card(card):
         scipy_stats = pytest.importorskip("scipy.stats")
         p = scipy_stats.kstest(got.cpu().double().numpy(), scipy_stats.gamma(alpha).cdf).pvalue
         assert p > 1e-3, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s, n", ((1, 1 << 20), (4, 1 << 20), (8, 65536), (3, 1000), (7, 1001),
+                                  (2, 3)))
+def test_logsumexp_rows_kernel_matches_plain_version(card, s, n):
+    """The AIS schedule's row reduction: bit for bit with its plain version,
+    a bank row with the same row alone (the order follows N, never S), on
+    16-byte rows and on rows the kernel reads one lane at a time."""
+    from repro_torch.kernels.reduce import reduce as lk
+    from repro_torch.kernels.reduce import ref as lref
+
+    g = torch.Generator(device=card).manual_seed(s * 7 + n)
+    x = 5.0 * torch.randn(s, n, generator=g, device=card)
+    lk.reset_launch_counts()
+    got = lk.logsumexp_rows(x)
+    assert lk.logsumexp_rows.launches == 1
+    assert torch.equal(got.view(torch.int32), lref.logsumexp_rows_ref(x).view(torch.int32))
+    for i in range(s):
+        assert torch.equal(lk.logsumexp_rows(x[i:i + 1].contiguous()).view(torch.int32),
+                           got[i:i + 1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_logsumexp_rows_kernel_keeps_non_finite_rows(card):
+    from repro_torch.kernels.reduce import reduce as lk
+    from repro_torch.kernels.reduce import ref as lref
+
+    x = torch.randn(5, 4096, device=card)
+    x[0] = float("-inf")
+    x[1, 5] = float("inf")
+    x[2, 7] = float("nan")
+    x[3, :100] = -1e-40  # subnormal: flushed by the kernel and the plain version
+    x[4] = -1e30
+    got, want = lk.logsumexp_rows(x), lref.logsumexp_rows_ref(x)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num()) and torch.isnan(got[2])
+    assert got[0] == float("-inf") and got[1] == float("inf")
