@@ -9,7 +9,7 @@ shapes of ``chip_smoke.py``'s phase 4.
 ``--module`` names a wrapper module under ``repro_torch.kernels`` (its
 ``SOURCE`` is the source under test: ``megopolis.megopolis``,
 ``metropolis.metropolis``, ``metropolis.c1c2``, ``rejection.rejection``,
-``prefix_sum.prefix_sum``, ``fixtures.fixtures``).  Every ``--source
+``prefix_sum.prefix_sum``, ``fixtures.fixtures``, ``reduce.reduce``).  Every ``--source
 LABEL=PATH`` is a build of that source in another tree of the repo (an
 earlier commit's ``src/repro_torch``, unpacked with ``git archive``, or a
 copy of this one with an edit); the current source is always built too, as
@@ -166,7 +166,7 @@ def main(argv=None) -> int:
     else:
         # chip_smoke.py's defaults: the shapes of its phase 4.
         run = types.SimpleNamespace(particles=1 << 20, steps=100, bank=16, bank_steps=100,
-                                    runs=64, seed=0)
+                                    runs=64, seed=0, phase="kernels")
         ctx = cs.setup(run)
         cases = cs.kernel_cases(run, ctx.dev, ctx.families, ctx.model, ctx.fam, ctx.obs,
                                 ctx.bank_obs, ctx.thetas, ctx.k_run, ctx.k_quality,

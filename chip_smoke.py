@@ -42,7 +42,8 @@ over, and there is no CPU fallback):
    CDFs and draws stay float32; the float16 ones held and not timed, a cut,
    printed); hold ``logsumexp_rows`` (the adaptive AIS schedule's row
    reduction, no TPU counterpart) on E3's ``[S, N]`` and ``[2·S, N]``
-   inputs bit for bit and time it beside ``torch.logsumexp``; time each
+   inputs and on a single run's ``[1, N]`` and ``[2, N]`` bit for bit and
+   time it beside ``torch.logsumexp``; time each
    bank step kernel at capped cooperative grids (blocks per SM); hold
    ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
@@ -2152,7 +2153,11 @@ def reduce_cases(args, dev, k_quality) -> list:
     two-temperature run of E3's bank (adaptive MALA, AIS_E3_BANK rows of N
     particles, E3's key), whose second temperature's first reduction (the
     normalisation, ``[S, N]``) is the listed case and its second (a CESS
-    round's two sums, ``[2·S, N]``) a case held and printed beside it."""
+    round's two sums, ``[2·S, N]``) a case held and printed beside it; and
+    the same two of E3's single run (``/single``: row AIS_E3_ROW, ``[1,
+    N]``; ``/single_cess``: its two sums, rows AIS_E3_ROW and S +
+    AIS_E3_ROW, ``[2, N]``), which reduces those very rows: E3 holds its
+    every leaf to the bank row's."""
     from repro_torch import random as trandom
     from repro_torch.ais import SMCSamplerConfig, gaussian_mixture, run_smc_sampler_bank
     from repro_torch.ais.schedule import ADAPTIVE_LAUNCHES
@@ -2178,9 +2183,12 @@ def reduce_cases(args, dev, k_quality) -> list:
                              device=dev)
     finally:
         lops.logsumexp_rows = real
-    return [(name, real, (calls[i],), lambda x=calls[i]: lref.logsumexp_rows_ref(x), "reduce",
-             "lse", calls[i].shape[0], 1)
-            for i, name in enumerate(("logsumexp_rows", "logsumexp_rows/cess"))]
+    r = AIS_E3_ROW
+    xs = {"logsumexp_rows": calls[0], "logsumexp_rows/cess": calls[1],
+          "logsumexp_rows/single": calls[0][r:r + 1].contiguous(),
+          "logsumexp_rows/single_cess": calls[1][[r, AIS_E3_BANK + r]].contiguous()}
+    return [(name, real, (x,), lambda x=x: lref.logsumexp_rows_ref(x), "reduce", "lse",
+             x.shape[0], 1) for name, x in xs.items()]
 
 
 #: The plane dtypes phase 4 holds the kernels of rows 1-29 at: the suffix of

@@ -56,6 +56,8 @@ REG_ALLOC_UNIT = 256
 SMEM_ALLOC_UNIT = 128
 #: Rows of index arithmetic a bank launch admits: ``S·N < 2**31``.
 MAX_ELEMENTS = (1 << 31) - 1
+#: Warp units of a row of the row reduction (``LSE_UNITS`` in ``reduce.cu``).
+UNITS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,14 +67,15 @@ class KernelResources:
     memory, dynamic shared memory per row of a launch, and its grid:
     ``rows`` (``ceil(N / NT)`` by S), ``tiles`` (``N / 1024`` by S),
     ``resident`` (co-resident, at most ``ceil(N / (4·NT))``: one 16-byte
-    vector a thread), ``row`` (one block a row, of ``threads``), or
-    cooperative ``coop_step`` and ``coop_search`` (co-resident, at most
-    ``ceil(S·N / NT)``; a search admits ``MAX_ROWS`` rows) and ``coop_scan``
-    (co-resident, at most ``S·N / 1024``).  ``optin``: the kernel raises its dynamic
-    shared memory limit (``cudaFuncAttributeMaxDynamicSharedMemorySize``)
-    where a launch needs more than 48 KiB in all, so its budget is the
-    opt-in limit.  ``threads``: threads a block (``NT`` but for the row
-    reduction's)."""
+    vector a thread), or cooperative ``coop_step`` and ``coop_search``
+    (co-resident, at most ``ceil(S·N / NT)``; a search admits ``MAX_ROWS``
+    rows), ``coop_scan`` (co-resident, at most ``S·N / 1024``) and
+    ``coop_units`` (co-resident, at most ``S·UNITS``: the row reduction,
+    whose blocks take a (row, warp) unit at a time).  ``optin``: the
+    kernel raises its dynamic shared memory limit
+    (``cudaFuncAttributeMaxDynamicSharedMemorySize``) where a launch needs
+    more than 48 KiB in all, so its budget is the opt-in limit.
+    ``threads``: threads a block."""
 
     source: str
     index: int
@@ -199,9 +202,10 @@ KERNELS = {
     "prefix_step_rows_kernel<3, __half>": _step(_PREFIX, 25, 48, 4720),
     "copy_kernel": _rows(_FIX, 0, 32, 0, "resident"),
     "iota_kernel": _rows(_FIX, 1, 32, 0, "resident"),
-    # The AIS schedule's row reduction: a block of 1024 threads a row, its
-    # warps' 32 values in static shared memory.
-    "logsumexp_rows_kernel": KernelResources(_REDUCE, 0, 39, 128, "row", threads=1024),
+    # The AIS schedule's row reduction: a co-resident grid of blocks of 8
+    # warps, each with a ring of 4 chunks of 16 rounds (8 KiB each) and the
+    # warps' maxima in static shared memory.
+    "logsumexp_rows_kernel": _rows(_REDUCE, 0, 113, 32800, "coop_units"),
 }
 
 
@@ -250,9 +254,7 @@ def price(kernel: str, rows: int, n: int, resources: KernelResources | None = No
     per_sm = blocks_per_sm(res.registers, res.static_smem + dynamic, res.threads)
     co_resident = per_sm * CARD_LIMITS["sms"]
     grid_y = 1
-    if res.grid == "row":
-        blocks = rows
-    elif res.grid == "rows":
+    if res.grid == "rows":
         blocks, grid_y = -(-n // NT), rows
     elif res.grid == "tiles":
         blocks, grid_y = n // 1024, rows
@@ -260,6 +262,8 @@ def price(kernel: str, rows: int, n: int, resources: KernelResources | None = No
         blocks = max(1, min(co_resident, -(-rows * n // (4 * NT))))
     elif res.grid in ("coop_step", "coop_search"):
         blocks = max(1, min(co_resident, -(-rows * n // NT)))
+    elif res.grid == "coop_units":
+        blocks = max(1, min(co_resident, rows * UNITS))
     else:
         blocks = max(1, min(co_resident, rows * (n // 1024)))
     return Footprint(kernel, rows, n, res.threads, res.registers, res.static_smem, dynamic,

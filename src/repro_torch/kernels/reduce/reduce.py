@@ -3,7 +3,9 @@
     logsumexp_rows  (kernel: logsumexp_rows_kernel)
 
 It takes ``f32[S, N]``, checks device, dtype, shape and contiguity,
-allocates its ``f32[S]`` output with ``torch.empty``, launches on
+allocates its ``f32[S]`` output and the kernel's scratch (``f32[2, S, 32]``:
+the maxima, then the sums, of each row's 32 warp units) with
+``torch.empty``, makes one cooperative launch on
 ``torch.cuda.current_stream()`` and adds one to its ``launches`` count where
 it launches.  On a CPU tensor it runs the plain version (``ref.py``) and
 counts nothing; on a CUDA tensor it launches the kernel or raises.
@@ -17,16 +19,19 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.common import MAX_ROWS, check_launch, kernel_wrapper
-from repro_torch.kernels.reduce.ref import logsumexp_rows_ref
+from repro_torch.kernels.reduce.ref import LSE_NT, WARP, logsumexp_rows_ref
 
 SOURCE = "reduce/csrc/reduce.cu"
 _P = ctypes.c_void_p
+#: Units of a row (``LSE_UNITS`` in ``csrc/reduce.cu``): the warps of the
+#: order's ``LSE_NT`` chains, each summed by one warp of the launch.
+UNITS = LSE_NT // WARP
 
 
 def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if not getattr(lib, "_bound", False):
-        lib.reduce_logsumexp_rows.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong, _P]
+        lib.reduce_logsumexp_rows.argtypes = [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P]
         lib.reduce_logsumexp_rows.restype = ctypes.c_int
         lib._bound = True
     return lib
@@ -47,8 +52,9 @@ def logsumexp_rows(x: torch.Tensor) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("logsumexp_rows: x must be contiguous")
     out = torch.empty(s, dtype=torch.float32, device=x.device)
+    part = torch.empty((2, s, UNITS), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib().reduce_logsumexp_rows(x.data_ptr(), out.data_ptr(), s, n,
+        err = _lib().reduce_logsumexp_rows(x.data_ptr(), out.data_ptr(), part.data_ptr(), s, n,
                                            torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "logsumexp_rows")
     logsumexp_rows.launches += 1

@@ -3,12 +3,14 @@ kernel's adds in the kernel's order, used on the CPU and held bit for bit
 against the kernel on the card.
 
 The order depends on the row's length N alone (never on the number of rows
-S), so a bank row reduces exactly as the same row alone: thread ``t`` of
-``LSE_NT`` takes the quads of 4 consecutive lanes ``t, t + LSE_NT, ...`` and
-adds ``exp(x - shift)`` of their lanes in lane order from 0; the threads'
-sums are added by a fixed tree (each warp of 32 halved, lanes ``l`` and
-``l + 16``, then ``l + 8``, ...; then the warps' sums in warp order from
-warp 0's).  ``shift`` is the row's max, or 0 where that is not finite.
+S, nor on how the launch spreads a row over the card), so a bank row reduces
+exactly as the same row alone: chain ``t`` of ``LSE_NT`` takes the quads of
+4 consecutive lanes ``t, t + LSE_NT, ...`` and adds ``exp(x - shift)`` of
+their lanes in lane order from 0; the chains' sums are added by a fixed tree
+(each warp of 32 chains halved, lanes ``l`` and ``l + 16``, then ``l + 8``,
+...; then the warps' sums in warp order from warp 0's).  ``shift`` is the
+row's max, or 0 where that is not finite.  This arithmetic is the fixed
+order the kernel is held to: it is not edited.
 Subnormals are flushed, as the kernel's ``-ftz=true`` build does: the
 input, ``x - shift``, each ``exp`` and the result.  The adds of the sums
 need no flush: each term is 0 or at least the smallest normal float, so no
@@ -21,13 +23,14 @@ import torch
 
 from repro_torch.kernels.common import flush_to_zero
 
-#: Threads of the kernel's block (``LSE_NT`` in ``csrc/reduce.cu``).
+#: Chains of the order (``LSE_CHAINS`` in ``csrc/reduce.cu``; the kernel sums
+#: each warp of 32 of them in a warp of its own).
 LSE_NT = 1024
 WARP = 32
 
 
 def _tree(v: torch.Tensor) -> torch.Tensor:
-    """``[S, 32·W]`` threads' sums -> ``[S]`` by the kernel's fixed tree:
+    """``[S, 32·W]`` chains' sums -> ``[S]`` by the kernel's fixed tree:
     each warp's 32 lanes halved, then the W warps' results added in order."""
     warps = v.reshape(v.shape[0], -1, WARP)
     while warps.shape[-1] > 1:

@@ -292,6 +292,24 @@ def test_largest_shapes_within_the_cards_limits():
     assert step.dynamic_smem == 8 * 4096 and step.blocks <= step.per_sm * 132
 
 
+@pytest.mark.parametrize("rows, n, blocks", ((1, 1 << 20, 32), (2, 1 << 20, 64),
+                                             (8, 1 << 20, 256), (16, 1 << 20, 264),
+                                             (65535, 8, 264)))
+def test_row_reduction_grid_is_co_resident_units(rows, n, blocks):
+    """The row reduction's launch: blocks of 8 warps with their ring (4
+    chunks of 16 rounds of 512 bytes) and the warps' maxima in static
+    shared memory, on a co-resident grid of at most a block a (row, warp)
+    unit, whatever N."""
+    res = smem.KERNELS["logsumexp_rows_kernel"]
+    assert (res.grid, res.threads, res.static_smem, res.cooperative) == (
+        "coop_units", 256, 4 * 16 * 512 + 8 * 4, True)
+    fp = smem.price("logsumexp_rows_kernel", rows, n)
+    assert fp.per_sm == smem.blocks_per_sm(res.registers, res.static_smem) == 2
+    assert fp.blocks == blocks == min(rows * smem.UNITS, fp.per_sm * 132)
+    assert (fp.threads, fp.dynamic_smem, fp.grid_y) == (256, 0, 1)
+    assert not smem.smem_findings([fp])
+
+
 def test_fixture_selftest_clean():
     assert fixtures.selftest("cpu") == []
 

@@ -1360,12 +1360,18 @@ def test_gamma_weights_on_the_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s, n", ((1, 1 << 20), (4, 1 << 20), (8, 65536), (3, 1000), (7, 1001),
-                                  (2, 3)))
+@pytest.mark.parametrize("s, n", (
+    (1, 1 << 20), (2, 1 << 20), (4, 1 << 20), (16, 1 << 20),  # the AIS schedule's shapes
+    (2, 1 << 22),  # 512 KiB a warp unit
+    (4096, 64), (65535, 8),  # more units than the co-resident grid; MAX_ROWS
+    (8, 65536), (3, 1000), (7, 1001), (2, 3),
+    (3, 4 * 1024 * 3 + 1), (5, 4 * 1024 * 5 - 1)))  # ragged N = 4·1024·k ± 1
 def test_logsumexp_rows_kernel_matches_plain_version(card, s, n):
     """The AIS schedule's row reduction: bit for bit with its plain version,
-    a bank row with the same row alone (the order follows N, never S), on
-    16-byte rows and on rows the kernel reads one lane at a time."""
+    a bank row with the same row alone (the order follows N, never S nor the
+    grid), on 16-byte rows and on rows the kernel reads one lane at a time.
+    Above 64 rows, eight rows alone and the bank reversed stand for every
+    row alone."""
     from repro_torch.kernels.reduce import reduce as lk
     from repro_torch.kernels.reduce import ref as lref
 
@@ -1375,9 +1381,13 @@ def test_logsumexp_rows_kernel_matches_plain_version(card, s, n):
     got = lk.logsumexp_rows(x)
     assert lk.logsumexp_rows.launches == 1
     assert torch.equal(got.view(torch.int32), lref.logsumexp_rows_ref(x).view(torch.int32))
-    for i in range(s):
+    alone = range(s) if s <= 64 else sorted({0, 1, 2, s // 3, s // 2, s - 3, s - 2, s - 1})
+    for i in alone:
         assert torch.equal(lk.logsumexp_rows(x[i:i + 1].contiguous()).view(torch.int32),
                            got[i:i + 1].view(torch.int32))
+    if s > 64:
+        assert torch.equal(lk.logsumexp_rows(x.flip(0).contiguous()).flip(0).view(torch.int32),
+                           got.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -1394,3 +1404,21 @@ def test_logsumexp_rows_kernel_keeps_non_finite_rows(card):
     got, want = lk.logsumexp_rows(x), lref.logsumexp_rows_ref(x)
     assert torch.equal(got.nan_to_num(), want.nan_to_num()) and torch.isnan(got[2])
     assert got[0] == float("-inf") and got[1] == float("inf")
+
+    # A NaN or +inf in warp 31's chains alone (chains 992-1023: quads
+    # 992 + 1024k, ...), so only the last of a row's 32 warp units sees it;
+    # an all -inf row between finite rows of one bank.
+    lk.reset_launch_counts()
+    n = 1 << 20
+    x = torch.randn(5, n, device=card)
+    x[0, 4 * (1000 + 1024 * 77) + 2] = float("nan")
+    x[1, 4 * (1023 + 1024 * 255) + 3] = float("inf")
+    x[2] = float("-inf")
+    x[3, 4 * 992] = 80.0  # the row's max, in warp 31's first chain
+    got, want = lk.logsumexp_rows(x), lref.logsumexp_rows_ref(x)
+    assert lk.logsumexp_rows.launches == 1
+    assert torch.isnan(got[0]) and got[1] == float("inf") and got[2] == float("-inf")
+    assert torch.equal(got[1:].view(torch.int32), want[1:].view(torch.int32))
+    for i in (3, 4):
+        assert torch.equal(lk.logsumexp_rows(x[i:i + 1].contiguous()).view(torch.int32),
+                           got[i:i + 1].view(torch.int32))

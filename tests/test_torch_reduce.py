@@ -33,6 +33,63 @@ def test_bank_row_equals_its_single_row(s, n):
     torch.testing.assert_close(bank, torch.logsumexp(x, dim=-1), rtol=LSE_RTOL, atol=0)
 
 
+def _chain_order(x: np.ndarray) -> np.ndarray:
+    """The kernel's order written out lane by lane in numpy float32, apart
+    from ``ref.py``: chain t < 1024 adds exp(x - shift) of its quads t, t +
+    1024, ... lane by lane; warp w halves chains 32w ... 32w + 31 (lane l
+    takes lane l + 16, then l + 8, ...); the 32 warps' sums are added in
+    warp order.  exp and log are torch's, as the plain version's: the test
+    is of the adds."""
+    f32, tiny = np.float32, np.finfo(np.float32).tiny
+
+    def flush(v):
+        return np.where(np.abs(v) < tiny, np.zeros_like(v), v).astype(np.float32)
+
+    out = []
+    for row in flush(x):
+        n, m = row.shape[0], row.max()
+        shift = m if np.isfinite(m) else f32(0)
+        e = flush(torch.exp(torch.from_numpy(flush(row - shift))).numpy())
+        warps = []
+        for w in range(LSE_NT // 32):
+            lanes = []
+            for t in range(32 * w, 32 * w + 32):
+                acc = f32(0)
+                for q in range(t, -(-n // 4), LSE_NT):
+                    for i in range(4 * q, min(4 * q + 4, n)):
+                        acc = f32(acc + e[i])
+                lanes.append(acc)
+            off = 16
+            while off:
+                lanes = [f32(lanes[i] + lanes[i + off]) if i < off else lanes[i]
+                         for i in range(32)]
+                off //= 2
+            warps.append(lanes[0])
+        total = warps[0]
+        for v in warps[1:]:
+            total = f32(total + v)
+        log = flush(torch.log(torch.tensor([total])).numpy())[0]
+        out.append(flush(np.array([shift + log], dtype=np.float32))[0])
+    return np.array(out, dtype=np.float32)
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+@pytest.mark.parametrize("n", (2 * 4 * LSE_NT + 5, 3 * 4 * LSE_NT))
+def test_plain_version_is_the_chain_order(seed, n):
+    # Rows 0 and 2: one 0 over terms near exp(-14), whose sum lies in the
+    # last bits of the result and moves with the order of the adds (the
+    # order of chains of 512 moves it by hundreds of ulps).
+    rng = np.random.default_rng(seed * 7919 + n)
+    x = (rng.standard_normal((3, n)) - 14.0).astype(np.float32)
+    x[0, rng.integers(0, n)] = 0.0
+    x[2, n - 1] = 0.0
+    x[1] = (rng.standard_normal(n) * 8.0).astype(np.float32)
+    x[1, rng.integers(0, n, 40)] = -np.inf
+    x[1, :: 97] = 1e-40  # subnormal: flushed
+    got = logsumexp_rows_ref(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got.view(np.int32), _chain_order(x).view(np.int32))
+
+
 def test_non_finite_rows():
     x = torch.randn(5, 300)
     x[0] = float("-inf")
