@@ -43,7 +43,10 @@ over, and there is no CPU fallback):
    printed); hold ``logsumexp_rows`` (the adaptive AIS schedule's row
    reduction, no TPU counterpart) on E3's ``[S, N]`` and ``[2·S, N]``
    inputs and on a single run's ``[1, N]`` and ``[2, N]`` bit for bit and
-   time it beside ``torch.logsumexp``; time each
+   time it beside ``torch.logsumexp``; hold and time row 5's kernel on SMC
+   decoding's state (``megopolis_step@int32``: the last resampling call of
+   a smoke-config decode at 1024 particles, its token buffer ``int32[32,
+   1024]`` the state; ``decode_step_case``); time each
    bank step kernel at capped cooperative grids (blocks per SM); hold
    ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
@@ -90,6 +93,18 @@ over, and there is no CPU fallback):
    bit for bit; the adaptive ladder with MALA (and a bank of 4 whose row
    equals its single call bit for bit); Megopolis and systematic at bfloat16 planes; a
    small run on the card against the CPU and telemetry on and off;
+6b. in a process of its own (``--phase decode``), alone after Path E (its
+   runs are timed and profiled), Path G, SMC decoding (DESIGN.md §5,
+   ``path_g``): ``serve_once`` of Qwen3-0.6B at its published width (28
+   layers, vocab 151936) in float32, 1024 particles, 16 + 32 tokens, the
+   Megopolis step kernel resampling them with the int32 token buffer as its
+   state (G1: seconds, tokens a second, resamples, memory; one step launch
+   a token); the same decode profiled, split into the model, the
+   categorical draw, the step and the KV gather by separator kernels (G2);
+   the step kernel bit for bit against its plain version on the last
+   resampling call of the same decode run once more, untimed (G3); one prompt for every particle at near-greedy
+   temperatures, every continuation equal (G4); the smoke config on the
+   card against the CPU from the same params (G5);
 7. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
@@ -100,7 +115,7 @@ over, and there is no CPU fallback):
      ``multinomial`` and ``improved_systematic`` (Table 2's unbiased
      columns) and ``residual``: ``run_filter`` in Alg. 6 and in
      conditional mode (ESS threshold 0.5), ``run_filter_bank`` (S
-     scenarios) in both modes (every family at 25 of the T bank
+     scenarios) in both modes (every family at PATH_A_BANK_STEPS of the T bank
      steps, a cut printed on its own line), and ``run_filter_timed``; RMSE
      against ``simulate``'s truth, steps/s, the resample ratio and a
      ``StepStats`` summary, the families side by side, and the census of
@@ -194,8 +209,11 @@ PATH_B_YS = (0.0, 2.0, 4.0)
 #: Time steps of the short runs whose resampler inputs phase 4 captures.
 CAPTURE_STEPS = 5
 #: Bank steps of every family's Path A bank runs: cut from T = 100 to keep
-#: the whole run, Paths D, E and F and Method 2 included, near 600 s (the
-#: cut is printed; a whole run took 605-689 s at 50 steps).
+#: the whole run, Paths D, E, F and G and Method 2 included, near 600 s of
+#: the 1200 s limit.  The cut is printed, and after Path A what it saves:
+#: the 36 bank runs (18 families, two modes) took 1.2-1.3 s a bank step,
+#: so 100 steps would add about 90 s to a whole run of 578 s at 25 steps
+#: before Path G (about 55 s with its process) and 584-675 s with it.
 PATH_A_BANK_STEPS = 25
 #: The ESS threshold of the conditional runs (Path A's and phase 4's).
 THR = 0.5
@@ -443,7 +461,7 @@ def summary(stats) -> dict:
 #: The phases that run in a process of their own, before the paths: each
 #: relies on ``torch.profiler``'s kernel records, which a process that has
 #: run for minutes loses (``kernel_ms``).
-PHASES = ("checks", "kernels", "guard", "ais", "resilience")
+PHASES = ("checks", "kernels", "guard", "ais", "resilience", "decode")
 PHASE_TIMEOUT_S = 600
 
 
@@ -467,7 +485,8 @@ def main(argv=None) -> int:
     if args.phase is not None:
         ctx = setup(args)
         kernels = {"checks": checks_phase, "kernels": kernels_phase, "guard": guard_phase,
-                   "ais": ais_phase, "resilience": resilience_phase}[args.phase](ctx)
+                   "ais": ais_phase, "resilience": resilience_phase,
+                   "decode": decode_phase}[args.phase](ctx)
         print(json.dumps({"phase": args.phase, "path_launches": ctx.path_launches,
                           "results": ctx.results, "kernels": kernels}, default=float))
         return 0
@@ -486,7 +505,7 @@ def main(argv=None) -> int:
             if any(s in line for s in ("entry function", "registers", "spill")):
                 print(f"  {src}: {line.strip()}")
 
-    # -- 3-6. the contract checks beside the guard; the kernels, then AIS ------
+    # -- 3-6. the contract checks beside the guard; the kernels, AIS, decoding --
     phases = run_phases(argv)
 
     # -- 7. the paths ----------------------------------------------------------
@@ -508,6 +527,14 @@ def main(argv=None) -> int:
         path_a(family, f, args, dev, model, fam, obs, ctx.truth, ctx.bank_obs, ctx.bank_truth,
                ctx.thetas, k_run, drive, results)
     took("path A")
+    bank_s = [r["seconds"] for name, r in results.items() if name.startswith("run_filter_bank/")]
+    bank_steps = min(args.bank_steps, PATH_A_BANK_STEPS)
+    if bank_steps < args.bank_steps:
+        per_step = sum(bank_s) / bank_steps
+        print(f"cut run_filter_bank: {len(bank_s)} bank runs of {bank_steps} steps took "
+              f"{sum(bank_s):.1f} s, {per_step:.3f} s a step; the {args.bank_steps - bank_steps} "
+              f"steps cut would add about {per_step * (args.bank_steps - bank_steps):.0f} s",
+              flush=True)
     for family in ("rejection", "residual"):
         path_a_index(family, families[family], args, dev, model, fam, obs, ctx.bank_obs,
                      ctx.thetas, k_run, drive, results)
@@ -602,8 +629,9 @@ def run_phases(argv) -> dict:
     young, as the profiler needs it.  The guard and resilience phases run
     beside the checks phase, which waits for both to end before it times
     the fixture kernels; the kernels phase, which times every kernel, runs
-    alone after them, and the AIS phase (Path E, timed) alone after it.
-    Every process started here is waited for, or killed at its time limit."""
+    alone after them, the AIS phase (Path E, timed) alone after it and the
+    decode phase (Path G, timed and profiled) alone after that.  Every
+    process started here is waited for, or killed at its time limit."""
     with tempfile.TemporaryDirectory() as tmp:
         outs, procs, waiters, done, took = {}, {}, [], [], {}
         for name in BESIDE_CHECKS:
@@ -637,7 +665,7 @@ def run_phases(argv) -> dict:
             with outs[name] as out:
                 out.seek(0)
                 phases[name] = phase_result(name, procs[name].returncode, out.read(), took[name])
-    for name in ("kernels", "ais"):
+    for name in ("kernels", "ais", "decode"):
         t0 = time.perf_counter()
         proc = subprocess.run(phase_cmd(name, argv), stdout=subprocess.PIPE, text=True,
                               timeout=PHASE_TIMEOUT_S)
@@ -662,8 +690,8 @@ def wait_for_beside():
 
 def setup(args) -> types.SimpleNamespace:
     """What every phase shares: the families and their wrappers, the keys,
-    the simulated observations of Path A (not made for the AIS phase, which
-    runs no filter) and ``drive``, which runs one
+    the simulated observations of Path A (not made for the AIS and decode
+    phases, which run no filter) and ``drive``, which runs one
     main-path call with every kernel's count set to 0 just before, reads
     the counts just after (into ``path_launches`` and ``results``) and
     fails if an expected wrapper was launched no time."""
@@ -748,7 +776,7 @@ def setup(args) -> types.SimpleNamespace:
     thetas = {"amp": torch.linspace(6.0, 10.0, args.bank),
               "obs_var": torch.linspace(0.5, 2.0, args.bank)}
     truth = obs = bank_truth = bank_obs = None
-    if args.phase != "ais":
+    if args.phase not in ("ais", "decode"):
         truth, obs = simulate(k_sim, model, args.steps, device=dev)
         sims = [simulate(k, fam, args.bank_steps, theta={"amp": thetas["amp"][i],
                                                          "obs_var": thetas["obs_var"][i]},
@@ -866,6 +894,17 @@ def ais_phase(ctx) -> list:
           "whole run's 600 s)", flush=True)
     path_e(ctx, ctx.trandom.fold_in(ctx.k_quality, AIS_KEY))
     print(f"time path E: {time.perf_counter() - t0:.1f} s", flush=True)
+    return []
+
+
+def decode_phase(ctx) -> list:
+    """Phase ``decode``, Path G, young for the profiler and alone on the
+    card (its runs are timed): ``path_g``.  Its kernel's int32-state case
+    is phase 4's (``decode_step_case``), so it lists no ``kernels`` entry;
+    its runs' launches count with the paths', under ``megopolis_step@int32``."""
+    t0 = time.perf_counter()
+    path_g(ctx)
+    print(f"time path G: {time.perf_counter() - t0:.1f} s", flush=True)
     return []
 
 
@@ -1522,6 +1561,298 @@ def ais_readers(run) -> dict:
             "max_abs_us_apart": worst}
 
 
+#: Path G, SMC decoding (DESIGN.md §5, ``launch/serve.py``): Qwen3-0.6B at its
+#: published width in float32, N particles of the kernels' tile, a prompt of
+#: 16 tokens and 32 new ones, Megopolis at B = 16; the target temperature
+#: of JAX's ``tests/test_smc.py`` (0.5) and ``serve_once``'s ESS threshold
+#: (0.5): the branch fires where the normalised ESS falls below it.
+DECODE_ARCH = "qwen3-0.6b"
+DECODE_N = 1024
+DECODE_PROMPT = 16
+DECODE_TOKENS = 32
+DECODE_ITERS = 16
+DECODE_TARGET_TEMP = 0.5
+#: G4, JAX's ``test_ancestor_gather_coherence`` at full width: one prompt for
+#: every particle, near-greedy temperatures, its 6 new tokens.
+COHERENCE_PROMPT = (1, 2, 3, 4)
+COHERENCE_TOKENS = 6
+COHERENCE_TEMP = 1e-4
+#: G5: the smoke config's prefill logits on the card against the CPU, from
+#: the same params: the products sum in other orders (cuBLAS, MKL).
+DECODE_CPU_ATOL = 1e-4
+#: The cycles of the separator kernel (``torch.cuda._sleep``) G2 launches
+#: between the parts of a decode step.
+DECODE_SEPARATOR_CYCLES = 1000
+
+
+def decode_inputs(cfg, n: int, prompt_len: int, seed: int, dev):
+    """``serve_once``'s params, prompts and decode key for ``cfg`` (the same
+    draws from the same seed): ``(params, prompts, k_decode)``."""
+    from repro_torch import random as trandom
+    from repro_torch.models import init_params
+
+    k_param, k_prompt, k_decode = trandom.split(trandom.PRNGKey(seed), 3)
+    params = init_params(k_param, cfg, device=dev)
+    prompts = trandom.randint(k_prompt, (n, prompt_len), 0, cfg.vocab_size, device=dev)
+    return params, prompts, k_decode
+
+
+@contextlib.contextmanager
+def decode_parts(labels: list):
+    """While open, each part of ``smc_decode``'s step, the model
+    (``decode_step``), the categorical draw, the resampler's step entry
+    and the KV gather, runs between two separator kernels, and ``labels``
+    gets the part's name, then ``"other"`` (the twist, the token write, the
+    weights' reset and the ESS), in launch order: the device events between
+    two separators are the labelled part's (one stream)."""
+    from repro_torch import random as trandom
+    from repro_torch.core import spec as tspec
+    from repro_torch.smc import decode as sd
+
+    def part(label, fn):
+        def run(*args, **kwargs):
+            torch.cuda._sleep(DECODE_SEPARATOR_CYCLES)
+            labels.append(label)
+            out = fn(*args, **kwargs)
+            torch.cuda._sleep(DECODE_SEPARATOR_CYCLES)
+            labels.append("other")
+            return out
+        return run
+
+    patched = ((sd, "decode_step", "model"), (trandom, "categorical", "draw"),
+               (tspec.Resampler, "step", "step"), (sd, "_gather", "gather"))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, label in patched:
+        setattr(obj, name, part(label, getattr(obj, name)))
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def decode_breakdown(prof, labels: list, wall: float, steps: int) -> dict:
+    """G2's numbers from one profile of a decode run inside ``decode_parts``:
+    per step, all CUDA device operations (kernels, copies, fills) and the
+    port's kernels among them, the device ms of each part and of the step
+    kernel alone, and the device's busy share of the profiled wall time.
+    The split needs every separator: if the profiler dropped one, the parts
+    are not measured (printed) and the totals stand."""
+    from repro_torch.analysis import smem
+
+    events = [(name, us) for _, name, us in device_events(prof)]
+    ops = [(name, us) for name, us in events if AIS_SEPARATOR not in name]
+    device_ms = sum(us for _, us in ops) / 1e3
+    step_kernel = [us for name, us in ops
+                   if kernel_instance(name) == "megopolis_step_rows_kernel<float>"]
+    out = {"steps": steps, "cuda_ops_per_step": len(ops) / steps,
+           "copies_and_fills_per_step": sum(1 for name, _ in ops
+                                            if name.startswith(("Memcpy", "Memset"))) / steps,
+           "port_launches_per_step": sum(1 for name, _ in ops
+                                         if kernel_instance(name) in smem.KERNELS) / steps,
+           "device_ms_per_step": device_ms / steps, "wall_ms_per_step": wall * 1e3 / steps,
+           "device_busy_share": device_ms / (wall * 1e3),
+           "step_kernel_ms": sum(step_kernel) / 1e3 / max(1, len(step_kernel)),
+           "step_kernel_launches": len(step_kernel)}
+    groups = [[]]
+    for name, us in events:
+        if AIS_SEPARATOR in name:
+            groups.append([])
+        else:
+            groups[-1].append(us)
+    labels = ["other"] + labels
+    if len(groups) != len(labels):
+        print(f"path G2: the profile holds {len(groups) - 1} separators for {len(labels) - 1} "
+              "part boundaries; the parts' device ms are not measured", flush=True)
+        return out
+    parts = collections.Counter()
+    for label, group in zip(labels, groups):
+        parts[label] += sum(group) / 1e3
+    out["part_device_ms_per_step"] = {k: v / steps for k, v in parts.items()}
+    out["part_device_share"] = {k: v / device_ms for k, v in parts.items()}
+    return out
+
+
+def path_g(ctx):
+    """Path G, SMC decoding of Qwen3-0.6B at its published width (28 layers,
+    d_model 1024, vocab 151936) in float32 on the card, the Megopolis step
+    kernel resampling the particles with the int32 token buffer as its
+    state; each run with every kernel's launch count set to 0 just before
+    and read just after (``drive``, the launches under
+    ``megopolis_step@int32``):
+
+    * G1, ``serve_once`` as a user calls it (DECODE_N particles, a prompt of
+      DECODE_PROMPT tokens, DECODE_TOKENS new ones), nothing wrapped
+      around it: prefill and decode seconds, tokens a second, resamples,
+      the final ESS and the peak of allocated memory; one step launch a
+      token, at least one resample, every token in the vocabulary and
+      every log-weight finite;
+    * G2, the same decode once more, under the profiler, its step's parts
+      between separator kernels (``decode_parts``): CUDA operations and
+      port launches a step, the device's busy share, and the device ms of
+      the model, the categorical draw, the step entry (and its kernel) and
+      the KV gather (``decode_breakdown``);
+    * G3, the same decode once more, untimed, its step calls captured (a
+      wait for the card and copies each step, which G1 and G2 are spared):
+      its tokens equal to G1's, and the step kernel held bit for bit
+      against its plain version on its last resampling call (log-weights
+      ``[N]``, the tokens ``int32[T, N]``);
+    * G4, JAX's ``test_ancestor_gather_coherence`` at full width: one
+      prompt for every particle and temperatures of COHERENCE_TEMP, and
+      every particle's continuation equal;
+    * G5, the smoke config on the card against the port on the CPU at N
+      particles from the same params: prefill logits within
+      DECODE_CPU_ATOL, and the step kernel on a captured call of a card
+      decode with the CPU's plain version's ancestors and tokens."""
+    import dataclasses
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import _map_tree
+    from repro_torch.core.spec import MegopolisSpec
+    from repro_torch.kernels.megopolis import ops as mops
+    from repro_torch.kernels.megopolis import ref as mref
+    from repro_torch.launch.serve import serve_once
+    from repro_torch.models import prefill
+    from repro_torch.smc import SMCDecodeConfig, smc_decode
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("path G: TF32 products are on; the JAX reference computes float32 products")
+    mk, dev, drive, results, seed = ctx.mk, ctx.dev, ctx.drive, ctx.results, ctx.args.seed
+    lap = time.perf_counter()
+
+    def took(what):
+        nonlocal lap
+        print(f"time path G {what}: {time.perf_counter() - lap:.1f} s", flush=True)
+        lap = time.perf_counter()
+
+    arch = get_arch(DECODE_ARCH)
+    cfg = dataclasses.replace(arch.model, dtype=torch.float32, remat=False)
+    spec = MegopolisSpec(num_iters=DECODE_ITERS)
+    print(f"path G: {DECODE_ARCH} ({arch.source}) at full width: {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_params()} float32 parameters; "
+          f"N = {DECODE_N}, prompt {DECODE_PROMPT}, {DECODE_TOKENS} new tokens, {spec}",
+          flush=True)
+
+    # -- G1: serve_once as a user calls it, timed ---------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    out = drive("decode/g1_serve_once@int32", lambda: serve_once(
+        DECODE_ARCH, smoke=False, num_particles=DECODE_N, prompt_len=DECODE_PROMPT,
+        new_tokens=DECODE_TOKENS, resampler=spec, seed=seed, target_temp=DECODE_TARGET_TEMP),
+        [mk.megopolis_step])
+    tokens, log_w = out["tokens"], out["log_weights"]
+    launches = results["decode/g1_serve_once@int32"]["launches"]
+    g1_rec = {k: out[k] for k in ("prefill_s", "decode_s", "tok_per_s", "num_resamples",
+                                  "final_ess")}
+    g1_rec.update(launches=launches,
+                  max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  tokens_shape=list(tokens.shape), tokens_dtype=str(tokens.dtype))
+    results["decode/g1_serve_once@int32"].update(g1_rec)
+    print(f"path G1: {json.dumps(g1_rec, default=float)}", flush=True)
+    if launches != {"megopolis_step": DECODE_TOKENS}:
+        fail(f"G1: expected one megopolis_step launch a token, {DECODE_TOKENS}; got {launches}")
+    if out["num_resamples"] < 1:
+        fail("G1: the resample branch never fired")
+    if tokens.shape != (DECODE_N, DECODE_TOKENS) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        fail(f"G1: tokens {list(tokens.shape)} out of [0, {cfg.vocab_size})")
+    if not bool(torch.isfinite(log_w).all()):
+        fail("G1: a log-weight is not finite")
+    took("G1")
+
+    # -- G2: the same decode, profiled, split into its parts -----------------------
+    params, prompts, k_decode = decode_inputs(cfg, DECODE_N, DECODE_PROMPT, seed, dev)
+    max_seq = DECODE_PROMPT + DECODE_TOKENS
+    smc_cfg = SMCDecodeConfig(num_particles=DECODE_N, max_new_tokens=DECODE_TOKENS,
+                              resampler=spec, target_temp=DECODE_TARGET_TEMP)
+    _, caches = prefill(params, cfg, prompts, max_seq)
+    labels, box = [], {}
+    with decode_parts(labels):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            box["out"] = drive("decode/g2_profiled@int32", lambda: smc_decode(
+                params, cfg, smc_cfg, caches, prompts[:, -1], DECODE_PROMPT, k_decode),
+                [mk.megopolis_step])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    del caches
+    g2 = decode_breakdown(prof, labels, wall, DECODE_TOKENS)
+    del prof
+    g2["tokens_equal_g1"] = bool(torch.equal(box["out"][0], tokens))
+    results["decode/g2_profiled@int32"].update(g2)
+    print(f"path G2: {json.dumps(g2, default=float)}", flush=True)
+    if g2["port_launches_per_step"] > 1:
+        fail(f"G2: {g2['port_launches_per_step']} port kernel launches a step, not one")
+    took("G2")
+
+    # -- G3: the same decode, untimed, the step kernel on its last resampling call --
+    _, caches = prefill(params, cfg, prompts, max_seq)
+    step_args = capture(mops, "megopolis_step", lambda: box.update(g3=smc_decode(
+        params, cfg, smc_cfg, caches, prompts[:, -1], DECODE_PROMPT, k_decode)))
+    del caches
+    if not torch.equal(box.pop("g3")[0], tokens):
+        fail("G3: the captured decode's tokens differ from G1's")
+    lw3, st3, o3, s3, thr3 = step_args
+    if st3.dtype != torch.int32 or st3.shape != (DECODE_TOKENS, DECODE_N):
+        fail(f"G3: the captured state is {st3.dtype}{list(st3.shape)}, not the token buffer")
+    held = check_kernel(("megopolis_step@int32/g3", mk.megopolis_step, step_args,
+                         lambda: mref.megopolis_step_rows_ref(lw3[None], st3[None], o3[None],
+                                                              s3.reshape(1), thr3),
+                         "megopolis", "step", 1, o3.shape[-1]), timed=False)
+    results["decode/g3_held"] = held
+    took("G3")
+
+    # -- G4: one prompt for every particle, near-greedy: equal continuations --------
+    same = torch.tensor([COHERENCE_PROMPT], dtype=torch.int32, device=dev).expand(
+        DECODE_N, len(COHERENCE_PROMPT)).contiguous()
+    _, caches = prefill(params, cfg, same, len(COHERENCE_PROMPT) + COHERENCE_TOKENS)
+    smc4 = SMCDecodeConfig(num_particles=DECODE_N, max_new_tokens=COHERENCE_TOKENS,
+                           resampler=spec, proposal_temp=COHERENCE_TEMP,
+                           target_temp=COHERENCE_TEMP)
+    tok4, _, _ = drive("decode/g4_coherence@int32", lambda: smc_decode(
+        params, cfg, smc4, caches, same[:, -1], len(COHERENCE_PROMPT),
+        trandom.fold_in(k_decode, 5)), [mk.megopolis_step])
+    del caches, params
+    differ = int((tok4 != tok4[0]).any(dim=1).sum())
+    results["decode/g4_coherence@int32"].update(particles_differing=differ,
+                                                 continuation=tok4[0].tolist())
+    print(f"path G4: {differ} of {DECODE_N} continuations differ from particle 0's "
+          f"{tok4[0].tolist()}", flush=True)
+    if differ:
+        fail(f"G4: {differ} particles' continuations differ under one prompt")
+    took("G4")
+
+    # -- G5: the smoke config, card against CPU, from the same params --------------
+    scfg = dataclasses.replace(arch.smoke, dtype=torch.float32, remat=False)
+    cpu_params, cpu_prompts, k5 = decode_inputs(scfg, DECODE_N, DECODE_PROMPT, seed, "cpu")
+    card_params = _map_tree(lambda leaf: leaf.to(dev), cpu_params)
+    logits_cpu, caches_cpu = prefill(cpu_params, scfg, cpu_prompts, max_seq)
+    logits_card, caches_card = prefill(card_params, scfg, cpu_prompts.to(dev), max_seq)
+    err = float((logits_card.cpu() - logits_cpu).abs().max())
+    step5 = capture(mops, "megopolis_step", lambda: drive(
+        "decode/g5_smoke@int32", lambda: box.update(card=smc_decode(
+            card_params, scfg, smc_cfg, caches_card, cpu_prompts[:, -1].to(dev), DECODE_PROMPT,
+            k5)), [mk.megopolis_step]))
+    got = mk.megopolis_step(*step5)
+    lw5, st5, o5, s5, thr5 = step5
+    want = mref.megopolis_step_rows_ref(lw5.cpu()[None], st5.cpu()[None], o5.cpu()[None],
+                                        s5.cpu().reshape(1), thr5)
+    anc_mismatch = int((got[0].cpu() != want[0][0]).sum())
+    tokens_same = bool(torch.equal(got[1].cpu(), want[1][0]))
+    cpu_tokens = smc_decode(cpu_params, scfg, smc_cfg, caches_cpu, cpu_prompts[:, -1],
+                            DECODE_PROMPT, k5)[0]
+    g5 = {"prefill_logits_max_abs_err": err, "atol": DECODE_CPU_ATOL,
+          "step_ancestor_mismatches": anc_mismatch, "step_tokens_equal": tokens_same,
+          "decode_tokens_equal_share": float((box["card"][0].cpu() == cpu_tokens).float().mean())}
+    results["decode/g5_smoke@int32"].update(g5)
+    print(f"path G5: {json.dumps(g5)}", flush=True)
+    if err > DECODE_CPU_ATOL or anc_mismatch or not tokens_same:
+        fail(f"G5: the card and the CPU differ: {g5}")
+    took("G5")
+
+
 def profiled_run(fn):
     """``fn()`` under ``contracts.record`` and the profiler: its result, its
     port-kernel census, the port's kernels among the profiler's events and
@@ -1721,7 +2052,7 @@ def path_a(family, f, args, dev, model, fam, obs, truth, bank_obs, bank_truth, t
     steps = min(args.bank_steps, PATH_A_BANK_STEPS)
     if steps < args.bank_steps:
         print(f"cut run_filter_bank/*/{family}: {steps} of {args.bank_steps} bank steps "
-              "(to keep the run within 600 s)", flush=True)
+              "(the whole run's time; what it saves is printed after Path A)", flush=True)
     first = steps
 
     def rmse_mean(ests, t):
@@ -2117,6 +2448,7 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     cases = []
     if keep("megopolis"):
         cases += megopolis_cases(mk, mops, mref, fig6, single, bank)
+        cases.append(decode_step_case(mk, mops, mref, dev, args.seed))
     if keep("metropolis"):
         cases += metropolis_cases(tk, tops, tref, fig6, single, bank)
     # Metropolis-C1/C2, rows 13-18 (and their bank forms on the same kernels).
@@ -2249,6 +2581,35 @@ def megopolis_cases(mk, mops, mref, fig6, single, bank) -> list:
              "megopolis", "step", l4.shape[0], o4.shape[-1]),
         ]
     return cases
+
+
+def decode_step_case(mk, mops, mref, dev, seed) -> tuple:
+    """Row 5 on SMC decoding's state (``megopolis_step@int32``): the last
+    resampling call of a decode of DECODE_TOKENS tokens at DECODE_N
+    particles on the qwen3 smoke config (Path G's spec, temperature and
+    threshold), whose state is the token buffer ``int32[T, N]``; Path G
+    drives the same kernel at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.spec import MegopolisSpec
+    from repro_torch.models import prefill
+    from repro_torch.smc import SMCDecodeConfig, smc_decode
+
+    cfg = dataclasses.replace(get_arch(DECODE_ARCH).smoke, dtype=torch.float32, remat=False)
+    params, prompts, k_decode = decode_inputs(cfg, DECODE_N, DECODE_PROMPT, seed, dev)
+    smc_cfg = SMCDecodeConfig(num_particles=DECODE_N, max_new_tokens=DECODE_TOKENS,
+                              resampler=MegopolisSpec(num_iters=DECODE_ITERS),
+                              target_temp=DECODE_TARGET_TEMP)
+
+    def run():
+        _, caches = prefill(params, cfg, prompts, DECODE_PROMPT + DECODE_TOKENS)
+        smc_decode(params, cfg, smc_cfg, caches, prompts[:, -1], DECODE_PROMPT, k_decode)
+
+    lw, st, o, s, thr = capture(mops, "megopolis_step", run)
+    return ("megopolis_step@int32", mk.megopolis_step, (lw, st, o, s, thr),
+            lambda: mref.megopolis_step_rows_ref(lw[None], st[None], o[None], s.reshape(1), thr),
+            "megopolis", "step", 1, o.shape[-1])
 
 
 def metropolis_cases(tk, tops, tref, fig6, single, bank) -> list:
@@ -2709,6 +3070,8 @@ def check_kernel(case, timed: bool = True) -> dict:
         table = kargs[-4 if kind == "step" else -3] if family.startswith("metropolis_c") else None
         word = kargs[0].element_size()
         n_bytes = rows * n * (word + 4 + (0 if kind == "index" else 2 * word))
+        if family == "megopolis" and kind != "index":  # the state's own D and word
+            n_bytes += 2 * kargs[1].numel() * kargs[1].element_size() - 2 * word * rows * n
         n_bytes += 0 if table is None else 4 * table.numel()
         n_bytes += word * rows * n if family == "rejection" and kind != "step" else 0
         n_ops = work * SWEEP_OPS[family] + rows * n * (PRELUDE_OPS if kind == "step" else 0)

@@ -1,5 +1,6 @@
 """Contracts of the stack's resampler consumers (DESIGN.md §13), after
-``repro.analysis.consumers``: the particle filter's and the AIS sampler's.
+``repro.analysis.consumers``: the particle filter's, the AIS sampler's and
+SMC decoding's.
 
 The matrix audit proves each entry point honest alone; this module proves
 the consumers kept their promises after composition ("one fused launch per
@@ -13,8 +14,10 @@ the port runs eagerly, so T steps (observations, temperatures) launch T
 kernels: the budget is one launch per step, and under the adaptive ladder
 ``ais.schedule.ADAPTIVE_LAUNCHES`` more a temperature (the CESS bisection's
 ``logsumexp_rows``, whose order a bank row shares with its single call).
-The decode consumer comes
-with its port (ROADMAP Queue A item 11).
+``smc.decode`` runs ``smc_decode`` on the qwen3 smoke config at
+``DECODE_PARTICLES`` (the kernels' tile): one launch a decode step, and it
+is the one consumer whose contract allows the ancestor-indexed gather (of
+every KV-cache leaf), as the JAX package's ``allow_tainted_gather=True``.
 
 ``auto_reference_rng`` sweeps the adaptive-``num_iters`` reference paths
 through the RNG pass.  Megopolis's documented deliberate deviation, the
@@ -46,6 +49,13 @@ from repro_torch.core.spec import MegopolisSpec, spec_for_backend
 AUDIT_STEPS = 5
 #: Temperatures of the AIS runs (the JAX auditor's).
 AUDIT_TEMPS = 4
+
+#: Decode needs N % 1024 == 0 on the kernel backend (the JAX auditor's).
+DECODE_PARTICLES = 1024
+#: Decode steps of the audited run (the JAX auditor's ``max_new_tokens``).
+DECODE_STEPS = 3
+#: The consumers whose contract allows the ancestor-indexed gather.
+GATHER_CONSUMERS = ("smc.decode",)
 
 #: Direct (iterate-and-compare) families whose reference path takes the
 #: adaptive iteration rule; swept by ``auto_reference_rng``.
@@ -91,6 +101,34 @@ def _ais(dev, bank: bool = False, **overrides):
     return lambda: run_smc_sampler(key, target, cfg, device=dev)
 
 
+def _decode(dev):
+    """``smc_decode`` on the qwen3 smoke config in float32 at
+    ``DECODE_PARTICLES`` particles, ``DECODE_STEPS`` tokens after a prompt
+    of 4, on a Megopolis spec at the audit's B; the params, the prompt's
+    caches and the first tokens are made before the audited run, which
+    decodes on a copy of the caches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, prefill
+    from repro_torch.smc import SMCDecodeConfig, smc_decode
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").smoke, dtype=torch.float32, remat=False)
+    smc_cfg = SMCDecodeConfig(num_particles=DECODE_PARTICLES, max_new_tokens=DECODE_STEPS,
+                              resampler=MegopolisSpec(num_iters=AUDIT_NUM_ITERS))
+    prompt_len = 4
+    params = init_params(trandom.PRNGKey(0), cfg, device=dev)
+    prompts = torch.zeros((DECODE_PARTICLES, prompt_len), dtype=torch.int32, device=dev)
+    caches = prefill(params, cfg, prompts, prompt_len + DECODE_STEPS)[1]
+    first = torch.zeros((DECODE_PARTICLES,), dtype=torch.int32, device=dev)
+
+    def program():
+        fresh = [{"kv": tuple(c.clone() for c in layer["kv"])} for layer in caches]
+        return smc_decode(params, cfg, smc_cfg, fresh, first, prompt_len - 1, trandom.PRNGKey(1))
+
+    return program
+
+
 def _programs(device):
     """name -> (program, steps)."""
     from repro_torch.pf.filter import run_filter, run_filter_bank
@@ -112,15 +150,19 @@ def _programs(device):
         "ais.run_smc_sampler_bank": (_ais(dev, bank=True), AUDIT_TEMPS),
         "ais.adaptive_mala": (_ais(dev, schedule="adaptive", move="mala"),
                               AUDIT_TEMPS * (1 + ADAPTIVE_LAUNCHES)),
+        "smc.decode": (_decode(dev), DECODE_STEPS),
     }
 
 
 def audit_consumers(names=None, device="cuda", around=None):
     """Run and audit each consumer program, one launch per step (per
-    temperature for AIS, plus the adaptive schedule's); returns a generator of CellReports (``cuda``
-    without a card raises here, before the first)."""
+    temperature for AIS, plus the adaptive schedule's; per token for
+    decoding); returns a generator of CellReports (``cuda`` without a card
+    raises here, before the first)."""
     programs = _programs(device)
-    return (audit_program(name, programs[name][0], Contract(max_launches=programs[name][1]),
+    return (audit_program(name, programs[name][0],
+                          Contract(max_launches=programs[name][1],
+                                   allow_tainted_gather=name in GATHER_CONSUMERS),
                           around=around) for name in names or programs)
 
 

@@ -12,7 +12,11 @@ module needs neither package's import of the other:
 * the fields of a JAX ``MegopolisSpec``, ``MetropolisSpec``,
   ``MetropolisC1Spec``, ``MetropolisC2Spec``, ``RejectionSpec`` or
   ``PrefixSumSpec`` -> the port's spec of the same family, and back;
-* a JAX ``SMCSamplerConfig`` -> the port's, field by field.
+* a JAX ``SMCSamplerConfig`` -> the port's, field by field;
+* LM parameter and cache trees (dicts, lists and tuples of arrays, the
+  JAX package's ``init_params``/``prefill`` layout) <-> the same trees of
+  tensors, leaf for leaf and bit for bit, and a JAX ``ModelConfig`` -> the
+  port's (``dtype`` as the torch dtype).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.ais.sampler import SMCSamplerConfig
 from repro_torch.core.spec import JAX_BACKENDS, ResamplerSpec, spec_from_name
+from repro_torch.models import ModelConfig
 
 
 def key_from_jax(key_data) -> torch.Tensor:
@@ -97,3 +102,37 @@ def spec_to_jax(spec: ResamplerSpec) -> dict:
     (``MetropolisC1Spec(**fields)``)."""
     return dict(dataclasses.asdict(spec),
                 backend="pallas" if spec.backend == "cuda" else spec.backend)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def params_from_jax(tree, device="cuda"):
+    """A JAX parameter (or cache) tree -> the same tree of tensors on
+    ``device``, every leaf's bits unchanged (``array_from_jax``)."""
+    dev = resolve_device(device)
+    return _map_tree(lambda leaf: array_from_jax(np.asarray(leaf), dev), tree)
+
+
+def params_to_jax(tree):
+    """A tree of tensors -> the same tree of numpy arrays (``array_to_jax``),
+    which ``jnp.asarray`` or the JAX package's functions take."""
+    return _map_tree(array_to_jax, tree)
+
+
+def _torch_dtype(dtype):
+    return None if dtype is None else getattr(torch, np.dtype(dtype).name)
+
+
+def model_config_from_jax(cfg) -> ModelConfig:
+    """A JAX ``ModelConfig`` -> the port's, field by field; ``dtype`` and
+    ``cache_dtype`` become the torch dtypes of the same names."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["dtype"] = _torch_dtype(fields["dtype"])
+    fields["cache_dtype"] = _torch_dtype(fields["cache_dtype"])
+    return ModelConfig(**fields)

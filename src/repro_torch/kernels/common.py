@@ -56,6 +56,14 @@ MAX_STEP_ROWS = 4096
 #: hash, the uniforms and the step's statistics stay float32.
 PLANE_DTYPES = ("float32", "bfloat16", "float16")
 _FLT_MIN = torch.finfo(torch.float32).tiny
+#: Integer state words a kernel that opts in (``check_bank``'s
+#: ``int_state``) copies beside float32 weights, as the float32 instance's
+#: words: a state copy is a bit move, never a float instruction, so every
+#: bit pattern (token ids below 2**23 are float32 subnormals) comes back
+#: as it went in.  Beside a 2-byte plane no instance copies a 4-byte word:
+#: ROADMAP Queue C item 23.
+INT_STATE_DTYPES = (torch.int32,)
+INT_STATE_ITEM = "ROADMAP Queue C item 23"
 
 
 def mul32(x, c: int):
@@ -253,13 +261,16 @@ def gather_state(state: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",),
-               state_planes=None):
+               state_planes=None, int_state=False):
     """Validate the arguments every bank kernel takes: weights ``[S, N]`` of
     a dtype of ``planes`` (the plane dtypes the kernel is built for), state
     ``[S, D, N]`` (or None for an index-only kernel; on the card of the
     weights' dtype, or with ``state_planes`` of any of those dtypes: the
-    prefix-sum searches take a float32 CDF and copy 2-byte state) and
-    ``seeds [S]`` (None for the prefix-sum kernels, which take no seed).
+    prefix-sum searches take a float32 CDF and copy 2-byte state; with
+    ``int_state`` also of an ``INT_STATE_DTYPES`` dtype beside float32
+    weights, which the wrapper hands to the kernel as ``as_state_words``
+    gives it; beside a 2-byte plane that raises, naming ``INT_STATE_ITEM``)
+    and ``seeds [S]`` (None for the prefix-sum kernels, which take no seed).
     Returns ``(S, N, D)`` (D = 0 without state)."""
     dtypes = tuple(canonical_plane_dtype(p) for p in planes)
     if w.dtype not in dtypes or w.ndim != 2:
@@ -282,7 +293,13 @@ def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",),
         if state is not None:
             if state.device != w.device:
                 raise ValueError(f"{who}: state on {state.device}, weights on {w.device}")
-            if state_planes is None and state.dtype != w.dtype:
+            if int_state and state.dtype in INT_STATE_DTYPES:
+                if w.dtype != torch.float32:
+                    raise ValueError(
+                        f"{who}: an integer state rides only beside float32 weights (the "
+                        f"float32 instance copies its 4-byte words); got {w.dtype} weights "
+                        f"and {state.dtype} state: {INT_STATE_ITEM}")
+            elif state_planes is None and state.dtype != w.dtype:
                 raise ValueError(f"{who}: the CUDA kernel copies state of the weights' plane "
                                  f"dtype {w.dtype}; got {state.dtype}")
             if state_planes is not None and state.dtype not in tuple(
@@ -294,6 +311,13 @@ def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",),
     elif state is not None and state.is_cuda:
         raise ValueError(f"{who}: state on {state.device}, weights on the CPU")
     return s, n, 0 if state is None else state.shape[1]
+
+
+def as_state_words(state: torch.Tensor) -> torch.Tensor:
+    """The state as the kernel's words: an ``INT_STATE_DTYPES`` tensor as a
+    float32 view of its bits (no copy, no conversion), any other as it is.
+    A kernel's output of that view is ``.view(state.dtype)`` again."""
+    return state.view(torch.float32) if state.dtype in INT_STATE_DTYPES else state
 
 
 def check_aligned(who: str, w: torch.Tensor):

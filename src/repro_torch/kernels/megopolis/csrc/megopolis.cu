@@ -95,7 +95,9 @@
 // the CPU: built with -ftz=true, the sweep's product and comparison flush
 // their operands and results in hardware; the loaded w[k] and the step
 // prelude's values are flushed explicitly (ftz()).  State copies are bit
-// moves and are never flushed.
+// moves and are never flushed: the wrappers hand a 4-byte integer state
+// (SMC decoding's token buffer) to the float instance as its words, and
+// every bit pattern, subnormal ones included, comes back as it went in.
 
 #include "../../common.cuh"
 

@@ -12,7 +12,11 @@
 Each wrapper takes weights (or log-weights) and state of one plane dtype,
 float32, bfloat16 or float16 (``common.PLANE_DTYPES``), and launches the
 kernel's instance for that word; the ancestors are int32 and the stats
-float32 at every dtype.  It checks device, dtype, shape and contiguity (and,
+float32 at every dtype.  Beside float32 weights the state may also be a
+4-byte integer (``common.INT_STATE_DTYPES``: the token buffer of SMC
+decoding), which the float32 instance copies as its words, bit for bit;
+beside a 2-byte plane an integer state raises ``ValueError`` on the card
+(``common.INT_STATE_ITEM``) and is never cast.  It checks device, dtype, shape and contiguity (and,
 for the index-only and fused kernels, that the weights start on a 16-byte
 boundary, as their bulk copies need), allocates its
 outputs (and the step kernel's scratch) with ``torch.empty``, launches on
@@ -35,6 +39,7 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.common import (
     PLANE_CODES,
     PLANE_DTYPES,
+    as_state_words,
     check_aligned,
     check_bank,
     check_launch,
@@ -74,7 +79,7 @@ def _lib() -> ctypes.CDLL:
 def _check_bank(who: str, w, state, offsets, seeds):
     """Validate a bank call (``state`` None for the index-only kernel);
     returns ``(S, N, D, B)``."""
-    s, n, d = check_bank(who, w, state, seeds, PLANE_DTYPES)
+    s, n, d = check_bank(who, w, state, seeds, PLANE_DTYPES, int_state=True)
     if offsets.ndim != 2 or offsets.shape[0] != s or offsets.shape[1] < 1:
         raise ValueError(f"{who}: offsets must be int32[S, B>=1]; got {list(offsets.shape)}")
     if not offsets.is_cuda and offsets.numel() and (offsets.min() < 0 or offsets.max() >= n):
@@ -102,29 +107,31 @@ def _launch_fused(w, state, offsets, seeds, who):
     s, n, d, b = _check_bank(who, w, state, offsets, seeds)
     check_aligned(who, w)
     offs, sd = _device_offsets(w, offsets), device_seeds(seeds, w.device)
+    words = as_state_words(state)
     anc = torch.empty((s, n), dtype=torch.int32, device=w.device)
-    out = torch.empty_like(state)
+    out = torch.empty_like(words)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     check_launch(_lib().megopolis_fused_rows(
-        w.data_ptr(), state.data_ptr(), offs.data_ptr(), sd.data_ptr(),
+        w.data_ptr(), words.data_ptr(), offs.data_ptr(), sd.data_ptr(),
         anc.data_ptr(), out.data_ptr(), s, n, d, b, PLANE_CODES[w.dtype], stream), who)
-    return anc, out
+    return anc, out.view(state.dtype)
 
 
 def _launch_step(lw, state, offsets, seeds, thr, who):
     s, n, d, b = _check_bank(who, lw, state, offsets, seeds)
     lib = _lib()
     code = PLANE_CODES[lw.dtype]
+    words = as_state_words(state)
     g, anc, out, stats, scratch = step_buffers(
         lambda rows, n_, blocks: lib.megopolis_step_grid(rows, n_, code, blocks),
-        who, lw, state, b)
+        who, lw, words, b)
     offs, sd = _device_offsets(lw, offsets), device_seeds(seeds, lw.device)
     stream = torch.cuda.current_stream(lw.device).cuda_stream
     check_launch(lib.megopolis_step_rows(
-        lw.data_ptr(), state.data_ptr(), offs.data_ptr(), sd.data_ptr(), float(thr),
+        lw.data_ptr(), words.data_ptr(), offs.data_ptr(), sd.data_ptr(), float(thr),
         anc.data_ptr(), out.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
         s, n, d, b, g, code, stream), who)
-    return anc, out, stats
+    return anc, out.view(state.dtype), stats
 
 
 @kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False))
@@ -171,7 +178,8 @@ def megopolis(w: torch.Tensor, offsets: torch.Tensor, seed: torch.Tensor):
 def megopolis_fused_rows(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                          seeds: torch.Tensor):
     """Fused resample + state copy over a bank: ``w [S, N]``, ``state
-    [S, D, N]`` of the same plane dtype, per-row ``offsets int32[S, B]`` and ``seeds [S]``.  Returns
+    [S, D, N]`` of the same plane dtype (or int32 beside float32
+    weights), per-row ``offsets int32[S, B]`` and ``seeds [S]``.  Returns
     ``(ancestors int32[S, N], state' [S, D, N])``; row ``s`` equals the
     single-row call with ``offsets[s]``, ``seeds[s]``."""
     if not w.is_cuda:

@@ -15,6 +15,11 @@ this module re-implements the threefry2x32 PRNG in the partitionable mode
   3 ULP on the CPU against jax 0.9.0 (``tests/test_torch_random.py``
   holds the bound over 5·10^5 draws); the differences come from
   ``log1p``'s rounding;
+* ``gumbel`` and ``categorical`` follow ``jax.random.gumbel`` (mode
+  "low") and ``jax.random.categorical``: the uniforms bit for bit, the two
+  ``log``s torch's, so a draw is JAX's where the logs round alike and an
+  ``argmax`` where no near tie flips (``tests/test_torch_smc.py`` states
+  both shares);
 * ``gamma`` follows jax 0.9.0's ``_gamma_impl`` (Marsaglia-Tsang, one key
   per element and its own rejection loop); it calls ``normal``, ``log``
   and ``pow``, so a lane is bit for bit with ``jax.random.gamma`` only where
@@ -152,6 +157,66 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     k1, k2 = _words(key.to(device), len(shape))
     b1, b2 = threefry2x32(k1, k2, 0, _iota(shape, device))
     return b1 ^ b2
+
+
+#: Most counters one chunk of ``categorical``'s draw makes at a time: its
+#: ``int64`` temporaries stay near 2**25 elements (256 MiB each).
+CATEGORICAL_CHUNK = 1 << 25
+
+
+def _bits_rows(key: torch.Tensor, rows: int, width: int, row0: int, device) -> torch.Tensor:
+    """Rows ``row0 .. row0 + rows`` of ``random_bits(key, (R, width))``,
+    ``int64[rows, width]``: their counters are ``row·width + col``, so any
+    split into row chunks gives the whole draw's bits (the key is not
+    reported: the caller consumes it once)."""
+    if (row0 + rows) * width >= 1 << 32:
+        raise NotImplementedError("random bits over 2**32 or more elements")
+    ctr = torch.arange(row0 * width, (row0 + rows) * width, dtype=torch.int64,
+                       device=device).reshape(rows, width)
+    k1, k2 = key.to(device)[0], key.to(device)[1]
+    b1, b2 = threefry2x32(k1, k2, 0, ctr)
+    return b1 ^ b2
+
+
+def _gumbel_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.gumbel`` (mode "low") from the uniform's bits:
+    ``-log(-log(u))``, ``u`` uniform on ``[tiny, 1)`` as ``uniform`` makes it."""
+    tiny = torch.finfo(torch.float32).tiny
+    floats = _bits_to_unit(bits)
+    lo = torch.tensor(tiny, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(1.0, dtype=torch.float32, device=floats.device)
+    u = torch.maximum(lo, floats * (hi - lo) + lo)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default mode
+    ("low"): ``-log(-log(uniform(key, shape, minval=tiny, maxval=1)))``.  The
+    uniforms are ``jax.random.uniform``'s bit for bit; ``log`` is torch's,
+    not XLA-CPU's, so a draw is JAX's only where the two logs round alike
+    (ROADMAP Queue C item 9; ``tests/test_torch_smc.py`` states the share)."""
+    return _gumbel_of_bits(random_bits(key, shape, device))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` over the rows of
+    ``logits [R, V]`` (float32): ``argmax(gumbel(key, (R, V)) + logits)``, the
+    first index of the largest on ties, ``int64[R]`` on the logits' device.
+    The draw runs in row chunks of at most ``CATEGORICAL_CHUNK`` counters,
+    each chunk's bits those of the whole draw, so the result does not
+    depend on the chunking; the key is consumed once."""
+    if logits.ndim != 2:
+        raise ValueError(f"categorical: logits must be [R, V]; got {list(logits.shape)}")
+    if _KEY_OBSERVERS:
+        report_key("random_bits", key)
+    rows, width = logits.shape
+    step = max(1, CATEGORICAL_CHUNK // width)
+    out = []
+    for r0 in range(0, rows, step):
+        r = min(step, rows - r0)
+        g = _gumbel_of_bits(_bits_rows(key, r, width, r0, logits.device))
+        out.append(torch.argmax(g + logits[r0:r0 + r], dim=-1))
+    return torch.cat(out) if len(out) > 1 else out[0]
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int, device=None) -> torch.Tensor:

@@ -49,6 +49,7 @@ from repro_torch.analysis.consumers import (
     AUDIT_STEPS,
     AUDIT_TEMPS,
     AUTO_FAMILIES,
+    DECODE_STEPS,
     MEGOPOLIS_AUTO_WAIVER,
     audit_consumers,
     auto_reference_rng,
@@ -335,10 +336,19 @@ def test_consumers_one_launch_per_step():
     reps = {r.cell: r for r in audit_consumers(device="cpu")}
     assert set(reps) == {"pf.step", "pf.step_conditional", "pf.run_filter",
                          "pf.run_filter_bank", "ais.run_smc_sampler",
-                         "ais.run_smc_sampler_bank", "ais.adaptive_mala"}
+                         "ais.run_smc_sampler_bank", "ais.adaptive_mala", "smc.decode"}
     for name, r in reps.items():
         assert r.ok, r.violations
-        assert not r.rng_findings and not r.tainted_gathers
+        assert not r.rng_findings
+        if name == "smc.decode":
+            # One step launch a token at DECODE_PARTICLES; the ancestor-indexed
+            # gather of every KV leaf (2 layers x K and V) each step is the one
+            # round trip a consumer's contract allows.
+            assert r.launches == DECODE_STEPS
+            assert r.census == {"megopolis_step_rows_kernel<float>": DECODE_STEPS}
+            assert r.tainted_gathers == DECODE_STEPS * 2 * 2
+            continue
+        assert not r.tainted_gathers
         if name == "ais.adaptive_mala":  # the step, and the CESS bisection's reductions
             assert r.launches == AUDIT_TEMPS * (1 + ADAPTIVE_LAUNCHES)
             assert r.census["logsumexp_rows_kernel"] == AUDIT_TEMPS * ADAPTIVE_LAUNCHES

@@ -1422,3 +1422,78 @@ def test_logsumexp_rows_kernel_keeps_non_finite_rows(card):
     for i in (3, 4):
         assert torch.equal(lk.logsumexp_rows(x[i:i + 1].contiguous()).view(torch.int32),
                            got[i:i + 1].view(torch.int32))
+
+
+# ----------------------------------------- int32 state: SMC decoding's tokens
+VOCAB = 151936
+
+
+def _token_state(card, s, d, n):
+    """Token ids 0 .. VOCAB - 1 in order over ``[S, D, N]`` int32 (each one a
+    float32 subnormal as a bit pattern, 0 a zero), then the int32 extremes."""
+    state = torch.remainder(torch.arange(s * d * n, dtype=torch.int64), VOCAB)
+    state = state.to(torch.int32).reshape(s, d, n)
+    state[0, 0, :2] = torch.tensor([-(2**31), 2**31 - 1], dtype=torch.int32)
+    return state.to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", (6.0, 0.0), ids=("resample", "keep"))
+def test_megopolis_int32_state_comes_back_bit_for_bit(card, spread):
+    """Every Megopolis wrapper that copies state, on int32 tokens beside
+    float32 weights, at both branches of the step: the same ancestors as the
+    plain version and every token id moved unchanged."""
+    s, d, n = 2, 19, 8192  # 311296 ids: 0 .. 151935 twice over
+    w, lw, _, offsets, seeds = _inputs(card, s=s, n=n)
+    lw = lw[:s].clone()
+    lw[:] = lw[0] * spread / 6.0  # spread 0: ESS/N = 1, no row fires
+    state = _token_state(card, s, d, n)
+    mk.reset_launch_counts()
+    anc, out = mk.megopolis_fused_rows(w[:s].contiguous(), state, offsets[:s], seeds[:s])
+    want_anc, want_out = ref.megopolis_fused_rows_ref(w[:s], state, offsets[:s], seeds[:s])
+    assert out.dtype == torch.int32 and torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    anc1, out1 = mk.megopolis_fused(w[0].contiguous(), state[0], offsets[0], seeds[0])
+    assert torch.equal(anc1, want_anc[0]) and torch.equal(out1, want_out[0])
+    got = mk.megopolis_step_rows(lw, state, offsets[:s], seeds[:s], 0.5)
+    want = ref.megopolis_step_rows_ref(lw, state, offsets[:s], seeds[:s], 0.5)
+    assert bool(got[2][:, 2].any()) == (spread > 0)
+    assert got[1].dtype == torch.int32
+    assert torch.equal(got[2][:, 2], want[2][:, 2])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    one = mk.megopolis_step(lw[1].contiguous(), state[1], offsets[1], seeds[1], 0.5)
+    assert torch.equal(one[0], want[0][1]) and torch.equal(one[1], want[1][1])
+    assert torch.equal(got[1], torch.gather(state, 2, got[0].long().unsqueeze(1).expand_as(state)))
+    assert (mk.megopolis_fused_rows.launches, mk.megopolis_fused.launches,
+            mk.megopolis_step_rows.launches, mk.megopolis_step.launches) == (1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_megopolis_int32_state_beside_a_2byte_plane_raises(card, dtype):
+    """No instance copies a 4-byte word beside 2-byte weights: the wrappers
+    raise, naming ROADMAP Queue C item 23, and never cast or launch."""
+    w, lw, _, offsets, seeds = _inputs(card, s=2, n=4096)
+    state = _token_state(card, 2, 3, 4096)
+    mk.reset_launch_counts()
+    with pytest.raises(ValueError, match="Queue C item 23"):
+        mk.megopolis_fused_rows(w[:2].to(dtype), state, offsets[:2], seeds[:2])
+    with pytest.raises(ValueError, match="Queue C item 23"):
+        mk.megopolis_step_rows(lw[:2].to(dtype), state, offsets[:2], seeds[:2], 0.5)
+    assert mk.megopolis_fused_rows.launches == mk.megopolis_step_rows.launches == 0
+
+
+@pytest.mark.cuda
+def test_serve_once_on_the_card_at_smoke_size(card):
+    """``serve_once`` with its defaults' resampler (a registry name: the
+    kernels) at the kernels' tile: one step launch a token, resamples fired,
+    every token in the vocabulary, finite log-weights."""
+    from repro_torch.launch.serve import DECODE_PARTICLES, serve_once
+
+    mk.reset_launch_counts()
+    out = serve_once("qwen3-0.6b", num_particles=DECODE_PARTICLES, prompt_len=4, new_tokens=8,
+                     target_temp=0.5)
+    tokens = out["tokens"]
+    assert tokens.is_cuda and tokens.shape == (DECODE_PARTICLES, 8)
+    assert bool(((tokens >= 0) & (tokens < 512)).all())
+    assert bool(torch.isfinite(out["log_weights"]).all()) and out["num_resamples"] >= 1
+    assert mk.megopolis_step.launches == 8
