@@ -43,10 +43,14 @@ over, and there is no CPU fallback):
    printed); hold ``logsumexp_rows`` (the adaptive AIS schedule's row
    reduction, no TPU counterpart) on E3's ``[S, N]`` and ``[2·S, N]``
    inputs and on a single run's ``[1, N]`` and ``[2, N]`` bit for bit and
-   time it beside ``torch.logsumexp``; hold and time row 5's kernel on SMC
-   decoding's state (``megopolis_step@int32``: the last resampling call of
-   a smoke-config decode at 1024 particles, its token buffer ``int32[32,
-   1024]`` the state; ``decode_step_case``); time each
+   time it beside ``torch.logsumexp``; hold and time every family's step
+   entry on SMC decoding's state (``megopolis_step@int32``,
+   ``metropolis_step@int32``, ``metropolis_c1_step@int32``,
+   ``metropolis_c2_step@int32``, ``rejection_step@int32``,
+   ``prefix_step_rows@int32`` and the other prefix kinds, and
+   ``megopolis_step@bfloat16_int32`` beside bf16 log-weights: the last
+   resampling call of a smoke-config decode at 1024 particles, its token
+   buffer ``int32[32, 1024]`` the state; ``decode_step_cases``); time each
    bank step kernel at capped cooperative grids (blocks per SM); hold
    ``rejection`` where its cap binds (eq. (12) weights at y = 4, N
    particles, ``max_iters`` 64); the prefix-sum wrappers on Path A's
@@ -105,6 +109,20 @@ over, and there is no CPU fallback):
    resampling call of the same decode run once more, untimed (G3); one prompt for every particle at near-greedy
    temperatures, every continuation equal (G4); the smoke config on the
    card against the CPU from the same params (G5);
+6c. in a process of its own (``--phase ssm``), alone after Path G, Path H,
+   SMC decoding of the SSM and MoE archs (``path_h``): Mamba2-1.3B at its
+   published width with 12 of its 48 layers (a printed cut: its decode
+   state at 1024 particles and 48 layers is 103 GB), 1024 particles, 16 +
+   32 tokens (H1: seconds, tokens a second, memory), the same decode
+   profiled and split into the model, the draw, the step and the gather of
+   the SSM and conv leaves, with the gather's bytes (H2); every other
+   family, and Megopolis beside bf16 log-weights, for 4 tokens (a printed cut) on the same
+   model, each step kernel held bit for bit on the int32 token buffer
+   (H3); DBRX-132B at its published width with 2 of its 40 layers (a
+   printed cut), the MoE capacity path at t = 1024 (H4: tokens a second,
+   memory, the MoE layers' ms and the dropped assignments a step); the
+   smoke configs of mamba2, zamba2, dbrx and llama4 on the card against
+   the CPU (H5);
 7. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
@@ -209,12 +227,12 @@ PATH_B_YS = (0.0, 2.0, 4.0)
 #: Time steps of the short runs whose resampler inputs phase 4 captures.
 CAPTURE_STEPS = 5
 #: Bank steps of every family's Path A bank runs: cut from T = 100 to keep
-#: the whole run, Paths D, E, F and G and Method 2 included, near 600 s of
-#: the 1200 s limit.  The cut is printed, and after Path A what it saves:
-#: the 36 bank runs (18 families, two modes) took 1.2-1.3 s a bank step,
-#: so 100 steps would add about 90 s to a whole run of 578 s at 25 steps
-#: before Path G (about 55 s with its process) and 584-675 s with it.
-PATH_A_BANK_STEPS = 25
+#: the whole run, Paths D-H and Method 2 included, under 800 s of the 1200 s
+#: limit.  The cut is printed, and after Path A what it saves: the 36 bank
+#: runs (18 families, two modes) took 1.2-1.3 s a bank step, so 100 steps
+#: would add about 90 s; at 25 steps the whole run took 708-811 s with
+#: Path H (about 100 s with its process), so 10.
+PATH_A_BANK_STEPS = 10
 #: The ESS threshold of the conditional runs (Path A's and phase 4's).
 THR = 0.5
 #: 32-bit operations per (particle, iteration) of each family's sweep,
@@ -461,7 +479,7 @@ def summary(stats) -> dict:
 #: The phases that run in a process of their own, before the paths: each
 #: relies on ``torch.profiler``'s kernel records, which a process that has
 #: run for minutes loses (``kernel_ms``).
-PHASES = ("checks", "kernels", "guard", "ais", "resilience", "decode")
+PHASES = ("checks", "kernels", "guard", "ais", "resilience", "decode", "ssm")
 PHASE_TIMEOUT_S = 600
 
 
@@ -486,7 +504,7 @@ def main(argv=None) -> int:
         ctx = setup(args)
         kernels = {"checks": checks_phase, "kernels": kernels_phase, "guard": guard_phase,
                    "ais": ais_phase, "resilience": resilience_phase,
-                   "decode": decode_phase}[args.phase](ctx)
+                   "decode": decode_phase, "ssm": ssm_phase}[args.phase](ctx)
         print(json.dumps({"phase": args.phase, "path_launches": ctx.path_launches,
                           "results": ctx.results, "kernels": kernels}, default=float))
         return 0
@@ -515,6 +533,7 @@ def main(argv=None) -> int:
             ctx.path_launches[wname] = ctx.path_launches.get(wname, 0) + c
         ctx.results.update(out["results"])
     families, results, dev, n = ctx.families, ctx.results, ctx.dev, ctx.n
+    compare_gathers(results)
     model, fam, obs, k_run, drive = ctx.model, ctx.fam, ctx.obs, ctx.k_run, ctx.drive
     lap = time.perf_counter()
 
@@ -629,8 +648,9 @@ def run_phases(argv) -> dict:
     young, as the profiler needs it.  The guard and resilience phases run
     beside the checks phase, which waits for both to end before it times
     the fixture kernels; the kernels phase, which times every kernel, runs
-    alone after them, the AIS phase (Path E, timed) alone after it and the
-    decode phase (Path G, timed and profiled) alone after that.  Every
+    alone after them, the AIS phase (Path E, timed) alone after it, the
+    decode phase (Path G, timed and profiled) alone after that and the SSM
+    phase (Path H, timed and profiled) last.  Every
     process started here is waited for, or killed at its time limit."""
     with tempfile.TemporaryDirectory() as tmp:
         outs, procs, waiters, done, took = {}, {}, [], [], {}
@@ -665,7 +685,7 @@ def run_phases(argv) -> dict:
             with outs[name] as out:
                 out.seek(0)
                 phases[name] = phase_result(name, procs[name].returncode, out.read(), took[name])
-    for name in ("kernels", "ais", "decode"):
+    for name in ("kernels", "ais", "decode", "ssm"):
         t0 = time.perf_counter()
         proc = subprocess.run(phase_cmd(name, argv), stdout=subprocess.PIPE, text=True,
                               timeout=PHASE_TIMEOUT_S)
@@ -776,7 +796,7 @@ def setup(args) -> types.SimpleNamespace:
     thetas = {"amp": torch.linspace(6.0, 10.0, args.bank),
               "obs_var": torch.linspace(0.5, 2.0, args.bank)}
     truth = obs = bank_truth = bank_obs = None
-    if args.phase not in ("ais", "decode"):
+    if args.phase not in ("ais", "decode", "ssm"):
         truth, obs = simulate(k_sim, model, args.steps, device=dev)
         sims = [simulate(k, fam, args.bank_steps, theta={"amp": thetas["amp"][i],
                                                          "obs_var": thetas["obs_var"][i]},
@@ -900,11 +920,22 @@ def ais_phase(ctx) -> list:
 def decode_phase(ctx) -> list:
     """Phase ``decode``, Path G, young for the profiler and alone on the
     card (its runs are timed): ``path_g``.  Its kernel's int32-state case
-    is phase 4's (``decode_step_case``), so it lists no ``kernels`` entry;
+    is phase 4's (``decode_step_cases``), so it lists no ``kernels`` entry;
     its runs' launches count with the paths', under ``megopolis_step@int32``."""
     t0 = time.perf_counter()
     path_g(ctx)
     print(f"time path G: {time.perf_counter() - t0:.1f} s", flush=True)
+    return []
+
+
+def ssm_phase(ctx) -> list:
+    """Phase ``ssm``, Path H, young for the profiler and alone on the card
+    (its runs are timed): ``path_h``.  Its kernels' int32-state cases are
+    phase 4's (``decode_step_cases``), so it lists no ``kernels`` entry; its
+    runs' launches count with the paths', under ``<wrapper>@int32``."""
+    t0 = time.perf_counter()
+    path_h(ctx)
+    print(f"time path H: {time.perf_counter() - t0:.1f} s", flush=True)
     return []
 
 
@@ -1644,7 +1675,7 @@ def decode_breakdown(prof, labels: list, wall: float, steps: int) -> dict:
     ops = [(name, us) for name, us in events if AIS_SEPARATOR not in name]
     device_ms = sum(us for _, us in ops) / 1e3
     step_kernel = [us for name, us in ops
-                   if kernel_instance(name) == "megopolis_step_rows_kernel<float>"]
+                   if kernel_instance(name) == "megopolis_step_rows_kernel<float, unsigned int>"]
     out = {"steps": steps, "cuda_ops_per_step": len(ops) / steps,
            "copies_and_fills_per_step": sum(1 for name, _ in ops
                                             if name.startswith(("Memcpy", "Memset"))) / steps,
@@ -1851,6 +1882,360 @@ def path_g(ctx):
     if err > DECODE_CPU_ATOL or anc_mismatch or not tokens_same:
         fail(f"G5: the card and the CPU differ: {g5}")
     took("G5")
+
+
+#: Path H, SMC decoding of the SSM and MoE archs: Mamba2-1.3B at its
+#: published width with SSM_LAYERS of its 48 layers (its decode state is 2
+#: MiB a particle-layer: at 1024 particles the 48 layers hold 103 GB, more
+#: than the card's 80, and the ancestor gather holds two copies), and
+#: DBRX-132B at its published width with MOE_LAYERS of its 40 (an MoE
+#: layer's experts are 12.7 GB of float32); the families of H3, each on
+#: H1's model for SSM_H3_TOKENS tokens (``INT32_STEP_SPECS``; 4, not 8, a
+#: cut printed with the whole run's time).
+SSM_ARCH = "mamba2-1.3b"
+SSM_LAYERS = 12
+SSM_H3_TOKENS = 4
+MOE_ARCH = "dbrx-132b"
+MOE_LAYERS = 2
+MOE_TOKENS = 8
+#: H5's archs, their smoke configs on the card against the CPU.
+SSM_SMOKE_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "dbrx-132b", "llama4-maverick-400b-a17b")
+
+
+def leaf_bytes(tree) -> int:
+    """Bytes of every tensor leaf of a cache tree."""
+    from repro_torch.models.transformer import _named_leaves
+
+    return sum(leaf.numel() * leaf.element_size() for _, leaf in _named_leaves(tree))
+
+
+def cut_config(arch, layers: int):
+    """``arch``'s published config in float32 with its depth cut to
+    ``layers`` (printed by the caller)."""
+    import dataclasses
+
+    return dataclasses.replace(arch.model, num_layers=layers, dtype=torch.float32, remat=False)
+
+
+def decode_run(drive, name, cfg, inputs, spec, tokens, expected):
+    """Prefill the prompts of ``inputs`` (``decode_inputs``' params, prompts
+    and key for ``cfg``), then ``smc_decode`` of ``tokens`` tokens with
+    ``spec`` through ``drive`` (its counts under ``name``'s suffix), nothing
+    wrapped around the decode.  Returns ``(tokens, log_w, stats, prefill_s,
+    decode_s)``; fails unless every token is in the vocabulary and every
+    log-weight finite."""
+    from repro_torch.models import prefill
+    from repro_torch.smc import SMCDecodeConfig, smc_decode
+
+    params, prompts, k_decode = inputs
+    n = prompts.shape[0]
+    smc_cfg = SMCDecodeConfig(num_particles=n, max_new_tokens=tokens, resampler=spec,
+                              target_temp=DECODE_TARGET_TEMP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # Handed over, not held here: the decode's first gather frees them.
+    caches = [prefill(params, cfg, prompts, DECODE_PROMPT + tokens)[1]]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok, log_w, stats = drive(name, lambda: smc_decode(
+        params, cfg, smc_cfg, caches.pop(), prompts[:, -1], DECODE_PROMPT, k_decode), expected)
+    decode_s = time.perf_counter() - t0
+    if tok.shape != (n, tokens) or not bool(((tok >= 0) & (tok < cfg.vocab_size)).all()):
+        fail(f"{name}: tokens {list(tok.shape)} out of [0, {cfg.vocab_size})")
+    if not bool(torch.isfinite(log_w).all()):
+        fail(f"{name}: a log-weight is not finite")
+    return tok, log_w, stats, prefill_s, decode_s
+
+
+def moe_dropped(cfg, eids: torch.Tensor, t: int) -> torch.Tensor:
+    """The assignments an MoE call's capacity drops, from its router's
+    expert ids ``(T, k)`` (a device scalar): ``Σ_e max(0, count_e - C)``."""
+    from repro_torch.models import moe
+
+    counts = torch.bincount(eids.reshape(-1), minlength=cfg.num_experts)
+    return torch.clamp_min(counts - moe.capacity(t, cfg), 0).sum()
+
+
+def path_h(ctx):
+    """Path H, SMC decoding of the SSM and MoE archs on the card through the
+    user's entry points (``init_params``, ``prefill``, ``smc_decode``; the
+    depth cuts are made here with ``dataclasses.replace``, printed), each
+    run with every kernel's launch count set to 0 just before and read just
+    after (``drive``, the launches under ``<wrapper>@int32``):
+
+    * H1, Mamba2-1.3B at its published width (d_model 2048, d_inner 4096,
+      64 SSM heads, state 128, vocab 50304) with SSM_LAYERS of 48 layers,
+      float32, N = DECODE_N, DECODE_PROMPT + DECODE_TOKENS tokens,
+      Megopolis at B = 16: prefill and decode seconds, tokens a second,
+      resamples, peak memory; one step launch a token;
+    * H2, the same decode once more, profiled, its parts split by separator
+      kernels (``decode_parts``, ``decode_breakdown``): the model, the
+      categorical draw, the gather of the SSM and conv leaves, the step;
+      the gather's bytes a step (each leaf read and written once) and,
+      from the configs, the context at which Qwen3-0.6B's KV gather (Path
+      G2) moves as many bytes;
+    * H3, every other family of ``INT32_STEP_SPECS`` (and Megopolis beside
+      bf16 log-weights) on H1's model for SSM_H3_TOKENS tokens, untimed:
+      tokens in the vocabulary, log-weights finite, step launches a token,
+      and its step kernel held bit for bit against its plain version on
+      its last resampling call (``int32_step_case``);
+    * H4, DBRX-132B at its published width (d_model 6144, 16 experts top-4,
+      d_ff 10752, vocab 100352) with MOE_LAYERS of 40 layers, N =
+      DECODE_N, DECODE_PROMPT + MOE_TOKENS tokens: every MoE call at t =
+      1024 > 256 tokens takes the capacity path; tokens a second and peak
+      memory of a decode with nothing wrapped around it, then, from a
+      second, untimed decode of the same inputs, the MoE layers' device ms
+      a step (CUDA events around each call) and the assignments the
+      capacity drops a step (``moe_dropped``);
+    * H5, the smoke configs of SSM_SMOKE_ARCHS on the card against the
+      port on the CPU from the same params: prefill logits within
+      DECODE_CPU_ATOL and a smoke decode's tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import _map_tree
+    from repro_torch.core.spec import MegopolisSpec
+    from repro_torch.kernels.megopolis import megopolis as mk
+    from repro_torch.kernels.metropolis import c1c2 as ck
+    from repro_torch.kernels.metropolis import metropolis as tk
+    from repro_torch.kernels.prefix_sum import step as stk
+    from repro_torch.kernels.rejection import rejection as rk
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import prefill
+    from repro_torch.models import transformer as tmod
+    from repro_torch.smc import SMCDecodeConfig, smc_decode
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("path H: TF32 products are on; the JAX reference computes float32 products")
+    dev, drive, results, seed = ctx.dev, ctx.drive, ctx.results, ctx.args.seed
+    lap = time.perf_counter()
+
+    def took(what):
+        nonlocal lap
+        print(f"time path H {what}: {time.perf_counter() - lap:.1f} s", flush=True)
+        lap = time.perf_counter()
+
+    spec = MegopolisSpec(num_iters=DECODE_ITERS)
+    arch = get_arch(SSM_ARCH)
+    cfg = cut_config(arch, SSM_LAYERS)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    print(f"cut path H3: each family decodes {SSM_H3_TOKENS} tokens, not 8 (the whole run's "
+          "time: 708-811 s at 8)", flush=True)
+    print(f"cut path H1-H3: {SSM_ARCH} runs {SSM_LAYERS} of its {arch.model.num_layers} layers "
+          f"(its state is {cfg.ssm_state * d_inner * 4 / 2**20:.0f} MiB a "
+          f"particle-layer: {arch.model.num_layers} layers at N = {DECODE_N} hold "
+          f"{arch.model.num_layers * DECODE_N * d_inner * cfg.ssm_state * 4 / 1e9:.1f} GB, "
+          "and the gather holds two copies)", flush=True)
+    print(f"path H: {SSM_ARCH} ({arch.source}) at full width: d_model {cfg.d_model}, d_inner "
+          f"{d_inner}, {d_inner // cfg.ssm_head_dim} SSM heads of {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.num_params()} float32 parameters at "
+          f"{SSM_LAYERS} layers ({arch.model.num_params()} at {arch.model.num_layers}); "
+          f"N = {DECODE_N}, prompt {DECODE_PROMPT}, {DECODE_TOKENS} new tokens, {spec}",
+          flush=True)
+
+    # -- H1: the decode, timed with nothing wrapped around it --------------------
+    torch.cuda.reset_peak_memory_stats()
+    inputs = decode_inputs(cfg, DECODE_N, DECODE_PROMPT, seed, dev)
+    tok1, _, stats1, prefill_s, decode_s = decode_run(
+        drive, "ssm/h1_mamba2@int32", cfg, inputs, spec, DECODE_TOKENS, [mk.megopolis_step])
+    launches = results["ssm/h1_mamba2@int32"]["launches"]
+    h1 = {"prefill_s": prefill_s, "decode_s": decode_s,
+          "tok_per_s": DECODE_N * DECODE_TOKENS / decode_s,
+          "num_resamples": int(stats1["num_resamples"]),
+          "final_ess": float(stats1["ess_history"][-1]), "launches": launches,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "layers": SSM_LAYERS}
+    results["ssm/h1_mamba2@int32"].update(h1)
+    print(f"path H1: {json.dumps(h1, default=float)}", flush=True)
+    if launches != {"megopolis_step": DECODE_TOKENS}:
+        fail(f"H1: expected one megopolis_step launch a token, {DECODE_TOKENS}; got {launches}")
+    if h1["num_resamples"] < 1:
+        fail("H1: the resample branch never fired")
+    took("H1")
+
+    # -- H2: the same decode, profiled, split into its parts -----------------------
+    params, prompts, k_decode = inputs
+    smc_cfg = SMCDecodeConfig(num_particles=DECODE_N, max_new_tokens=DECODE_TOKENS,
+                              resampler=spec, target_temp=DECODE_TARGET_TEMP)
+    caches = [prefill(params, cfg, prompts, DECODE_PROMPT + DECODE_TOKENS)[1]]
+    gather_bytes = 2 * leaf_bytes(caches)  # every leaf read and written once a step
+    labels, box = [], {}
+    with decode_parts(labels):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            box["out"] = drive("ssm/h2_profiled@int32", lambda: smc_decode(
+                params, cfg, smc_cfg, caches.pop(), prompts[:, -1], DECODE_PROMPT, k_decode),
+                [mk.megopolis_step])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    h2 = decode_breakdown(prof, labels, wall, DECODE_TOKENS)
+    del prof
+    # Qwen3-0.6B's KV leaves a particle-token (K and V, every layer) against
+    # this model's SSM and conv leaves a particle, from the configs.
+    qwen = get_arch(DECODE_ARCH).model
+    kv_per_token = 2 * qwen.num_layers * qwen.num_kv_heads * qwen.head_dim * 4
+    ssm_per_particle = leaf_bytes(tmod.init_cache(cfg, 1, 1, device="meta"))
+    full_per_particle = leaf_bytes(tmod.init_cache(
+        dataclasses.replace(arch.model, dtype=torch.float32), 1, 1, device="meta"))
+    h2.update(gather_bytes_per_step=gather_bytes, tokens_equal_h1=bool(
+        torch.equal(box["out"][0], tok1)),
+        ssm_bytes_per_particle=ssm_per_particle,
+        ssm_bytes_per_particle_all_layers=full_per_particle,
+        qwen3_kv_bytes_per_particle_token=kv_per_token,
+        context_where_qwen3_kv_gather_moves_as_much=full_per_particle / kv_per_token,
+        qwen3_kv_gather_bytes_per_step_at_g=2 * kv_per_token * DECODE_N * (
+            DECODE_PROMPT + DECODE_TOKENS))
+    gather_ms = h2.get("part_device_ms_per_step", {}).get("gather")
+    if gather_ms:
+        h2["gather_tb_per_s"] = gather_bytes / (gather_ms * 1e9)
+    results["ssm/h2_profiled@int32"].update(h2)
+    print(f"path H2: {json.dumps(h2, default=float)}", flush=True)
+    if h2["port_launches_per_step"] > 1:
+        fail(f"H2: {h2['port_launches_per_step']} port kernel launches a step, not one")
+    if not h2["tokens_equal_h1"]:
+        fail("H2: the profiled decode's tokens differ from H1's")
+    took("H2")
+
+    # -- H3: every other family's step kernel on the int32 token buffer --------------
+    expected = {"megopolis": mk.megopolis_step, "metropolis": tk.metropolis_step,
+                "metropolis_c1": ck.metropolis_c1_step, "metropolis_c2": ck.metropolis_c2_step,
+                "rejection": rk.rejection_step}
+    for family, make in INT32_STEP_SPECS.items():
+        if family == "megopolis":
+            continue  # H1's
+        base, _, plane = family.partition("@")
+        name = f"ssm/h3_{base}@{plane or 'int32'}"
+        box = {}
+
+        def run(family=family, make=make, name=name, box=box):
+            box["out"] = decode_run(drive, name, cfg, inputs, make(), SSM_H3_TOKENS,
+                                    [expected.get(family.partition("@")[0],
+                                                  stk.prefix_step_rows)])
+        case = int32_step_case(family, run)
+        held = check_kernel(case, timed=False)
+        counts = results[name]["launches"]
+        h3 = {"tokens_in_vocab": True, "log_weights_finite": True,
+              "step_launches_per_token": sum(counts.values()) / SSM_H3_TOKENS,
+              "num_resamples": int(box["out"][2]["num_resamples"]),
+              "held_bit_for_bit": held["ancestor_mismatches"] == 0,
+              "rows_resampled_in_held_call": held.get("rows_resampled"),
+              "state": f"{case[2][1].dtype}{list(case[2][1].shape)}",
+              "log_weights": str(case[2][0].dtype)}
+        results[name].update(h3)
+        print(f"path H3 {family}: {json.dumps(h3)}", flush=True)
+        if h3["step_launches_per_token"] != 1:
+            fail(f"H3 {family}: {counts} step launches for {SSM_H3_TOKENS} tokens")
+    del inputs, params, prompts
+    torch.cuda.empty_cache()
+    took("H3")
+
+    # -- H4: DBRX at full width, the MoE capacity path at t = 1024 ------------------
+    marc = get_arch(MOE_ARCH)
+    mcfg = cut_config(marc, MOE_LAYERS)
+    cap = moe_mod.capacity(DECODE_N, mcfg)
+    print(f"cut path H4: {MOE_ARCH} runs {MOE_LAYERS} of its {marc.model.num_layers} layers "
+          f"(an MoE layer's experts are {3 * mcfg.num_experts * mcfg.d_model * mcfg.d_ff * 4 / 1e9:.1f}"
+          f" GB of float32)", flush=True)
+    print(f"path H4: {MOE_ARCH} ({marc.source}) at full width: d_model {mcfg.d_model}, "
+          f"{mcfg.num_experts} experts top-{mcfg.top_k}, d_ff {mcfg.d_ff}, vocab "
+          f"{mcfg.vocab_size}, {mcfg.num_params()} float32 parameters at {MOE_LAYERS} layers; "
+          f"N = {DECODE_N}, prompt {DECODE_PROMPT}, {MOE_TOKENS} new tokens; each decode MoE "
+          f"call routes t = {DECODE_N} tokens, capacity {cap} a expert", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inputs = decode_inputs(mcfg, DECODE_N, DECODE_PROMPT, seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok4, _, stats4, prefill_s4, decode_s4 = decode_run(
+        drive, "ssm/h4_dbrx@int32", mcfg, inputs, spec, MOE_TOKENS, [mk.megopolis_step])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The split: the same decode again, untimed, with CUDA events around each
+    # MoE call and its dropped assignments.
+    moe_calls, real_moe = [], tmod.moe
+
+    def timed_moe(p, cfg_, x, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_moe(p, cfg_, x, **kw)
+        end.record()
+        t = x.shape[0] * x.shape[1]
+        _, eids = moe_mod.route(p, cfg_, x.reshape(t, -1))
+        moe_calls.append((t, start, end, moe_dropped(cfg_, eids, t)))
+        return out
+
+    tmod.moe = timed_moe
+    try:
+        tok4b = decode_run(drive, "ssm/h4_moe_split@int32", mcfg, inputs, spec, MOE_TOKENS,
+                           [mk.megopolis_step])[0]
+    finally:
+        tmod.moe = real_moe
+    torch.cuda.synchronize()
+    decode_calls = [(s_, e_, d_) for t, s_, e_, d_ in moe_calls if t == DECODE_N]
+    moe_ms = sum(s_.elapsed_time(e_) for s_, e_, _ in decode_calls)
+    dropped = sum(int(d_) for _, _, d_ in decode_calls)
+    h4 = {"init_s": init_s, "prefill_s": prefill_s4, "decode_s": decode_s4,
+          "tok_per_s": DECODE_N * MOE_TOKENS / decode_s4,
+          "num_resamples": int(stats4["num_resamples"]),
+          "max_memory_allocated_gb": peak_gb,
+          "split_run_tokens_equal": bool(torch.equal(tok4, tok4b)),
+          "moe_calls_per_step": len(decode_calls) / MOE_TOKENS,
+          "moe_ms_per_step": moe_ms / MOE_TOKENS,
+          "capacity": cap, "assignments_per_step": MOE_LAYERS * DECODE_N * mcfg.top_k,
+          "dropped_per_step": dropped / MOE_TOKENS, "layers": MOE_LAYERS,
+          "launches": results["ssm/h4_dbrx@int32"]["launches"]}
+    results["ssm/h4_dbrx@int32"].update(h4)
+    print(f"path H4: {json.dumps(h4, default=float)}", flush=True)
+    if len(decode_calls) != MOE_LAYERS * MOE_TOKENS:
+        fail(f"H4: {len(decode_calls)} decode MoE calls, not {MOE_LAYERS * MOE_TOKENS}")
+    del inputs, moe_calls, decode_calls
+    torch.cuda.empty_cache()
+    took("H4")
+
+    # -- H5: the smoke configs, card against CPU, from the same params --------------
+    for arch_name in SSM_SMOKE_ARCHS:
+        scfg = dataclasses.replace(get_arch(arch_name).smoke, dtype=torch.float32, remat=False)
+        cpu_params, cpu_prompts, k5 = decode_inputs(scfg, DECODE_N, DECODE_PROMPT, seed, "cpu")
+        card_params = _map_tree(lambda leaf: leaf.to(dev), cpu_params)
+        max_seq = DECODE_PROMPT + SSM_H3_TOKENS
+        logits_cpu, caches_cpu = prefill(cpu_params, scfg, cpu_prompts, max_seq)
+        logits_card, caches_card = prefill(card_params, scfg, cpu_prompts.to(dev), max_seq)
+        err = float((logits_card.cpu() - logits_cpu).abs().max())
+        smc5 = SMCDecodeConfig(num_particles=DECODE_N, max_new_tokens=SSM_H3_TOKENS,
+                               resampler=spec, target_temp=DECODE_TARGET_TEMP)
+        card_tok = drive(f"ssm/h5_{scfg.name}@int32", lambda: smc_decode(
+            card_params, scfg, smc5, caches_card, cpu_prompts[:, -1].to(dev), DECODE_PROMPT,
+            k5), [mk.megopolis_step])[0]
+        cpu_tok = smc_decode(cpu_params, scfg, smc5, caches_cpu, cpu_prompts[:, -1],
+                             DECODE_PROMPT, k5)[0]
+        h5 = {"prefill_logits_max_abs_err": err, "atol": DECODE_CPU_ATOL,
+              "decode_tokens_equal": bool(torch.equal(card_tok.cpu(), cpu_tok)),
+              "decode_tokens_equal_share": float((card_tok.cpu() == cpu_tok).float().mean())}
+        results[f"ssm/h5_{scfg.name}@int32"].update(h5)
+        print(f"path H5 {arch_name}: {json.dumps(h5)}", flush=True)
+        if err > DECODE_CPU_ATOL or not h5["decode_tokens_equal"]:
+            fail(f"H5 {arch_name}: the card and the CPU differ: {h5}")
+    took("H5")
+
+
+def compare_gathers(results):
+    """One line: the ancestor gather a step of Path G2 (Qwen3-0.6B's KV
+    leaves at a context of DECODE_PROMPT + DECODE_TOKENS) beside Path H2's
+    (Mamba2's SSM and conv leaves at SSM_LAYERS layers), bytes and device
+    ms, and the context at which a whole Qwen3-0.6B's KV gather moves as
+    many bytes as a whole Mamba2-1.3B's SSM gather."""
+    g2, h2 = results.get("decode/g2_profiled@int32", {}), results.get("ssm/h2_profiled@int32", {})
+    if not (g2 and h2):
+        return
+    line = {"qwen3_kv_gather_bytes": h2["qwen3_kv_gather_bytes_per_step_at_g"],
+            "qwen3_kv_gather_ms": g2.get("part_device_ms_per_step", {}).get("gather"),
+            "mamba2_ssm_gather_bytes": h2["gather_bytes_per_step"],
+            "mamba2_ssm_gather_ms": h2.get("part_device_ms_per_step", {}).get("gather"),
+            "mamba2_layers": SSM_LAYERS,
+            "context_where_equal_bytes_whole_models":
+                h2["context_where_qwen3_kv_gather_moves_as_much"]}
+    print(f"compare gather: {json.dumps(line)}", flush=True)
 
 
 def profiled_run(fn):
@@ -2448,7 +2833,7 @@ def kernel_cases(args, dev, families, model, fam, obs, bank_obs, thetas, k_run,
     cases = []
     if keep("megopolis"):
         cases += megopolis_cases(mk, mops, mref, fig6, single, bank)
-        cases.append(decode_step_case(mk, mops, mref, dev, args.seed))
+    cases += decode_step_cases(dev, args.seed, keep)
     if keep("metropolis"):
         cases += metropolis_cases(tk, tops, tref, fig6, single, bank)
     # Metropolis-C1/C2, rows 13-18 (and their bank forms on the same kernels).
@@ -2583,33 +2968,117 @@ def megopolis_cases(mk, mops, mref, fig6, single, bank) -> list:
     return cases
 
 
-def decode_step_case(mk, mops, mref, dev, seed) -> tuple:
-    """Row 5 on SMC decoding's state (``megopolis_step@int32``): the last
-    resampling call of a decode of DECODE_TOKENS tokens at DECODE_N
-    particles on the qwen3 smoke config (Path G's spec, temperature and
-    threshold), whose state is the token buffer ``int32[T, N]``; Path G
-    drives the same kernel at full width."""
+#: The step entry of every family on SMC decoding's int32 token buffer
+#: (ROADMAP Queue C item 23): a case name's suffix (counts under
+#: ``<wrapper>@<suffix>``) -> the spec the decode runs.
+INT32_STEP_SPECS = {
+    "megopolis": lambda: _spec("MegopolisSpec", num_iters=DECODE_ITERS),
+    "megopolis@bfloat16_int32": lambda: _spec("MegopolisSpec", num_iters=DECODE_ITERS,
+                                              plane_dtype="bfloat16"),
+    "metropolis": lambda: _spec("MetropolisSpec", num_iters=DECODE_ITERS),
+    "metropolis_c1": lambda: _spec("MetropolisC1Spec", num_iters=DECODE_ITERS),
+    "metropolis_c2": lambda: _spec("MetropolisC2Spec", num_iters=DECODE_ITERS),
+    "rejection": lambda: _spec("RejectionSpec", max_iters=REJECTION_MAX_ITERS),
+    **{kind: (lambda k: lambda: _spec("PrefixSumSpec", kind=k))(kind)
+       for kind in ("multinomial", "systematic", "improved_systematic", "stratified",
+                    "residual")},
+}
+
+
+def _spec(cls: str, **kw):
+    from repro_torch.core import spec as tspec
+
+    return getattr(tspec, cls)(**kw)
+
+
+def int32_step_case(family: str, run) -> tuple:
+    """The step entry of ``family`` (a key of ``INT32_STEP_SPECS``) held on
+    its last resampling call of ``run()``, a decode whose state is the
+    token buffer ``int32[T, N]``: a ``kernel_cases`` tuple named
+    ``<wrapper>@int32`` (``<wrapper>@bfloat16_int32`` beside bf16
+    log-weights; a prefix kind other than multinomial as
+    ``prefix_step_rows/<kind>@int32``), its plain version on the same
+    arguments."""
+    from repro_torch.kernels.megopolis import megopolis as mk
+    from repro_torch.kernels.megopolis import ops as mops
+    from repro_torch.kernels.megopolis import ref as mref
+    from repro_torch.kernels.metropolis import c1c2 as ck
+    from repro_torch.kernels.metropolis import metropolis as tk
+    from repro_torch.kernels.metropolis import ops as tops
+    from repro_torch.kernels.metropolis import ref as tref
+    from repro_torch.kernels.prefix_sum import ops as pops
+    from repro_torch.kernels.prefix_sum import ref as pref
+    from repro_torch.kernels.prefix_sum import step as stk
+    from repro_torch.kernels.rejection import ops as rops
+    from repro_torch.kernels.rejection import ref as rref
+    from repro_torch.kernels.rejection import rejection as rk
+
+    base, _, plane = family.partition("@")
+    sfx = "@" + (plane or "int32")
+    if base == "megopolis":
+        lw, st, o, sd, thr = args = capture(mops, "megopolis_step", run)
+        return (f"megopolis_step{sfx}", mk.megopolis_step, args,
+                lambda: mref.megopolis_step_rows_ref(lw[None], st[None], o[None],
+                                                     sd.reshape(1), thr),
+                "megopolis", "step", 1, o.shape[-1])
+    if base == "metropolis":
+        lw, st, sd, it, thr = args = capture(tops, "metropolis_step", run)
+        return (f"metropolis_step{sfx}", tk.metropolis_step, args,
+                lambda: tref.metropolis_step_rows_ref(lw[None], st[None], sd.reshape(1), it,
+                                                      thr),
+                "metropolis", "step", 1, it)
+    if base.startswith("metropolis_c"):
+        variant = int(base[-1])
+        lw, st, parts, sd, it, thr = args = capture(tops, f"{base}_step", run)
+        return (f"{base}_step{sfx}", getattr(ck, f"{base}_step"), args,
+                lambda: tref.metropolis_c1c2_step_rows_ref(
+                    lw[None], st[None], parts[None], sd.reshape(1), it, thr, variant),
+                base, "step", 1, it)
+    if base == "rejection":
+        lw, st, sd, it, thr = args = capture(rops, "rejection_step", run)
+        return (f"rejection_step{sfx}", rk.rejection_step, args,
+                lambda: rref.rejection_step_rows_ref(lw[None], st[None], sd.reshape(1), it,
+                                                     thr),
+                "rejection", "step", 1, it)
+    args = capture(pops, "prefix_step_rows", run)
+    name = "prefix_step_rows" + ("" if base == "multinomial" else f"/{base}")
+    return (name + sfx, stk.prefix_step_rows, args, lambda: pref.prefix_step_rows_ref(*args),
+            "prefix", "step", args[0].shape[0], 1)
+
+
+def int32_source(family: str) -> str:
+    """The ``SOURCES`` key of an ``INT32_STEP_SPECS`` family."""
+    base = family.partition("@")[0]
+    return base if base in SOURCES else "prefix"
+
+
+def decode_step_cases(dev, seed, keep) -> list:
+    """Every family's step entry on SMC decoding's state (``int32_step_case``,
+    ``INT32_STEP_SPECS``): the last resampling call of a decode of
+    DECODE_TOKENS tokens at DECODE_N particles on the qwen3 smoke config
+    (Path G's temperature and threshold), whose state is the token buffer
+    ``int32[T, N]``; Paths G and H drive the same kernels at full width.
+    Only the families whose source ``keep`` takes."""
     import dataclasses
 
     from repro_torch.configs import get_arch
-    from repro_torch.core.spec import MegopolisSpec
     from repro_torch.models import prefill
     from repro_torch.smc import SMCDecodeConfig, smc_decode
 
     cfg = dataclasses.replace(get_arch(DECODE_ARCH).smoke, dtype=torch.float32, remat=False)
     params, prompts, k_decode = decode_inputs(cfg, DECODE_N, DECODE_PROMPT, seed, dev)
-    smc_cfg = SMCDecodeConfig(num_particles=DECODE_N, max_new_tokens=DECODE_TOKENS,
-                              resampler=MegopolisSpec(num_iters=DECODE_ITERS),
-                              target_temp=DECODE_TARGET_TEMP)
 
-    def run():
-        _, caches = prefill(params, cfg, prompts, DECODE_PROMPT + DECODE_TOKENS)
-        smc_decode(params, cfg, smc_cfg, caches, prompts[:, -1], DECODE_PROMPT, k_decode)
+    def decode(spec):
+        smc_cfg = SMCDecodeConfig(num_particles=DECODE_N, max_new_tokens=DECODE_TOKENS,
+                                  resampler=spec, target_temp=DECODE_TARGET_TEMP)
 
-    lw, st, o, s, thr = capture(mops, "megopolis_step", run)
-    return ("megopolis_step@int32", mk.megopolis_step, (lw, st, o, s, thr),
-            lambda: mref.megopolis_step_rows_ref(lw[None], st[None], o[None], s.reshape(1), thr),
-            "megopolis", "step", 1, o.shape[-1])
+        def run():
+            _, caches = prefill(params, cfg, prompts, DECODE_PROMPT + DECODE_TOKENS)
+            smc_decode(params, cfg, smc_cfg, caches, prompts[:, -1], DECODE_PROMPT, k_decode)
+        return run
+
+    return [int32_step_case(family, decode(make()))
+            for family, make in INT32_STEP_SPECS.items() if keep(int32_source(family))]
 
 
 def metropolis_cases(tk, tops, tref, fig6, single, bank) -> list:
@@ -2890,21 +3359,23 @@ def bits(x: torch.Tensor) -> torch.Tensor:
 
 def prefix_work(kind, kargs, rows, n, fired) -> tuple:
     """Bytes a prefix-sum wrapper must move (each input read once, each
-    output written once; the plane words at their width, the CDFs, draws
-    and ancestors at 4 bytes) and its 32-bit operations, on its captured
-    inputs, of which ``fired`` rows resample (a step's others keep their
-    particles): ``(bytes, operations)``."""
+    output written once; the plane words at their width, the state at its
+    own D and word, the CDFs, draws and ancestors at 4 bytes) and its
+    32-bit operations, on its captured inputs, of which ``fired`` rows
+    resample (a step's others keep their particles): ``(bytes,
+    operations)``."""
     steps = max(1, math.ceil(math.log2(n + 1)))  # every lane bisects this or one less
     elems = rows * n
     if kind == "scan":  # the input words in, the CDF out
         return (kargs[0].element_size() + 4) * elems, SCAN_OPS * elems
     if kind == "search":  # CDF and draws in, ancestors out
         return 12 * elems, BISECT_OPS * steps * elems
-    word = kargs[PREFIX_NARROWED[kind][-1]].element_size()  # the state's
-    if kind == "gather":  # plus the state (D = 1) in and out
-        return (12 + 2 * word) * elems, BISECT_OPS * steps * elems
+    state = kargs[PREFIX_NARROWED[kind][-1]]
+    state_bytes = 2 * state.numel() * state.element_size()  # in and out
+    if kind == "gather":  # plus the state in and out
+        return 12 * elems + state_bytes, BISECT_OPS * steps * elems
     if kind == "residual":  # two CDFs, the draws, the state; ancestors and state out
-        return (16 + 2 * word) * elems, BISECT_OPS * steps * elems
+        return 16 * elems + state_bytes, BISECT_OPS * steps * elems
     # The step: every row's log-weights and state in, ancestors and state
     # out, and its prelude; a row that resamples also reads its draw bases
     # and runs the scans, the draws and the bisection.
@@ -2912,7 +3383,7 @@ def prefix_work(kind, kargs, rows, n, fired) -> tuple:
     drawn = fired * n
     base = 0 if kargs[2] is None else 4 * drawn
     scans = SCAN_OPS * (3 if residual else 1) + (RESIDUAL_SPLIT_OPS if residual else 0)
-    return ((4 + 3 * word) * elems + base,
+    return ((4 + kargs[0].element_size()) * elems + state_bytes + base,
             PRELUDE_OPS * elems + (scans + DRAW_OPS + BISECT_OPS * steps) * drawn)
 
 
@@ -3069,9 +3540,9 @@ def check_kernel(case, timed: bool = True) -> dict:
         # rejection's sup w pass (plane words) before a rows launch.
         table = kargs[-4 if kind == "step" else -3] if family.startswith("metropolis_c") else None
         word = kargs[0].element_size()
-        n_bytes = rows * n * (word + 4 + (0 if kind == "index" else 2 * word))
-        if family == "megopolis" and kind != "index":  # the state's own D and word
-            n_bytes += 2 * kargs[1].numel() * kargs[1].element_size() - 2 * word * rows * n
+        n_bytes = rows * n * (word + 4)
+        if kind != "index":  # the state in and out, at its own D and word
+            n_bytes += 2 * kargs[1].numel() * kargs[1].element_size()
         n_bytes += 0 if table is None else 4 * table.numel()
         n_bytes += word * rows * n if family == "rejection" and kind != "step" else 0
         n_ops = work * SWEEP_OPS[family] + rows * n * (PRELUDE_OPS if kind == "step" else 0)
@@ -3107,7 +3578,7 @@ def check_kernel(case, timed: bool = True) -> dict:
     if rounds is not None and kind == "step":
         # Not measured: the new schedule's rounds, modelled, on a line of
         # their own.
-        warps = step_warps(rows, n, kargs[0].dtype)
+        warps = step_warps(rows, n, kargs[0], kargs[1])
         print(f"model {name}: {json.dumps(refill_rounds(rounds, warps))}", flush=True)
     return entry
 
@@ -3142,14 +3613,16 @@ def divergence(rounds: torch.Tensor, max_iters: int) -> dict:
             "cap_share": float((ran == max_iters).float().mean())}
 
 
-def step_warps(rows: int, n: int, dtype) -> int:
+def step_warps(rows: int, n: int, lw: torch.Tensor, state: torch.Tensor) -> int:
     """Warps of the rejection step's cooperative grid for a bank of rows x
-    n of plane dtype ``dtype`` (``rejection_step_grid``)."""
-    from repro_torch.kernels.common import PLANE_CODES
+    n of the plane dtype of ``lw`` and the state word of ``state``
+    (``rejection_step_grid``)."""
+    from repro_torch.kernels.common import PLANE_CODES, state_bytes
     from repro_torch.kernels.rejection import rejection as rk
 
     blocks = ctypes.c_int(0)
-    if rk._lib().rejection_step_grid(rows, n, PLANE_CODES[dtype], ctypes.byref(blocks)) != 0:
+    if rk._lib().rejection_step_grid(rows, n, state_bytes(state), PLANE_CODES[lw.dtype],
+                                     ctypes.byref(blocks)) != 0:
         fail("rejection_step_grid failed")
     return blocks.value * (256 // WARP)
 
@@ -3241,12 +3714,13 @@ def grid_study(case) -> dict:
     else:
         module = {"megopolis": mk, "metropolis": tk, "rejection": rk}[family]
         lib, attr, lead = module._lib(), f"{family}_step_grid", ()
-    # Every step grid takes the plane word's code after N.
-    word = PLANE_CODES[kargs[0].dtype]
+    # Every step grid takes the state's bytes and the plane word's code
+    # after N.
+    word, sb = PLANE_CODES[kargs[0].dtype], kargs[1].element_size()
     real = getattr(lib, attr)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(kargs[0].device):
-        if real(*lead, rows, kargs[0].shape[-1], word, ctypes.byref(blocks)) != 0:
+        if real(*lead, rows, kargs[0].shape[-1], sb, word, ctypes.byref(blocks)) != 0:
             fail(f"{name}: {attr} failed")
     sms = torch.cuda.get_device_properties(kargs[0].device).multi_processor_count
     out = {"blocks": blocks.value, "sms": sms, "ms_by_blocks_per_sm": {}}

@@ -105,101 +105,133 @@ _MEGO, _METRO, _C1C2 = ("megopolis/csrc/megopolis.cu", "metropolis/csrc/metropol
 _REJ, _PREFIX, _FIX = ("rejection/csrc/rejection.cu", "prefix_sum/csrc/prefix_sum.cu",
                        "fixtures/csrc/fixtures.cu")
 _REDUCE = "reduce/csrc/reduce.cu"
+#: The state words as the profiler prints them (``uint32_t``, ``uint16_t``).
+_U4, _U2 = "unsigned int", "unsigned short"
+_BF, _H = "__nv_bfloat16", "__half"
 #: Every kernel instance of the port, by the name the profiler gives it.
 KERNELS = {
     # The Megopolis kernels' static shared memory is their ring of
     # comparison segments (4 KiB and 16 bytes each at float32 words, 2 KiB
     # and 16 bytes at 2-byte words; three for the bank kernel, four for the
     # step) and the per-chunk table; the bank kernel runs a block per 1024
-    # particles ("tiles").  The Megopolis and Metropolis kernels have an
-    # instance per plane word (float, __nv_bfloat16, __half).
-    "megopolis_fused_rows_kernel<false, float>": _rows(_MEGO, 0, 32, 14464, "tiles"),
-    "megopolis_fused_rows_kernel<true, float>": _rows(_MEGO, 1, 32, 14464, "tiles"),
-    "megopolis_step_rows_kernel<float>": _step(_MEGO, 2, 32, 18816, optin=True),
-    "megopolis_fused_rows_kernel<false, __nv_bfloat16>": _rows(_MEGO, 3, 32, 8320, "tiles"),
-    "megopolis_fused_rows_kernel<true, __nv_bfloat16>": _rows(_MEGO, 4, 32, 8320, "tiles"),
-    "megopolis_step_rows_kernel<__nv_bfloat16>": _step(_MEGO, 5, 32, 10624, optin=True),
-    "megopolis_fused_rows_kernel<false, __half>": _rows(_MEGO, 6, 32, 8320, "tiles"),
-    "megopolis_fused_rows_kernel<true, __half>": _rows(_MEGO, 7, 32, 8320, "tiles"),
-    "megopolis_step_rows_kernel<__half>": _step(_MEGO, 8, 32, 10624, optin=True),
-    "metropolis_rows_kernel<false, float>": _rows(_METRO, 0, 32, 1024),
-    "metropolis_rows_kernel<true, float>": _rows(_METRO, 1, 40, 1024),
-    "metropolis_step_rows_kernel<float>": _step(_METRO, 2, 32, 32),
-    "metropolis_rows_kernel<false, __nv_bfloat16>": _rows(_METRO, 3, 32, 1024),
-    "metropolis_rows_kernel<true, __nv_bfloat16>": _rows(_METRO, 4, 34, 1024),
-    "metropolis_step_rows_kernel<__nv_bfloat16>": _step(_METRO, 5, 32, 32),
-    "metropolis_rows_kernel<false, __half>": _rows(_METRO, 6, 32, 1024),
-    "metropolis_rows_kernel<true, __half>": _rows(_METRO, 7, 34, 1024),
-    "metropolis_step_rows_kernel<__half>": _step(_METRO, 8, 32, 32),
+    # particles ("tiles").  Every kernel that copies state has an instance
+    # per pair of plane word (float, __nv_bfloat16, __half) and state word
+    # (the plane's width, or unsigned int beside a 2-byte plane: an int32
+    # state); an index-only kernel takes its plane's width.
+    f"megopolis_fused_rows_kernel<false, float, {_U4}>": _rows(_MEGO, 0, 32, 14464, "tiles"),
+    f"megopolis_fused_rows_kernel<true, float, {_U4}>": _rows(_MEGO, 1, 32, 14464, "tiles"),
+    f"megopolis_step_rows_kernel<float, {_U4}>": _step(_MEGO, 2, 32, 18816, optin=True),
+    f"megopolis_fused_rows_kernel<false, {_BF}, {_U2}>": _rows(_MEGO, 3, 32, 8320, "tiles"),
+    f"megopolis_fused_rows_kernel<true, {_BF}, {_U2}>": _rows(_MEGO, 4, 32, 8320, "tiles"),
+    f"megopolis_step_rows_kernel<{_BF}, {_U2}>": _step(_MEGO, 5, 32, 10624, optin=True),
+    f"megopolis_fused_rows_kernel<false, {_H}, {_U2}>": _rows(_MEGO, 6, 32, 8320, "tiles"),
+    f"megopolis_fused_rows_kernel<true, {_H}, {_U2}>": _rows(_MEGO, 7, 32, 8320, "tiles"),
+    f"megopolis_step_rows_kernel<{_H}, {_U2}>": _step(_MEGO, 8, 32, 10624, optin=True),
+    f"megopolis_fused_rows_kernel<true, {_BF}, {_U4}>": _rows(_MEGO, 9, 32, 8320, "tiles"),
+    f"megopolis_step_rows_kernel<{_BF}, {_U4}>": _step(_MEGO, 10, 32, 10624, optin=True),
+    f"megopolis_fused_rows_kernel<true, {_H}, {_U4}>": _rows(_MEGO, 11, 32, 8320, "tiles"),
+    f"megopolis_step_rows_kernel<{_H}, {_U4}>": _step(_MEGO, 12, 32, 10624, optin=True),
+    f"metropolis_rows_kernel<false, float, {_U4}>": _rows(_METRO, 0, 32, 1024),
+    f"metropolis_rows_kernel<true, float, {_U4}>": _rows(_METRO, 1, 40, 1024),
+    f"metropolis_step_rows_kernel<float, {_U4}>": _step(_METRO, 2, 32, 32),
+    f"metropolis_rows_kernel<false, {_BF}, {_U2}>": _rows(_METRO, 3, 32, 1024),
+    f"metropolis_rows_kernel<true, {_BF}, {_U2}>": _rows(_METRO, 4, 34, 1024),
+    f"metropolis_step_rows_kernel<{_BF}, {_U2}>": _step(_METRO, 5, 32, 32),
+    f"metropolis_rows_kernel<false, {_H}, {_U2}>": _rows(_METRO, 6, 32, 1024),
+    f"metropolis_rows_kernel<true, {_H}, {_U2}>": _rows(_METRO, 7, 34, 1024),
+    f"metropolis_step_rows_kernel<{_H}, {_U2}>": _step(_METRO, 8, 32, 32),
+    f"metropolis_rows_kernel<true, {_BF}, {_U4}>": _rows(_METRO, 9, 34, 1024),
+    f"metropolis_step_rows_kernel<{_BF}, {_U4}>": _step(_METRO, 10, 32, 32),
+    f"metropolis_rows_kernel<true, {_H}, {_U4}>": _rows(_METRO, 11, 34, 1024),
+    f"metropolis_step_rows_kernel<{_H}, {_U4}>": _step(_METRO, 12, 32, 32),
     # The C1/C2 kernels' static shared memory is their partition tiles (one
     # for C1; C2's ring of five buffers of two in the bank kernel, three of
     # two in the step; 4 KiB a tile at float32 words, 2 KiB at 2-byte
     # words) with the per-chunk table of hash prefixes and C2's tiles; C2's
-    # step opts in above 48 KiB.  From here on every kernel has an instance
-    # per plane word too (rejection's and the prefix-sum kernels': the
-    # index-only searches read no plane, and have the float one alone).
-    "metropolis_c1c2_rows_kernel<1, false, float>": _rows(_C1C2, 0, 32, 6272, "tiles"),
-    "metropolis_c1c2_rows_kernel<1, true, float>": _rows(_C1C2, 1, 40, 6272, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, false, float>": _rows(_C1C2, 2, 47, 43136, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, true, float>": _rows(_C1C2, 3, 48, 43136, "tiles"),
-    "metropolis_c1c2_step_rows_kernel<1, float>": _step(_C1C2, 4, 57, 6400),
-    "metropolis_c1c2_step_rows_kernel<2, float>": _step(_C1C2, 5, 64, 26880, optin=True),
-    "metropolis_c1c2_rows_kernel<1, false, __nv_bfloat16>": _rows(_C1C2, 6, 32, 4224, "tiles"),
-    "metropolis_c1c2_rows_kernel<1, true, __nv_bfloat16>": _rows(_C1C2, 7, 40, 4224, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, false, __nv_bfloat16>": _rows(_C1C2, 8, 42, 22656, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, true, __nv_bfloat16>": _rows(_C1C2, 9, 48, 22656, "tiles"),
-    "metropolis_c1c2_step_rows_kernel<1, __nv_bfloat16>": _step(_C1C2, 10, 62, 4352),
-    "metropolis_c1c2_step_rows_kernel<2, __nv_bfloat16>": _step(_C1C2, 11, 64, 14592,
+    # step opts in above 48 KiB.
+    f"metropolis_c1c2_rows_kernel<1, false, float, {_U4}>": _rows(_C1C2, 0, 32, 6272, "tiles"),
+    f"metropolis_c1c2_rows_kernel<1, true, float, {_U4}>": _rows(_C1C2, 1, 40, 6272, "tiles"),
+    f"metropolis_c1c2_rows_kernel<2, false, float, {_U4}>": _rows(_C1C2, 2, 47, 43136,
+                                                                  "tiles"),
+    f"metropolis_c1c2_rows_kernel<2, true, float, {_U4}>": _rows(_C1C2, 3, 48, 43136, "tiles"),
+    f"metropolis_c1c2_step_rows_kernel<1, float, {_U4}>": _step(_C1C2, 4, 57, 6400),
+    f"metropolis_c1c2_step_rows_kernel<2, float, {_U4}>": _step(_C1C2, 5, 64, 26880,
+                                                                optin=True),
+    f"metropolis_c1c2_rows_kernel<1, false, {_BF}, {_U2}>": _rows(_C1C2, 6, 32, 4224, "tiles"),
+    f"metropolis_c1c2_rows_kernel<1, true, {_BF}, {_U2}>": _rows(_C1C2, 7, 40, 4224, "tiles"),
+    f"metropolis_c1c2_rows_kernel<2, false, {_BF}, {_U2}>": _rows(_C1C2, 8, 42, 22656,
+                                                                  "tiles"),
+    f"metropolis_c1c2_rows_kernel<2, true, {_BF}, {_U2}>": _rows(_C1C2, 9, 48, 22656, "tiles"),
+    f"metropolis_c1c2_step_rows_kernel<1, {_BF}, {_U2}>": _step(_C1C2, 10, 62, 4352),
+    f"metropolis_c1c2_step_rows_kernel<2, {_BF}, {_U2}>": _step(_C1C2, 11, 64, 14592,
+                                                                optin=True),
+    f"metropolis_c1c2_rows_kernel<1, false, {_H}, {_U2}>": _rows(_C1C2, 12, 32, 4224, "tiles"),
+    f"metropolis_c1c2_rows_kernel<1, true, {_H}, {_U2}>": _rows(_C1C2, 13, 40, 4224, "tiles"),
+    f"metropolis_c1c2_rows_kernel<2, false, {_H}, {_U2}>": _rows(_C1C2, 14, 42, 22656, "tiles"),
+    f"metropolis_c1c2_rows_kernel<2, true, {_H}, {_U2}>": _rows(_C1C2, 15, 48, 22656, "tiles"),
+    f"metropolis_c1c2_step_rows_kernel<1, {_H}, {_U2}>": _step(_C1C2, 16, 62, 4352),
+    f"metropolis_c1c2_step_rows_kernel<2, {_H}, {_U2}>": _step(_C1C2, 17, 64, 14592,
                                                                optin=True),
-    "metropolis_c1c2_rows_kernel<1, false, __half>": _rows(_C1C2, 12, 32, 4224, "tiles"),
-    "metropolis_c1c2_rows_kernel<1, true, __half>": _rows(_C1C2, 13, 40, 4224, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, false, __half>": _rows(_C1C2, 14, 42, 22656, "tiles"),
-    "metropolis_c1c2_rows_kernel<2, true, __half>": _rows(_C1C2, 15, 48, 22656, "tiles"),
-    "metropolis_c1c2_step_rows_kernel<1, __half>": _step(_C1C2, 16, 62, 4352),
-    "metropolis_c1c2_step_rows_kernel<2, __half>": _step(_C1C2, 17, 64, 14592, optin=True),
+    f"metropolis_c1c2_rows_kernel<1, true, {_BF}, {_U4}>": _rows(_C1C2, 18, 40, 4224, "tiles"),
+    f"metropolis_c1c2_rows_kernel<2, true, {_BF}, {_U4}>": _rows(_C1C2, 19, 48, 22656,
+                                                                 "tiles"),
+    f"metropolis_c1c2_step_rows_kernel<1, {_BF}, {_U4}>": _step(_C1C2, 20, 62, 4352),
+    f"metropolis_c1c2_step_rows_kernel<2, {_BF}, {_U4}>": _step(_C1C2, 21, 64, 14592,
+                                                                optin=True),
+    f"metropolis_c1c2_rows_kernel<1, true, {_H}, {_U4}>": _rows(_C1C2, 22, 40, 4224, "tiles"),
+    f"metropolis_c1c2_rows_kernel<2, true, {_H}, {_U4}>": _rows(_C1C2, 23, 48, 22656, "tiles"),
+    f"metropolis_c1c2_step_rows_kernel<1, {_H}, {_U4}>": _step(_C1C2, 24, 62, 4352),
+    f"metropolis_c1c2_step_rows_kernel<2, {_H}, {_U4}>": _step(_C1C2, 25, 64, 14592,
+                                                               optin=True),
     # The rejection step's registers are capped at 48 (5 blocks an SM).
-    "rejection_rows_kernel<false, float>": _rows(_REJ, 0, 31, 1024),
-    "rejection_rows_kernel<true, float>": _rows(_REJ, 1, 32, 1024),
-    "rejection_step_rows_kernel<float>": _step(_REJ, 2, 48, 32),
-    "rejection_rows_kernel<false, __nv_bfloat16>": _rows(_REJ, 3, 32, 1024),
-    "rejection_rows_kernel<true, __nv_bfloat16>": _rows(_REJ, 4, 32, 1024),
-    "rejection_step_rows_kernel<__nv_bfloat16>": _step(_REJ, 5, 48, 32),
-    "rejection_rows_kernel<false, __half>": _rows(_REJ, 6, 32, 1024),
-    "rejection_rows_kernel<true, __half>": _rows(_REJ, 7, 32, 1024),
-    "rejection_step_rows_kernel<__half>": _step(_REJ, 8, 48, 32),
+    f"rejection_rows_kernel<false, float, {_U4}>": _rows(_REJ, 0, 31, 1024),
+    f"rejection_rows_kernel<true, float, {_U4}>": _rows(_REJ, 1, 32, 1024),
+    f"rejection_step_rows_kernel<float, {_U4}>": _step(_REJ, 2, 48, 32),
+    f"rejection_rows_kernel<false, {_BF}, {_U2}>": _rows(_REJ, 3, 32, 1024),
+    f"rejection_rows_kernel<true, {_BF}, {_U2}>": _rows(_REJ, 4, 32, 1024),
+    f"rejection_step_rows_kernel<{_BF}, {_U2}>": _step(_REJ, 5, 48, 32),
+    f"rejection_rows_kernel<false, {_H}, {_U2}>": _rows(_REJ, 6, 32, 1024),
+    f"rejection_rows_kernel<true, {_H}, {_U2}>": _rows(_REJ, 7, 32, 1024),
+    f"rejection_step_rows_kernel<{_H}, {_U2}>": _step(_REJ, 8, 48, 32),
+    f"rejection_rows_kernel<true, {_BF}, {_U4}>": _rows(_REJ, 9, 32, 1024),
+    f"rejection_step_rows_kernel<{_BF}, {_U4}>": _step(_REJ, 10, 48, 32),
+    f"rejection_rows_kernel<true, {_H}, {_U4}>": _rows(_REJ, 11, 32, 1024),
+    f"rejection_step_rows_kernel<{_H}, {_U4}>": _step(_REJ, 12, 48, 32),
     # The prefix-sum scan of an input word; the searches of rising draws, a
     # thread a slot; of the others, one cooperative launch that writes the
-    # rows' trees, then searches; each copying state words.
+    # rows' trees, then searches.  The searches read no plane: an instance
+    # per state word alone (unsigned int for the index-only ones).
     "prefix_scan_rows_kernel<float>": _rows(_PREFIX, 0, 32, 4688, "coop_scan"),
-    "prefix_search_rows_kernel<false, float>": _rows(_PREFIX, 1, 16, 0),
-    "prefix_search_rows_kernel<true, float>": _rows(_PREFIX, 2, 31, 0),
-    "prefix_search_tree_kernel<false, false, float>": _rows(_PREFIX, 3, 32, 0, "coop_search"),
-    "prefix_search_tree_kernel<true, false, float>": _rows(_PREFIX, 4, 32, 0, "coop_search"),
-    "prefix_search_tree_kernel<true, true, float>": _rows(_PREFIX, 5, 32, 0, "coop_search"),
-    "prefix_step_rows_kernel<0, float>": _step(_PREFIX, 6, 63, 4720),
-    "prefix_step_rows_kernel<1, float>": _step(_PREFIX, 7, 40, 4720),
-    "prefix_step_rows_kernel<2, float>": _step(_PREFIX, 8, 40, 4720),
-    "prefix_step_rows_kernel<3, float>": _step(_PREFIX, 9, 48, 4720),
-    "prefix_scan_rows_kernel<__nv_bfloat16>": _rows(_PREFIX, 10, 32, 4688, "coop_scan"),
-    "prefix_search_rows_kernel<true, __nv_bfloat16>": _rows(_PREFIX, 11, 31, 0),
-    "prefix_search_tree_kernel<true, false, __nv_bfloat16>": _rows(_PREFIX, 12, 32, 0,
-                                                                   "coop_search"),
-    "prefix_search_tree_kernel<true, true, __nv_bfloat16>": _rows(_PREFIX, 13, 32, 0,
-                                                                  "coop_search"),
-    "prefix_step_rows_kernel<0, __nv_bfloat16>": _step(_PREFIX, 14, 63, 4720),
-    "prefix_step_rows_kernel<1, __nv_bfloat16>": _step(_PREFIX, 15, 48, 4720),
-    "prefix_step_rows_kernel<2, __nv_bfloat16>": _step(_PREFIX, 16, 48, 4720),
-    "prefix_step_rows_kernel<3, __nv_bfloat16>": _step(_PREFIX, 17, 48, 4720),
-    "prefix_scan_rows_kernel<__half>": _rows(_PREFIX, 18, 32, 4688, "coop_scan"),
-    "prefix_search_rows_kernel<true, __half>": _rows(_PREFIX, 19, 31, 0),
-    "prefix_search_tree_kernel<true, false, __half>": _rows(_PREFIX, 20, 32, 0,
-                                                            "coop_search"),
-    "prefix_search_tree_kernel<true, true, __half>": _rows(_PREFIX, 21, 32, 0,
-                                                           "coop_search"),
-    "prefix_step_rows_kernel<0, __half>": _step(_PREFIX, 22, 63, 4720),
-    "prefix_step_rows_kernel<1, __half>": _step(_PREFIX, 23, 48, 4720),
-    "prefix_step_rows_kernel<2, __half>": _step(_PREFIX, 24, 48, 4720),
-    "prefix_step_rows_kernel<3, __half>": _step(_PREFIX, 25, 48, 4720),
+    f"prefix_search_rows_kernel<false, {_U4}>": _rows(_PREFIX, 1, 16, 0),
+    f"prefix_search_rows_kernel<true, {_U4}>": _rows(_PREFIX, 2, 31, 0),
+    f"prefix_search_tree_kernel<false, false, {_U4}>": _rows(_PREFIX, 3, 32, 0, "coop_search"),
+    f"prefix_search_tree_kernel<true, false, {_U4}>": _rows(_PREFIX, 4, 32, 0, "coop_search"),
+    f"prefix_search_tree_kernel<true, true, {_U4}>": _rows(_PREFIX, 5, 32, 0, "coop_search"),
+    f"prefix_step_rows_kernel<0, float, {_U4}>": _step(_PREFIX, 6, 63, 4720),
+    f"prefix_step_rows_kernel<1, float, {_U4}>": _step(_PREFIX, 7, 40, 4720),
+    f"prefix_step_rows_kernel<2, float, {_U4}>": _step(_PREFIX, 8, 40, 4720),
+    f"prefix_step_rows_kernel<3, float, {_U4}>": _step(_PREFIX, 9, 48, 4720),
+    f"prefix_search_rows_kernel<true, {_U2}>": _rows(_PREFIX, 10, 31, 0),
+    f"prefix_search_tree_kernel<true, false, {_U2}>": _rows(_PREFIX, 11, 32, 0, "coop_search"),
+    f"prefix_search_tree_kernel<true, true, {_U2}>": _rows(_PREFIX, 12, 32, 0, "coop_search"),
+    f"prefix_scan_rows_kernel<{_BF}>": _rows(_PREFIX, 13, 32, 4688, "coop_scan"),
+    f"prefix_step_rows_kernel<0, {_BF}, {_U2}>": _step(_PREFIX, 14, 63, 4720),
+    f"prefix_step_rows_kernel<1, {_BF}, {_U2}>": _step(_PREFIX, 15, 48, 4720),
+    f"prefix_step_rows_kernel<2, {_BF}, {_U2}>": _step(_PREFIX, 16, 48, 4720),
+    f"prefix_step_rows_kernel<3, {_BF}, {_U2}>": _step(_PREFIX, 17, 48, 4720),
+    f"prefix_step_rows_kernel<0, {_BF}, {_U4}>": _step(_PREFIX, 18, 63, 4720),
+    f"prefix_step_rows_kernel<1, {_BF}, {_U4}>": _step(_PREFIX, 19, 48, 4720),
+    f"prefix_step_rows_kernel<2, {_BF}, {_U4}>": _step(_PREFIX, 20, 48, 4720),
+    f"prefix_step_rows_kernel<3, {_BF}, {_U4}>": _step(_PREFIX, 21, 48, 4720),
+    f"prefix_scan_rows_kernel<{_H}>": _rows(_PREFIX, 22, 32, 4688, "coop_scan"),
+    f"prefix_step_rows_kernel<0, {_H}, {_U2}>": _step(_PREFIX, 23, 63, 4720),
+    f"prefix_step_rows_kernel<1, {_H}, {_U2}>": _step(_PREFIX, 24, 48, 4720),
+    f"prefix_step_rows_kernel<2, {_H}, {_U2}>": _step(_PREFIX, 25, 48, 4720),
+    f"prefix_step_rows_kernel<3, {_H}, {_U2}>": _step(_PREFIX, 26, 48, 4720),
+    f"prefix_step_rows_kernel<0, {_H}, {_U4}>": _step(_PREFIX, 27, 63, 4720),
+    f"prefix_step_rows_kernel<1, {_H}, {_U4}>": _step(_PREFIX, 28, 48, 4720),
+    f"prefix_step_rows_kernel<2, {_H}, {_U4}>": _step(_PREFIX, 29, 48, 4720),
+    f"prefix_step_rows_kernel<3, {_H}, {_U4}>": _step(_PREFIX, 30, 48, 4720),
     "copy_kernel": _rows(_FIX, 0, 32, 0, "resident"),
     "iota_kernel": _rows(_FIX, 1, 32, 0, "resident"),
     # The AIS schedule's row reduction: a co-resident grid of blocks of 8

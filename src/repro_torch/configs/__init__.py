@@ -4,10 +4,9 @@ the paper's own particle-filter config.
 Each ``<id>.py`` exports an ``ArchSpec`` named ``ARCH`` with the exact
 published configuration (``model``, FULL) and a reduced same-family
 ``smoke`` variant, every field equal to the JAX package's (``dtype`` as the
-torch dtype).  The dense archs run on the port's ``models/``; the MoE and
-SSM layers (dbrx, llama4, zamba2, mamba2) wait for ``models/moe.py`` and
-``models/mamba2.py`` (ROADMAP Queue A item 11), and their ``num_params``
-raises ``NotImplementedError`` until then.
+torch dtype).  Every arch runs on the port's ``models/``: the dense ones,
+the MoE ones (dbrx, llama4: ``models/moe.py``) and the SSM and hybrid ones
+(mamba2, zamba2: ``models/mamba2.py``).
 """
 
 from __future__ import annotations

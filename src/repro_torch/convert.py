@@ -14,9 +14,11 @@ module needs neither package's import of the other:
   ``PrefixSumSpec`` -> the port's spec of the same family, and back;
 * a JAX ``SMCSamplerConfig`` -> the port's, field by field;
 * LM parameter and cache trees (dicts, lists and tuples of arrays, the
-  JAX package's ``init_params``/``prefill`` layout) <-> the same trees of
-  tensors, leaf for leaf and bit for bit, and a JAX ``ModelConfig`` -> the
-  port's (``dtype`` as the torch dtype).
+  JAX package's ``init_params``/``prefill`` layout: attention, MLP, MoE
+  expert and router leaves, Mamba2 leaves, KV and SSM caches) <-> the same
+  trees of tensors, leaf for leaf and bit for bit, and a JAX
+  ``ModelConfig`` -> the port's, every field, the MoE and SSM ones
+  included (``dtype`` as the torch dtype).
 """
 
 from __future__ import annotations

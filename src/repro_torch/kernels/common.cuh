@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 #define NT 256
@@ -25,7 +27,7 @@ __device__ __forceinline__ float ftz(float x) {
   return fabsf(x) < FLT_MIN_NORMAL ? copysignf(0.0f, x) : x;
 }
 
-// Plane words (DESIGN.md §14): the weight and state planes move as float,
+// Plane words (DESIGN.md §14): the weight planes move as float,
 // __nv_bfloat16 or __half; every value the arithmetic reads is upcast to
 // f32 first, so selection, the hash, the uniforms and the step's statistics
 // stay f32.  plane_f32 is the exact upcast (a bf16 subnormal stays an f32
@@ -69,6 +71,32 @@ static int by_plane(int plane, F f) {
     case PLANE_F16: return f(__half{});
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// State words (DESIGN.md §14): a kernel that copies state moves it as raw
+// words of the state's own width, S = uint32_t or uint16_t, a template
+// argument beside the weights' plane word T: a copy is a bit move, never a
+// float instruction, so a 4-byte integer state (SMC decoding's token
+// buffer) rides beside any plane and no bit pattern is flushed.  A state of
+// the plane's own dtype takes StateWord<T>, T's width; an index-only kernel
+// takes it too (its S is unused).
+template <class T>
+using StateWord = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;
+
+// Call f(T{}, S{}) for the plane word `plane` names and the state word of
+// `sb` bytes (the state's element size): T's own width at every plane, and
+// 4 bytes beside a 2-byte plane too; any other pair is
+// cudaErrorInvalidValue.  No instance pairs float with a 2-byte state.
+template <class F>
+static int by_words(int plane, int sb, F f) {
+  return by_plane(plane, [&](auto word) {
+    using T = decltype(word);
+    if (sb == (int)sizeof(T)) return f(word, StateWord<T>{});
+    if constexpr (sizeof(T) == 2) {
+      if (sb == 4) return f(word, uint32_t{});
+    }
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 __device__ __forceinline__ uint32_t fmix(uint32_t x) {

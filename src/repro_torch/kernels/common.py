@@ -56,14 +56,13 @@ MAX_STEP_ROWS = 4096
 #: hash, the uniforms and the step's statistics stay float32.
 PLANE_DTYPES = ("float32", "bfloat16", "float16")
 _FLT_MIN = torch.finfo(torch.float32).tiny
-#: Integer state words a kernel that opts in (``check_bank``'s
-#: ``int_state``) copies beside float32 weights, as the float32 instance's
-#: words: a state copy is a bit move, never a float instruction, so every
-#: bit pattern (token ids below 2**23 are float32 subnormals) comes back
-#: as it went in.  Beside a 2-byte plane no instance copies a 4-byte word:
-#: ROADMAP Queue C item 23.
+#: Integer state dtypes every kernel that copies state takes beside weights
+#: of any plane dtype (SMC decoding's token buffer): the kernels move state
+#: as raw words of its own width (the instance of the state word that
+#: ``state_bytes`` names: ``by_words`` in ``common.cuh``), so a copy is a
+#: bit move, never a float instruction, and every bit pattern comes back as
+#: it went in.
 INT_STATE_DTYPES = (torch.int32,)
-INT_STATE_ITEM = "ROADMAP Queue C item 23"
 
 
 def mul32(x, c: int):
@@ -137,6 +136,9 @@ def flush_to_zero(x: torch.Tensor) -> torch.Tensor:
 #: (``PLANE_F32``, ``PLANE_BF16``, ``PLANE_F16`` in ``common.cuh``).
 PLANE_WORDS = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16", torch.float16: "__half"}
 PLANE_CODES = {dt: code for code, dt in enumerate(PLANE_WORDS)}
+#: The CUDA types of the state words by their bytes, as the profiler prints
+#: them (``uint32_t``, ``uint16_t``).
+STATE_WORDS = {4: "unsigned int", 2: "unsigned short"}
 
 
 def canonical_plane_dtype(plane_dtype) -> torch.dtype:
@@ -261,17 +263,15 @@ def gather_state(state: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",),
-               state_planes=None, int_state=False):
+               state_planes=None):
     """Validate the arguments every bank kernel takes: weights ``[S, N]`` of
     a dtype of ``planes`` (the plane dtypes the kernel is built for), state
     ``[S, D, N]`` (or None for an index-only kernel; on the card of the
     weights' dtype, or with ``state_planes`` of any of those dtypes: the
-    prefix-sum searches take a float32 CDF and copy 2-byte state; with
-    ``int_state`` also of an ``INT_STATE_DTYPES`` dtype beside float32
-    weights, which the wrapper hands to the kernel as ``as_state_words``
-    gives it; beside a 2-byte plane that raises, naming ``INT_STATE_ITEM``)
-    and ``seeds [S]`` (None for the prefix-sum kernels, which take no seed).
-    Returns ``(S, N, D)`` (D = 0 without state)."""
+    prefix-sum searches take a float32 CDF and copy 2-byte state; or of an
+    ``INT_STATE_DTYPES`` dtype beside any plane) and ``seeds [S]`` (None
+    for the prefix-sum kernels, which take no seed).  Returns ``(S, N, D)``
+    (D = 0 without state)."""
     dtypes = tuple(canonical_plane_dtype(p) for p in planes)
     if w.dtype not in dtypes or w.ndim != 2:
         names = "/".join(str(d).removeprefix("torch.") for d in dtypes)
@@ -293,19 +293,12 @@ def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",),
         if state is not None:
             if state.device != w.device:
                 raise ValueError(f"{who}: state on {state.device}, weights on {w.device}")
-            if int_state and state.dtype in INT_STATE_DTYPES:
-                if w.dtype != torch.float32:
-                    raise ValueError(
-                        f"{who}: an integer state rides only beside float32 weights (the "
-                        f"float32 instance copies its 4-byte words); got {w.dtype} weights "
-                        f"and {state.dtype} state: {INT_STATE_ITEM}")
-            elif state_planes is None and state.dtype != w.dtype:
-                raise ValueError(f"{who}: the CUDA kernel copies state of the weights' plane "
-                                 f"dtype {w.dtype}; got {state.dtype}")
-            if state_planes is not None and state.dtype not in tuple(
-                    canonical_plane_dtype(p) for p in state_planes):
-                raise ValueError(f"{who}: the CUDA kernel copies state of a plane dtype of "
-                                 f"{tuple(state_planes)}; got {state.dtype}")
+            floats = (w.dtype,) if state_planes is None else tuple(
+                canonical_plane_dtype(p) for p in state_planes)
+            if state.dtype not in floats + INT_STATE_DTYPES:
+                names = "/".join(str(d).removeprefix("torch.") for d in floats + INT_STATE_DTYPES)
+                raise ValueError(f"{who}: the CUDA kernel copies state of {names} beside "
+                                 f"{w.dtype} weights; got {state.dtype}")
             if not state.is_contiguous():
                 raise ValueError(f"{who}: state must be contiguous")
     elif state is not None and state.is_cuda:
@@ -313,11 +306,11 @@ def check_bank(who: str, w: torch.Tensor, state, seeds, planes=("float32",),
     return s, n, 0 if state is None else state.shape[1]
 
 
-def as_state_words(state: torch.Tensor) -> torch.Tensor:
-    """The state as the kernel's words: an ``INT_STATE_DTYPES`` tensor as a
-    float32 view of its bits (no copy, no conversion), any other as it is.
-    A kernel's output of that view is ``.view(state.dtype)`` again."""
-    return state.view(torch.float32) if state.dtype in INT_STATE_DTYPES else state
+def state_bytes(state) -> int:
+    """The ``sb`` argument of a kernel that copies ``state``: the bytes of
+    its word, 4 or 2, which pick the kernel's instance (4 where there is no
+    state)."""
+    return 4 if state is None else state.element_size()
 
 
 def check_aligned(who: str, w: torch.Tensor):
@@ -419,15 +412,30 @@ def plane_word(x: torch.Tensor) -> str:
     return PLANE_WORDS.get(x.dtype, str(x.dtype))
 
 
-def plane_instance(kernel: str, *lead, of: int = 0):
+def state_word(x: torch.Tensor) -> str:
+    """The CUDA type of the state word S a kernel copies ``x`` as (its
+    element's width: ``StateWord`` and ``by_words`` in ``common.cuh``), as
+    the profiler prints it."""
+    return STATE_WORDS[x.element_size()]
+
+
+def plane_instance(kernel: str, *lead, of: int = 0, state=None):
     """``kernel_wrapper``'s name of a kernel templated on the plane word, as
     a function of the call: ``kernel<lead..., word>`` for the word of the
     call's positional argument ``of`` (the weights by default), each
     template argument of ``lead`` as the profiler prints it (a bool as
-    ``false``/``true``): ``megopolis_fused_rows_kernel<false, __nv_bfloat16>``,
-    ``metropolis_c1c2_rows_kernel<2, true, __half>``."""
+    ``false``/``true``), then, unless ``state`` is None (a kernel with no
+    state word, the scan), the state word of positional argument ``state``
+    (the state; the weights' own for an index-only kernel, whose unused
+    state word is its plane's width):
+    ``megopolis_fused_rows_kernel<false, __nv_bfloat16, unsigned short>``,
+    ``metropolis_c1c2_rows_kernel<2, true, __half, unsigned int>``."""
     head = "".join(f"{str(a).lower() if isinstance(a, bool) else a}, " for a in lead)
-    return lambda *args, **kwargs: f"{kernel}<{head}{plane_word(args[of])}>"
+
+    def name(*args, **kwargs):
+        tail = "" if state is None else f", {state_word(args[state])}"
+        return f"{kernel}<{head}{plane_word(args[of])}{tail}>"
+    return name
 
 
 def inside_kernel_wrapper() -> bool:

@@ -80,24 +80,26 @@
 //   to more dynamic shared memory (smem_optin in ../../common.cuh).
 //
 // Plane words (DESIGN.md §14): every kernel is a template on the word T of
-// its weight and state planes, float, __nv_bfloat16 or __half, one instance
-// each, picked by the C entry points' `plane` code.  At 2-byte words each
-// plane's bytes halve: a comparison segment is 2 KiB, 8 words to a 16-byte
-// grain, so the ring's rotation, its buffer length (1032 words) and the byte
-// count each full barrier expects follow the word (MegoRing, ring_fill); a
-// wrong count would hang the block on its barrier.  Each load is upcast to
+// its weight planes, float, __nv_bfloat16 or __half, and on the word S of
+// its state (StateWord<T>, or uint32_t beside a 2-byte T: by_words in
+// ../../common.cuh), picked by the C entry points' `plane` and `sb`.  At
+// 2-byte words each plane's bytes halve: a comparison segment is 2 KiB, 8
+// words to a 16-byte grain, so the ring's rotation, its buffer length (1032
+// words) and the byte count each full barrier expects follow the plane word
+// T, never S (MegoRing, ring_fill); a wrong count would hang the block on
+// its barrier.  Each load is upcast to
 // f32 (plane_f32, load_plane in ../../common.cuh): the sweep's arithmetic,
 // the hash and the uniforms are the float32 kernel's.  The state is copied
-// as plane words.  The step's prelude rounds exp(lw - m) to T and writes it
-// to scratch as T (step_prelude), so the sweep moves 2-byte words there too.
+// as S words.  The step's prelude rounds exp(lw - m) to T and writes it to
+// scratch as T (step_prelude), so the sweep moves 2-byte words there too.
 //
 // Subnormals: every value selection depends on is flushed, as XLA does on
 // the CPU: built with -ftz=true, the sweep's product and comparison flush
 // their operands and results in hardware; the loaded w[k] and the step
 // prelude's values are flushed explicitly (ftz()).  State copies are bit
-// moves and are never flushed: the wrappers hand a 4-byte integer state
-// (SMC decoding's token buffer) to the float instance as its words, and
-// every bit pattern, subnormal ones included, comes back as it went in.
+// moves of S words and are never flushed: a 4-byte integer state (SMC
+// decoding's token buffer) rides beside any plane, and every bit pattern,
+// subnormal ones included, comes back as it went in.
 
 #include "../../common.cuh"
 
@@ -249,10 +251,10 @@ __device__ __forceinline__ void mego_sweep(MegoRing<T, STAGES>& r, uint32_t& seq
 }
 
 // The ancestors (the identity unless `keep`) and, with d > 0, the state copy
-// (plane words, bit moves) of the thread's particles of segment seg of row s.
-template <class T>
+// (state words, bit moves) of the thread's particles of segment seg of row s.
+template <class S>
 __device__ __forceinline__ void mego_commit(const int (&k)[PER_THREAD], int* __restrict__ anc,
-                                            const T* __restrict__ state, T* __restrict__ out,
+                                            const S* __restrict__ state, S* __restrict__ out,
                                             int s, int seg, int n, int d, bool keep) {
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
@@ -267,11 +269,11 @@ __device__ __forceinline__ void mego_commit(const int (&k)[PER_THREAD], int* __r
 }
 
 // Grid (N / 1024, S): block (seg, s) sweeps segment seg of row s.
-template <bool GATHER, class T>
+template <bool GATHER, class T, class S>
 __global__ void __launch_bounds__(NT, 8) megopolis_fused_rows_kernel(
-    const T* __restrict__ w, const T* __restrict__ state,
+    const T* __restrict__ w, const S* __restrict__ state,
     const int* __restrict__ offsets, const uint32_t* __restrict__ seeds,
-    int* __restrict__ anc, T* __restrict__ out, int n, int d, int iters) {
+    int* __restrict__ anc, S* __restrict__ out, int n, int d, int iters) {
   __shared__ MegoRing<T, Stages<T>::ROWS> ring;
   ring_barriers_init(ring.full, ring.empty);
   const int s = blockIdx.y;
@@ -283,11 +285,11 @@ __global__ void __launch_bounds__(NT, 8) megopolis_fused_rows_kernel(
   mego_commit(k, anc, state, out, s, seg, n, GATHER ? d : 0, true);
 }
 
-template <class T>
+template <class T, class S>
 __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
-    const T* __restrict__ lw, const T* __restrict__ state,
+    const T* __restrict__ lw, const S* __restrict__ state,
     const int* __restrict__ offsets, const uint32_t* __restrict__ seeds, float thr,
-    int* __restrict__ anc, T* __restrict__ out, float* __restrict__ stats,
+    int* __restrict__ anc, S* __restrict__ out, float* __restrict__ stats,
     float* __restrict__ scratch, int rows, int n, int d, int iters) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m per row
@@ -325,18 +327,20 @@ __global__ void __launch_bounds__(NT, 8) megopolis_step_rows_kernel(
 
 extern "C" {
 
-// Each entry point takes `plane`, the code of the weights' and the state's
-// plane word (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh), and
-// launches that instance.
+// Each entry point takes `plane`, the code of the weights' plane word
+// (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh); those that copy
+// state take `sb`, the bytes of its word (4 or 2), and launch the instance
+// of that pair (by_words).
 int megopolis_fused_rows(const void* w, const void* state, const void* offsets,
                          const void* seeds, void* anc, void* out, int rows, int n,
-                         int d, int iters, int plane, void* stream) {
-  return by_plane(plane, [&](auto word) {
+                         int d, int iters, int sb, int plane, void* stream) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
+    using S = decltype(sword);
     dim3 grid(n / SEG, rows);
-    megopolis_fused_rows_kernel<true, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-        (const T*)w, (const T*)state, (const int*)offsets, (const uint32_t*)seeds, (int*)anc,
-        (T*)out, n, d, iters);
+    megopolis_fused_rows_kernel<true, T, S><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const T*)w, (const S*)state, (const int*)offsets, (const uint32_t*)seeds, (int*)anc,
+        (S*)out, n, d, iters);
     return (int)cudaGetLastError();
   });
 }
@@ -347,16 +351,16 @@ int megopolis_rows(const void* w, const void* offsets, const void* seeds, void* 
   return by_plane(plane, [&](auto word) {
     using T = decltype(word);
     dim3 grid(n / SEG, rows);
-    megopolis_fused_rows_kernel<false, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+    megopolis_fused_rows_kernel<false, T, StateWord<T>><<<grid, NT, 0, (cudaStream_t)stream>>>(
         (const T*)w, nullptr, (const int*)offsets, (const uint32_t*)seeds, (int*)anc,
         nullptr, n, 0, iters);
     return (int)cudaGetLastError();
   });
 }
 
-int megopolis_step_grid(int rows, int n, int plane, int* blocks) {
-  return by_plane(plane, [&](auto word) {
-    const auto kernel = megopolis_step_rows_kernel<decltype(word)>;
+int megopolis_step_grid(int rows, int n, int sb, int plane, int* blocks) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
+    const auto kernel = megopolis_step_rows_kernel<decltype(word), decltype(sword)>;
     const int err = smem_optin(kernel, step_smem_bytes(rows));
     if (err != 0) return err;
     return coop_step_grid(kernel, rows, n, blocks);
@@ -366,16 +370,17 @@ int megopolis_step_grid(int rows, int n, int plane, int* blocks) {
 int megopolis_step_rows(const void* lw, const void* state, const void* offsets,
                         const void* seeds, float thr, void* anc, void* out,
                         void* stats, void* scratch, int rows, int n, int d, int iters,
-                        int blocks, int plane, void* stream) {
-  return by_plane(plane, [&](auto word) {
+                        int blocks, int sb, int plane, void* stream) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    const auto kernel = megopolis_step_rows_kernel<T>;
+    using S = decltype(sword);
+    const auto kernel = megopolis_step_rows_kernel<T, S>;
     const T* a_lw = (const T*)lw;
-    const T* a_state = (const T*)state;
+    const S* a_state = (const S*)state;
     const int* a_off = (const int*)offsets;
     const uint32_t* a_seeds = (const uint32_t*)seeds;
     int* a_anc = (int*)anc;
-    T* a_out = (T*)out;
+    S* a_out = (S*)out;
     float* a_stats = (float*)stats;
     float* a_scratch = (float*)scratch;
     void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_off, (void*)&a_seeds,
@@ -388,18 +393,26 @@ int megopolis_step_rows(const void* lw, const void* state, const void* offsets,
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py (3·plane + 0: the index-only bank kernel,
-// + 1: the fused one, + 2: the step): kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py: 3·plane + 0 the index-only bank kernel,
+// + 1 the fused one, + 2 the step, each with the plane's own state word
+// (StateWord<T>); then 9 + 2·(plane - 1) + 0 the fused kernel and + 1 the
+// step with a 4-byte state beside the 2-byte plane.
 int megopolis_attributes(int which, int dynamic_smem, int* out) {
-  return by_plane(which / 3, [&](auto word) {
+  const int plane = which < 9 ? which / 3 : 1 + (which - 9) / 2;
+  const int sb = which < 9 ? (plane == PLANE_F32 ? 4 : 2) : 4;
+  const int k = which < 9 ? which % 3 : 1 + (which - 9) % 2;
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    switch (which % 3) {
-      case 0: return kernel_attributes(megopolis_fused_rows_kernel<false, T>, dynamic_smem, out);
-      case 1: return kernel_attributes(megopolis_fused_rows_kernel<true, T>, dynamic_smem, out);
+    using S = decltype(sword);
+    switch (k) {
+      case 0: return kernel_attributes(megopolis_fused_rows_kernel<false, T, StateWord<T>>,
+                                       dynamic_smem, out);
+      case 1: return kernel_attributes(megopolis_fused_rows_kernel<true, T, S>, dynamic_smem,
+                                       out);
       default: {
-        const int err = smem_optin(megopolis_step_rows_kernel<T>, (size_t)dynamic_smem);
+        const int err = smem_optin(megopolis_step_rows_kernel<T, S>, (size_t)dynamic_smem);
         if (err != 0) return err;
-        return kernel_attributes(megopolis_step_rows_kernel<T>, dynamic_smem, out);
+        return kernel_attributes(megopolis_step_rows_kernel<T, S>, dynamic_smem, out);
       }
     }
   });

@@ -12,11 +12,10 @@
 Each wrapper takes weights (or log-weights) and state of one plane dtype,
 float32, bfloat16 or float16 (``common.PLANE_DTYPES``), and launches the
 kernel's instance for that word; the ancestors are int32 and the stats
-float32 at every dtype.  Beside float32 weights the state may also be a
-4-byte integer (``common.INT_STATE_DTYPES``: the token buffer of SMC
-decoding), which the float32 instance copies as its words, bit for bit;
-beside a 2-byte plane an integer state raises ``ValueError`` on the card
-(``common.INT_STATE_ITEM``) and is never cast.  It checks device, dtype, shape and contiguity (and,
+float32 at every dtype.  Beside weights of any plane dtype the state may
+also be a 4-byte integer (``common.INT_STATE_DTYPES``: the token buffer of
+SMC decoding), which every instance copies as its own words, bit for bit,
+never cast.  It checks device, dtype, shape and contiguity (and,
 for the index-only and fused kernels, that the weights start on a 16-byte
 boundary, as their bulk copies need), allocates its
 outputs (and the step kernel's scratch) with ``torch.empty``, launches on
@@ -39,13 +38,13 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.common import (
     PLANE_CODES,
     PLANE_DTYPES,
-    as_state_words,
     check_aligned,
     check_bank,
     check_launch,
     device_seeds,
     kernel_wrapper,
     plane_instance,
+    state_bytes,
     step_buffers,
 )
 from repro_torch.kernels.megopolis.ref import (
@@ -64,12 +63,12 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_bound", False):
         lib.megopolis_rows.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.megopolis_rows.restype = _I
-        lib.megopolis_fused_rows.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.megopolis_fused_rows.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.megopolis_fused_rows.restype = _I
-        lib.megopolis_step_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.megopolis_step_grid.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
         lib.megopolis_step_grid.restype = _I
         lib.megopolis_step_rows.argtypes = [
-            _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ]
         lib.megopolis_step_rows.restype = _I
         lib._bound = True
@@ -79,7 +78,7 @@ def _lib() -> ctypes.CDLL:
 def _check_bank(who: str, w, state, offsets, seeds):
     """Validate a bank call (``state`` None for the index-only kernel);
     returns ``(S, N, D, B)``."""
-    s, n, d = check_bank(who, w, state, seeds, PLANE_DTYPES, int_state=True)
+    s, n, d = check_bank(who, w, state, seeds, PLANE_DTYPES)
     if offsets.ndim != 2 or offsets.shape[0] != s or offsets.shape[1] < 1:
         raise ValueError(f"{who}: offsets must be int32[S, B>=1]; got {list(offsets.shape)}")
     if not offsets.is_cuda and offsets.numel() and (offsets.min() < 0 or offsets.max() >= n):
@@ -107,34 +106,32 @@ def _launch_fused(w, state, offsets, seeds, who):
     s, n, d, b = _check_bank(who, w, state, offsets, seeds)
     check_aligned(who, w)
     offs, sd = _device_offsets(w, offsets), device_seeds(seeds, w.device)
-    words = as_state_words(state)
     anc = torch.empty((s, n), dtype=torch.int32, device=w.device)
-    out = torch.empty_like(words)
+    out = torch.empty_like(state)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     check_launch(_lib().megopolis_fused_rows(
-        w.data_ptr(), words.data_ptr(), offs.data_ptr(), sd.data_ptr(),
-        anc.data_ptr(), out.data_ptr(), s, n, d, b, PLANE_CODES[w.dtype], stream), who)
-    return anc, out.view(state.dtype)
+        w.data_ptr(), state.data_ptr(), offs.data_ptr(), sd.data_ptr(), anc.data_ptr(),
+        out.data_ptr(), s, n, d, b, state_bytes(state), PLANE_CODES[w.dtype], stream), who)
+    return anc, out
 
 
 def _launch_step(lw, state, offsets, seeds, thr, who):
     s, n, d, b = _check_bank(who, lw, state, offsets, seeds)
     lib = _lib()
-    code = PLANE_CODES[lw.dtype]
-    words = as_state_words(state)
+    code, sb = PLANE_CODES[lw.dtype], state_bytes(state)
     g, anc, out, stats, scratch = step_buffers(
-        lambda rows, n_, blocks: lib.megopolis_step_grid(rows, n_, code, blocks),
-        who, lw, words, b)
+        lambda rows, n_, blocks: lib.megopolis_step_grid(rows, n_, sb, code, blocks),
+        who, lw, state, b)
     offs, sd = _device_offsets(lw, offsets), device_seeds(seeds, lw.device)
     stream = torch.cuda.current_stream(lw.device).cuda_stream
     check_launch(lib.megopolis_step_rows(
-        lw.data_ptr(), words.data_ptr(), offs.data_ptr(), sd.data_ptr(), float(thr),
+        lw.data_ptr(), state.data_ptr(), offs.data_ptr(), sd.data_ptr(), float(thr),
         anc.data_ptr(), out.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
-        s, n, d, b, g, code, stream), who)
-    return anc, out.view(state.dtype), stats
+        s, n, d, b, g, sb, code, stream), who)
+    return anc, out, stats
 
 
-@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False))
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False, state=0))
 def megopolis_rows(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
     """Index-only resample of a bank: ``w [S, N]`` (a plane dtype), per-row ``offsets
     int32[S, B]`` and ``seeds [S]``.  Returns ``ancestors int32[S, N]``;
@@ -147,7 +144,7 @@ def megopolis_rows(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
     return anc
 
 
-@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False))
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False, state=0))
 def megopolis_batch(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor):
     """Index-only resample of a bank under ONE offset table ``int32[B]``
     shared by every row, with per-row ``seeds [S]``.  Returns
@@ -161,7 +158,7 @@ def megopolis_batch(w: torch.Tensor, offsets: torch.Tensor, seeds: torch.Tensor)
     return anc
 
 
-@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False))
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", False, state=0))
 def megopolis(w: torch.Tensor, offsets: torch.Tensor, seed: torch.Tensor):
     """Index-only resample of one population: ``w [N]``, ``offsets
     int32[B]``, a scalar ``seed``.  Returns ``ancestors int32[N]``."""
@@ -174,14 +171,14 @@ def megopolis(w: torch.Tensor, offsets: torch.Tensor, seed: torch.Tensor):
     return anc[0]
 
 
-@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", True))
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", True, state=1))
 def megopolis_fused_rows(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                          seeds: torch.Tensor):
     """Fused resample + state copy over a bank: ``w [S, N]``, ``state
-    [S, D, N]`` of the same plane dtype (or int32 beside float32
-    weights), per-row ``offsets int32[S, B]`` and ``seeds [S]``.  Returns
-    ``(ancestors int32[S, N], state' [S, D, N])``; row ``s`` equals the
-    single-row call with ``offsets[s]``, ``seeds[s]``."""
+    [S, D, N]`` of the same plane dtype (or int32), per-row ``offsets
+    int32[S, B]`` and ``seeds [S]``.  Returns ``(ancestors int32[S, N],
+    state' [S, D, N])``; row ``s`` equals the single-row call with
+    ``offsets[s]``, ``seeds[s]``."""
     if not w.is_cuda:
         _check_bank("megopolis_fused_rows", w, state, offsets, seeds)
         return megopolis_fused_rows_ref(w, state, offsets, seeds)
@@ -190,7 +187,7 @@ def megopolis_fused_rows(w: torch.Tensor, state: torch.Tensor, offsets: torch.Te
     return result
 
 
-@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", True))
+@kernel_wrapper(plane_instance("megopolis_fused_rows_kernel", True, state=1))
 def megopolis_fused(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                     seed: torch.Tensor):
     """Fused resample + state copy of one population: ``w [N]``, ``state
@@ -206,7 +203,7 @@ def megopolis_fused(w: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
     return anc[0], out[0]
 
 
-@kernel_wrapper(plane_instance("megopolis_step_rows_kernel"))
+@kernel_wrapper(plane_instance("megopolis_step_rows_kernel", state=1))
 def megopolis_step_rows(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                         seeds: torch.Tensor, thr: float):
     """Fused SMC step over a bank of log-weights ``[S, N]`` (a plane dtype;
@@ -221,7 +218,7 @@ def megopolis_step_rows(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Te
     return result
 
 
-@kernel_wrapper(plane_instance("megopolis_step_rows_kernel"))
+@kernel_wrapper(plane_instance("megopolis_step_rows_kernel", state=1))
 def megopolis_step(lw: torch.Tensor, state: torch.Tensor, offsets: torch.Tensor,
                    seed: torch.Tensor, thr: float):
     """Fused SMC step of one population: ``lw [N]``, ``state [D, N]``.

@@ -53,6 +53,7 @@ from repro_torch.kernels.common import (
     device_seeds,
     kernel_wrapper,
     plane_instance,
+    state_bytes,
     step_buffers,
 )
 from repro_torch.kernels.metropolis.metropolis import _check
@@ -70,13 +71,14 @@ def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if not getattr(lib, "_bound", False):
         lib.metropolis_c1c2_rows.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
         ]
         lib.metropolis_c1c2_rows.restype = _I
-        lib.metropolis_c1c2_step_grid.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+        lib.metropolis_c1c2_step_grid.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
         lib.metropolis_c1c2_step_grid.restype = _I
         lib.metropolis_c1c2_step_rows.argtypes = [
-            _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+            _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _P,
         ]
         lib.metropolis_c1c2_step_rows.restype = _I
         lib._bound = True
@@ -116,7 +118,7 @@ def _rows(who, variant, w, state, partitions, seeds, num_iters):
     check_launch(_lib().metropolis_c1c2_rows(
         variant, w.data_ptr(), None if state is None else state.data_ptr(), parts.data_ptr(),
         sd.data_ptr(), anc.data_ptr(), None if out is None else out.data_ptr(), s, n, d,
-        num_iters, PLANE_CODES[w.dtype], stream), who)
+        num_iters, state_bytes(state), PLANE_CODES[w.dtype], stream), who)
     return anc if state is None else (anc, out)
 
 
@@ -126,17 +128,17 @@ def _step(who, variant, lw, state, partitions, seeds, num_iters, thr):
         return metropolis_c1c2_step_rows_ref(lw, state, partitions, seeds, num_iters, thr,
                                              variant)
     lib = _lib()
-    code = PLANE_CODES[lw.dtype]
+    code, sb = PLANE_CODES[lw.dtype], state_bytes(state)
     g, anc, out, stats, scratch = step_buffers(
-        lambda rows, n_, ref: lib.metropolis_c1c2_step_grid(variant, rows, n_, code, ref), who,
-        lw, state, num_iters)
+        lambda rows, n_, ref: lib.metropolis_c1c2_step_grid(variant, rows, n_, sb, code, ref),
+        who, lw, state, num_iters)
     parts = partitions.to(lw.device).contiguous()
     sd = device_seeds(seeds, lw.device)
     stream = torch.cuda.current_stream(lw.device).cuda_stream
     check_launch(lib.metropolis_c1c2_step_rows(
         variant, lw.data_ptr(), state.data_ptr(), parts.data_ptr(), sd.data_ptr(), float(thr),
         anc.data_ptr(), out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), s, n, d,
-        num_iters, g, code, stream), who)
+        num_iters, g, sb, code, stream), who)
     return anc, out, stats
 
 
@@ -144,40 +146,40 @@ def _family(variant: int) -> tuple:
     """The six wrappers of one variant, named after its TPU kernels."""
     c = f"metropolis_c{variant}"
 
-    @kernel_wrapper(plane_instance("metropolis_c1c2_rows_kernel", variant, False))
+    @kernel_wrapper(plane_instance("metropolis_c1c2_rows_kernel", variant, False, state=0))
     def batch(w, partitions, seeds, num_iters):
         anc = _rows(batch.__name__, variant, w, None, partitions, seeds, num_iters)
         batch.launches += w.is_cuda
         return anc
 
-    @kernel_wrapper(plane_instance("metropolis_c1c2_rows_kernel", variant, False))
+    @kernel_wrapper(plane_instance("metropolis_c1c2_rows_kernel", variant, False, state=0))
     def single(w, partitions, seed, num_iters):
         anc = _rows(single.__name__, variant, w.unsqueeze(0), None, partitions.unsqueeze(0),
                     seed.reshape(1), num_iters)
         single.launches += w.is_cuda
         return anc[0]
 
-    @kernel_wrapper(plane_instance("metropolis_c1c2_rows_kernel", variant, True))
+    @kernel_wrapper(plane_instance("metropolis_c1c2_rows_kernel", variant, True, state=1))
     def fused_batch(w, state, partitions, seeds, num_iters):
         result = _rows(fused_batch.__name__, variant, w, state, partitions, seeds, num_iters)
         fused_batch.launches += w.is_cuda
         return result
 
-    @kernel_wrapper(plane_instance("metropolis_c1c2_rows_kernel", variant, True))
+    @kernel_wrapper(plane_instance("metropolis_c1c2_rows_kernel", variant, True, state=1))
     def fused(w, state, partitions, seed, num_iters):
         anc, out = _rows(fused.__name__, variant, w.unsqueeze(0), state.unsqueeze(0),
                          partitions.unsqueeze(0), seed.reshape(1), num_iters)
         fused.launches += w.is_cuda
         return anc[0], out[0]
 
-    @kernel_wrapper(plane_instance("metropolis_c1c2_step_rows_kernel", variant))
+    @kernel_wrapper(plane_instance("metropolis_c1c2_step_rows_kernel", variant, state=1))
     def step_rows(lw, state, partitions, seeds, num_iters, thr):
         result = _step(step_rows.__name__, variant, lw, state, partitions, seeds, num_iters,
                        thr)
         step_rows.launches += lw.is_cuda
         return result
 
-    @kernel_wrapper(plane_instance("metropolis_c1c2_step_rows_kernel", variant))
+    @kernel_wrapper(plane_instance("metropolis_c1c2_step_rows_kernel", variant, state=1))
     def step(lw, state, partitions, seed, num_iters, thr):
         anc, out, stats = _step(step.__name__, variant, lw.unsqueeze(0), state.unsqueeze(0),
                                 partitions.unsqueeze(0), seed.reshape(1), num_iters, thr)

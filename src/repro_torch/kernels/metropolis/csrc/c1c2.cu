@@ -74,17 +74,19 @@
 //   the same integer work and partition traffic, and the prelude.
 //
 // Plane words (DESIGN.md §14): both kernels are templates on the word T of
-// their weight and state planes, float, __nv_bfloat16 or __half, one
-// instance each, picked by the C entry points' `plane` code (by_plane in
-// ../../common.cuh).  The partition stays one tile of 1024 particles at
-// every word (partition_size_bytes 4096, as in the JAX package): at 2-byte
+// their weight planes, float, __nv_bfloat16 or __half, and on the word S of
+// their state (StateWord<T>, or uint32_t beside a 2-byte T), picked by the
+// C entry points' `plane` and `sb` (by_words in ../../common.cuh).  The
+// partition stays one tile of 1024 particles at every word
+// (partition_size_bytes 4096, as in the JAX package): at 2-byte
 // words a tile is 2 KiB, and C2's copies and the byte count each full
 // barrier expects follow sizeof(T) (c2_fill); a wrong count would hang the
 // block on its barrier.  Every weight a sweep reads, its own and the random
 // shared read, is upcast exactly (plane_f32), so the sweep's arithmetic,
 // the hash and the uniforms are the float32 kernel's.  The state is copied
-// as plane words; the step's prelude rounds exp(lw - m) to T and writes it
-// to scratch as T (step_prelude), so C2's ring moves 2-byte tiles there too.
+// as S words, bit moves; the step's prelude rounds exp(lw - m) to T and
+// writes it to scratch as T (step_prelude), so C2's ring moves 2-byte tiles
+// there too: the ring's byte counts follow T, never S.
 //
 // Subnormals: every value selection depends on is flushed, as XLA does on
 // the CPU: built with -ftz=true, the sweep's product and comparison flush
@@ -287,11 +289,11 @@ __device__ __forceinline__ void c1c2_sweep(C1C2Lanes& t, C1C2Smem<T, STAGES, GRO
 }
 
 // The ancestors (the identity unless `keep`) and, with d > 0, the state copy
-// (plane words, bit moves) of the thread's particles of one own tile of row s.
-template <class T>
+// (state words, bit moves) of the thread's particles of one own tile of row s.
+template <class S>
 __device__ __forceinline__ void c1c2_commit(const C1C2Lanes& t, int* __restrict__ anc,
-                                            const T* __restrict__ state,
-                                            T* __restrict__ out, int s, int tile, int n,
+                                            const S* __restrict__ state,
+                                            S* __restrict__ out, int s, int tile, int n,
                                             int d, bool keep) {
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
@@ -307,11 +309,11 @@ __device__ __forceinline__ void c1c2_commit(const C1C2Lanes& t, int* __restrict_
 
 // Grid (T, S): block (t, s) sweeps own tile t of row s.  C2 needs w on a
 // 16-byte boundary (the wrappers check it).
-template <int VARIANT, bool GATHER, class T>
+template <int VARIANT, bool GATHER, class T, class S>
 __global__ void __launch_bounds__(NT) metropolis_c1c2_rows_kernel(
-    const T* __restrict__ w, const T* __restrict__ state,
+    const T* __restrict__ w, const S* __restrict__ state,
     const int* __restrict__ parts, const uint32_t* __restrict__ seeds, int* __restrict__ anc,
-    T* __restrict__ out, int n, int d, int iters) {
+    S* __restrict__ out, int n, int d, int iters) {
   __shared__ C1C2RowsSmem<VARIANT, T> sm;
   c1c2_init(sm);
   const int s = blockIdx.y;
@@ -325,11 +327,11 @@ __global__ void __launch_bounds__(NT) metropolis_c1c2_rows_kernel(
   c1c2_commit(t, anc, state, out, s, tile, n, GATHER ? d : 0, true);
 }
 
-template <int VARIANT, class T>
+template <int VARIANT, class T, class S>
 __global__ void __launch_bounds__(NT) metropolis_c1c2_step_rows_kernel(
-    const T* __restrict__ lw, const T* __restrict__ state,
+    const T* __restrict__ lw, const S* __restrict__ state,
     const int* __restrict__ parts, const uint32_t* __restrict__ seeds, float thr,
-    int* __restrict__ anc, T* __restrict__ out, float* __restrict__ stats,
+    int* __restrict__ anc, S* __restrict__ out, float* __restrict__ stats,
     float* __restrict__ scratch, int rows, int n, int d, int iters) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m per row
@@ -371,28 +373,28 @@ __global__ void __launch_bounds__(NT) metropolis_c1c2_step_rows_kernel(
   }
 }
 
-template <int VARIANT, bool GATHER, class T>
+template <int VARIANT, bool GATHER, class T, class S>
 static int launch_rows(const void* w, const void* state, const void* parts,
                        const void* seeds, void* anc, void* out, int rows, int n, int d,
                        int iters, void* stream) {
   dim3 grid(n / SEG, rows);
-  metropolis_c1c2_rows_kernel<VARIANT, GATHER, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const T*)w, (const T*)state, (const int*)parts, (const uint32_t*)seeds, (int*)anc,
-      (T*)out, n, d, iters);
+  metropolis_c1c2_rows_kernel<VARIANT, GATHER, T, S><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const T*)w, (const S*)state, (const int*)parts, (const uint32_t*)seeds, (int*)anc,
+      (S*)out, n, d, iters);
   return (int)cudaGetLastError();
 }
 
-template <int VARIANT, class T>
+template <int VARIANT, class T, class S>
 static int launch_step(const void* lw, const void* state, const void* parts, const void* seeds,
                        float thr, void* anc, void* out, void* stats, void* scratch, int rows,
                        int n, int d, int iters, int blocks, void* stream) {
-  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T>;
+  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T, S>;
   const T* a_lw = (const T*)lw;
-  const T* a_state = (const T*)state;
+  const S* a_state = (const S*)state;
   const int* a_parts = (const int*)parts;
   const uint32_t* a_seeds = (const uint32_t*)seeds;
   int* a_anc = (int*)anc;
-  T* a_out = (T*)out;
+  S* a_out = (S*)out;
   float* a_stats = (float*)stats;
   float* a_scratch = (float*)scratch;
   void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_parts, (void*)&a_seeds,
@@ -403,17 +405,17 @@ static int launch_step(const void* lw, const void* state, const void* parts, con
   return coop_step_launch(kernel, blocks, rows, args, stream);
 }
 
-template <int VARIANT, class T>
+template <int VARIANT, class T, class S>
 static int step_grid(int rows, int n, int* blocks) {
-  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T>;
+  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T, S>;
   const int err = smem_optin(kernel, step_smem_bytes(rows));
   if (err != 0) return err;
   return coop_step_grid(kernel, rows, n, blocks);
 }
 
-template <int VARIANT, class T>
+template <int VARIANT, class T, class S>
 static int step_attributes(int dynamic_smem, int* out) {
-  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T>;
+  const auto kernel = metropolis_c1c2_step_rows_kernel<VARIANT, T, S>;
   const int err = smem_optin(kernel, (size_t)dynamic_smem);
   if (err != 0) return err;
   return kernel_attributes(kernel, dynamic_smem, out);
@@ -421,65 +423,84 @@ static int step_attributes(int dynamic_smem, int* out) {
 
 extern "C" {
 
-// Each entry point takes `plane`, the code of the weights' and the state's
-// plane word (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh), and
-// launches that instance.
+// Each entry point takes `plane`, the code of the weights' plane word
+// (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh); those that copy
+// state take `sb`, the bytes of its word (4 or 2), and launch the instance
+// of that pair (by_words).
 
 // The sweep of a bank: ancestors, and the state copy when state is not null.
 // variant 1 (C1) or 2 (C2); n % 1024 == 0.
 int metropolis_c1c2_rows(int variant, const void* w, const void* state, const void* parts,
                          const void* seeds, void* anc, void* out, int rows, int n, int d,
-                         int iters, int plane, void* stream) {
-  return by_plane(plane, [&](auto word) {
+                         int iters, int sb, int plane, void* stream) {
+  if (state == nullptr) {
+    return by_plane(plane, [&](auto word) {
+      using T = decltype(word);
+      using S = StateWord<T>;
+      return variant == 1
+                 ? launch_rows<1, false, T, S>(w, state, parts, seeds, anc, out, rows, n, 0,
+                                               iters, stream)
+                 : launch_rows<2, false, T, S>(w, state, parts, seeds, anc, out, rows, n, 0,
+                                               iters, stream);
+    });
+  }
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    if (variant == 1) {
-      return state ? launch_rows<1, true, T>(w, state, parts, seeds, anc, out, rows, n, d,
-                                             iters, stream)
-                   : launch_rows<1, false, T>(w, state, parts, seeds, anc, out, rows, n, 0,
-                                              iters, stream);
-    }
-    return state ? launch_rows<2, true, T>(w, state, parts, seeds, anc, out, rows, n, d, iters,
-                                           stream)
-                 : launch_rows<2, false, T>(w, state, parts, seeds, anc, out, rows, n, 0,
-                                            iters, stream);
+    using S = decltype(sword);
+    return variant == 1 ? launch_rows<1, true, T, S>(w, state, parts, seeds, anc, out, rows, n,
+                                                     d, iters, stream)
+                        : launch_rows<2, true, T, S>(w, state, parts, seeds, anc, out, rows, n,
+                                                     d, iters, stream);
   });
 }
 
-int metropolis_c1c2_step_grid(int variant, int rows, int n, int plane, int* blocks) {
-  return by_plane(plane, [&](auto word) {
+int metropolis_c1c2_step_grid(int variant, int rows, int n, int sb, int plane, int* blocks) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    return variant == 1 ? step_grid<1, T>(rows, n, blocks) : step_grid<2, T>(rows, n, blocks);
+    using S = decltype(sword);
+    return variant == 1 ? step_grid<1, T, S>(rows, n, blocks)
+                        : step_grid<2, T, S>(rows, n, blocks);
   });
 }
 
 int metropolis_c1c2_step_rows(int variant, const void* lw, const void* state,
                               const void* parts, const void* seeds, float thr, void* anc,
                               void* out, void* stats, void* scratch, int rows, int n, int d,
-                              int iters, int blocks, int plane, void* stream) {
-  return by_plane(plane, [&](auto word) {
+                              int iters, int blocks, int sb, int plane, void* stream) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    return variant == 1 ? launch_step<1, T>(lw, state, parts, seeds, thr, anc, out, stats,
-                                            scratch, rows, n, d, iters, blocks, stream)
-                        : launch_step<2, T>(lw, state, parts, seeds, thr, anc, out, stats,
-                                            scratch, rows, n, d, iters, blocks, stream);
+    using S = decltype(sword);
+    return variant == 1 ? launch_step<1, T, S>(lw, state, parts, seeds, thr, anc, out, stats,
+                                               scratch, rows, n, d, iters, blocks, stream)
+                        : launch_step<2, T, S>(lw, state, parts, seeds, thr, anc, out, stats,
+                                               scratch, rows, n, d, iters, blocks, stream);
   });
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py (6·plane + 0-3: the bank kernels <1, false>,
-// <1, true>, <2, false>, <2, true>; + 4, + 5: the steps <1>, <2>):
-// kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py: 6·plane + 0-3 the bank kernels <1, false>,
+// <1, true>, <2, false>, <2, true>, + 4, + 5 the steps <1>, <2>, each with
+// the plane's own state word (StateWord<T>); then 18 + 4·(plane - 1) + 0-3
+// the bank kernels <1, true>, <2, true> and the steps <1>, <2> with a
+// 4-byte state beside the 2-byte plane: kernel_attributes' four numbers.
 int c1c2_attributes(int which, int dynamic_smem, int* out) {
-  return by_plane(which / 6, [&](auto word) {
+  const int plane = which < 18 ? which / 6 : 1 + (which - 18) / 4;
+  const int sb = which < 18 ? (plane == PLANE_F32 ? 4 : 2) : 4;
+  const int tail[4] = {1, 3, 4, 5};
+  const int k = which < 18 ? which % 6 : tail[(which - 18) % 4];
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
+    using S = decltype(sword);
     const int d = dynamic_smem;
-    switch (which % 6) {
-      case 0: return kernel_attributes(metropolis_c1c2_rows_kernel<1, false, T>, d, out);
-      case 1: return kernel_attributes(metropolis_c1c2_rows_kernel<1, true, T>, d, out);
-      case 2: return kernel_attributes(metropolis_c1c2_rows_kernel<2, false, T>, d, out);
-      case 3: return kernel_attributes(metropolis_c1c2_rows_kernel<2, true, T>, d, out);
-      case 4: return step_attributes<1, T>(dynamic_smem, out);
-      default: return step_attributes<2, T>(dynamic_smem, out);
+    switch (k) {
+      case 0: return kernel_attributes(metropolis_c1c2_rows_kernel<1, false, T, StateWord<T>>, d,
+                                       out);
+      case 1: return kernel_attributes(metropolis_c1c2_rows_kernel<1, true, T, S>, d, out);
+      case 2: return kernel_attributes(metropolis_c1c2_rows_kernel<2, false, T, StateWord<T>>, d,
+                                       out);
+      case 3: return kernel_attributes(metropolis_c1c2_rows_kernel<2, true, T, S>, d, out);
+      case 4: return step_attributes<1, T, S>(dynamic_smem, out);
+      default: return step_attributes<2, T, S>(dynamic_smem, out);
     }
   });
 }

@@ -62,12 +62,15 @@
 //   and the same integer work and L2 sector traffic.
 //
 // Plane words (DESIGN.md §14): each kernel is a template on the word T of
-// its weight and state planes, float, __nv_bfloat16 or __half, one instance
-// each, picked by the C entry points' `plane` code.  Each weight read is
+// its weight planes, float, __nv_bfloat16 or __half, and on the word S of
+// its state (StateWord<T>, or uint32_t beside a 2-byte T: by_words in
+// ../../common.cuh), picked by the C entry points' `plane` and `sb`.  Each
+// weight read is
 // upcast to f32 and flushed (load_plane in ../../common.cuh): the random
 // read w[j] becomes a 2-byte load and still moves one 32-byte sector, and
 // the sweep's arithmetic is the float32 kernel's.  The state is copied as
-// plane words; the step's prelude writes exp(lw - m) rounded to T, as T.
+// S words, bit moves; the step's prelude writes exp(lw - m) rounded to T,
+// as T.
 //
 // Subnormals: built with -ftz=true, and flushed explicitly (ftz()) on the
 // values selection depends on, as XLA does on the CPU.
@@ -95,10 +98,10 @@ __device__ __forceinline__ void metropolis_sweep(const T* __restrict__ w,
   }
 }
 
-template <bool GATHER, class T>
+template <bool GATHER, class T, class S>
 __global__ void __launch_bounds__(NT) metropolis_rows_kernel(
-    const T* __restrict__ w, const T* __restrict__ state,
-    const uint32_t* __restrict__ seeds, int* __restrict__ anc, T* __restrict__ out,
+    const T* __restrict__ w, const S* __restrict__ state,
+    const uint32_t* __restrict__ seeds, int* __restrict__ anc, S* __restrict__ out,
     int n, int d, int iters) {
   __shared__ uint32_t s_hh[CHUNK];
   const int s = blockIdx.y;
@@ -130,11 +133,11 @@ __global__ void __launch_bounds__(NT) metropolis_rows_kernel(
 // Eight blocks an SM (32 registers), as the float32 instance takes them
 // unasked: free, the 2-byte instances took 40 registers and six blocks, and
 // were 3-4% slower than float32 at S = 1 (PERF.md §6).
-template <class T>
+template <class T, class S>
 __global__ void __launch_bounds__(NT, 8) metropolis_step_rows_kernel(
-    const T* __restrict__ lw, const T* __restrict__ state,
+    const T* __restrict__ lw, const S* __restrict__ state,
     const uint32_t* __restrict__ seeds, float thr, int* __restrict__ anc,
-    T* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
+    S* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
     int rows, int n, int d, int iters) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m per row
@@ -164,9 +167,10 @@ __global__ void __launch_bounds__(NT, 8) metropolis_step_rows_kernel(
 
 extern "C" {
 
-// Each entry point takes `plane`, the code of the weights' and the state's
-// plane word (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh), and
-// launches that instance.
+// Each entry point takes `plane`, the code of the weights' plane word
+// (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh); those that copy
+// state take `sb`, the bytes of its word (4 or 2), and launch the instance
+// of that pair (by_words).
 
 // The index-only sweep: ancestors of a bank, no state.
 int metropolis_rows(const void* w, const void* seeds, void* anc, int rows, int n, int iters,
@@ -174,60 +178,69 @@ int metropolis_rows(const void* w, const void* seeds, void* anc, int rows, int n
   return by_plane(plane, [&](auto word) {
     using T = decltype(word);
     dim3 grid((n + NT - 1) / NT, rows);
-    metropolis_rows_kernel<false, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+    metropolis_rows_kernel<false, T, StateWord<T>><<<grid, NT, 0, (cudaStream_t)stream>>>(
         (const T*)w, nullptr, (const uint32_t*)seeds, (int*)anc, nullptr, n, 0, iters);
     return (int)cudaGetLastError();
   });
 }
 
 int metropolis_fused_rows(const void* w, const void* state, const void* seeds, void* anc,
-                          void* out, int rows, int n, int d, int iters, int plane,
+                          void* out, int rows, int n, int d, int iters, int sb, int plane,
                           void* stream) {
-  return by_plane(plane, [&](auto word) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
+    using S = decltype(sword);
     dim3 grid((n + NT - 1) / NT, rows);
-    metropolis_rows_kernel<true, T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-        (const T*)w, (const T*)state, (const uint32_t*)seeds, (int*)anc, (T*)out, n, d,
-        iters);
+    metropolis_rows_kernel<true, T, S><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const T*)w, (const S*)state, (const uint32_t*)seeds, (int*)anc, (S*)out, n, d, iters);
     return (int)cudaGetLastError();
   });
 }
 
-int metropolis_step_grid(int rows, int n, int plane, int* blocks) {
-  return by_plane(plane, [&](auto word) {
-    return coop_step_grid(metropolis_step_rows_kernel<decltype(word)>, rows, n, blocks);
+int metropolis_step_grid(int rows, int n, int sb, int plane, int* blocks) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
+    return coop_step_grid(metropolis_step_rows_kernel<decltype(word), decltype(sword)>, rows, n,
+                          blocks);
   });
 }
 
 int metropolis_step_rows(const void* lw, const void* state, const void* seeds, float thr,
                          void* anc, void* out, void* stats, void* scratch, int rows, int n,
-                         int d, int iters, int blocks, int plane, void* stream) {
-  return by_plane(plane, [&](auto word) {
+                         int d, int iters, int blocks, int sb, int plane, void* stream) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
+    using S = decltype(sword);
     const T* a_lw = (const T*)lw;
-    const T* a_state = (const T*)state;
+    const S* a_state = (const S*)state;
     const uint32_t* a_seeds = (const uint32_t*)seeds;
     int* a_anc = (int*)anc;
-    T* a_out = (T*)out;
+    S* a_out = (S*)out;
     float* a_stats = (float*)stats;
     float* a_scratch = (float*)scratch;
     void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_seeds, (void*)&thr,
                     (void*)&a_anc, (void*)&a_out, (void*)&a_stats, (void*)&a_scratch,
                     (void*)&rows, (void*)&n, (void*)&d, (void*)&iters};
-    return coop_step_launch(metropolis_step_rows_kernel<T>, blocks, rows, args, stream);
+    return coop_step_launch(metropolis_step_rows_kernel<T, S>, blocks, rows, args, stream);
   });
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py (3·plane + 0: the index-only kernel, + 1:
-// the fused one, + 2: the step): kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py: 3·plane + 0 the index-only kernel, + 1 the
+// fused one, + 2 the step, each with the plane's own state word
+// (StateWord<T>); then 9 + 2·(plane - 1) + 0 the fused kernel and + 1 the
+// step with a 4-byte state beside the 2-byte plane.
 int metropolis_attributes(int which, int dynamic_smem, int* out) {
-  return by_plane(which / 3, [&](auto word) {
+  const int plane = which < 9 ? which / 3 : 1 + (which - 9) / 2;
+  const int sb = which < 9 ? (plane == PLANE_F32 ? 4 : 2) : 4;
+  const int k = which < 9 ? which % 3 : 1 + (which - 9) % 2;
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    switch (which % 3) {
-      case 0: return kernel_attributes(metropolis_rows_kernel<false, T>, dynamic_smem, out);
-      case 1: return kernel_attributes(metropolis_rows_kernel<true, T>, dynamic_smem, out);
-      default: return kernel_attributes(metropolis_step_rows_kernel<T>, dynamic_smem, out);
+    using S = decltype(sword);
+    switch (k) {
+      case 0: return kernel_attributes(metropolis_rows_kernel<false, T, StateWord<T>>,
+                                       dynamic_smem, out);
+      case 1: return kernel_attributes(metropolis_rows_kernel<true, T, S>, dynamic_smem, out);
+      default: return kernel_attributes(metropolis_step_rows_kernel<T, S>, dynamic_smem, out);
     }
   });
 }

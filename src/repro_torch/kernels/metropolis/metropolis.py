@@ -40,6 +40,7 @@ from repro_torch.kernels.common import (
     device_seeds,
     kernel_wrapper,
     plane_instance,
+    state_bytes,
     step_buffers,
 )
 from repro_torch.kernels.metropolis.ref import metropolis_rows_ref, metropolis_step_rows_ref
@@ -54,12 +55,12 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_bound", False):
         lib.metropolis_rows.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
         lib.metropolis_rows.restype = _I
-        lib.metropolis_fused_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.metropolis_fused_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.metropolis_fused_rows.restype = _I
-        lib.metropolis_step_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.metropolis_step_grid.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
         lib.metropolis_step_grid.restype = _I
         lib.metropolis_step_rows.argtypes = [
-            _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ]
         lib.metropolis_step_rows.restype = _I
         lib._bound = True
@@ -86,24 +87,23 @@ def _launch_rows(w, state, seeds, num_iters, who):
     out = torch.empty_like(state)
     check_launch(_lib().metropolis_fused_rows(
         w.data_ptr(), state.data_ptr(), sd.data_ptr(), anc.data_ptr(), out.data_ptr(),
-        s, n, d, num_iters, code, stream), who)
+        s, n, d, num_iters, state_bytes(state), code, stream), who)
     return anc, out
 
 
 def _launch_step(lw, state, seeds, num_iters, thr, who):
     s, n, d = _check(who, lw, state, seeds, num_iters)
     lib = _lib()
-    code = PLANE_CODES[lw.dtype]
+    code, sb = PLANE_CODES[lw.dtype], state_bytes(state)
     g, anc, out, stats, scratch = step_buffers(
-        lambda rows, n_, blocks: lib.metropolis_step_grid(rows, n_, code, blocks),
+        lambda rows, n_, blocks: lib.metropolis_step_grid(rows, n_, sb, code, blocks),
         who, lw, state, num_iters)
     sd = device_seeds(seeds, lw.device)
     stream = torch.cuda.current_stream(lw.device).cuda_stream
     check_launch(lib.metropolis_step_rows(
         lw.data_ptr(), state.data_ptr(), sd.data_ptr(), float(thr), anc.data_ptr(),
-        out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), s, n, d, num_iters, g, code,
-        stream),
-        who)
+        out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), s, n, d, num_iters, g, sb, code,
+        stream), who)
     return anc, out, stats
 
 
@@ -123,7 +123,7 @@ def _step(who, lw, state, seeds, num_iters, thr):
     return _launch_step(lw, state, seeds, num_iters, thr, who)
 
 
-@kernel_wrapper(plane_instance("metropolis_rows_kernel", False))
+@kernel_wrapper(plane_instance("metropolis_rows_kernel", False, state=0))
 def metropolis_batch(w: torch.Tensor, seeds: torch.Tensor, num_iters: int):
     """Index-only resample of a bank ``w [S, N]`` (a plane dtype) with one seed per row
     ``[S]``.  Returns ``ancestors int32[S, N]``; row ``s`` equals
@@ -133,7 +133,7 @@ def metropolis_batch(w: torch.Tensor, seeds: torch.Tensor, num_iters: int):
     return anc
 
 
-@kernel_wrapper(plane_instance("metropolis_rows_kernel", False))
+@kernel_wrapper(plane_instance("metropolis_rows_kernel", False, state=0))
 def metropolis(w: torch.Tensor, seed: torch.Tensor, num_iters: int):
     """Index-only resample of one population ``w [N]`` with a scalar
     ``seed``.  Returns ``ancestors int32[N]``."""
@@ -142,7 +142,7 @@ def metropolis(w: torch.Tensor, seed: torch.Tensor, num_iters: int):
     return anc[0]
 
 
-@kernel_wrapper(plane_instance("metropolis_rows_kernel", True))
+@kernel_wrapper(plane_instance("metropolis_rows_kernel", True, state=1))
 def metropolis_fused_batch(w: torch.Tensor, state: torch.Tensor, seeds: torch.Tensor,
                            num_iters: int):
     """Fused resample + state copy over a bank: ``w [S, N]``, ``state
@@ -153,7 +153,7 @@ def metropolis_fused_batch(w: torch.Tensor, state: torch.Tensor, seeds: torch.Te
     return result
 
 
-@kernel_wrapper(plane_instance("metropolis_rows_kernel", True))
+@kernel_wrapper(plane_instance("metropolis_rows_kernel", True, state=1))
 def metropolis_fused(w: torch.Tensor, state: torch.Tensor, seed: torch.Tensor,
                      num_iters: int):
     """Fused resample + state copy of one population: ``w [N]``, ``state
@@ -165,7 +165,7 @@ def metropolis_fused(w: torch.Tensor, state: torch.Tensor, seed: torch.Tensor,
     return anc[0], out[0]
 
 
-@kernel_wrapper(plane_instance("metropolis_step_rows_kernel"))
+@kernel_wrapper(plane_instance("metropolis_step_rows_kernel", state=1))
 def metropolis_step_rows(lw: torch.Tensor, state: torch.Tensor, seeds: torch.Tensor,
                          num_iters: int, thr: float):
     """Fused SMC step over a bank of log-weights ``[S, N]`` (a plane dtype;
@@ -177,7 +177,7 @@ def metropolis_step_rows(lw: torch.Tensor, state: torch.Tensor, seeds: torch.Ten
     return result
 
 
-@kernel_wrapper(plane_instance("metropolis_step_rows_kernel"))
+@kernel_wrapper(plane_instance("metropolis_step_rows_kernel", state=1))
 def metropolis_step(lw: torch.Tensor, state: torch.Tensor, seed: torch.Tensor,
                     num_iters: int, thr: float):
     """Fused SMC step of one population: ``lw [N]``, ``state [D, N]``.

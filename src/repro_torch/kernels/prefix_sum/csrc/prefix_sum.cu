@@ -128,13 +128,15 @@
 // template on a plane word T, float, __nv_bfloat16 or __half, picked by the
 // C entry points' `plane` code (by_plane in ../../common.cuh):
 // prefix_scan_rows_kernel<T> on its input (upcast exactly on load;
-// residual's count and residual scans take the float instance), the search
-// kernels on the state they copy (a copy does no arithmetic; the index-only
-// searches have the float instance alone), prefix_step_rows_kernel<KIND, T>
-// on its log-weights and state: the prelude writes exp(lw - m) rounded to T
-// as exact f32 values (step_prelude<T, float>), so the rest of the step, the
-// scan in place among it, is the float32 instance's code; a buffer of T
-// words would need the CDF beside it and took more registers (PERF.md §6).
+// residual's count and residual scans take the float instance),
+// prefix_step_rows_kernel<KIND, T, S> on its log-weights: the prelude
+// writes exp(lw - m) rounded to T as exact f32 values (step_prelude<T,
+// float>), so the rest of the step, the scan in place among it, is the
+// float32 instance's code; a buffer of T words would need the CDF beside it
+// and took more registers (PERF.md §6).  The searches and the step copy
+// state as S words, uint32_t or uint16_t by the state's width (a copy does
+// no arithmetic): the searches read no plane, so each has an instance per
+// state word alone.
 
 #include "../../common.cuh"
 
@@ -359,12 +361,12 @@ __device__ __forceinline__ int bisect(const float* c, float u, bool right, int n
 }
 
 // One thread per slot: slot i bisects its row's CDF at u (draws that rise
-// with i, so a warp's 32 paths coincide but for their last steps); T is the
+// with i, so a warp's 32 paths coincide but for their last steps); S is the
 // word of the state it copies.
-template <bool GATHER, class T>
+template <bool GATHER, class S>
 __global__ void __launch_bounds__(NT) prefix_search_rows_kernel(
-    const float* __restrict__ cdf, const float* __restrict__ u, const T* __restrict__ state,
-    int* __restrict__ anc, T* __restrict__ out, int n, int d, int right) {
+    const float* __restrict__ cdf, const float* __restrict__ u, const S* __restrict__ state,
+    int* __restrict__ anc, S* __restrict__ out, int n, int d, int right) {
   const int s = blockIdx.y;
   const int i = blockIdx.x * NT + threadIdx.x;
   if (i >= n) return;
@@ -514,12 +516,13 @@ __device__ __forceinline__ void build_trees(const float* c, float* tree, int row
 // sweeping the bank in order (so one or two rows' CDFs, trees and states
 // are the L2 working set).  RESIDUAL: slot i < n_det[s] bisects the count
 // CDF at (float)i as prefix_search_rows_kernel does (those draws rise with
-// i); the tree is the residual CDF's.  T is the word of the state it copies.
-template <bool GATHER, bool RESIDUAL, class T>
+// i); the tree is the residual CDF's.  S is the word of the state it
+// copies.
+template <bool GATHER, bool RESIDUAL, class S>
 __global__ void __launch_bounds__(NT) prefix_search_tree_kernel(
     const float* __restrict__ cdf, const float* __restrict__ cc, const float* __restrict__ u,
-    const int* __restrict__ n_det, const T* __restrict__ state, int* __restrict__ anc,
-    T* __restrict__ out, float* tree, int rows, int n, int d, int right) {
+    const int* __restrict__ n_det, const S* __restrict__ state, int* __restrict__ anc,
+    S* __restrict__ out, float* tree, int rows, int n, int d, int right) {
   cg::grid_group grid = cg::this_grid();
   const int groups = tree_groups(n);
   build_trees<true>(cdf, tree, rows, n, groups, [](int) { return false; });
@@ -555,8 +558,8 @@ __global__ void __launch_bounds__(NT) prefix_search_tree_kernel(
 // blocks per SM, 8 bytes spilled), faster on a bank of 16 than 48 or free
 // by 8-21% and slower on one row by 5-7%; residual keeps its 48 (5), the
 // count it had before the scan held four elements a thread in registers.
-// The 2-byte instances (T, the word of lw and the state) take their own
-// (StepBlocks): capped at 40 as float32's, systematic and stratified spilled
+// The 2-byte instances (T, the word of lw) take their own, whatever the
+// state word S (StepBlocks): capped at 40 as float32's, systematic and stratified spilled
 // 28 bytes, so they keep 48 (5 blocks an SM, no spill; PERF.md §6).
 #define STEP_BLOCKS_1_2 6     // prefix_step_rows_kernel<1 or 2, float>
 #define STEP_BLOCKS_1_2_2B 5  // prefix_step_rows_kernel<1 or 2, __nv_bfloat16 / __half>
@@ -566,12 +569,12 @@ struct StepBlocks {
       KIND == 0 ? 4 : (KIND == 3 ? 5 : (sizeof(T) == 4 ? STEP_BLOCKS_1_2 : STEP_BLOCKS_1_2_2B));
 };
 
-template <int KIND, class T>
+template <int KIND, class T, class S>
 __global__ void __launch_bounds__(NT, StepBlocks<KIND, T>::value)
     prefix_step_rows_kernel(
-    const T* __restrict__ lw, const T* __restrict__ state,
+    const T* __restrict__ lw, const S* __restrict__ state,
     const float* __restrict__ ubase, const float* __restrict__ u0, float thr,
-    int* __restrict__ anc, T* __restrict__ out, float* __restrict__ stats,
+    int* __restrict__ anc, S* __restrict__ out, float* __restrict__ stats,
     float* __restrict__ scratch, float* work, int rows, int n, int d) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m; residual: then n_det
@@ -673,24 +676,37 @@ __global__ void __launch_bounds__(NT, StepBlocks<KIND, T>::value)
   }
 }
 
-// The step kernel of each KIND at plane word T.
-template <class T>
+// The step kernel of each KIND at plane word T and state word S.
+template <class T, class S>
 static const void* step_kernel(int kind) {
   switch (kind) {
-    case 0: return (const void*)prefix_step_rows_kernel<0, T>;
-    case 1: return (const void*)prefix_step_rows_kernel<1, T>;
-    case 2: return (const void*)prefix_step_rows_kernel<2, T>;
-    case 3: return (const void*)prefix_step_rows_kernel<3, T>;
+    case 0: return (const void*)prefix_step_rows_kernel<0, T, S>;
+    case 1: return (const void*)prefix_step_rows_kernel<1, T, S>;
+    case 2: return (const void*)prefix_step_rows_kernel<2, T, S>;
+    case 3: return (const void*)prefix_step_rows_kernel<3, T, S>;
     default: return nullptr;
   }
 }
 
-// The tree search kernel of an instance (the index-only one at float alone).
-template <class T>
+// The tree search kernel copying S words (the index-only one at uint32_t
+// alone).
+template <class S>
 static const void* tree_kernel(bool residual, bool gather) {
-  if (residual) return (const void*)prefix_search_tree_kernel<true, true, T>;
-  if (gather) return (const void*)prefix_search_tree_kernel<true, false, T>;
-  return (const void*)prefix_search_tree_kernel<false, false, float>;
+  if (residual) return (const void*)prefix_search_tree_kernel<true, true, S>;
+  if (gather) return (const void*)prefix_search_tree_kernel<true, false, S>;
+  return (const void*)prefix_search_tree_kernel<false, false, uint32_t>;
+}
+
+// Call f(S{}) for the state word of sb bytes, uint32_t or uint16_t, on the
+// host: the searches' dispatch (they read no plane).  Any other width is
+// cudaErrorInvalidValue.
+template <class F>
+static int by_state(int sb, F f) {
+  switch (sb) {
+    case 4: return f(uint32_t{});
+    case 2: return f(uint16_t{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The scan kernel reading plane words T.
@@ -701,9 +717,10 @@ static const void* scan_kernel() {
 
 extern "C" {
 
-// Each entry point takes `plane`, the code of a plane word (PLANE_F32,
-// PLANE_BF16, PLANE_F16 in ../../common.cuh): the scan's input, the
-// searches' state, the step's log-weights and state.
+// Each entry point that reads a plane takes `plane`, the code of its word
+// (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh): the scan's input,
+// the step's log-weights; those that copy state take `sb`, the bytes of its
+// word (4 or 2), and launch the instance of that word (by_words, by_state).
 
 // Blocks of the cooperative scan grid: as many as can be co-resident, and
 // no more than the bank has tiles.
@@ -731,39 +748,39 @@ int prefix_scan_rows(const void* x, void* y, void* tot, int rows, int n, int blo
 long long prefix_search_tree_floats(int n) { return tree_row_floats(n); }
 
 // The search over a bank: with state (not null) the copy of each
-// ancestor's state, of plane word `plane`.  With neither tree nor cc, one
+// ancestor's state, of sb-byte words.  With neither tree nor cc, one
 // thread a slot (prefix_search_rows_kernel, for draws that rise with i);
 // else one cooperative launch of prefix_search_tree_kernel on a co-resident
 // grid, with cc (not null) the residual select and tree scratch of
 // tree_floats floats, at least a tree a row (prefix_search_tree_floats).
 int prefix_search_rows(const void* cdf, const void* cc, const void* u, const void* n_det,
                        const void* state, void* anc, void* out, void* tree,
-                       long long tree_floats, int rows, int n, int d, int right, int plane,
+                       long long tree_floats, int rows, int n, int d, int right, int sb,
                        void* stream) {
-  return by_plane(state == nullptr ? PLANE_F32 : plane, [&](auto word) {
-    using T = decltype(word);
+  return by_state(sb, [&](auto sword) {
+    using S = decltype(sword);
     const float* a_cdf = (const float*)cdf;
     const float* a_cc = (const float*)cc;
     const float* a_u = (const float*)u;
     const int* a_nd = (const int*)n_det;
-    const T* a_state = (const T*)state;
+    const S* a_state = (const S*)state;
     int* a_anc = (int*)anc;
-    T* a_out = (T*)out;
+    S* a_out = (S*)out;
     cudaStream_t st = (cudaStream_t)stream;
     if (tree == nullptr && cc == nullptr) {
       dim3 grid((n + NT - 1) / NT, rows);
       if (state != nullptr) {
-        prefix_search_rows_kernel<true, T><<<grid, NT, 0, st>>>(a_cdf, a_u, a_state, a_anc,
+        prefix_search_rows_kernel<true, S><<<grid, NT, 0, st>>>(a_cdf, a_u, a_state, a_anc,
                                                                 a_out, n, d, right);
       } else {
-        prefix_search_rows_kernel<false, float><<<grid, NT, 0, st>>>(
+        prefix_search_rows_kernel<false, uint32_t><<<grid, NT, 0, st>>>(
             a_cdf, a_u, nullptr, a_anc, nullptr, n, d, right);
       }
       return (int)cudaGetLastError();
     }
     if (tree_floats < (long long)rows * prefix_search_tree_floats(n))
       return (int)cudaErrorInvalidValue;
-    const void* kernel = tree_kernel<T>(cc != nullptr, state != nullptr);
+    const void* kernel = tree_kernel<S>(cc != nullptr, state != nullptr);
     int blocks = 0;
     const int err = resident_blocks(kernel, 0, ((long long)rows * n + NT - 1) / NT, &blocks);
     if (err != 0) return err;
@@ -778,9 +795,9 @@ int prefix_search_rows(const void* cdf, const void* cc, const void* u, const voi
   });
 }
 
-int prefix_step_grid(int kind, int rows, int n, int plane, int* blocks) {
-  return by_plane(plane, [&](auto word) {
-    const void* kernel = step_kernel<decltype(word)>(kind);
+int prefix_step_grid(int kind, int rows, int n, int sb, int plane, int* blocks) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
+    const void* kernel = step_kernel<decltype(word), decltype(sword)>(kind);
     if (kernel == nullptr) return (int)cudaErrorInvalidValue;
     return coop_step_grid(kernel, rows, n, blocks);
   });
@@ -788,18 +805,19 @@ int prefix_step_grid(int kind, int rows, int n, int plane, int* blocks) {
 
 int prefix_step_rows(int kind, const void* lw, const void* state, const void* ubase,
                      const void* u0, float thr, void* anc, void* out, void* stats,
-                     void* scratch, void* work, int rows, int n, int d, int blocks, int plane,
-                     void* stream) {
-  return by_plane(plane, [&](auto word) {
+                     void* scratch, void* work, int rows, int n, int d, int blocks, int sb,
+                     int plane, void* stream) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    const void* kernel = step_kernel<T>(kind);
+    using S = decltype(sword);
+    const void* kernel = step_kernel<T, S>(kind);
     if (kernel == nullptr) return (int)cudaErrorInvalidValue;
     const T* a_lw = (const T*)lw;
-    const T* a_state = (const T*)state;
+    const S* a_state = (const S*)state;
     const float* a_ubase = (const float*)ubase;
     const float* a_u0 = (const float*)u0;
     int* a_anc = (int*)anc;
-    T* a_out = (T*)out;
+    S* a_out = (S*)out;
     float* a_stats = (float*)stats;
     float* a_scratch = (float*)scratch;
     float* a_work = (float*)work;
@@ -811,36 +829,35 @@ int prefix_step_rows(int kind, const void* lw, const void* state, const void* ub
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py: 0 the scan, 1-2 the rows searches <false>,
-// <true>, 3-5 the tree searches <false, false>, <true, false>, <true,
-// true>, 6-9 the steps of KIND 0-3, all at float; then per 2-byte word
-// (10 + 8·(plane - 1)): + 0 the scan, + 1 the rows search <true>, + 2-3
-// the tree searches <true, false>, <true, true>, + 4-7 the steps.
+// repro_torch/analysis/smem.py: 0 the scan at float; 1-2 the rows searches
+// <false>, <true>; 3-5 the tree searches <false, false>, <true, false>,
+// <true, true>, all copying uint32_t; 6-9 the steps of KIND 0-3 at float;
+// 10-12 the searches that copy, copying uint16_t; then per 2-byte word
+// (13 + 9·(plane - 1)): + 0 the scan, + 1-4 the steps with the plane's own
+// state word, + 5-8 with a 4-byte one.
 int prefix_sum_attributes(int which, int dynamic_smem, int* out) {
-  const int plane = which < 10 ? PLANE_F32 : 1 + (which - 10) / 8;
-  const int k = which < 10 ? which : (which - 10) % 8;
-  return by_plane(plane, [&](auto word) {
-    using T = decltype(word);
-    const void* kernel = nullptr;
-    if (plane == PLANE_F32) {
-      switch (k) {
-        case 0: kernel = scan_kernel<T>(); break;
-        case 1: kernel = (const void*)prefix_search_rows_kernel<false, float>; break;
-        case 2: kernel = (const void*)prefix_search_rows_kernel<true, T>; break;
-        case 3: case 4: case 5: kernel = tree_kernel<T>(k == 5, k >= 4); break;
-        default: kernel = step_kernel<T>(k - 6);
-      }
-    } else {
-      switch (k) {
-        case 0: kernel = scan_kernel<T>(); break;
-        case 1: kernel = (const void*)prefix_search_rows_kernel<true, T>; break;
-        case 2: case 3: kernel = tree_kernel<T>(k == 3, true); break;
-        default: kernel = step_kernel<T>(k - 4);
-      }
+  const void* kernel = nullptr;
+  if (which < 13) {
+    switch (which) {
+      case 0: kernel = scan_kernel<float>(); break;
+      case 1: kernel = (const void*)prefix_search_rows_kernel<false, uint32_t>; break;
+      case 2: kernel = (const void*)prefix_search_rows_kernel<true, uint32_t>; break;
+      case 3: case 4: case 5: kernel = tree_kernel<uint32_t>(which == 5, which >= 4); break;
+      case 10: kernel = (const void*)prefix_search_rows_kernel<true, uint16_t>; break;
+      case 11: case 12: kernel = tree_kernel<uint16_t>(which == 12, true); break;
+      default: kernel = step_kernel<float, uint32_t>(which - 6);
     }
-    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-    return kernel_attributes(kernel, dynamic_smem, out);
-  });
+  } else {
+    const int plane = 1 + (which - 13) / 9, k = (which - 13) % 9;
+    const int err = by_words(plane, k <= 4 ? 2 : 4, [&](auto word, auto sword) {
+      using T = decltype(word);
+      kernel = k == 0 ? scan_kernel<T>() : step_kernel<T, decltype(sword)>((k - 1) % 4);
+      return 0;
+    });
+    if (err != 0) return err;
+  }
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return kernel_attributes(kernel, dynamic_smem, out);
 }
 
 }  // extern "C"

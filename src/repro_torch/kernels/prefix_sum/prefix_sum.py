@@ -53,10 +53,10 @@ def _lib() -> ctypes.CDLL:
         lib.prefix_search_rows.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                            _I, _I, _I, _I, _I, _P]
         lib.prefix_search_rows.restype = _I
-        lib.prefix_step_grid.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+        lib.prefix_step_grid.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
         lib.prefix_step_grid.restype = _I
         lib.prefix_step_rows.argtypes = [
-            _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+            _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
         ]
         lib.prefix_step_rows.restype = _I
         lib._bound = True

@@ -1,17 +1,19 @@
 """Launch wrappers of the prefix-sum search kernels, one per TPU kernel (after
 ``repro.kernels.prefix_sum.search``):
 
-    searchsorted_rows            <- searchsorted_pallas            (kernels: rows<false, float>,
-                                                                    tree<false, false, float>)
-    searchsorted_gather_rows     <- searchsorted_gather_pallas     (kernels: rows<true, T>,
-                                                                    tree<true, false, T>)
-    residual_select_gather_rows  <- residual_select_gather_pallas  (kernel: tree<true, true, T>)
+    searchsorted_rows            <- searchsorted_pallas            (kernels: rows<false, u32>,
+                                                                    tree<false, false, u32>)
+    searchsorted_gather_rows     <- searchsorted_gather_pallas     (kernels: rows<true, S>,
+                                                                    tree<true, false, S>)
+    residual_select_gather_rows  <- residual_select_gather_pallas  (kernel: tree<true, true, S>)
 
 ``side`` follows ``jnp.searchsorted``: ``"left"`` the first index with
 ``c >= u``, ``"right"`` the first with ``c > u``, clipped to N - 1.  Each
 wrapper takes a bank of S rows (one population is a bank of one row);
-state is ``[S, D, N]`` of any plane dtype (the kernels' instance of its word
-T: a copy does no arithmetic); the CDFs and the draws are float32.  The
+state is ``[S, D, N]`` of any plane dtype or int32, copied as words of its
+own width (the kernels' instance of that word S, ``uint32_t`` or
+``uint16_t``: a copy does no arithmetic); the CDFs and the draws are
+float32.  The
 wrappers behave as that of ``prefix_sum.py``: plain version on CPU tensors,
 the kernel or an error on CUDA tensors, one count per launch.
 
@@ -30,12 +32,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import (
-    PLANE_CODES,
     PLANE_DTYPES,
     check_launch,
     kernel_wrapper,
-    plane_instance,
-    plane_word,
+    state_bytes,
+    state_word,
 )
 from repro_torch.kernels.prefix_sum.prefix_sum import _lib, check_rows, ptr, stream
 from repro_torch.kernels.prefix_sum.ref import (
@@ -74,18 +75,18 @@ def _search(who, cdf, u, side, rising, state=None, cc=None, n_det=None):
     check_launch(_lib().prefix_search_rows(
         cdf.data_ptr(), ptr(cc), u.data_ptr(), ptr(nd), ptr(state), anc.data_ptr(), ptr(out),
         ptr(tree), 0 if tree is None else tree.numel(), s, n, d, int(side == "right"),
-        PLANE_CODES[torch.float32 if state is None else state.dtype], stream(cdf)), who)
+        state_bytes(state), stream(cdf)), who)
     return anc if state is None else (anc, out)
 
 
 def _kernel(gather: bool):
     """The census name of a search wrapper's launch, by its ``rising``
     (positional after ``side``, or by keyword) and the word of its state
-    (``float`` for the index-only search)."""
+    (``unsigned int`` for the index-only search)."""
     g, at = str(gather).lower(), 4 if gather else 3
 
     def name(*args, rising=False, **_):
-        word = plane_word(args[2]) if gather else "float"
+        word = state_word(args[2]) if gather else "unsigned int"
         if args[at] if len(args) > at else rising:
             return f"prefix_search_rows_kernel<{g}, {word}>"
         return f"prefix_search_tree_kernel<{g}, false, {word}>"
@@ -112,7 +113,7 @@ def searchsorted_gather_rows(cdf: torch.Tensor, u: torch.Tensor, state: torch.Te
     return result
 
 
-@kernel_wrapper(plane_instance("prefix_search_tree_kernel", True, True, of=4))
+@kernel_wrapper(lambda *args, **_: f"prefix_search_tree_kernel<true, true, {state_word(args[4])}>")
 def residual_select_gather_rows(cc: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
                                 n_det: torch.Tensor, state: torch.Tensor):
     """Residual resampling's tail over a bank: slot ``i < n_det[s]`` takes

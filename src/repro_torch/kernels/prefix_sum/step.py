@@ -1,14 +1,16 @@
 """Launch wrappers of the prefix-sum step kernel (after
 ``repro.kernels.prefix_sum.step``):
 
-    prefix_step_rows  <- prefix_pallas_step  (kernel: prefix_step_rows_kernel<KIND, T>, a
-                                              bank; the JAX package maps the single step)
+    prefix_step_rows  <- prefix_pallas_step  (kernel: prefix_step_rows_kernel<KIND, T, S>,
+                                              a bank; the JAX package maps the single step)
 
-One population is a bank of one row.  The log-weights and the state share
-one plane dtype, float32, bfloat16 or float16 (the kernel's instance of that
-word T); the kernel rounds its weights to that word's grid and scans them
-into a float32 CDF, as the JAX step does (it keeps them as float32 values,
-so its weights buffer is ``S·N`` floats at every word).  The draw bases come from the caller,
+One population is a bank of one row.  The log-weights and a float state
+share one plane dtype, float32, bfloat16 or float16 (the kernel's instance
+of that word T and of the state word S of its width); an int32 state rides
+beside any of them (S = uint32_t); the kernel rounds its weights to that
+word's grid and scans them into a float32 CDF, as the JAX step does (it
+keeps them as float32 values, so its weights buffer is ``S·N`` floats at
+every word).  The draw bases come from the caller,
 as the JAX wrapper draws them from the key: ``ubase f32[S, N] =
 uniform(key, (N,))`` for multinomial, stratified and residual (None for
 the systematic kinds) and ``u0 f32[S] = uniform(key, ())`` for the
@@ -28,6 +30,8 @@ from repro_torch.kernels.common import (
     check_launch,
     kernel_wrapper,
     plane_word,
+    state_bytes,
+    state_word,
     step_buffers,
 )
 from repro_torch.kernels.prefix_sum.prefix_sum import _lib, check_rows, ptr, stream
@@ -63,9 +67,9 @@ def _step(who, lw, state, ubase, u0, thr, kind):
     if not lw.is_cuda:
         return prefix_step_rows_ref(lw, state, ubase, u0, thr, kind)
     lib = _lib()
-    plane = PLANE_CODES[lw.dtype]
+    plane, sb = PLANE_CODES[lw.dtype], state_bytes(state)
     g, anc, out, stats, scratch = step_buffers(
-        lambda rows, n_, blocks: lib.prefix_step_grid(code, rows, n_, plane, blocks), who, lw,
+        lambda rows, n_, blocks: lib.prefix_step_grid(code, rows, n_, sb, plane, blocks), who, lw,
         state, 0, wbuf_word=4)
     t = n // TILE
     # The kernel's work space: for the draws in no order (multinomial,
@@ -78,13 +82,13 @@ def _step(who, lw, state, ubase, u0, thr, kind):
     check_launch(lib.prefix_step_rows(
         code, lw.data_ptr(), state.data_ptr(), ptr(ubase), ptr(u0), float(thr), anc.data_ptr(),
         out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), work.data_ptr(), s, n, d, g,
-        plane, stream(lw)), who)
+        sb, plane, stream(lw)), who)
     return anc, out, stats
 
 
 def _step_kernel(lw, state, ubase, u0, thr, kind):
     """The instance of the step kernel a call launches."""
-    return f"prefix_step_rows_kernel<{KIND_CODES[kind]}, {plane_word(lw)}>"
+    return f"prefix_step_rows_kernel<{KIND_CODES[kind]}, {plane_word(lw)}, {state_word(state)}>"
 
 
 @kernel_wrapper(_step_kernel)

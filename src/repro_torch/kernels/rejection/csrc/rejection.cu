@@ -99,14 +99,15 @@
 //   S = 16, 0.088 against 0.106 at S = 1 (PERF.md).
 //
 // Plane words (DESIGN.md §14): both kernels are templates on the word T of
-// their weight and state planes, float, __nv_bfloat16 or __half, one
-// instance each, picked by the C entry points' `plane` code (by_plane in
-// ../../common.cuh).  Each weight read is upcast to f32 and flushed
+// their weight planes, float, __nv_bfloat16 or __half, and on the word S of
+// their state (StateWord<T>, or uint32_t beside a 2-byte T), picked by the
+// C entry points' `plane` and `sb` (by_words in ../../common.cuh).  Each
+// weight read is upcast to f32 and flushed
 // (load_plane): a random read w[j] becomes a 2-byte load and still moves one
 // 32-byte sector, and the chain's arithmetic, the hash, the uniforms and
 // sup w stay f32 (the wrapper upcasts its torch.amax before the launch).
-// The state is copied as plane words.  The step's prelude rounds exp(lw -
-// m) to T and writes it to scratch as T (step_prelude); its sup w, the max
+// The state is copied as S words, bit moves.  The step's prelude rounds
+// exp(lw - m) to T and writes it to scratch as T (step_prelude); its sup w, the max
 // of those words, is 1.0f on a row that is not degenerate and 1/N rounded
 // to T on a degenerate one.
 //
@@ -158,11 +159,11 @@ __device__ __forceinline__ bool self_accept(uint32_t h0, uint32_t lane_u, float 
   return scaled_uniform(fmix(h0 ^ lane_u), scale) <= ftz(wi);
 }
 
-template <bool GATHER, class T>
+template <bool GATHER, class T, class S>
 __global__ void __launch_bounds__(NT) rejection_rows_kernel(
     const T* __restrict__ w, const float* __restrict__ wmax,
-    const uint32_t* __restrict__ seeds, const T* __restrict__ state,
-    int* __restrict__ anc, T* __restrict__ out, int n, int d, int max_iters) {
+    const uint32_t* __restrict__ seeds, const S* __restrict__ state,
+    int* __restrict__ anc, S* __restrict__ out, int n, int d, int max_iters) {
   __shared__ uint32_t s_hh[CHUNK];
   const int s = blockIdx.y;
   const int i = blockIdx.x * NT + threadIdx.x;
@@ -221,10 +222,10 @@ struct ChainRow {
 // A store a commit leaves for later: the warp chain writes the state word
 // val to dst one round on, so that the load of val is in flight beside that
 // round's.
-template <class T>
+template <class S>
 struct Pending {
-  T* dst;
-  T val;
+  S* dst;
+  S val;
 };
 
 // Round t of particle i's chain: t = 0 proposes i itself, t >= 1 proposes
@@ -266,15 +267,15 @@ __device__ __forceinline__ int nth_set(unsigned m, int g) {
 // at round t are max_iters - t >= 0, so no sum passes max_iters and the
 // caller may take any max_iters < 2^31 - 1.  row_of(s) gives row s's
 // ChainRow<T>; commit(s, i, k) records ancestor k of particle i of row s and
-// returns the store it leaves pending (dst null: none).
-template <class T, class RowId, class RowOf, class Commit>
+// returns the store of an S word it leaves pending (dst null: none).
+template <class T, class S, class RowId, class RowOf, class Commit>
 __device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, int max_iters,
                                             RowId row_id, RowOf row_of, Commit commit) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1;
   int s = -1, i = 0, t = 0;  // this lane's particle (s < 0: none) and its next round
   ChainRow<T> row{nullptr, 0u, 0.0f};
-  Pending<T> pend{nullptr, T{}};
+  Pending<S> pend{nullptr, S{}};
   const int total = rows * n;  // rows·n < 2^31
   const int pieces = warps * max(1, total / (warps * REJ_CHUNK));
   int piece = w;  // piece p holds ids [total·p / pieces, total·(p + 1) / pieces)
@@ -371,11 +372,11 @@ __device__ __forceinline__ void warp_chains(int w, int warps, int rows, int n, i
   if (pend.dst != nullptr) *pend.dst = pend.val;
 }
 
-template <class T>
+template <class T, class S>
 __global__ void __launch_bounds__(NT, REJ_MIN_BLOCKS) rejection_step_rows_kernel(
-    const T* __restrict__ lw, const T* __restrict__ state,
+    const T* __restrict__ lw, const S* __restrict__ state,
     const uint32_t* __restrict__ seeds, float thr, int* __restrict__ anc,
-    T* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
+    S* __restrict__ out, float* __restrict__ stats, float* __restrict__ scratch,
     int rows, int n, int d, int max_iters) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float row_m[];          // [rows] shift m per row
@@ -421,7 +422,7 @@ __global__ void __launch_bounds__(NT, REJ_MIN_BLOCKS) rejection_step_rows_kernel
   // weight 1/N as the prelude wrote it, rounded to T.
   const float inv_n = plane_f32(to_plane<T>((float)(1.0 / (double)n)));
   const T* wbuf = reinterpret_cast<const T*>(sc.wbuf);
-  warp_chains<T>(
+  warp_chains<T, S>(
       blockIdx.x * (NT / 32) + (threadIdx.x >> 5), gridDim.x * (NT / 32), ((int*)red)[0], n,
       max_iters, [&](int r) { return fired[r]; },
       [&](int s) {
@@ -436,75 +437,88 @@ __global__ void __launch_bounds__(NT, REJ_MIN_BLOCKS) rejection_step_rows_kernel
           out[plane + i] = state[plane + k];
         }
         const size_t plane0 = (size_t)s * d * n;
-        return d > 0 ? Pending<T>{out + plane0 + i, state[plane0 + k]} : Pending<T>{nullptr, T{}};
+        return d > 0 ? Pending<S>{out + plane0 + i, state[plane0 + k]}
+                     : Pending<S>{nullptr, S{}};
       });
 }
 
 extern "C" {
 
-// Each entry point takes `plane`, the code of the weights' and the state's
-// plane word (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh), and
-// launches that instance; sup w (wmax) is f32 at every word.
+// Each entry point takes `plane`, the code of the weights' plane word
+// (PLANE_F32, PLANE_BF16, PLANE_F16 in ../../common.cuh); those that copy
+// state take `sb`, the bytes of its word (4 or 2), and launch the instance
+// of that pair (by_words); sup w (wmax) is f32 at every word.
 
 // The chain over a bank: ancestors, and with state (not null) the copy of
 // each ancestor's state.
 int rejection_rows(const void* w, const void* wmax, const void* seeds, const void* state,
-                   void* anc, void* out, int rows, int n, int d, int max_iters, int plane,
-                   void* stream) {
-  return by_plane(plane, [&](auto word) {
+                   void* anc, void* out, int rows, int n, int d, int max_iters, int sb,
+                   int plane, void* stream) {
+  const float* a_wmax = (const float*)wmax;
+  const uint32_t* a_seeds = (const uint32_t*)seeds;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid((n + NT - 1) / NT, rows);
+  if (state == nullptr) {
+    return by_plane(plane, [&](auto word) {
+      using T = decltype(word);
+      rejection_rows_kernel<false, T, StateWord<T>><<<grid, NT, 0, st>>>(
+          (const T*)w, a_wmax, a_seeds, nullptr, (int*)anc, nullptr, n, d, max_iters);
+      return (int)cudaGetLastError();
+    });
+  }
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    dim3 grid((n + NT - 1) / NT, rows);
-    const T* a_w = (const T*)w;
-    const float* a_wmax = (const float*)wmax;
-    const uint32_t* a_seeds = (const uint32_t*)seeds;
-    const T* a_state = (const T*)state;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (state == nullptr) {
-      rejection_rows_kernel<false, T><<<grid, NT, 0, st>>>(a_w, a_wmax, a_seeds, a_state,
-                                                           (int*)anc, (T*)out, n, d, max_iters);
-    } else {
-      rejection_rows_kernel<true, T><<<grid, NT, 0, st>>>(a_w, a_wmax, a_seeds, a_state,
-                                                          (int*)anc, (T*)out, n, d, max_iters);
-    }
+    using S = decltype(sword);
+    rejection_rows_kernel<true, T, S><<<grid, NT, 0, st>>>(
+        (const T*)w, a_wmax, a_seeds, (const S*)state, (int*)anc, (S*)out, n, d, max_iters);
     return (int)cudaGetLastError();
   });
 }
 
-int rejection_step_grid(int rows, int n, int plane, int* blocks) {
-  return by_plane(plane, [&](auto word) {
-    return coop_step_grid(rejection_step_rows_kernel<decltype(word)>, rows, n, blocks);
+int rejection_step_grid(int rows, int n, int sb, int plane, int* blocks) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
+    return coop_step_grid(rejection_step_rows_kernel<decltype(word), decltype(sword)>, rows, n,
+                          blocks);
   });
 }
 
 int rejection_step_rows(const void* lw, const void* state, const void* seeds, float thr,
                         void* anc, void* out, void* stats, void* scratch, int rows, int n,
-                        int d, int max_iters, int blocks, int plane, void* stream) {
-  return by_plane(plane, [&](auto word) {
+                        int d, int max_iters, int blocks, int sb, int plane, void* stream) {
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
+    using S = decltype(sword);
     const T* a_lw = (const T*)lw;
-    const T* a_state = (const T*)state;
+    const S* a_state = (const S*)state;
     const uint32_t* a_seeds = (const uint32_t*)seeds;
     int* a_anc = (int*)anc;
-    T* a_out = (T*)out;
+    S* a_out = (S*)out;
     float* a_stats = (float*)stats;
     float* a_scratch = (float*)scratch;
     void* args[] = {(void*)&a_lw, (void*)&a_state, (void*)&a_seeds, (void*)&thr,
                     (void*)&a_anc, (void*)&a_out, (void*)&a_stats, (void*)&a_scratch,
                     (void*)&rows, (void*)&n, (void*)&d, (void*)&max_iters};
-    return coop_step_launch(rejection_step_rows_kernel<T>, blocks, rows, args, stream);
+    return coop_step_launch(rejection_step_rows_kernel<T, S>, blocks, rows, args, stream);
   });
 }
 
 // Kernel `which` of this file's resource table rows, in the order of
-// repro_torch/analysis/smem.py (3·plane + 0: the index-only kernel, + 1:
-// the fused one, + 2: the step): kernel_attributes' four numbers.
+// repro_torch/analysis/smem.py: 3·plane + 0 the index-only kernel, + 1 the
+// fused one, + 2 the step, each with the plane's own state word
+// (StateWord<T>); then 9 + 2·(plane - 1) + 0 the fused kernel and + 1 the
+// step with a 4-byte state beside the 2-byte plane.
 int rejection_attributes(int which, int dynamic_smem, int* out) {
-  return by_plane(which / 3, [&](auto word) {
+  const int plane = which < 9 ? which / 3 : 1 + (which - 9) / 2;
+  const int sb = which < 9 ? (plane == PLANE_F32 ? 4 : 2) : 4;
+  const int k = which < 9 ? which % 3 : 1 + (which - 9) % 2;
+  return by_words(plane, sb, [&](auto word, auto sword) {
     using T = decltype(word);
-    switch (which % 3) {
-      case 0: return kernel_attributes(rejection_rows_kernel<false, T>, dynamic_smem, out);
-      case 1: return kernel_attributes(rejection_rows_kernel<true, T>, dynamic_smem, out);
-      default: return kernel_attributes(rejection_step_rows_kernel<T>, dynamic_smem, out);
+    using S = decltype(sword);
+    switch (k) {
+      case 0: return kernel_attributes(rejection_rows_kernel<false, T, StateWord<T>>,
+                                       dynamic_smem, out);
+      case 1: return kernel_attributes(rejection_rows_kernel<true, T, S>, dynamic_smem, out);
+      default: return kernel_attributes(rejection_step_rows_kernel<T, S>, dynamic_smem, out);
     }
   });
 }

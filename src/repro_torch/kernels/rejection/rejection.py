@@ -48,6 +48,7 @@ from repro_torch.kernels.common import (
     flush_to_zero,
     kernel_wrapper,
     plane_instance,
+    state_bytes,
     step_buffers,
 )
 from repro_torch.kernels.rejection.ref import rejection_rows_ref, rejection_step_rows_ref
@@ -63,12 +64,12 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if not getattr(lib, "_bound", False):
-        lib.rejection_rows.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.rejection_rows.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.rejection_rows.restype = _I
-        lib.rejection_step_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.rejection_step_grid.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
         lib.rejection_step_grid.restype = _I
         lib.rejection_step_rows.argtypes = [
-            _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ]
         lib.rejection_step_rows.restype = _I
         lib._bound = True
@@ -95,24 +96,24 @@ def _launch_rows(w, state, seeds, max_iters, who):
     check_launch(_lib().rejection_rows(
         w.data_ptr(), w_max.data_ptr(), sd.data_ptr(),
         None if state is None else state.data_ptr(), anc.data_ptr(),
-        None if out is None else out.data_ptr(), s, n, d, max_iters, PLANE_CODES[w.dtype],
-        stream), who)
+        None if out is None else out.data_ptr(), s, n, d, max_iters, state_bytes(state),
+        PLANE_CODES[w.dtype], stream), who)
     return anc if state is None else (anc, out)
 
 
 def _launch_step(lw, state, seeds, max_iters, thr, who):
     s, n, d = _check(who, lw, state, seeds, max_iters)
     lib = _lib()
-    code = PLANE_CODES[lw.dtype]
+    code, sb = PLANE_CODES[lw.dtype], state_bytes(state)
     # No hash prefixes: the kernel hashes each round in the thread.
     g, anc, out, stats, scratch = step_buffers(
-        lambda rows, n_, blocks: lib.rejection_step_grid(rows, n_, code, blocks), who, lw,
+        lambda rows, n_, blocks: lib.rejection_step_grid(rows, n_, sb, code, blocks), who, lw,
         state, 0)
     sd = device_seeds(seeds, lw.device)
     stream = torch.cuda.current_stream(lw.device).cuda_stream
     check_launch(lib.rejection_step_rows(
         lw.data_ptr(), state.data_ptr(), sd.data_ptr(), float(thr), anc.data_ptr(),
-        out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), s, n, d, max_iters, g, code,
+        out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), s, n, d, max_iters, g, sb, code,
         stream), who)
     return anc, out, stats
 
@@ -133,7 +134,7 @@ def _step(who, lw, state, seeds, max_iters, thr):
     return _launch_step(lw, state, seeds, max_iters, thr, who)
 
 
-@kernel_wrapper(plane_instance("rejection_rows_kernel", False))
+@kernel_wrapper(plane_instance("rejection_rows_kernel", False, state=0))
 def rejection_batch(w: torch.Tensor, seeds: torch.Tensor, max_iters: int):
     """Index-only resample of a bank ``w [S, N]`` (a plane dtype) with one seed per row
     ``[S]``.  Returns ``ancestors int32[S, N]``; row ``s`` equals
@@ -143,7 +144,7 @@ def rejection_batch(w: torch.Tensor, seeds: torch.Tensor, max_iters: int):
     return anc
 
 
-@kernel_wrapper(plane_instance("rejection_rows_kernel", False))
+@kernel_wrapper(plane_instance("rejection_rows_kernel", False, state=0))
 def rejection(w: torch.Tensor, seed: torch.Tensor, max_iters: int):
     """Index-only resample of one population ``w [N]`` with a scalar
     ``seed``.  Returns ``ancestors int32[N]``."""
@@ -152,7 +153,7 @@ def rejection(w: torch.Tensor, seed: torch.Tensor, max_iters: int):
     return anc[0]
 
 
-@kernel_wrapper(plane_instance("rejection_rows_kernel", True))
+@kernel_wrapper(plane_instance("rejection_rows_kernel", True, state=1))
 def rejection_fused_batch(w: torch.Tensor, state: torch.Tensor, seeds: torch.Tensor,
                           max_iters: int):
     """Fused resample + state copy over a bank: ``w [S, N]``, ``state
@@ -163,7 +164,7 @@ def rejection_fused_batch(w: torch.Tensor, state: torch.Tensor, seeds: torch.Ten
     return result
 
 
-@kernel_wrapper(plane_instance("rejection_rows_kernel", True))
+@kernel_wrapper(plane_instance("rejection_rows_kernel", True, state=1))
 def rejection_fused(w: torch.Tensor, state: torch.Tensor, seed: torch.Tensor, max_iters: int):
     """Fused resample + state copy of one population: ``w [N]``, ``state
     [D, N]``, a scalar ``seed``.  Returns ``(ancestors int32[N], state' [D,
@@ -174,7 +175,7 @@ def rejection_fused(w: torch.Tensor, state: torch.Tensor, seed: torch.Tensor, ma
     return anc[0], out[0]
 
 
-@kernel_wrapper(plane_instance("rejection_step_rows_kernel"))
+@kernel_wrapper(plane_instance("rejection_step_rows_kernel", state=1))
 def rejection_step_rows(lw: torch.Tensor, state: torch.Tensor, seeds: torch.Tensor,
                         max_iters: int, thr: float):
     """Fused SMC step over a bank of log-weights ``[S, N]`` (a plane dtype;
@@ -186,7 +187,7 @@ def rejection_step_rows(lw: torch.Tensor, state: torch.Tensor, seeds: torch.Tens
     return result
 
 
-@kernel_wrapper(plane_instance("rejection_step_rows_kernel"))
+@kernel_wrapper(plane_instance("rejection_step_rows_kernel", state=1))
 def rejection_step(lw: torch.Tensor, state: torch.Tensor, seed: torch.Tensor, max_iters: int,
                    thr: float):
     """Fused SMC step of one population: ``lw [N]``, ``state [D, N]``.

@@ -9,6 +9,8 @@ The weights are random, drawn from ``seed``; there is no tokenizer.
     python -m repro_torch.launch.serve --arch qwen3-0.6b            # smoke size, on the card
     python -m repro_torch.launch.serve --arch qwen3-0.6b --full     # published width
     python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu --num-particles 1024
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu  # SSM, smoke size
+    python -m repro_torch.launch.serve --arch dbrx-132b --device cpu    # MoE, smoke size
 
 The particle count defaults to ``DECODE_PARTICLES`` = 1024, not the JAX
 package's 64: a registry name resolves to the hand-written kernels, which
@@ -47,7 +49,8 @@ def serve_once(arch_name: str, *, smoke: bool = True, num_particles: int = DECOD
                seed: int = 0, target_temp: float = 0.7, device="cuda"):
     """Prefill ``num_particles`` random prompts of ``prompt_len`` tokens and
     decode ``new_tokens`` by SMC, in float32 as the JAX package's ``serve_once`` runs it.
-    ``resampler`` is a registry name or a spec (``SMCDecodeConfig``).
+    ``resampler`` is a registry name or a spec (``SMCDecodeConfig``): every
+    family's kernels copy the int32 token buffer, beside any plane dtype.
     Returns the tokens, log-weights, resamples, final ESS and the seconds of
     prefill and decode (the card synchronised)."""
     dev = resolve_device(device)
@@ -69,14 +72,16 @@ def serve_once(arch_name: str, *, smoke: bool = True, num_particles: int = DECOD
 
     _sync(dev)
     t0 = time.perf_counter()
-    _, caches = prefill(params, cfg, prompts, max_seq)
+    # Handed to the decode, not held here: its first gather frees them.
+    caches = [prefill(params, cfg, prompts, max_seq)[1]]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
     smc_cfg = SMCDecodeConfig(num_particles=num_particles, max_new_tokens=new_tokens,
                               resampler=resampler, target_temp=target_temp)
     t0 = time.perf_counter()
-    tokens, log_w, stats = smc_decode(params, cfg, smc_cfg, caches, first, prompt_len, k_decode)
+    tokens, log_w, stats = smc_decode(params, cfg, smc_cfg, caches.pop(), first, prompt_len,
+                                      k_decode)
     _sync(dev)
     t_decode = time.perf_counter() - t0
     return {

@@ -1,11 +1,11 @@
 """The decoder LM, after ``repro.models.transformer``: one ``ModelConfig`` and a
 per-layer ``layer_pattern`` of block kinds.
 
-  * ``attn``        — global GQA attention block (+ MLP)
-  * ``swa``         — sliding-window attention block (+ MLP)
+  * ``attn``        — global GQA attention block (+ MLP or MoE)
+  * ``swa``         — sliding-window attention block (+ MLP or MoE)
+  * ``mamba``       — Mamba2/SSD mixer block (no MLP; the SSM is the mixer)
   * ``shared_attn`` — Zamba2-style block whose attention+MLP params are
                       shared by every such layer (stored once)
-  * ``mamba``       — the Mamba2/SSD mixer: waits for ``models/mamba2.py``
 
 Pre-norm residual wiring throughout; the layers run as a Python loop.  The
 param tree is the JAX package's, leaf for leaf (``convert.params_from_jax``
@@ -13,9 +13,9 @@ carries one across), and ``init_params`` draws it from the JAX package's
 key tree through ``repro_torch.random``.  Serving is ported (``init_cache``,
 ``prefill``, ``decode_step``); ``loss_fn``, ``remat`` and the sharding
 trees (``param_pspecs``, ``cache_pspecs``, ``partitioning.logical``) belong
-to training and sharding and wait for their slice (ROADMAP Queue A item
-11).  MoE layers and ``mamba`` layers raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+to training and sharding and wait for their slice (ROADMAP Queue A items
+A11e and A11f).  A ``mamba`` layer's decode cache is its conv windows and
+SSM state (``mamba2.init_mamba_cache``) beside the attention layers' K/V.
 """
 
 from __future__ import annotations
@@ -36,11 +36,20 @@ from repro_torch.models.layers import (
     linear,
     rmsnorm,
 )
+from repro_torch.models.mamba2 import (
+    init_mamba,
+    init_mamba_cache,
+    mamba_block,
+    mamba_decode_step,
+)
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.moe import init_moe, moe
 
-#: Where the layers the port does not run yet are queued (ROADMAP Queue A).
-MOE_ITEM = "ROADMAP Queue A item A11b (models/moe.py)"
-MAMBA_ITEM = "ROADMAP Queue A item A11c (models/mamba2.py)"
+#: The layer kinds of ``layer_pattern``.
+LAYER_KINDS = ("attn", "swa", "shared_attn", "mamba")
+#: Leaves of the expert weights, of which a token uses top_k of num_experts
+#: (``num_active_params``, the JAX package's rule).
+_EXPERT_LEAVES = ("/w1/", "/w2/", "/w3/")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,49 +114,61 @@ class ModelConfig:
     def num_params(self) -> int:
         """Total parameter count, from the shapes alone: ``init_params`` on
         the ``meta`` device, which allocates nothing."""
-        shapes = init_params(trandom.PRNGKey(0), self, device="meta")
-        return sum(leaf.numel() for leaf in _leaves(shapes))
+        return sum(leaf.numel() for _, leaf in _named_shapes(self))
 
     def num_active_params(self) -> int:
-        """Active params per token: all of them for a dense model."""
-        if self.is_moe:
-            raise NotImplementedError(f"{self.name}: MoE layers wait for {MOE_ITEM}")
-        return self.num_params()
+        """Active params per token (MoE: top_k of num_experts of each expert
+        weight, plus everything else), by the JAX package's rule."""
+        if not self.is_moe:
+            return self.num_params()
+        total = 0
+        for path, leaf in _named_shapes(self):
+            if any(name in path for name in _EXPERT_LEAVES):
+                total += int(leaf.numel() * self.top_k / self.num_experts)
+            else:
+                total += leaf.numel()
+        return total
 
 
-def _leaves(tree):
+def _named_leaves(tree, path=""):
+    """``(path, leaf)`` of every leaf, the path's keys joined by ``/`` as the
+    JAX package's ``keystr_simple`` joins them."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{path}/{k}" if path else str(k))
     elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}/{i}" if path else str(i))
     else:
-        yield tree
+        yield path, tree
+
+
+def _named_shapes(cfg: ModelConfig):
+    return _named_leaves(init_params(trandom.PRNGKey(0), cfg, device="meta"))
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for a config with a layer the port does
-    not run yet (a ``mamba`` layer, an MoE layer), naming its ROADMAP item."""
-    kinds = cfg.layer_kinds
-    if "mamba" in kinds:
-        raise NotImplementedError(f"{cfg.name}: mamba layers wait for {MAMBA_ITEM}")
-    if any(cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
-        raise NotImplementedError(f"{cfg.name}: MoE layers wait for {MOE_ITEM}")
-    unknown = sorted(set(kinds) - {"attn", "swa", "shared_attn"})
+    """Raise ``ValueError`` for a layer kind outside ``LAYER_KINDS``."""
+    unknown = sorted(set(cfg.layer_kinds) - set(LAYER_KINDS))
     if unknown:
         raise ValueError(f"{cfg.name}: unknown layer kinds {unknown}")
 
 
 # --------------------------------------------------------------------- init
-def _init_block(key, cfg: ModelConfig, device):
+def _init_block(key, cfg: ModelConfig, kind: str, device, layer_idx: int = -1):
+    if kind == "mamba":
+        return {"norm": init_rmsnorm(cfg.d_model, device), "mamba": init_mamba(key, cfg, device)}
     k1, k2 = trandom.split(key)
-    return {
+    p = {
         "norm1": init_rmsnorm(cfg.d_model, device),
         "attn": init_attention(k1, cfg, device),
         "norm2": init_rmsnorm(cfg.d_model, device),
-        "mlp": init_mlp(k2, cfg.d_model, cfg.ff_dense, cfg.mlp_type, device),
     }
+    if layer_idx >= 0 and cfg.is_moe_layer(layer_idx):
+        p["moe"] = init_moe(k2, cfg, device)
+    else:
+        p["mlp"] = init_mlp(k2, cfg.d_model, cfg.ff_dense, cfg.mlp_type, device)
+    return p
 
 
 def init_params(key, cfg: ModelConfig, device="cuda"):
@@ -165,10 +186,10 @@ def init_params(key, cfg: ModelConfig, device="cuda"):
         params["embed"] = init_embedding(keys[-1], cfg.vocab_size, cfg.d_model, dev)
     params["lm_head"] = init_linear(keys[-2], cfg.d_model, cfg.vocab_size, device=dev)
     kinds = cfg.layer_kinds
-    params["layers"] = [{} if kind == "shared_attn" else _init_block(keys[i], cfg, dev)
+    params["layers"] = [{} if kind == "shared_attn" else _init_block(keys[i], cfg, kind, dev, i)
                         for i, kind in enumerate(kinds)]
     if "shared_attn" in kinds:
-        params["shared"] = _init_block(keys[-3], cfg, dev)
+        params["shared"] = _init_block(keys[-3], cfg, "attn", dev)
     return params
 
 
@@ -183,14 +204,23 @@ def _inputs(params, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
     return embed(params["embed"], inputs, cfg.dtype)
 
 
+def _feed_forward(p, cfg: ModelConfig, h):
+    return moe(p["moe"], cfg, h) if "moe" in p else mlp(p["mlp"], h, cfg.mlp_type)
+
+
 def _block_forward(p, cfg: ModelConfig, kind: str, x, positions):
-    """One block; returns ``(x', (k, v))``."""
+    """One block; returns ``(x', state)``: ``(k, v)`` of an attention block,
+    the decode cache of a ``mamba`` block."""
+    if kind == "mamba":
+        h, cache = mamba_block(p["mamba"], cfg, rmsnorm(p["norm"], x, cfg.norm_eps),
+                               chunk=cfg.ssm_chunk)
+        return x + h, cache
     window = cfg.window if kind == "swa" else 0
     a, kv = attention(p["attn"], cfg, rmsnorm(p["norm1"], x, cfg.norm_eps), positions,
                       window=window, q_chunk=cfg.q_chunk)
     x = x + a
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.mlp_type), kv
+    return x + _feed_forward(p, cfg, h), kv
 
 
 def forward(params, cfg: ModelConfig, inputs, positions=None):
@@ -216,13 +246,17 @@ def _ring(cfg: ModelConfig, kind: str, max_seq: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
-    """Per-layer decode caches ``[{"kv": (k, v)}]``, each ``(batch, ring,
-    Hkv, hd)``; window layers get O(window) rings."""
+    """Per-layer decode caches: ``{"kv": (k, v)}``, each ``(batch, ring, Hkv,
+    hd)``, of an attention layer (window layers get O(window) rings); the
+    conv windows and SSM state of a ``mamba`` layer, in the compute dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
     cdt = cfg.cache_dtype or cfg.dtype
     caches = []
     for kind in cfg.layer_kinds:
+        if kind == "mamba":
+            caches.append(init_mamba_cache(cfg, batch, cfg.dtype, dev))
+            continue
         shape = (batch, _ring(cfg, kind, max_seq), cfg.num_kv_heads, cfg.head_dim)
         caches.append({"kv": (torch.zeros(shape, dtype=cdt, device=dev),
                               torch.zeros(shape, dtype=cdt, device=dev))})
@@ -238,8 +272,12 @@ def prefill(params, cfg: ModelConfig, inputs, max_seq: int):
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     caches = []
     for i, kind in enumerate(cfg.layer_kinds):
-        x, (k, v) = _block_forward(_block_params(params, kind, i), cfg, kind, x, positions)
-        caches.append({"kv": _ring_from_prefill(k, v, _ring(cfg, kind, max_seq), max_seq, cfg)})
+        x, state = _block_forward(_block_params(params, kind, i), cfg, kind, x, positions)
+        if kind == "mamba":
+            caches.append(state)
+        else:
+            caches.append({"kv": _ring_from_prefill(*state, _ring(cfg, kind, max_seq), max_seq,
+                                                    cfg)})
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, h[:, -1]), caches
 
@@ -260,20 +298,26 @@ def _ring_from_prefill(k, v, ring: int, max_seq: int, cfg: ModelConfig):
 
 def decode_step(params, cfg: ModelConfig, inputs, caches, pos: int):
     """One decode step.  ``inputs``: int tokens (B,1) or embeds (B,1,D);
-    ``pos``: the current position (an int).  Writes the new K/V into
-    ``caches`` in place (``attention.decode_attention``) and returns
-    (logits (B,V), caches)."""
+    ``pos``: the current position (an int).  Writes the new K/V and SSM
+    states into ``caches`` in place (``attention.decode_attention``,
+    ``mamba2.mamba_decode_step``) and returns (logits (B,V), caches)."""
     check_supported(cfg)
     x = _inputs(params, cfg, inputs)
     new_caches = []
     for i, kind in enumerate(cfg.layer_kinds):
         p = _block_params(params, kind, i)
+        if kind == "mamba":
+            h, cache = mamba_decode_step(p["mamba"], cfg, rmsnorm(p["norm"], x, cfg.norm_eps),
+                                         caches[i])
+            x = x + h
+            new_caches.append(cache)
+            continue
         window = cfg.window if kind == "swa" else 0
         a, kv = decode_attention(p["attn"], cfg, rmsnorm(p["norm1"], x, cfg.norm_eps),
                                  caches[i]["kv"], pos, window=window)
         x = x + a
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], h2, cfg.mlp_type)
+        x = x + _feed_forward(p, cfg, h2)
         new_caches.append({"kv": kv})
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, h[:, -1]), new_caches

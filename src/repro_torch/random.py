@@ -243,13 +243,17 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    floats = _bits_to_unit(random_bits(key, shape, device))
+def _uniform_of_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    floats = _bits_to_unit(bits)
     lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    return _uniform_of_bits(random_bits(key, shape, device), minval, maxval)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape, device=None) -> torch.Tensor:
@@ -283,12 +287,34 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * big, p * x)
 
 
+#: Most elements one chunk of a single key's ``normal`` draw makes at a
+#: time: its ``int64`` temporaries stay near 2**27 elements (1 GiB each).
+NORMAL_CHUNK = 1 << 27
+
+
+def _normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    return erfinv_xla(_uniform_of_bits(bits, lo, 1.0)) * math.sqrt(2.0)
+
+
 def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` to within 3 ULP.  A key
-    bank ``[S, 2]`` draws ``[S, *shape]``, row ``s`` from ``key[s]``."""
-    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(key, shape, lo, 1.0, device=device)
-    return erfinv_xla(u) * math.sqrt(2.0)
+    bank ``[S, 2]`` draws ``[S, *shape]``, row ``s`` from ``key[s]``.  One
+    key's draw of more than ``NORMAL_CHUNK`` elements runs in chunks of the
+    flat counters, each chunk's values those of the whole draw (an expert
+    weight of 10^9 elements would otherwise need tens of GB of
+    temporaries)."""
+    size = math.prod(shape)
+    if key.ndim > 1 or size <= NORMAL_CHUNK:
+        return _normal_of_bits(random_bits(key, shape, device))
+    if _KEY_OBSERVERS:
+        report_key("random_bits", key)
+    device = key.device if device is None else torch.device(device)
+    out = torch.empty(size, dtype=torch.float32, device=device)
+    for c0 in range(0, size, NORMAL_CHUNK):
+        rows = min(NORMAL_CHUNK, size - c0)
+        out[c0:c0 + rows] = _normal_of_bits(_bits_rows(key, rows, 1, c0, device)[:, 0])
+    return out.reshape(tuple(shape))
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:

@@ -5,17 +5,19 @@ Particles are concurrent decode hypotheses on the batch axis; weights come
 from the proposal/target likelihood ratio (or a user twist function);
 resampling prunes and duplicates hypotheses.  Resampling is any registered
 family, Megopolis by default, over the particle axis, followed by an
-ancestor gather of every KV-cache leaf.
+ancestor gather of every cache leaf, KV and SSM (an SSM layer's state and
+conv windows are a fixed size whatever the context).
 
   * weights need not be normalised (the Metropolis family uses only
     ratios): the loop keeps log-weights, and the step shifts by their max;
   * resampling is ESS-triggered, and the per-step reweight, ESS and
     conditional resample are ONE fused ``Resampler.step`` call (DESIGN.md
     §12): on ``cuda`` one launch of the family's step kernel a token, which
-    also copies the int32 token buffer ``[N, T]`` as its state;
-  * the KV-cache gather by the returned ancestors is plain PyTorch
-    (``index_select`` of every leaf, every step, as the JAX package's
-    ``jnp.take``): it is not a kernel of the JAX package either.
+    also copies the int32 token buffer ``[N, T]`` as its state, beside
+    log-weights of any plane dtype;
+  * the cache gather by the returned ancestors is plain PyTorch
+    (``index_select`` of every leaf, KV and SSM, every step, as the JAX
+    package's ``jnp.take``): it is not a kernel of the JAX package either.
 
 The JAX package runs the steps as one ``lax.scan``; the port runs them as a
 Python loop over ``split(key, T)``, the same keys in the same order.
@@ -94,7 +96,8 @@ def _default_twist(logits: torch.Tensor, token: torch.Tensor, cfg: SMCDecodeConf
 
 
 def _gather(tree, ancestors: torch.Tensor):
-    """Every tensor leaf of a cache tree indexed by ``ancestors`` on axis 0."""
+    """Every tensor leaf of a cache tree, KV and SSM, indexed by
+    ``ancestors`` on axis 0."""
     if isinstance(tree, dict):
         return {k: _gather(v, ancestors) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -118,7 +121,8 @@ def smc_decode(
 
     ``caches`` must be prefilled for ``start_pos`` (``models.prefill``);
     particle i's hypothesis extends ``first_tokens[i]``.  The first step
-    writes its K/V into ``caches`` in place (``models.decode_step``); every
+    writes its K/V and SSM states into ``caches`` in place
+    (``models.decode_step``); every
     later step works on the gathered copies.
 
     ``telemetry=True`` (DESIGN.md §15) returns ``(tokens, log_weights,

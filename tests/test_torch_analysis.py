@@ -289,7 +289,7 @@ def test_largest_shapes_within_the_cards_limits():
     reps = list(contracts.audit_large_n())
     assert len(reps) == sum(len(smem.largest_shapes(k)) for k in smem.KERNELS)
     assert all(r.ok for r in reps), [r.violations for r in reps if not r.ok]
-    step = smem.price("megopolis_step_rows_kernel<float>", 4096, 1 << 19)
+    step = smem.price("megopolis_step_rows_kernel<float, unsigned int>", 4096, 1 << 19)
     assert step.dynamic_smem == 8 * 4096 and step.blocks <= step.per_sm * 132
 
 
@@ -345,7 +345,7 @@ def test_consumers_one_launch_per_step():
             # gather of every KV leaf (2 layers x K and V) each step is the one
             # round trip a consumer's contract allows.
             assert r.launches == DECODE_STEPS
-            assert r.census == {"megopolis_step_rows_kernel<float>": DECODE_STEPS}
+            assert r.census == {"megopolis_step_rows_kernel<float, unsigned int>": DECODE_STEPS}
             assert r.tainted_gathers == DECODE_STEPS * 2 * 2
             continue
         assert not r.tainted_gathers

@@ -1,8 +1,8 @@
 """The port's architecture registry (``repro_torch.configs``) against the JAX
 package's (``repro.configs``): every arch's fields equal, the dtype as the
-torch dtype; the dense archs' parameter counts equal JAX's, computed from
-shapes alone; the MoE and SSM archs' counts raise, naming the ROADMAP item
-that ports their layers."""
+torch dtype; every arch's parameter counts (``num_params``, and for the MoE
+archs ``num_active_params`` by the JAX package's rule) equal JAX's,
+computed from shapes alone."""
 
 import dataclasses
 
@@ -16,8 +16,13 @@ from repro_torch import convert
 from repro_torch.configs.paper_megopolis import PAPER
 
 DENSE = [a for a in tc.ARCH_IDS if jc.get_arch(a).family not in ("moe", "hybrid", "ssm")]
-WAITING = {"dbrx_132b": "A11b", "llama4_maverick_400b_a17b": "A11b", "zamba2_2_7b": "A11c",
-           "mamba2_1_3b": "A11c"}
+MOE_AND_SSM = ("dbrx_132b", "llama4_maverick_400b_a17b", "mamba2_1_3b", "zamba2_2_7b")
+#: The JAX package's counts, at full width (``num_params``,
+#: ``num_active_params``).
+JAX_COUNTS = {"dbrx_132b": (131_596_523_520, 36_469_708_800),
+              "llama4_maverick_400b_a17b": (400_711_848_960, 17_184_691_200),
+              "mamba2_1_3b": (1_446_812_672, 1_446_812_672),
+              "zamba2_2_7b": (2_037_461_680, 2_037_461_680)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,12 +72,14 @@ def test_qwen3_full_width_size():
     assert cfg.num_params() == 751_632_384
 
 
-@pytest.mark.parametrize("arch_id", sorted(WAITING))
-def test_moe_and_ssm_counts_name_their_item(arch_id):
-    cfg = tc.get_arch(arch_id).model
-    for count in (cfg.num_params, cfg.num_active_params):
-        with pytest.raises(NotImplementedError, match=f"item {WAITING[arch_id]}"):
-            count()
+@pytest.mark.parametrize("arch_id", MOE_AND_SSM)
+def test_moe_and_ssm_counts_equal_jax(arch_id):
+    arch, jax_arch = tc.get_arch(arch_id), jc.get_arch(arch_id)
+    got = (arch.model.num_params(), arch.model.num_active_params())
+    assert got == (jax_arch.model.num_params(), jax_arch.model.num_active_params())
+    assert got == JAX_COUNTS[arch_id]
+    assert arch.smoke.num_params() == jax_arch.smoke.num_params()
+    assert arch.smoke.num_active_params() == jax_arch.smoke.num_active_params()
 
 
 def test_shapes_and_paper_config_equal_jax():

@@ -794,7 +794,7 @@ def test_prefix_search_tree_kernels(card, n):
     def search(cc_ptr, nd_ptr, tree_ptr, floats, right):
         return lib.prefix_search_rows(c.data_ptr(), cc_ptr, u.data_ptr(), nd_ptr, None,
                                       anc.data_ptr(), None, tree_ptr, floats, 4, n, 1, right,
-                                      0, pk.stream(c))
+                                      4, pk.stream(c))
 
     assert search(None, None, tree.data_ptr(), tree.numel() - 1, 0) != 0
     assert search(None, None, tree.data_ptr(), tree.numel(), 0) == 0
@@ -1081,7 +1081,9 @@ def test_plane_census_matches_the_profiler(card, name, dtype):
                 break
         word = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
         assert set(seen) == set(rep.census), (seen, rep.census)
-        assert all(word in k or k == "prefix_scan_rows_kernel<float>" for k in seen), seen
+        # The searches have an instance per state word alone.
+        assert all(word in k or k.endswith(", unsigned short>")
+                   or k == "prefix_scan_rows_kernel<float>" for k in seen), seen
         assert sum(seen.values()) == rep.launches * runs
 
 
@@ -1469,17 +1471,74 @@ def test_megopolis_int32_state_comes_back_bit_for_bit(card, spread):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
-def test_megopolis_int32_state_beside_a_2byte_plane_raises(card, dtype):
-    """No instance copies a 4-byte word beside 2-byte weights: the wrappers
-    raise, naming ROADMAP Queue C item 23, and never cast or launch."""
-    w, lw, _, offsets, seeds = _inputs(card, s=2, n=4096)
-    state = _token_state(card, 2, 3, 4096)
+def test_megopolis_int32_state_beside_a_2byte_plane_comes_back_bit_for_bit(card, dtype):
+    """The 2-byte instances copy a 4-byte state as its own words: the same
+    ancestors and tokens as the plain version, bit for bit, at both branches
+    of the step."""
+    s, d, n = 2, 19, 8192
+    w, lw, _, offsets, seeds = _inputs(card, s=s, n=n)
+    w, lw = w[:s].to(dtype).contiguous(), lw[:s].to(dtype).contiguous()
+    lw[1] = 0.0  # row 1: ESS/N = 1, the step keeps its particles
+    state = _token_state(card, s, d, n)
     mk.reset_launch_counts()
-    with pytest.raises(ValueError, match="Queue C item 23"):
-        mk.megopolis_fused_rows(w[:2].to(dtype), state, offsets[:2], seeds[:2])
-    with pytest.raises(ValueError, match="Queue C item 23"):
-        mk.megopolis_step_rows(lw[:2].to(dtype), state, offsets[:2], seeds[:2], 0.5)
-    assert mk.megopolis_fused_rows.launches == mk.megopolis_step_rows.launches == 0
+    anc, out = mk.megopolis_fused_rows(w, state, offsets[:s], seeds[:s])
+    want_anc, want_out = ref.megopolis_fused_rows_ref(w, state, offsets[:s], seeds[:s])
+    assert out.dtype == torch.int32 and torch.equal(anc, want_anc) and torch.equal(out, want_out)
+    got = mk.megopolis_step_rows(lw, state, offsets[:s], seeds[:s], 0.5)
+    want = ref.megopolis_step_rows_ref(lw, state, offsets[:s], seeds[:s], 0.5)
+    assert got[2][:, 2].tolist() == [1.0, 0.0] == want[2][:, 2].tolist()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[1], torch.gather(state, 2, got[0].long().unsqueeze(1).expand_as(state)))
+    assert mk.megopolis_fused_rows.launches == mk.megopolis_step_rows.launches == 1
+
+
+#: Every family's spec, the prefix-sum family at each kind: each entry that
+#: copies state (apply, apply_rows, step, step_rows) on int32 tokens.
+INT_STATE_SPECS = {
+    "megopolis": lambda dt: MegopolisSpec(plane_dtype=dt),
+    "metropolis": lambda dt: MetropolisSpec(num_iters=16, plane_dtype=dt),
+    "metropolis_c1": lambda dt: MetropolisC1Spec(num_iters=16, plane_dtype=dt),
+    "metropolis_c2": lambda dt: MetropolisC2Spec(num_iters=16, plane_dtype=dt),
+    "rejection": lambda dt: RejectionSpec(max_iters=1024, plane_dtype=dt),
+    **{kind: (lambda k: lambda dt: PrefixSumSpec(kind=k, plane_dtype=dt))(kind)
+       for kind in ("multinomial", "systematic", "improved_systematic", "stratified",
+                    "residual")},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16", "float16"))
+@pytest.mark.parametrize("family", sorted(INT_STATE_SPECS))
+def test_every_family_copies_int32_state_bit_for_bit(card, family, dtype):
+    """ROADMAP Queue C item 23: every family's kernels take an int32 state
+    beside every plane dtype and move it unchanged: token ids 0 .. 151935
+    and the int32 extremes, the same ancestors and tokens as the plain
+    version on the CPU, one population and a bank of two, both branches of
+    the step."""
+    s, d, n = 2, 19, 8192
+    w, lw, _, _, _ = _inputs(card, s=s, n=n)
+    w, lw = w[:s].contiguous(), lw[:s].contiguous()
+    lw[1] = 0.0  # row 1: ESS/N = 1, the step keeps its particles
+    tokens = _token_state(card, s, d, n).transpose(1, 2).contiguous()  # [S, N, D]
+    r = INT_STATE_SPECS[family](dtype).build()
+    keys = trandom.split(trandom.PRNGKey(5), s)
+
+    def both(fn, *args):
+        got = fn(*args)
+        want = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        return got, want
+
+    for got, want in (both(r.apply, keys[0], w[0], tokens[0]),
+                      both(r.apply_rows, keys, w, tokens)):
+        assert got[0].dtype == torch.int32
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    for got, want in (both(r.step, keys[1], lw[1], tokens[1], 0.5),
+                      both(r.step_rows, keys, lw, tokens, 0.5)):
+        assert got[0].dtype == torch.int32
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    anc = got[1].long()
+    assert torch.equal(got[0], torch.gather(tokens, 1, anc.unsqueeze(-1).expand_as(tokens)))
+    assert torch.equal(got[1][1].cpu(), torch.arange(n, dtype=got[1].dtype))
 
 
 @pytest.mark.cuda

@@ -247,10 +247,10 @@ def test_wrappers_take_planes_on_cpu(dtype):
     assert torch.equal(out, torch.gather(state, 2, anc.long()[:, None].expand_as(state)))
     assert mk.megopolis_fused_rows.launches == 0
     word = tc.PLANE_WORDS[dt]
-    assert tc.plane_instance("megopolis_fused_rows_kernel", True)(w) == \
-        f"megopolis_fused_rows_kernel<true, {word}>"
-    assert tc.plane_instance("metropolis_step_rows_kernel")(w) == \
-        f"metropolis_step_rows_kernel<{word}>"
+    assert tc.plane_instance("megopolis_fused_rows_kernel", True, state=1)(w, state) == \
+        f"megopolis_fused_rows_kernel<true, {word}, unsigned short>"
+    assert tc.plane_instance("metropolis_step_rows_kernel", state=1)(w, state) == \
+        f"metropolis_step_rows_kernel<{word}, unsigned short>"
 
 
 def test_other_kernels_refuse_planes():

@@ -179,7 +179,7 @@ def test_wrappers_take_planes_on_cpu(dtype):
         assert torch.equal(o, torch.gather(state, 2, a.long()[:, None].expand_as(state)))
     assert ck.metropolis_c2_fused_batch.launches == rk.rejection_fused_batch.launches == 0
     word = tc.PLANE_WORDS[dt]
-    assert tc.plane_instance("metropolis_c1c2_rows_kernel", 2, True)(w) == \
-        f"metropolis_c1c2_rows_kernel<2, true, {word}>"
-    assert tc.plane_instance("rejection_step_rows_kernel")(w) == \
-        f"rejection_step_rows_kernel<{word}>"
+    assert tc.plane_instance("metropolis_c1c2_rows_kernel", 2, True, state=1)(w, state) == \
+        f"metropolis_c1c2_rows_kernel<2, true, {word}, unsigned short>"
+    assert tc.plane_instance("rejection_step_rows_kernel", state=1)(w, state) == \
+        f"rejection_step_rows_kernel<{word}, unsigned short>"

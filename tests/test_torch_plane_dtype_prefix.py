@@ -230,10 +230,10 @@ def test_wrappers_take_planes_on_cpu(dtype):
     }
     assert names == {
         "scan": f"prefix_scan_rows_kernel<{word}>",
-        "gather": f"prefix_search_tree_kernel<true, false, {word}>",
-        "rising": f"prefix_search_rows_kernel<true, {word}>",
-        "index": "prefix_search_rows_kernel<false, float>",
-        "step": f"prefix_step_rows_kernel<3, {word}>",
+        "gather": "prefix_search_tree_kernel<true, false, unsigned short>",
+        "rising": "prefix_search_rows_kernel<true, unsigned short>",
+        "index": "prefix_search_rows_kernel<false, unsigned int>",
+        "step": f"prefix_step_rows_kernel<3, {word}, unsigned short>",
     }
     with pytest.raises(ValueError, match="float32"):
         sk.searchsorted_rows(c.to(dt), u, "left")

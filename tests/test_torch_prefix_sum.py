@@ -241,7 +241,7 @@ def test_scan_span_carries(s, n, blocks):
     from repro_torch.analysis import smem
 
     kernel = {"scan": "prefix_scan_rows_kernel<float>",
-              "step": "prefix_step_rows_kernel<0, float>"}
+              "step": "prefix_step_rows_kernel<0, float, unsigned int>"}
     g = smem.price(kernel[blocks], s, n).blocks if blocks in kernel else blocks
     x = _scan_kernel_rows(s, n)[np.arange(s) % 7]
     y = ref.scan_rows_ref(x)
