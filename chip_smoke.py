@@ -39,8 +39,8 @@ over, and there is no CPU fallback):
    wrappers of rows 1-29 also on those inputs narrowed to bfloat16 and to
    float16 planes as a compressed spec narrows them (their kernels' 2-byte
    instances; names ending ``@bfloat16``, ``@float16``; the prefix-sum
-   CDFs and draws stay float32; the float16 ones held and not timed, a cut,
-   printed); hold ``logsumexp_rows`` (the adaptive AIS schedule's row
+   CDFs and draws stay float32; held and not timed: cuts, printed); hold
+   ``logsumexp_rows`` (the adaptive AIS schedule's row
    reduction, no TPU counterpart) on E3's ``[S, N]`` and ``[2·S, N]``
    inputs and on a single run's ``[1, N]`` and ``[2, N]`` bit for bit and
    time it beside ``torch.logsumexp``; hold and time every family's step
@@ -69,7 +69,8 @@ over, and there is no CPU fallback):
    kernel with the census unchanged, the fallback ladder, the chaos bank
    through every family at ``guard="recover"``, kill-and-resume of the
    filter and of AIS at full width, the distributed resampler on NCCL at
-   world size 1):
+   world size 1; and 5c, Path T's untimed T3-T4, the same way beside them:
+   ``--phase train_checks``, ``path_t_checks``, see 6d):
    * Path D, the degeneracy guard (DESIGN.md §16): UNGM log-weights of a
      bank of S filters' first step at N particles, row 3 all -inf and row
      11 with one NaN, through every Path A family's ``step_rows`` at
@@ -118,11 +119,26 @@ over, and there is no CPU fallback):
    the SSM and conv leaves, with the gather's bytes (H2); every other
    family, and Megopolis beside bf16 log-weights, for 4 tokens (a printed cut) on the same
    model, each step kernel held bit for bit on the int32 token buffer
-   (H3); DBRX-132B at its published width with 2 of its 40 layers (a
+   (H3); DBRX-132B at its published width with 1 of its 40 layers (a
    printed cut), the MoE capacity path at t = 1024 (H4: tokens a second,
    memory, the MoE layers' ms and the dropped assignments a step); the
    smoke configs of mamba2, zamba2, dbrx and llama4 on the card against
    the CPU (H5);
+6d. in a process of its own (``--phase train``), alone after Path H, Path
+   T, training (``path_t``): ``launch.train.run`` on Qwen3-0.6B at its
+   published width, bf16 compute over float32 master parameters and
+   moments, remat on, 6 steps of 8 x 2048 tokens (a printed cut of
+   ``train_4k``'s 256 x 4096): seconds a step, tokens a second, model
+   TFLOP/s, peak memory, the losses (T1); one more step profiled and split
+   into forward and loss, backward and optimiser by separator kernels,
+   with no port kernel among its CUDA operations, and one step with and
+   without ``torch.use_deterministic_algorithms`` (T2); beside phase 3
+   (5c), kill and resume of the smoke config under it, bit for bit, and
+   its checkpoint restored on the CPU (T3); the smoke configs of qwen3,
+   mamba2, zamba2, dbrx and llama4, one training step on the card against
+   the CPU, and the compression on the card's gradients bit for bit with
+   the CPU's (T4); then one line, ``cut for path T``, weighs what Path T
+   adds to the run against what the cuts that pay for it saved;
 7. drive the paths through the user's entry points, each run with every
    kernel's launch count set to 0 just before and read just after:
    * Path A, the particle filter (paper §7, Table 2, Fig. 9), once with
@@ -168,8 +184,9 @@ over, and there is no CPU fallback):
    * small runs of both paths on the card against the same runs on the CPU,
      and for the prefix-sum kinds each step of an Alg. 6 run on the CPU
      replayed on the card bit for bit;
-8. print the card line, one JSON line of kernels (all 31 rows, rows 1-29
-   also at each 2-byte plane word), then a last JSON line naming the
+8. print the card line, one JSON line of kernels (all 31 rows and
+   ``logsumexp_rows``, the int32-state step entries; the 2-byte instances
+   are held, not timed, so not listed), then a last JSON line naming the
    device.
 
 Run it from the root of a checkout; it needs one card.
@@ -185,6 +202,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -479,7 +497,8 @@ def summary(stats) -> dict:
 #: The phases that run in a process of their own, before the paths: each
 #: relies on ``torch.profiler``'s kernel records, which a process that has
 #: run for minutes loses (``kernel_ms``).
-PHASES = ("checks", "kernels", "guard", "ais", "resilience", "decode", "ssm")
+PHASES = ("checks", "kernels", "guard", "ais", "resilience", "decode", "ssm", "train",
+          "train_checks")
 PHASE_TIMEOUT_S = 600
 
 
@@ -501,12 +520,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     if args.phase is not None:
+        if args.phase in ("train", "train_checks"):  # before cuBLAS starts: T2's and T3's
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
         ctx = setup(args)
         kernels = {"checks": checks_phase, "kernels": kernels_phase, "guard": guard_phase,
                    "ais": ais_phase, "resilience": resilience_phase,
-                   "decode": decode_phase, "ssm": ssm_phase}[args.phase](ctx)
+                   "decode": decode_phase, "ssm": ssm_phase, "train": train_phase,
+                   "train_checks": train_checks_phase}[args.phase](ctx)
         print(json.dumps({"phase": args.phase, "path_launches": ctx.path_launches,
-                          "results": ctx.results, "kernels": kernels}, default=float))
+                          "results": ctx.results, "kernels": kernels, "cuts": ctx.cuts},
+                         default=float))
         return 0
 
     from repro_torch.kernels import build
@@ -623,7 +646,7 @@ def main(argv=None) -> int:
 #: existence tells the checks phase that the phases run beside it have ended.
 BESIDE_DONE_ENV = "CHIP_SMOKE_BESIDE_DONE"
 #: The phases that run beside the checks phase, each in its own process.
-BESIDE_CHECKS = ("guard", "resilience")
+BESIDE_CHECKS = ("guard", "resilience", "train_checks")
 
 
 def phase_cmd(name: str, argv) -> list:
@@ -645,13 +668,16 @@ def phase_result(name: str, returncode: int, stdout: str, seconds: float) -> dic
 
 def run_phases(argv) -> dict:
     """Run the phases of ``PHASES``, each in a new process (``--phase``),
-    young, as the profiler needs it.  The guard and resilience phases run
-    beside the checks phase, which waits for both to end before it times
-    the fixture kernels; the kernels phase, which times every kernel, runs
-    alone after them, the AIS phase (Path E, timed) alone after it, the
-    decode phase (Path G, timed and profiled) alone after that and the SSM
-    phase (Path H, timed and profiled) last.  Every
-    process started here is waited for, or killed at its time limit."""
+    young, as the profiler needs it.  The phases of BESIDE_CHECKS (the
+    guard, resilience and Path T's untimed checks) run beside the checks
+    phase, which waits for them to end before it times the fixture kernels;
+    the kernels phase, which times every kernel, runs alone after them, the
+    AIS phase (Path E, timed) alone after it, the decode phase (Path G,
+    timed and profiled) alone after that, the SSM phase (Path H, timed and
+    profiled) after it and the train phase (Path T's T1-T2, timed and
+    profiled) last.  Then one line weighs Path T's time against the cuts
+    that pay for it (``cut_for_path_t``).  Every process started here is
+    waited for, or killed at its time limit."""
     with tempfile.TemporaryDirectory() as tmp:
         outs, procs, waiters, done, took = {}, {}, [], [], {}
         for name in BESIDE_CHECKS:
@@ -681,16 +707,38 @@ def run_phases(argv) -> dict:
                 waiter.join()
         phases = {"checks": phase_result("checks", proc.returncode, proc.stdout,
                                          time.perf_counter() - t0)}
+        checks_out = proc.stdout
         for name in BESIDE_CHECKS:
             with outs[name] as out:
                 out.seek(0)
                 phases[name] = phase_result(name, procs[name].returncode, out.read(), took[name])
-    for name in ("kernels", "ais", "decode", "ssm"):
+    for name in ("kernels", "ais", "decode", "ssm", "train"):
         t0 = time.perf_counter()
         proc = subprocess.run(phase_cmd(name, argv), stdout=subprocess.PIPE, text=True,
                               timeout=PHASE_TIMEOUT_S)
         phases[name] = phase_result(name, proc.returncode, proc.stdout, time.perf_counter() - t0)
+        took[name] = time.perf_counter() - t0
+    cut_for_path_t(phases, took, checks_out)
     return phases
+
+
+def cut_for_path_t(phases: dict, took: dict, checks_out: str):
+    """One line: what Path T adds to the run (the train phase, and what the
+    checks phase waited for T3-T4 past the other phases beside it) against
+    what the cuts that pay for it saved, each measured in this run against
+    its yardstick measured before the cut (``BF16_TIMED_S``,
+    ``H4_TWO_LAYERS_S``)."""
+    saved = {k: v for out in phases.values() for k, v in out.get("cuts", {}).items()}
+    m = re.search(r"^checks: waited ([0-9.]+) s", checks_out, re.M)
+    waited = float(m.group(1)) if m else 0.0
+    ends = [took[n] for n in BESIDE_CHECKS]
+    others = max(took[n] for n in BESIDE_CHECKS if n != "train_checks")
+    late = max(0.0, took["train_checks"] - max(others, max(ends) - waited)) if waited else 0.0
+    added = took["train"] + late
+    print(f"cut for path T: it adds {added:.1f} s (phase train {took['train']:.1f} s alone; phase "
+          f"train_checks {took['train_checks']:.1f} s beside the checks phase, which waited "
+          f"{late:.1f} s for it); the cuts saved {sum(saved.values()):.1f} s: "
+          f"{json.dumps({k: round(v, 1) for k, v in saved.items()})}", flush=True)
 
 
 def wait_for_beside():
@@ -796,7 +844,7 @@ def setup(args) -> types.SimpleNamespace:
     thetas = {"amp": torch.linspace(6.0, 10.0, args.bank),
               "obs_var": torch.linspace(0.5, 2.0, args.bank)}
     truth = obs = bank_truth = bank_obs = None
-    if args.phase not in ("ais", "decode", "ssm"):
+    if args.phase not in ("ais", "decode", "ssm", "train", "train_checks"):
         truth, obs = simulate(k_sim, model, args.steps, device=dev)
         sims = [simulate(k, fam, args.bank_steps, theta={"amp": thetas["amp"][i],
                                                          "obs_var": thetas["obs_var"][i]},
@@ -836,7 +884,7 @@ def setup(args) -> types.SimpleNamespace:
         k_quality=k_quality,
         model=model, fam=fam, truth=truth, obs=obs, thetas=thetas,
         bank_truth=bank_truth, bank_obs=bank_obs,
-        path_launches=path_launches, results=results, drive=drive)
+        path_launches=path_launches, results=results, drive=drive, cuts={})
 
 
 def checks_phase(ctx) -> list:
@@ -866,9 +914,13 @@ def kernels_phase(ctx) -> list:
     print("cut phase 4: the kernels of rows 1-29 at float16 planes are held bit for bit and "
           "not timed (their times were within 1.5% of bfloat16's; the whole run's time)",
           flush=True)
+    print("cut phase 4: the kernels of rows 1-29 at bfloat16 planes are held bit for bit and "
+          "not timed (their times were within 0.960-1.057 of float32's, PERF.md section 6; "
+          "one of the cuts that pay for Path T: what it saves is printed after the cases)",
+          flush=True)
     for case in cases:
         t0 = time.perf_counter()
-        timed = not case[0].endswith("@float16")
+        timed = not case[0].endswith(("@float16", "@bfloat16"))
         entry = check_kernel(case, timed)
         # Not the extra cases (where rejection's cap binds, a CESS round's
         # reduction), nor the ones held and not timed.
@@ -879,7 +931,18 @@ def kernels_phase(ctx) -> list:
         took[case[4] + ("@" + case[0].split("@")[1] if "@" in case[0] else "")] += (
             time.perf_counter() - t0)
     print(f"time phase 4 (s): {json.dumps({k: round(v, 1) for k, v in took.items()})}")
+    held = sum(v for k, v in took.items() if k.endswith("@bfloat16"))
+    ctx.cuts["phase 4 bfloat16 untimed"] = BF16_TIMED_S - held
+    print(f"cut phase 4: the bfloat16 cases took {held:.1f} s held and not timed, against "
+          f"{BF16_TIMED_S} s held and timed before the cut (NVIDIA H100 80GB HBM3, 700 W, "
+          f"PERF.md section 6): {BF16_TIMED_S - held:.1f} s saved", flush=True)
     return kernels
+
+
+#: Phase 4's bfloat16 cases held and timed, as this script measured them on
+#: an NVIDIA H100 80GB HBM3 at 700 W before the cut that holds them untimed:
+#: its yardstick.
+BF16_TIMED_S = 57.4
 
 
 def guard_phase(ctx) -> list:
@@ -936,6 +999,27 @@ def ssm_phase(ctx) -> list:
     t0 = time.perf_counter()
     path_h(ctx)
     print(f"time path H: {time.perf_counter() - t0:.1f} s", flush=True)
+    return []
+
+
+def train_phase(ctx) -> list:
+    """Phase ``train``, Path T's T1-T2, young for the profiler and alone on
+    the card (its runs are timed): ``path_t``.  The training path runs none
+    of the port's kernels, so it lists no ``kernels`` entry; its runs'
+    launch counts are read, and each must be 0."""
+    t0 = time.perf_counter()
+    path_t(ctx)
+    print(f"time path T: {time.perf_counter() - t0:.1f} s", flush=True)
+    return []
+
+
+def train_checks_phase(ctx) -> list:
+    """Phase ``train_checks``, Path T's T3-T4 (``path_t_checks``), untimed,
+    beside the checks phase: they add to the run only what the checks
+    phase waits for them (``cut_for_path_t``)."""
+    t0 = time.perf_counter()
+    path_t_checks(ctx)
+    print(f"time path T T3-T4: {time.perf_counter() - t0:.1f} s", flush=True)
     return []
 
 
@@ -1629,37 +1713,66 @@ def decode_inputs(cfg, n: int, prompt_len: int, seed: int, dev):
 
 
 @contextlib.contextmanager
-def decode_parts(labels: list):
-    """While open, each part of ``smc_decode``'s step, the model
-    (``decode_step``), the categorical draw, the resampler's step entry
-    and the KV gather, runs between two separator kernels, and ``labels``
-    gets the part's name, then ``"other"`` (the twist, the token write, the
-    weights' reset and the ESS), in launch order: the device events between
-    two separators are the labelled part's (one stream)."""
-    from repro_torch import random as trandom
-    from repro_torch.core import spec as tspec
-    from repro_torch.smc import decode as sd
-
-    def part(label, fn):
+def separated(patched, labels: list):
+    """While open, each function ``getattr(obj, name)`` of ``patched``'s
+    ``(obj, name, label, after)`` runs between two separator kernels, and
+    ``labels`` gets ``label``, then ``after`` (the name of what runs until
+    the next separator), in launch order: the device events between two
+    separators are the labelled part's (one stream)."""
+    def part(label, after, fn):
         def run(*args, **kwargs):
             torch.cuda._sleep(DECODE_SEPARATOR_CYCLES)
             labels.append(label)
             out = fn(*args, **kwargs)
             torch.cuda._sleep(DECODE_SEPARATOR_CYCLES)
-            labels.append("other")
+            labels.append(after)
             return out
         return run
 
-    patched = ((sd, "decode_step", "model"), (trandom, "categorical", "draw"),
-               (tspec.Resampler, "step", "step"), (sd, "_gather", "gather"))
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
-    for obj, name, label in patched:
-        setattr(obj, name, part(label, getattr(obj, name)))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _, _ in patched]
+    for obj, name, label, after in patched:
+        setattr(obj, name, part(label, after, getattr(obj, name)))
     try:
         yield
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
+
+
+def decode_parts(labels: list):
+    """``separated`` around each part of ``smc_decode``'s step: the model
+    (``decode_step``), the categorical draw, the resampler's step entry and
+    the KV gather, each followed by ``"other"`` (the twist, the token write,
+    the weights' reset and the ESS)."""
+    from repro_torch import random as trandom
+    from repro_torch.core import spec as tspec
+    from repro_torch.smc import decode as sd
+
+    return separated(((sd, "decode_step", "model", "other"),
+                      (trandom, "categorical", "draw", "other"),
+                      (tspec.Resampler, "step", "step", "other"),
+                      (sd, "_gather", "gather", "other")), labels)
+
+
+def part_split(events: list, labels: list):
+    """The device ms and operation count of each labelled part: the events
+    ``(name, µs)`` grouped between separator kernels, each group under its
+    label (``"other"`` before the first); None when the profiler dropped a
+    separator."""
+    groups = [[]]
+    for name, us in events:
+        if AIS_SEPARATOR in name:
+            groups.append([])
+        else:
+            groups[-1].append(us)
+    labels = ["other"] + labels
+    if len(groups) != len(labels):
+        return None
+    ms, ops = collections.Counter(), collections.Counter()
+    for label, group in zip(labels, groups):
+        ms[label] += sum(group) / 1e3
+        ops[label] += len(group)
+    return ms, ops
 
 
 def decode_breakdown(prof, labels: list, wall: float, steps: int) -> dict:
@@ -1685,20 +1798,12 @@ def decode_breakdown(prof, labels: list, wall: float, steps: int) -> dict:
            "device_busy_share": device_ms / (wall * 1e3),
            "step_kernel_ms": sum(step_kernel) / 1e3 / max(1, len(step_kernel)),
            "step_kernel_launches": len(step_kernel)}
-    groups = [[]]
-    for name, us in events:
-        if AIS_SEPARATOR in name:
-            groups.append([])
-        else:
-            groups[-1].append(us)
-    labels = ["other"] + labels
-    if len(groups) != len(labels):
-        print(f"path G2: the profile holds {len(groups) - 1} separators for {len(labels) - 1} "
-              "part boundaries; the parts' device ms are not measured", flush=True)
+    split = part_split(events, labels)
+    if split is None:
+        print(f"path G2: the profile lacks a separator of {len(labels)} part boundaries; the "
+              "parts' device ms are not measured", flush=True)
         return out
-    parts = collections.Counter()
-    for label, group in zip(labels, groups):
-        parts[label] += sum(group) / 1e3
+    parts = split[0]
     out["part_device_ms_per_step"] = {k: v / steps for k, v in parts.items()}
     out["part_device_share"] = {k: v / device_ms for k, v in parts.items()}
     return out
@@ -1896,8 +2001,12 @@ SSM_ARCH = "mamba2-1.3b"
 SSM_LAYERS = 12
 SSM_H3_TOKENS = 4
 MOE_ARCH = "dbrx-132b"
-MOE_LAYERS = 2
+MOE_LAYERS = 1
 MOE_TOKENS = 8
+#: H4 at 2 layers, as this script measured it on an NVIDIA H100 80GB HBM3 at
+#: 700 W: the yardstick of the cut to MOE_LAYERS, one of the cuts that pay for
+#: Path T.
+H4_TWO_LAYERS_S = 17.3
 #: H5's archs, their smoke configs on the card against the CPU.
 SSM_SMOKE_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "dbrx-132b", "llama4-maverick-400b-a17b")
 
@@ -2011,10 +2120,12 @@ def path_h(ctx):
     dev, drive, results, seed = ctx.dev, ctx.drive, ctx.results, ctx.args.seed
     lap = time.perf_counter()
 
-    def took(what):
+    def took(what) -> float:
         nonlocal lap
-        print(f"time path H {what}: {time.perf_counter() - lap:.1f} s", flush=True)
+        secs = time.perf_counter() - lap
+        print(f"time path H {what}: {secs:.1f} s", flush=True)
         lap = time.perf_counter()
+        return secs
 
     spec = MegopolisSpec(num_iters=DECODE_ITERS)
     arch = get_arch(SSM_ARCH)
@@ -2137,7 +2248,8 @@ def path_h(ctx):
     cap = moe_mod.capacity(DECODE_N, mcfg)
     print(f"cut path H4: {MOE_ARCH} runs {MOE_LAYERS} of its {marc.model.num_layers} layers "
           f"(an MoE layer's experts are {3 * mcfg.num_experts * mcfg.d_model * mcfg.d_ff * 4 / 1e9:.1f}"
-          f" GB of float32)", flush=True)
+          " GB of float32; 1 layer, not 2, pays for Path T: what it saves is printed after H4)",
+          flush=True)
     print(f"path H4: {MOE_ARCH} ({marc.source}) at full width: d_model {mcfg.d_model}, "
           f"{mcfg.num_experts} experts top-{mcfg.top_k}, d_ff {mcfg.d_ff}, vocab "
           f"{mcfg.vocab_size}, {mcfg.num_params()} float32 parameters at {MOE_LAYERS} layers; "
@@ -2191,7 +2303,11 @@ def path_h(ctx):
         fail(f"H4: {len(decode_calls)} decode MoE calls, not {MOE_LAYERS * MOE_TOKENS}")
     del inputs, moe_calls, decode_calls
     torch.cuda.empty_cache()
-    took("H4")
+    h4_s = took("H4")
+    ctx.cuts[f"H4 at {MOE_LAYERS} layer"] = H4_TWO_LAYERS_S - h4_s
+    print(f"cut path H4: {MOE_LAYERS} layer took {h4_s:.1f} s, against {H4_TWO_LAYERS_S} s at 2 "
+          "layers before the cut (NVIDIA H100 80GB HBM3, 700 W, PERF.md section 6): "
+          f"{H4_TWO_LAYERS_S - h4_s:.1f} s saved", flush=True)
 
     # -- H5: the smoke configs, card against CPU, from the same params --------------
     for arch_name in SSM_SMOKE_ARCHS:
@@ -2217,6 +2333,412 @@ def path_h(ctx):
         if err > DECODE_CPU_ATOL or not h5["decode_tokens_equal"]:
             fail(f"H5 {arch_name}: the card and the CPU differ: {h5}")
     took("H5")
+
+
+#: Path T, training.  T1: Qwen3-0.6B at its published width, TRAIN_STEPS
+#: steps of TRAIN_BATCH x TRAIN_SEQ tokens (``SHAPES["train_4k"]`` is 256 x
+#: 4096: a printed cut), bf16 compute over float32 master parameters and
+#: moments, remat on (the JAX package's non-smoke posture); no checkpoint
+#: directory (a full-width state is 12 GB of float32).
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 6
+#: T3: the smoke config's kill and resume: T3_STEPS straight against a run
+#: killed after its checkpoint at T3_KILL, then resumed.
+T3_STEPS, T3_KILL = 8, 4
+#: The cuBLAS workspace setting that ``torch.use_deterministic_algorithms``
+#: asks for; the train phase sets it before its first product.
+CUBLAS_DETERMINISTIC = ":4096:8"
+#: T4's archs: their smoke configs, one ``make_step`` on the card against the
+#: CPU from the same params and batch.
+TRAIN_SMOKE_ARCHS = ("qwen3-0.6b", "mamba2-1.3b", "zamba2-2.7b", "dbrx-132b",
+                     "llama4-maverick-400b-a17b")
+#: T4's bounds.  The loss and the gradients' norm sum in other orders on the
+#: card (cuBLAS) and the CPU (MKL): TRAIN_CPU_RTOL.  T4's one AdamW step
+#: moves a weight by u = -lr·(g/(|g| + eps) + wd·p), about ±lr (lr 3e-4).
+#: Where the CPU gradient is at least TRAIN_GRAD_FLOOR, far above its
+#: rounding, g/(|g| + eps) is the same ±1 on both devices and the two
+#: updates differ by the rounding of p + u: within TRAIN_UPDATE_ATOL (lr/300;
+#: an update skipped or taken at another scale is off by about lr there).
+#: Such weights must be at least TRAIN_TIGHT_SHARE of all.  Below the floor
+#: a gradient's card and CPU bits can differ in sign, so the updates can
+#: differ by up to 2·lr (TRAIN_LOOSE_ATOL).
+TRAIN_CPU_RTOL = 1e-5
+TRAIN_GRAD_FLOOR = 1e-5
+TRAIN_UPDATE_ATOL = 1e-6
+TRAIN_TIGHT_SHARE = 0.5
+TRAIN_LOOSE_ATOL = 2 * 3e-4
+#: T2 lists the TRAIN_TOP_KERNELS operations of most device time, by name cut
+#: to TRAIN_KERNEL_NAME characters.
+TRAIN_TOP_KERNELS, TRAIN_KERNEL_NAME = 12, 100
+
+
+class Killed(Exception):
+    """T3's run dying right after its checkpoint is on disk."""
+
+
+def train_parts(labels: list):
+    """``separated`` around a training step's forward and loss (``loss_fn``)
+    and its optimiser (``adamw_update``): the backward (autograd's, with the
+    recompute) runs between the two."""
+    from repro_torch.launch import train
+
+    return separated(((train, "loss_fn", "forward_and_loss", "backward"),
+                      (train, "adamw_update", "optimiser", "other")), labels)
+
+
+def train_breakdown(prof, labels: list, wall: float) -> dict:
+    """T2's numbers from one profile of a step inside ``train_parts``: the
+    CUDA operations (kernels, copies, fills) and the port's kernels among
+    them, the operations of most device time, the device ms of each part,
+    and the device's busy share of the profiled wall time (parts not
+    measured when the profiler dropped a separator: printed)."""
+    from repro_torch.analysis import smem
+
+    events = [(name, us) for _, name, us in device_events(prof)]
+    ops = [(name, us) for name, us in events if AIS_SEPARATOR not in name]
+    device_ms = sum(us for _, us in ops) / 1e3
+    out = {"cuda_ops": len(ops),
+           "copies_and_fills": sum(1 for name, _ in ops if name.startswith(("Memcpy", "Memset"))),
+           "port_launches": sum(1 for name, _ in ops if kernel_instance(name) in smem.KERNELS),
+           "device_ms": device_ms, "wall_ms": wall * 1e3, "device_busy_share": device_ms / (wall * 1e3)}
+    by_name = collections.Counter()
+    for name, us in ops:
+        by_name[name[:TRAIN_KERNEL_NAME]] += us / 1e3
+    out["top_kernels_ms"] = dict(by_name.most_common(TRAIN_TOP_KERNELS))
+    split = part_split(events, labels)
+    if split is None:
+        print(f"path T2: the profile lacks a separator of {len(labels)} part boundaries; the "
+              "parts' device ms are not measured", flush=True)
+        return out
+    parts, counts = split
+    out["part_device_ms"] = dict(parts)
+    out["part_device_share"] = {k: v / device_ms for k, v in parts.items()}
+    out["part_cuda_ops"] = dict(counts)
+    return out
+
+
+def path_t(ctx):
+    """Path T, training through the user's entry points (``launch.train``'s
+    ``run`` and ``make_step``), each run with every kernel's launch count
+    set to 0 just before and read just after (``drive``): the training path
+    launches none of the port's hand-written kernels, and each run fails
+    if one launched.
+
+    * T1, ``train.run`` on Qwen3-0.6B at its published width (28 layers,
+      d_model 1024, vocab 151936), bf16 compute over float32 master
+      parameters and moments, remat on, TRAIN_STEPS steps of TRAIN_BATCH x
+      TRAIN_SEQ tokens of the synthetic stream: seconds a step (the median
+      of steps 2 on), tokens a second, model TFLOP/s (6 x non-embedding
+      parameters x tokens + 12·L·H·hd·S x tokens of attention, recompute not
+      counted), peak memory, the losses (every one finite);
+    * T2, one more step from T1's state, profiled, split by separator
+      kernels into forward and loss, backward and optimiser
+      (``train_parts``, ``train_breakdown``): CUDA operations, device ms of
+      each part, busy share, no port kernel among the operations; then one
+      step timed with ``torch.use_deterministic_algorithms(True)`` against
+      one without (what T3's determinism costs at full width).
+
+    T3 and T4 are ``path_t_checks``."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("path T: TF32 products are on; the CPU reference computes float32 products")
+    dev, drive, results, seed = ctx.dev, ctx.drive, ctx.results, ctx.args.seed
+    lap = time.perf_counter()
+
+    def took(what):
+        nonlocal lap
+        print(f"time path T {what}: {time.perf_counter() - lap:.1f} s", flush=True)
+        lap = time.perf_counter()
+
+    def no_port_kernel(name):
+        if results[name]["launches"]:
+            fail(f"{name}: the training path launched port kernels {results[name]['launches']}")
+
+    arch = get_arch(TRAIN_ARCH)
+    cfg = arch.model
+    shape = SHAPES["train_4k"]
+    n_params = cfg.num_params()
+    non_embedding = n_params - cfg.vocab_size * cfg.d_model
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop = (6 * non_embedding * tokens
+            + 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * TRAIN_SEQ * tokens)
+    print(f"path T: {TRAIN_ARCH} ({arch.source}) at full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n_params} parameters ({non_embedding} outside "
+          f"the embedding); {cfg.dtype} compute over float32 master parameters and moments, "
+          f"remat {cfg.remat}", flush=True)
+    print(f"cut path T1: global batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, not train_4k's "
+          f"{shape.global_batch} x {shape.seq_len}; {TRAIN_STEPS} steps; no checkpoint (a "
+          "full-width state is 12 GB of float32)", flush=True)
+
+    # -- T1: train.run as a user calls it, timed ---------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    run_args = dict(arch=TRAIN_ARCH, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                    seq_len=TRAIN_SEQ, smoke=False, seed=seed)
+    out = drive("train/t1_run", lambda: train.run(train.TrainRun(**run_args)), [])
+    no_port_kernel("train/t1_run")
+    losses, secs = out["losses"], out["step_seconds"]
+    step_s = statistics.median(secs[1:])
+    t1 = {"step_s_median_2on": step_s, "step_seconds": secs, "tokens_per_s": tokens / step_s,
+          "model_tflop_per_step": flop / 1e12, "model_tflop_per_s": flop / step_s / 1e12,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "losses": losses}
+    results["train/t1_run"].update(t1)
+    print(f"path T1: {json.dumps(t1, default=float)}", flush=True)
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"T1: the losses are not {TRAIN_STEPS} finite numbers: {losses}")
+    took("T1")
+
+    # -- T2: one more step, profiled and split; the cost of determinism --------------
+    state = out.pop("state")
+    del out
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=max(1, TRAIN_STEPS // 10))
+    stream = SyntheticLMStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    batch = stream.batch(TRAIN_STEPS, device=dev)
+    step_fn = train.make_step(cfg, opt_cfg)
+    labels, box = [], {}
+    with train_parts(labels):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            box["state"], metrics = drive("train/t2_profiled", lambda: step_fn(state, batch), [])
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    no_port_kernel("train/t2_profiled")
+    del state
+    t2 = train_breakdown(prof, labels, wall)
+    del prof
+    state = box.pop("state")
+    timed = {}
+    for mode in (False, True, False, True):
+        torch.use_deterministic_algorithms(mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        timed.setdefault(mode, []).append(time.perf_counter() - t0)
+    torch.use_deterministic_algorithms(False)
+    del state, batch
+    t2.update(step_s_plain=min(timed[False]), step_s_deterministic=min(timed[True]),
+              deterministic_cost=min(timed[True]) / min(timed[False]) - 1)
+    results["train/t2_profiled"].update(t2)
+    print(f"path T2: {json.dumps(t2, default=float)}", flush=True)
+    if t2["port_launches"]:
+        fail(f"T2: {t2['port_launches']} port kernel launches in a training step")
+    took("T2")
+
+
+def update_errors(before, card, cpu, grads) -> dict:
+    """T4's AdamW step on the card against the CPU's, from the same weights
+    ``before``: each weight's two updates (after - before), their largest
+    difference where the CPU gradient ``grads`` is at least
+    TRAIN_GRAD_FLOOR (tight) and elsewhere (loose), the tight share of the
+    weights, and the largest CPU update (about lr)."""
+    from repro_torch.checkpoint import tree_leaves
+
+    tight = loose = top = 0.0
+    n_tight = n = 0
+    for p, a, b, g in zip(*(tree_leaves(t) for t in (before, card, cpu, grads))):
+        p = p.double()
+        u_cpu = b.double() - p
+        diff = ((a.cpu().double() - p) - u_cpu).abs()
+        sel = g.abs() >= TRAIN_GRAD_FLOOR
+        tight = max(tight, float(diff.masked_fill(~sel, 0).max()))
+        loose = max(loose, float(diff.masked_fill(sel, 0).max()))
+        top = max(top, float(u_cpu.abs().max()))
+        n_tight += int(sel.sum())
+        n += sel.numel()
+    return {"update_tight_max_abs_err": tight, "update_loose_max_abs_err": loose,
+            "tight_share": n_tight / n, "cpu_update_max_abs": top}
+
+
+def deterministic(fn):
+    """``fn()`` under ``torch.use_deterministic_algorithms(True)``: the
+    embedding's backward (``index_add_``) and the loss's gather backward
+    then add without atomics, so two runs agree bit for bit."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def path_t_checks(ctx):
+    """Path T's untimed checks, in a process beside the checks phase (what
+    the checks phase waits for them is printed after the phases), each run
+    through ``drive`` as in ``path_t``:
+
+    * T3, the smoke config's kill and resume on the card under
+      ``deterministic``: T3_STEPS steps straight against a run killed
+      after its checkpoint at T3_KILL and resumed, the losses and the final
+      state bit for bit, then the card's checkpoint restored onto a CPU
+      template, bit for bit; and two straight runs without it, whether they
+      agree;
+    * T4, the smoke configs of TRAIN_SMOKE_ARCHS, one ``make_step`` on the
+      card against the CPU from the same params and batch: the loss and the
+      gradients' norm within TRAIN_CPU_RTOL; each weight's update within
+      TRAIN_UPDATE_ATOL where its CPU gradient is at least TRAIN_GRAD_FLOOR
+      (at least TRAIN_TIGHT_SHARE of the weights), within 2·lr elsewhere;
+      and qwen3's compression (``compress_and_correct``) on the card's
+      gradients on both devices, the mask, the wire tensor and the residual
+      bit for bit, with one ``--compress`` step on the card."""
+    import dataclasses
+
+    from repro_torch import random as trandom
+    from repro_torch.checkpoint import restore_checkpoint, tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import _map_tree
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.optim import (AdamWConfig, CompressionConfig, adamw_init,
+                                   compress_and_correct, compress_init, value_and_grad)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("path T: TF32 products are on; the CPU reference computes float32 products")
+    dev, drive, results, seed = ctx.dev, ctx.drive, ctx.results, ctx.args.seed
+    arch = get_arch(TRAIN_ARCH)
+    lap = time.perf_counter()
+
+    def took(what):
+        nonlocal lap
+        print(f"time path T {what}: {time.perf_counter() - lap:.1f} s", flush=True)
+        lap = time.perf_counter()
+
+    def no_port_kernel(name):
+        if results[name]["launches"]:
+            fail(f"{name}: the training path launched port kernels {results[name]['launches']}")
+
+    # -- T3: kill and resume on the card, bit for bit ------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        small = dict(arch=TRAIN_ARCH, steps=T3_STEPS, smoke=True, seed=seed)
+        full = drive("train/t3_straight", lambda: deterministic(lambda: train.run(train.TrainRun(
+            **small, ckpt_dir=os.path.join(tmp, "a"), ckpt_every=100))), [])
+        rdir = os.path.join(tmp, "b")
+        save_async = train.CheckpointManager.save_async
+
+        def save_then_die(self, step, tree, *, extra=None):
+            save_async(self, step, tree, extra=extra)
+            self.wait()
+            raise Killed(step)
+
+        def killed_run() -> bool:
+            try:
+                deterministic(lambda: train.run(train.TrainRun(**small, ckpt_dir=rdir,
+                                                               ckpt_every=T3_KILL)))
+            except Killed:
+                return True
+            return False
+
+        train.CheckpointManager.save_async = save_then_die
+        try:
+            if not drive("train/t3_killed", killed_run, []):
+                fail("T3: the killed run was not killed")
+        finally:
+            train.CheckpointManager.save_async = save_async
+        with open(os.path.join(rdir, "heartbeat.json")) as f:
+            first = [json.loads(line)["loss"] for line in f]
+        second = drive("train/t3_resumed", lambda: deterministic(lambda: train.run(
+            train.TrainRun(**small, ckpt_dir=rdir, ckpt_every=100, resume=True))), [])
+        # the card's checkpoint onto a CPU template
+        scfg = dataclasses.replace(arch.smoke, dtype=torch.float32, remat=False)
+        cpu_params = init_params(trandom.PRNGKey(seed), scfg, device="cpu")
+        template = {"params": cpu_params, "opt": adamw_init(cpu_params)}
+        on_cpu, _ = restore_checkpoint(rdir, template=template)
+        plain = [train.run(train.TrainRun(**small)) for _ in range(2)]
+    for name in ("train/t3_straight", "train/t3_killed", "train/t3_resumed"):
+        no_port_kernel(name)
+    card_leaves, full_leaves = tree_leaves(second["state"]), tree_leaves(full["state"])
+    cpu_leaves = tree_leaves(on_cpu)
+    t3 = {"method": "torch.use_deterministic_algorithms(True), CUBLAS_WORKSPACE_CONFIG="
+                    + os.environ.get("CUBLAS_WORKSPACE_CONFIG", ""),
+          "losses_equal": first + second["losses"] == full["losses"],
+          "killed_at": len(first), "resumed_steps": second["steps_run"],
+          "state_equal": len(card_leaves) == len(full_leaves) and all(
+              a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(card_leaves, full_leaves)),
+          "restored_on_cpu_equal": len(cpu_leaves) == len(card_leaves) and all(
+              a.device.type == "cpu" and torch.equal(a, b.cpu())
+              for a, b in zip(cpu_leaves, card_leaves)),
+          "without_it_two_runs_equal": plain[0]["losses"] == plain[1]["losses"] and all(
+              torch.equal(a, b) for a, b in zip(tree_leaves(plain[0]["state"]),
+                                                tree_leaves(plain[1]["state"]))),
+          "losses": full["losses"]}
+    results["train/t3_resumed"].update(t3)
+    print(f"path T3: {json.dumps(t3)}", flush=True)
+    if not (t3["losses_equal"] and t3["state_equal"] and t3["restored_on_cpu_equal"]
+            and t3["killed_at"] == T3_KILL and t3["resumed_steps"] == T3_STEPS - T3_KILL):
+        fail(f"T3: the resumed run is not the straight one bit for bit: {t3}")
+    took("T3")
+
+    # -- T4: the smoke configs, card against CPU, from the same params and batch ----
+    opt4 = AdamWConfig(total_steps=T3_STEPS, warmup_steps=1)
+    worst = {}
+    for arch_name in TRAIN_SMOKE_ARCHS:
+        scfg = dataclasses.replace(get_arch(arch_name).smoke, dtype=torch.float32, remat=False)
+        params = init_params(trandom.PRNGKey(seed), scfg, device="cpu")
+        host = {"params": params, "opt": adamw_init(params)}
+        card = _map_tree(lambda t: t.to(dev), host)
+        batch = SyntheticLMStream(scfg.vocab_size, 128, 8, seed=seed).batch(0, device="cpu")
+        step4 = train.make_step(scfg, opt4)
+        want, wm = step4(host, batch)
+        _, grads = value_and_grad(lambda p, b: train.loss_fn(p, scfg, b))(params, batch)
+        got, gm = drive(f"train/t4_{arch_name}", lambda: step4(
+            card, _map_tree(lambda t: t.to(dev), batch)), [])
+        no_port_kernel(f"train/t4_{arch_name}")
+        t4 = {"loss_rel_err": abs(float(gm["loss"]) / float(wm["loss"]) - 1),
+              "grad_norm_rel_err": abs(float(gm["grad_norm"]) / float(wm["grad_norm"]) - 1),
+              **update_errors(params, got["params"], want["params"], grads),
+              "loss": float(gm["loss"])}
+        results[f"train/t4_{arch_name}"].update(t4)
+        print(f"path T4 {arch_name}: {json.dumps(t4)}", flush=True)
+        if (t4["loss_rel_err"] > TRAIN_CPU_RTOL or t4["grad_norm_rel_err"] > TRAIN_CPU_RTOL
+                or t4["update_tight_max_abs_err"] > TRAIN_UPDATE_ATOL
+                or t4["tight_share"] < TRAIN_TIGHT_SHARE
+                or t4["update_loose_max_abs_err"] > TRAIN_LOOSE_ATOL):
+            fail(f"T4 {arch_name}: the card and the CPU differ: {t4}")
+        for k, v in t4.items():
+            if k not in ("loss", "tight_share", "cpu_update_max_abs"):
+                worst[k] = max(worst.get(k, 0), v)
+        worst["tight_share_min"] = min(worst.get("tight_share_min", 1), t4["tight_share"])
+    # qwen3's compression: the card's gradients on both devices, and one
+    # compressed step on the card
+    qcfg = dataclasses.replace(get_arch(TRAIN_ARCH).smoke, dtype=torch.float32, remat=False)
+    params = init_params(trandom.PRNGKey(seed), qcfg, device=dev)
+    qbatch = SyntheticLMStream(qcfg.vocab_size, 128, 8, seed=seed).batch(0, device=dev)
+    _, grads = value_and_grad(lambda p, b: train.loss_fn(p, qcfg, b))(params, qbatch)
+    ccfg = CompressionConfig()
+    wire, resid = compress_and_correct(ccfg, grads, compress_init(grads))
+    cpu_grads = _map_tree(lambda t: t.cpu(), grads)
+    wire_cpu, resid_cpu = compress_and_correct(ccfg, cpu_grads, compress_init(cpu_grads))
+    step_c = train.make_step(qcfg, opt4, ccfg)
+    cstate, cm = drive("train/t4_compress", lambda: step_c(
+        {"params": params, "opt": adamw_init(params), "resid": compress_init(params)}, qbatch),
+        [])
+    no_port_kernel("train/t4_compress")
+    tc = {"masks_equal": all(torch.equal(a.cpu() != 0, b != 0) for a, b in zip(
+              tree_leaves(wire), tree_leaves(wire_cpu))),
+          "wire_equal": all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(wire),
+                                                                    tree_leaves(wire_cpu))),
+          "resid_equal": all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(resid),
+                                                                     tree_leaves(resid_cpu))),
+          "sent": sum(int((w != 0).sum()) for w in tree_leaves(wire)),
+          "entries": sum(w.numel() for w in tree_leaves(wire)),
+          "compressed_step_loss": float(cm["loss"])}
+    results["train/t4_compress"].update(tc)
+    print(f"path T4 compress: {json.dumps(tc)}", flush=True)
+    if not (tc["masks_equal"] and tc["wire_equal"] and tc["resid_equal"]
+            and math.isfinite(tc["compressed_step_loss"])):
+        fail(f"T4 compress: the card's compression is not the CPU's: {tc}")
+    print(f"path T4 worst: {json.dumps(worst)}", flush=True)
+    took("T4")
+
 
 
 def compare_gathers(results):

@@ -5,6 +5,8 @@ from repro_torch.checkpoint.checkpoint import (  # noqa: F401
     latest_step,
     restore_checkpoint,
     save_checkpoint,
+    tree_leaves,
     tree_leaves_with_paths,
+    tree_unflatten,
     unflatten,
 )

@@ -57,6 +57,17 @@ def tree_leaves_with_paths(tree, prefix: str = "") -> list:
     return out
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in ``tree_leaves_with_paths``'s order."""
+    return [leaf for _, leaf in tree_leaves_with_paths(tree)]
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped as ``template`` whose leaves are ``leaves``, in
+    ``tree_leaves``'s order (``jax.tree.unflatten``'s counterpart)."""
+    return _rebuild(template, iter(leaves))
+
+
 def _rebuild(template, leaves):
     """A tree shaped as ``template`` whose leaves are taken in order from the
     iterator ``leaves``."""

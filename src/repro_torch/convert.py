@@ -18,7 +18,10 @@ module needs neither package's import of the other:
   expert and router leaves, Mamba2 leaves, KV and SSM caches) <-> the same
   trees of tensors, leaf for leaf and bit for bit, and a JAX
   ``ModelConfig`` -> the port's, every field, the MoE and SSM ones
-  included (``dtype`` as the torch dtype).
+  included (``dtype`` as the torch dtype);
+* optimiser state (``{"step", "mu", "nu"}`` of ``adamw_init``, float32 or
+  bfloat16 moments) and compression residual trees <-> the same trees of
+  tensors, so that both packages' trainers can start from one state.
 """
 
 from __future__ import annotations
@@ -53,9 +56,14 @@ def key_to_jax(key: torch.Tensor) -> np.ndarray:
 
 def array_from_jax(x, device="cuda") -> torch.Tensor:
     """A particle, weight or log-weight array (numpy or anything
-    ``np.asarray`` takes) -> tensor on ``device``, bits unchanged.  The
-    device rule of the package: ``cuda`` unless ``device="cpu"``."""
-    return torch.from_numpy(np.array(x, copy=True)).to(resolve_device(device))
+    ``np.asarray`` takes; bfloat16 too) -> tensor on ``device``, bits
+    unchanged.  The device rule of the package: ``cuda`` unless
+    ``device="cpu"``."""
+    arr = np.array(x, copy=True)
+    if arr.dtype.name == "bfloat16":  # numpy knows it only as an extension type
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
+            resolve_device(device))
+    return torch.from_numpy(arr).to(resolve_device(device))
 
 
 def array_to_jax(x: torch.Tensor) -> np.ndarray:
@@ -125,6 +133,22 @@ def params_to_jax(tree):
     """A tree of tensors -> the same tree of numpy arrays (``array_to_jax``),
     which ``jnp.asarray`` or the JAX package's functions take."""
     return _map_tree(array_to_jax, tree)
+
+
+def opt_state_from_jax(state, device="cuda"):
+    """A JAX optimiser state (``{"step", "mu", "nu"}``) or compression
+    residual tree -> the same tree of tensors on ``device``, bit for bit
+    (``step`` a 0-d int32 tensor, bfloat16 moments as bfloat16)."""
+    return params_from_jax(state, device)
+
+
+def opt_state_to_jax(state):
+    """A port optimiser state or residual tree -> numpy arrays that
+    ``jnp.asarray`` takes.  A bfloat16 leaf comes back as float32 holding the
+    same values (numpy has no bfloat16 of its own):
+    ``jnp.asarray(x, jnp.bfloat16)`` restores its bits."""
+    return _map_tree(lambda t: array_to_jax(t.float() if t.dtype == torch.bfloat16 else t),
+                     state)
 
 
 def _torch_dtype(dtype):

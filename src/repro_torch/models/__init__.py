@@ -5,5 +5,6 @@ from repro_torch.models.transformer import (  # noqa: F401
     init_cache,
     init_params,
     logits_fn,
+    loss_fn,
     prefill,
 )

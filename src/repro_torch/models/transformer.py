@@ -10,12 +10,15 @@ per-layer ``layer_pattern`` of block kinds.
 Pre-norm residual wiring throughout; the layers run as a Python loop.  The
 param tree is the JAX package's, leaf for leaf (``convert.params_from_jax``
 carries one across), and ``init_params`` draws it from the JAX package's
-key tree through ``repro_torch.random``.  Serving is ported (``init_cache``,
-``prefill``, ``decode_step``); ``loss_fn``, ``remat`` and the sharding
-trees (``param_pspecs``, ``cache_pspecs``, ``partitioning.logical``) belong
-to training and sharding and wait for their slice (ROADMAP Queue A items
-A11e and A11f).  A ``mamba`` layer's decode cache is its conv windows and
-SSM state (``mamba2.init_mamba_cache``) beside the attention layers' K/V.
+key tree through ``repro_torch.random``.  Training: ``loss_fn`` (chunked
+vocab cross entropy) over ``forward``, which recomputes each layer in the
+backward (``torch.utils.checkpoint``, the JAX package's per-layer
+``jax.checkpoint``) when ``cfg.remat`` is set and autograd is recording.
+Serving: ``init_cache``, ``prefill``, ``decode_step``.  The sharding trees
+(``param_pspecs``, ``cache_pspecs``, ``partitioning.logical``) wait for the
+sharding slice (ROADMAP Queue A item A11f).  A ``mamba`` layer's decode
+cache is its conv windows and SSM state (``mamba2.init_mamba_cache``)
+beside the attention layers' K/V.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import dataclasses
 from typing import Any, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as trandom
 from repro_torch import resolve_device
@@ -83,7 +87,7 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     # decode KV cache storage dtype (None -> dtype)
     cache_dtype: Any = None
-    remat: bool = True  # training only: the port's serving path ignores it
+    remat: bool = True  # training only: per-layer recompute in the backward
     loss_chunk: int = 1024
     q_chunk: int = 4096
     embeds_input: bool = False  # modality-frontend stub (musicgen)
@@ -223,21 +227,58 @@ def _block_forward(p, cfg: ModelConfig, kind: str, x, positions):
     return x + _feed_forward(p, cfg, h), kv
 
 
+def _block_output(p, cfg: ModelConfig, kind: str, x, positions):
+    """The block's ``x'`` alone: what a recomputed layer keeps (its K/V or
+    SSM state would otherwise stay alive until the backward)."""
+    return _block_forward(p, cfg, kind, x, positions)[0]
+
+
 def forward(params, cfg: ModelConfig, inputs, positions=None):
     """Trunk + final norm.  ``inputs``: int tokens (B,S) or embeds (B,S,D).
-    Returns hidden states (B,S,D) in cfg.dtype."""
+    Returns hidden states (B,S,D) in cfg.dtype.  With ``cfg.remat`` and
+    autograd recording, each layer keeps only its input for the backward
+    and runs again there."""
     check_supported(cfg)
     x = _inputs(params, cfg, inputs)
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, kind in enumerate(cfg.layer_kinds):
-        x, _ = _block_forward(_block_params(params, kind, i), cfg, kind, x, positions)
+        p = _block_params(params, kind, i)
+        if remat:
+            x = checkpoint(_block_output, p, cfg, kind, x, positions, use_reentrant=False)
+        else:
+            x = _block_output(p, cfg, kind, x, positions)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def logits_fn(params, cfg: ModelConfig, h):
     return linear(params["lm_head"], h, cfg.dtype)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Chunked-vocab cross entropy.  batch: {"inputs", "targets" (B,S)}; a
+    target below 0 is masked out.  Sequence-chunked so the (chunk, V)
+    float32 logits stay bounded; the mean over the unmasked targets."""
+    h = forward(params, cfg, batch["inputs"])
+    s = h.shape[1]
+    targets = batch["targets"]
+    chunk = min(cfg.loss_chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        hi = min(s, lo + chunk)
+        logits = logits_fn(params, cfg, h[:, lo:hi]).to(torch.float32)
+        tgt = targets[:, lo:hi]
+        lse = torch.logsumexp(logits, dim=-1)
+        # The JAX package's gather wraps index -1; torch's refuses it.  The
+        # masked targets read index 0 instead and count for nothing.
+        true = torch.gather(logits, -1, tgt.clamp_min(0).to(torch.int64)[..., None])[..., 0]
+        mask = (tgt >= 0).to(torch.float32)
+        total = total + torch.sum((lse - true) * mask)
+        count = count + torch.sum(mask)
+    return total / torch.clamp_min(count, 1.0)
 
 
 # ------------------------------------------------------------------ serving

@@ -1556,3 +1556,108 @@ def test_serve_once_on_the_card_at_smoke_size(card):
     assert bool(((tokens >= 0) & (tokens < 512)).all())
     assert bool(torch.isfinite(out["log_weights"]).all()) and out["num_resamples"] >= 1
     assert mk.megopolis_step.launches == 8
+
+
+#: One training step of a smoke config, card against CPU: the loss and the
+#: gradients' norm add in other orders (cuBLAS, MKL).  The AdamW step moves a
+#: weight by u = -lr·(g/(|g| + eps) + wd·p), about ±lr.  Where the CPU
+#: gradient is at least TRAIN_GRAD_FLOOR, far above its rounding, both
+#: devices' g/(|g| + eps) are the same ±1 and the updates differ by the
+#: rounding of p + u: within TRAIN_UPDATE_ATOL (lr/300; a skipped or
+#: misscaled update is off by about lr), on at least TRAIN_TIGHT_SHARE of
+#: the weights.  Below the floor the two devices' gradient bits can differ
+#: in sign, so the updates differ by at most 2·lr.
+TRAIN_CPU_RTOL = 1e-5
+TRAIN_LR = 3e-4
+TRAIN_GRAD_FLOOR = 1e-5
+TRAIN_UPDATE_ATOL = 1e-6
+TRAIN_TIGHT_SHARE = 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("qwen3-0.6b", "mamba2-1.3b", "dbrx-132b"))
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    """``launch.train.make_step`` of the smoke config from the same params
+    and batch on both devices, with no port kernel launched on the card."""
+    import dataclasses
+
+    from repro_torch.checkpoint import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import _map_tree
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.kernels.reduce import reduce as lk
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, value_and_grad
+
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32, remat=False)
+    params = init_params(trandom.PRNGKey(0), cfg, device="cpu")
+    host = {"params": params, "opt": adamw_init(params)}
+    batch = SyntheticLMStream(cfg.vocab_size, 64, 4).batch(0, device="cpu")
+    step = train.make_step(cfg, AdamWConfig(peak_lr=TRAIN_LR, total_steps=8, warmup_steps=1))
+    want, wm = step(host, batch)
+    _, grads = value_and_grad(lambda p, b: train.loss_fn(p, cfg, b))(params, batch)
+    modules = (mk, tk, ck, rk, pk, sk, stk, fk, lk)
+    for m in modules:
+        m.reset_launch_counts()
+    got, gm = step(_map_tree(lambda t: t.cuda(), host), _map_tree(lambda t: t.cuda(), batch))
+    assert not any(w.launches for m in modules for w in m.WRAPPERS)
+    assert float(gm["loss"]) == pytest.approx(float(wm["loss"]), rel=TRAIN_CPU_RTOL)
+    assert float(gm["grad_norm"]) == pytest.approx(float(wm["grad_norm"]), rel=TRAIN_CPU_RTOL)
+    n_tight = n = 0
+    for p, a, b, g in zip(*(tree_leaves(t) for t in (params, got["params"], want["params"],
+                                                      grads))):
+        assert a.is_cuda
+        p = p.double()
+        diff = ((a.cpu().double() - p) - (b.double() - p)).abs()
+        tight = g.abs() >= TRAIN_GRAD_FLOOR
+        assert float(diff.masked_fill(~tight, 0).max()) <= TRAIN_UPDATE_ATOL
+        assert float(diff.masked_fill(tight, 0).max()) <= 2 * TRAIN_LR
+        n_tight += int(tight.sum())
+        n += tight.numel()
+    assert n_tight >= TRAIN_TIGHT_SHARE * n
+
+
+@pytest.mark.cuda
+def test_train_resume_on_the_card_is_bit_for_bit(card, tmp_path, monkeypatch):
+    """A run killed after its checkpoint at step 4, then resumed, equals the
+    straight 8 steps bit for bit under
+    ``torch.use_deterministic_algorithms(True)`` (the embedding's backward
+    adds with atomics otherwise)."""
+    import json
+
+    from repro_torch.checkpoint import tree_leaves
+    from repro_torch.launch import train
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    base = dict(arch="qwen3-0.6b", steps=8, smoke=True)
+
+    def deterministic(**kw):
+        torch.use_deterministic_algorithms(True)
+        try:
+            return train.run(train.TrainRun(**base, **kw))
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    full = deterministic(ckpt_dir=str(tmp_path / "a"), ckpt_every=100)
+
+    class Killed(Exception):
+        pass
+
+    save_async = train.CheckpointManager.save_async
+
+    def save_then_die(self, step, tree, *, extra=None):
+        save_async(self, step, tree, extra=extra)
+        self.wait()
+        raise Killed
+
+    with monkeypatch.context() as m:
+        m.setattr(train.CheckpointManager, "save_async", save_then_die)
+        with pytest.raises(Killed):
+            deterministic(ckpt_dir=str(tmp_path / "b"), ckpt_every=4)
+    first = [json.loads(line)["loss"] for line in open(tmp_path / "b" / "heartbeat.json")]
+    second = deterministic(ckpt_dir=str(tmp_path / "b"), ckpt_every=100, resume=True)
+    assert first + second["losses"] == full["losses"]
+    for a, b in zip(tree_leaves(second["state"]), tree_leaves(full["state"])):
+        assert a.is_cuda and torch.equal(a, b)
+    assert not torch.are_deterministic_algorithms_enabled()
